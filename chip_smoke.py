@@ -44,14 +44,24 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-# Tolerances of kernel against plain version, same inputs on the card.
+# Tolerances (rtol, atol) of kernel against plain version, same inputs on
+# the card.
 # f32: the same f32 algorithm, summed in another order (64-wide tiles and
 # FMA contraction against 128-wide tiles and separate multiply-adds), so a
-# few f32 ulps of the row sums.
-# bf16: both compute in f32 from the same bf16 inputs; the fused kernel's
-# output is rounded to bf16 (8 bits of mantissa, ulp 2^-8 relative), so one
-# rounding step of |o| <= ~4 bounds the difference.
-TOLERANCE = {"float32": 2e-5, "bfloat16": 2e-2}
+# few f32 ulps of the row sums. The chunk kernel's outputs are f32 whatever
+# the input dtype, so they are always held to this.
+# bf16 (the fused kernel's output): both sides compute in f32 from the same
+# bf16 inputs, agreeing to the f32 tolerance, and round to bf16 once; each
+# rounding moves a value by at most half a bf16 ulp, so the two differ by at
+# most one ulp, 2^-7 of the value (8 bits of significand). rtol 8e-3 is
+# just above that; atol is the f32 tolerance, for values near 0.
+F32_TOL = 2e-5
+TOLERANCE = {"float32": (F32_TOL, F32_TOL), "bfloat16": (8e-3, F32_TOL)}
+
+# The slice's configuration: the widest transformer the repo runs
+# (benchmarks/pod/main.py), all 8 layers, trained for 3 steps.
+N_LAYERS = 8
+STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -121,7 +131,7 @@ def kernel_phase(seed: int) -> dict:
     for shape, dtype, main_shape in cases:
         b, s, h, d = shape
         dt = str(dtype).split(".")[1]
-        tol = TOLERANCE[dt]
+        rtol, atol = TOLERANCE[dt]
         q, k, v = _qkv(shape, dtype, seed, fused_qkv=main_shape)
         itemsize = q.element_size()
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
@@ -138,7 +148,7 @@ def kernel_phase(seed: int) -> dict:
         ref = fa.flash_causal_forward_plain(q, k, v)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
         nbytes = 4 * b * s * h * d * itemsize
         rec_fwd = {
             "ms": cuda_ms(lambda: fa.flash_causal_forward(q, k, v)),
@@ -160,10 +170,9 @@ def kernel_phase(seed: int) -> dict:
             # normalized and l relative to its size.
             on, rn = o / l[..., None], ro / rl[..., None]
             err_c = max((on - rn).abs().max().item(), (m - rm).abs().max().item())
-            f32_tol = TOLERANCE["float32"]
-            torch.testing.assert_close(on, rn, rtol=f32_tol, atol=f32_tol)
-            torch.testing.assert_close(m, rm, rtol=f32_tol, atol=f32_tol)
-            torch.testing.assert_close(l, rl, rtol=f32_tol, atol=0.0)
+            torch.testing.assert_close(on, rn, rtol=F32_TOL, atol=F32_TOL)
+            torch.testing.assert_close(m, rm, rtol=F32_TOL, atol=F32_TOL)
+            torch.testing.assert_close(l, rl, rtol=F32_TOL, atol=0.0)
             if causal:
                 err_causal = err_c
         nbytes_c = 3 * b * s * h * d * itemsize + 4 * b * h * s * (d + 2)
@@ -182,7 +191,8 @@ def kernel_phase(seed: int) -> dict:
                 f"kernel {name} {tuple(shape)} {dt}: {rec['ms']:.4f} ms "
                 f"(plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, "
                 f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}), "
-                f"max |err| {rec['max_abs_err']:.3e} (tol {tol})"
+                f"max |err| {rec['max_abs_err']:.3e} "
+                f"(fused rtol {rtol} atol {atol}; chunk {F32_TOL})"
             )
         if main_shape:
             records = {"flash_fwd": rec_fwd, "flash_chunk": rec_chunk}
@@ -224,10 +234,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases", default="kernels,main,bulk")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--steps", type=int, default=3)
-    p.add_argument("--layers", type=int, default=8)
     p.add_argument("--bulk-gib", type=float, default=8.0)
-    p.add_argument("--dir", default=None, help="snapshot root (default: a temp dir)")
     args = p.parse_args()
     phases = set(args.phases.split(","))
 
@@ -268,16 +275,17 @@ def main() -> int:
     if "kernels" in phases:
         records = kernel_phase(args.seed)
 
-    launches = dict.fromkeys(fa.launch_counts, 0)
-    work_dir = args.dir or tempfile.mkdtemp(prefix="ts_chip_smoke_")
+    # Launches are counted only in the main path's run; without it they
+    # were not measured and the record says null.
+    launches = dict.fromkeys(fa.launch_counts)
+    work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
     try:
         if "main" in phases:
             launches = main_phase(args, work_dir, card)
         if "bulk" in phases:
             bulk_phase(args, work_dir, card)
     finally:
-        if args.dir is None:
-            shutil.rmtree(work_dir, ignore_errors=True)
+        shutil.rmtree(work_dir, ignore_errors=True)
 
     if records:
         kernels_line = []
@@ -329,7 +337,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
 
     # The widest transformer the repo runs (benchmarks/pod/main.py).
     cfg = TransformerConfig(
-        vocab_size=32768, d_model=1024, n_heads=16, n_layers=args.layers,
+        vocab_size=32768, d_model=1024, n_heads=16, n_layers=N_LAYERS,
         d_ff=4096, dtype=torch.bfloat16, attn_impl="flash",
     )
     tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
@@ -340,15 +348,15 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     fa.reset_launch_counts()
     t0 = time.monotonic()
     losses = []
-    for _ in range(args.steps):
+    for _ in range(STEPS):
         state, loss = train_step(state, tokens)
         losses.append(loss)
     torch.cuda.synchronize()
-    step_s = (time.monotonic() - t0) / args.steps
+    step_s = (time.monotonic() - t0) / STEPS
     losses = [float(x) for x in losses]
     _require(all(x == x and abs(x) < 1e4 for x in losses), f"losses not finite: {losses}")
     _require(
-        fa.launch_counts["flash_chunk"] == cfg.n_layers * args.steps,
+        fa.launch_counts["flash_chunk"] == cfg.n_layers * STEPS,
         f"training launched the chunk kernel {fa.launch_counts['flash_chunk']} times",
     )
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -359,7 +367,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     )
     log(
         f"main: {n_params / 1e6:.1f} M params, train state {state_bytes / 1e9:.3f} GB; "
-        f"{args.steps} steps, {step_s * 1e3:.1f} ms/step (first step included), "
+        f"{STEPS} steps, {step_s * 1e3:.1f} ms/step (first step included), "
         f"losses {losses}"
     )
 

@@ -14,6 +14,11 @@ from torchsnapshot_tpu_torch.models import transformer as tt
 from torchsnapshot_tpu_torch.ops import flash_attention as fa
 from torchsnapshot_tpu_torch.ops import kernels
 
+# One intra-op thread: the suite runs this file beside others in parallel
+# workers, and torch's default of a thread per core would starve them (and
+# their timing-sensitive tests).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "torchsnapshot_tpu_torch")
 

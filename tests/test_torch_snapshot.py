@@ -29,6 +29,11 @@ from torchsnapshot_tpu_torch.manifest import ArrayEntry, ChunkedArrayEntry
 from torchsnapshot_tpu_torch.models import transformer as tt
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
 
+# One intra-op thread: the suite runs this file beside others in parallel
+# workers, and torch's default of a thread per core would starve them (and
+# their timing-sensitive tests).
+torch.set_num_threads(1)
+
 DTYPES = [
     "bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
     "uint64", "float16", "bfloat16", "float32", "float64", "complex64",

@@ -1,269 +1,66 @@
 """Environment-variable knobs with test-friendly override context managers.
 
-Reference parity: torchsnapshot/knobs.py:21-98. Same knob surface (max chunk
-size, max shard size, slab threshold, batching toggle, per-rank memory budget
-override, partitioner kill-switch), re-homed under the ``TORCHSNAPSHOT_TPU_``
-prefix. Values are read lazily on every call so tests and subprocesses can
-flip them at any time.
-
-Throughput-relevant knobs (the *tunable* set: staging threads, per-rank
-I/O concurrency, staging-pool geometry, memory-budget fraction,
-chunk/shard/slab-threshold sizes) additionally honor a **programmatic
-override layer** — the write surface of the closed-loop autotuner
-(``torchsnapshot_tpu/tuner``). Precedence is fixed: an env var (operator
-intent) always wins; a tuner override applies only where no env var is
-set; the documented default closes the chain. Everything below the env
-var is process-local state — nothing the tuner does leaks into
-subprocesses or survives a restart (the tuner's own decision log does,
-``.tuner-state.json``). See docs/tuning.md.
+The knobs this package reads, under the same ``TORCHSNAPSHOT_TPU_`` names
+as torchsnapshot_tpu's, so one environment configures both packages.
+Values are read lazily on every call so tests and subprocesses can flip
+them at any time. Knobs of subsystems not ported yet (CAS, tiered storage,
+SLO, bundles, the autotuner, ...) come with those subsystems.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import threading
-from typing import Dict, Generator, Optional, Union
+from typing import Generator, Optional
 
 _MAX_CHUNK_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_MAX_CHUNK_SIZE_BYTES"
-_MAX_SHARD_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_MAX_SHARD_SIZE_BYTES"
-_SLAB_SIZE_THRESHOLD_BYTES_ENV = "TORCHSNAPSHOT_TPU_SLAB_SIZE_THRESHOLD_BYTES"
-_ENABLE_BATCHING_ENV = "TORCHSNAPSHOT_TPU_ENABLE_BATCHING"
 _PER_RANK_MEMORY_BUDGET_BYTES_ENV = "TORCHSNAPSHOT_TPU_PER_RANK_MEMORY_BUDGET_BYTES"
-_DISABLE_PARTITIONER_ENV = "TORCHSNAPSHOT_TPU_DISABLE_PARTITIONER"
+_MEMORY_BUDGET_FRACTION_ENV = "TORCHSNAPSHOT_TPU_MEMORY_BUDGET_FRACTION"
 _PER_RANK_IO_CONCURRENCY_ENV = "TORCHSNAPSHOT_TPU_PER_RANK_IO_CONCURRENCY"
 _STAGING_THREADS_ENV = "TORCHSNAPSHOT_TPU_STAGING_THREADS"
 _DISABLE_CHECKSUMS_ENV = "TORCHSNAPSHOT_TPU_DISABLE_CHECKSUMS"
-_S3_ENDPOINT_URL_ENV = "TORCHSNAPSHOT_TPU_S3_ENDPOINT"
-_INCREMENTAL_CHUNK_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_INCREMENTAL_CHUNK_BYTES"
-_DEVICE_PACK_ENV = "TORCHSNAPSHOT_TPU_DEVICE_PACK"
-_RESTORE_FLUSH_BYTES_ENV = "TORCHSNAPSHOT_TPU_RESTORE_PLACEMENT_FLUSH_BYTES"
-_MIRROR_IO_CONCURRENCY_ENV = "TORCHSNAPSHOT_TPU_MIRROR_IO_CONCURRENCY"
-_MIRROR_PROGRESS_WINDOW_ENV = (
-    "TORCHSNAPSHOT_TPU_MIRROR_PROGRESS_WINDOW_SECONDS"
-)
-_TELEMETRY_ENV = "TORCHSNAPSHOT_TPU_TELEMETRY"
-_TELEMETRY_DIR_ENV = "TORCHSNAPSHOT_TPU_TELEMETRY_DIR"
-_PROM_FILE_ENV = "TORCHSNAPSHOT_TPU_PROM_FILE"
-_TRACE_ENV = "TORCHSNAPSHOT_TPU_TRACE"
-_TRACE_DIR_ENV = "TORCHSNAPSHOT_TPU_TRACE_DIR"
-_TRACE_BUFFER_EVENTS_ENV = "TORCHSNAPSHOT_TPU_TRACE_BUFFER_EVENTS"
-_WATCHDOG_SECONDS_ENV = "TORCHSNAPSHOT_TPU_WATCHDOG_SECONDS"
 _DISABLE_NATIVE_ENV = "TORCHSNAPSHOT_TPU_DISABLE_NATIVE"
-_WAIT_DURABLE_TIMEOUT_ENV = "TORCHSNAPSHOT_TPU_WAIT_DURABLE_TIMEOUT_SECONDS"
-_PROGRESS_SECONDS_ENV = "TORCHSNAPSHOT_TPU_PROGRESS_SECONDS"
-_PROGRESS_DIR_ENV = "TORCHSNAPSHOT_TPU_PROGRESS_DIR"
-_HISTORY_MAX_RECORDS_ENV = "TORCHSNAPSHOT_TPU_HISTORY_MAX_RECORDS"
-_ASYNC_DEVICE_SNAPSHOT_ENV = "TORCHSNAPSHOT_TPU_ASYNC_DEVICE_SNAPSHOT"
-_STAGING_POOL_SLAB_BYTES_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLAB_BYTES"
-_STAGING_POOL_SLABS_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLABS"
-_ASYNC_VISIBLE_BUDGET_ENV = "TORCHSNAPSHOT_TPU_ASYNC_VISIBLE_BUDGET_SECONDS"
-_AUTOTUNE_ENV = "TORCHSNAPSHOT_TPU_AUTOTUNE"
-_MEMORY_BUDGET_FRACTION_ENV = "TORCHSNAPSHOT_TPU_MEMORY_BUDGET_FRACTION"
-_FANOUT_RESTORE_ENV = "TORCHSNAPSHOT_TPU_FANOUT_RESTORE"
-_LEDGER_ENV = "TORCHSNAPSHOT_TPU_LEDGER"
-_LEDGER_MAX_RECORDS_ENV = "TORCHSNAPSHOT_TPU_LEDGER_MAX_RECORDS"
-_PEER_TIER_ENV = "TORCHSNAPSHOT_TPU_PEER_TIER"
-_PEER_RING_OFFSET_ENV = "TORCHSNAPSHOT_TPU_PEER_RING_OFFSET"
-_PEER_CACHE_BUDGET_BYTES_ENV = "TORCHSNAPSHOT_TPU_PEER_CACHE_BUDGET_BYTES"
-_PEER_TRANSFER_TIMEOUT_ENV = (
-    "TORCHSNAPSHOT_TPU_PEER_TRANSFER_TIMEOUT_SECONDS"
-)
-_WRITE_VECTORIZED_ENV = "TORCHSNAPSHOT_TPU_WRITE_VECTORIZED"
 _FS_DIRECT_IO_ENV = "TORCHSNAPSHOT_TPU_FS_DIRECT_IO"
-_CAS_ENV = "TORCHSNAPSHOT_TPU_CAS"
-_CAS_GC_GRACE_ENV = "TORCHSNAPSHOT_TPU_CAS_GC_GRACE_SECONDS"
-_CDN_ENV = "TORCHSNAPSHOT_TPU_CDN"
-_CDN_STALENESS_BUDGET_ENV = (
-    "TORCHSNAPSHOT_TPU_CDN_STALENESS_BUDGET_SECONDS"
-)
-_CDN_PULL_TIMEOUT_ENV = "TORCHSNAPSHOT_TPU_CDN_PULL_TIMEOUT_SECONDS"
-_TREE_BARRIER_ENV = "TORCHSNAPSHOT_TPU_TREE_BARRIER"
-_BARRIER_FANOUT_ENV = "TORCHSNAPSHOT_TPU_BARRIER_FANOUT"
-_STORE_SHARDS_ENV = "TORCHSNAPSHOT_TPU_STORE_SHARDS"
-_FLEET_OBS_ENV = "TORCHSNAPSHOT_TPU_FLEET_OBS"
-_SLO_ENV = "TORCHSNAPSHOT_TPU_SLO"
-_SLO_FAST_WINDOW_ENV = "TORCHSNAPSHOT_TPU_SLO_FAST_WINDOW"
-_SLO_SLOW_WINDOW_ENV = "TORCHSNAPSHOT_TPU_SLO_SLOW_WINDOW"
-_SLO_FAST_BURN_ENV = "TORCHSNAPSHOT_TPU_SLO_FAST_BURN_THRESHOLD"
-_SLO_SLOW_BURN_ENV = "TORCHSNAPSHOT_TPU_SLO_SLOW_BURN_THRESHOLD"
-_SLO_ERROR_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_ERROR_BUDGET_FRACTION"
-_SLO_RESTORE_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_RESTORE_SECONDS"
-_SLO_MIRROR_LAG_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_MIRROR_LAG_SECONDS"
-_SLO_OVERHEAD_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_OVERHEAD_FRACTION"
-_SLO_COORD_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_COORDINATION_FRACTION"
-_BUNDLE_DIR_ENV = "TORCHSNAPSHOT_TPU_BUNDLE_DIR"
-_BUNDLE_MAX_BYTES_ENV = "TORCHSNAPSHOT_TPU_BUNDLE_MAX_BYTES"
-_BUNDLE_MIN_INTERVAL_ENV = (
-    "TORCHSNAPSHOT_TPU_BUNDLE_MIN_INTERVAL_SECONDS"
-)
-_COLD_START_BUDGET_FRACTION_ENV = (
-    "TORCHSNAPSHOT_TPU_COLD_START_BUDGET_FRACTION"
-)
-
-_DEFAULT_TRACE_BUFFER_EVENTS: int = 16384
-_DEFAULT_WATCHDOG_SECONDS: float = 60.0
-_DEFAULT_WAIT_DURABLE_TIMEOUT_SECONDS: float = 1800.0
-_DEFAULT_PROGRESS_SECONDS: float = 1.0
-_DEFAULT_HISTORY_MAX_RECORDS: int = 512
-_DEFAULT_LEDGER_MAX_RECORDS: int = 4096
-
-# Fanout 16 measured best at world 256 over TCP in the scale-model
-# sweep (depth 2 up to 4096 ranks; 8 pays an extra level's release
-# latency, 32 re-concentrates arrivals) — see docs/scaling.md.
-_DEFAULT_BARRIER_FANOUT: int = 16
-_DEFAULT_STORE_SHARDS: int = 1
-
-_DEFAULT_PEER_RING_OFFSET: int = 1
-_DEFAULT_PEER_CACHE_BUDGET_BYTES: int = 1024 * 1024 * 1024
-_DEFAULT_PEER_TRANSFER_TIMEOUT_SECONDS: float = 30.0
-
-_DEFAULT_STAGING_POOL_SLAB_BYTES: int = 128 * 1024 * 1024
-_DEFAULT_STAGING_POOL_SLABS: int = 2
-_DEFAULT_ASYNC_VISIBLE_BUDGET_SECONDS: float = 5.0
+_TRACE_BUFFER_EVENTS_ENV = "TORCHSNAPSHOT_TPU_TRACE_BUFFER_EVENTS"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
-_DEFAULT_MAX_SHARD_SIZE_BYTES: int = 512 * 1024 * 1024
-_DEFAULT_SLAB_SIZE_THRESHOLD_BYTES: int = 128 * 1024 * 1024
-_DEFAULT_INCREMENTAL_CHUNK_SIZE_BYTES: int = 16 * 1024 * 1024
-_DEFAULT_RESTORE_FLUSH_BYTES: int = 128 * 1024 * 1024
 _DEFAULT_MEMORY_BUDGET_FRACTION: float = 0.6
-
-_DEFAULT_SLO_FAST_WINDOW: int = 8
-_DEFAULT_SLO_SLOW_WINDOW: int = 64
-_DEFAULT_SLO_FAST_BURN_THRESHOLD: float = 2.0
-_DEFAULT_SLO_SLOW_BURN_THRESHOLD: float = 1.0
-_DEFAULT_SLO_ERROR_BUDGET_FRACTION: float = 0.1
-_DEFAULT_SLO_RESTORE_SECONDS: float = 60.0
-_DEFAULT_SLO_MIRROR_LAG_SECONDS: float = 120.0
-_DEFAULT_SLO_OVERHEAD_FRACTION: float = 0.1
-_DEFAULT_SLO_COORDINATION_FRACTION: float = 0.3
-_DEFAULT_BUNDLE_MAX_BYTES: int = 64 * 1024 * 1024
-_DEFAULT_BUNDLE_MIN_INTERVAL_SECONDS: float = 300.0
-_DEFAULT_COLD_START_BUDGET_FRACTION: float = 0.5
+_DEFAULT_PER_RANK_IO_CONCURRENCY: int = 16
+_DEFAULT_STAGING_THREADS: int = 4
+_DEFAULT_TRACE_BUFFER_EVENTS: int = 16384
 
 
 def _get_int_env(name: str, default: int) -> int:
     val = os.environ.get(name)
-    if val is None:
-        return default
-    return int(val)
-
-
-# ---------------------------------------------------------------------------
-# Programmatic tunable overrides (the autotuner's write surface).
-#
-# Keyed by env-var name so a tuner decision and the operator escape hatch
-# name the same thing. Guarded by a lock: the autotuner applies vectors
-# from async-save commit threads while pipelines read concurrently.
-# ---------------------------------------------------------------------------
-
-_TUNER_OVERRIDES: Dict[str, Union[int, float]] = {}
-_TUNER_OVERRIDES_LOCK = threading.Lock()
-
-
-def set_tuner_override(env_name: str, value: Union[int, float]) -> None:
-    """Install one tunable's programmatic value. Applies only while no
-    env var of the same name is set — env always wins (the operator's
-    hand-set value is the one thing the tuner must never fight)."""
-    with _TUNER_OVERRIDES_LOCK:
-        _TUNER_OVERRIDES[env_name] = value
-
-
-def clear_tuner_override(env_name: str) -> None:
-    with _TUNER_OVERRIDES_LOCK:
-        _TUNER_OVERRIDES.pop(env_name, None)
-
-
-def clear_tuner_overrides() -> None:
-    """Drop every programmatic override (kill switch / test teardown)."""
-    with _TUNER_OVERRIDES_LOCK:
-        _TUNER_OVERRIDES.clear()
-
-
-def get_tuner_overrides() -> Dict[str, Union[int, float]]:
-    """Snapshot of the active programmatic overrides (copy)."""
-    with _TUNER_OVERRIDES_LOCK:
-        return dict(_TUNER_OVERRIDES)
-
-
-def _get_tunable_int(name: str, default: int) -> int:
-    """Override-aware read for tunable knobs: env var > tuner override >
-    default. The accessor every tunable getter routes through (snaplint's
-    knob-env-literal rule keeps direct env reads of tunable names out of
-    the rest of the package, so the precedence chain cannot fork)."""
-    val = os.environ.get(name)
-    if val is not None:
-        return int(val)
-    with _TUNER_OVERRIDES_LOCK:
-        ov = _TUNER_OVERRIDES.get(name)
-    if ov is not None:
-        return int(ov)
-    return default
-
-
-def _get_tunable_float(name: str, default: float) -> float:
-    val = os.environ.get(name)
-    if val is not None:
-        return float(val)
-    with _TUNER_OVERRIDES_LOCK:
-        ov = _TUNER_OVERRIDES.get(name)
-    if ov is not None:
-        return float(ov)
-    return default
+    return default if val is None else int(val)
 
 
 def get_max_chunk_size_bytes() -> int:
     """Arrays larger than this are split into chunks written independently."""
-    return _get_tunable_int(
-        _MAX_CHUNK_SIZE_BYTES_ENV, _DEFAULT_MAX_CHUNK_SIZE_BYTES
-    )
-
-
-def get_max_shard_size_bytes() -> int:
-    """Device shards larger than this are subdivided before writing."""
-    return _get_tunable_int(
-        _MAX_SHARD_SIZE_BYTES_ENV, _DEFAULT_MAX_SHARD_SIZE_BYTES
-    )
-
-
-def get_slab_size_threshold_bytes() -> int:
-    """Write requests smaller than this are eligible for slab batching."""
-    return _get_tunable_int(
-        _SLAB_SIZE_THRESHOLD_BYTES_ENV, _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES
-    )
-
-
-def is_batching_enabled() -> bool:
-    """Batching is opt-in; presence of the env var turns it on
-    (reference: knobs.py:53-57)."""
-    return _ENABLE_BATCHING_ENV in os.environ
+    return _get_int_env(_MAX_CHUNK_SIZE_BYTES_ENV, _DEFAULT_MAX_CHUNK_SIZE_BYTES)
 
 
 def get_per_rank_memory_budget_bytes_override() -> Optional[int]:
+    """Explicit staging budget in bytes; bypasses the memory fraction."""
     val = os.environ.get(_PER_RANK_MEMORY_BUDGET_BYTES_ENV)
     return int(val) if val is not None else None
 
 
-def is_partitioner_disabled() -> bool:
-    return _DISABLE_PARTITIONER_ENV in os.environ
+def get_memory_budget_fraction() -> float:
+    """Fraction of *available* host memory the per-process staging budget
+    may claim (scheduler.get_process_memory_budget_bytes)."""
+    val = os.environ.get(_MEMORY_BUDGET_FRACTION_ENV)
+    return _DEFAULT_MEMORY_BUDGET_FRACTION if val is None else float(val)
 
 
 def get_per_rank_io_concurrency() -> int:
-    """Max concurrent storage I/O ops per process (reference: scheduler.py:30)."""
-    return _get_tunable_int(_PER_RANK_IO_CONCURRENCY_ENV, 16)
-
-
-def get_s3_endpoint_url() -> Optional[str]:
-    """Non-AWS S3-compatible endpoint (MinIO CI lanes, private object
-    stores); unset = real S3."""
-    return os.environ.get(_S3_ENDPOINT_URL_ENV) or None
+    """Max concurrent storage I/O ops per process."""
+    return _get_int_env(_PER_RANK_IO_CONCURRENCY_ENV, _DEFAULT_PER_RANK_IO_CONCURRENCY)
 
 
 def get_staging_threads() -> int:
-    """Threads for device->host staging / (de)serialization
-    (reference: scheduler.py:29)."""
-    return _get_tunable_int(_STAGING_THREADS_ENV, 4)
+    """Threads for device->host staging / (de)serialization."""
+    return _get_int_env(_STAGING_THREADS_ENV, _DEFAULT_STAGING_THREADS)
 
 
 def is_checksums_disabled() -> bool:
@@ -272,632 +69,26 @@ def is_checksums_disabled() -> bool:
     return _DISABLE_CHECKSUMS_ENV in os.environ
 
 
-def is_device_pack_enabled() -> bool:
-    """Opt-in: slab members resident on device are packed into one uint8
-    buffer by a fused XLA program and leave via a single D2H transfer
-    (the reference's GPU-slab analog). Pays when per-transfer overhead
-    dominates (very many tiny leaves, high per-call-latency hosts);
-    measured slower than prefetched per-member transfers on links that
-    pipeline small async copies well — hence off by default, like
-    batching itself."""
-    return _DEVICE_PACK_ENV in os.environ
+def is_native_disabled() -> bool:
+    """Kill-switch for the ctypes native I/O runtime (``_native.py``):
+    presence of the env var keeps ``lib()`` returning None so every
+    caller stays on its pure-Python path. Behavior is identical either
+    way, only slower."""
+    return _DISABLE_NATIVE_ENV in os.environ
 
 
-def get_incremental_chunk_size_bytes() -> int:
-    """Chunk/shard-piece granularity for digest-enabled takes: the skip
-    unit of incremental checkpointing. Tighter than the plain chunk knob
-    (a sparse update dirties only the chunks its rows land in); applied
-    as ``min`` with the chunk/shard knobs whenever digests are recorded,
-    so boundaries stay stable across the base/incremental chain."""
-    return _get_int_env(
-        _INCREMENTAL_CHUNK_SIZE_BYTES_ENV, _DEFAULT_INCREMENTAL_CHUNK_SIZE_BYTES
-    )
-
-
-def get_mirror_io_concurrency() -> int:
-    """Max concurrent blob uploads inside the tiered-storage background
-    mirror. Defaults to the per-rank I/O concurrency: the mirror contends
-    with the next take's fast-tier writes, not with the take's durable
-    writes (those no longer exist), so the same bound applies."""
-    val = os.environ.get(_MIRROR_IO_CONCURRENCY_ENV)
-    if val is not None:
-        return int(val)
-    return get_per_rank_io_concurrency()
-
-
-def get_mirror_progress_window_seconds() -> float:
-    """Collective-progress retry window for the tiered mirror's durable
-    uploads (storage_plugins/retry.py semantics: any completed upload
-    refreshes the shared deadline)."""
-    val = os.environ.get(_MIRROR_PROGRESS_WINDOW_ENV)
-    if val is not None:
-        return float(val)
-    # storage_plugins/retry.py's DEFAULT_PROGRESS_WINDOW_SECONDS; the retry
-    # wrapper is not part of this package yet.
-    return 128.0
-
-
-def get_telemetry_dir() -> Optional[str]:
-    """Local directory for the telemetry JSONL event log
-    (``<dir>/events.jsonl``). Takes precedence over the
-    snapshot-adjacent sink; unset = no directory sink."""
-    return os.environ.get(_TELEMETRY_DIR_ENV) or None
-
-
-def is_telemetry_sink_enabled() -> bool:
-    """Snapshot-adjacent JSONL sink toggle: with the env var present,
-    every take/restore/mirror against a *local* snapshot path appends
-    its SnapshotReport to ``<snapshot>/.telemetry.jsonl``. A telemetry
-    dir (above) also counts as enablement — reports then go there
-    instead. The registry itself always records; these knobs only
-    control whether anything is written out."""
-    return _TELEMETRY_ENV in os.environ or get_telemetry_dir() is not None
-
-
-def get_trace_dir() -> Optional[str]:
-    """Local directory for flight-recorder Chrome-trace exports
-    (``<dir>/trace-<kind>-rank<r>.json``). Takes precedence over the
-    snapshot-adjacent trace files; unset = no directory sink."""
-    return os.environ.get(_TRACE_DIR_ENV) or None
-
-
-def is_trace_sink_enabled() -> bool:
-    """Trace-export toggle: with the env var present, every
-    take/restore/mirror against a *local* snapshot path writes its span
-    timeline to ``<snapshot>/.trace-<kind>-rank<r>.json``. A trace dir
-    (above) also counts as enablement. The flight recorder itself
-    always records into its bounded ring; these knobs only control
-    whether timelines are written out."""
-    return _TRACE_ENV in os.environ or get_trace_dir() is not None
+def is_fs_direct_io_enabled() -> bool:
+    """O_DIRECT fs writes for large 4096-aligned buffers (default OFF):
+    the aligned body of a qualifying blob bypasses the page cache, the
+    unaligned tail is written buffered. Unsupported filesystems (tmpfs:
+    EINVAL) decline sticky-per-plugin back to the buffered path."""
+    return _get_int_env(_FS_DIRECT_IO_ENV, 0) != 0
 
 
 def get_trace_buffer_events() -> int:
     """Flight-recorder ring capacity, in completed events. Oldest
     events evict first; the recorder counts what it dropped."""
     return _get_int_env(_TRACE_BUFFER_EVENTS_ENV, _DEFAULT_TRACE_BUFFER_EVENTS)
-
-
-def get_watchdog_deadline_seconds() -> float:
-    """Open-span age past which the stall watchdog fires (emits a
-    ``watchdog:stall`` instant event, logs the open-span tree + thread
-    stacks, bumps ``watchdog_stalls_total``). <= 0 disables the
-    watchdog; the test suite's conftest sets 0 so only opted-in tests
-    exercise it. Re-read on every watchdog scan, so overrides apply to
-    a live watchdog thread."""
-    val = os.environ.get(_WATCHDOG_SECONDS_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_WATCHDOG_SECONDS
-
-
-def is_native_disabled() -> bool:
-    """Kill-switch for the ctypes native I/O runtime (``_native.py``):
-    presence of the env var keeps ``lib()`` returning None so every
-    caller stays on its pure-Python path. Behavior is identical either
-    way, only slower — the switch exists for bisecting suspected
-    native-path issues and for machines where building the .so is
-    undesirable."""
-    return _DISABLE_NATIVE_ENV in os.environ
-
-
-def get_wait_durable_timeout_seconds() -> float:
-    """Default deadline for durability barriers (``wait_durable`` on the
-    manager and the tiered mirror) when the caller passes no explicit
-    timeout. A mirror wedged on a browning-out durable tier must
-    surface as a ``TimeoutError`` naming the step, not as an unbounded
-    poll loop only the stall watchdog can see into. <= 0 restores the
-    old unbounded wait (explicitly opted into, never the default)."""
-    val = os.environ.get(_WAIT_DURABLE_TIMEOUT_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_WAIT_DURABLE_TIMEOUT_SECONDS
-
-
-def get_progress_interval_seconds() -> float:
-    """Minimum interval between live-progress heartbeat rewrites
-    (``<snapshot>/.progress-rank<r>.json``, telemetry/progress.py).
-    <= 0 disables the file heartbeat entirely; the in-memory
-    ``telemetry.current_progress()`` view is always on regardless. The
-    test conftest sets 0 so the fast suite's snapshot dirs stay
-    deterministic."""
-    val = os.environ.get(_PROGRESS_SECONDS_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_PROGRESS_SECONDS
-
-
-def get_progress_dir() -> Optional[str]:
-    """Local directory for live-progress heartbeat files
-    (``<dir>/progress-rank<r>.json``). Takes precedence over the
-    snapshot-adjacent heartbeat — the object-store escape hatch, like
-    the telemetry/trace dir knobs; unset = snapshot-adjacent when the
-    snapshot path is local."""
-    return os.environ.get(_PROGRESS_DIR_ENV) or None
-
-
-def get_history_max_records() -> int:
-    """Bound on the per-manager rolling step-telemetry history
-    (``<root>/.telemetry-history.jsonl``, telemetry/history.py): the
-    newest N summaries are kept, older ones rewritten away. <= 0
-    disables history recording entirely; the test conftest sets 0 so
-    tier-1 manager tests stay deterministic."""
-    val = os.environ.get(_HISTORY_MAX_RECORDS_ENV)
-    if val is not None:
-        return int(val)
-    return _DEFAULT_HISTORY_MAX_RECORDS
-
-
-def is_ledger_enabled() -> bool:
-    """The run-level goodput ledger (``<root>/.ledger.jsonl``,
-    telemetry/ledger.py): on by default — the manager, snapshot
-    envelopes, tiered mirror, preemption saver, and GC post typed
-    events rank-0-only, and the goodput engine attributes the run's
-    wall time from them (docs/goodput.md). Set to ``"0"`` to disable
-    every ledger read/write (no file appears in the root; the test
-    conftest pins 0 so tier-1 manager dirs stay deterministic). A
-    non-positive max-records bound (below) also disables recording."""
-    return (
-        os.environ.get(_LEDGER_ENV, "1") != "0"
-        and get_ledger_max_records() > 0
-    )
-
-
-def get_ledger_max_records() -> int:
-    """Bound on the run ledger: the newest N records are kept, older
-    ones trimmed away (the newest run-start is always retained so the
-    active run's attribution never loses its anchor). <= 0 disables
-    ledger recording entirely."""
-    val = os.environ.get(_LEDGER_MAX_RECORDS_ENV)
-    if val is not None:
-        return int(val)
-    return _DEFAULT_LEDGER_MAX_RECORDS
-
-
-def is_async_device_snapshot_enabled() -> bool:
-    """Default-on device-snapshot async takes: ``async_take`` pins a
-    consistent snapshot before returning (on-device clones for jax
-    leaves — dispatched, not awaited; host copies for mutable numpy
-    leaves; eager pickles for objects) and defers the whole D2H +
-    serialize + write pipeline to the background commit thread, so the
-    training-visible span is independent of checkpoint size. Costs a
-    transient ~1x copy of the saved device state in HBM. Set to ``"0"``
-    to restore the pre-deferral behavior (staging completes before
-    ``async_take`` returns; no device clone, no extra HBM)."""
-    return os.environ.get(_ASYNC_DEVICE_SNAPSHOT_ENV, "1") != "0"
-
-
-def get_staging_pool_slab_bytes() -> int:
-    """Slab size of the background drain's host staging pool
-    (scheduler.StagingPool). Together with the slab count this bounds
-    the deferred async take's host staging footprint; the pool never
-    exceeds the process memory budget it is accounted against."""
-    return _get_tunable_int(
-        _STAGING_POOL_SLAB_BYTES_ENV, _DEFAULT_STAGING_POOL_SLAB_BYTES
-    )
-
-
-def get_staging_pool_slabs() -> int:
-    """Slab count of the background drain's host staging pool. The
-    default of 2 is classic double buffering: one slab's worth of
-    requests stages (D2H + serialize) while the previous slab's worth
-    drains to storage."""
-    return _get_tunable_int(_STAGING_POOL_SLABS_ENV, _DEFAULT_STAGING_POOL_SLABS)
-
-
-def get_async_visible_budget_seconds() -> float:
-    """Threshold for the checkpoint doctor's ``async-visible-stall``
-    rule: an async take whose training-visible span (``async_take``
-    return-to-caller time, recorded as ``visible_s`` in its
-    SnapshotReport) exceeds this budget is flagged — with device
-    snapshotting on, the visible span should be plan + capture dispatch,
-    never the D2H drain. <= 0 disables the rule."""
-    val = os.environ.get(_ASYNC_VISIBLE_BUDGET_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_ASYNC_VISIBLE_BUDGET_SECONDS
-
-
-def is_autotune_enabled() -> bool:
-    """The write-path autotuner's kill switch: set to ``"0"`` and the
-    tuner never runs — no ``.tuner-state.json`` reads/writes, no knob
-    overrides, no cross-rank decision broadcast; behavior is identical
-    to a build without the tuner (pinned by test). Default on: recurring
-    manager saves are the tuner's training signal and the whole point is
-    working without per-environment hand-tuning. Hand-set env knobs are
-    individually respected either way (env always wins per knob)."""
-    return os.environ.get(_AUTOTUNE_ENV, "1") != "0"
-
-
-def is_fanout_restore_enabled() -> bool:
-    """Single-reader fan-out restore (docs/restore.md): in a multi-rank
-    restore, each unique saved shard blob is fetched from the storage
-    plugin by exactly one owner rank and distributed to the peers that
-    need it over the coordination store's object collectives — a fleet
-    of N restoring processes pays ~1x storage reads instead of Nx. Set
-    to ``"0"`` to fall back to every-rank-reads (each process pulls its
-    own bytes straight from storage — the pre-fan-out behavior, and the
-    right choice when storage bandwidth dwarfs the coordinator link).
-    Rank 0's value decides for the whole job (broadcast-agreed at
-    restore start), so env skew across ranks can never diverge the
-    collective schedule. Single-process restores never fan out."""
-    return os.environ.get(_FANOUT_RESTORE_ENV, "1") != "0"
-
-
-def is_peer_tier_enabled() -> bool:
-    """Peer-redundant hot checkpoints (docs/peer.md): every rank pushes
-    its committed shards into a neighbor rank's host-RAM cache (ring
-    placement), and restores resolve a peer RAM -> local fast tier ->
-    durable ladder per shard — so recovery after a single-host
-    preemption is bounded by host-RAM copy speed, not storage. On by
-    default, but inert until a process group with a coordination store
-    is configured (``CheckpointManager(pg=...)`` or an explicit
-    ``tiered.peer.maybe_configure``) — single-process jobs never start
-    a server. Set to ``"0"`` to kill the tier entirely: no server, no
-    pushes, no pulls; restores read exactly the pre-peer path. Every
-    peer failure mode degrades to a correct-if-slower restore either
-    way; the switch exists for bisecting and for fleets whose
-    interconnect should not carry checkpoint bytes."""
-    return os.environ.get(_PEER_TIER_ENV, "1") != "0"
-
-
-def get_peer_ring_offset() -> int:
-    """Ring placement distance: rank ``r`` pushes its shards to rank
-    ``(r + offset) % world``. The default of +1 survives any single-rank
-    preemption; widen it (e.g. to the hosts-per-failure-domain count)
-    when co-scheduled neighbors tend to be preempted together."""
-    return _get_int_env(_PEER_RING_OFFSET_ENV, _DEFAULT_PEER_RING_OFFSET)
-
-
-def get_peer_cache_budget_bytes() -> int:
-    """Host-RAM bound on one process's peer cache (the shards pushed TO
-    this rank). LRU by step with the newest committed step pinned; a
-    push that cannot fit even after eviction is refused — the pusher
-    degrades to storage-only durability for that blob, never the cache
-    over its budget."""
-    return _get_int_env(
-        _PEER_CACHE_BUDGET_BYTES_ENV, _DEFAULT_PEER_CACHE_BUDGET_BYTES
-    )
-
-
-def get_peer_transfer_timeout_seconds() -> float:
-    """Per-transfer deadline (connect + one blob push or pull) on the
-    peer transport, and the no-progress retry window for pushes. A dead
-    peer costs a pusher at most a few of these before the job degrades
-    (WARN + ``peer_tier_degraded``); a puller falls through to the next
-    tier after one."""
-    val = os.environ.get(_PEER_TRANSFER_TIMEOUT_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_PEER_TRANSFER_TIMEOUT_SECONDS
-
-
-_DEFAULT_CAS_GC_GRACE_SECONDS = 900.0
-
-
-def is_cas_enabled() -> bool:
-    """Content-addressed chunk store (docs/cas.md), default OFF: with
-    ``"1"``, new takes write their data blobs once into a root-level
-    ``chunks/`` store keyed by content digest, manifests reference the
-    chunks (``../chunks/<key>`` parent refs), and the manager refcounts
-    them — dense retention costs ~one full step plus deltas, and the
-    mirror/peer tiers ship only chunks their destination doesn't hold.
-    Requires a root with a local filesystem tier (fs, or tiered with an
-    fs fast tier); ineligible roots warn once and take the legacy
-    layout. Restores resolve either layout regardless of this knob."""
-    return os.environ.get(_CAS_ENV, "0") not in ("", "0")
-
-
-def get_cas_gc_grace_seconds() -> float:
-    """Minimum age (mtime) before the manager's chunk GC may delete a
-    refcount-dead chunk. The grace window is the concurrent-take guard:
-    a take that dedups against an existing chunk touches its mtime
-    before relying on it, so an in-flight (not-yet-pinned) step's
-    chunks always look fresh to a racing GC pass and are deferred as
-    journaled orphans instead of reclaimed. Non-positive = reclaim
-    immediately (tests)."""
-    val = os.environ.get(_CAS_GC_GRACE_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_CAS_GC_GRACE_SECONDS
-
-
-_DEFAULT_CDN_STALENESS_BUDGET_SECONDS = 5.0
-
-
-def is_cdn_enabled() -> bool:
-    """Checkpoint CDN (docs/cdn.md), default OFF: with ``"1"``, a
-    manager constructed with a ``cdn_topic`` publishes every committed
-    step — manifest digest plus CAS chunk keys — to a subscription
-    topic riding the coordination store, and serving-side
-    ``CdnSubscriber`` processes stream the chunk deltas peer-to-peer
-    and hot-swap them in. Off = the manager never announces and never
-    touches the topic keys; subscribers constructed explicitly still
-    work (the knob gates the *training-job* side, where an accidental
-    publish would add coordination traffic to every commit)."""
-    return os.environ.get(_CDN_ENV, "0") not in ("", "0")
-
-
-def is_fleet_obs_enabled() -> bool:
-    """Fleet metrics plane (telemetry/wire.py, docs/observability.md),
-    default OFF: with ``"1"``, storm ranks, CDN publishers, and CDN
-    subscribers periodically publish compact crc-guarded wire/progress
-    snapshots under ``__obs/`` on the coordination store (world-scaled
-    pacing, reaped on clean shutdown), which ``python -m
-    torchsnapshot_tpu.telemetry fleet <target>`` renders as a live
-    per-member table. Off = no ``__obs/`` keys are ever written (the
-    test conftest pins 0 so tier-1 store traffic stays deterministic);
-    the fleet CLI still reads whatever another process published."""
-    return os.environ.get(_FLEET_OBS_ENV, "0") not in ("", "0")
-
-
-def get_cdn_staleness_budget_seconds() -> float:
-    """The publish-to-swap latency budget the ``cdn-staleness-high``
-    doctor rule holds the fleet to: when the median staleness across
-    the run ledger's cdn-swapped records exceeds this, the rule fires.
-    Also the subscriber storm's pass/fail line in the cdn_streaming
-    bench leg."""
-    val = os.environ.get(_CDN_STALENESS_BUDGET_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_CDN_STALENESS_BUDGET_SECONDS
-
-
-def get_cdn_pull_timeout_seconds() -> float:
-    """Per-chunk deadline for a subscriber's peer-to-peer pull (connect
-    + one digest-verified transfer) AND the wait for the chunk's elected
-    owner to materialize it. On expiry the subscriber falls back to the
-    durable store read — correctness never rides a peer, only the ~1x
-    storage-read economics do. Defaults to the peer transfer timeout."""
-    val = os.environ.get(_CDN_PULL_TIMEOUT_ENV)
-    if val is not None:
-        return float(val)
-    return get_peer_transfer_timeout_seconds()
-
-
-def is_slo_enabled() -> bool:
-    """The rank-0 per-step SLO evaluation (telemetry/slo.py): on by
-    default — each committed manager step re-judges the declared
-    objectives with multi-window burn-rate math over the run ledger and
-    step history, exports ``slo_burn_rate{objective}`` gauges, and
-    posts an edge-triggered ``slo-breach`` ledger event when an
-    objective starts burning. Set to ``"0"`` to disable the whole
-    evaluation (the test conftest pins 0 so tier-1 manager runs stay
-    deterministic); needs the ledger on to have samples to judge."""
-    return os.environ.get(_SLO_ENV, "1") != "0"
-
-
-def get_slo_fast_window() -> int:
-    """Sample count of the fast burn window: the last-N-samples look
-    that catches cliffs (a plugin suddenly slow, a tier gone). <= 0
-    disables the fast window (breaches then need the slow window)."""
-    val = os.environ.get(_SLO_FAST_WINDOW_ENV)
-    if val is not None:
-        return int(val)
-    return _DEFAULT_SLO_FAST_WINDOW
-
-
-def get_slo_slow_window() -> int:
-    """Sample count of the slow burn window: the long look that
-    catches drift a fast window averages away. <= 0 disables it."""
-    val = os.environ.get(_SLO_SLOW_WINDOW_ENV)
-    if val is not None:
-        return int(val)
-    return _DEFAULT_SLO_SLOW_WINDOW
-
-
-def get_slo_fast_burn_threshold() -> float:
-    """Burn-rate threshold for the fast window (burn 1.0 = spending
-    error budget exactly at the sustainable rate; the higher fast
-    threshold demands a real cliff, not one unlucky sample)."""
-    val = os.environ.get(_SLO_FAST_BURN_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_SLO_FAST_BURN_THRESHOLD
-
-
-def get_slo_slow_burn_threshold() -> float:
-    """Burn-rate threshold for the slow window (1.0 = any sustained
-    overspend of the error budget fires)."""
-    val = os.environ.get(_SLO_SLOW_BURN_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_SLO_SLOW_BURN_THRESHOLD
-
-
-def get_slo_error_budget_fraction() -> float:
-    """Allowed bad-sample fraction per objective (the error budget):
-    burn rate = observed bad fraction / this. The 0.1 default tolerates
-    one slow op in ten before an objective burns at rate 1.0."""
-    val = os.environ.get(_SLO_ERROR_BUDGET_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_SLO_ERROR_BUDGET_FRACTION
-
-
-def get_slo_restore_seconds() -> float:
-    """Target of the ``restore-wall`` objective: a restore serving
-    slower than this is a bad sample. <= 0 disables the objective."""
-    val = os.environ.get(_SLO_RESTORE_BUDGET_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_SLO_RESTORE_SECONDS
-
-
-def get_slo_mirror_lag_seconds() -> float:
-    """Target of the ``mirror-durability-lag`` objective: a step whose
-    bytes existed only on the fast tier longer than this is a bad
-    sample. <= 0 disables the objective."""
-    val = os.environ.get(_SLO_MIRROR_LAG_BUDGET_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_SLO_MIRROR_LAG_SECONDS
-
-
-def get_slo_overhead_fraction() -> float:
-    """Target of the ``goodput-overhead`` objective: a commit interval
-    whose checkpoint overhead (visible stall + restore) exceeds this
-    fraction of the interval's wall is a bad sample. <= 0 disables."""
-    val = os.environ.get(_SLO_OVERHEAD_BUDGET_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_SLO_OVERHEAD_FRACTION
-
-
-def get_slo_coordination_fraction() -> float:
-    """Target of the ``coordination-fraction`` objective: a take whose
-    coordination share of the op wall exceeds this fraction is a bad
-    sample. <= 0 disables the objective."""
-    val = os.environ.get(_SLO_COORD_BUDGET_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_SLO_COORDINATION_FRACTION
-
-
-def get_bundle_dir() -> Optional[str]:
-    """Where incident bundles land. Unset = ``<root>/.bundles`` next to
-    the snapshot root that triggered the capture (kept on the local
-    tier for tiered roots so a bundle survives remote-tier cleanup)."""
-    return os.environ.get(_BUNDLE_DIR_ENV) or None
-
-
-def get_bundle_max_bytes() -> int:
-    """Size cap per incident bundle: artifact copies stop (JSONL tails
-    are truncated to fit) once the bundle reaches this many bytes. <= 0
-    disables bundle capture entirely (the test conftest pins 0 so no
-    trigger in tier-1 ever writes a ``.bundles/`` dir)."""
-    return _get_int_env(_BUNDLE_MAX_BYTES_ENV, _DEFAULT_BUNDLE_MAX_BYTES)
-
-
-def get_bundle_min_interval_seconds() -> float:
-    """Rate limit between bundle captures per bundle dir: a breach
-    storm produces one black box, not one per step."""
-    val = os.environ.get(_BUNDLE_MIN_INTERVAL_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_BUNDLE_MIN_INTERVAL_SECONDS
-
-
-def get_cold_start_budget_fraction() -> float:
-    """Threshold for the doctor's ``restore-cold-start-slow`` rule: a
-    restore whose recorded ``cold_start_s`` (event-loop spin-up +
-    plugin open + native-module load) exceeds this fraction of the op
-    wall is flagged with its split. <= 0 disables the rule."""
-    val = os.environ.get(_COLD_START_BUDGET_FRACTION_ENV)
-    if val is not None:
-        return float(val)
-    return _DEFAULT_COLD_START_BUDGET_FRACTION
-
-
-def is_write_vectorized_enabled() -> bool:
-    """Zero-pack vectorized slab writes (default ON): the batcher's slab
-    stage hands its members' staged buffers straight to the storage
-    plugin as a multi-buffer payload, written with one vectorized
-    ``pwritev`` + fused per-page CRC kernel — the ``gather_memcpy``
-    slab-pack pass (one full memory pass over every staged byte)
-    disappears. Set to ``"0"`` to restore the packed path (stage into a
-    contiguous slab buffer first). Plugins without multi-buffer support
-    are consolidated for transparently either way; blob bytes and
-    integrity tables are bit-identical on both paths. Tunable: the
-    autotuner may flip it (env always wins)."""
-    return _get_tunable_int(_WRITE_VECTORIZED_ENV, 1) != 0
-
-
-def is_fs_direct_io_enabled() -> bool:
-    """O_DIRECT fs writes for large 4096-aligned buffers (default OFF —
-    filesystems vary; the autotuner can turn it on where the doctor says
-    the storage tier is the wall): the aligned body of a qualifying blob
-    bypasses the page cache (checkpoint bytes the trainer never re-reads
-    would only evict pages it will), the unaligned tail is written
-    buffered, and per-page CRCs ride the same pass. Unsupported
-    filesystems (tmpfs: EINVAL) decline sticky-per-plugin back to the
-    buffered path — correctness is identical everywhere."""
-    return _get_tunable_int(_FS_DIRECT_IO_ENV, 0) != 0
-
-
-def is_tree_barrier_enabled() -> bool:
-    """Tree-structured coordination barriers (docs/scaling.md), default
-    ON: every store barrier (``dist_store.make_barrier`` — the take
-    commit, restore key, and async plan/apply rendezvous) aggregates
-    arrive/depart through a fanout-``k`` rank tree, so no single store
-    key serializes more than ``k`` ranks and the critical path is
-    O(log_k world). Set to ``"0"`` to fall back to the leader-centric
-    :class:`~torchsnapshot_tpu.dist_store.LinearBarrier` (the
-    pre-scale-model behavior — the bisecting kill switch). Rank 0's
-    tunable broadcast keeps the choice job-uniform when the autotuner
-    is on; the error-propagation contract is identical either way."""
-    return os.environ.get(_TREE_BARRIER_ENV, "1") != "0"
-
-
-def get_barrier_fanout() -> int:
-    """Tree-barrier branching factor ``k``: per phase a rank waits on at
-    most ``k`` children and releases at most ``k`` — latency is
-    O(k·log_k world) store waits deep. Small k = deeper tree, less
-    per-key contention; large k degrades toward the linear barrier.
-    Tunable: the autotuner may move it (env always wins)."""
-    return max(2, _get_tunable_int(_BARRIER_FANOUT_ENV, _DEFAULT_BARRIER_FANOUT))
-
-
-def get_store_shards() -> int:
-    """Coordination-store shard count (docs/scaling.md): >1 bootstraps
-    that many TCPStore servers (spread across ranks) behind
-    deterministic key->shard hashing, so the hub socket stops
-    serializing world x keys traffic. Rank 0's reading decides for the
-    whole job (published through the base store at bootstrap, like the
-    fan-out nonce). Default 1 = the single-hub behavior. Tunable: the
-    autotuner may move it — it takes effect at the next store
-    bootstrap, not mid-run."""
-    return max(1, _get_tunable_int(_STORE_SHARDS_ENV, _DEFAULT_STORE_SHARDS))
-
-
-def get_memory_budget_fraction() -> float:
-    """Fraction of *available* host memory the per-process staging
-    budget may claim (scheduler.get_process_memory_budget_bytes; the
-    historical hard-coded 0.6). Tunable: the autotuner raises it on
-    ``budget-starved`` verdicts and backs off on regression. An explicit
-    TORCHSNAPSHOT_TPU_PER_RANK_MEMORY_BUDGET_BYTES override bypasses
-    the fraction entirely, as before."""
-    return _get_tunable_float(
-        _MEMORY_BUDGET_FRACTION_ENV, _DEFAULT_MEMORY_BUDGET_FRACTION
-    )
-
-
-def tunable_snapshot() -> Dict[str, Union[int, float]]:
-    """Effective value of every tunable knob right now (env > tuner
-    override > default) — the ``tunables`` field each SnapshotReport
-    records so a history row / ``doctor --trend`` regression can be
-    correlated with the knob change that caused it. Keys are the short
-    tunable names the tuner's decision log uses (docs/tuning.md)."""
-    return {
-        "staging_threads": get_staging_threads(),
-        "io_concurrency": get_per_rank_io_concurrency(),
-        "staging_pool_slab_bytes": get_staging_pool_slab_bytes(),
-        "staging_pool_slabs": get_staging_pool_slabs(),
-        "memory_budget_fraction": get_memory_budget_fraction(),
-        "max_chunk_size_bytes": get_max_chunk_size_bytes(),
-        "max_shard_size_bytes": get_max_shard_size_bytes(),
-        "slab_size_threshold_bytes": get_slab_size_threshold_bytes(),
-        "write_vectorized": int(is_write_vectorized_enabled()),
-        "fs_direct_io": int(is_fs_direct_io_enabled()),
-        "barrier_fanout": get_barrier_fanout(),
-        "store_shards": get_store_shards(),
-    }
-
-
-def get_prometheus_textfile() -> Optional[str]:
-    """Prometheus text-exposition file, rewritten (atomically) after
-    every report emission — the node-exporter textfile-collector
-    convention. Unset = disabled."""
-    return os.environ.get(_PROM_FILE_ENV) or None
-
-
-def get_restore_placement_flush_bytes() -> int:
-    """Streaming-restore flush granularity: once this many bytes of leaves
-    have completed their reads, their device placements flush as one
-    batched ``jax.device_put`` while remaining reads continue. Smaller =
-    more read/H2D overlap but more dispatches (per-dispatch latency is
-    what the batching amortizes); 0 = place everything in one batch after
-    all reads (the pre-streaming behavior)."""
-    return _get_int_env(_RESTORE_FLUSH_BYTES_ENV, _DEFAULT_RESTORE_FLUSH_BYTES)
 
 
 @contextlib.contextmanager
@@ -923,24 +114,6 @@ def override_max_chunk_size_bytes(nbytes: int) -> Generator[None, None, None]:
 
 
 @contextlib.contextmanager
-def override_max_shard_size_bytes(nbytes: int) -> Generator[None, None, None]:
-    with _override_env(_MAX_SHARD_SIZE_BYTES_ENV, str(nbytes)):
-        yield
-
-
-@contextlib.contextmanager
-def override_slab_size_threshold_bytes(nbytes: int) -> Generator[None, None, None]:
-    with _override_env(_SLAB_SIZE_THRESHOLD_BYTES_ENV, str(nbytes)):
-        yield
-
-
-@contextlib.contextmanager
-def enable_batching() -> Generator[None, None, None]:
-    with _override_env(_ENABLE_BATCHING_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
 def override_per_rank_memory_budget_bytes(nbytes: int) -> Generator[None, None, None]:
     with _override_env(_PER_RANK_MEMORY_BUDGET_BYTES_ENV, str(nbytes)):
         yield
@@ -953,449 +126,6 @@ def disable_checksums() -> Generator[None, None, None]:
 
 
 @contextlib.contextmanager
-def override_incremental_chunk_size_bytes(
-    nbytes: int,
-) -> Generator[None, None, None]:
-    with _override_env(_INCREMENTAL_CHUNK_SIZE_BYTES_ENV, str(nbytes)):
-        yield
-
-
-@contextlib.contextmanager
-def enable_device_pack() -> Generator[None, None, None]:
-    with _override_env(_DEVICE_PACK_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def override_restore_placement_flush_bytes(
-    nbytes: int,
-) -> Generator[None, None, None]:
-    with _override_env(_RESTORE_FLUSH_BYTES_ENV, str(nbytes)):
-        yield
-
-
-@contextlib.contextmanager
-def enable_telemetry() -> Generator[None, None, None]:
-    with _override_env(_TELEMETRY_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def override_telemetry_dir(path: str) -> Generator[None, None, None]:
-    with _override_env(_TELEMETRY_DIR_ENV, path):
-        yield
-
-
-@contextlib.contextmanager
-def override_prometheus_textfile(path: str) -> Generator[None, None, None]:
-    with _override_env(_PROM_FILE_ENV, path):
-        yield
-
-
-@contextlib.contextmanager
-def enable_trace() -> Generator[None, None, None]:
-    with _override_env(_TRACE_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def override_trace_dir(path: str) -> Generator[None, None, None]:
-    with _override_env(_TRACE_DIR_ENV, path):
-        yield
-
-
-@contextlib.contextmanager
-def override_trace_buffer_events(n: int) -> Generator[None, None, None]:
-    with _override_env(_TRACE_BUFFER_EVENTS_ENV, str(n)):
-        yield
-
-
-@contextlib.contextmanager
-def override_watchdog_deadline_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_WATCHDOG_SECONDS_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
 def disable_native() -> Generator[None, None, None]:
     with _override_env(_DISABLE_NATIVE_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def override_wait_durable_timeout_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_WAIT_DURABLE_TIMEOUT_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def override_progress_interval_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_PROGRESS_SECONDS_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def override_progress_dir(path: str) -> Generator[None, None, None]:
-    with _override_env(_PROGRESS_DIR_ENV, path):
-        yield
-
-
-@contextlib.contextmanager
-def override_history_max_records(n: int) -> Generator[None, None, None]:
-    with _override_env(_HISTORY_MAX_RECORDS_ENV, str(n)):
-        yield
-
-
-@contextlib.contextmanager
-def enable_ledger() -> Generator[None, None, None]:
-    """Force the run ledger ON for the block (the suite's conftest pins
-    it off so tier-1 manager dirs hold exactly the files the code under
-    test wrote; ledger/goodput tests opt back in here)."""
-    with _override_env(_LEDGER_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def disable_ledger() -> Generator[None, None, None]:
-    with _override_env(_LEDGER_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def override_ledger_max_records(n: int) -> Generator[None, None, None]:
-    with _override_env(_LEDGER_MAX_RECORDS_ENV, str(n)):
-        yield
-
-
-@contextlib.contextmanager
-def disable_async_device_snapshot() -> Generator[None, None, None]:
-    with _override_env(_ASYNC_DEVICE_SNAPSHOT_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def override_staging_pool_slab_bytes(nbytes: int) -> Generator[None, None, None]:
-    with _override_env(_STAGING_POOL_SLAB_BYTES_ENV, str(nbytes)):
-        yield
-
-
-@contextlib.contextmanager
-def override_staging_pool_slabs(n: int) -> Generator[None, None, None]:
-    with _override_env(_STAGING_POOL_SLABS_ENV, str(n)):
-        yield
-
-
-@contextlib.contextmanager
-def override_async_visible_budget_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_ASYNC_VISIBLE_BUDGET_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def enable_autotune() -> Generator[None, None, None]:
-    """Force the autotuner ON for the block (the suite's conftest turns
-    it off process-wide); programmatic overrides installed inside the
-    block are cleared on exit so no tuned geometry leaks into the next
-    test."""
-    with _override_env(_AUTOTUNE_ENV, "1"):
-        try:
-            yield
-        finally:
-            clear_tuner_overrides()
-
-
-@contextlib.contextmanager
-def disable_autotune() -> Generator[None, None, None]:
-    with _override_env(_AUTOTUNE_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def enable_fanout_restore() -> Generator[None, None, None]:
-    """Force fan-out restore ON for the block (the test suite's conftest
-    pins it off so tier-1 restores exercise the exact pre-fan-out read
-    path they assert about; fan-out tests opt back in here)."""
-    with _override_env(_FANOUT_RESTORE_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def disable_fanout_restore() -> Generator[None, None, None]:
-    with _override_env(_FANOUT_RESTORE_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def override_memory_budget_fraction(
-    fraction: float,
-) -> Generator[None, None, None]:
-    with _override_env(_MEMORY_BUDGET_FRACTION_ENV, str(fraction)):
-        yield
-
-
-@contextlib.contextmanager
-def override_staging_threads(n: int) -> Generator[None, None, None]:
-    with _override_env(_STAGING_THREADS_ENV, str(n)):
-        yield
-
-
-@contextlib.contextmanager
-def override_per_rank_io_concurrency(n: int) -> Generator[None, None, None]:
-    with _override_env(_PER_RANK_IO_CONCURRENCY_ENV, str(n)):
-        yield
-
-
-@contextlib.contextmanager
-def enable_peer_tier() -> Generator[None, None, None]:
-    """Force the peer tier ON for the block (the test suite's conftest
-    pins it off so tier-1 saves/restores exercise the exact pre-peer
-    read/write paths they assert about; peer-tier tests opt back in
-    here or via an env override in their workers)."""
-    with _override_env(_PEER_TIER_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def disable_peer_tier() -> Generator[None, None, None]:
-    with _override_env(_PEER_TIER_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def override_peer_ring_offset(offset: int) -> Generator[None, None, None]:
-    with _override_env(_PEER_RING_OFFSET_ENV, str(offset)):
-        yield
-
-
-@contextlib.contextmanager
-def override_peer_cache_budget_bytes(
-    nbytes: int,
-) -> Generator[None, None, None]:
-    with _override_env(_PEER_CACHE_BUDGET_BYTES_ENV, str(nbytes)):
-        yield
-
-
-@contextlib.contextmanager
-def override_peer_transfer_timeout_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_PEER_TRANSFER_TIMEOUT_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def disable_write_vectorized() -> Generator[None, None, None]:
-    """Force the packed slab path for the block (byte-identity tests
-    compare it against the default zero-pack path)."""
-    with _override_env(_WRITE_VECTORIZED_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def enable_write_vectorized() -> Generator[None, None, None]:
-    with _override_env(_WRITE_VECTORIZED_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def enable_cas() -> Generator[None, None, None]:
-    """Force the content-addressed chunk store ON for the block (the
-    suite's conftest pins it off so tier-1 snapshot/manager dirs hold
-    exactly the legacy file set; CAS tests opt back in here)."""
-    with _override_env(_CAS_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def disable_cas() -> Generator[None, None, None]:
-    with _override_env(_CAS_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def enable_cdn() -> Generator[None, None, None]:
-    """Force the checkpoint-CDN publish hook ON for the block (the
-    suite's conftest pins it off so tier-1 manager tests see no
-    announce traffic; CDN tests opt back in here)."""
-    with _override_env(_CDN_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def enable_fleet_obs() -> Generator[None, None, None]:
-    """Force the fleet metrics plane ON for the block (the suite's
-    conftest pins it off so tier-1 store traffic holds exactly the keys
-    the code under test wrote; fleet-plane tests opt back in here)."""
-    with _override_env(_FLEET_OBS_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def override_cdn_pull_timeout_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    """Pin the CDN peer-pull deadline for the block (subscribers read
-    it per pull, so the storm harness tightens it fleet-wide without
-    threading a parameter through every subscriber)."""
-    with _override_env(_CDN_PULL_TIMEOUT_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def override_cas_gc_grace_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_CAS_GC_GRACE_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def enable_fs_direct_io() -> Generator[None, None, None]:
-    """Force O_DIRECT eligibility ON for the block (the suite's conftest
-    pins it off — CI filesystems vary; direct-I/O tests opt back in and
-    assert the decline ladder where the fs refuses)."""
-    with _override_env(_FS_DIRECT_IO_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def disable_fs_direct_io() -> Generator[None, None, None]:
-    with _override_env(_FS_DIRECT_IO_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def enable_tree_barrier() -> Generator[None, None, None]:
-    with _override_env(_TREE_BARRIER_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def disable_tree_barrier() -> Generator[None, None, None]:
-    """Force the leader-centric LinearBarrier for the block (the
-    kill-switch path; scale-model baselines and bisects use it)."""
-    with _override_env(_TREE_BARRIER_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def override_barrier_fanout(fanout: int) -> Generator[None, None, None]:
-    with _override_env(_BARRIER_FANOUT_ENV, str(fanout)):
-        yield
-
-
-@contextlib.contextmanager
-def override_store_shards(n: int) -> Generator[None, None, None]:
-    with _override_env(_STORE_SHARDS_ENV, str(n)):
-        yield
-
-
-@contextlib.contextmanager
-def override_mirror_io_concurrency(n: int) -> Generator[None, None, None]:
-    with _override_env(_MIRROR_IO_CONCURRENCY_ENV, str(n)):
-        yield
-
-
-@contextlib.contextmanager
-def override_mirror_progress_window_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_MIRROR_PROGRESS_WINDOW_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def enable_slo() -> Generator[None, None, None]:
-    """Force the per-step SLO evaluation ON for the block (the suite's
-    conftest pins it off so tier-1 manager runs post no slo-breach
-    events; SLO tests opt back in here)."""
-    with _override_env(_SLO_ENV, "1"):
-        yield
-
-
-@contextlib.contextmanager
-def disable_slo() -> Generator[None, None, None]:
-    with _override_env(_SLO_ENV, "0"):
-        yield
-
-
-@contextlib.contextmanager
-def override_slo_windows(
-    fast: int, slow: int
-) -> Generator[None, None, None]:
-    """Pin both burn windows for the block (unit pins drive exact
-    sample counts through them)."""
-    with _override_env(_SLO_FAST_WINDOW_ENV, str(fast)):
-        with _override_env(_SLO_SLOW_WINDOW_ENV, str(slow)):
-            yield
-
-
-@contextlib.contextmanager
-def override_slo_restore_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_SLO_RESTORE_BUDGET_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def override_slo_mirror_lag_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_SLO_MIRROR_LAG_BUDGET_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def override_slo_overhead_fraction(
-    fraction: float,
-) -> Generator[None, None, None]:
-    with _override_env(_SLO_OVERHEAD_BUDGET_ENV, str(fraction)):
-        yield
-
-
-@contextlib.contextmanager
-def override_slo_coordination_fraction(
-    fraction: float,
-) -> Generator[None, None, None]:
-    with _override_env(_SLO_COORD_BUDGET_ENV, str(fraction)):
-        yield
-
-
-@contextlib.contextmanager
-def override_bundle_dir(path: str) -> Generator[None, None, None]:
-    with _override_env(_BUNDLE_DIR_ENV, path):
-        yield
-
-
-@contextlib.contextmanager
-def override_bundle_max_bytes(nbytes: int) -> Generator[None, None, None]:
-    """Re-enable (and bound) bundle capture for the block (the suite's
-    conftest pins the cap to 0 = capture disabled; bundle tests opt
-    back in here)."""
-    with _override_env(_BUNDLE_MAX_BYTES_ENV, str(nbytes)):
-        yield
-
-
-@contextlib.contextmanager
-def override_bundle_min_interval_seconds(
-    seconds: float,
-) -> Generator[None, None, None]:
-    with _override_env(_BUNDLE_MIN_INTERVAL_ENV, str(seconds)):
-        yield
-
-
-@contextlib.contextmanager
-def override_cold_start_budget_fraction(
-    fraction: float,
-) -> Generator[None, None, None]:
-    with _override_env(_COLD_START_BUDGET_FRACTION_ENV, str(fraction)):
         yield
