@@ -8,7 +8,11 @@ each of which raises on failure (nothing is caught):
 1. **kernels**: build every CUDA kernel under
    ``torchsnapshot_tpu_torch/csrc`` and hold each against its plain PyTorch
    version on the card, at the training shape and a long-sequence shape,
-   in bf16 and f32; time kernel, plain version and the library call.
+   in bf16 and f32, and at the bf16 kernel's edges (a half tile, a chunk
+   with s_q != s_k, d = 128 on the fused-qkv layout); time kernel, plain
+   version and the library call back to back (the record's ms), and each
+   kernel and the library call again behind a spin kernel: the card's time
+   alone and the host's cost per wrapper call.
    The host I/O runtime (``native/ts_io.cpp``) is built here too, so the
    timed takes and restores below hold no compile.
 2. **main**: the port's main path. Train the widest in-repo transformer
@@ -19,6 +23,9 @@ each of which raises on failure (nothing is caught):
    evaluation logits of both agree bit for bit, and that one more training
    step gives the same loss on both. The kernels' launch counters are set
    to 0 just before and read just after: the path must have launched both.
+   The last training step runs under ``torch.profiler``: the device
+   operations that took the most time, the flash kernels' share of the step
+   and the device's idle share.
 3. **bulk**: take and restore a bulk bf16 state of (16384, 8192) blocks
    (8 GiB by default, ``--bulk-gib 20`` for the reference's 20 GB figure)
    with a bitwise check.
@@ -44,20 +51,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-# Tolerances (rtol, atol) of kernel against plain version, same inputs on
-# the card.
-# f32: the same f32 algorithm, summed in another order (64-wide tiles and
-# FMA contraction against 128-wide tiles and separate multiply-adds), so a
-# few f32 ulps of the row sums. The chunk kernel's outputs are f32 whatever
-# the input dtype, so they are always held to this.
-# bf16 (the fused kernel's output): both sides compute in f32 from the same
-# bf16 inputs, agreeing to the f32 tolerance, and round to bf16 once; each
-# rounding moves a value by at most half a bf16 ulp, so the two differ by at
-# most one ulp, 2^-7 of the value (8 bits of significand). rtol 8e-3 is
-# just above that; atol is the f32 tolerance, for values near 0.
-F32_TOL = 2e-5
-TOLERANCE = {"float32": (F32_TOL, F32_TOL), "bfloat16": (8e-3, F32_TOL)}
-
 # The slice's configuration: the widest transformer the repo runs
 # (benchmarks/pod/main.py), all 8 layers, trained for 3 steps.
 N_LAYERS = 8
@@ -78,7 +71,10 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, from CUDA
+    events around them: the card's time, or the host's where the host issues
+    the calls more slowly than the card runs them. The ``ms`` the kernels'
+    record reports."""
     import torch
 
     for _ in range(warmup):
@@ -93,14 +89,43 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# ~5 ms of spin on the card: longer than the host takes to queue a timed
+# run of wrapper calls.
+HOLD_CYCLES = 10_000_000
+
+
+def held_times(fn, iters: int = 10, warmup: int = 2) -> tuple:
+    """``(device ms, host us)`` per call of ``fn``. A spin kernel holds the
+    stream while the calls queue up behind it, so the events time the card's
+    work alone and the host's clock times what each call costs the host
+    (argument checks, allocations, the launch itself)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_s / iters * 1e6
+
+
 # ----------------------------------------------------------------------
 # Phase 1: kernels against their plain versions
 # ----------------------------------------------------------------------
 
 
-def _qkv(shape, dtype, seed: int, fused_qkv: bool):
+def _qkv(shape, dtype, seed: int, fused_qkv: bool, s_k=None):
     """q, k, v on the card from a seed. With ``fused_qkv`` they are the
-    strided slices of one (b, s, 3, h, d) tensor, as the model makes them."""
+    strided slices of one (b, s, 3, h, d) tensor, as the model makes them;
+    ``s_k`` gives k and v another length than q."""
     import torch
 
     b, s, h, d = shape
@@ -108,96 +133,101 @@ def _qkv(shape, dtype, seed: int, fused_qkv: bool):
     if fused_qkv:
         qkv = torch.randn((b, s, 3, h, d), generator=g, device="cuda").to(dtype)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    kv_shape = (b, s if s_k is None else s_k, h, d)
     return tuple(
-        torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)
+        torch.randn(sh, generator=g, device="cuda").to(dtype)
+        for sh in (shape, kv_shape, kv_shape)
     )
 
 
 def kernel_phase(seed: int) -> dict:
-    """Hold both kernels against their plain versions; returns the
-    per-kernel record at the main path's shape (bf16, (8, 1024, 16, 64))."""
+    """Hold both kernels against their plain versions and time them; returns
+    the per-kernel record at the main path's shape (bf16, (8, 1024, 16, 64))."""
     import torch
     import torch.nn.functional as F
 
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
+    # (q shape (b, s, h, d), s_k, dtype, fused-qkv layout, timed)
     cases = [
-        ((8, 1024, 16, 64), torch.bfloat16, True),  # the main path's call
-        ((8, 1024, 16, 64), torch.float32, False),
-        ((2, 4096, 16, 128), torch.bfloat16, False),
-        ((2, 4096, 16, 128), torch.float32, False),
+        ((8, 1024, 16, 64), 1024, torch.bfloat16, True, True),  # the main path's call
+        ((8, 1024, 16, 64), 1024, torch.float32, False, True),
+        ((2, 4096, 16, 128), 4096, torch.bfloat16, False, True),
+        ((2, 4096, 16, 128), 4096, torch.float32, False, True),
+        # The bf16 kernel's edges, checked only: d = 128 on the fused-qkv
+        # layout, a sequence of 64 but not 128 (a half tile), and a chunk
+        # whose keys outnumber its queries.
+        ((2, 1024, 16, 128), 1024, torch.bfloat16, True, False),
+        ((2, 192, 4, 64), 192, torch.bfloat16, False, False),
+        ((2, 128, 4, 64), 256, torch.bfloat16, False, False),
     ]
     records = {}
-    for shape, dtype, main_shape in cases:
+    for shape, s_k, dtype, fused_qkv, timed in cases:
         b, s, h, d = shape
         dt = str(dtype).split(".")[1]
-        rtol, atol = TOLERANCE[dt]
-        q, k, v = _qkv(shape, dtype, seed, fused_qkv=main_shape)
+        q, k, v = _qkv(shape, dtype, seed, fused_qkv, s_k)
+        block = 128 if s % 128 == 0 and s_k % 128 == 0 else 64
+        errs = fa.compare_with_plain(q, k, v, block)
+        label = f"{tuple(shape)} s_k={s_k} {dt}{' fused-qkv' if fused_qkv else ''}"
+        tols = (
+            f"(fused rtol {fa.FUSED_TOL[dtype][0]} atol {fa.FUSED_TOL[dtype][1]}; chunk o/l "
+            f"atol {errs['chunk_atol']:.3e}, m and l {fa.F32_TOL})"
+        )
+        if not timed:
+            log(
+                f"kernel check {label}: max |err| "
+                + ", ".join(f"{n} {e:.3e}" for n, e in errs.items() if n != "chunk_atol")
+                + f" {tols}"
+            )
+            continue
         itemsize = q.element_size()
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa():
             return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
 
+        def fwd():
+            return fa.flash_causal_forward(q, k, v)
+
+        def chunk():
+            return fa.flash_attention_chunk(q, k, v, causal=True)
+
         library_ms = cuda_ms(sdpa)
+        sdpa_device_ms, _ = held_times(sdpa)
         flops = fa.attention_flops(b, h, s, s, d, causal=True)
         op_ms = flops / PEAK_FLOPS[dt] * 1e3
-
-        # fused kernel
-        out = fa.flash_causal_forward(q, k, v)
-        ref = fa.flash_causal_forward_plain(q, k, v)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
         nbytes = 4 * b * s * h * d * itemsize
-        rec_fwd = {
-            "ms": cuda_ms(lambda: fa.flash_causal_forward(q, k, v)),
-            "plain_ms": cuda_ms(lambda: fa.flash_causal_forward_plain(q, k, v), iters=3),
-            "library_ms": library_ms,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S * 1e3, op_ms),
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S * 1e3 > op_ms else "operations",
-            "max_abs_err": err,
-        }
-
-        # chunk kernel (causal, the training forward; unmasked, the ring step)
-        for causal in (True, False):
-            o, m, l = fa.flash_attention_chunk(q, k, v, causal=causal)
-            ro, rm, rl = fa.flash_attention_chunk_plain(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            # Both sides are f32 from the same inputs, whatever the input
-            # dtype: the f32 tolerance holds. The accumulator and l grow
-            # with the number of visible keys, so the output is compared
-            # normalized and l relative to its size.
-            on, rn = o / l[..., None], ro / rl[..., None]
-            err_c = max((on - rn).abs().max().item(), (m - rm).abs().max().item())
-            torch.testing.assert_close(on, rn, rtol=F32_TOL, atol=F32_TOL)
-            torch.testing.assert_close(m, rm, rtol=F32_TOL, atol=F32_TOL)
-            torch.testing.assert_close(l, rl, rtol=F32_TOL, atol=0.0)
-            if causal:
-                err_causal = err_c
         nbytes_c = 3 * b * s * h * d * itemsize + 4 * b * h * s * (d + 2)
-        rec_chunk = {
-            "ms": cuda_ms(lambda: fa.flash_attention_chunk(q, k, v, causal=True)),
-            "plain_ms": cuda_ms(
-                lambda: fa.flash_attention_chunk_plain(q, k, v, causal=True), iters=3
-            ),
-            "library_ms": library_ms,
-            "bound_ms": max(nbytes_c / HBM_BYTES_PER_S * 1e3, op_ms),
-            "bound_by": "bytes" if nbytes_c / HBM_BYTES_PER_S * 1e3 > op_ms else "operations",
-            "max_abs_err": err_causal,
-        }
-        for name, rec in (("flash_fwd", rec_fwd), ("flash_chunk", rec_chunk)):
+        recs = {}
+        for name, fn, plain, nb, err in (
+            ("flash_fwd", fwd, lambda: fa.flash_causal_forward_plain(q, k, v), nbytes,
+             errs["flash_fwd"]),
+            ("flash_chunk", chunk, lambda: fa.flash_attention_chunk_plain(q, k, v, causal=True),
+             nbytes_c, errs["flash_chunk_causal"]),
+        ):
+            bytes_ms = nb / HBM_BYTES_PER_S * 1e3
+            rec = recs[name] = {
+                "ms": cuda_ms(fn),
+                "plain_ms": cuda_ms(plain, iters=3),
+                "library_ms": library_ms,
+                "bound_ms": max(bytes_ms, op_ms),
+                "bound_by": "bytes" if bytes_ms > op_ms else "operations",
+                "max_abs_err": err,
+            }
+            device_ms, host_us = held_times(fn)
             log(
-                f"kernel {name} {tuple(shape)} {dt}: {rec['ms']:.4f} ms "
-                f"(plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, "
-                f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}), "
-                f"max |err| {rec['max_abs_err']:.3e} "
-                f"(fused rtol {rtol} atol {atol}; chunk {F32_TOL})"
+                f"kernel {name} {label}: {rec['ms']:.4f} ms back to back, "
+                f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s; device {device_ms:.4f} ms, host "
+                f"{host_us:.1f} us per call (plain {rec['plain_ms']:.4f} ms, SDPA "
+                f"{rec['library_ms']:.4f} ms, device {sdpa_device_ms:.4f} ms; bound "
+                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}), max |err| "
+                f"{rec['max_abs_err']:.3e} {tols}"
             )
-        if main_shape:
-            records = {"flash_fwd": rec_fwd, "flash_chunk": rec_chunk}
-        del q, k, v, qh, kh, vh
-        torch.cuda.empty_cache()
+        if (shape, dtype) == ((8, 1024, 16, 64), torch.bfloat16):
+            records = recs
+        del qh, kh, vh
+    del q, k, v
+    torch.cuda.empty_cache()
 
     # Gradients through the autograd Function against the dense op, f32,
     # small: the backward is plain torch, the forward the chunk kernel.
@@ -261,7 +291,7 @@ def main() -> int:
     log(f"kernel build: {time.monotonic() - t0:.1f} s wall, per source {built}")
     for name, text in kernels.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma", "setmaxnreg")):
                 log(f"ptxas {name}: {line.strip()}")
     # The host I/O runtime (pwritev, CRC32-C) also compiles at first use;
     # build it here so that the timed take and restore hold no compile.
@@ -430,7 +460,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     del logits_a, logits_b
 
     _, loss_a = train_step(state, tokens)
-    _, loss_b = train_step(fresh, tokens)
+    (_, loss_b), profile = profile_step(lambda: train_step(fresh, tokens))
     torch.cuda.synchronize()
     _require(same_bits(loss_a, loss_b), f"next-step losses differ: {loss_a} vs {loss_b}")
     for (name, a), (_, b) in zip(state.model.named_parameters(), fresh.model.named_parameters()):
@@ -447,7 +477,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
         "take_gb_s": state_bytes / take_s / 1e9, "restore_gb_s": state_bytes / restore_s / 1e9,
         "take_again_s": take_again_s, "take_again_gb_s": state_bytes / take_again_s / 1e9,
         "take_phases_s": take_phases, "step_ms": step_s * 1e3, "losses": losses,
-        "next_loss": float(loss_a), "launches": launches,
+        "next_loss": float(loss_a), "launches": launches, "profile": profile,
     }
     log(
         f"main: take {take_s:.3f} s ({record['take_gb_s']:.2f} GB/s; again "
@@ -461,6 +491,65 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     del state, fresh
     torch.cuda.empty_cache()
     return launches
+
+
+def profile_step(run):
+    """Run ``run()`` once under torch.profiler (CPU and CUDA activities) and
+    break the card's time down: the ten device operations that took the
+    most time, the flash kernels' share, and the card's idle share of the
+    profiled window (the host's span of the step, through its final
+    synchronize). Returns ``run()``'s result and the breakdown, or None
+    when the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    # Work on the card: kernels, copies, sets; not the annotations that
+    # span them (e.g. Optimizer.step), which would count their kernels twice.
+    dev = [
+        e for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and "annotation" not in str(getattr(e, "activity_type", "") or "")
+    ]
+    if not dev:
+        log("profile: torch.profiler recorded no device time on this card; "
+            "the step's breakdown is not measured")
+        return out, None
+    t0 = min(e.time_range.start for e in events)
+    t1 = max(e.time_range.end for e in events)
+    busy, covered_to = 0.0, float("-inf")  # length of the union of device spans
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        busy += max(0.0, b - max(a, covered_to))
+        covered_to = max(covered_to, b)
+    by_name = {}
+    for e in dev:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
+    device_us = sum(us for us, _ in by_name.values())
+    flash_us = sum(us for name, (us, _) in by_name.items() if "flash_" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    record = {
+        "window_ms": (t1 - t0) / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1 - busy / (t1 - t0),
+        "device_op_ms": device_us / 1e3,
+        "flash_ms": flash_us / 1e3,
+        "flash_share_of_device_time": flash_us / device_us,
+        "top10": [{"name": n[:160], "ms": us / 1e3, "calls": c} for n, (us, c) in top],
+    }
+    log(
+        f"profile of one training step: window {record['window_ms']:.3f} ms, device busy "
+        f"{record['device_busy_ms']:.3f} ms (idle share {record['device_idle_share']:.4f}); "
+        f"flash kernels {record['flash_ms']:.3f} ms = "
+        f"{record['flash_share_of_device_time']:.4f} of device op time"
+    )
+    for i, row in enumerate(record["top10"], 1):
+        log(f"profile top{i}: {row['ms']:.3f} ms in {row['calls']} calls: {row['name']}")
+    return out, record
 
 
 def bulk_phase(args, work_dir: str, card: str) -> None:

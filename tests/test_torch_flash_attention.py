@@ -4,9 +4,12 @@ The port's plain versions (what its wrappers run on CPU tensors) are held
 against torchsnapshot_tpu's Pallas kernels run in interpreter mode, as
 tests/test_flash_attention.py runs them, on the same inputs made with
 numpy from a seed. The CUDA kernels themselves are held against the plain
-versions on the card (``cuda_only``; chip_smoke.py does the same at the
-main path's shapes).
+versions on the card by tests/test_torch_cuda_kernels.py (``cuda_only``;
+chip_smoke.py does the same at the main path's shapes); what the kernels
+refuse is tested here.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -133,35 +136,99 @@ def test_no_grad_takes_the_fused_path_and_grad_the_chunk_path(monkeypatch) -> No
     assert calls == ["fused", "chunk"]
 
 
-# The fused output's tolerance (rtol, atol). f32: TOL. bf16: both sides
-# compute in f32 (agreeing to TOL) and round to bf16 once, which moves each
-# by at most one bf16 ulp, 2^-7 of the value; 8e-3 is just above that.
-FUSED_TOL = {torch.float32: (TOL, TOL), torch.bfloat16: (8e-3, TOL)}
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
 
 
-@pytest.mark.cuda_only
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
-def test_cuda_kernels_match_plain_versions(dtype, d) -> None:
-    """The kernels against their plain versions on the card, on the strided
-    q/k/v slices of one fused projection as the model passes them. The
-    chunk outputs are f32 on both sides, whatever the input dtype."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    qkv = torch.randn((2, 256, 3, 4, d), generator=g, device="cuda").to(dtype)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+def _offset_by_one(shape):
+    """A bf16 tensor whose base lies 2 bytes past an aligned buffer start."""
+    buf = _bf16(int(np.prod(shape)) + 8)
+    return buf[1 : 1 + int(np.prod(shape))].view(shape)
+
+
+# What the CUDA kernels refuse; each entry makes (q, k, v) on the CPU and
+# names a piece of the message. _check_kernel_inputs is plain Python over
+# shapes, strides and addresses, so its refusals are tested here.
+KERNEL_REFUSALS = {
+    "float16": (lambda: [torch.zeros((2, 128, 2, 64), dtype=torch.float16)] * 3,
+                "float32 or bfloat16"),
+    "dtype-mismatch": (lambda: (torch.zeros((2, 128, 2, 64)),) + (_bf16((2, 128, 2, 64)),) * 2,
+                       "q is torch.float32"),
+    "device-mismatch": (lambda: (_bf16((2, 128, 2, 64)),)
+                        + (torch.zeros((2, 128, 2, 64), dtype=torch.bfloat16, device="meta"),) * 2,
+                        "is on meta"),
+    "three-dims": (lambda: [_bf16((2, 128, 64))] * 3, "(batch, seq, heads, dim)"),
+    "strided-head-dim": (lambda: [_bf16((2, 128, 2, 128))[..., ::2]] * 3, "contiguous head dim"),
+    "head-dim-32": (lambda: [_bf16((2, 128, 2, 32))] * 3, "head dims (64, 128)"),
+    "kv-shapes-differ": (lambda: (_bf16((2, 128, 2, 64)), _bf16((2, 128, 2, 64)),
+                                  _bf16((2, 192, 2, 64))), "same shape and strides"),
+    "kv-heads-differ": (lambda: (_bf16((2, 128, 2, 64)),) + (_bf16((2, 128, 4, 64)),) * 2,
+                        "does not match q"),
+    "seq-96": (lambda: [_bf16((2, 96, 2, 64))] * 3, "divisible by 64"),
+    "bf16-base-off-16-bytes": (lambda: (_offset_by_one((2, 128, 2, 64)),)
+                               + (_bf16((2, 128, 2, 64)),) * 2, "16-byte-aligned"),
+    # seq stride of 132 elements = 264 bytes, 8 past a multiple of 16
+    "bf16-seq-stride-off-16-bytes": (
+        lambda: [_bf16(2 * 128 * 132).as_strided((2, 128, 2, 64), (128 * 132, 132, 64, 1))] * 3,
+        "16-byte-aligned"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_REFUSALS))
+def test_kernel_input_check_refuses(case) -> None:
+    make, message = KERNEL_REFUSALS[case]
+    with pytest.raises(ValueError, match=re.escape(message)):
+        fa._check_kernel_inputs(*make())
+
+
+# What they take: the model's strided slices, a half tile, a chunk of
+# another length, f32 at any address (the f32 kernel does not use TMA), and
+# a size-1 dimension whose stride is unaligned (it is never used).
+KERNEL_ACCEPTS = {
+    "qkv-slices-d64": lambda: _bf16((2, 128, 3, 2, 64)).unbind(2),
+    "qkv-slices-d128": lambda: _bf16((2, 128, 3, 2, 128)).unbind(2),
+    "half-tile-192": lambda: [_bf16((2, 192, 2, 64))] * 3,
+    "chunk-128x256": lambda: (_bf16((2, 128, 2, 64)),) + (_bf16((2, 256, 2, 64)),) * 2,
+    "f32-base-off-16-bytes": lambda: (torch.zeros(2 * 128 * 2 * 64 + 1)[1:].view(2, 128, 2, 64),)
+    + (torch.zeros((2, 128, 2, 64)),) * 2,
+    "bf16-batch-1-odd-stride": lambda: [_bf16(128 * 2 * 64).as_strided((1, 128, 2, 64),
+                                                                       (3, 128, 64, 1))] * 3,
+}
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_ACCEPTS))
+def test_kernel_input_check_accepts(case) -> None:
+    fa._check_kernel_inputs(*KERNEL_ACCEPTS[case]())
+
+
+# The chunk entry's o/l tolerance (fa.chunk_atol): f32 inputs keep the f32
+# tolerance; bf16 inputs add the P split's residual, 2^-16 of the largest
+# |v|, up to the cap. (dtype, the largest |v| with its sign, expected atol)
+CHUNK_ATOL_CASES = {
+    "f32": (torch.float32, 100.0, fa.F32_TOL),
+    "bf16-max-1": (torch.bfloat16, 1.0, 2.0**-16 + fa.F32_TOL),
+    "bf16-max-minus-4": (torch.bfloat16, -4.0, 4 * 2.0**-16 + fa.F32_TOL),
+    "bf16-capped": (torch.bfloat16, 64.0, fa.SPLIT_TOL_CAP),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_ATOL_CASES))
+def test_chunk_atol(case) -> None:
+    dtype, vmax, want = CHUNK_ATOL_CASES[case]
+    v = torch.zeros((1, 64, 1, 64), dtype=dtype)
+    v[0, 3, 0, 5] = vmax
+    assert fa.chunk_atol(v) == pytest.approx(want, rel=1e-12)
+
+
+def test_compare_with_plain_runs_every_entry() -> None:
+    """On CPU tensors both sides are the plain versions: every entry runs and
+    agrees exactly, and no kernel launch is counted."""
+    q, k, v = _t(_qkv(0, (1, 128, 2, 64)))
     before = dict(fa.launch_counts)
-    torch.testing.assert_close(
-        fa.flash_causal_forward(q, k, v).float(),
-        fa.flash_causal_forward_plain(q, k, v).float(),
-        rtol=FUSED_TOL[dtype][0], atol=FUSED_TOL[dtype][1],
-    )
-    for causal in (True, False):
-        o, m, l = fa.flash_attention_chunk(q, k, v, causal=causal)
-        ro, rm, rl = fa.flash_attention_chunk_plain(q, k, v, causal=causal)
-        torch.testing.assert_close(o / l[..., None], ro / rl[..., None], rtol=2e-5, atol=2e-5)
-        torch.testing.assert_close(m, rm, rtol=2e-5, atol=2e-5)
-        torch.testing.assert_close(l, rl, rtol=2e-5, atol=0.0)
-    assert fa.launch_counts["flash_fwd"] == before["flash_fwd"] + 1
-    assert fa.launch_counts["flash_chunk"] == before["flash_chunk"] + 2
+    assert fa.compare_with_plain(q, k, v, 64) == {
+        "chunk_atol": fa.F32_TOL,
+        "flash_fwd": 0.0,
+        "flash_chunk_causal": 0.0,
+        "flash_chunk_unmasked": 0.0,
+    }
+    assert fa.launch_counts == before

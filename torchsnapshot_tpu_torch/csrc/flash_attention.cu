@@ -1,61 +1,118 @@
-// Flash attention forward for Hopper (sm_90a): one templated kernel, two
-// entry points.
+// Flash attention forward for Hopper (sm_90a): two designs behind one C
+// interface, picked by the input dtype.
 //
 // Replaces the two Pallas kernels of torchsnapshot_tpu/ops/flash_attention.py:
-//   - flash_fwd   <- _flash_kernel, reached through _flash_causal_forward
-//                    (pallas_call at :395): causal softmax(q k^T / sqrt(d)) v,
-//                    normalized, stored in the input dtype.
-//   - flash_chunk <- _flash_chunk_kernel, reached through flash_attention_chunk
-//                    (pallas_call at :223): causal or unmasked, stores the
-//                    UNNORMALIZED f32 accumulator plus the row max m and the
-//                    normalizer l.
-// Both run the Pallas body's tile update (_online_softmax_update, :56-102):
-// q scaled before the dot, f32 logits, masked logits = -1e30, tiles past the
-// causal frontier skipped, exp(logits - m_new) and the alpha rescale.
+//   - ts_flash_fwd   <- _flash_kernel, reached through _flash_causal_forward
+//                       (pallas_call at :395): causal softmax(q k^T / sqrt(d)) v,
+//                       normalized, stored in the input dtype.
+//   - ts_flash_chunk <- _flash_chunk_kernel, reached through flash_attention_chunk
+//                       (pallas_call at :223): causal or unmasked, stores the
+//                       UNNORMALIZED f32 accumulator plus the row max m and the
+//                       normalizer l.
+// Both compute the Pallas body's tile update (_online_softmax_update, :56-102):
+// f32 logits scaled by 1/sqrt(d), masked logits out of the softmax, tiles past
+// the causal frontier skipped, exp(logits - m_new) and the alpha rescale.
 //
-// Bound on the H100 (published SXM peaks: 3.35 TB/s, 67 TFLOP/s f32 outside
-// the tensor cores, 989 TFLOP/s bf16 in them):
-//   operations ~ 2*b*h*s_q*s_k*d for a causal call (half of the 4*b*h*s^2*d
-//   of QK^T and PV), twice that unmasked;
-//   bytes ~ 4*b*s*h*d*itemsize for the fused kernel (q, k, v read, o written),
-//   3*b*s*h*d*itemsize + 4*b*h*s*(d+2) for the chunk kernel (f32 o, m, l).
-//   At the training shape (8, 1024, 16, 64) bf16 that is 17.2 GFLOP against
-//   67 MB: 256 FLOP per byte, just under the card's bf16 balance point (~295),
-//   so the least time is the bytes' 0.020 ms with the tensor-core operations
-//   close behind at 0.017 ms. This kernel does its products as f32 FMAs
-//   (67 TFLOP/s peak: 0.26 ms), so as written the operations bound it.
+// Bound on the H100 (published SXM peaks: 3.35 TB/s, 989 TFLOP/s bf16 in the
+// tensor cores, 67 TFLOP/s f32 outside them). A causal call needs
+// 2*b*h*s_q*s_k*d FLOPs (half of QK^T plus PV), an unmasked one twice that.
+// Bytes: q, k, v read once, o written once (the chunk entry writes f32 o, m,
+// l). At the training shape (8, 1024, 16, 64) bf16 that is 17.2 GFLOP against
+// 67 MB (fused) or 84 MB (chunk): 256 FLOP per byte, just under the card's
+// bf16 balance point (~295), so the bytes bound it (0.020 / 0.025 ms) with the
+// tensor-core operations close behind (0.017 ms). At d = 64 the softmax's
+// exponentials (one per visible logit, 16 per SM clock) cost about as much
+// again as the products.
 //
-// What the design does about it: the TPU grid's sequential k axis becomes a
-// loop inside the block, so the running max / normalizer / accumulator stay
-// in registers for the whole row tile and only q, k, v are read and o (m, l)
-// written once - the s^2 logits never reach device memory. One block of 256
-// threads owns one (batch*head, 64-row q tile); K and V tiles of 64 rows are
-// staged through shared memory as f32, and each thread computes a 4x4 logit
-// micro-tile and a 4 x (d/16) slice of the accumulator with plain f32 FMAs.
-// The arithmetic is f32 for bf16 inputs too, as in the Pallas body. Tensor
-// cores (wgmma, with TMA loads) would lift the operation bound by an order of
-// magnitude for bf16; that is later work, and f32 inputs would then need a
-// separate path to keep f32 accuracy.
+// bf16: the Hopper design (namespace hopper).
+//   - Work items are (batch*head, 128-row q tile) pairs. One persistent block
+//     per SM (2 consumer warpgroups + 1 producer warpgroup) walks its share,
+//     dealt heaviest causal q tile first in rounds of alternating direction,
+//     so the next item's loads overlap the last one's epilogue and the tail
+//     is short. Each consumer warpgroup owns 64 rows, and the TPU grid's
+//     sequential k axis is a loop inside the block, so the running max /
+//     normalizer / accumulator stay in registers (setmaxnreg moves registers
+//     from the producer to the consumers).
+//   - One producer lane loads q and K/V tiles of 128 keys through a ring
+//     of shared-memory stages with TMA (4-D tensor maps (d, h, s, b) over the
+//     tensors' own strides, so the strided q/k/v slices of a fused projection
+//     are read in place; 128B swizzle; completion on mbarriers). Rows past the
+//     end of a sequence come in as zeros and are masked.
+//   - S = Q K^T is wgmma m64n128k16 (A = Q, B = the K tile, both from shared
+//     memory, K-major), f32 in registers. The products of bf16 inputs are
+//     exact in f32, so only the summation order differs from the Pallas body;
+//     1/sqrt(d) is applied to the f32 logits (the body scales q first: for
+//     d = 64 the scale is a power of two and the two agree bit for bit, for
+//     d = 128 they differ by f32 ulps).
+//   - The online softmax runs on the accumulator fragment: quad shuffles for
+//     the row max, masks only on the causal diagonal tile and a ragged last
+//     tile, l summed from the f32 probabilities. It runs while the previous
+//     tile's P V product is on the tensor cores, and the two warpgroups take
+//     turns there (named barriers), so one's softmax also runs under the
+//     other's products.
+//   - O += P V is wgmma with A = P from registers (the m64n128 accumulator
+//     layout is the A-fragment layout of the next product) and B = the V tile
+//     in shared memory, MN-major. P goes in as two bf16 terms, P_hi = bf16(P)
+//     and P_lo = bf16(P - P_hi), into the same f32 accumulator: one bf16
+//     rounding would move each weight by up to 2^-8, the split leaves 2^-16,
+//     which keeps the chunk entry's f32 output near the body's f32 P V. The
+//     split costs 1.5x the tensor-core products of an unsplit kernel.
+//   - No atomics and a fixed summation order: the same inputs give the same
+//     bits, which the bitwise continuation of a restored training run needs.
+//
+// f32: the SIMT design (namespace simt), kept from the first port. f32 inputs
+// need f32 accuracy (2e-5), which no tensor-core path gives without a 3xTF32
+// split; so products are f32 FMAs (67 TFLOP/s peak: 0.26 ms at the training
+// shape, an operation bound). One block of 256 threads owns one
+// (batch*head, 64-row q tile); K and V tiles of 64 rows are staged through
+// shared memory and each thread computes a 4x4 logit micro-tile and a
+// 4 x (d/16) slice of the accumulator.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // 16 x 16: ty picks 4 rows, tx 4 key columns
-constexpr float kNegBig = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr float kNegBig = -1e30f;  // the Pallas body's masked logit / initial max
 
 struct Strides {
   int64_t b, s, h;  // in elements; the head dim is contiguous
 };
+
+constexpr int kMaxDevices = 64;
+
+// Host set-up of a kernel instantiation on the current device, done once per
+// device: allow the kernel its dynamic shared memory (a per-device setting)
+// and read the device's SM count into `sms`. `cache` is the instantiation's
+// own per-device record (0 = not set up yet); later calls only read it.
+template <typename Kernel>
+cudaError_t device_setup(std::atomic<int>* cache, Kernel kernel, int smem, int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if ((*sms = cache[device].load(std::memory_order_acquire))) return cudaSuccess;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess ||
+      (err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  cache[device].store(*sms, std::memory_order_release);
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// f32: SIMT kernel
+// ---------------------------------------------------------------------------
+namespace simt {
+
+constexpr int kBlockQ = 64;
+constexpr int kBlockK = 64;
+constexpr int kThreads = 256;  // 16 x 16: ty picks 4 rows, tx 4 key columns
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -65,15 +122,15 @@ constexpr size_t smem_bytes() {
          (kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D + kBlockQ * (kBlockK + 1));
 }
 
-// FUSED: normalize and store o in T at (b, s, h, d).
-// !FUSED: store the f32 accumulator at (b, h, s, d) and m, l at (b, h, s).
-template <typename T, int D, bool CAUSAL, bool FUSED>
+// FUSED: normalize and store o at (b, s, h, d).
+// !FUSED: store the accumulator at (b, h, s, d) and m, l at (b, h, s).
+template <int D, bool CAUSAL, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, Strides qs, Strides kvs,
-                       int h, int s_q, int s_k, float scale,
-                       T* __restrict__ o, float* __restrict__ o_acc,
-                       float* __restrict__ m_out, float* __restrict__ l_out) {
+flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, Strides qs, Strides kvs,
+                  int h, int s_q, int s_k, float scale,
+                  float* __restrict__ o, float* __restrict__ o_acc,
+                  float* __restrict__ m_out, float* __restrict__ l_out) {
   constexpr int DC = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                          // [kBlockQ][D + 1]
@@ -89,13 +146,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hi = bh - bi * h;
   const int q0 = blockIdx.y * kBlockQ;
 
-  const T* qb = q + bi * qs.b + hi * qs.h;
-  const T* kb = k + bi * kvs.b + hi * kvs.h;
-  const T* vb = v + bi * kvs.b + hi * kvs.h;
+  const float* qb = q + bi * qs.b + hi * qs.h;
+  const float* kb = k + bi * kvs.b + hi * kvs.h;
+  const float* vb = v + bi * kvs.b + hi * kvs.h;
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     const int r = idx / D, c = idx - (idx / D) * D;
-    Qs[r * (D + 1) + c] = to_float(qb[(int64_t)(q0 + r) * qs.s + c]) * scale;
+    Qs[r * (D + 1) + c] = qb[(int64_t)(q0 + r) * qs.s + c] * scale;
   }
 
   float m[4], l[4], acc[4][DC];
@@ -122,8 +179,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
       const int r = idx / D, c = idx - (idx / D) * D;
       const int64_t off = (int64_t)(k0 + r) * kvs.s + c;
-      Ks[r * (D + 1) + c] = to_float(kb[off]);
-      Vs[r * D + c] = to_float(vb[off]);
+      Ks[r * (D + 1) + c] = kb[off];
+      Vs[r * D + c] = vb[off];
     }
     __syncthreads();
 
@@ -195,10 +252,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (FUSED) {
-      T* orow = o + (((int64_t)bi * s_q + row) * h + hi) * D;
+      float* orow = o + (((int64_t)bi * s_q + row) * h + hi) * D;
       const float inv = 1.f / l[i];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) store(orow + tx + 16 * j, acc[i][j] * inv);
+      for (int j = 0; j < DC; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
     } else {
       const int64_t r = (int64_t)bh * s_q + row;
       float* orow = o_acc + r * D;
@@ -212,30 +269,632 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool CAUSAL, bool FUSED>
+template <int D, bool CAUSAL, bool FUSED>
 cudaError_t launch(const void* q, const void* k, const void* v, Strides qs,
                    Strides kvs, int b, int h, int s_q, int s_k, void* o,
                    float* o_acc, float* m, float* l, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D, CAUSAL, FUSED>;
+  if (s_q % kBlockQ || s_k % kBlockK) return cudaErrorInvalidValue;
+  auto kernel = flash_simt_kernel<D, CAUSAL, FUSED>;
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<int> sms_by_device[kMaxDevices];
+  int sms = 0;
+  const cudaError_t err = device_setup(sms_by_device, kernel, (int)smem, &sms);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, s_q / kBlockQ);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      qs, kvs, h, s_q, s_k, 1.f / sqrtf((float)D), static_cast<T*>(o), o_acc, m, l);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), qs, kvs, h, s_q, s_k, 1.f / sqrtf((float)D),
+      static_cast<float*>(o), o_acc, m, l);
   return cudaGetLastError();
 }
 
-template <typename T, bool CAUSAL, bool FUSED>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       Strides qs, Strides kvs, int b, int h, int s_q, int s_k,
-                       void* o, float* o_acc, float* m, float* l, cudaStream_t st) {
-  if (d == 64)
-    return launch<T, 64, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
-  if (d == 128)
-    return launch<T, 128, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma kernel
+// ---------------------------------------------------------------------------
+namespace hopper {
+
+constexpr int kTile = 128;               // q rows per block; keys per K/V tile
+constexpr int kConsumerWarps = 8;        // two warpgroups of 64 q rows each
+constexpr int kThreads = 32 * (kConsumerWarps + 4);  // + one producer warpgroup
+// Registers per thread after the split (setmaxnreg): the producer needs few,
+// the consumers hold S, P and O. 2 * 128 * 232 + 128 * 40 = 384 * 168, the
+// budget the launch gets at one block per SM.
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+constexpr int kBoxCols = 64;             // bf16 columns of one 128-byte swizzle row
+constexpr int kBoxBytes = kTile * kBoxCols * 2;      // one [128][64] bf16 box: 16 KiB
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Layout {
+  static constexpr int kBoxes = D / kBoxCols;        // column boxes per tile
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kStages = D == 64 ? 3 : 2;    // K/V ring depth
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;
+  // q_full, q_empty, then k_full, v_full, k_empty, v_empty per stage
+  static constexpr int kSmem = kBars + 8 * (2 + 4 * kStages) + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Arrive once and expect `bytes` more from TMA loads before the phase ends.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One [128 rows][64 cols] box of a (d, h, s, b) tensor map into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for a 128B-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout type 1.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma registers across
+// the asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define TS_F8(a, i)                                                                   \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),         \
+      "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+#define TS_F32(a) TS_F8(a, 0), TS_F8(a, 8), TS_F8(a, 16), TS_F8(a, 24)
+#define TS_F64(a) TS_F32(a), TS_F8(a, 32), TS_F8(a, 40), TS_F8(a, 48), TS_F8(a, 56)
+
+// d[64] (+)= A (64x16, shared, K-major) * B (16x128, shared, K-major).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : TS_F64(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[32] += A (64x16, registers) * B (16x64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : TS_F32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64] += A (64x16, registers) * B (16x128, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : TS_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef TS_F64
+#undef TS_F32
+#undef TS_F8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Shared-memory addresses of one block: the q tile, the K/V rings, and the
+// mbarriers (q_full, q_empty, then k_full, v_full, k_empty, v_empty per
+// stage).
+template <int D>
+struct Smem {
+  using L = Layout<D>;
+  uint32_t q, k, v, bars;
+  __device__ explicit Smem(uint32_t base)
+      : q(base + L::kQ), k(base + L::kK), v(base + L::kV), bars(base + L::kBars) {}
+  __device__ uint32_t q_full() const { return bars; }
+  __device__ uint32_t q_empty() const { return bars + 8u; }
+  __device__ uint32_t k_full(int st) const { return bars + 8u * (2 + st); }
+  __device__ uint32_t v_full(int st) const { return bars + 8u * (2 + L::kStages + st); }
+  __device__ uint32_t k_empty(int st) const { return bars + 8u * (2 + 2 * L::kStages + st); }
+  __device__ uint32_t v_empty(int st) const { return bars + 8u * (2 + 3 * L::kStages + st); }
+};
+
+// One unit of a block's work: the (q tile, batch*head) pair and its key
+// tiles. Items are numbered heaviest causal q tile first and dealt out in
+// rounds of gridDim.x, in alternating directions, which evens out the
+// blocks' total walks.
+struct Item {
+  int qt, bi, hi, n_tiles;
+};
+
+// The item of this block's round r; rounds only grow it.
+__device__ __forceinline__ int item_index(int r) {
+  const int g = gridDim.x, b = blockIdx.x;
+  return r * g + ((r & 1) ? g - 1 - b : b);
+}
+
+template <bool CAUSAL>
+__device__ __forceinline__ Item item_at(int w, int bhs, int h, int n_qt, int n_k) {
+  Item it;
+  it.qt = n_qt - 1 - w / bhs;
+  const int bh = w - (w / bhs) * bhs;
+  it.bi = bh / h;
+  it.hi = bh - it.bi * h;
+  it.n_tiles = CAUSAL ? min(n_k, it.qt + 1) : n_k;
+  return it;
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads) hand the tensor cores from one
+// consumer warpgroup to the other: 128 threads wait, 128 arrive.
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+// S = Q K^T for one key tile: D/16 steps of 16 head dims; the K-major
+// operands advance 32 bytes inside the 128-byte swizzle row, then to the next
+// column box. Started, not waited for.
+template <int D>
+__device__ __forceinline__ void start_qk(float (&s)[64], uint32_t q, uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t koff = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
+    wgmma_ss_n128(s, desc_sw128(q + koff, 16, 1024), desc_sw128(k + koff, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V for one key tile, P as two bf16 terms: 8 steps of 16 keys; the
+// MN-major V operand advances 16 rows (2048 bytes) a step, and its second
+// column box (d = 128) lies one box (the leading byte offset) further on.
+// Started, not waited for.
+template <int D>
+__device__ __forceinline__ void start_pv(float (&acc)[D / 2], const uint32_t (&p_hi)[8][4],
+                                         const uint32_t (&p_lo)[8][4], uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t dv = desc_sw128(v + kk * 16 * 128, kBoxBytes, 1024);
+    wgmma_rs(acc, p_hi[kk], dv);
+    wgmma_rs(acc, p_lo[kk], dv);
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Mask one tile of raw logits (the causal diagonal tile and a ragged last
+// tile only), then the online-softmax update in logit units (logit = dot *
+// scale; exp(x - m) is evaluated as exp2(dot * scale * log2(e) - m *
+// log2(e))). Leaves the probabilities in s and the rescale of the
+// accumulator's two rows in alpha.
+template <bool CAUSAL>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_r)[2], float (&l_r)[2],
+                                             float (&alpha)[2], int t, int qt, int s_k,
+                                             int row0, int col, float scale) {
+  if ((CAUSAL && t == qt) || (t + 1) * kTile > s_k) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t * kTile + 8 * i + col + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        if (key >= s_k || (CAUSAL && key > row)) s[4 * i + e] = -INFINITY;
+      }
+  }
+  const float scale_log2 = scale * kLog2e;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) mx = fmaxf(mx, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_r[r], mx * scale);
+    alpha[r] = exp2_approx((m_r[r] - m_new) * kLog2e);
+    m_r[r] = m_new;
+    const float mc = m_new * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * i + 2 * r + e];
+        x = exp2_approx(fmaf(x, scale_log2, -mc));
+        sum += x;
+      }
+    l_r[r] = l_r[r] * alpha[r] + sum;
+  }
+}
+
+// Rescale the accumulator's rows, and split the probabilities into the two
+// bf16 A fragments of the next P V product (key step kk is s[8kk .. 8kk+7]).
+template <int D>
+__device__ __forceinline__ void rescale_and_split(float (&acc)[D / 2], const float (&alpha)[2],
+                                                  const float (&s)[64], uint32_t (&p_hi)[8][4],
+                                                  uint32_t (&p_lo)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    acc[4 * i + 0] *= alpha[0];
+    acc[4 * i + 1] *= alpha[0];
+    acc[4 * i + 2] *= alpha[1];
+    acc[4 * i + 3] *= alpha[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x0 = s[8 * kk + 2 * j], x1 = s[8 * kk + 2 * j + 1];
+      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(x0, x1);
+      p_hi[kk][j] = *reinterpret_cast<const uint32_t*>(&hi2);
+      p_lo[kk][j] = pack_bf16(x0 - __low2float(hi2), x1 - __high2float(hi2));
+    }
+}
+
+// The consumer warpgroups' walk over one item's key tiles, then its
+// epilogue. `kv` counts the K/V tiles of the block's earlier items (the
+// ring's position) and `iter` the earlier items (the q tile's phase).
+// Accumulator fragment of m64nN (per thread): element 4*i + e is row
+// r + 8*(e >> 1), column 8*i + 2*(lane % 4) + (e & 1), where r is the
+// thread's first row.
+//
+// Step t starts S_t = Q K_t^T together with O += P_{t-1} V_{t-1}, then runs
+// the softmax of S_t while the P V product is still on the tensor cores; the
+// two warpgroups take turns there, so one's softmax also runs under the
+// other's products. The first step (no P V yet) and the last (no S) are
+// peeled off: a wgmma under a branch is serialized by the compiler.
+template <int D, bool CAUSAL, bool FUSED>
+__device__ __forceinline__ void consume(const Smem<D>& sm, int warp, int lane, const Item& item,
+                                        int kv, int iter, bool last_item, int h, int s_q,
+                                        int s_k, float scale, __nv_bfloat16* __restrict__ o,
+                                        float* __restrict__ o_acc, float* __restrict__ m_out,
+                                        float* __restrict__ l_out) {
+  using L = Layout<D>;
+  const int qt = item.qt, bi = item.bi, hi = item.hi, n_tiles = item.n_tiles;
+  const int bh = bi * h + hi;
+  const int q0 = qt * kTile;
+  const int wg = warp >> 2;
+  const int row0 = q0 + wg * 64 + ((warp & 3) << 4) + (lane >> 2);
+  const int col = (lane & 3) << 1;
+  const uint32_t q_tile = sm.q + wg * 64 * 128;
+  // Ring slot and phase of this item's key tile t.
+  auto slot = [&](int t) { return (kv + t) % L::kStages; };
+  auto phase = [&](int t) { return (uint32_t)((kv + t) / L::kStages) & 1; };
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_r[2] = {kNegBig, kNegBig};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float s[64], alpha[2];
+  uint32_t p_hi[8][4], p_lo[8][4];
+
+  mbar_wait(sm.q_full(), iter & 1);
+
+  // Step 0: S_0 alone.
+  mbar_wait(sm.k_full(slot(0)), phase(0));
+  __syncwarp();  // lanes leave the spin apart; wgmma needs the warp converged
+  turn_wait(1 + wg);
+  wgmma_fence();
+  start_qk<D>(s, q_tile, sm.k + slot(0) * L::kTileBytes);
+  turn_pass(2 - wg);
+  wgmma_wait_all();
+  fence_regs(s);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(sm.k_empty(slot(0)));
+  softmax_tile<CAUSAL>(s, m_r, l_r, alpha, 0, qt, s_k, row0, col, scale);
+  rescale_and_split<D>(acc, alpha, s, p_hi, p_lo);
+
+  // Steps 1 .. n_tiles - 1: S_t beside P_{t-1} V_{t-1}.
+  for (int t = 1; t < n_tiles; ++t) {
+    mbar_wait(sm.k_full(slot(t)), phase(t));
+    mbar_wait(sm.v_full(slot(t - 1)), phase(t - 1));
+    __syncwarp();
+    turn_wait(1 + wg);
+    wgmma_fence();
+    start_qk<D>(s, q_tile, sm.k + slot(t) * L::kTileBytes);
+    start_pv<D>(acc, p_hi, p_lo, sm.v + slot(t - 1) * L::kTileBytes);
+    turn_pass(2 - wg);
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");  // S_t is in
+    fence_regs(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.k_empty(slot(t)));
+    softmax_tile<CAUSAL>(s, m_r, l_r, alpha, t, qt, s_k, row0, col, scale);
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.v_empty(slot(t - 1)));
+    rescale_and_split<D>(acc, alpha, s, p_hi, p_lo);
+  }
+
+  // Last step: P V alone. Every S product of the item is done, so the q tile
+  // is released to the next item's load. Warpgroup 1's pass after the
+  // block's last item would have no wait to meet, so it is left out.
+  __syncwarp();
+  if (lane == 0) mbar_arrive(sm.q_empty());
+  mbar_wait(sm.v_full(slot(n_tiles - 1)), phase(n_tiles - 1));
+  __syncwarp();
+  turn_wait(1 + wg);
+  wgmma_fence();
+  start_pv<D>(acc, p_hi, p_lo, sm.v + slot(n_tiles - 1) * L::kTileBytes);
+  if (wg == 0 || !last_item) turn_pass(2 - wg);
+  wgmma_wait_all();
+  fence_regs(acc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(sm.v_empty(slot(n_tiles - 1)));
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= s_q) continue;  // the zero rows of a half tile
+    if (FUSED) {
+      __nv_bfloat16* orow = o + (((int64_t)bi * s_q + row) * h + hi) * D + col;
+      const float inv = 1.f / l_r[r];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+    } else {
+      const int64_t ri = (int64_t)bh * s_q + row;
+      float* orow = o_acc + ri * D + col;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<float2*>(orow + 8 * i) =
+            make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+      if ((lane & 3) == 0) {
+        m_out[ri] = m_r[r];
+        l_out[ri] = l_r[r];
+      }
+    }
+  }
+}
+
+// FUSED: normalize and store o at (b, s, h, d) in bf16.
+// !FUSED: store the f32 accumulator at (b, h, s, d) and m, l at (b, h, s).
+// Persistent: one block per SM walks its share of the items, so the
+// producer loads the next item's q and K/V while the consumers finish the
+// last one.
+template <int D, bool CAUSAL, bool FUSED>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, int b, int h, int s_q, int s_k,
+                   float scale, __nv_bfloat16* __restrict__ o, float* __restrict__ o_acc,
+                   float* __restrict__ m_out, float* __restrict__ l_out) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // 128B swizzle repeats every 1024 bytes; the descriptors assume tiles start
+  // on that boundary.
+  const Smem<D> sm((smem_u32(smem_raw) + 1023u) & ~1023u);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bhs = b * h;
+  const int n_qt = (s_q + kTile - 1) / kTile;
+  const int n_k = (s_k + kTile - 1) / kTile;
+  const int n_items = bhs * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full(), 1);
+    mbar_init(sm.q_empty(), kConsumerWarps);
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(sm.k_full(st), 1);
+      mbar_init(sm.v_full(st), 1);
+      mbar_init(sm.k_empty(st), kConsumerWarps);
+      mbar_init(sm.v_empty(st), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // Producer warpgroup: one lane keeps the q tile and the K/V ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == kConsumerWarps && lane == 0) {
+      int kv = 0;
+      for (int iter = 0, w = item_index(0); w < n_items; w = item_index(++iter)) {
+        const Item it = item_at<CAUSAL>(w, bhs, h, n_qt, n_k);
+        if (iter > 0) mbar_wait(sm.q_empty(), (iter - 1) & 1);
+        mbar_expect_tx(sm.q_full(), L::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < L::kBoxes; ++c)
+          tma_load(sm.q + c * kBoxBytes, &tm_q, sm.q_full(), c * kBoxCols, it.hi,
+                   it.qt * kTile, it.bi);
+        for (int t = 0; t < it.n_tiles; ++t, ++kv) {
+          const int st = kv % L::kStages;
+          const int round = kv / L::kStages;
+          const uint32_t off = st * L::kTileBytes;
+          if (round > 0) mbar_wait(sm.k_empty(st), (round - 1) & 1);
+          mbar_expect_tx(sm.k_full(st), L::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < L::kBoxes; ++c)
+            tma_load(sm.k + off + c * kBoxBytes, &tm_k, sm.k_full(st), c * kBoxCols, it.hi,
+                     t * kTile, it.bi);
+          if (round > 0) mbar_wait(sm.v_empty(st), (round - 1) & 1);
+          mbar_expect_tx(sm.v_full(st), L::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < L::kBoxes; ++c)
+            tma_load(sm.v + off + c * kBoxBytes, &tm_v, sm.v_full(st), c * kBoxCols, it.hi,
+                     t * kTile, it.bi);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    if (warp >= 4) turn_pass(1);  // warpgroup 0 goes first
+    int kv = 0;
+    for (int iter = 0, w = item_index(0); w < n_items; w = item_index(++iter)) {
+      const Item it = item_at<CAUSAL>(w, bhs, h, n_qt, n_k);
+      consume<D, CAUSAL, FUSED>(sm, warp, lane, it, kv, iter, item_index(iter + 1) >= n_items,
+                                h, s_q, s_k, scale, o, o_acc, m_out, l_out);
+      kv += it.n_tiles;
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                             12000, cudaEnableDefault, &status);
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// 4-D map (d, h, s, b) over a bf16 tensor's own strides; boxes of 64 head
+// dims x 128 rows of one (batch, head). A dimension of size 1 gets a packed
+// stride (its own stride is never used, and may be anything torch chose).
+bool encode(CUtensorMap* map, const void* base, Strides st, int b, int h, int s, int d) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  uint64_t bytes[3] = {(uint64_t)st.h * 2, (uint64_t)st.s * 2, (uint64_t)st.b * 2};
+  const uint64_t sizes[3] = {(uint64_t)h, (uint64_t)s, (uint64_t)b};
+  uint64_t span = (uint64_t)d * 2;
+  for (int i = 0; i < 3; ++i)
+    if (sizes[i] > 1 && bytes[i] * sizes[i] > span) span = bytes[i] * sizes[i];
+  for (int i = 0; i < 3; ++i)
+    if (sizes[i] == 1) bytes[i] = span;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, sizes[0], sizes[1], sizes[2]};
+  const cuuint64_t strides[3] = {bytes[0], bytes[1], bytes[2]};
+  const cuuint32_t box[4] = {kBoxCols, 1, kTile, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool CAUSAL, bool FUSED>
+cudaError_t launch(const void* q, const void* k, const void* v, Strides qs, Strides kvs,
+                   int b, int h, int s_q, int s_k, void* o, float* o_acc, float* m, float* l,
+                   cudaStream_t stream) {
+  if (s_q % 64 || s_k % 64) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, qs, b, h, s_q, D) || !encode(&tk, k, kvs, b, h, s_k, D) ||
+      !encode(&tv, v, kvs, b, h, s_k, D))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_wgmma_kernel<D, CAUSAL, FUSED>;
+  constexpr int smem = Layout<D>::kSmem;
+  static std::atomic<int> sms_by_device[kMaxDevices];
+  int sms = 0;
+  const cudaError_t err = device_setup(sms_by_device, kernel, smem, &sms);
+  if (err != cudaSuccess) return err;
+  const int n_items = b * h * ((s_q + kTile - 1) / kTile);
+  kernel<<<n_items < sms ? n_items : sms, kThreads, smem, stream>>>(
+      tq, tk, tv, b, h, s_q, s_k, 1.f / sqrtf((float)D), static_cast<__nv_bfloat16*>(o), o_acc,
+      m, l);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+// dtype 0 = float32 (SIMT), 1 = bfloat16 (TMA + wgmma); d = 64 or 128.
+template <bool CAUSAL, bool FUSED>
+cudaError_t dispatch(int dtype, int d, const void* q, const void* k, const void* v,
+                     Strides qs, Strides kvs, int b, int h, int s_q, int s_k, void* o,
+                     float* o_acc, float* m, float* l, cudaStream_t st) {
+  if (dtype == 0 && d == 64)
+    return simt::launch<64, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
+  if (dtype == 0 && d == 128)
+    return simt::launch<128, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
+  if (dtype == 1 && d == 64)
+    return hopper::launch<64, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
+  if (dtype == 1 && d == 128)
+    return hopper::launch<128, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l,
+                                              st);
   return cudaErrorInvalidValue;
 }
 
@@ -243,24 +902,17 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Shapes and strides are checked by the
-// Python wrapper (torchsnapshot_tpu_torch/ops/flash_attention.py); a bad
-// value that slips through is refused with cudaErrorInvalidValue. Returns
-// the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. Shapes, strides and alignment are
+// checked by the Python wrapper (torchsnapshot_tpu_torch/ops/flash_attention.py);
+// a bad value that slips through is refused with cudaErrorInvalidValue.
+// Returns the launch's cudaError_t.
 int ts_flash_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
                  int b, int h, int s, int d, int64_t q_sb, int64_t q_ss,
                  int64_t q_sh, int64_t kv_sb, int64_t kv_ss, int64_t kv_sh,
                  void* stream) {
-  if (s % kBlockQ || s % kBlockK) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, kvs{kv_sb, kv_ss, kv_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float, true, true>(d, q, k, v, qs, kvs, b, h, s, s, o,
-                                         nullptr, nullptr, nullptr, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16, true, true>(d, q, k, v, qs, kvs, b, h, s, s,
-                                                 o, nullptr, nullptr, nullptr, st);
-  return cudaErrorInvalidValue;
+  return dispatch<true, true>(dtype, d, q, k, v, qs, kvs, b, h, s, s, o, nullptr, nullptr,
+                              nullptr, static_cast<cudaStream_t>(stream));
 }
 
 int ts_flash_chunk(const void* q, const void* k, const void* v, float* o_acc,
@@ -268,22 +920,12 @@ int ts_flash_chunk(const void* q, const void* k, const void* v, float* o_acc,
                    int s_q, int s_k, int d, int64_t q_sb, int64_t q_ss,
                    int64_t q_sh, int64_t kv_sb, int64_t kv_ss, int64_t kv_sh,
                    void* stream) {
-  if (s_q % kBlockQ || s_k % kBlockK) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, kvs{kv_sb, kv_ss, kv_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return causal ? dispatch_d<float, true, false>(d, q, k, v, qs, kvs, b, h, s_q, s_k,
-                                                   nullptr, o_acc, m, l, st)
-                  : dispatch_d<float, false, false>(d, q, k, v, qs, kvs, b, h, s_q, s_k,
-                                                    nullptr, o_acc, m, l, st);
-  }
-  if (dtype == 1) {
-    return causal ? dispatch_d<__nv_bfloat16, true, false>(d, q, k, v, qs, kvs, b, h,
-                                                           s_q, s_k, nullptr, o_acc, m, l, st)
-                  : dispatch_d<__nv_bfloat16, false, false>(d, q, k, v, qs, kvs, b, h,
-                                                            s_q, s_k, nullptr, o_acc, m, l, st);
-  }
-  return cudaErrorInvalidValue;
+  return causal ? dispatch<true, false>(dtype, d, q, k, v, qs, kvs, b, h, s_q, s_k, nullptr,
+                                        o_acc, m, l, st)
+                : dispatch<false, false>(dtype, d, q, k, v, qs, kvs, b, h, s_q, s_k, nullptr,
+                                         o_acc, m, l, st);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """Fused blockwise causal attention (flash attention forward) for the card.
 
 Counterpart of ``torchsnapshot_tpu/ops/flash_attention.py``. Its two Pallas
-kernels become one hand-written CUDA kernel for Hopper
-(``csrc/flash_attention.cu``) with two entry points:
+kernels become hand-written CUDA kernels for Hopper
+(``csrc/flash_attention.cu``: TMA loads and ``wgmma`` tensor cores for
+bf16, f32 FMAs for f32) with two entry points:
 
 - :func:`flash_causal_forward` replaces ``_flash_kernel`` (through
   ``_flash_causal_forward``): causal attention, normalized, in the input
@@ -22,8 +23,10 @@ autograd it runs the chunk kernel and the blockwise backward
 where it is pure lax outside any kernel); otherwise the fused kernel.
 
 Layouts follow the JAX package: q, k, v are ``(batch, seq, heads, dim)``.
-The kernel reads them through their strides (the head dim must be
+The kernels read them through their strides (the head dim must be
 contiguous), so the q/k/v slices of a fused qkv projection need no copy.
+The bf16 kernel reads through TMA tensor maps, which need 16-byte-aligned
+bases and strides.
 """
 
 from __future__ import annotations
@@ -36,10 +39,13 @@ import torch
 from . import kernels
 
 _NEG_BIG = -1e30
-# The CUDA kernel's q and k tile (csrc/flash_attention.cu kBlockQ/kBlockK).
+# Sequence lengths the CUDA kernels take: multiples of the f32 kernel's tile,
+# which the bf16 kernel's 128-row tiles reach by masking a half tile.
 _KERNEL_TILE = 64
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# TMA (the bf16 kernel's loads) reads from 16-byte-aligned bases and strides.
+_TMA_ALIGN = 16
 
 # Kernel launches per entry point. Incremented only where a kernel is
 # launched; plain (CPU) runs do not count.
@@ -168,6 +174,20 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
             f"the CUDA flash kernel needs seq lengths divisible by {_KERNEL_TILE}, "
             f"got ({sq}, {k.shape[1]})"
         )
+    if q.dtype == torch.bfloat16:
+        # Checked on every launch, so shapes and strides are read once per
+        # tensor; strides are in 2-byte elements. The stride of a dimension
+        # of size 1 is never used, so it may be anything.
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % _TMA_ALIGN or any(
+                n > 1 and st * 2 % _TMA_ALIGN for n, st in zip(t.shape[:3], t.stride()[:3])
+            ):
+                raise ValueError(
+                    f"the bf16 flash kernel loads {name} with TMA, which needs a "
+                    f"{_TMA_ALIGN}-byte-aligned base and strides; got address "
+                    f"{t.data_ptr():#x}, strides {t.stride()} (elements of "
+                    f"{t.element_size()} bytes)"
+                )
 
 
 def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -349,7 +369,7 @@ def flash_causal_attention(
     Args:
         q, k, v: ``(batch, seq, heads, dim)``.
         block_q, block_k: tile sizes of the plain (CPU) version; the CUDA
-            kernel tiles by 64 and needs ``seq % 64 == 0``.
+            kernels choose their own tiles and need ``seq % 64 == 0``.
     """
     if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad
@@ -365,8 +385,72 @@ def attention_flops(b: int, h: int, s_q: int, s_k: int, d: int, causal: bool) ->
     return full / 2 if causal else full
 
 
+# ----------------------------------------------------------------------
+# Kernel against plain version: the tolerances and the comparison
+# ----------------------------------------------------------------------
+
+# f32: kernel and plain version run the same f32 algorithm, summed in another
+# order (other tiles, FMA contraction, tensor-core sums of exact bf16
+# products), so they differ by a few f32 ulps of the row sums. The f32
+# kernel's outputs, and the chunk entry's m and l for either input dtype (f32
+# logits, f32 probabilities), are held to this.
+F32_TOL = 2e-5
+# The fused entry's output (rtol, atol). bf16: both sides compute in f32 from
+# the same bf16 inputs, agreeing to F32_TOL, and round to bf16 once; each
+# rounding moves a value by at most half a bf16 ulp, so the two differ by at
+# most one ulp, 2^-7 of the value (8 bits of significand). rtol 8e-3 is just
+# above that; atol is F32_TOL, for values near 0.
+FUSED_TOL = {torch.float32: (F32_TOL, F32_TOL), torch.bfloat16: (8e-3, F32_TOL)}
+# The chunk entry's o/l from bf16 inputs: the bf16 kernel feeds P to the
+# tensor cores as two bf16 terms, P_hi = bf16(P) and P_lo = bf16(P - P_hi),
+# which leave at most 2^-16 of each weight (two roundings of 2^-8 each);
+# o/l = sum_j p_j v_j / l then moves by at most 2^-16 of the largest |v| on
+# top of F32_TOL, and never by more than 1e-4.
+SPLIT_RESIDUAL = 2.0**-16
+SPLIT_TOL_CAP = 1e-4
+
+
+def chunk_atol(v: torch.Tensor) -> float:
+    """atol of the chunk entry's o/l against its plain version."""
+    if v.dtype != torch.bfloat16:
+        return F32_TOL
+    return min(SPLIT_RESIDUAL * v.abs().max().item() + F32_TOL, SPLIT_TOL_CAP)
+
+
+def compare_with_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block: int
+) -> Dict[str, float]:
+    """Run the fused entry (when ``s_q == s_k``) and the chunk entry (causal
+    and unmasked) on ``q, k, v`` and their plain versions on the same inputs,
+    and hold each output to its tolerance above; raises on a disagreement.
+    Returns the largest |errors| (``flash_fwd``, ``flash_chunk_causal``,
+    ``flash_chunk_unmasked``) and the chunk o/l atol used (``chunk_atol``)."""
+    rec = {"chunk_atol": chunk_atol(v)}
+    if q.shape[1] == k.shape[1]:
+        rtol, atol = FUSED_TOL[q.dtype]
+        out = flash_causal_forward(q, k, v, block, block).float()
+        ref = flash_causal_forward_plain(q, k, v, block, block).float()
+        rec["flash_fwd"] = (out - ref).abs().max().item()
+        torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    for causal in (True, False):
+        o, m, l = flash_attention_chunk(q, k, v, causal, block, block)
+        ro, rm, rl = flash_attention_chunk_plain(q, k, v, causal, block, block)
+        # The accumulator and l grow with the number of visible keys, so the
+        # output is compared normalized and l relative to its size.
+        on, rn = o / l[..., None], ro / rl[..., None]
+        rec["flash_chunk_causal" if causal else "flash_chunk_unmasked"] = max(
+            (on - rn).abs().max().item(), (m - rm).abs().max().item()
+        )
+        torch.testing.assert_close(on, rn, rtol=F32_TOL, atol=rec["chunk_atol"])
+        torch.testing.assert_close(m, rm, rtol=F32_TOL, atol=F32_TOL)
+        torch.testing.assert_close(l, rl, rtol=F32_TOL, atol=0.0)
+    return rec
+
+
 __all__ = [
     "attention_flops",
+    "chunk_atol",
+    "compare_with_plain",
     "flash_attention_chunk",
     "flash_attention_chunk_plain",
     "flash_bwd_blockwise",
