@@ -7,12 +7,16 @@ each of which raises on failure (nothing is caught):
 
 1. **kernels**: build every CUDA kernel under
    ``torchsnapshot_tpu_torch/csrc`` and hold each against its plain PyTorch
-   version on the card, at the training shape and a long-sequence shape,
-   in bf16 and f32, and at the bf16 kernel's edges (a half tile, a chunk
-   with s_q != s_k, d = 128 on the fused-qkv layout); time kernel, plain
-   version and the library call back to back (the record's ms), and each
-   kernel and the library call again behind a spin kernel: the card's time
-   alone and the host's cost per wrapper call.
+   version on the card. Flash: at the training shape and a long-sequence
+   shape, in bf16 and f32, and at the bf16 kernel's edges (a half tile, a
+   chunk with s_q != s_k, d = 128 on the fused-qkv layout). Digest: bit for
+   bit against the plain version and the host digest, over every dtype the
+   port serializes, odd lengths, row ranges, an unaligned tail, an empty
+   tensor and a non-contiguous view; then on the train state's own chunk
+   table (one launch) and on the bulk state's. Time kernel, plain version
+   and the library call (none for the digest) back to back (the record's
+   ms), and each kernel again behind a spin kernel: the card's time alone
+   and the host's cost per wrapper call.
    The host I/O runtime (``native/ts_io.cpp``) is built here too, so the
    timed takes and restores below hold no compile.
 2. **main**: the port's main path. Train the widest in-repo transformer
@@ -21,14 +25,23 @@ each of which raises on failure (nothing is caught):
    model and optimizer built from another seed, and check that every
    tensor, the step and the RNG state came back bit for bit, that the
    evaluation logits of both agree bit for bit, and that one more training
-   step gives the same loss on both. The kernels' launch counters are set
-   to 0 just before and read just after: the path must have launched both.
-   The last training step runs under ``torch.profiler``: the device
-   operations that took the most time, the flash kernels' share of the step
-   and the device's idle share.
+   step gives the same loss on both. The last training step runs under
+   ``torch.profiler``: the device operations that took the most time, the
+   flash kernels' share of the step and the device's idle share. Then
+   (a) ``async_take(record_digests=True)`` with a training step run while
+   it drains, restored bit-identical to the state at the call; (b) with
+   the embedding and the first half of the layers frozen, an incremental
+   take against a digest-recording base: the bytes copied to the host and
+   written equal the bytes of the leaves that changed, and the restore is
+   bit-identical and continues with the same loss; (c) ``async_restore``
+   with a forward pass before ``wait()``: the live leaves are untouched
+   until then and bit-identical after. The kernels' launch counters are set
+   to 0 just before the phase and read just after: the path must have
+   launched every kernel.
 3. **bulk**: take and restore a bulk bf16 state of (16384, 8192) blocks
    (8 GiB by default, ``--bulk-gib 20`` for the reference's 20 GB figure)
-   with a bitwise check.
+   with a bitwise check; then a digest-recording take and an incremental
+   take of the unchanged state, which writes no data blob.
 
 The second-to-last line of stdout is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -243,6 +256,128 @@ def kernel_phase(seed: int) -> dict:
     return records
 
 
+def _digest_case_specs(seed: int) -> list:
+    """(label, specs) of the digest kernel's checks: every dtype the port
+    serializes and the digest takes; odd row counts and row bytes, row
+    ranges at unaligned starts, a tail shorter than one 16-byte load, an
+    empty tensor, a non-contiguous view."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dtypes = [
+        torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int64,
+        torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool,
+        torch.float8_e4m3fn,
+    ]
+    cases = []
+    for dtype in dtypes:
+        def make(*shape, dtype=dtype):
+            if dtype == torch.bool:
+                return torch.rand(shape, generator=g, device="cuda") > 0.5
+            if dtype.is_floating_point:
+                return (100 * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+            return torch.randint(-100, 100, shape, generator=g, device="cuda").to(dtype)
+
+        big = make(1031, 77)
+        cases.append((str(dtype).split(".")[1], [
+            (big, None),
+            (big, ((0, 1), (3, 517), (517, 1031), (9, 9))),
+            (make(3, 5), None),
+            (make(0), None),
+            (make(64, 33)[:, 1::2], None),
+            (make(200_003), ((7, 199_999),)),
+        ]))
+    return cases
+
+
+def _train_state_digest_specs(seed: int):
+    """The train state and its chunk table as an incremental take digests
+    it (one launch)."""
+    import torch
+
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.incremental import IncrementalTakeContext
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state
+
+    state = init_train_state(main_config(), seed=seed)  # AdamW moments included
+    _, flat = flatten(state.state_dict(), prefix="train")
+    batches = IncrementalTakeContext(None, None, None, 0).collect(flat)
+    return state, batches[torch.device("cuda", torch.cuda.current_device())].specs
+
+
+def digest_phase(seed: int, bulk_gib: float) -> dict:
+    """Hold the digest kernel against its plain version and the host digest
+    bit for bit, then time it on the train state's chunk table and the bulk
+    state's; returns the record at the train state (the main path's call)."""
+    import torch
+
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+
+    cases = _digest_case_specs(seed)
+    for label, specs in cases:
+        kernel = dd.materialize_many(dd.digest_many_async(specs))
+        plain = dd.materialize_many(dd.digest_many_plain(specs))
+        host = []
+        for t, ranges in specs:
+            t = t.cpu()
+            host += [dd.digest_host(t)] if ranges is None else [dd.digest_host(t[a:b]) for a, b in ranges]
+        _require((kernel == plain).all(), f"digest {label} differs from the plain version")
+        _require(
+            [(int(d1), int(d2)) for d1, d2 in kernel] == host, f"digest {label} differs from the host digest"
+        )
+    del cases
+    log("kernel device_digest: 11 dtypes x 6 layouts (odd lengths, row ranges, an unaligned "
+        "tail, an empty tensor, a non-contiguous view) bit-identical to the plain version and "
+        "the host digest")
+
+    state, specs = _train_state_digest_specs(seed)
+    record = _time_digest("train state", specs)
+    del state, specs
+    torch.cuda.empty_cache()
+    bulk = bulk_state(seed, bulk_gib)
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.incremental import IncrementalTakeContext
+
+    _, flat = flatten(bulk, prefix="bulk")
+    batches = IncrementalTakeContext(None, None, None, 0).collect(flat)
+    _time_digest("bulk state", batches[torch.device("cuda", torch.cuda.current_device())].specs)
+    del bulk, flat, batches
+    torch.cuda.empty_cache()
+    return record
+
+
+def _time_digest(label: str, specs) -> dict:
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+
+    nbytes = dd.digest_bytes(specs)
+    kernel = dd.materialize_many(dd.digest_many_async(specs))
+    plain = dd.materialize_many(dd.digest_many_plain(specs))
+    mismatched = int((kernel != plain).any(axis=1).sum())
+    _require(mismatched == 0, f"digest of the {label} differs from the plain version in {mismatched} rows")
+
+    def fn():
+        return dd.digest_many_async(specs)
+
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {
+        "ms": cuda_ms(fn, iters=10),
+        "plain_ms": cuda_ms(lambda: dd.digest_many_plain(specs), iters=1, warmup=0),
+        "library_ms": None,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "max_abs_err": float(abs(kernel.astype("int64") - plain.astype("int64")).max()),
+    }
+    device_ms, host_us = held_times(fn)
+    log(
+        f"kernel device_digest {label}: {len(kernel)} rows, {nbytes / 1e9:.3f} GB in one launch: "
+        f"{rec['ms']:.4f} ms back to back, {nbytes / rec['ms'] / 1e6:.1f} GB/s; device "
+        f"{device_ms:.4f} ms ({nbytes / device_ms / 1e6:.1f} GB/s), host {host_us:.1f} us per "
+        f"call (plain {rec['plain_ms']:.2f} ms; no library call computes it; bound "
+        f"{bound_ms:.4f} ms by bytes at 3.35 TB/s); bit-identical to the plain version"
+    )
+    return rec
+
+
 # ----------------------------------------------------------------------
 # Entry
 # ----------------------------------------------------------------------
@@ -256,6 +391,10 @@ KERNEL_SOURCES = {
     "flash_chunk": (
         "torchsnapshot_tpu_torch/csrc/flash_attention.cu",
         "torchsnapshot_tpu/ops/flash_attention.py:223",
+    ),
+    "device_digest": (
+        "torchsnapshot_tpu_torch/csrc/device_digest.cu",
+        "torchsnapshot_tpu/ops/device_digest.py:237",
     ),
 }
 
@@ -280,6 +419,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
     from torchsnapshot_tpu_torch.ops import kernels
 
@@ -303,17 +443,24 @@ def main() -> int:
 
     records = {}
     if "kernels" in phases:
+        t0 = time.monotonic()
         records = kernel_phase(args.seed)
+        records["device_digest"] = digest_phase(args.seed, args.bulk_gib)
+        log(f"phase kernels: {time.monotonic() - t0:.1f} s")
 
     # Launches are counted only in the main path's run; without it they
     # were not measured and the record says null.
-    launches = dict.fromkeys(fa.launch_counts)
+    launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts))
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
     try:
         if "main" in phases:
+            t0 = time.monotonic()
             launches = main_phase(args, work_dir, card)
+            log(f"phase main: {time.monotonic() - t0:.1f} s")
         if "bulk" in phases:
+            t0 = time.monotonic()
             bulk_phase(args, work_dir, card)
+            log(f"phase bulk: {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -350,32 +497,42 @@ def _require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def main_phase(args, work_dir: str, card: str) -> dict:
-    """Train, take, restore into a fresh state, and check the restored
-    run continues bit for bit. Returns the kernels' launch counts of the
-    run."""
+def main_config():
+    """The widest transformer the repo runs (benchmarks/pod/main.py)."""
     import torch
 
-    from torchsnapshot_tpu_torch import RngState, Snapshot, telemetry
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(
+        vocab_size=32768, d_model=1024, n_heads=16, n_layers=N_LAYERS,
+        d_ff=4096, dtype=torch.bfloat16, attn_impl="flash",
+    )
+
+
+def main_phase(args, work_dir: str, card: str) -> dict:
+    """Train, take, restore into a fresh state, and check the restored
+    run continues bit for bit; then the async and incremental legs.
+    Returns the kernels' launch counts of the run."""
+    import torch
+
+    from torchsnapshot_tpu_torch import RngState, Snapshot
     from torchsnapshot_tpu_torch.models.transformer import (
-        TransformerConfig,
         init_train_state,
         make_train_step,
         random_tokens,
     )
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.scheduler import last_phase_timings, reset_phase_timings
 
-    # The widest transformer the repo runs (benchmarks/pod/main.py).
-    cfg = TransformerConfig(
-        vocab_size=32768, d_model=1024, n_heads=16, n_layers=N_LAYERS,
-        d_ff=4096, dtype=torch.bfloat16, attn_impl="flash",
-    )
+    cfg = main_config()
     tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
     torch.manual_seed(args.seed)  # the global generators RngState holds
     state = init_train_state(cfg, seed=args.seed)
     train_step = make_train_step(cfg)
 
     fa.reset_launch_counts()
+    dd.reset_launch_counts()
     t0 = time.monotonic()
     losses = []
     for _ in range(STEPS):
@@ -406,12 +563,12 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     rng_at_take = (torch.get_rng_state(), torch.cuda.get_rng_state())
     path = os.path.join(work_dir, "main")
     torch.cuda.synchronize()
-    telemetry.metrics().reset_phase_timings()
+    reset_phase_timings()
     t0 = time.monotonic()
     Snapshot.take(path, {"train": state, "rng": RngState()})
     take_s = time.monotonic() - t0
     # Seconds from the write pipeline's start to the end of each phase.
-    take_phases = telemetry.metrics().last_phase_timings()
+    take_phases = last_phase_timings()
     # A training job takes again and again: the second take finds the
     # pinned host buffers of the first in torch's caching host allocator.
     t0 = time.monotonic()
@@ -465,12 +622,16 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     _require(same_bits(loss_a, loss_b), f"next-step losses differ: {loss_a} vs {loss_b}")
     for (name, a), (_, b) in zip(state.model.named_parameters(), fresh.model.named_parameters()):
         _require(same_bits(a, b), f"parameter {name} differs after the next step")
-    launches = dict(fa.launch_counts)
-    _require(all(launches.values()), f"a kernel of the path never launched: {launches}")
-
     snap_bytes = sum(
         os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs
     )
+    del fresh
+    torch.cuda.empty_cache()
+    shutil.rmtree(path, ignore_errors=True)
+
+    async_record = async_and_incremental(args, work_dir, card, cfg, state, tokens, train_step, take_s)
+    launches = {**fa.launch_counts, **dd.launch_counts}
+    _require(all(launches.values()), f"a kernel of the path never launched: {launches}")
     record = {
         "card": card, "params": n_params, "train_state_bytes": state_bytes,
         "snapshot_bytes": snap_bytes, "take_s": take_s, "restore_s": restore_s,
@@ -478,6 +639,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
         "take_again_s": take_again_s, "take_again_gb_s": state_bytes / take_again_s / 1e9,
         "take_phases_s": take_phases, "step_ms": step_s * 1e3, "losses": losses,
         "next_loss": float(loss_a), "launches": launches, "profile": profile,
+        **async_record,
     }
     log(
         f"main: take {take_s:.3f} s ({record['take_gb_s']:.2f} GB/s; again "
@@ -487,10 +649,211 @@ def main_phase(args, work_dir: str, card: str) -> dict:
         f"launches {launches}"
     )
     print(json.dumps({"main": record}), flush=True)
-    shutil.rmtree(path, ignore_errors=True)
-    del state, fresh
+    del state
     torch.cuda.empty_cache()
     return launches
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor of a train state by name: parameters, AdamW moments and
+    step counters, and the training RNG's state."""
+    out = {f"param/{n}": p for n, p in state.model.named_parameters()}
+    for i, s in state.optimizer.state_dict()["state"].items():
+        for k, v in s.items():
+            out[f"opt/{i}/{k}"] = v
+    out["rng"] = state.rng.get_state()
+    return out
+
+
+def _require_same_state(a: dict, b, what: str) -> None:
+    """``a`` (a dict of tensors) against train state ``b``, bit for bit."""
+    tb = _state_tensors(b)
+    _require(sorted(a) == sorted(tb), f"{what}: the states hold other tensors")
+    for k in a:
+        _require(same_bits(a[k], tb[k]), f"{what}: {k} differs")
+
+
+def _changed_bytes(before: dict, after: dict) -> int:
+    """Bytes of the CUDA leaves' chunks (as a digest-enabled take cuts
+    them) whose bits differ between two captures of a train state."""
+    from torchsnapshot_tpu_torch.io_preparer import (
+        ChunkedArrayIOPreparer,
+        chunk_shapes,
+        effective_max_chunk_size_bytes,
+    )
+
+    total = 0
+    for k, a in before.items():
+        if not a.is_cuda:
+            continue
+        b = after[k]
+        if ChunkedArrayIOPreparer.should_chunk(a, incremental=True):
+            pieces = [
+                (a[s:e], b[s:e])
+                for s, e in chunk_shapes(list(a.shape), a.element_size(), effective_max_chunk_size_bytes(True))
+            ]
+        else:
+            pieces = [(a, b)]
+        total += sum(x.numel() * x.element_size() for x, y in pieces if not same_bits(x, y))
+    return total
+
+
+def _written_data_bytes(path: str) -> int:
+    """Bytes of the data blobs under a snapshot (commit marker and checksum
+    tables excluded)."""
+    total = 0
+    for d, _, files in os.walk(path):
+        for f in files:
+            rel = os.path.relpath(os.path.join(d, f), path)
+            if not rel.startswith((".snapshot_metadata", "checksums")):
+                total += os.path.getsize(os.path.join(d, f))
+    return total
+
+
+def _counter(name: str) -> float:
+    from torchsnapshot_tpu_torch import telemetry
+
+    return sum(
+        v for k, v in telemetry.metrics().counters_snapshot().items() if k.split("{")[0] == name
+    )
+
+
+def async_and_incremental(args, work_dir, card, cfg, state, tokens, train_step, sync_take_s) -> dict:
+    """Main phase legs (a) async take, (b) incremental take, (c) async
+    restore, on the trained state."""
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state
+    from torchsnapshot_tpu_torch.telemetry import names
+
+    # (a) async_take with digests; a training step mutates every parameter
+    # and moment in place while the snapshot drains. A step alone first, as
+    # the yardstick of the one that overlaps the drain.
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    train_step(state, tokens)
+    torch.cuda.current_stream().synchronize()
+    step_alone_s = time.monotonic() - t0
+    at_call = {k: v.clone() for k, v in _state_tensors(state).items()}
+    path_a = os.path.join(work_dir, "async")
+    t0 = time.monotonic()
+    pending = Snapshot.async_take(path_a, {"train": state}, record_digests=True)
+    visible_s = time.monotonic() - t0
+    train_step(state, tokens)
+    # The training stream's end; a device-wide synchronize would also wait
+    # for the drain's copies.
+    torch.cuda.current_stream().synchronize()
+    step_during_drain_s = time.monotonic() - t0 - visible_s
+    pending.wait(phase="staged")
+    pending.wait()
+    fresh = init_train_state(cfg, seed=args.seed + 2)
+    Snapshot(path_a).restore({"train": fresh})
+    torch.cuda.synchronize()
+    _require_same_state(at_call, fresh, "async take")
+    del at_call, fresh
+    shutil.rmtree(path_a, ignore_errors=True)
+    log(
+        f"main (a): async_take visible {pending.visible_s:.4f} s (call {visible_s:.4f} s), "
+        f"staged {pending.staged_s:.3f} s, committed {pending.committed_s:.3f} s after the call "
+        f"(sync take {sync_take_s:.3f} s); a training step of {step_during_drain_s:.3f} s ran while "
+        f"it drained (alone {step_alone_s:.3f} s); restored state bit-identical to the state at the call, on {card}"
+    )
+
+    # (b) Freeze the embedding and the first half of the layers (AdamW then
+    # leaves their moments and step counters alone), take a digest base,
+    # run a step, take incrementally: only what changed is copied and written.
+    frozen = [state.model.embed] + [
+        p for blk in state.model.layers[: cfg.n_layers // 2] for p in blk.parameters()
+    ]
+    for p in frozen:
+        p.requires_grad_(False)
+    path_b0, path_b1 = os.path.join(work_dir, "base"), os.path.join(work_dir, "incr")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot.take(path_b0, {"train": state}, record_digests=True)
+    base_take_s = time.monotonic() - t0
+    before_step = {k: v.clone() for k, v in _state_tensors(state).items()}
+    train_step(state, tokens)
+    trainable_bytes = sum(3 * p.numel() * p.element_size() for p in state.model.parameters() if p.requires_grad)
+    changed_bytes = _changed_bytes(before_step, _state_tensors(state))
+    del before_step
+    d2h0, written0 = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL), _counter(names.STORAGE_WRITE_BYTES_TOTAL)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot.take(path_b1, {"train": state}, incremental_base=path_b0)
+    incr_take_s = time.monotonic() - t0
+    d2h = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL) - d2h0
+    written_all = _counter(names.STORAGE_WRITE_BYTES_TOTAL) - written0
+    written = _written_data_bytes(path_b1)
+    _require(d2h == changed_bytes, f"incremental take copied {d2h} bytes to the host, {changed_bytes} changed")
+    # Beyond the changed leaves only small CPU leaves (step counters, the
+    # RNG state, pickled param groups) are written.
+    _require(
+        changed_bytes <= written <= changed_bytes + (1 << 20),
+        f"incremental take wrote {written} data bytes, {changed_bytes} changed",
+    )
+    fresh_b = init_train_state(cfg, seed=args.seed + 3)
+    Snapshot(path_b1).restore({"train": fresh_b})
+    torch.cuda.synchronize()
+    now = {k: v.clone() for k, v in _state_tensors(state).items()}
+    _require_same_state(now, fresh_b, "incremental take")
+    log(
+        f"main (b): {len(frozen)} of {len(list(state.model.parameters()))} parameters frozen; "
+        f"base take {base_take_s:.3f} s, incremental take {incr_take_s:.3f} s: {d2h / 1e6:.3f} MB "
+        f"copied to the host and {written / 1e6:.3f} MB of data written ({written_all / 1e6:.3f} MB "
+        f"with checksum table and commit marker) for {changed_bytes / 1e6:.3f} MB of chunks that "
+        f"changed (trainable parameters and their moments {trainable_bytes / 1e6:.3f} MB; state {sum(v.numel() * v.element_size() for v in now.values()) / 1e9:.3f} GB); "
+        f"restore bit-identical, on {card}"
+    )
+
+    # (c) async_restore into a fresh state; a forward pass runs before wait().
+    fresh_c = init_train_state(cfg, seed=args.seed + 4)
+    before = {k: v.clone() for k, v in _state_tensors(fresh_c).items()}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    pending_r = Snapshot(path_b1).async_restore({"train": fresh_c})
+    restore_visible_s = time.monotonic() - t0
+    with torch.no_grad():
+        logits = fresh_c.model(tokens)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(logits).all()), "forward pass during async_restore not finite")
+    while not pending_r.done():
+        time.sleep(0.005)
+    reads_s = time.monotonic() - t0
+    _require_same_state(before, fresh_c, "live leaves before wait()")
+    pending_r.wait()
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    _require_same_state(now, fresh_c, "async restore")
+    log(
+        f"main (c): async_restore visible {restore_visible_s:.4f} s, reads and placement done "
+        f"{reads_s:.3f} s, applied {restore_s:.3f} s; live leaves untouched until wait() and "
+        f"bit-identical after, on {card}"
+    )
+
+    _, loss_a = train_step(state, tokens)
+    for p in fresh_b.model.parameters():
+        p.requires_grad_(True)
+    for p in [fresh_b.model.embed] + [
+        p for blk in fresh_b.model.layers[: cfg.n_layers // 2] for p in blk.parameters()
+    ]:
+        p.requires_grad_(False)
+    _, loss_b = train_step(fresh_b, tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_a, loss_b), f"next-step losses differ after the incremental restore: {loss_a} vs {loss_b}")
+    for path in (path_b0, path_b1):
+        shutil.rmtree(path, ignore_errors=True)
+    return {
+        "async_visible_s": pending.visible_s, "async_staged_s": pending.staged_s,
+        "async_committed_s": pending.committed_s, "step_alone_s": step_alone_s,
+        "step_during_drain_s": step_during_drain_s,
+        "incremental_base_take_s": base_take_s, "incremental_take_s": incr_take_s,
+        "incremental_changed_bytes": changed_bytes, "incremental_trainable_bytes": trainable_bytes,
+        "incremental_d2h_bytes": d2h,
+        "incremental_written_bytes": written, "async_restore_visible_s": restore_visible_s,
+        "async_restore_reads_s": reads_s, "async_restore_s": restore_s,
+    }
 
 
 def profile_step(run):
@@ -552,36 +915,48 @@ def profile_step(run):
     return out, record
 
 
+BULK_BLOCK = (16384, 8192)
+BULK_BLOCK_BYTES = BULK_BLOCK[0] * BULK_BLOCK[1] * 2
+
+
+def bulk_state(seed: int, gib: float) -> dict:
+    """bf16 blocks of (16384, 8192), ``gib`` GiB of them, plus a 64 Ki f32
+    bias, shaped like bench.py's make_state, on the card from a seed."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    state = {
+        f"w{i}": torch.randn(BULK_BLOCK, generator=g, device="cuda", dtype=torch.bfloat16)
+        for i in range(max(1, int(gib * 2**30) // BULK_BLOCK_BYTES))
+    }
+    state["bias"] = torch.ones(65536, device="cuda")
+    return state
+
+
 def bulk_phase(args, work_dir: str, card: str) -> None:
     """Take and restore bf16 (16384, 8192) blocks shaped like bench.py's
     make_state, with a bitwise check."""
     import torch
 
-    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState, telemetry
+    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState
+    from torchsnapshot_tpu_torch.scheduler import last_phase_timings, reset_phase_timings
 
-    block = (16384, 8192)
-    block_bytes = block[0] * block[1] * 2
-    n_blocks = max(1, int(args.bulk_gib * 2**30) // block_bytes)
+    state = bulk_state(args.seed, args.bulk_gib)
+    n_blocks = len(state) - 1
     free = shutil.disk_usage(work_dir).free
     _require(
-        free > n_blocks * block_bytes * 1.1,
+        free > BULK_BLOCK_BYTES * n_blocks * 1.1,
         f"{work_dir} has {free / 2**30:.1f} GiB free; the bulk phase needs "
-        f"{n_blocks * block_bytes / 2**30:.1f} GiB",
+        f"{n_blocks * BULK_BLOCK_BYTES / 2**30:.1f} GiB",
     )
-    g = torch.Generator(device="cuda").manual_seed(args.seed)
-    state = {
-        f"w{i}": torch.randn(block, generator=g, device="cuda", dtype=torch.bfloat16)
-        for i in range(n_blocks)
-    }
-    state["bias"] = torch.ones(65536, device="cuda")
     nbytes = sum(t.numel() * t.element_size() for t in state.values())
     path = os.path.join(work_dir, "bulk")
     torch.cuda.synchronize()
-    telemetry.metrics().reset_phase_timings()
+    reset_phase_timings()
     t0 = time.monotonic()
     Snapshot.take(path, {"bulk": TensorTreeState(state)})
     take_s = time.monotonic() - t0
-    phases = telemetry.metrics().last_phase_timings()
+    phases = last_phase_timings()
 
     target = {k: torch.zeros_like(v) for k, v in state.items()}
     torch.cuda.synchronize()
@@ -589,21 +964,39 @@ def bulk_phase(args, work_dir: str, card: str) -> None:
     Snapshot(path).restore({"bulk": TensorTreeState(target)})
     torch.cuda.synchronize()
     restore_s = time.monotonic() - t0
-    phases.update(telemetry.metrics().last_phase_timings())
+    phases.update(last_phase_timings())
     for k in state:
         _require(same_bits(state[k], target[k]), f"bulk block {k} differs after restore")
+    del target
+    shutil.rmtree(path, ignore_errors=True)
+
+    # A digest-recording take, then an incremental take of the unchanged
+    # state: every chunk is a ref, no data blob is written.
+    path_d, path_i = os.path.join(work_dir, "bulk_digests"), os.path.join(work_dir, "bulk_incr")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot.take(path_d, {"bulk": TensorTreeState(state)}, record_digests=True)
+    digest_take_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    Snapshot.take(path_i, {"bulk": TensorTreeState(state)}, incremental_base=path_d)
+    incr_take_s = time.monotonic() - t0
+    _require(_written_data_bytes(path_i) == 0, "the incremental take of the unchanged bulk state wrote data")
     record = {
         "card": card, "bytes": nbytes, "blocks": n_blocks, "take_s": take_s,
         "restore_s": restore_s, "take_gb_s": nbytes / take_s / 1e9,
         "restore_gb_s": nbytes / restore_s / 1e9, "phases_s": phases,
+        "digest_take_s": digest_take_s, "incremental_take_s": incr_take_s,
     }
     log(
         f"bulk: {nbytes / 2**30:.2f} GiB in {n_blocks} blocks: take {take_s:.3f} s "
         f"({record['take_gb_s']:.2f} GB/s), restore {restore_s:.3f} s "
-        f"({record['restore_gb_s']:.2f} GB/s) on {card}; bitwise equal"
+        f"({record['restore_gb_s']:.2f} GB/s); digest-recording take {digest_take_s:.3f} s, "
+        f"incremental take of the unchanged state {incr_take_s:.3f} s (no data written) on "
+        f"{card}; bitwise equal"
     )
     print(json.dumps({"bulk": record}), flush=True)
-    shutil.rmtree(path, ignore_errors=True)
+    for p in (path_d, path_i):
+        shutil.rmtree(p, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -47,3 +47,87 @@ def test_cuda_kernels_match_plain_versions(case, dtype, d) -> None:
     fa.compare_with_plain(q, k, v, block)
     assert fa.launch_counts["flash_fwd"] == before["flash_fwd"] + (sq == sk)
     assert fa.launch_counts["flash_chunk"] == before["flash_chunk"] + 2
+
+
+# The digest kernel's cases: every dtype the port serializes and the digest
+# takes, odd lengths, row ranges (unaligned starts), an unaligned tail, an
+# empty tensor and a non-contiguous view.
+DIGEST_DTYPES = [
+    torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int64,
+    torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool,
+    torch.float8_e4m3fn, torch.uint16, torch.uint32,
+]
+
+
+def _digest_specs(dtype: torch.dtype) -> list:
+    g = torch.Generator(device="cuda").manual_seed(1)
+    if dtype == torch.bool:
+        make = lambda *s: torch.rand(s, generator=g, device="cuda") > 0.5  # noqa: E731
+    elif dtype.is_floating_point:
+        make = lambda *s: (100 * torch.randn(s, generator=g, device="cuda")).to(dtype)  # noqa: E731
+    else:
+        make = lambda *s: torch.randint(0, 100, s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    big = make(1031, 77)  # odd rows and row bytes, more than one tile
+    return [
+        (big, None),
+        (big, ((0, 1), (3, 517), (517, 1031), (9, 9))),
+        (make(3, 5), None),  # a tail shorter than one 16-byte load
+        (make(0), None),
+        (make(64, 33)[:, 1::2], None),  # non-contiguous: its contiguous image
+        (make(200_003), ((7, 199_999),)),
+    ]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", DIGEST_DTYPES, ids=str)
+def test_digest_kernel_matches_plain_version(dtype) -> None:
+    """Bit for bit: the kernel against the plain torch version on the card
+    and the host digest of the same bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+
+    specs = _digest_specs(dtype)
+    before = dd.launch_counts["device_digest"]
+    kernel = dd.materialize_many(dd.digest_many_async(specs))
+    assert dd.launch_counts["device_digest"] == before + 1
+    assert (kernel == dd.materialize_many(dd.digest_many_plain(specs))).all()
+    host = [(t.cpu(), r) for t, r in specs]
+    assert (kernel == dd.materialize_many(dd.digest_many_plain(host))).all()
+    first = dd.digest_host(specs[0][0].cpu())
+    assert (int(kernel[0][0]), int(kernel[0][1])) == first
+
+
+@pytest.mark.cuda_only
+def test_async_take_of_a_source_mutated_after_return(tmp_path) -> None:
+    """The on-device clone is the consistency point: the live CUDA tensors
+    are overwritten right after async_take returns (and freed), and the
+    snapshot still restores the bytes of the call; an incremental take
+    against it references the unchanged leaf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    w = torch.randn((16384, 1024), generator=g, device="cuda").to(torch.bfloat16)  # 2 chunks
+    b = torch.randn(1024, generator=g, device="cuda")
+    expected = {"w": w.cpu().clone(), "b": b.cpu().clone()}
+    pending = Snapshot.async_take(
+        str(tmp_path / "a"), {"s": TensorTreeState({"w": w, "b": b})}, record_digests=True
+    )
+    w.mul_(-3).add_(1)
+    b.zero_()
+    del w
+    snapshot = pending.wait()
+    fresh = {"w": torch.zeros((16384, 1024), dtype=torch.bfloat16, device="cuda"),
+             "b": torch.zeros(1024, device="cuda")}
+    snapshot.restore({"s": TensorTreeState(fresh)})
+    for k in fresh:
+        assert torch.equal(fresh[k].cpu().view(torch.uint8), expected[k].view(torch.uint8)), k
+    Snapshot.take(
+        str(tmp_path / "b"), {"s": TensorTreeState({"w": fresh["w"], "b": b})},
+        incremental_base=str(tmp_path / "a"),
+    )
+    manifest = Snapshot(str(tmp_path / "b")).get_manifest()
+    assert all(c.array.location.startswith("../") for c in manifest["0/s/w"].chunks)
+    assert not manifest["0/s/b"].location.startswith("../")

@@ -17,9 +17,18 @@ Design points for torch tensors on the card:
   the pinned bytes in flight stay within the budget while the copies of
   admitted requests overlap the storage writes of earlier ones.
 - **Tensors are mutable.** A ``jax.Array`` cannot change under a take; a
-  tensor can. A take therefore returns only after every copy of every leaf
-  has landed, and the caller must not mutate the state while it runs
-  (async takes, which need a consistency copy, are not ported yet).
+  tensor can. A sync take returns only after every copy of every leaf has
+  landed, and the caller must not mutate the state while it runs. An async
+  take first captures a consistent copy (:func:`capture_write_reqs`): an
+  on-device clone of each CUDA leaf, dispatched on the caller's current
+  stream (so ordered after every pending write to the live tensor and
+  before the next training kernel) and followed by an event that the
+  background device-to-host copy waits on; a host copy of each CPU leaf;
+  an eager pickle of each object.
+- **Incremental hooks.** ``prepare_write`` takes the leaf's
+  ``incremental.LeafIncrementalPlan``: an unchanged chunk becomes an entry
+  referencing the base snapshot's blob and gets no stager (so no copy to
+  the host); a written chunk records its digest.
 - **One byte path.** Every supported dtype is exported through a uint8 view
   (serialization.py), bfloat16 and fp8 included.
 """
@@ -34,7 +43,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import knobs
+from . import knobs, telemetry
 from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
 from .manifest import (
     ArrayEntry,
@@ -95,6 +104,9 @@ class DeviceCopier:
 
     def __init__(self) -> None:
         self._streams: dict = {}
+        # device -> event on a caller's stream that copies to the card
+        # issued later, from any thread, are ordered after (mark_ready).
+        self._ready: dict = {}
 
     def stream(self, device: torch.device) -> "torch.cuda.Stream":
         s = self._streams.get(device)
@@ -102,30 +114,60 @@ class DeviceCopier:
             s = self._streams[device] = torch.cuda.Stream(device=device)
         return s
 
-    def to_host(self, src: torch.Tensor) -> Tuple[torch.Tensor, "torch.cuda.Event"]:
-        """Issue ``src``'s copy into a new pinned host tensor; returns the
-        host tensor and the event that marks the copy's end."""
+    @staticmethod
+    def _order_after(stream, device: torch.device, after: Optional["torch.cuda.Event"]) -> None:
+        # The current stream is per thread: a copy issued from a background
+        # thread is ordered by the event its caller recorded instead.
+        if after is not None:
+            stream.wait_event(after)
+        else:
+            stream.wait_stream(torch.cuda.current_stream(device))
+
+    def to_host(
+        self, src: torch.Tensor, after: Optional["torch.cuda.Event"] = None
+    ) -> Tuple[torch.Tensor, "torch.cuda.Event"]:
+        """Issue ``src``'s copy into a new pinned host tensor, ordered after
+        ``after`` (or, without it, after the work queued on ``src``'s
+        current stream); returns the host tensor and the event that marks
+        the copy's end."""
         stream = self.stream(src.device)
         host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-        stream.wait_stream(torch.cuda.current_stream(src.device))
+        self._order_after(stream, src.device, after)
         # The caller may drop the last reference to ``src`` before the copy
         # ran: keep its memory from being reused until the stream is past it.
         src.record_stream(stream)
         with torch.cuda.stream(stream):
             host.copy_(src, non_blocking=True)
-            event = torch.cuda.Event()
+            # A staging thread waits on it: blocking, it sleeps rather than
+            # spin a CPU core beside the training thread of an async take.
+            event = torch.cuda.Event(blocking=True)
             event.record(stream)
+        telemetry.metrics().counter_inc(
+            metric_names.DEVICE_TO_HOST_BYTES_TOTAL, host.numel() * host.element_size()
+        )
         return host, event
+
+    def mark_ready(self, device: torch.device) -> None:
+        """Record the calling thread's current stream of ``device`` as the
+        point after which :meth:`to_device` copies run, whichever thread
+        issues them (a background restore's placements)."""
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        self._ready[device] = event
 
     def to_device(self, dst: torch.Tensor, host: torch.Tensor) -> None:
         """Issue the copy of pinned ``host`` into the CUDA tensor ``dst``,
-        ordered after the work queued on ``dst``'s current stream;
+        ordered after :meth:`mark_ready`'s event for its device or, without
+        one, after the work queued on ``dst``'s current stream;
         :meth:`synchronize` waits for it."""
         stream = self.stream(dst.device)
-        stream.wait_stream(torch.cuda.current_stream(dst.device))
+        self._order_after(stream, dst.device, self._ready.get(dst.device))
         dst.record_stream(stream)
         with torch.cuda.stream(stream):
             dst.copy_(host, non_blocking=True)
+        telemetry.metrics().counter_inc(
+            metric_names.HOST_TO_DEVICE_BYTES_TOTAL, host.numel() * host.element_size()
+        )
 
     def synchronize(self) -> None:
         for s in self._streams.values():
@@ -135,17 +177,43 @@ class DeviceCopier:
 class ArrayBufferStager(BufferStager):
     """Stages a dense tensor (CPU or CUDA) to a host byte buffer. ``slc``
     selects a row range for chunked writes; the slice is taken on the
-    device, so only the chunk's bytes cross to the host."""
+    device, so only the chunk's bytes cross to the host. ``is_async_snapshot``
+    makes an uncaptured CPU source staged by copy (the caller resumes
+    mutating it once staging ends, before the write)."""
 
     def __init__(
         self,
         tensor: torch.Tensor,
         copier: DeviceCopier,
         slc: Optional[slice] = None,
+        is_async_snapshot: bool = False,
     ) -> None:
         self.tensor = tensor
         self.copier = copier
         self.slc = slc
+        self.is_async_snapshot = is_async_snapshot
+        self._captured = False
+        # Recorded after the capture's clone on the caller's stream.
+        self._ready: Optional["torch.cuda.Event"] = None
+
+    def capture(self, cache: dict) -> None:
+        """Device-snapshot capture, the async take's consistency point: a
+        CUDA source gets an on-device clone on the caller's current stream
+        (dispatched, not awaited), a CPU source a host copy; once per
+        source tensor (``cache``) however many chunk stagers slice it."""
+        t = self.tensor
+        if t is None:
+            return
+        key = id(t)
+        if key not in cache:
+            snap = t.clone(memory_format=torch.contiguous_format)
+            ready = None
+            if snap.is_cuda:
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(snap.device))
+            cache[key] = (snap, ready)
+        self.tensor, self._ready = cache[key]
+        self._captured = True
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         t = self.tensor if self.slc is None else self.tensor[self.slc]
@@ -154,7 +222,10 @@ class ArrayBufferStager(BufferStager):
         self.tensor = None
         loop = asyncio.get_running_loop()
         if t.is_cuda:
-            host, event = self.copier.to_host(t)
+            # to_host records the copy stream on ``t``: the caching
+            # allocator does not reuse a captured clone's memory before the
+            # copy has read it.
+            host, event = self.copier.to_host(t, after=self._ready)
 
             def _wait() -> BufferType:
                 with trace_annotation(metric_names.SPAN_LEAF_STAGE):
@@ -173,6 +244,8 @@ class ArrayBufferStager(BufferStager):
                     f"cannot stage a tensor on {t.device}: only CPU and CUDA "
                     f"tensors are supported"
                 )
+            if self.is_async_snapshot and not self._captured:
+                return tensor_as_memoryview(t.clone(memory_format=torch.contiguous_format))
             return tensor_as_memoryview(t.contiguous())
 
     def get_staging_cost_bytes(self) -> int:
@@ -242,16 +315,27 @@ class ArrayIOPreparer:
         rank: int,
         replicated: bool,
         copier: DeviceCopier,
+        is_async_snapshot: bool = False,
+        incremental: Optional[Any] = None,
     ) -> Tuple[Entry, List[WriteReq]]:
         location = get_storage_path(logical_path, rank, replicated)
+        shape = [int(d) for d in tensor.shape]
+        key = ([0] * len(shape), shape)
+        if incremental is not None:
+            # Unchanged since the incremental base: reference its blob and
+            # make no stager (so no copy to the host).
+            ref = incremental.ref_entry(*key, replicated)
+            if ref is not None:
+                return ref, []
         entry = ArrayEntry(
             location=location,
             serializer=Serializer.BUFFER_PROTOCOL.value,
             dtype=dtype_to_string(tensor.dtype),
-            shape=[int(d) for d in tensor.shape],
+            shape=shape,
             replicated=replicated,
+            digest=incremental.digest_for(*key) if incremental is not None else None,
         )
-        stager = ArrayBufferStager(tensor, copier)
+        stager = ArrayBufferStager(tensor, copier, is_async_snapshot=is_async_snapshot)
         return entry, [WriteReq(path=location, buffer_stager=stager)]
 
     @staticmethod
@@ -319,11 +403,22 @@ def chunk_shapes(
     return [(s, min(s + rows, shape[0])) for s in range(0, shape[0], rows)]
 
 
+def effective_max_chunk_size_bytes(incremental: Optional[Any]) -> int:
+    """Digest-enabled takes chunk tighter (the incremental-chunk knob) so
+    the skip unit is fine enough for sparse updates; plain takes use the
+    chunk knob alone. The same on every step of a base chain, so chunk
+    boundaries (the digest keys) stay stable."""
+    size = knobs.get_max_chunk_size_bytes()
+    if incremental is not None:
+        size = min(size, knobs.get_incremental_chunk_size_bytes())
+    return size
+
+
 class ChunkedArrayIOPreparer:
     @staticmethod
-    def should_chunk(tensor: torch.Tensor) -> bool:
+    def should_chunk(tensor: torch.Tensor, incremental: Optional[Any] = None) -> bool:
         return (
-            tensor.numel() * tensor.element_size() > knobs.get_max_chunk_size_bytes()
+            tensor.numel() * tensor.element_size() > effective_max_chunk_size_bytes(incremental)
             and tensor.dim() >= 1
             and int(tensor.shape[0]) > 1
         )
@@ -335,6 +430,8 @@ class ChunkedArrayIOPreparer:
         rank: int,
         replicated: bool,
         copier: DeviceCopier,
+        is_async_snapshot: bool = False,
+        incremental: Optional[Any] = None,
     ) -> Tuple[ChunkedArrayEntry, List[WriteReq]]:
         location = get_storage_path(logical_path, rank, replicated)
         dtype_str = dtype_to_string(tensor.dtype)
@@ -342,13 +439,22 @@ class ChunkedArrayIOPreparer:
         chunks: List[Shard] = []
         write_reqs: List[WriteReq] = []
         for start, stop in chunk_shapes(
-            shape, tensor.element_size(), knobs.get_max_chunk_size_bytes()
+            shape, tensor.element_size(), effective_max_chunk_size_bytes(incremental)
         ):
             chunk_location = f"{location}_{start}"
             chunk_shape = [stop - start] + shape[1:]
+            offsets = [start] + [0] * (len(shape) - 1)
+            ref = (
+                incremental.ref_entry(offsets, chunk_shape, replicated)
+                if incremental is not None
+                else None
+            )
+            if ref is not None:
+                chunks.append(Shard(offsets=offsets, sizes=chunk_shape, array=ref))
+                continue
             chunks.append(
                 Shard(
-                    offsets=[start] + [0] * (len(shape) - 1),
+                    offsets=offsets,
                     sizes=chunk_shape,
                     array=ArrayEntry(
                         location=chunk_location,
@@ -356,10 +462,17 @@ class ChunkedArrayIOPreparer:
                         dtype=dtype_str,
                         shape=chunk_shape,
                         replicated=replicated,
+                        digest=(
+                            incremental.digest_for(offsets, chunk_shape)
+                            if incremental is not None
+                            else None
+                        ),
                     ),
                 )
             )
-            stager = ArrayBufferStager(tensor, copier, slc=slice(start, stop))
+            stager = ArrayBufferStager(
+                tensor, copier, slc=slice(start, stop), is_async_snapshot=is_async_snapshot
+            )
             write_reqs.append(WriteReq(path=chunk_location, buffer_stager=stager))
         entry = ChunkedArrayEntry(
             dtype=dtype_str, shape=shape, chunks=chunks, replicated=replicated
@@ -389,12 +502,24 @@ class ChunkedArrayIOPreparer:
 class ObjectBufferStager(BufferStager):
     def __init__(self, obj: Any) -> None:
         self.obj = obj
+        self._buf: Optional[bytes] = None
+
+    def capture(self, cache: dict) -> None:
+        """Objects are pickled now: staging after the caller resumed would
+        serialize a mutable object (a metrics dict) mid-mutation."""
+        if self._buf is None:
+            self._buf = pickle_save_as_bytes(self.obj)
+            self.obj = None
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
+        if self._buf is not None:
+            return self._buf
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(executor, pickle_save_as_bytes, self.obj)
 
     def get_staging_cost_bytes(self) -> int:
+        if self._buf is not None:
+            return len(self._buf)
         return sys.getsizeof(self.obj)
 
 
@@ -455,7 +580,12 @@ def prepare_write(
     rank: int,
     copier: DeviceCopier,
     replicated: bool = False,
+    is_async_snapshot: bool = False,
+    incremental: Optional[Any] = None,
 ) -> Tuple[Entry, List[WriteReq]]:
+    """``incremental`` is the leaf's :class:`incremental.LeafIncrementalPlan`
+    (or None), consulted chunk by chunk: unchanged chunks become
+    base-referencing entries with no write request."""
     if PrimitivePreparer.should_inline(obj):
         return PrimitivePreparer.prepare_write(obj, replicated), []
     tensor = as_tensor_leaf(obj)
@@ -463,10 +593,22 @@ def prepare_write(
         return ObjectIOPreparer.prepare_write(obj, logical_path, rank, replicated)
     preparer = (
         ChunkedArrayIOPreparer
-        if ChunkedArrayIOPreparer.should_chunk(tensor)
+        if ChunkedArrayIOPreparer.should_chunk(tensor, incremental)
         else ArrayIOPreparer
     )
-    return preparer.prepare_write(tensor, logical_path, rank, replicated, copier)
+    return preparer.prepare_write(
+        tensor, logical_path, rank, replicated, copier, is_async_snapshot, incremental
+    )
+
+
+def capture_write_reqs(write_reqs: List[WriteReq]) -> int:
+    """The async take's capture pass over its write plan: every stager pins
+    a consistent copy of its source (:meth:`BufferStager.capture`), once
+    per source. Returns the number of distinct tensors captured."""
+    cache: dict = {}
+    for req in write_reqs:
+        req.buffer_stager.capture(cache)
+    return len(cache)
 
 
 def prepare_read(

@@ -22,12 +22,21 @@ _DISABLE_CHECKSUMS_ENV = "TORCHSNAPSHOT_TPU_DISABLE_CHECKSUMS"
 _DISABLE_NATIVE_ENV = "TORCHSNAPSHOT_TPU_DISABLE_NATIVE"
 _FS_DIRECT_IO_ENV = "TORCHSNAPSHOT_TPU_FS_DIRECT_IO"
 _TRACE_BUFFER_EVENTS_ENV = "TORCHSNAPSHOT_TPU_TRACE_BUFFER_EVENTS"
+_INCREMENTAL_CHUNK_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_INCREMENTAL_CHUNK_BYTES"
+_RESTORE_FLUSH_BYTES_ENV = "TORCHSNAPSHOT_TPU_RESTORE_PLACEMENT_FLUSH_BYTES"
+_ASYNC_DEVICE_SNAPSHOT_ENV = "TORCHSNAPSHOT_TPU_ASYNC_DEVICE_SNAPSHOT"
+_STAGING_POOL_SLAB_BYTES_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLAB_BYTES"
+_STAGING_POOL_SLABS_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLABS"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_MEMORY_BUDGET_FRACTION: float = 0.6
 _DEFAULT_PER_RANK_IO_CONCURRENCY: int = 16
 _DEFAULT_STAGING_THREADS: int = 4
 _DEFAULT_TRACE_BUFFER_EVENTS: int = 16384
+_DEFAULT_INCREMENTAL_CHUNK_SIZE_BYTES: int = 16 * 1024 * 1024
+_DEFAULT_RESTORE_FLUSH_BYTES: int = 128 * 1024 * 1024
+_DEFAULT_STAGING_POOL_SLAB_BYTES: int = 128 * 1024 * 1024
+_DEFAULT_STAGING_POOL_SLABS: int = 2
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -91,6 +100,48 @@ def get_trace_buffer_events() -> int:
     return _get_int_env(_TRACE_BUFFER_EVENTS_ENV, _DEFAULT_TRACE_BUFFER_EVENTS)
 
 
+def get_incremental_chunk_size_bytes() -> int:
+    """Chunk granularity of digest-enabled takes: the skip unit of
+    incremental checkpointing. Applied as ``min`` with the chunk knob
+    whenever digests are recorded, so chunk boundaries (the digest keys)
+    stay stable along a base/incremental chain."""
+    return _get_int_env(
+        _INCREMENTAL_CHUNK_SIZE_BYTES_ENV, _DEFAULT_INCREMENTAL_CHUNK_SIZE_BYTES
+    )
+
+
+def get_restore_placement_flush_bytes() -> int:
+    """Streaming-restore flush granularity: once this many bytes of leaves
+    have completed their reads, their host-to-device copies are issued
+    together while the remaining reads continue. 0 places everything in
+    one batch after all reads."""
+    return _get_int_env(_RESTORE_FLUSH_BYTES_ENV, _DEFAULT_RESTORE_FLUSH_BYTES)
+
+
+def is_async_device_snapshot_enabled() -> bool:
+    """Default-on device-snapshot async takes: ``async_take`` clones the
+    CUDA leaves on the card (dispatched, not awaited), copies mutable CPU
+    leaves and pickles objects, then returns; the device-to-host copies,
+    serialization and writes all run on the background thread. Costs a
+    transient copy of the saved device state in device memory. ``"0"``
+    stages before ``async_take`` returns, with no device clone."""
+    return os.environ.get(_ASYNC_DEVICE_SNAPSHOT_ENV, "1") != "0"
+
+
+def get_staging_pool_slab_bytes() -> int:
+    """Slab size of the background drain's pinned staging pool
+    (``scheduler.StagingPool``); with the slab count it bounds a deferred
+    async take's host staging footprint."""
+    return _get_int_env(_STAGING_POOL_SLAB_BYTES_ENV, _DEFAULT_STAGING_POOL_SLAB_BYTES)
+
+
+def get_staging_pool_slabs() -> int:
+    """Slab count of the staging pool. 2 is double buffering: one slab's
+    worth of requests copies to the host while the previous one drains to
+    storage."""
+    return _get_int_env(_STAGING_POOL_SLABS_ENV, _DEFAULT_STAGING_POOL_SLABS)
+
+
 @contextlib.contextmanager
 def _override_env(name: str, value: Optional[str]) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -128,4 +179,22 @@ def disable_checksums() -> Generator[None, None, None]:
 @contextlib.contextmanager
 def disable_native() -> Generator[None, None, None]:
     with _override_env(_DISABLE_NATIVE_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def override_incremental_chunk_size_bytes(nbytes: int) -> Generator[None, None, None]:
+    with _override_env(_INCREMENTAL_CHUNK_SIZE_BYTES_ENV, str(nbytes)):
+        yield
+
+
+@contextlib.contextmanager
+def override_restore_placement_flush_bytes(nbytes: int) -> Generator[None, None, None]:
+    with _override_env(_RESTORE_FLUSH_BYTES_ENV, str(nbytes)):
+        yield
+
+
+@contextlib.contextmanager
+def disable_async_device_snapshot() -> Generator[None, None, None]:
+    with _override_env(_ASYNC_DEVICE_SNAPSHOT_ENV, "0"):
         yield

@@ -1,7 +1,7 @@
 """Pipelined write/read execution under a host-memory budget.
 
-Counterpart of ``torchsnapshot_tpu/scheduler.py``, cut to the synchronous
-one-process path. Each request runs as its own coroutine:
+Counterpart of ``torchsnapshot_tpu/scheduler.py`` for one process. Each
+request runs as its own coroutine:
 
     write:  acquire budget -> stage (device->host copy + serialize) ->
             re-price budget to the actual buffer size -> acquire an I/O slot
@@ -12,10 +12,12 @@ one-process path. Each request runs as its own coroutine:
 :class:`MemoryBudget` admits a request larger than the whole budget only
 when nothing else is in flight, so huge buffers serialize instead of
 deadlocking. ``execute_write_reqs`` returns a :class:`PendingIOWork` once
-every request is past staging; storage I/O drains inside it.
+every request is past staging; storage I/O drains inside it. An async
+take that captured its sources on the card returns a
+:class:`DeferredIOWork` instead, which runs the whole pipeline on the
+background thread through a :class:`StagingPool` of pinned host slabs.
 
-The JAX package's staging pool and deferred (device-snapshot) work of
-async takes, the live-progress tracker and the self-healing re-read from
+The JAX package's live-progress tracker and self-healing re-read from
 another storage tier are not part of this package yet. Available host
 memory is read from ``/proc/meminfo`` (``psutil`` is not a dependency).
 """
@@ -50,6 +52,17 @@ _LOG_LINE_LIMIT = 8
 # Checksums of buffers up to this size run inline on the event loop: an
 # executor round trip costs more than hashing them.
 _INLINE_CHECKSUM_BYTES = 64 * 1024
+
+
+def reset_phase_timings() -> None:
+    telemetry.metrics().reset_phase_timings()
+
+
+def last_phase_timings() -> dict:
+    """Seconds from the start of the most recent write/read pipeline of
+    this process to the end of each of its phases ("staging", "writing",
+    "loading"); last writer wins across concurrent pipelines."""
+    return telemetry.metrics().last_phase_timings()
 
 
 def available_host_memory_bytes() -> int:
@@ -128,6 +141,21 @@ class MemoryBudget:
             self.available_bytes += cost_bytes
             self.inflight -= 1
             self._cond.notify_all()
+
+
+class StagingPool(MemoryBudget):
+    """Double-buffered host staging pool for background drains: the
+    admission budget of a deferred async take's pipeline. Capacity is
+    ``slabs x slab_bytes`` (default 2 x 128 MiB: one slab's worth of
+    requests copies to the host while the previous one drains to storage),
+    clamped to the process memory budget, so a checkpoint drains through
+    ~256 MiB of pinned host memory instead of materializing whole. A
+    request larger than the pool is admitted alone (``MemoryBudget``'s
+    idle escape hatch)."""
+
+    def __init__(self, memory_budget_bytes: int) -> None:
+        slabs_bytes = knobs.get_staging_pool_slab_bytes() * knobs.get_staging_pool_slabs()
+        super().__init__(min(memory_budget_bytes, max(1, slabs_bytes)))
 
 
 class _PipelineStats:
@@ -219,6 +247,9 @@ class PendingIOWork:
         self._executor = executor
         # Filled in as writes complete; stable only after complete().
         self.checksums = checksums
+        # Run after complete(), before the table is written: an incremental
+        # take inherits the referenced blobs' entries here.
+        self.checksum_finalizer: Optional[Callable[[], None]] = None
 
     def pipeline_telemetry(self) -> dict:
         return self.reporter.pipeline_telemetry()
@@ -256,10 +287,13 @@ async def execute_write_reqs(
     storage: StoragePlugin,
     memory_budget_bytes: int,
     rank: int,
+    staging_pool: Optional[MemoryBudget] = None,
 ) -> PendingIOWork:
     """Run the staged write pipeline; returns once every request is past
-    staging, with storage I/O continuing inside the returned handle."""
-    budget = MemoryBudget(memory_budget_bytes)
+    staging, with storage I/O continuing inside the returned handle.
+    ``staging_pool`` replaces the process budget as the admission control
+    (deferred async takes, whose pinned footprint must stay pool-sized)."""
+    budget = staging_pool if staging_pool is not None else MemoryBudget(memory_budget_bytes)
     stats = _PipelineStats()
     stats.pending = len(write_reqs)
     reporter = _ProgressReporter(stats, budget, rank, len(write_reqs))
@@ -395,6 +429,49 @@ def sync_execute_write_reqs(
     return event_loop.run_until_complete(
         execute_write_reqs(write_reqs, storage, memory_budget_bytes, rank)
     )
+
+
+class DeferredIOWork:
+    """Write work whose staging has not run yet: the device-snapshot async
+    take's handle. ``async_take`` builds one right after the capture pass
+    and returns; the background thread then calls ``sync_complete``, which
+    runs the whole pipeline (device-to-host copies, serialization, writes)
+    through a :class:`StagingPool`. Same surface as :class:`PendingIOWork`
+    (``sync_complete``, ``checksums``, ``checksum_finalizer``). ``on_staged`` fires on
+    the drain thread the moment staging finished: the take's ``staged``
+    phase (``PendingSnapshot.wait(phase="staged")``)."""
+
+    def __init__(
+        self,
+        write_reqs: List[WriteReq],
+        storage: StoragePlugin,
+        memory_budget_bytes: int,
+        rank: int,
+    ) -> None:
+        self.write_reqs = write_reqs
+        self._storage = storage
+        self._memory_budget_bytes = memory_budget_bytes
+        self._rank = rank
+        # Rebound to the live pipeline's table once staging starts; stable
+        # only after sync_complete() returns.
+        self.checksums: ChecksumTable = {}
+        self.checksum_finalizer: Optional[Callable[[], None]] = None
+        self.on_staged: Optional[Callable[[], None]] = None
+
+    def sync_complete(self, event_loop: asyncio.AbstractEventLoop) -> None:
+        inner = event_loop.run_until_complete(
+            execute_write_reqs(
+                self.write_reqs, self._storage, self._memory_budget_bytes, self._rank,
+                staging_pool=StagingPool(self._memory_budget_bytes),
+            )
+        )
+        # The inner table is the live one: the checksum-table write and an
+        # incremental take's inherit closure read ``self.checksums``.
+        self.checksums = inner.checksums
+        self.write_reqs = []
+        if self.on_staged is not None:
+            self.on_staged()
+        inner.sync_complete(event_loop)
 
 
 async def execute_read_reqs(

@@ -25,6 +25,10 @@ MEMORY_BUDGET_PEAK_STAGED_BYTES = "memory_budget_peak_staged_bytes"
 # -- storage plugins (storage_plugins/{fs,s3,gcs}.py) ------------------------
 
 STORAGE_WRITE_BYTES_TOTAL = "storage_write_bytes_total"
+# Bytes the port copies between the card and pinned host memory
+# (io_preparer.DeviceCopier): a take's staging and a restore's placement.
+DEVICE_TO_HOST_BYTES_TOTAL = "device_to_host_bytes_total"
+HOST_TO_DEVICE_BYTES_TOTAL = "host_to_device_bytes_total"
 STORAGE_WRITE_OPS_TOTAL = "storage_write_ops_total"
 STORAGE_WRITE_SECONDS = "storage_write_seconds"
 STORAGE_READ_BYTES_TOTAL = "storage_read_bytes_total"
