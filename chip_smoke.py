@@ -8,8 +8,10 @@ each of which raises on failure (nothing is caught):
 1. **kernels**: build every CUDA kernel under
    ``torchsnapshot_tpu_torch/csrc`` and hold each against its plain PyTorch
    version on the card. Flash: at the training shape and a long-sequence
-   shape, in bf16 and f32, and at the bf16 kernel's edges (a half tile, a
-   chunk with s_q != s_k, d = 128 on the fused-qkv layout). Digest: bit for
+   shape, in bf16 and f32, and at the tensor-core kernels' edges (a half
+   tile, a chunk with s_k = 2 s_q, the fused-qkv layout; bf16 at d = 64 and
+   128, f32 at d = 64, whose split pre-pass is held bit for bit against its
+   plain version). Digest: bit for
    bit against the plain version and the host digest, over every dtype the
    port serializes, odd lengths, row ranges, an unaligned tail, an empty
    tensor and a non-contiguous view; then on the train state's own chunk
@@ -63,6 +65,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32_FLOPS = 494.7e12
 
 # The slice's configuration: the widest transformer the repo runs
 # (benchmarks/pod/main.py), all 8 layers, trained for 3 steps.
@@ -167,12 +170,15 @@ def kernel_phase(seed: int) -> dict:
         ((8, 1024, 16, 64), 1024, torch.float32, False, True),
         ((2, 4096, 16, 128), 4096, torch.bfloat16, False, True),
         ((2, 4096, 16, 128), 4096, torch.float32, False, True),
-        # The bf16 kernel's edges, checked only: d = 128 on the fused-qkv
-        # layout, a sequence of 64 but not 128 (a half tile), and a chunk
-        # whose keys outnumber its queries.
+        # The tensor-core kernels' edges, checked only: the fused-qkv layout
+        # (bf16 d = 128, f32 d = 64), a sequence of 64 but not 128 (a half
+        # tile), and a chunk whose keys outnumber its queries.
         ((2, 1024, 16, 128), 1024, torch.bfloat16, True, False),
         ((2, 192, 4, 64), 192, torch.bfloat16, False, False),
         ((2, 128, 4, 64), 256, torch.bfloat16, False, False),
+        ((2, 1024, 16, 64), 1024, torch.float32, True, False),
+        ((2, 192, 4, 64), 192, torch.float32, False, False),
+        ((2, 128, 4, 64), 256, torch.float32, False, False),
     ]
     records = {}
     for shape, s_k, dtype, fused_qkv, timed in cases:
@@ -180,8 +186,14 @@ def kernel_phase(seed: int) -> dict:
         dt = str(dtype).split(".")[1]
         q, k, v = _qkv(shape, dtype, seed, fused_qkv, s_k)
         block = 128 if s % 128 == 0 and s_k % 128 == 0 else 64
-        errs = fa.compare_with_plain(q, k, v, block)
         label = f"{tuple(shape)} s_k={s_k} {dt}{' fused-qkv' if fused_qkv else ''}"
+        split = dtype == torch.float32 and d == 64
+        if split:
+            _require(
+                all(same_bits(a, b) for a, b in zip(fa.flash_split(q, k, v), fa.flash_split_plain(q, k, v))),
+                f"the split pre-pass differs from its plain version at {label}",
+            )
+        errs = fa.compare_with_plain(q, k, v, block)
         tols = (
             f"(fused rtol {fa.FUSED_TOL[dtype][0]} atol {fa.FUSED_TOL[dtype][1]}; chunk o/l "
             f"atol {errs['chunk_atol']:.3e}, m and l {fa.F32_TOL})"
@@ -212,6 +224,38 @@ def kernel_phase(seed: int) -> dict:
         nbytes = 4 * b * s * h * d * itemsize
         nbytes_c = 3 * b * s * h * d * itemsize + 4 * b * h * s * (d + 2)
         recs = {}
+        bounds = ""
+        if split:
+            # The work of the f32 entries at d = 64: the pre-pass reads q, k,
+            # v and writes hi and lo of each (9 tensors' bytes); the main
+            # kernel reads those 6 and writes o; the tensor cores do three
+            # tf32 products for each f32 one.
+            split_bytes = 9 * b * s * h * d * 4
+            tf32_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+            bounds = (
+                f"; f32-FMA bound {op_ms:.4f} ms, 3xTF32 operation bound {tf32_ms:.4f} ms, "
+                f"bytes of pre-pass + main kernel {(split_bytes + 6 * b * s * h * d * 4 + nbytes_c - 3 * b * s * h * d * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms (chunk), "
+                f"{(split_bytes + 7 * b * s * h * d * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms (fused)"
+            )
+
+            def split_fn():
+                return fa.flash_split(q, k, v)
+
+            rec = recs["flash_split"] = {
+                "ms": cuda_ms(split_fn),
+                "plain_ms": cuda_ms(lambda: fa.flash_split_plain(q, k, v), iters=3),
+                "library_ms": None,
+                "bound_ms": split_bytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "max_abs_err": 0.0,  # bit for bit, checked above
+            }
+            device_ms, host_us = held_times(split_fn)
+            log(
+                f"kernel flash_split {label}: {rec['ms']:.4f} ms back to back, "
+                f"{split_bytes / rec['ms'] / 1e9:.1f} TB/s; device {device_ms:.4f} ms, host "
+                f"{host_us:.1f} us per call (plain {rec['plain_ms']:.4f} ms; no library call; "
+                f"bound {rec['bound_ms']:.4f} ms by bytes); bit-identical to the plain version"
+            )
         for name, fn, plain, nb, err in (
             ("flash_fwd", fwd, lambda: fa.flash_causal_forward_plain(q, k, v), nbytes,
              errs["flash_fwd"]),
@@ -234,10 +278,12 @@ def kernel_phase(seed: int) -> dict:
                 f"{host_us:.1f} us per call (plain {rec['plain_ms']:.4f} ms, SDPA "
                 f"{rec['library_ms']:.4f} ms, device {sdpa_device_ms:.4f} ms; bound "
                 f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}), max |err| "
-                f"{rec['max_abs_err']:.3e} {tols}"
+                f"{rec['max_abs_err']:.3e} {tols}{bounds}"
             )
         if (shape, dtype) == ((8, 1024, 16, 64), torch.bfloat16):
-            records = recs
+            records.update(recs)
+        elif "flash_split" in recs:
+            records["flash_split"] = recs["flash_split"]
         del qh, kh, vh
     del q, k, v
     torch.cuda.empty_cache()
@@ -396,7 +442,16 @@ KERNEL_SOURCES = {
         "torchsnapshot_tpu_torch/csrc/device_digest.cu",
         "torchsnapshot_tpu/ops/device_digest.py:237",
     ),
+    # The f32 entries' pre-pass at d = 64: a part of both flash kernels'
+    # f32 port (the fused entry's pallas_call named here, the chunk's at :223).
+    "flash_split": (
+        "torchsnapshot_tpu_torch/csrc/flash_attention.cu",
+        "torchsnapshot_tpu/ops/flash_attention.py:395",
+    ),
 }
+# The kernels the main path must launch (it trains in bf16: no f32 entry,
+# so no split pre-pass).
+MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 
 def main() -> int:
@@ -631,7 +686,10 @@ def main_phase(args, work_dir: str, card: str) -> dict:
 
     async_record = async_and_incremental(args, work_dir, card, cfg, state, tokens, train_step, take_s)
     launches = {**fa.launch_counts, **dd.launch_counts}
-    _require(all(launches.values()), f"a kernel of the path never launched: {launches}")
+    _require(
+        all(launches[name] for name in MAIN_PATH_KERNELS),
+        f"a kernel of the path never launched: {launches}",
+    )
     record = {
         "card": card, "params": n_params, "train_state_bytes": state_bytes,
         "snapshot_bytes": snap_bytes, "take_s": take_s, "restore_s": restore_s,

@@ -31,7 +31,8 @@ def test_cuda_kernels_match_plain_versions(case, dtype, d) -> None:
     sequence of 64 but not 128 (the bf16 kernel's half tile), and on a chunk
     whose keys outnumber its queries. The tolerances, and why, sit beside
     ``fa.compare_with_plain``: the chunk outputs are f32 on both sides,
-    whatever the input dtype, and bf16 o/l is held to the P-split bound."""
+    whatever the input dtype, and bf16 o/l is held to the P-split bound. f32
+    at d = 64 runs the split pre-pass before each entry's kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     b, sq, sk, h, fused_qkv = CUDA_CASES[case]
@@ -47,6 +48,48 @@ def test_cuda_kernels_match_plain_versions(case, dtype, d) -> None:
     fa.compare_with_plain(q, k, v, block)
     assert fa.launch_counts["flash_fwd"] == before["flash_fwd"] + (sq == sk)
     assert fa.launch_counts["flash_chunk"] == before["flash_chunk"] + 2
+    split = dtype == torch.float32 and d == 64
+    assert fa.launch_counts["flash_split"] == before["flash_split"] + split * ((sq == sk) + 2)
+
+
+def _f32_qkv(case: str):
+    b, sq, sk, h, fused_qkv = CUDA_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    if fused_qkv:
+        return torch.randn((b, sq, 3, h, 64), generator=g, device="cuda").unbind(2)
+    return (torch.randn((b, n, h, 64), generator=g, device="cuda") for n in (sq, sk, sk))
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_split_pre_pass_matches_plain_version_bitwise(case) -> None:
+    """The f32 pre-pass (hi and lo of q and k, and of vᵀ with its keys
+    permuted) against its plain version, bit for bit, on the strided
+    fused-qkv slices, a half tile and a chunk of another length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _f32_qkv(case)
+    for got, want in zip(fa.flash_split(q, k, v), fa.flash_split_plain(q, k, v)):
+        assert got.shape == want.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_f32_kernels_are_deterministic(case) -> None:
+    """f32 at d = 64: two calls on the same inputs give the same bits (no
+    atomics, a fixed summation order), for both entries and both masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v = _f32_qkv(case)
+    runs = []
+    for _ in range(2):
+        out = [] if q.shape[1] != k.shape[1] else [fa.flash_causal_forward(q, k, v, 64, 64)]
+        for causal in (True, False):
+            out += fa.flash_attention_chunk(q, k, v, causal, 64, 64)
+        runs.append(out)
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 # The digest kernel's cases: every dtype the port serializes and the digest

@@ -193,6 +193,11 @@ KERNEL_ACCEPTS = {
     + (torch.zeros((2, 128, 2, 64)),) * 2,
     "bf16-batch-1-odd-stride": lambda: [_bf16(128 * 2 * 64).as_strided((1, 128, 2, 64),
                                                                        (3, 128, 64, 1))] * 3,
+    # f32 at d = 64: the pre-pass reads q, k, v through their strides and
+    # only its scratch goes through TMA, so any stride and address will do.
+    "f32-qkv-slices-d64": lambda: torch.zeros((2, 128, 3, 2, 64)).unbind(2),
+    "f32-seq-stride-off-16-bytes": lambda: [
+        torch.zeros(2 * 128 * 129).as_strided((2, 128, 2, 64), (128 * 129, 129, 64, 1))] * 3,
 }
 
 
@@ -220,6 +225,14 @@ def test_chunk_atol(case) -> None:
     assert fa.chunk_atol(v) == pytest.approx(want, rel=1e-12)
 
 
+def test_split_wrapper_runs_the_plain_version_on_the_cpu() -> None:
+    q, k, v = _t(_qkv(14, (1, 128, 2, 64)))
+    before = dict(fa.launch_counts)
+    for got, want in zip(fa.flash_split(q, k, v), fa.flash_split_plain(q, k, v)):
+        assert torch.equal(got, want)
+    assert fa.launch_counts == before
+
+
 def test_compare_with_plain_runs_every_entry() -> None:
     """On CPU tensors both sides are the plain versions: every entry runs and
     agrees exactly, and no kernel launch is counted."""
@@ -232,3 +245,134 @@ def test_compare_with_plain_runs_every_entry() -> None:
         "flash_chunk_unmasked": 0.0,
     }
     assert fa.launch_counts == before
+
+
+# ----------------------------------------------------------------------
+# The f32 kernel at d = 64: 3xTF32 split and the permuted vᵀ
+# ----------------------------------------------------------------------
+
+
+def test_tf32_split_is_exact() -> None:
+    x = torch.from_numpy(
+        np.random.default_rng(8).standard_normal(4096).astype(np.float32) * 1e3
+    )
+    hi, lo = fa.tf32_split(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()  # low 13 mantissa bits zero
+    assert torch.equal(hi + lo, x)
+    assert (lo.abs() <= 2.0**-11 * x.abs()).all()  # rounded: half a tf32 ulp
+    # ties go away from zero: 1 + 2^-11 lies halfway between two tf32 values
+    tie = torch.tensor([1 + 2.0**-11, -(1 + 2.0**-11)])
+    assert fa.tf32_split(tie)[0].tolist() == [1 + 2.0**-10, -(1 + 2.0**-10)]
+
+
+def test_key_permutation_is_undone_by_its_inverse() -> None:
+    x = torch.arange(2 * 64, dtype=torch.float32).view(2, 64)
+    p = fa.permute_keys(x)
+    assert not torch.equal(p, x)
+    assert p[0, :8].tolist() == [float(c) for c in fa.KEY_PERM]
+    assert torch.equal(fa.unpermute_keys(p), x)
+
+
+def test_split_plain_layout() -> None:
+    q, k, v = _t(_qkv(9, (2, 128, 2, 64)))
+    qs, ks, vts = fa.flash_split_plain(q, k[:, :64], v[:, :64])
+    assert qs.shape == (2, 2, 2, 128, 64) and vts.shape == (2, 2, 2, 64, 64)
+    assert all(t.is_contiguous() for t in (qs, ks, vts))
+    assert torch.equal(qs[0] + qs[1], q.transpose(1, 2))
+    assert torch.equal(ks[0] + ks[1], k[:, :64].transpose(1, 2))
+    assert torch.equal(fa.unpermute_keys(vts[0] + vts[1]), v[:, :64].transpose(1, 2).transpose(-1, -2))
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of an f32 operand: its tf32 bits (the low
+    13 mantissa bits dropped)."""
+    return (x.contiguous().view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def _x3(a_hi, a_lo, b_hi, b_lo) -> torch.Tensor:
+    """a @ b as the kernel's 3xTF32 product: hi·hi + hi·lo + lo·hi, each lo
+    read as the tensor cores read it; lo·lo left out."""
+    return a_hi @ b_hi + a_hi @ _tf32(b_lo) + _tf32(a_lo) @ b_hi
+
+
+def _tf32x3_flash(q, k, v, causal: bool, keys: int = 64):
+    """The f32 kernel's arithmetic at d = 64, emulated in torch f32: the
+    pre-pass's split scratch, key tiles of 64, S = Q Kᵀ as three tf32
+    products, the online softmax, P split into tf32 (hi, lo) in the
+    registers and put into P V in the accumulator's key order against the
+    permuted vᵀ. Returns ``(acc, m, l)`` as the chunk entry does."""
+    qs, ks, vts = fa.flash_split_plain(q, k, v)
+    scale = q.shape[-1] ** -0.5
+    sq, sk = q.shape[1], k.shape[1]
+    rows = torch.arange(sq)[:, None]
+    m = torch.full(qs.shape[1:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qs.shape[1:])
+    for t in range(sk // keys):
+        cols = slice(t * keys, (t + 1) * keys)
+        s = _x3(qs[0], qs[1], ks[0, ..., cols, :].transpose(-1, -2), ks[1, ..., cols, :].transpose(-1, -2))
+        if causal:
+            s = torch.where(t * keys + torch.arange(keys)[None, :] > rows, -torch.inf, s)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * scale)
+        p = torch.exp(s * scale - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        p_hi, p_lo = fa.tf32_split(fa.permute_keys(p))  # the registers, in vᵀ's key order
+        vt_hi, vt_lo = (x[..., cols].transpose(-1, -2) for x in vts)
+        acc = acc * alpha + _x3(p_hi, p_lo, vt_hi, vt_lo)
+        m = m_new
+    return acc, m[..., 0], l[..., 0]
+
+
+# (q shape, s_k, causal): d = 64, both masks, s_k != s_q
+TF32X3_CHUNK_CASES = {
+    "causal-256": ((1, 256, 2, 64), 256, True),
+    "unmasked-256": ((1, 256, 2, 64), 256, False),
+    "causal-128x256": ((1, 128, 2, 64), 256, True),
+    "unmasked-128x256": ((1, 128, 2, 64), 256, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TF32X3_CHUNK_CASES))
+def test_tf32x3_emulation_matches_jax_chunk_kernel(case) -> None:
+    shape, sk, causal = TF32X3_CHUNK_CASES[case]
+    q, _, _ = _qkv(10, shape)
+    _, k, v = _qkv(11, shape[:1] + (sk,) + shape[2:])
+    want = jax_flash_chunk(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=64, block_k=64, interpret=True,
+    )
+    got = _tf32x3_flash(*_t((q, k, v)), causal)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=fa.F32_TOL, atol=fa.F32_TOL)
+
+
+@pytest.mark.parametrize("block_q,block_k", [(64, 64), (128, 64)])
+def test_tf32x3_emulation_matches_jax_fused_kernel(block_q, block_k) -> None:
+    q, k, v = _qkv(12, (2, 256, 2, 64))
+    want = jax_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        block_q=block_q, block_k=block_k, interpret=True,
+    )
+    acc, _, l = _tf32x3_flash(*_t((q, k, v)), True)
+    got = (acc / l[..., None]).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=fa.F32_TOL, atol=fa.F32_TOL)
+
+
+def test_tf32x3_emulation_needs_both_the_split_and_the_permutation() -> None:
+    """The test above has teeth: one tf32 product (no split), or P in the
+    accumulator's key order against an unpermuted vᵀ, misses F32_TOL."""
+    q, k, v = _t(_qkv(13, (1, 128, 2, 64)))
+    want, _, l = fa.flash_attention_chunk_plain(q, k, v, causal=False)
+    got, _, l_got = _tf32x3_flash(q, k, v, causal=False)
+    assert (got / l_got[..., None] - want / l[..., None]).abs().max() < fa.F32_TOL
+    one = _tf32(q.transpose(1, 2)) @ _tf32(k.transpose(1, 2)).transpose(-1, -2)
+    exact = q.transpose(1, 2) @ k.transpose(1, 2).transpose(-1, -2)
+    assert (one - exact).abs().max() > 100 * fa.F32_TOL
+    vts = fa.flash_split_plain(q, k, v)[2]
+    p = torch.softmax(exact / 8.0, dim=-1)
+    wrong = fa.permute_keys(p) @ fa.unpermute_keys(vts[0] + vts[1]).transpose(-1, -2)
+    right = fa.permute_keys(p) @ (vts[0] + vts[1]).transpose(-1, -2)
+    assert (wrong - right).abs().max() > 100 * fa.F32_TOL
+    assert (right - p @ v.transpose(1, 2)).abs().max() < fa.F32_TOL

@@ -3,7 +3,8 @@
 Counterpart of ``torchsnapshot_tpu/ops/flash_attention.py``. Its two Pallas
 kernels become hand-written CUDA kernels for Hopper
 (``csrc/flash_attention.cu``: TMA loads and ``wgmma`` tensor cores for
-bf16, f32 FMAs for f32) with two entry points:
+bf16 and, through a 3xTF32 split, for f32 at d = 64; f32 FMAs for f32 at
+d = 128) with two entry points:
 
 - :func:`flash_causal_forward` replaces ``_flash_kernel`` (through
   ``_flash_causal_forward``): causal attention, normalized, in the input
@@ -26,7 +27,9 @@ Layouts follow the JAX package: q, k, v are ``(batch, seq, heads, dim)``.
 The kernels read them through their strides (the head dim must be
 contiguous), so the q/k/v slices of a fused qkv projection need no copy.
 The bf16 kernel reads through TMA tensor maps, which need 16-byte-aligned
-bases and strides.
+bases and strides. For f32 at d = 64 a pre-pass kernel first reads q, k, v
+through their strides and writes the 3xTF32 split scratch that the
+tensor-core kernel reads (:func:`flash_split_plain` is its plain version).
 """
 
 from __future__ import annotations
@@ -44,12 +47,14 @@ _NEG_BIG = -1e30
 _KERNEL_TILE = 64
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's dtype code for f32 at d = 64, whose q, k, v are the split scratch.
+_F32_SPLIT = 2
 # TMA (the bf16 kernel's loads) reads from 16-byte-aligned bases and strides.
 _TMA_ALIGN = 16
 
 # Kernel launches per entry point. Incremented only where a kernel is
 # launched; plain (CPU) runs do not count.
-launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_chunk": 0}
+launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_chunk": 0, "flash_split": 0}
 
 
 def reset_launch_counts() -> None:
@@ -135,6 +140,56 @@ def flash_attention_chunk_plain(
 
 
 # ----------------------------------------------------------------------
+# The 3xTF32 split (f32 inputs at d = 64)
+# ----------------------------------------------------------------------
+
+# The bits a tf32 operand keeps: sign, exponent and the top 10 mantissa bits
+# (0xFFFFE000 as an int32); the tensor cores read only these bits of an f32.
+# Adding half of the dropped range first rounds the magnitude to nearest,
+# ties away from zero (as cvt.rna.tf32.f32).
+_TF32_KEEP = -(1 << 13)
+_TF32_HALF = 1 << 12
+# Within each group of 8 keys, position c of the split vᵀ holds key
+# KEY_PERM[c]. The accumulator fragment of S gives a thread keys 2t, 2t+1 of
+# each group; the tf32 A fragment of P V wants columns t, t+4. Storing key
+# 2t at column t and key 2t+1 at column t+4 lets P go into the product as
+# it lies in the registers.
+KEY_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+_KEY_UNPERM = tuple(KEY_PERM.index(c) for c in range(8))
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of a finite f32 tensor: ``hi`` is ``x`` rounded to tf32
+    (to nearest, ties away from zero; its low 13 mantissa bits zero), ``lo =
+    x - hi``, exact, so ``hi + lo == x`` and ``|lo| <= 2^-11 |x|``."""
+    hi = ((x.contiguous().view(torch.int32) + _TF32_HALF) & _TF32_KEEP).view(torch.float32)
+    return hi, x - hi
+
+
+def permute_keys(x: torch.Tensor) -> torch.Tensor:
+    """Reorder the last dim (keys, a multiple of 8) by :data:`KEY_PERM`
+    within each group of 8."""
+    return x.unflatten(-1, (-1, 8))[..., KEY_PERM].flatten(-2)
+
+
+def unpermute_keys(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`permute_keys`."""
+    return x.unflatten(-1, (-1, 8))[..., _KEY_UNPERM].flatten(-2)
+
+
+def flash_split_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the pre-pass kernel: the scratch the f32 kernel at
+    d = 64 reads. q ``(2, b, h, s_q, d)`` and k ``(2, b, h, s_k, d)`` as
+    (hi, lo); vᵀ ``(2, b, h, d, s_k)`` as (hi, lo), keys permuted by
+    :func:`permute_keys`. All contiguous f32."""
+    qh, kh = (torch.stack(tf32_split(t.transpose(1, 2).float())) for t in (q, k))
+    vt = permute_keys(v.transpose(1, 2).float().transpose(-1, -2))
+    return qh, kh, torch.stack(tf32_split(vt))
+
+
+# ----------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------
 
@@ -202,6 +257,8 @@ def _library() -> ctypes.CDLL:
         lib.ts_flash_fwd.restype = i32
         lib.ts_flash_chunk.argtypes = [ptr] * 6 + [i32] * 7 + [i64] * 6 + [ptr]
         lib.ts_flash_chunk.restype = i32
+        lib.ts_flash_split_f32.argtypes = [ptr] * 6 + [i32] * 5 + [i64] * 6 + [ptr]
+        lib.ts_flash_split_f32.restype = i32
         lib._ts_declared = True
     return lib
 
@@ -209,6 +266,45 @@ def _library() -> ctypes.CDLL:
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _kernel_operands(
+    lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> Tuple[int, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dtype code, q, k, v)`` as the main kernel reads them: the inputs
+    themselves, or for f32 at d = 64 the split scratch that the pre-pass
+    kernel writes (see :func:`flash_split_plain`). Call under the inputs'
+    device."""
+    b, sq, h, d = q.shape
+    if q.dtype != torch.float32 or d != 64:
+        return _KERNEL_DTYPES[q.dtype], q, k, v
+    sk = k.shape[1]
+    qs = torch.empty((2, b, h, sq, d), dtype=torch.float32, device=q.device)
+    ks = torch.empty((2, b, h, sk, d), dtype=torch.float32, device=q.device)
+    vts = torch.empty((2, b, h, d, sk), dtype=torch.float32, device=q.device)
+    err = lib.ts_flash_split_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        vts.data_ptr(), b, h, sq, sk, d, *_strides(q), *_strides(k),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "flash_split")
+    launch_counts["flash_split"] += 1
+    return _F32_SPLIT, qs, ks, vts
+
+
+def flash_split(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pre-pass kernel alone (f32 inputs at d = 64): the split scratch,
+    as :func:`flash_split_plain` lays it out. The kernel on a CUDA tensor;
+    the plain version on a CPU one."""
+    if q.device.type == "cpu":
+        return flash_split_plain(q, k, v)
+    _check_kernel_inputs(q, k, v)
+    if q.dtype != torch.float32 or q.shape[3] != 64:
+        raise ValueError("the split pre-pass takes float32 at head dim 64")
+    with torch.cuda.device(q.device):
+        return _kernel_operands(_library(), q, k, v)[1:]
 
 
 def flash_causal_forward(
@@ -233,9 +329,10 @@ def flash_causal_forward(
     lib = _library()
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
+        code, q_, k_, v_ = _kernel_operands(lib, q, k, v)
         err = lib.ts_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _KERNEL_DTYPES[q.dtype], b, h, s, d, *_strides(q), *_strides(k),
+            q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), o.data_ptr(),
+            code, b, h, s, d, *_strides(q), *_strides(k),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "flash_fwd")
@@ -273,9 +370,10 @@ def flash_attention_chunk(
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        code, q_, k_, v_ = _kernel_operands(lib, q, k, v)
         err = lib.ts_flash_chunk(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
-            l.data_ptr(), _KERNEL_DTYPES[q.dtype], int(causal), b, h, sq, sk, d,
+            q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), o.data_ptr(), m.data_ptr(),
+            l.data_ptr(), code, int(causal), b, h, sq, sk, d,
             *_strides(q), *_strides(k),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -457,6 +555,11 @@ __all__ = [
     "flash_causal_attention",
     "flash_causal_forward",
     "flash_causal_forward_plain",
+    "flash_split",
+    "flash_split_plain",
     "launch_counts",
+    "permute_keys",
     "reset_launch_counts",
+    "tf32_split",
+    "unpermute_keys",
 ]
