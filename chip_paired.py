@@ -13,9 +13,9 @@ same for both:
 (``git write-tree``) under ``build/paired/{parent,change}``. ``run`` takes
 each turn from its tree's own directory: that tree's ``chip_smoke.py``
 (all phases), then this script's ``time`` on that tree,
-which times the tree's two flash wrappers at the main path's shape and at
-(2, 4096, 16, 128) with one method for both trees: back-to-back ms, the card's ms behind a spin kernel
-and the host's us per call. Each turn's output goes to
+which times the tree's two flash wrappers in bf16 and f32 at the main path's
+shape and at (2, 4096, 16, 128) with one method for both trees: back-to-back
+ms, the card's ms behind a spin kernel and the host's us per call. Each turn's output goes to
 ``chiprun_out/paired/<turn>_<tree>.log``; its kernel lines and JSON records
 are printed too.
 """
@@ -33,9 +33,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PAIRED = os.path.join(HERE, "build", "paired")
 OUT = os.path.join(HERE, "chiprun_out", "paired")
 TURNS = ("parent", "change", "change", "parent")
-# bf16 q/k/v as slices of one fused projection: the main path's call, and
-# the long-sequence shape at d = 128.
+# q/k/v as slices of one fused projection: the main path's call, and the
+# long-sequence shape at d = 128; each in both input dtypes.
 SHAPES = ((8, 1024, 16, 64), (2, 4096, 16, 128))
+DTYPES = ("bfloat16", "float32")
 
 
 def prepare(parent_rev: str) -> None:
@@ -54,7 +55,7 @@ def prepare(parent_rev: str) -> None:
 
 
 def time_tree(tree: str) -> None:
-    """Time ``tree``'s wrappers; prints one JSON line per shape."""
+    """Time ``tree``'s wrappers; prints one JSON line per shape and dtype."""
     import torch
 
     from chip_smoke import _qkv, cuda_ms, held_times  # this script's own copy
@@ -65,16 +66,17 @@ def time_tree(tree: str) -> None:
     if not fa.__file__.startswith(tree):
         raise RuntimeError(f"imported {fa.__file__}, not the package of {tree}")
     for shape in SHAPES:
-        q, k, v = _qkv(shape, torch.bfloat16, 0, True)
-        rec = {"tree": tree, "shape": shape}
-        for name, fn in (
-            ("flash_fwd", lambda: fa.flash_causal_forward(q, k, v)),
-            ("flash_chunk", lambda: fa.flash_attention_chunk(q, k, v, causal=True)),
-        ):
-            device_ms, host_us = held_times(fn)
-            rec[name] = {"ms": cuda_ms(fn), "device_ms": device_ms, "host_us": host_us}
-        print(json.dumps({"paired_time": rec}), flush=True)
-        del q, k, v
+        for dtype in DTYPES:
+            q, k, v = _qkv(shape, getattr(torch, dtype), 0, True)
+            rec = {"tree": tree, "shape": shape, "dtype": dtype}
+            for name, fn in (
+                ("flash_fwd", lambda: fa.flash_causal_forward(q, k, v)),
+                ("flash_chunk", lambda: fa.flash_attention_chunk(q, k, v, causal=True)),
+            ):
+                device_ms, host_us = held_times(fn)
+                rec[name] = {"ms": cuda_ms(fn), "device_ms": device_ms, "host_us": host_us}
+            print(json.dumps({"paired_time": rec}), flush=True)
+            del q, k, v
 
 
 def run() -> int:

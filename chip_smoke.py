@@ -9,8 +9,8 @@ each of which raises on failure (nothing is caught):
    ``torchsnapshot_tpu_torch/csrc`` and hold each against its plain PyTorch
    version on the card. Flash: at the training shape and a long-sequence
    shape, in bf16 and f32, and at the tensor-core kernels' edges (a half
-   tile, a chunk with s_k = 2 s_q, the fused-qkv layout; bf16 at d = 64 and
-   128, f32 at d = 64, whose split pre-pass is held bit for bit against its
+   tile, a chunk with s_k = 2 s_q, the fused-qkv layout; bf16 and f32 at
+   d = 64 and 128; f32's split pre-pass is held bit for bit against its
    plain version). Digest: bit for
    bit against the plain version and the host digest, over every dtype the
    port serializes, odd lengths, row ranges, an unaligned tail, an empty
@@ -171,14 +171,17 @@ def kernel_phase(seed: int) -> dict:
         ((2, 4096, 16, 128), 4096, torch.bfloat16, False, True),
         ((2, 4096, 16, 128), 4096, torch.float32, False, True),
         # The tensor-core kernels' edges, checked only: the fused-qkv layout
-        # (bf16 d = 128, f32 d = 64), a sequence of 64 but not 128 (a half
-        # tile), and a chunk whose keys outnumber its queries.
+        # (bf16 d = 128, f32 d = 64 and 128), a sequence of 64 but not 128 (a
+        # half tile), and a chunk whose keys outnumber its queries.
         ((2, 1024, 16, 128), 1024, torch.bfloat16, True, False),
         ((2, 192, 4, 64), 192, torch.bfloat16, False, False),
         ((2, 128, 4, 64), 256, torch.bfloat16, False, False),
         ((2, 1024, 16, 64), 1024, torch.float32, True, False),
         ((2, 192, 4, 64), 192, torch.float32, False, False),
         ((2, 128, 4, 64), 256, torch.float32, False, False),
+        ((2, 1024, 16, 128), 1024, torch.float32, True, False),
+        ((2, 192, 4, 128), 192, torch.float32, False, False),
+        ((2, 128, 4, 128), 256, torch.float32, False, False),
     ]
     records = {}
     for shape, s_k, dtype, fused_qkv, timed in cases:
@@ -187,7 +190,7 @@ def kernel_phase(seed: int) -> dict:
         q, k, v = _qkv(shape, dtype, seed, fused_qkv, s_k)
         block = 128 if s % 128 == 0 and s_k % 128 == 0 else 64
         label = f"{tuple(shape)} s_k={s_k} {dt}{' fused-qkv' if fused_qkv else ''}"
-        split = dtype == torch.float32 and d == 64
+        split = dtype == torch.float32
         if split:
             _require(
                 all(same_bits(a, b) for a, b in zip(fa.flash_split(q, k, v), fa.flash_split_plain(q, k, v))),
@@ -225,17 +228,26 @@ def kernel_phase(seed: int) -> dict:
         nbytes_c = 3 * b * s * h * d * itemsize + 4 * b * h * s * (d + 2)
         recs = {}
         bounds = ""
+        entry_bytes = {"flash_fwd": nbytes, "flash_chunk": nbytes_c}
         if split:
-            # The work of the f32 entries at d = 64: the pre-pass reads q, k,
-            # v and writes hi and lo of each (9 tensors' bytes); the main
-            # kernel reads those 6 and writes o; the tensor cores do three
-            # tf32 products for each f32 one.
+            # The f32 entries' bound is the function's own bytes (q, k, v
+            # in, the outputs out) against three tf32 products for each f32
+            # one. Logged beside it: the f32-FMA bound, and the bytes the
+            # design moves (the pre-pass reads q, k, v and writes hi and lo
+            # of each, 9 tensors; the main kernel reads those 6 and writes
+            # its outputs).
             split_bytes = 9 * b * s * h * d * 4
-            tf32_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+            design_bytes = {
+                name: split_bytes + 3 * b * s * h * d * 4 + n for name, n in entry_bytes.items()
+            }
+            fma_ms, op_ms = op_ms, 3 * flops / PEAK_TF32_FLOPS * 1e3
             bounds = (
-                f"; f32-FMA bound {op_ms:.4f} ms, 3xTF32 operation bound {tf32_ms:.4f} ms, "
-                f"bytes of pre-pass + main kernel {(split_bytes + 6 * b * s * h * d * 4 + nbytes_c - 3 * b * s * h * d * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms (chunk), "
-                f"{(split_bytes + 7 * b * s * h * d * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms (fused)"
+                f"; f32-FMA bound {fma_ms:.4f} ms, 3xTF32 operation bound {op_ms:.4f} ms, "
+                f"the function's own bytes {entry_bytes['flash_chunk'] / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                f"(chunk), {entry_bytes['flash_fwd'] / HBM_BYTES_PER_S * 1e3:.4f} ms (fused), "
+                f"bytes of pre-pass + main kernel "
+                f"{design_bytes['flash_chunk'] / HBM_BYTES_PER_S * 1e3:.4f} ms (chunk), "
+                f"{design_bytes['flash_fwd'] / HBM_BYTES_PER_S * 1e3:.4f} ms (fused)"
             )
 
             def split_fn():
@@ -256,13 +268,12 @@ def kernel_phase(seed: int) -> dict:
                 f"{host_us:.1f} us per call (plain {rec['plain_ms']:.4f} ms; no library call; "
                 f"bound {rec['bound_ms']:.4f} ms by bytes); bit-identical to the plain version"
             )
-        for name, fn, plain, nb, err in (
-            ("flash_fwd", fwd, lambda: fa.flash_causal_forward_plain(q, k, v), nbytes,
-             errs["flash_fwd"]),
+        for name, fn, plain, err in (
+            ("flash_fwd", fwd, lambda: fa.flash_causal_forward_plain(q, k, v), errs["flash_fwd"]),
             ("flash_chunk", chunk, lambda: fa.flash_attention_chunk_plain(q, k, v, causal=True),
-             nbytes_c, errs["flash_chunk_causal"]),
+             errs["flash_chunk_causal"]),
         ):
-            bytes_ms = nb / HBM_BYTES_PER_S * 1e3
+            bytes_ms = entry_bytes[name] / HBM_BYTES_PER_S * 1e3
             rec = recs[name] = {
                 "ms": cuda_ms(fn),
                 "plain_ms": cuda_ms(plain, iters=3),
@@ -282,8 +293,8 @@ def kernel_phase(seed: int) -> dict:
             )
         if (shape, dtype) == ((8, 1024, 16, 64), torch.bfloat16):
             records.update(recs)
-        elif "flash_split" in recs:
-            records["flash_split"] = recs["flash_split"]
+        elif "flash_split" in recs:  # the record keeps the first, at d = 64
+            records.setdefault("flash_split", recs["flash_split"])
         del qh, kh, vh
     del q, k, v
     torch.cuda.empty_cache()
@@ -442,7 +453,7 @@ KERNEL_SOURCES = {
         "torchsnapshot_tpu_torch/csrc/device_digest.cu",
         "torchsnapshot_tpu/ops/device_digest.py:237",
     ),
-    # The f32 entries' pre-pass at d = 64: a part of both flash kernels'
+    # The f32 entries' pre-pass: a part of both flash kernels'
     # f32 port (the fused entry's pallas_call named here, the chunk's at :223).
     "flash_split": (
         "torchsnapshot_tpu_torch/csrc/flash_attention.cu",

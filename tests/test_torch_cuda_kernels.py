@@ -32,7 +32,7 @@ def test_cuda_kernels_match_plain_versions(case, dtype, d) -> None:
     whose keys outnumber its queries. The tolerances, and why, sit beside
     ``fa.compare_with_plain``: the chunk outputs are f32 on both sides,
     whatever the input dtype, and bf16 o/l is held to the P-split bound. f32
-    at d = 64 runs the split pre-pass before each entry's kernel."""
+    runs the split pre-pass before each entry's kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     b, sq, sk, h, fused_qkv = CUDA_CASES[case]
@@ -48,27 +48,28 @@ def test_cuda_kernels_match_plain_versions(case, dtype, d) -> None:
     fa.compare_with_plain(q, k, v, block)
     assert fa.launch_counts["flash_fwd"] == before["flash_fwd"] + (sq == sk)
     assert fa.launch_counts["flash_chunk"] == before["flash_chunk"] + 2
-    split = dtype == torch.float32 and d == 64
+    split = dtype == torch.float32
     assert fa.launch_counts["flash_split"] == before["flash_split"] + split * ((sq == sk) + 2)
 
 
-def _f32_qkv(case: str):
+def _f32_qkv(case: str, d: int):
     b, sq, sk, h, fused_qkv = CUDA_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(3)
     if fused_qkv:
-        return torch.randn((b, sq, 3, h, 64), generator=g, device="cuda").unbind(2)
-    return (torch.randn((b, n, h, 64), generator=g, device="cuda") for n in (sq, sk, sk))
+        return torch.randn((b, sq, 3, h, d), generator=g, device="cuda").unbind(2)
+    return (torch.randn((b, n, h, d), generator=g, device="cuda") for n in (sq, sk, sk))
 
 
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("case", sorted(CUDA_CASES))
-def test_split_pre_pass_matches_plain_version_bitwise(case) -> None:
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_pre_pass_matches_plain_version_bitwise(case, d) -> None:
     """The f32 pre-pass (hi and lo of q and k, and of vᵀ with its keys
     permuted) against its plain version, bit for bit, on the strided
     fused-qkv slices, a half tile and a chunk of another length."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    q, k, v = _f32_qkv(case)
+    q, k, v = _f32_qkv(case, d)
     for got, want in zip(fa.flash_split(q, k, v), fa.flash_split_plain(q, k, v)):
         assert got.shape == want.shape
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -76,12 +77,13 @@ def test_split_pre_pass_matches_plain_version_bitwise(case) -> None:
 
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("case", sorted(CUDA_CASES))
-def test_f32_kernels_are_deterministic(case) -> None:
-    """f32 at d = 64: two calls on the same inputs give the same bits (no
-    atomics, a fixed summation order), for both entries and both masks."""
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_kernels_are_deterministic(case, d) -> None:
+    """f32: two calls on the same inputs give the same bits (no atomics, a
+    fixed summation order), for both entries and both masks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    q, k, v = _f32_qkv(case)
+    q, k, v = _f32_qkv(case, d)
     runs = []
     for _ in range(2):
         out = [] if q.shape[1] != k.shape[1] else [fa.flash_causal_forward(q, k, v, 64, 64)]

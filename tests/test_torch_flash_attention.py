@@ -182,8 +182,9 @@ def test_kernel_input_check_refuses(case) -> None:
 
 
 # What they take: the model's strided slices, a half tile, a chunk of
-# another length, f32 at any address (the f32 kernel does not use TMA), and
-# a size-1 dimension whose stride is unaligned (it is never used).
+# another length, f32 at any address (the pre-pass reads f32 through its
+# strides; only its scratch goes through TMA), and a size-1 dimension whose
+# stride is unaligned (it is never used).
 KERNEL_ACCEPTS = {
     "qkv-slices-d64": lambda: _bf16((2, 128, 3, 2, 64)).unbind(2),
     "qkv-slices-d128": lambda: _bf16((2, 128, 3, 2, 128)).unbind(2),
@@ -193,8 +194,8 @@ KERNEL_ACCEPTS = {
     + (torch.zeros((2, 128, 2, 64)),) * 2,
     "bf16-batch-1-odd-stride": lambda: [_bf16(128 * 2 * 64).as_strided((1, 128, 2, 64),
                                                                        (3, 128, 64, 1))] * 3,
-    # f32 at d = 64: the pre-pass reads q, k, v through their strides and
-    # only its scratch goes through TMA, so any stride and address will do.
+    # f32: the pre-pass reads q, k, v through their strides and only its
+    # scratch goes through TMA, so any stride and address will do.
     "f32-qkv-slices-d64": lambda: torch.zeros((2, 128, 3, 2, 64)).unbind(2),
     "f32-seq-stride-off-16-bytes": lambda: [
         torch.zeros(2 * 128 * 129).as_strided((2, 128, 2, 64), (128 * 129, 129, 64, 1))] * 3,
@@ -248,7 +249,7 @@ def test_compare_with_plain_runs_every_entry() -> None:
 
 
 # ----------------------------------------------------------------------
-# The f32 kernel at d = 64: 3xTF32 split and the permuted vᵀ
+# The f32 kernel: 3xTF32 split and the permuted vᵀ
 # ----------------------------------------------------------------------
 
 
@@ -273,10 +274,12 @@ def test_key_permutation_is_undone_by_its_inverse() -> None:
     assert torch.equal(fa.unpermute_keys(p), x)
 
 
-def test_split_plain_layout() -> None:
-    q, k, v = _t(_qkv(9, (2, 128, 2, 64)))
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_plain_layout(d) -> None:
+    q, k, v = _t(_qkv(9, (2, 128, 2, d)))
     qs, ks, vts = fa.flash_split_plain(q, k[:, :64], v[:, :64])
-    assert qs.shape == (2, 2, 2, 128, 64) and vts.shape == (2, 2, 2, 64, 64)
+    assert qs.shape == (2, 2, 2, 128, d) and ks.shape == (2, 2, 2, 64, d)
+    assert vts.shape == (2, 2, 2, d, 64)
     assert all(t.is_contiguous() for t in (qs, ks, vts))
     assert torch.equal(qs[0] + qs[1], q.transpose(1, 2))
     assert torch.equal(ks[0] + ks[1], k[:, :64].transpose(1, 2))
@@ -295,12 +298,17 @@ def _x3(a_hi, a_lo, b_hi, b_lo) -> torch.Tensor:
     return a_hi @ b_hi + a_hi @ _tf32(b_lo) + _tf32(a_lo) @ b_hi
 
 
-def _tf32x3_flash(q, k, v, causal: bool, keys: int = 64):
-    """The f32 kernel's arithmetic at d = 64, emulated in torch f32: the
-    pre-pass's split scratch, key tiles of 64, S = Q Kᵀ as three tf32
-    products, the online softmax, P split into tf32 (hi, lo) in the
-    registers and put into P V in the accumulator's key order against the
-    permuted vᵀ. Returns ``(acc, m, l)`` as the chunk entry does."""
+# Keys per K/V tile of the f32 kernel, by head dim (hopper::Tf32<D>::kKeys).
+TF32_KEYS = {64: 64, 128: 32}
+
+
+def _tf32x3_flash(q, k, v, causal: bool):
+    """The f32 kernel's arithmetic, emulated in torch f32: the pre-pass's
+    split scratch, key tiles of 64 (d = 64) or 32 (d = 128), S = Q Kᵀ as
+    three tf32 products, the online softmax, P split into tf32 (hi, lo) in
+    the registers and put into P V in the accumulator's key order against
+    the permuted vᵀ. Returns ``(acc, m, l)`` as the chunk entry does."""
+    keys = TF32_KEYS[q.shape[-1]]
     qs, ks, vts = fa.flash_split_plain(q, k, v)
     scale = q.shape[-1] ** -0.5
     sq, sk = q.shape[1], k.shape[1]
@@ -324,12 +332,16 @@ def _tf32x3_flash(q, k, v, causal: bool, keys: int = 64):
     return acc, m[..., 0], l[..., 0]
 
 
-# (q shape, s_k, causal): d = 64, both masks, s_k != s_q
+# (q shape, s_k, causal): d = 64 and 128, both masks, s_k != s_q
 TF32X3_CHUNK_CASES = {
     "causal-256": ((1, 256, 2, 64), 256, True),
     "unmasked-256": ((1, 256, 2, 64), 256, False),
     "causal-128x256": ((1, 128, 2, 64), 256, True),
     "unmasked-128x256": ((1, 128, 2, 64), 256, False),
+    "d128-causal-256": ((1, 256, 2, 128), 256, True),
+    "d128-unmasked-256": ((1, 256, 2, 128), 256, False),
+    "d128-causal-128x256": ((1, 128, 2, 128), 256, True),
+    "d128-unmasked-128x256": ((1, 128, 2, 128), 256, False),
 }
 
 
@@ -348,9 +360,10 @@ def test_tf32x3_emulation_matches_jax_chunk_kernel(case) -> None:
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=fa.F32_TOL, atol=fa.F32_TOL)
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("block_q,block_k", [(64, 64), (128, 64)])
-def test_tf32x3_emulation_matches_jax_fused_kernel(block_q, block_k) -> None:
-    q, k, v = _qkv(12, (2, 256, 2, 64))
+def test_tf32x3_emulation_matches_jax_fused_kernel(block_q, block_k, d) -> None:
+    q, k, v = _qkv(12, (2, 256, 2, d))
     want = jax_flash(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         block_q=block_q, block_k=block_k, interpret=True,

@@ -1,5 +1,6 @@
-// Flash attention forward for Hopper (sm_90a): two designs behind one C
-// interface, picked by the input dtype and head dim.
+// Flash attention forward for Hopper (sm_90a): one TMA + wgmma pipeline with
+// two element configurations behind one C interface, picked by the input
+// dtype and head dim.
 //
 // Replaces the two Pallas kernels of torchsnapshot_tpu/ops/flash_attention.py:
 //   - ts_flash_fwd   <- _flash_kernel, reached through _flash_causal_forward
@@ -60,14 +61,16 @@
 //   - No atomics and a fixed summation order: the same inputs give the same
 //     bits, which the bitwise continuation of a restored training run needs.
 //
-// f32 at d = 64: 3xTF32 on the same pipeline (hopper::Tf32). f32 inputs need
-// f32 accuracy (2e-5). With f32 FMAs the products bound the kernel (67
-// TFLOP/s: 0.26 ms at the training shape); one tf32 product keeps 10
-// mantissa bits, far too few. So every product is three tf32 products into
-// one f32 accumulator, a_hi b_hi + a_hi b_lo + a_lo b_hi (hi = x rounded to
-// tf32, lo = x - hi, |lo| <= 2^-11 |x|; the tensor cores drop lo's own low
-// bits, ~2^-21 of x, and lo lo, ~2^-22 of the product, is left out): 3 x 17.2 GFLOP
-// at 495 TFLOP/s is 0.10 ms, so the bytes now bound it.
+// f32 (d = 64 and 128): 3xTF32 on the same pipeline (hopper::Tf32<D>). f32
+// inputs need f32 accuracy (2e-5). With f32 FMAs the products bound the
+// kernel (67 TFLOP/s: 0.26 ms at (8, 1024, 16, 64), 2.05 ms at (2, 4096, 16,
+// 128)); one tf32 product keeps 10 mantissa bits, far too few. So every
+// product is three tf32 products into one f32 accumulator, a_hi b_hi + a_hi
+// b_lo + a_lo b_hi (hi = x rounded to tf32, lo = x - hi, |lo| <= 2^-11 |x|;
+// the tensor cores drop lo's own low bits, ~2^-21 of x, and lo lo, ~2^-22 of
+// the product, is left out): 3 x 17.2 GFLOP at 495 TFLOP/s is 0.10 ms at the
+// training shape, where the bytes now bound it; 3 x 137.4 GFLOP is 0.83 ms at
+// (2, 4096, 16, 128).
 //   - tf32 wgmma takes no transpose immediates, so both shared operands are
 //     K-major, and V must arrive as v^T. The A-fragment of a tf32 k8 step
 //     holds columns t, t+4 where the S accumulator holds 2t, 2t+1.
@@ -78,20 +81,21 @@
 //     registers into the product as it lies, split by rounding (hi) and a
 //     subtraction (lo). The pre-pass moves 101 MB in and 201 MB out at the
 //     training shape: about 0.09 ms of bytes, the price of the design.
-//   - Tiles: 128 q rows (q hi + lo 64 KiB stay for the item) and 64 keys, two
-//     K/V stages of 64 KiB each (K hi + lo, v^T hi + lo): 192 KiB of shared
-//     memory. A box is [rows][32 f32], one 128-byte swizzle row, so a k8 step
-//     is 32 bytes, as bf16's k16 step, and the descriptor walk is the same.
-//     q stays in shared memory (registers hold S, P and O).
+//   - Tiles: 128 q rows, whose hi + lo stay in shared memory for the item
+//     (registers hold S, P and O). A box is [rows][32 f32], one 128-byte
+//     swizzle row, so a k8 step is 32 bytes, as bf16's k16 step, and the
+//     descriptor walk is the same.
+//       d = 64: q 64 KiB, two K/V stages of 64 keys, 64 KiB each (K hi + lo,
+//       v^T hi + lo): 192 KiB of shared memory.
+//       d = 128: q alone is 128 KiB, so 32-key tiles: K hi + lo 32 KiB in
+//       one stage, v^T hi + lo 32 KiB in two, so that V_t loads while step
+//       t - 1 runs: 224 KiB. K_{t+1} loads once both warpgroups have their
+//       S_t. S = Q K^T is m64n32k8; at N = 32 each product reads 3 KiB of
+//       shared memory for 16 K multiply-adds, so shared-memory reads rather
+//       than the tensor cores bound the QK half.
 //   - Everything else (the persistent walk, TMA ring, turns, online softmax,
 //     epilogue) is the bf16 design's code, and the summation order is fixed:
 //     the same inputs give the same bits.
-//
-// f32 at d = 128: the SIMT design (namespace simt), kept from the first port:
-// the split q tile alone would take 128 KiB of shared memory. One block of
-// 256 threads owns one (batch*head, 64-row q tile); K and V tiles of 64 rows
-// are staged through shared memory and each thread computes a 4x4 logit
-// micro-tile and a 4 x (d/16) slice of the accumulator.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -137,193 +141,8 @@ cudaError_t device_setup(std::atomic<int>* cache, Kernel kernel, int smem, int* 
 }
 
 // ---------------------------------------------------------------------------
-// f32: SIMT kernel
-// ---------------------------------------------------------------------------
-namespace simt {
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // 16 x 16: ty picks 4 rows, tx 4 key columns
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // Q and K rows padded by one float so the 16 column threads of a warp hit
-  // 16 different banks; V is read along d, which is already conflict-free.
-  return sizeof(float) *
-         (kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D + kBlockQ * (kBlockK + 1));
-}
-
-// FUSED: normalize and store o at (b, s, h, d).
-// !FUSED: store the accumulator at (b, h, s, d) and m, l at (b, h, s).
-template <int D, bool CAUSAL, bool FUSED>
-__global__ void __launch_bounds__(kThreads)
-flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, Strides qs, Strides kvs,
-                  int h, int s_q, int s_k, float scale,
-                  float* __restrict__ o, float* __restrict__ o_acc,
-                  float* __restrict__ m_out, float* __restrict__ l_out) {
-  constexpr int DC = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                          // [kBlockQ][D + 1]
-  float* Ks = Qs + kBlockQ * (D + 1);        // [kBlockK][D + 1]
-  float* Vs = Ks + kBlockK * (D + 1);        // [kBlockK][D]
-  float* Ps = Vs + kBlockK * D;              // [kBlockQ][kBlockK + 1]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int bh = blockIdx.x;
-  const int bi = bh / h;
-  const int hi = bh - bi * h;
-  const int q0 = blockIdx.y * kBlockQ;
-
-  const float* qb = q + bi * qs.b + hi * qs.h;
-  const float* kb = k + bi * kvs.b + hi * kvs.h;
-  const float* vb = v + bi * kvs.b + hi * kvs.h;
-
-  for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx - (idx / D) * D;
-    Qs[r * (D + 1) + c] = qb[(int64_t)(q0 + r) * qs.s + c] * scale;
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegBig;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-  }
-
-  int n_tiles = s_k / kBlockK;
-  if (CAUSAL) {
-    // Tiles whose first key lies past the tile's last query contribute
-    // nothing (the Pallas kernels' pl.when(ki*block_k <= qi*block_q +
-    // block_q - 1)).
-    const int last = (q0 + kBlockQ - 1) / kBlockK + 1;
-    n_tiles = last < n_tiles ? last : n_tiles;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();  // previous tile's Ks/Vs/Ps reads are done
-    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int r = idx / D, c = idx - (idx / D) * D;
-      const int64_t off = (int64_t)(k0 + r) * kvs.s + c;
-      Ks[r * (D + 1) + c] = kb[off];
-      Vs[r * D + c] = vb[off];
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * (D + 1) + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-      float row_max = kNegBig;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (CAUSAL && q0 + row < k0 + tx + 16 * j) sc[i][j] = kNegBig;
-        row_max = fmaxf(row_max, sc[i][j]);
-      }
-      // The 16 threads of one row group are 16 consecutive lanes.
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-      const float m_new = fmaxf(m[i], row_max);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        row_sum += p;
-        Ps[row * (kBlockK + 1) + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] = l[i] * alpha + row_sum;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float pv[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * (kBlockK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (FUSED) {
-      float* orow = o + (((int64_t)bi * s_q + row) * h + hi) * D;
-      const float inv = 1.f / l[i];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
-    } else {
-      const int64_t r = (int64_t)bh * s_q + row;
-      float* orow = o_acc + r * D;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) orow[tx + 16 * j] = acc[i][j];
-      if (tx == 0) {
-        m_out[r] = m[i];
-        l_out[r] = l[i];
-      }
-    }
-  }
-}
-
-template <int D, bool CAUSAL, bool FUSED>
-cudaError_t launch(const void* q, const void* k, const void* v, Strides qs,
-                   Strides kvs, int b, int h, int s_q, int s_k, void* o,
-                   float* o_acc, float* m, float* l, cudaStream_t stream) {
-  if (s_q % kBlockQ || s_k % kBlockK) return cudaErrorInvalidValue;
-  auto kernel = flash_simt_kernel<D, CAUSAL, FUSED>;
-  constexpr size_t smem = smem_bytes<D>();
-  static std::atomic<int> sms_by_device[kMaxDevices];
-  int sms = 0;
-  const cudaError_t err = device_setup(sms_by_device, kernel, (int)smem, &sms);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(b * h, s_q / kBlockQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), qs, kvs, h, s_q, s_k, 1.f / sqrtf((float)D),
-      static_cast<float*>(o), o_acc, m, l);
-  return cudaGetLastError();
-}
-
-}  // namespace simt
-
-// ---------------------------------------------------------------------------
 // Hopper: TMA + wgmma kernel, one pipeline for two element configurations
-// (Bf16<D>: bf16 read in place; Tf32: the 3xTF32 split scratch, d = 64)
+// (Bf16<D>: bf16 read in place; Tf32<D>: the 3xTF32 split scratch)
 // ---------------------------------------------------------------------------
 namespace hopper {
 
@@ -424,7 +243,8 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define TS_F8(a, i)                                                                   \
   "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),         \
       "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
-#define TS_F32(a) TS_F8(a, 0), TS_F8(a, 8), TS_F8(a, 16), TS_F8(a, 24)
+#define TS_F16(a) TS_F8(a, 0), TS_F8(a, 8)
+#define TS_F32(a) TS_F16(a), TS_F8(a, 16), TS_F8(a, 24)
 #define TS_F64(a) TS_F32(a), TS_F8(a, 32), TS_F8(a, 40), TS_F8(a, 48), TS_F8(a, 56)
 
 // d[64] (+)= A (64x16, shared, K-major) * B (16x128, shared, K-major).
@@ -510,8 +330,42 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[16] (+)= A (64x8 tf32, shared) * B (8x32 tf32, shared).
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : TS_F16(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64] += A (64x8 tf32, registers) * B (8x128 tf32, shared).
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : TS_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef TS_F64
 #undef TS_F32
+#undef TS_F16
 #undef TS_F8
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -568,12 +422,14 @@ struct Bf16 {
   using Out = __nv_bfloat16;
   static constexpr int kD = D;
   static constexpr int kKeys = 128;                 // keys per K/V tile
+  static constexpr int kPSteps = kKeys / 16;        // k16 steps of P V
   static constexpr int kBoxCols = 64;               // bf16 columns of one swizzle row
   static constexpr int kBox = kTile * kRowBytes;    // 16 KiB
   static constexpr int kQBytes = (D / kBoxCols) * kBox;
   static constexpr int kKBytes = kQBytes;
   static constexpr int kVBytes = kQBytes;
-  static constexpr int kStages = D == 64 ? 3 : 2;   // K/V ring depth
+  static constexpr int kKStages = D == 64 ? 3 : 2;  // K and V ring depths
+  static constexpr int kVStages = kKStages;
   struct Maps {
     CUtensorMap q, k, v;
   };
@@ -624,10 +480,10 @@ struct Bf16 {
   // MN-major V operand advances 16 rows (2048 bytes) a step, and its second
   // column box (d = 128) lies one box (the leading byte offset) further on.
   // Started, not waited for.
-  __device__ static void start_pv(float (&acc)[D / 2], const uint32_t (&p_hi)[8][4],
-                                  const uint32_t (&p_lo)[8][4], uint32_t v) {
+  __device__ static void start_pv(float (&acc)[D / 2], const uint32_t (&p_hi)[kPSteps][4],
+                                  const uint32_t (&p_lo)[kPSteps][4], uint32_t v) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < kPSteps; ++kk) {
       const uint64_t dv = desc_sw128(v + kk * 16 * kRowBytes, kBox, 1024);
       wgmma_rs(acc, p_hi[kk], dv);
       wgmma_rs(acc, p_lo[kk], dv);
@@ -637,10 +493,10 @@ struct Bf16 {
 
   // The m64n128 accumulator layout is the bf16 A-fragment layout of the next
   // product: key step kk is s[8kk .. 8kk+7], in pairs.
-  __device__ static void split(const float (&s)[64], uint32_t (&p_hi)[8][4],
-                               uint32_t (&p_lo)[8][4]) {
+  __device__ static void split(const float (&s)[64], uint32_t (&p_hi)[kPSteps][4],
+                               uint32_t (&p_lo)[kPSteps][4]) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < kPSteps; ++kk)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float x0 = s[8 * kk + 2 * j], x1 = s[8 * kk + 2 * j + 1];
@@ -655,24 +511,31 @@ struct Bf16 {
   }
 };
 
-// f32 at d = 64 through 3xTF32: reads the pre-pass's contiguous scratch,
-// (hi, lo) of q and k as (2, b*h, s, 64) and of vᵀ as (2, b*h, 64, s_k),
-// through 3-D maps (inner, rows, part * b*h + bh). Tiles of 128 q rows and
-// 64 keys; a box is [rows][32 f32], one 128-byte swizzle row per row. Shared
-// memory: q hi + lo 64 KiB, each of two stages K hi + lo and vᵀ hi + lo
-// 32 KiB each: 192 KiB.
+// f32 through 3xTF32: reads the pre-pass's contiguous scratch, (hi, lo) of
+// q and k as (2, b*h, s, D) and of vᵀ as (2, b*h, D, s_k), through 3-D maps
+// (inner, rows, part * b*h + bh). Tiles of 128 q rows; a box is [rows][32
+// f32], one 128-byte swizzle row per row. Shared memory:
+//   D = 64: 64-key tiles; q hi + lo 64 KiB, each of two stages K hi + lo and
+//   vᵀ hi + lo 32 KiB each: 192 KiB.
+//   D = 128: 32-key tiles; q hi + lo 128 KiB, one stage of K hi + lo and two
+//   of vᵀ hi + lo, 32 KiB each: 224 KiB.
+template <int D>
 struct Tf32 {
   using Out = float;
-  static constexpr int kD = 64;
-  static constexpr int kKeys = 64;
+  static constexpr int kD = D;
+  static constexpr int kKeys = D == 64 ? 64 : 32;   // keys per K/V tile
+  static constexpr int kKStages = D == 64 ? 2 : 1;
+  static constexpr int kVStages = 2;
+  static constexpr int kPSteps = kKeys / 8;         // k8 steps of P V
   static constexpr int kBoxCols = 32;               // f32 columns of one swizzle row
+  static constexpr int kQCols = D / kBoxCols;       // column boxes of a q or K tile
+  static constexpr int kVCols = kKeys / kBoxCols;   // column boxes of a vᵀ tile
   static constexpr int kQBox = kTile * kRowBytes;   // [128 q rows][32]: 16 KiB
-  static constexpr int kKBox = kKeys * kRowBytes;   // [64 keys][32]: 8 KiB
-  static constexpr int kVBox = kD * kRowBytes;      // [64 head dims][32 keys]: 8 KiB
-  static constexpr int kQBytes = 2 * 2 * kQBox;     // (hi, lo) x two column boxes
-  static constexpr int kKBytes = 2 * 2 * kKBox;
-  static constexpr int kVBytes = 2 * 2 * kVBox;
-  static constexpr int kStages = 2;
+  static constexpr int kKBox = kKeys * kRowBytes;   // [keys][32]
+  static constexpr int kVBox = D * kRowBytes;       // [D head dims][32 keys]
+  static constexpr int kQBytes = 2 * kQCols * kQBox;  // (hi, lo) x column boxes
+  static constexpr int kKBytes = 2 * kQCols * kKBox;
+  static constexpr int kVBytes = 2 * kVCols * kVBox;
   struct Maps {
     CUtensorMap q, k, vt;
   };
@@ -680,8 +543,8 @@ struct Tf32 {
   static bool encode(Maps* m, const void* q, const void* k, const void* vt, Strides, Strides,
                      int b, int h, int s_q, int s_k) {
     const uint64_t n = 2ull * b * h;
-    return encode3(&m->q, q, kD, s_q, n, kTile) && encode3(&m->k, k, kD, s_k, n, kKeys) &&
-           encode3(&m->vt, vt, s_k, kD, n, kD);
+    return encode3(&m->q, q, D, s_q, n, kTile) && encode3(&m->k, k, D, s_k, n, kKeys) &&
+           encode3(&m->vt, vt, s_k, D, n, D);
   }
   static bool encode3(CUtensorMap* map, const void* base, uint64_t inner, uint64_t rows,
                       uint64_t n, int box_rows) {
@@ -691,14 +554,14 @@ struct Tf32 {
     return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 3, base, sizes, strides, box);
   }
 
-  // Part p (0 = hi, 1 = lo), column box c lands at (2p + c) boxes.
+  // Part p (0 = hi, 1 = lo), column box c lands at (p * columns + c) boxes.
   __device__ static void load_q(const Maps& m, uint32_t dst, uint32_t bar, const Item& it,
                                 int bhs) {
 #pragma unroll
     for (int p = 0; p < 2; ++p)
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
-        tma_load(dst + (2 * p + c) * kQBox, &m.q, bar, c * kBoxCols, it.qt * kTile,
+      for (int c = 0; c < kQCols; ++c)
+        tma_load(dst + (p * kQCols + c) * kQBox, &m.q, bar, c * kBoxCols, it.qt * kTile,
                  p * bhs + it.bh);
   }
   __device__ static void load_k(const Maps& m, uint32_t dst, uint32_t bar, const Item& it, int t,
@@ -706,27 +569,34 @@ struct Tf32 {
 #pragma unroll
     for (int p = 0; p < 2; ++p)
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
-        tma_load(dst + (2 * p + c) * kKBox, &m.k, bar, c * kBoxCols, t * kKeys, p * bhs + it.bh);
+      for (int c = 0; c < kQCols; ++c)
+        tma_load(dst + (p * kQCols + c) * kKBox, &m.k, bar, c * kBoxCols, t * kKeys,
+                 p * bhs + it.bh);
   }
   __device__ static void load_v(const Maps& m, uint32_t dst, uint32_t bar, const Item& it, int t,
                                 int bhs) {
 #pragma unroll
     for (int p = 0; p < 2; ++p)
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
-        tma_load(dst + (2 * p + c) * kVBox, &m.vt, bar, t * kKeys + c * kBoxCols, 0, p * bhs + it.bh);
+      for (int c = 0; c < kVCols; ++c)
+        tma_load(dst + (p * kVCols + c) * kVBox, &m.vt, bar, t * kKeys + c * kBoxCols, 0,
+                 p * bhs + it.bh);
   }
 
-  // S = Q K^T: 8 steps of 8 head dims (32 bytes, as bf16's k16 step), each
+  // S = Q K^T: D/8 steps of 8 head dims (32 bytes, as bf16's k16 step), each
   // three products q_hi k_hi + q_hi k_lo + q_lo k_hi into one accumulator.
-  __device__ static void start_qk(float (&s)[32], uint32_t q, uint32_t k) {
+  __device__ static void start_qk(float (&s)[kKeys / 2], uint32_t q, uint32_t k) {
+    // q's tile, and K's with one stage, lie at the same address at every
+    // step. Hidden from the compiler here, so that it builds each descriptor
+    // beside its product rather than holding all 4 D/8 of them (2 D
+    // registers) across the key loop, which spilled at D = 128.
+    asm volatile("" : "+r"(q), "+r"(k));
 #pragma unroll
-    for (int kk = 0; kk < kD / 8; ++kk) {
+    for (int kk = 0; kk < D / 8; ++kk) {
       const uint32_t qo = (kk >> 2) * kQBox + (kk & 3) * 32;
       const uint32_t ko = (kk >> 2) * kKBox + (kk & 3) * 32;
-      const uint64_t q_hi = desc_k(q + qo), q_lo = desc_k(q + 2 * kQBox + qo);
-      const uint64_t k_hi = desc_k(k + ko), k_lo = desc_k(k + 2 * kKBox + ko);
+      const uint64_t q_hi = desc_k(q + qo), q_lo = desc_k(q + kQCols * kQBox + qo);
+      const uint64_t k_hi = desc_k(k + ko), k_lo = desc_k(k + kQCols * kKBox + ko);
       wgmma_ss_tf32(s, q_hi, k_hi, kk > 0);
       wgmma_ss_tf32(s, q_hi, k_lo, 1);
       wgmma_ss_tf32(s, q_lo, k_hi, 1);
@@ -734,14 +604,14 @@ struct Tf32 {
     wgmma_commit();
   }
 
-  // O += P V: 8 steps of 8 keys, B = the vᵀ tile (K-major along the keys),
-  // three products P_hi v_hi + P_hi v_lo + P_lo v_hi each.
-  __device__ static void start_pv(float (&acc)[32], const uint32_t (&p_hi)[8][4],
-                                  const uint32_t (&p_lo)[8][4], uint32_t v) {
+  // O += P V: kKeys/8 steps of 8 keys, B = the vᵀ tile (K-major along the
+  // keys), three products P_hi v_hi + P_hi v_lo + P_lo v_hi each.
+  __device__ static void start_pv(float (&acc)[D / 2], const uint32_t (&p_hi)[kPSteps][4],
+                                  const uint32_t (&p_lo)[kPSteps][4], uint32_t v) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < kPSteps; ++kk) {
       const uint32_t vo = (kk >> 2) * kVBox + (kk & 3) * 32;
-      const uint64_t v_hi = desc_k(v + vo), v_lo = desc_k(v + 2 * kVBox + vo);
+      const uint64_t v_hi = desc_k(v + vo), v_lo = desc_k(v + kVCols * kVBox + vo);
       wgmma_rs_tf32(acc, p_hi[kk], v_hi);
       wgmma_rs_tf32(acc, p_hi[kk], v_lo);
       wgmma_rs_tf32(acc, p_lo[kk], v_hi);
@@ -753,10 +623,10 @@ struct Tf32 {
   // 4kk+3]); the tf32 A fragment is (g, t), (g+8, t), (g, t+4), (g+8, t+4).
   // The pre-pass stored key 2t at column t and 2t+1 at t+4 of vᵀ, so the
   // registers go in as they lie: hi rounded to tf32, lo the rest.
-  __device__ static void split(const float (&s)[32], uint32_t (&p_hi)[8][4],
-                               uint32_t (&p_lo)[8][4]) {
+  __device__ static void split(const float (&s)[kKeys / 2], uint32_t (&p_hi)[kPSteps][4],
+                               uint32_t (&p_lo)[kPSteps][4]) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < kPSteps; ++kk) {
       const float x[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3]};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -773,15 +643,17 @@ struct Tf32 {
 };
 
 // Shared memory of one block: the q tile, the K and V rings, and the
-// mbarriers (q_full, q_empty, then k_full, v_full, k_empty, v_empty per
-// stage).
+// mbarriers (q_full, q_empty, then k_full, v_full, k_empty, v_empty, one per
+// stage of their ring).
 template <class C>
 struct Layout {
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + C::kQBytes;
-  static constexpr int kV = kK + C::kStages * C::kKBytes;
-  static constexpr int kBars = kV + C::kStages * C::kVBytes;
-  static constexpr int kSmem = kBars + 8 * (2 + 4 * C::kStages) + 1024;  // + alignment slack
+  static constexpr int kV = kK + C::kKStages * C::kKBytes;
+  static constexpr int kBars = kV + C::kVStages * C::kVBytes;
+  static constexpr int kSmem =
+      kBars + 8 * (2 + 2 * C::kKStages + 2 * C::kVStages) + 1024;  // + alignment slack
+  static_assert(kSmem <= 232448, "more shared memory than a block may have");
 };
 
 template <class C>
@@ -795,9 +667,13 @@ struct Smem {
   __device__ uint32_t q_full() const { return bars; }
   __device__ uint32_t q_empty() const { return bars + 8u; }
   __device__ uint32_t k_full(int st) const { return bars + 8u * (2 + st); }
-  __device__ uint32_t v_full(int st) const { return bars + 8u * (2 + C::kStages + st); }
-  __device__ uint32_t k_empty(int st) const { return bars + 8u * (2 + 2 * C::kStages + st); }
-  __device__ uint32_t v_empty(int st) const { return bars + 8u * (2 + 3 * C::kStages + st); }
+  __device__ uint32_t v_full(int st) const { return bars + 8u * (2 + C::kKStages + st); }
+  __device__ uint32_t k_empty(int st) const {
+    return bars + 8u * (2 + C::kKStages + C::kVStages + st);
+  }
+  __device__ uint32_t v_empty(int st) const {
+    return bars + 8u * (2 + 2 * C::kKStages + C::kVStages + st);
+  }
 };
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -859,7 +735,8 @@ template <class C>
 __device__ __forceinline__ void rescale_and_split(float (&acc)[C::kD / 2],
                                                   const float (&alpha)[2],
                                                   const float (&s)[C::kKeys / 2],
-                                                  uint32_t (&p_hi)[8][4], uint32_t (&p_lo)[8][4]) {
+                                                  uint32_t (&p_hi)[C::kPSteps][4],
+                                                  uint32_t (&p_lo)[C::kPSteps][4]) {
 #pragma unroll
   for (int i = 0; i < C::kD / 8; ++i) {
     acc[4 * i + 0] *= alpha[0];
@@ -889,16 +766,17 @@ __device__ __forceinline__ void consume(const Smem<C>& sm, int warp, int lane, c
                                         float* __restrict__ o_acc, float* __restrict__ m_out,
                                         float* __restrict__ l_out) {
   constexpr int D = C::kD;
-  constexpr int kStages = C::kStages;
   const int qt = item.qt, bi = item.bi, hi = item.hi, n_tiles = item.n_tiles;
   const int q0 = qt * kTile;
   const int wg = warp >> 2;
   const int row0 = q0 + wg * 64 + ((warp & 3) << 4) + (lane >> 2);
   const int col = (lane & 3) << 1;
   const uint32_t q_tile = sm.q + wg * 64 * kRowBytes;
-  // Ring slot and phase of this item's key tile t.
-  auto slot = [&](int t) { return (kv + t) % kStages; };
-  auto phase = [&](int t) { return (uint32_t)((kv + t) / kStages) & 1; };
+  // Ring slots and phases of this item's key tile t.
+  auto kslot = [&](int t) { return (kv + t) % C::kKStages; };
+  auto kphase = [&](int t) { return (uint32_t)((kv + t) / C::kKStages) & 1; };
+  auto vslot = [&](int t) { return (kv + t) % C::kVStages; };
+  auto vphase = [&](int t) { return (uint32_t)((kv + t) / C::kVStages) & 1; };
 
   float acc[D / 2];
 #pragma unroll
@@ -906,43 +784,43 @@ __device__ __forceinline__ void consume(const Smem<C>& sm, int warp, int lane, c
   float m_r[2] = {kNegBig, kNegBig};
   float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
   float s[C::kKeys / 2], alpha[2];
-  uint32_t p_hi[8][4], p_lo[8][4];
+  uint32_t p_hi[C::kPSteps][4], p_lo[C::kPSteps][4];
 
   mbar_wait(sm.q_full(), iter & 1);
 
   // Step 0: S_0 alone.
-  mbar_wait(sm.k_full(slot(0)), phase(0));
+  mbar_wait(sm.k_full(kslot(0)), kphase(0));
   __syncwarp();  // lanes leave the spin apart; wgmma needs the warp converged
   turn_wait(1 + wg);
   wgmma_fence();
-  C::start_qk(s, q_tile, sm.k_at(slot(0)));
+  C::start_qk(s, q_tile, sm.k_at(kslot(0)));
   turn_pass(2 - wg);
   wgmma_wait_all();
   fence_regs(s);
   __syncwarp();
-  if (lane == 0) mbar_arrive(sm.k_empty(slot(0)));
+  if (lane == 0) mbar_arrive(sm.k_empty(kslot(0)));
   softmax_tile<CAUSAL>(s, m_r, l_r, alpha, 0, q0, s_k, row0, col, scale);
   rescale_and_split<C>(acc, alpha, s, p_hi, p_lo);
 
   // Steps 1 .. n_tiles - 1: S_t beside P_{t-1} V_{t-1}.
   for (int t = 1; t < n_tiles; ++t) {
-    mbar_wait(sm.k_full(slot(t)), phase(t));
-    mbar_wait(sm.v_full(slot(t - 1)), phase(t - 1));
+    mbar_wait(sm.k_full(kslot(t)), kphase(t));
+    mbar_wait(sm.v_full(vslot(t - 1)), vphase(t - 1));
     __syncwarp();
     turn_wait(1 + wg);
     wgmma_fence();
-    C::start_qk(s, q_tile, sm.k_at(slot(t)));
-    C::start_pv(acc, p_hi, p_lo, sm.v_at(slot(t - 1)));
+    C::start_qk(s, q_tile, sm.k_at(kslot(t)));
+    C::start_pv(acc, p_hi, p_lo, sm.v_at(vslot(t - 1)));
     turn_pass(2 - wg);
     asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");  // S_t is in
     fence_regs(s);
     __syncwarp();
-    if (lane == 0) mbar_arrive(sm.k_empty(slot(t)));
+    if (lane == 0) mbar_arrive(sm.k_empty(kslot(t)));
     softmax_tile<CAUSAL>(s, m_r, l_r, alpha, t, q0, s_k, row0, col, scale);
     wgmma_wait_all();
     fence_regs(acc);
     __syncwarp();
-    if (lane == 0) mbar_arrive(sm.v_empty(slot(t - 1)));
+    if (lane == 0) mbar_arrive(sm.v_empty(vslot(t - 1)));
     rescale_and_split<C>(acc, alpha, s, p_hi, p_lo);
   }
 
@@ -951,16 +829,16 @@ __device__ __forceinline__ void consume(const Smem<C>& sm, int warp, int lane, c
   // block's last item would have no wait to meet, so it is left out.
   __syncwarp();
   if (lane == 0) mbar_arrive(sm.q_empty());
-  mbar_wait(sm.v_full(slot(n_tiles - 1)), phase(n_tiles - 1));
+  mbar_wait(sm.v_full(vslot(n_tiles - 1)), vphase(n_tiles - 1));
   __syncwarp();
   turn_wait(1 + wg);
   wgmma_fence();
-  C::start_pv(acc, p_hi, p_lo, sm.v_at(slot(n_tiles - 1)));
+  C::start_pv(acc, p_hi, p_lo, sm.v_at(vslot(n_tiles - 1)));
   if (wg == 0 || !last_item) turn_pass(2 - wg);
   wgmma_wait_all();
   fence_regs(acc);
   __syncwarp();
-  if (lane == 0) mbar_arrive(sm.v_empty(slot(n_tiles - 1)));
+  if (lane == 0) mbar_arrive(sm.v_empty(vslot(n_tiles - 1)));
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1003,7 +881,6 @@ flash_wgmma_kernel(const __grid_constant__ typename C::Maps maps, int b, int h, 
                    int s_k, float scale, typename C::Out* __restrict__ o,
                    float* __restrict__ o_acc, float* __restrict__ m_out,
                    float* __restrict__ l_out) {
-  constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   // 128B swizzle repeats every 1024 bytes; the descriptors assume tiles start
   // on that boundary.
@@ -1019,10 +896,12 @@ flash_wgmma_kernel(const __grid_constant__ typename C::Maps maps, int b, int h, 
   if (threadIdx.x == 0) {
     mbar_init(sm.q_full(), 1);
     mbar_init(sm.q_empty(), kConsumerWarps);
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < C::kKStages; ++st) {
       mbar_init(sm.k_full(st), 1);
-      mbar_init(sm.v_full(st), 1);
       mbar_init(sm.k_empty(st), kConsumerWarps);
+    }
+    for (int st = 0; st < C::kVStages; ++st) {
+      mbar_init(sm.v_full(st), 1);
       mbar_init(sm.v_empty(st), kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -1041,14 +920,14 @@ flash_wgmma_kernel(const __grid_constant__ typename C::Maps maps, int b, int h, 
         mbar_expect_tx(sm.q_full(), C::kQBytes);
         C::load_q(maps, sm.q, sm.q_full(), it, bhs);
         for (int t = 0; t < it.n_tiles; ++t, ++kv) {
-          const int st = kv % kStages;
-          const int round = kv / kStages;
-          if (round > 0) mbar_wait(sm.k_empty(st), (round - 1) & 1);
-          mbar_expect_tx(sm.k_full(st), C::kKBytes);
-          C::load_k(maps, sm.k_at(st), sm.k_full(st), it, t, bhs);
-          if (round > 0) mbar_wait(sm.v_empty(st), (round - 1) & 1);
-          mbar_expect_tx(sm.v_full(st), C::kVBytes);
-          C::load_v(maps, sm.v_at(st), sm.v_full(st), it, t, bhs);
+          const int ks = kv % C::kKStages, kround = kv / C::kKStages;
+          if (kround > 0) mbar_wait(sm.k_empty(ks), (kround - 1) & 1);
+          mbar_expect_tx(sm.k_full(ks), C::kKBytes);
+          C::load_k(maps, sm.k_at(ks), sm.k_full(ks), it, t, bhs);
+          const int vs = kv % C::kVStages, vround = kv / C::kVStages;
+          if (vround > 0) mbar_wait(sm.v_empty(vs), (vround - 1) & 1);
+          mbar_expect_tx(sm.v_full(vs), C::kVBytes);
+          C::load_v(maps, sm.v_at(vs), sm.v_full(vs), it, t, bhs);
         }
       }
     }
@@ -1127,11 +1006,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, Strides qs, Stri
 }  // namespace hopper
 
 // ---------------------------------------------------------------------------
-// f32 at d = 64: the pre-pass that splits q, k, v for 3xTF32
+// f32: the pre-pass that splits q, k, v for 3xTF32
 // ---------------------------------------------------------------------------
 namespace split {
 
-constexpr int kRows = 64;      // rows (q rows or keys) per block; d = 64
+constexpr int kRows = 64;      // rows (q rows or keys) per block
 constexpr int kThreads = 256;
 
 // Blocks [0, b*h*s_q/64) each split a 64-row tile of q; the rest each split
@@ -1139,13 +1018,15 @@ constexpr int kThreads = 256;
 // within groups of 8 (position c holds key ((c & 3) << 1) | (c >> 2) of its
 // group; KEY_PERM in ops/flash_attention.py). Reads through the inputs'
 // strides; writes hi = tf32_rna(x) and lo = x - hi to part 0 and 1 of
-// q_out / k_out (2, b*h, s, 64) and vt_out (2, b*h, 64, s_k).
+// q_out / k_out (2, b*h, s, D) and vt_out (2, b*h, D, s_k).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, Strides qs, Strides kvs, int h, int s_q,
                        int s_k, float* __restrict__ q_out, float* __restrict__ k_out,
                        float* __restrict__ vt_out) {
-  __shared__ float tile[kRows][kRows + 1];
+  // One column of padding: the transposed reads below hit 32 banks.
+  __shared__ float tile[kRows][D + 1];
   const int bhs = gridDim.x / (s_q / kRows + s_k / kRows);
   int blk = blockIdx.x;
   const bool is_q = blk < bhs * (s_q / kRows);
@@ -1156,10 +1037,10 @@ flash_split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bi = bh / h, hi = bh - bi * h;
   const Strides st = is_q ? qs : kvs;
   const float* src = (is_q ? q : k) + bi * st.b + hi * st.h;
-  float* dst = (is_q ? q_out : k_out) + ((int64_t)bh * s + r0) * kRows;
-  const int64_t part = (int64_t)bhs * s * kRows;
-  for (int i = threadIdx.x; i < kRows * kRows; i += kThreads) {
-    const int r = i / kRows, c = i % kRows;
+  float* dst = (is_q ? q_out : k_out) + ((int64_t)bh * s + r0) * D;
+  const int64_t part = (int64_t)bhs * s * D;
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+    const int r = i / D, c = i % D;
     const float x = src[(int64_t)(r0 + r) * st.s + c];
     const float x_hi = tf32_rna(x);
     dst[i] = x_hi;
@@ -1168,14 +1049,14 @@ flash_split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (is_q) return;  // uniform across the block
 
   const float* vsrc = v + bi * kvs.b + hi * kvs.h;
-  for (int i = threadIdx.x; i < kRows * kRows; i += kThreads) {
-    const int r = i / kRows, c = i % kRows;
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+    const int r = i / D, c = i % D;
     tile[r][c] = vsrc[(int64_t)(r0 + r) * kvs.s + c];
   }
   __syncthreads();
-  float* vdst = vt_out + (int64_t)bh * kRows * s_k + r0;
-  const int64_t vpart = (int64_t)bhs * kRows * s_k;
-  for (int i = threadIdx.x; i < kRows * kRows; i += kThreads) {
+  float* vdst = vt_out + (int64_t)bh * D * s_k + r0;
+  const int64_t vpart = (int64_t)bhs * D * s_k;
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int dim = i / kRows, c = i % kRows;
     const float x = tile[(c & ~7) | ((c & 3) << 1) | ((c >> 2) & 1)][dim];
     const float x_hi = tf32_rna(x);
@@ -1184,12 +1065,13 @@ flash_split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, Strides qs, Strides kvs, int b,
                    int h, int s_q, int s_k, void* q_out, void* k_out, void* vt_out,
                    cudaStream_t stream) {
   if (s_q % kRows || s_k % kRows) return cudaErrorInvalidValue;
   const int blocks = b * h * (s_q / kRows + s_k / kRows);
-  flash_split_f32_kernel<<<blocks, kThreads, 0, stream>>>(
+  flash_split_f32_kernel<D><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       qs, kvs, h, s_q, s_k, static_cast<float*>(q_out), static_cast<float*>(k_out),
       static_cast<float*>(vt_out));
@@ -1198,24 +1080,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, Strides qs, Stri
 
 }  // namespace split
 
-// dtype 0 = float32 read in place (SIMT; d = 128), 1 = bfloat16 read in place
-// (TMA + wgmma; d = 64 or 128), 2 = float32 as the pre-pass's split scratch
-// (3xTF32 on TMA + wgmma; d = 64). Chosen by dtype and d alone.
+// dtype 1 = bfloat16 read in place, 2 = float32 as the pre-pass's split
+// scratch (3xTF32); both on the TMA + wgmma pipeline at d = 64 or 128.
+// Chosen by dtype and d alone.
 template <bool CAUSAL, bool FUSED>
 cudaError_t dispatch(int dtype, int d, const void* q, const void* k, const void* v,
                      Strides qs, Strides kvs, int b, int h, int s_q, int s_k, void* o,
                      float* o_acc, float* m, float* l, cudaStream_t st) {
-  if (dtype == 0 && d == 128)
-    return simt::launch<128, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
+  using namespace hopper;
   if (dtype == 1 && d == 64)
-    return hopper::launch<hopper::Bf16<64>, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o,
-                                                           o_acc, m, l, st);
+    return launch<Bf16<64>, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
   if (dtype == 1 && d == 128)
-    return hopper::launch<hopper::Bf16<128>, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o,
-                                                            o_acc, m, l, st);
+    return launch<Bf16<128>, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
   if (dtype == 2 && d == 64)
-    return hopper::launch<hopper::Tf32, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o,
-                                                       o_acc, m, l, st);
+    return launch<Tf32<64>, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
+  if (dtype == 2 && d == 128)
+    return launch<Tf32<128>, CAUSAL, FUSED>(q, k, v, qs, kvs, b, h, s_q, s_k, o, o_acc, m, l, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1251,17 +1131,19 @@ int ts_flash_chunk(const void* q, const void* k, const void* v, float* o_acc,
                                          o_acc, m, l, st);
 }
 
-// The pre-pass of the f32 kernel at d = 64: reads q (b, s_q, h, 64) and k, v
-// (b, s_k, h, 64) through their strides and writes the split scratch q_out
-// (2, b*h, s_q, 64), k_out (2, b*h, s_k, 64), vt_out (2, b*h, 64, s_k).
+// The pre-pass of the f32 kernel (d = 64 or 128): reads q (b, s_q, h, d) and
+// k, v (b, s_k, h, d) through their strides and writes the split scratch
+// q_out (2, b*h, s_q, d), k_out (2, b*h, s_k, d), vt_out (2, b*h, d, s_k).
 int ts_flash_split_f32(const void* q, const void* k, const void* v, void* q_out, void* k_out,
                        void* vt_out, int b, int h, int s_q, int s_k, int d, int64_t q_sb,
                        int64_t q_ss, int64_t q_sh, int64_t kv_sb, int64_t kv_ss, int64_t kv_sh,
                        void* stream) {
-  if (d != split::kRows) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, kvs{kv_sb, kv_ss, kv_sh};
-  return split::launch(q, k, v, qs, kvs, b, h, s_q, s_k, q_out, k_out, vt_out,
-                       static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64) return split::launch<64>(q, k, v, qs, kvs, b, h, s_q, s_k, q_out, k_out, vt_out, st);
+  if (d == 128)
+    return split::launch<128>(q, k, v, qs, kvs, b, h, s_q, s_k, q_out, k_out, vt_out, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

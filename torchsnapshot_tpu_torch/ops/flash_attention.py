@@ -2,9 +2,8 @@
 
 Counterpart of ``torchsnapshot_tpu/ops/flash_attention.py``. Its two Pallas
 kernels become hand-written CUDA kernels for Hopper
-(``csrc/flash_attention.cu``: TMA loads and ``wgmma`` tensor cores for
-bf16 and, through a 3xTF32 split, for f32 at d = 64; f32 FMAs for f32 at
-d = 128) with two entry points:
+(``csrc/flash_attention.cu``: TMA loads and ``wgmma`` tensor cores, for
+bf16 directly and for f32 through a 3xTF32 split) with two entry points:
 
 - :func:`flash_causal_forward` replaces ``_flash_kernel`` (through
   ``_flash_causal_forward``): causal attention, normalized, in the input
@@ -27,9 +26,9 @@ Layouts follow the JAX package: q, k, v are ``(batch, seq, heads, dim)``.
 The kernels read them through their strides (the head dim must be
 contiguous), so the q/k/v slices of a fused qkv projection need no copy.
 The bf16 kernel reads through TMA tensor maps, which need 16-byte-aligned
-bases and strides. For f32 at d = 64 a pre-pass kernel first reads q, k, v
-through their strides and writes the 3xTF32 split scratch that the
-tensor-core kernel reads (:func:`flash_split_plain` is its plain version).
+bases and strides. For f32 a pre-pass kernel first reads q, k, v through
+their strides and writes the 3xTF32 split scratch that the tensor-core
+kernel reads (:func:`flash_split_plain` is its plain version).
 """
 
 from __future__ import annotations
@@ -42,13 +41,15 @@ import torch
 from . import kernels
 
 _NEG_BIG = -1e30
-# Sequence lengths the CUDA kernels take: multiples of the f32 kernel's tile,
-# which the bf16 kernel's 128-row tiles reach by masking a half tile.
+# Sequence lengths the CUDA kernels take: multiples of the pre-pass's 64-row
+# tile, which the tensor-core kernel's 128-row q tiles reach by masking a
+# half tile.
 _KERNEL_TILE = 64
 _KERNEL_HEAD_DIMS = (64, 128)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel's dtype code for f32 at d = 64, whose q, k, v are the split scratch.
-_F32_SPLIT = 2
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# The kernel's dtype codes: bf16 q, k, v read in place; f32 as the pre-pass's
+# split scratch.
+_BF16, _F32_SPLIT = 1, 2
 # TMA (the bf16 kernel's loads) reads from 16-byte-aligned bases and strides.
 _TMA_ALIGN = 16
 
@@ -140,7 +141,7 @@ def flash_attention_chunk_plain(
 
 
 # ----------------------------------------------------------------------
-# The 3xTF32 split (f32 inputs at d = 64)
+# The 3xTF32 split (f32 inputs)
 # ----------------------------------------------------------------------
 
 # The bits a tf32 operand keeps: sign, exponent and the top 10 mantissa bits
@@ -180,8 +181,8 @@ def unpermute_keys(x: torch.Tensor) -> torch.Tensor:
 def flash_split_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the pre-pass kernel: the scratch the f32 kernel at
-    d = 64 reads. q ``(2, b, h, s_q, d)`` and k ``(2, b, h, s_k, d)`` as
+    """Plain version of the pre-pass kernel: the scratch the f32 kernel
+    reads. q ``(2, b, h, s_q, d)`` and k ``(2, b, h, s_k, d)`` as
     (hi, lo); vᵀ ``(2, b, h, d, s_k)`` as (hi, lo), keys permuted by
     :func:`permute_keys`. All contiguous f32."""
     qh, kh = (torch.stack(tf32_split(t.transpose(1, 2).float())) for t in (q, k))
@@ -271,13 +272,12 @@ def _raise_on(err: int, what: str) -> None:
 def _kernel_operands(
     lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[int, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dtype code, q, k, v)`` as the main kernel reads them: the inputs
-    themselves, or for f32 at d = 64 the split scratch that the pre-pass
-    kernel writes (see :func:`flash_split_plain`). Call under the inputs'
-    device."""
+    """``(dtype code, q, k, v)`` as the main kernel reads them: bf16 inputs
+    themselves, or for f32 the split scratch that the pre-pass kernel writes
+    (see :func:`flash_split_plain`). Call under the inputs' device."""
     b, sq, h, d = q.shape
-    if q.dtype != torch.float32 or d != 64:
-        return _KERNEL_DTYPES[q.dtype], q, k, v
+    if q.dtype == torch.bfloat16:
+        return _BF16, q, k, v
     sk = k.shape[1]
     qs = torch.empty((2, b, h, sq, d), dtype=torch.float32, device=q.device)
     ks = torch.empty((2, b, h, sk, d), dtype=torch.float32, device=q.device)
@@ -295,14 +295,14 @@ def _kernel_operands(
 def flash_split(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The pre-pass kernel alone (f32 inputs at d = 64): the split scratch,
-    as :func:`flash_split_plain` lays it out. The kernel on a CUDA tensor;
-    the plain version on a CPU one."""
+    """The pre-pass kernel alone (f32 inputs): the split scratch, as
+    :func:`flash_split_plain` lays it out. The kernel on a CUDA tensor; the
+    plain version on a CPU one."""
     if q.device.type == "cpu":
         return flash_split_plain(q, k, v)
     _check_kernel_inputs(q, k, v)
-    if q.dtype != torch.float32 or q.shape[3] != 64:
-        raise ValueError("the split pre-pass takes float32 at head dim 64")
+    if q.dtype != torch.float32:
+        raise ValueError(f"the split pre-pass takes float32, got {q.dtype}")
     with torch.cuda.device(q.device):
         return _kernel_operands(_library(), q, k, v)[1:]
 
@@ -489,7 +489,8 @@ def attention_flops(b: int, h: int, s_q: int, s_k: int, d: int, causal: bool) ->
 
 # f32: kernel and plain version run the same f32 algorithm, summed in another
 # order (other tiles, FMA contraction, tensor-core sums of exact bf16
-# products), so they differ by a few f32 ulps of the row sums. The f32
+# products, 3xTF32 products that drop ~2^-21 of each f32 one), so they differ
+# by a few f32 ulps of the row sums. The f32
 # kernel's outputs, and the chunk entry's m and l for either input dtype (f32
 # logits, f32 probabilities), are held to this.
 F32_TOL = 2e-5
