@@ -14,8 +14,12 @@ same for both:
 each turn from its tree's own directory: that tree's ``chip_smoke.py``
 (all phases), then this script's ``time`` on that tree,
 which times the tree's two flash wrappers in bf16 and f32 at the main path's
-shape and at (2, 4096, 16, 128) with one method for both trees: back-to-back
-ms, the card's ms behind a spin kernel and the host's us per call. Each turn's output goes to
+shape and at (2, 4096, 16, 128), and its digest wrapper ``digest_many_async``
+on the train state's and the bulk state's chunk tables, with one method for
+both trees: back-to-back ms, the card's ms behind a spin kernel and the
+host's us per call; for the digest also the card's time split by the
+profiler into the main kernel and the rest, and the SM clock and power
+while it ran. Each turn's output goes to
 ``chiprun_out/paired/<turn>_<tree>.log``; its kernel lines and JSON records
 are printed too.
 """
@@ -77,6 +81,33 @@ def time_tree(tree: str) -> None:
                 rec[name] = {"ms": cuda_ms(fn), "device_ms": device_ms, "host_us": host_us}
             print(json.dumps({"paired_time": rec}), flush=True)
             del q, k, v
+    time_digest(tree)
+
+
+def time_digest(tree: str) -> None:
+    """Time ``tree``'s digest wrapper on the train state's chunk table and
+    the bulk state's (8 GiB); one JSON line each."""
+    import torch
+
+    from chip_smoke import _train_state_digest_specs, bulk_state, digest_timings
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.incremental import IncrementalTakeContext
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+
+    if not dd.__file__.startswith(tree):
+        raise RuntimeError(f"imported {dd.__file__}, not the package of {tree}")
+    device = torch.device("cuda", torch.cuda.current_device())
+    state, specs = _train_state_digest_specs(0)
+    bulk = bulk_state(0, 8.0)
+    _, flat = flatten(bulk, prefix="bulk")
+    bulk_specs = IncrementalTakeContext(None, None, None, 0).collect(flat)[device].specs
+    for label, sp in (("train state", specs), ("bulk state", bulk_specs)):
+        nbytes = dd.digest_bytes(sp)
+        t = digest_timings(lambda: dd.digest_many_async(sp))
+        rec = {"tree": tree, "digest": label, "rows": sum(1 if r is None else len(r) for _, r in sp),
+               "bytes": nbytes, **t}
+        print(json.dumps({"paired_time": rec}), flush=True)
+    del state, specs, bulk, flat, bulk_specs
 
 
 def run() -> int:

@@ -18,7 +18,11 @@ each of which raises on failure (nothing is caught):
    table (one launch) and on the bulk state's. Time kernel, plain version
    and the library call (none for the digest) back to back (the record's
    ms), and each kernel again behind a spin kernel: the card's time alone
-   and the host's cost per wrapper call.
+   and the host's cost per wrapper call. The digest's card time is also
+   split by the profiler into its main kernel and the rest (memset, table
+   copy, finalize), logged with the SM clock and power while it ran, the
+   host's time to build the kernel's table, and the design's reckoned
+   integer instructions per lane.
    The host I/O runtime (``native/ts_io.cpp``) is built here too, so the
    timed takes and restores below hold no compile.
 2. **main**: the port's main path. Train the widest in-repo transformer
@@ -55,6 +59,7 @@ import argparse
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -106,15 +111,19 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 # ~5 ms of spin on the card: longer than the host takes to queue a timed
-# run of wrapper calls.
+# run of flash wrapper calls.
 HOLD_CYCLES = 10_000_000
+# ~50 ms: the digest wrapper's host cost was up to 2.4 ms a call, so ten
+# calls outlasted the 5 ms spin and the card's time took in the host's gaps.
+DIGEST_HOLD_CYCLES = 100_000_000
 
 
-def held_times(fn, iters: int = 10, warmup: int = 2) -> tuple:
+def held_times(fn, iters: int = 10, warmup: int = 2, hold_cycles: int = HOLD_CYCLES) -> tuple:
     """``(device ms, host us)`` per call of ``fn``. A spin kernel holds the
     stream while the calls queue up behind it, so the events time the card's
     work alone and the host's clock times what each call costs the host
-    (argument checks, allocations, the launch itself)."""
+    (argument checks, allocations, the launch itself). The spin must outlast
+    the host's ``iters`` calls, or the card's time includes the host's."""
     import torch
 
     for _ in range(warmup):
@@ -122,7 +131,7 @@ def held_times(fn, iters: int = 10, warmup: int = 2) -> tuple:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(HOLD_CYCLES)
+    torch.cuda._sleep(hold_cycles)
     start.record()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -411,28 +420,143 @@ def _time_digest(label: str, specs) -> dict:
     plain = dd.materialize_many(dd.digest_many_plain(specs))
     mismatched = int((kernel != plain).any(axis=1).sum())
     _require(mismatched == 0, f"digest of the {label} differs from the plain version in {mismatched} rows")
+    # The host digest too, on 8 rows spread over the table (the whole state
+    # would take the host minutes).
+    pieces = []
+    for t, ranges in specs:
+        pieces += [t] if ranges is None else [t[a:b] for a, b in ranges]
+    picked = sorted({round(i * (len(pieces) - 1) / 7) for i in range(8)})
+    host = [dd.digest_host(pieces[i].cpu()) for i in picked]
+    _require([tuple(int(x) for x in kernel[i]) for i in picked] == host,
+             f"digest of the {label} differs from the host digest")
 
     def fn():
         return dd.digest_many_async(specs)
 
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    t = digest_timings(fn)
     rec = {
-        "ms": cuda_ms(fn, iters=10),
+        "ms": t["ms"],
         "plain_ms": cuda_ms(lambda: dd.digest_many_plain(specs), iters=1, warmup=0),
         "library_ms": None,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "max_abs_err": float(abs(kernel.astype("int64") - plain.astype("int64")).max()),
     }
-    device_ms, host_us = held_times(fn)
+    table = dd.build_table(specs)
+    table_us = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        dd.build_table(specs)
+        table_us.append((time.perf_counter() - t0) * 1e6)
     log(
-        f"kernel device_digest {label}: {len(kernel)} rows, {nbytes / 1e9:.3f} GB in one launch: "
-        f"{rec['ms']:.4f} ms back to back, {nbytes / rec['ms'] / 1e6:.1f} GB/s; device "
-        f"{device_ms:.4f} ms ({nbytes / device_ms / 1e6:.1f} GB/s), host {host_us:.1f} us per "
-        f"call (plain {rec['plain_ms']:.2f} ms; no library call computes it; bound "
-        f"{bound_ms:.4f} ms by bytes at 3.35 TB/s); bit-identical to the plain version"
+        f"kernel device_digest {label}: {len(kernel)} rows, {nbytes / 1e9:.3f} GB in one launch "
+        f"({table.n_items} items): {rec['ms']:.4f} ms back to back, "
+        f"{nbytes / rec['ms'] / 1e6:.1f} GB/s; device {t['device_ms']:.4f} ms "
+        f"({nbytes / t['device_ms'] / 1e6:.1f} GB/s, {bound_ms / t['device_ms']:.1%} of the bound), "
+        f"of which the main kernel {t['main_ms']:.4f} ms and the rest (memset, table copy, "
+        f"finalize) {t['rest_ms']:.4f} ms by the profiler; host {t['host_us']:.1f} us per call, "
+        f"of which the table {statistics.median(table_us):.1f} us (median of 50) (plain {rec['plain_ms']:.2f} ms; no library call computes it; bound {bound_ms:.4f} ms by "
+        f"bytes at 3.35 TB/s; the design's reckoned integer instructions per lane "
+        f"{reckoned_int_ops_per_lane(table):.2f}); SM clock / power while timed: {t['clocks']}; "
+        f"bit-identical to the plain version, and on {len(picked)} rows to the host digest"
     )
     return rec
+
+
+def digest_timings(fn) -> dict:
+    """The digest wrapper ``fn`` timed as every tree's digest is: ms back to
+    back, card ms and host us per call behind a spin kernel, the card's time
+    split by the profiler into the main kernel and the rest, and the SM
+    clock and power sampled while it runs."""
+    device_ms, host_us = held_times(fn, hold_cycles=DIGEST_HOLD_CYCLES)
+    ops = device_ops_ms(fn)
+    main_ms = sum(ms for name, ms in ops.items() if "digest" in name and "finalize" not in name)
+    return {
+        "ms": cuda_ms(fn, iters=10), "device_ms": device_ms, "host_us": host_us,
+        "main_ms": main_ms, "rest_ms": sum(ops.values()) - main_ms, "ops": ops,
+        "clocks": clocks_during(fn),
+    }
+
+
+def device_ops_ms(fn, iters: int = 10) -> dict:
+    """Device time per call of ``fn`` by operation name (kernels, copies,
+    memsets), from torch.profiler over ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3 / iters
+            ops[e.name] = ops.get(e.name, 0.0) + ms
+    return ops
+
+
+def clocks_during(fn, seconds: float = 0.5) -> str:
+    """The SM clock and power draw that nvidia-smi reads every 50 ms while
+    ``fn`` runs back to back for ``seconds``: 'clock min-max MHz, power
+    max W (limit)'."""
+    import torch
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True,
+    )
+    try:
+        time.sleep(0.2)  # its first reading
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate()
+    rows = [[float(x) for x in line.split(",")] for line in out.splitlines()[1:] if line.count(",") == 2]
+    if not rows:
+        return "not read"
+    clocks = [r[0] for r in rows]
+    return (f"clock {min(clocks):.0f}-{max(clocks):.0f} MHz, power max "
+            f"{max(r[1] for r in rows):.1f} W (limit {rows[0][2]:.0f} W)")
+
+
+# The digest design's integer instructions (csrc/device_digest.cu), as
+# reckoned from its code: per lane, its extraction (none for 4-byte lanes)
+# and two multiply-adds; per weight pair, 19 (the index step, two seed adds,
+# two mix32s of 8), one pair per lane of every (item, sub-window) reached;
+# per (segment, sub-window), 3 a thread (two warp sums and the slot's add).
+DIGEST_SUB_LANES = 4096  # lanes of a sub-window: 256 threads x 16
+
+
+def reckoned_int_ops_per_lane(table) -> float:
+    import numpy as np
+
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+
+    seg, win = table.segments, table.windows
+    lane = seg["lane_bytes"].astype(np.int64)
+    nb = seg["nbytes"]
+    sub_bytes = DIGEST_SUB_LANES * lane
+    lanes = nb // lane
+    if not lanes.sum():
+        return 0.0
+    data = (lanes * np.where(lane == 4, 2, 3)).sum()
+    reduce = 3 * 256 * (-(-nb // sub_bytes)).sum()
+    n = win["n_reach"].astype(np.int64)
+    k = dd.items_per_window(n)
+    w = np.repeat(np.arange(len(win)), k)
+    i = np.arange(k.sum()) - np.repeat(np.cumsum(k) - k, k)
+    first = win["seg_begin"][w] + i * n[w] // k[w]  # each item's longest segment
+    reach = np.minimum(nb[first] - win["index"][w].astype(np.int64) * dd.WINDOW_BYTES, dd.WINDOW_BYTES)
+    weights = 19 * DIGEST_SUB_LANES * (-(-reach // sub_bytes[first])).sum()
+    return float((data + reduce + weights) / lanes.sum())
 
 
 # ----------------------------------------------------------------------

@@ -143,6 +143,68 @@ def test_digest_kernel_matches_plain_version(dtype) -> None:
     assert (int(kernel[0][0]), int(kernel[0][1])) == first
 
 
+def _digest_kernel_equals_plain(specs) -> None:
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+
+    kernel = dd.materialize_many(dd.digest_many_async(specs))
+    plain = dd.materialize_many(dd.digest_many_plain(specs))
+    assert kernel.shape == plain.shape and (kernel == plain).all()
+
+
+@pytest.mark.cuda_only
+def test_digest_kernel_on_the_train_state_table() -> None:
+    """The chunk table an incremental take digests for the d_model-1024
+    transformer's train state (171 rows: 16, 8, 6 and 2 MiB chunks and
+    2 KiB vectors, sharing windows), against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.incremental import IncrementalTakeContext
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig, init_train_state
+
+    cfg = TransformerConfig(
+        vocab_size=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
+        dtype=torch.bfloat16, attn_impl="flash",
+    )
+    state = init_train_state(cfg, seed=3)
+    _, flat = flatten(state.state_dict(), prefix="train")
+    specs = IncrementalTakeContext(None, None, None, 0).collect(flat)[torch.device("cuda", 0)].specs
+    assert sum(1 if r is None else len(r) for _, r in specs) == 171
+    _digest_kernel_equals_plain(specs)
+
+
+@pytest.mark.cuda_only
+def test_digest_kernel_on_512_equal_rows() -> None:
+    """512 bf16 segments of 1 MiB each: 32 windows, each shared by all."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    t = torch.randn((512, 512 * 1024), generator=g, device="cuda").to(torch.bfloat16)
+    _digest_kernel_equals_plain([(t, tuple((i, i + 1) for i in range(512)))])
+
+
+@pytest.mark.cuda_only
+def test_digest_kernel_rows_come_back_in_spec_order() -> None:
+    """Specs smallest first (the kernel sorts them longest first): the rows
+    follow the specs, each equal to the host digest of its bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    specs = [
+        (torch.randn(n, generator=g, device="cuda").to(dtype), None)
+        for n, dtype in ((3, torch.float32), (1000, torch.bfloat16), (70_001, torch.bfloat16),
+                         (70_003, torch.float32), (300_007, torch.bfloat16), (2_000_000, torch.float32))
+    ]
+    big = torch.randint(0, 255, (4097, 129), generator=g, device="cuda", dtype=torch.uint8)
+    specs.append((big, ((4000, 4001), (100, 300), (0, 4097))))
+    kernel = dd.materialize_many(dd.digest_many_async(specs))
+    host = [dd.digest_host(t.cpu()) for t, r in specs if r is None]
+    host += [dd.digest_host(big[a:b].cpu()) for a, b in specs[-1][1]]
+    assert [(int(a), int(b)) for a, b in kernel] == host
+
+
 @pytest.mark.cuda_only
 def test_async_take_of_a_source_mutated_after_return(tmp_path) -> None:
     """The on-device clone is the consistency point: the live CUDA tensors

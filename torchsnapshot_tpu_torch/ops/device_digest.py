@@ -32,7 +32,10 @@ package's own copies: importing the JAX module would import jax.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional, Sequence, Tuple
+import functools
+import itertools
+import operator
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,9 +51,10 @@ _MASK = 0xFFFFFFFF
 _HOST_BLOCK_LANES = 1 << 22
 _PLAIN_BLOCK_LANES = 1 << 24
 
-# Bytes of one segment that one block of the kernel digests per step (a
-# multiple of 16: tiles start on the segments' 16-byte boundaries).
-KERNEL_TILE_BYTES = 64 * 1024
+# The kernel's schedule (csrc/device_digest.cu checks both): one block
+# digests one window of WINDOW_BYTES of at most SLICE_SEGMENTS segments.
+WINDOW_BYTES = 32 * 1024
+SLICE_SEGMENTS = 32
 
 DIGEST_PREFIX = "mlh64:"
 
@@ -181,7 +185,7 @@ def _segments(specs: Sequence[Tuple[torch.Tensor, RangeSpec]]):
             continue
         if t.dim() == 0:
             raise ValueError("row ranges need a tensor of at least one dimension")
-        row_bytes = itemsize * int(np.prod(t.shape[1:], dtype=np.int64))
+        row_bytes = itemsize * (t.numel() // t.shape[0] if t.shape[0] else 0)
         for start, stop in ranges:
             if not 0 <= start <= stop <= t.shape[0]:
                 raise ValueError(f"row range ({start}, {stop}) outside dim 0 of {tuple(t.shape)}")
@@ -237,11 +241,184 @@ def digest_many_plain(specs: Sequence[Tuple[torch.Tensor, RangeSpec]]) -> torch.
 # ---------------------------------------------------------------------------
 
 
+# The kernel's table, as csrc/device_digest.cu reads it: Segments sorted by
+# lane width, then longest first; then one Window per (lane width, window
+# index) that some segment reaches.
+SEGMENT_DTYPE = np.dtype(
+    [("addr", "<i8"), ("nbytes", "<i8"), ("row", "<i4"), ("lane_bytes", "<i4")]
+)
+WINDOW_DTYPE = np.dtype(
+    [("item_begin", "<i4"), ("seg_begin", "<i4"), ("n_reach", "<i4"), ("index", "<i4")]
+)
+
+_DTYPE = operator.attrgetter("dtype")
+_NBYTES = operator.attrgetter("nbytes")
+
+# Lane bytes of every torch dtype the digest takes.
+_TORCH_LANE_BYTES: Dict[torch.dtype, int] = {
+    d: lane_bytes(d.itemsize)
+    for d in vars(torch).values()
+    if isinstance(d, torch.dtype) and digest_supported(d)
+}
+
+
+class DigestTable(NamedTuple):
+    """The kernel's table for some specs. ``buffer`` holds ``segments`` then
+    ``windows``; ``n_items`` is the number of (window, slice) items, one
+    block each; ``tensors`` are the contiguous images the addresses point
+    into, kept alive until the launch."""
+
+    buffer: np.ndarray
+    segments: np.ndarray
+    windows: np.ndarray
+    n_items: int
+    tensors: List[torch.Tensor]
+
+
+def items_per_window(n_reach: np.ndarray) -> np.ndarray:
+    """Items of windows that ``n_reach`` segments reach: slices of at most
+    SLICE_SEGMENTS, of equal length +-1 (item i of k holds segments
+    [i n / k, (i + 1) n / k) of the window's prefix)."""
+    return -(-n_reach // SLICE_SEGMENTS)
+
+
+def build_table(specs: Sequence[Tuple[torch.Tensor, RangeSpec]]) -> DigestTable:
+    """The kernel's table for ``specs`` (tensors of one device, CPU or
+    CUDA). Each tensor's attributes are read through ``map``; the rows'
+    order and windows depend only on the layout (dtypes, bytes, row
+    ranges), which :func:`_plan` computes over numpy arrays and caches, so
+    a take that digests the same layout at every step pays it once."""
+    if not specs:
+        raise ValueError("no specs")
+    tensors = [t for t, _ in specs]
+    try:
+        dtypes = tuple(map(_DTYPE, tensors))
+    except AttributeError:
+        raise TypeError("digest takes dense tensors") from None
+    unsupported = set(dtypes).difference(_TORCH_LANE_BYTES)
+    if unsupported:
+        raise TypeError(f"digest does not support dtype {unsupported.pop()}")
+    if len(set(map(torch.Tensor.get_device, tensors))) != 1:
+        raise ValueError("digest_many_async takes tensors of one device; group them by device")
+    try:
+        if not all(map(torch.Tensor.is_contiguous, tensors)):
+            tensors = [t if t.is_contiguous() else t.contiguous() for t in tensors]
+        addr = np.fromiter(map(torch.Tensor.data_ptr, tensors), dtype=np.int64, count=len(tensors))
+        nbytes = tuple(map(_NBYTES, tensors))
+    except RuntimeError:  # a sparse or opaque layout: no data pointer
+        raise TypeError("digest takes dense tensors") from None
+    ranged = []
+    for i, (t, r) in enumerate(specs):
+        if r is not None:
+            if t.dim() == 0:
+                raise ValueError("row ranges need a tensor of at least one dimension")
+            ranged.append((i, t.shape[0], r))
+    key = (dtypes, nbytes, tuple(ranged))
+    try:
+        plan = _plan(key)
+    except TypeError:  # ranges given as lists: unhashable
+        plan = _plan.__wrapped__(key)
+    if plan.spec is not None:
+        addr = addr[plan.spec] + plan.offset
+    if (addr % plan.lane).any():
+        k = int(np.flatnonzero(addr % plan.lane)[0])
+        raise ValueError(f"segment at {int(addr[k]):#x} is not aligned to its {int(plan.lane[k])}-byte lanes")
+    buffer = plan.buffer.copy()
+    n = plan.order.size
+    segments = buffer[: n * SEGMENT_DTYPE.itemsize].view(SEGMENT_DTYPE)
+    segments["addr"] = addr[plan.order]
+    return DigestTable(buffer, segments, buffer[n * SEGMENT_DTYPE.itemsize :].view(WINDOW_DTYPE),
+                       plan.n_items, tensors)
+
+
+class _Plan(NamedTuple):
+    spec: Optional[np.ndarray]  # each row's spec (None: one row per spec)
+    offset: Optional[np.ndarray]  # each row's byte offset in its tensor
+    lane: np.ndarray  # each row's lane bytes
+    order: np.ndarray  # the rows, sorted
+    buffer: np.ndarray  # the table, addresses unset
+    n_items: int
+
+
+@functools.lru_cache(maxsize=16)
+def _plan(key) -> _Plan:
+    """The table of a layout ``(dtype per spec, bytes per spec,
+    ((spec, dim-0 length, row ranges), ...) of the specs with ranges))``:
+    rows in spec order, each spec's ranges in order, sorted by lane width
+    and then longest first; within a group, the segments that reach window
+    j are those longer than j * WINDOW_BYTES."""
+    dtypes, nbytes, ranged = key
+    lane = np.array([_TORCH_LANE_BYTES[d] for d in dtypes], dtype=np.int64)
+    nbytes = np.array(nbytes, dtype=np.int64)
+    spec = offset = None
+    if ranged:
+        n_specs = lane.size
+        idx = [i for i, _, _ in ranged]
+        counts = np.ones(n_specs, dtype=np.int64)
+        counts[idx] = [len(r) for _, _, r in ranged]
+        n0 = np.ones(n_specs, dtype=np.int64)
+        n0[idx] = [n for _, n, _ in ranged]
+        row_bytes = nbytes // np.maximum(n0, 1)
+        spec = np.repeat(np.arange(n_specs), counts)
+        flat = np.array(
+            list(itertools.chain.from_iterable(itertools.chain.from_iterable(r for _, _, r in ranged))),
+            dtype=np.int64,
+        ).reshape(-1, 2)
+        start = np.zeros(spec.size, dtype=np.int64)
+        stop = np.ones(spec.size, dtype=np.int64)
+        is_ranged = np.zeros(n_specs, dtype=bool)
+        is_ranged[idx] = True
+        rows = is_ranged[spec]
+        start[rows], stop[rows] = flat[:, 0], flat[:, 1]
+        bad = np.flatnonzero((start < 0) | (start > stop) | (stop > n0[spec]))
+        if bad.size:
+            k = int(bad[0])
+            raise ValueError(f"row range ({start[k]}, {stop[k]}) outside dim 0 of length {n0[spec[k]]}")
+        offset = start * row_bytes[spec]
+        nbytes = (stop - start) * row_bytes[spec]
+        lane = lane[spec]
+    order = np.argsort(-((lane << 56) | nbytes), kind="stable")
+    sorted_nbytes, sorted_lane = nbytes[order], lane[order]
+    n = order.size
+    bounds = [0, *(np.flatnonzero(np.diff(sorted_lane)) + 1).tolist(), n] if n else [0]
+    seg_begin, reach = [], []
+    for g0, g1 in zip(bounds[:-1], bounds[1:]):  # at most 3 lane widths
+        n_windows = -(-int(sorted_nbytes[g0]) // WINDOW_BYTES)
+        reach.append(np.searchsorted(
+            -sorted_nbytes[g0:g1], np.arange(0, -n_windows * WINDOW_BYTES, -WINDOW_BYTES), side="left"
+        ))
+        seg_begin.append(g0)
+    sizes = [r.size for r in reach]
+    m = sum(sizes)
+    buffer = np.zeros(n * SEGMENT_DTYPE.itemsize + m * WINDOW_DTYPE.itemsize, dtype=np.uint8)
+    segments = buffer[: n * SEGMENT_DTYPE.itemsize].view(SEGMENT_DTYPE)
+    windows = buffer[n * SEGMENT_DTYPE.itemsize :].view(WINDOW_DTYPE)
+    segments["nbytes"] = sorted_nbytes
+    segments["row"] = order
+    segments["lane_bytes"] = sorted_lane
+    n_items = 0
+    if m:
+        reach = np.concatenate(reach)
+        items = items_per_window(reach)
+        ends = np.cumsum(items)
+        windows["item_begin"] = ends - items
+        windows["seg_begin"] = np.repeat(seg_begin, sizes)
+        windows["n_reach"] = reach
+        windows["index"] = np.concatenate([np.arange(k) for k in sizes])
+        n_items = int(ends[-1])
+    if n_items >= 2**31 or n >= 2**31:
+        raise ValueError(f"digest table too large: {n} segments, {n_items} items")
+    for a in (spec, offset, lane, order, buffer):
+        if a is not None:
+            a.flags.writeable = False  # shared by every call of the layout
+    return _Plan(spec, offset, lane, order, buffer, n_items)
+
+
 def _library() -> ctypes.CDLL:
     lib = kernels.library("device_digest")
     if not getattr(lib, "_ts_declared", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.ts_digest_many.argtypes = [ptr, i32, i64, i64, ptr, ptr]
+        lib.ts_digest_many.argtypes = [ptr, i64, ptr, i32, i32, i32, i64, i32, ptr, ptr]
         lib.ts_digest_many.restype = i32
         lib._ts_declared = True
     return lib
@@ -257,27 +434,21 @@ def digest_many_async(specs: Sequence[Tuple[torch.Tensor, RangeSpec]]) -> torch.
     if not specs:
         return torch.empty((0, 2), dtype=torch.int64)
     device = specs[0][0].device
-    if any(t.device != device for t, _ in specs):
-        raise ValueError("digest_many_async takes tensors of one device; group them by device")
     if device.type == "cpu":
+        if any(t.device != device for t, _ in specs):
+            raise ValueError("digest_many_async takes tensors of one device; group them by device")
         return digest_many_plain(specs)
     if device.type != "cuda":
         raise ValueError(f"digest_many_async takes CPU or CUDA tensors, got {device}")
-    segments = _segments(specs)
-    table = []
-    tiles = 0
-    for t, offset, nbytes, lane in segments:
-        addr = t.data_ptr() + offset
-        if addr % lane:
-            raise ValueError(f"segment at {addr:#x} is not aligned to its {lane}-byte lanes")
-        table.append((addr, nbytes, lane, tiles))
-        tiles += -(-nbytes // KERNEL_TILE_BYTES)
+    table = build_table(specs)
     lib = _library()
-    table_dev = torch.tensor(table, dtype=torch.int64).pin_memory().to(device, non_blocking=True)
-    out = torch.empty((len(segments), 2), dtype=torch.int32, device=device)
+    n = len(table.segments)
+    scratch = torch.empty(table.buffer.nbytes, dtype=torch.uint8, device=device)
+    out = torch.empty((n, 2), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.ts_digest_many(
-            table_dev.data_ptr(), len(segments), tiles, KERNEL_TILE_BYTES, out.data_ptr(),
+            table.buffer.ctypes.data, table.buffer.nbytes, scratch.data_ptr(), n,
+            len(table.windows), table.n_items, WINDOW_BYTES, SLICE_SEGMENTS, out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
