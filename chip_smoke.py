@@ -48,6 +48,21 @@ each of which raises on failure (nothing is caught):
    (8 GiB by default, ``--bulk-gib 20`` for the reference's 20 GB figure)
    with a bitwise check; then a digest-recording take and an incremental
    take of the unchanged state, which writes no data blob.
+4. **manager**: a training job's checkpoint loop on the main configuration
+   through ``CheckpointManager(keep_last_n=2, incremental=True)`` and a
+   ``PreemptionSaver`` on SIGTERM: a full save at step 1; the embedding
+   and layers 0-3 frozen; an ``async_save`` at step 2 with step 3's
+   update run beside its drain; a sync save at step 3; SIGTERM sent to
+   itself after step 4's update and the save that ``should_save(4)``
+   calls for. Each incremental save copies to the host exactly the bytes
+   of the chunks that changed and writes them; retention leaves steps 3
+   and 4 visible, pins each dropped step that a retained step's refs
+   name and deletes the other, commit marker first; a deep fsck passes
+   every retained step through its refs and catches one flipped byte in
+   a copy; ``restore_latest`` into a fresh state from another seed gives
+   bit-identical tensors, logits and next-step loss. The phase keeps its
+   own launch counts, set to 0 just before its loop: it must launch every
+   kernel of the path.
 
 The second-to-last line of stdout is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -591,7 +606,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk")
+    p.add_argument("--phases", default="kernels,main,bulk,manager")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -651,6 +666,10 @@ def main() -> int:
             t0 = time.monotonic()
             bulk_phase(args, work_dir, card)
             log(f"phase bulk: {time.monotonic() - t0:.1f} s")
+        if "manager" in phases:
+            t0 = time.monotonic()
+            manager_phase(args, work_dir, card)
+            log(f"phase manager: {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -1190,6 +1209,271 @@ def bulk_phase(args, work_dir: str, card: str) -> None:
     print(json.dumps({"bulk": record}), flush=True)
     for p in (path_d, path_i):
         shutil.rmtree(p, ignore_errors=True)
+
+
+def _data_locations(manifest) -> list:
+    """A step's own data blobs (not refs into another step), by manifest
+    location."""
+    from torchsnapshot_tpu_torch.manifest import entry_locations
+
+    return sorted({
+        loc for entry in manifest.values() for loc in entry_locations(entry)
+        if not loc.startswith("../") and type(entry).__name__ != "ObjectEntry"
+    })
+
+
+def _flipped_copy(step_dir: str, location: str, dest: str) -> None:
+    """A copy of a committed step at ``dest`` (a sibling, so its ``../``
+    refs resolve as the original's do): every file a symlink to the
+    original except ``location``, a real copy with one byte flipped."""
+    for d, _, files in os.walk(step_dir):
+        rel_dir = os.path.relpath(d, step_dir)
+        os.makedirs(os.path.join(dest, rel_dir), exist_ok=True)
+        for f in files:
+            rel = os.path.normpath(os.path.join(rel_dir, f))
+            src, dst = os.path.join(step_dir, rel), os.path.join(dest, rel)
+            if rel == os.path.normpath(location):
+                shutil.copyfile(src, dst)
+                with open(dst, "r+b") as fh:
+                    fh.seek(os.path.getsize(dst) // 2)
+                    byte = fh.read(1)
+                    fh.seek(-1, os.SEEK_CUR)
+                    fh.write(bytes([byte[0] ^ 0x01]))
+            else:
+                os.symlink(src, dst)
+
+
+def manager_phase(args, work_dir: str, card: str) -> dict:
+    """A training job's checkpoint loop on the main configuration, through
+    ``CheckpointManager(keep_last_n=2, incremental=True)`` and a
+    ``PreemptionSaver`` on SIGTERM: step 1 saved in full (recording
+    digests); the embedding and layers 0-3 frozen; step 2 saved with
+    ``async_save`` while step 3's update runs beside its drain; step 3
+    saved in sync; SIGTERM sent after step 4's update, and step 4 saved on
+    ``should_save``. Then the retained, pinned and deleted steps against
+    the steps' refs, a deep fsck of every retained step and of a copy with
+    one flipped byte, and ``restore_latest`` into a fresh state from
+    another seed: bit-identical state, logits and next-step loss. Returns
+    the phase's launch counts."""
+    import signal
+
+    import torch
+
+    from torchsnapshot_tpu_torch import CheckpointManager, PreemptionSaver, Snapshot
+    from torchsnapshot_tpu_torch.fsck import verify_snapshot
+    from torchsnapshot_tpu_torch.manager import INDEX_BLOB, referenced_steps
+    from torchsnapshot_tpu_torch.models.transformer import (
+        init_train_state,
+        make_train_step,
+        random_tokens,
+    )
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.snapshot import SNAPSHOT_METADATA_FNAME
+    from torchsnapshot_tpu_torch.telemetry import names
+
+    cfg = main_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
+    state = init_train_state(cfg, seed=args.seed)
+    train_step = make_train_step(cfg)
+    app_state = {"train": state}
+    root = os.path.join(work_dir, "managed")
+    mgr = CheckpointManager(root, keep_last_n=2, incremental=True)
+    n_frozen = cfg.n_layers // 2
+
+    def freeze(model) -> None:
+        for p in [model.embed] + [p for blk in model.layers[:n_frozen] for p in blk.parameters()]:
+            p.requires_grad_(False)
+
+    def counters() -> tuple:
+        return _counter(names.DEVICE_TO_HOST_BYTES_TOTAL), _counter(names.STORAGE_WRITE_BYTES_TOTAL)
+
+    captured, saves = {}, {}
+
+    def record_save(step: int, seconds: float, before: tuple, at=None, **extra) -> None:
+        """Bytes of the save of ``step``: copied to the host, written as
+        data blobs, and the bytes of the chunks that changed since the
+        previous save (``at``: the state saved, by default the state now)."""
+        torch.cuda.synchronize()
+        if at is None:
+            at = {k: v.clone() for k, v in _state_tensors(state).items()}
+        captured[step] = at
+        d2h, written_all = (a - b for a, b in zip(counters(), before))
+        rec = {
+            "s": seconds, "d2h_bytes": d2h, "written_bytes": _written_data_bytes(mgr.step_path(step)),
+            "written_all_bytes": written_all, **extra,
+        }
+        if step - 1 in captured:
+            rec["changed_bytes"] = changed = _changed_bytes(captured.pop(step - 1), at)
+            _require(d2h == changed, f"save {step} copied {d2h} bytes to the host, {changed} changed")
+            _require(
+                changed <= rec["written_bytes"] <= changed + (1 << 20),
+                f"save {step} wrote {rec['written_bytes']} data bytes, {changed} changed",
+            )
+        saves[step] = rec
+
+    fa.reset_launch_counts()
+    dd.reset_launch_counts()
+    saver = PreemptionSaver(signals=(signal.SIGTERM,))
+    try:
+        state, _ = train_step(state, tokens)
+        _require(not saver.should_save(1), "should_save(1) before any signal")
+        before = counters()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mgr.save(1, app_state)
+        record_save(1, time.monotonic() - t0, before)
+        freeze(state.model)
+
+        state, _ = train_step(state, tokens)
+        _require(not saver.should_save(2), "should_save(2) before any signal")
+        torch.cuda.synchronize()
+        at_2 = {k: v.clone() for k, v in _state_tensors(state).items()}
+        before = counters()
+        t0 = time.monotonic()
+        pending = mgr.async_save(2, app_state)
+        visible_s = time.monotonic() - t0
+        # Step 3's update runs while step 2 drains; it ends at its own
+        # stream's end (a device-wide synchronize would wait for the drain).
+        t1 = time.monotonic()
+        state, _ = train_step(state, tokens)
+        torch.cuda.current_stream().synchronize()
+        step_beside_drain_s = time.monotonic() - t1
+        pending.wait()
+        # To wait()'s return: the commit, then the index update and GC.
+        waited_s = time.monotonic() - t0
+        record_save(
+            2, waited_s, before, at=at_2, visible_s=visible_s, staged_s=pending.staged_s,
+            committed_s=pending.committed_s,
+        )
+        del at_2
+
+        _require(not saver.should_save(3), "should_save(3) before any signal")
+        before = counters()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mgr.save(3, app_state)
+        record_save(3, time.monotonic() - t0, before)
+
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, _ = train_step(state, tokens)
+        torch.cuda.current_stream().synchronize()
+        step_alone_s = time.monotonic() - t0
+        os.kill(os.getpid(), signal.SIGTERM)
+        _require(saver.preempted and saver.should_save(4), "SIGTERM after step 4 did not make should_save(4) true")
+        before = counters()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mgr.save(4, app_state)
+        record_save(4, time.monotonic() - t0, before)
+        _require(saver.exit_after_save and not saver.should_save(5), "the saver asked for a second save")
+    finally:
+        saver.close()
+    at_4 = captured.pop(4)
+    captured.clear()
+
+    # Retention: the newest two steps are visible; a dropped step is pinned
+    # exactly when a retained step's manifest references it, and deleted
+    # (commit marker and every blob) otherwise.
+    retained = mgr.all_steps()
+    _require(retained == [3, 4], f"retained steps {retained}, expected [3, 4]")
+    refs = {s: sorted(referenced_steps(Snapshot(mgr.step_path(s)).metadata.manifest)) for s in retained}
+    pinned = sorted({r for rs in refs.values() for r in rs} - set(retained))
+    deleted = sorted({1, 2} - set(pinned))
+    with open(os.path.join(root, INDEX_BLOB)) as f:
+        index_pins = json.load(f).get("pinned", [])
+    _require(index_pins == pinned, f"the index pins {index_pins}; the refs {refs} need {pinned}")
+    for s in pinned:
+        _require(
+            os.path.exists(os.path.join(mgr.step_path(s), SNAPSHOT_METADATA_FNAME)),
+            f"pinned step {s} lost its commit marker",
+        )
+    for s in deleted:
+        left = [f for _, _, fs in os.walk(mgr.step_path(s)) for f in fs]
+        _require(not left, f"deleted step {s} left files behind: {left[:5]}")
+
+    # Deep fsck of every retained step, through the refs into pinned steps;
+    # then of a copy of step 4 with one byte of one of its own blobs flipped.
+    fsck_records = {}
+    for s in retained:
+        t0 = time.monotonic()
+        report = verify_snapshot(mgr.step_path(s), deep=True)
+        seconds = time.monotonic() - t0
+        _require(report.ok, f"deep fsck of step {s}: {report.problems[:5]}")
+        _require(report.crcs_verified == report.blobs_checked, f"deep fsck of step {s} verified a blob by length only")
+        fsck_records[s] = {
+            "s": seconds, "bytes": report.bytes_verified, "blobs": report.blobs_checked,
+            "gb_s": report.bytes_verified / seconds / 1e9,
+        }
+    own = _data_locations(Snapshot(mgr.step_path(4)).metadata.manifest)
+    target = min(own, key=lambda loc: (os.path.getsize(os.path.join(mgr.step_path(4), loc)) < 4096, loc))
+    flipped = os.path.join(root, "step_flipped")
+    _flipped_copy(mgr.step_path(4), target, flipped)
+    problems = [(p.kind, p.location) for p in verify_snapshot(flipped, deep=True).problems]
+    _require(problems == [("checksum", target)], f"deep fsck of the flipped copy reported {problems}")
+    shutil.rmtree(flipped)
+
+    # restore_latest into a fresh state from another seed.
+    fresh = init_train_state(cfg, seed=args.seed + 1)
+    _require(not same_bits(fresh.model.embed, state.model.embed), "fresh model equals the trained one")
+    state_bytes = sum(v.numel() * v.element_size() for v in at_4.values())
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    step = mgr.restore_latest({"train": fresh})
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    _require(step == 4, f"restore_latest returned {step}")
+    _require_same_state(at_4, fresh, "restore_latest")
+    del at_4
+    with torch.no_grad():
+        logits_a = state.model(tokens)
+        logits_b = fresh.model(tokens)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(logits_a).all()), "evaluation logits not finite")
+    _require(same_bits(logits_a, logits_b), "evaluation logits differ after restore_latest")
+    del logits_a, logits_b
+    freeze(fresh.model)
+    _, loss_a = train_step(state, tokens)
+    _, loss_b = train_step(fresh, tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_a, loss_b), f"next-step losses differ after restore_latest: {loss_a} vs {loss_b}")
+    launches = {**fa.launch_counts, **dd.launch_counts}
+    _require(
+        all(launches[name] for name in MAIN_PATH_KERNELS),
+        f"a kernel of the path never launched in the manager phase: {launches}",
+    )
+
+    record = {
+        "card": card, "saves": saves, "step_alone_s": step_alone_s,
+        "step_beside_drain_s": step_beside_drain_s, "restore_latest_s": restore_s,
+        "restore_latest_gb_s": state_bytes / restore_s / 1e9, "state_bytes": state_bytes,
+        "fsck_deep": fsck_records, "flipped": target, "retained": retained, "refs": refs,
+        "pinned": pinned, "deleted": deleted, "next_loss": float(loss_a), "launches": launches,
+    }
+    for s, rec in saves.items():
+        log(
+            f"manager: save {s} {rec['s']:.3f} s"
+            + (
+                f" to wait()'s return (call {rec['visible_s']:.4f} s, staged {rec['staged_s']:.3f} s, "
+                f"committed {rec['committed_s']:.3f} s)" if "visible_s" in rec else ""
+            )
+            + f": {rec['d2h_bytes'] / 1e6:.3f} MB copied to the host, {rec['written_bytes'] / 1e6:.3f} MB "
+            f"of data written"
+            + (f", {rec['changed_bytes'] / 1e6:.3f} MB of chunks changed" if "changed_bytes" in rec else "")
+        )
+    log(
+        f"manager: step alone {step_alone_s:.3f} s, beside the async drain {step_beside_drain_s:.3f} s; "
+        f"retained {retained}, refs {refs}, pinned {pinned}, deleted {deleted}; deep fsck "
+        + ", ".join(f"step {s} {r['s']:.3f} s ({r['gb_s']:.2f} GB/s)" for s, r in fsck_records.items())
+        + f", flip in {target} caught; restore_latest {restore_s:.3f} s "
+        f"({record['restore_latest_gb_s']:.2f} GB/s) bit-identical, logits and next-step loss "
+        f"{float(loss_a)!r} too; launches {launches}; on {card}"
+    )
+    print(json.dumps({"manager": record}), flush=True)
+    del state, fresh
+    torch.cuda.empty_cache()
+    return launches
 
 
 if __name__ == "__main__":

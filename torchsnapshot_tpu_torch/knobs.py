@@ -3,8 +3,9 @@
 The knobs this package reads, under the same ``TORCHSNAPSHOT_TPU_`` names
 as torchsnapshot_tpu's, so one environment configures both packages.
 Values are read lazily on every call so tests and subprocesses can flip
-them at any time. Knobs of subsystems not ported yet (CAS, tiered storage,
-SLO, bundles, the autotuner, ...) come with those subsystems.
+them at any time. Knobs of subsystems not ported yet (tiered storage, SLO,
+bundles, the autotuner, ...) come with those subsystems; the CAS and CDN
+knobs are here only so that the manager can refuse them.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ _RESTORE_FLUSH_BYTES_ENV = "TORCHSNAPSHOT_TPU_RESTORE_PLACEMENT_FLUSH_BYTES"
 _ASYNC_DEVICE_SNAPSHOT_ENV = "TORCHSNAPSHOT_TPU_ASYNC_DEVICE_SNAPSHOT"
 _STAGING_POOL_SLAB_BYTES_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLAB_BYTES"
 _STAGING_POOL_SLABS_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLABS"
+_CAS_ENV = "TORCHSNAPSHOT_TPU_CAS"
+_CDN_ENV = "TORCHSNAPSHOT_TPU_CDN"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_MEMORY_BUDGET_FRACTION: float = 0.6
@@ -140,6 +143,20 @@ def get_staging_pool_slabs() -> int:
     worth of requests copies to the host while the previous one drains to
     storage."""
     return _get_int_env(_STAGING_POOL_SLABS_ENV, _DEFAULT_STAGING_POOL_SLABS)
+
+
+def is_cas_enabled() -> bool:
+    """The content-addressed chunk store of ``torchsnapshot_tpu`` (default
+    OFF). It is not ported: ``CheckpointManager`` reads this knob only to
+    refuse a root that asks for it, rather than write the plain layout in
+    its place."""
+    return os.environ.get(_CAS_ENV, "0") not in ("", "0")
+
+
+def is_cdn_enabled() -> bool:
+    """The checkpoint CDN's publish side (default OFF). Not ported:
+    ``CheckpointManager`` reads it only to refuse."""
+    return os.environ.get(_CDN_ENV, "0") not in ("", "0")
 
 
 @contextlib.contextmanager

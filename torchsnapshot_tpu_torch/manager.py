@@ -1,0 +1,645 @@
+"""CheckpointManager: step-numbered snapshots with retention and
+latest-step resume.
+
+Counterpart of ``torchsnapshot_tpu/manager.py``, in the same on-disk
+format: either package's manager reads, restores, retains and
+incrementally extends a root the other wrote. It packages the loop a
+training job runs around ``Snapshot.take``:
+
+    mgr = CheckpointManager(root, keep_last_n=3)
+    start = mgr.restore_latest(app_state)          # None on a fresh run
+    for step in range(start or 0, total_steps):
+        ...
+        if step % save_every == 0:
+            mgr.save(step, app_state)              # or async_save
+
+Steps live at ``{root}/step_{step:010d}`` and the committed-step list is
+a ``.manager_index`` JSON blob (storage plugins have no directory
+listing, so the index is the source of truth; a step whose take crashed
+before commit never enters it and is invisible to restore). Retention
+deletes every blob named by the dropped step's manifest, the commit
+marker first, so a half-deleted step can never be mistaken for a valid
+one.
+
+Incremental mode (``incremental=True``, or per save): each save records
+digests on the card and references the previous committed step's
+unchanged chunks instead of rewriting them (incremental.py). The index
+also records which origin steps each step's manifest references;
+retention *pins* a dropped step whose blobs a retained step still
+references (blobs stay, the step leaves the visible list) and deletes it
+as soon as no retained step references it.
+
+Not ported yet, and refused rather than skipped: the content-addressed
+chunk store, the CDN publish side, ``tiered://`` roots with
+``wait_durable`` / ``resume_mirrors`` (ROADMAP queue 1 step 9), and a
+process group (step 5). The JAX manager's telemetry hooks (run ledger,
+SLO evaluation, autotuner, step and restore history) come with step 10;
+the peer tier, inert without a process group, with step 9.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import math
+import os
+import re
+import threading
+from typing import Any, Dict, List, Optional, Set
+
+from . import knobs, telemetry
+from .chaos import crashpoint
+from .event_loop import run_in_fresh_event_loop
+from .integrity import table_path
+from .io_types import ReadIO, StoragePlugin, WriteIO
+from .manifest import Manifest, SnapshotMetadata, entry_locations
+from .pg_wrapper import PGWrapper
+from .snapshot import SNAPSHOT_METADATA_FNAME, PendingRestore, PendingSnapshot, Snapshot
+from .stateful import AppState
+from .storage_plugin import _parse_url, join_path, split_tiered_url, url_to_storage_plugin
+from .telemetry import names as metric_names
+
+logger: logging.Logger = logging.getLogger(__name__)
+
+INDEX_BLOB = ".manager_index"
+INDEX_BACKUP_BLOB = ".manager_index.backup"
+
+# Files the JAX package may leave in a step directory that its manifest
+# does not name (the telemetry event log; per rank: a progress heartbeat,
+# a peer placement doc, a chunk map). GC removes them too, so that
+# retention of a step the JAX package wrote leaves nothing behind.
+_STEP_EVENTS_BLOB = ".telemetry.jsonl"
+_RANK_SIDE_BLOBS = (".progress-rank{}.json", ".peer_placement-rank{}.json", "cas/{}")
+
+
+def _not_ported(what: str, step: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to torchsnapshot_tpu_torch yet "
+        f"(ROADMAP queue 1 step {step}); use torchsnapshot_tpu for it"
+    )
+
+
+def _step_dirname(step: int) -> str:
+    return f"step_{step:010d}"
+
+
+_REF_LOCATION_RE = re.compile(r"^\.\./step_(\d+)/")
+
+
+def referenced_steps(manifest: Manifest) -> Set[int]:
+    """Origin steps an (incremental) snapshot's manifest references.
+    Chained refs collapse at take time (incremental.py), so locations
+    always name the originating step directly."""
+    out: Set[int] = set()
+    for entry in manifest.values():
+        for location in entry_locations(entry):
+            m = _REF_LOCATION_RE.match(location)
+            if m:
+                out.add(int(m.group(1)))
+    return out
+
+
+async def read_index_full_async(storage: StoragePlugin) -> Dict[str, Any]:
+    """Primary slot, falling back to the backup slot: the index is
+    rewritten on every save (backup slot first), so a crash mid-write
+    must not brick the manager; whichever slot survives is valid, at
+    worst one save stale. Returns ``{"steps": [...], "refs": {step:
+    [origin steps]}, "pinned": [...], "metrics": {step: score},
+    "refs_complete": bool}``."""
+    io_failed: List[str] = []
+    corrupt: List[str] = []
+    for slot in (INDEX_BLOB, INDEX_BACKUP_BLOB):
+        read_io = ReadIO(path=slot)
+        try:
+            await storage.read(read_io)
+        except FileNotFoundError:
+            continue
+        except Exception as e:  # noqa: BLE001
+            logger.warning("Could not read index slot %s: %r", slot, e)
+            io_failed.append(slot)
+            continue
+        if read_io.buf is None:
+            continue
+        try:
+            raw = json.loads(bytes(read_io.buf))
+            return {
+                "steps": sorted(int(s) for s in raw["steps"]),
+                "refs": {
+                    str(int(k)): sorted(int(v) for v in vs)
+                    for k, vs in raw.get("refs", {}).items()
+                },
+                "pinned": sorted(int(p) for p in raw.get("pinned", [])),
+                "metrics": {
+                    str(int(k)): float(v) for k, v in raw.get("metrics", {}).items()
+                },
+                # Indexes with committed steps but without the marker may
+                # predate incremental-ref recording: a missing refs entry
+                # there means "unknown", and GC must verify before
+                # deleting. A fresh (empty) index is trivially complete.
+                "refs_complete": bool(raw.get("refs_complete", not raw["steps"])),
+            }
+        except (ValueError, KeyError, TypeError) as e:
+            logger.warning("Index slot %s is corrupt (%r); trying the other slot", slot, e)
+            corrupt.append(slot)
+    # Both slots absent (a fresh root) is an empty index. One corrupt slot
+    # with the other absent is too: writes go backup then primary, so that
+    # state can only be a torn first-ever index write. Anything else (I/O
+    # errors, or both slots corrupt) must not read as empty: the next index
+    # write would orphan every committed step. Fail loudly instead; a
+    # transient storage error heals on retry.
+    if io_failed or len(corrupt) > 1:
+        raise RuntimeError(
+            "checkpoint index unreadable "
+            f"(io_failed={io_failed!r}, corrupt={corrupt!r}); "
+            "refusing to treat the step list as empty"
+        )
+    return {"steps": [], "refs": {}, "pinned": [], "metrics": {}, "refs_complete": True}
+
+
+class _PendingManagedSnapshot:
+    """Wraps a PendingSnapshot so that the index update and retention run
+    once the background commit succeeds."""
+
+    def __init__(
+        self,
+        manager: "CheckpointManager",
+        step: int,
+        pending: PendingSnapshot,
+        metric: Optional[float] = None,
+    ):
+        self._manager = manager
+        self._step = step
+        self._pending = pending
+        self._metric = metric
+        self._committed = False
+        self._commit_lock = threading.Lock()
+
+    def wait(self, phase: str = "committed") -> Optional[Snapshot]:
+        """Passes ``phase`` through to :meth:`PendingSnapshot.wait`. The
+        index update and retention run only on the ``"committed"`` wait:
+        a ``"staged"`` wait observes the end of the device-to-host copies
+        without making the step visible to ``restore_latest``."""
+        if phase not in ("staged", "committed"):
+            raise ValueError(f'phase must be "staged" or "committed", got {phase!r}')
+        if phase == "staged":
+            self._pending.wait(phase="staged")
+            return None
+        snapshot = self._pending.wait()  # raises on a failed take: no index entry
+        # wait() may be called from more than one place and thread; the
+        # step commits exactly once.
+        with self._commit_lock:
+            if not self._committed:
+                self._manager._commit_step(
+                    self._step,
+                    refs=lambda: referenced_steps(snapshot.metadata.manifest),
+                    metric=self._metric,
+                )
+                telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
+                self._committed = True
+        return snapshot
+
+    def done(self) -> bool:
+        return self._pending.done()
+
+    def staged(self) -> bool:
+        return self._pending.staged()
+
+    def __getattr__(self, name: str) -> Any:
+        # The wrapped handle's phase times (visible_s, staged_s, committed_s).
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return getattr(self._pending, name)
+
+
+class CheckpointManager:
+    def __init__(
+        self,
+        root: str,
+        keep_last_n: Optional[int] = None,
+        pg: Optional[Any] = None,
+        incremental: bool = False,
+        keep_best_n: Optional[int] = None,
+        best_mode: str = "min",
+        keep_fast_last_n: Optional[int] = None,
+        keep_peer_last_n: Optional[int] = None,
+        cdn_topic: Optional[str] = None,
+        cdn_store: Optional[Any] = None,
+    ) -> None:
+        # keep_fast_last_n, keep_peer_last_n, cdn_topic and cdn_store keep
+        # the JAX manager's signature. The tiered and CDN planes they
+        # configure are refused below; the peer tier is inert in one
+        # process, and a topic without the CDN knob publishes nothing.
+        for name, value in (
+            ("keep_last_n", keep_last_n),
+            ("keep_best_n", keep_best_n),
+            ("keep_peer_last_n", keep_peer_last_n),
+            ("keep_fast_last_n", keep_fast_last_n),
+        ):
+            if value is not None and value < 1:
+                raise ValueError(f"{name} must be >= 1, got {value}")
+        tiered = split_tiered_url(root) is not None
+        if keep_fast_last_n is not None and not tiered:
+            raise ValueError(
+                "keep_fast_last_n requires a tiered:// root (fast-tier "
+                "eviction needs a durable tier to fall back to)"
+            )
+        if best_mode not in ("min", "max"):
+            raise ValueError(f"best_mode must be 'min' or 'max', got {best_mode}")
+        if tiered:
+            raise _not_ported("a tiered:// root (fast and durable tiers, the mirror)", 9)
+        scheme, local_root = _parse_url(root)
+        if knobs.is_cas_enabled() or (
+            scheme == "fs" and os.path.isdir(os.path.join(local_root, "chunks"))
+        ):
+            # A root that already holds a chunk store needs its refcounted
+            # GC even with the knob off.
+            raise _not_ported("the content-addressed chunk store (TORCHSNAPSHOT_TPU_CAS)", 9)
+        if cdn_topic is not None and knobs.is_cdn_enabled():
+            raise _not_ported("publishing steps to a CDN topic (TORCHSNAPSHOT_TPU_CDN)", 9)
+        self.root = root
+        self.keep_last_n = keep_last_n
+        # Metric-driven retention: steps saved with a ``metric=`` keep the
+        # best ``keep_best_n`` scores (``best_mode``: lower or higher is
+        # better) in addition to the newest ``keep_last_n``. With only
+        # keep_best_n set, unscored steps are never GC'd (see _retained).
+        self.keep_best_n = keep_best_n
+        self.best_mode = best_mode
+        # Default for save()/async_save(): digest-enabled takes that
+        # reference the previous committed step's unchanged chunks.
+        self.incremental = incremental
+        self._pg_arg = pg
+        self._pg = PGWrapper(pg)
+
+    # ------------------------------------------------------------------
+    # saving
+    # ------------------------------------------------------------------
+
+    def step_path(self, step: int) -> str:
+        return join_path(self.root, _step_dirname(step))
+
+    def _incremental_take_kwargs(
+        self, incremental: Optional[bool], take_kwargs: Dict[str, Any]
+    ) -> Dict[str, Any]:
+        """Resolve the per-save incremental setting and, when on, point the
+        take at the latest committed step. Rank 0 resolves the base and
+        everyone follows: ranks must never diff against different bases."""
+        if incremental is None:
+            incremental = self.incremental
+        if not incremental:
+            return take_kwargs
+        if "incremental_base" in take_kwargs:
+            return {**take_kwargs, "record_digests": True}
+        base_step = self.latest_step() if self._pg.get_rank() == 0 else None
+        base_step = self._pg.broadcast_object(base_step)
+        out = {**take_kwargs, "record_digests": True}
+        if base_step is not None:
+            out["incremental_base"] = self.step_path(base_step)
+        return out
+
+    def save(
+        self,
+        step: int,
+        app_state: AppState,
+        incremental: Optional[bool] = None,
+        metric: Optional[float] = None,
+        **take_kwargs: Any,
+    ) -> Snapshot:
+        """Synchronous checkpoint of ``step``; updates the index and
+        applies retention after the commit. ``incremental`` overrides the
+        manager's default for this save; ``metric`` records this step's
+        score for ``keep_best_n`` retention and ``best_step()``."""
+        self._validate_metric(metric)
+        take_kwargs = self._incremental_take_kwargs(incremental, take_kwargs)
+        snapshot = Snapshot.take(self.step_path(step), app_state, pg=self._pg_arg, **take_kwargs)
+        self._commit_step(
+            step, refs=lambda: referenced_steps(snapshot.metadata.manifest), metric=metric
+        )
+        telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
+        return snapshot
+
+    @staticmethod
+    def _validate_metric(metric: Optional[float]) -> None:
+        """NaN and inf poison min()/sort comparisons, silently selecting a
+        diverged checkpoint as 'best': reject them at the API boundary."""
+        if metric is not None and not math.isfinite(float(metric)):
+            raise ValueError(
+                f"metric must be finite, got {metric!r} (a diverged "
+                f"eval score must not enter best-checkpoint retention)"
+            )
+
+    def async_save(
+        self,
+        step: int,
+        app_state: AppState,
+        incremental: Optional[bool] = None,
+        metric: Optional[float] = None,
+        **take_kwargs: Any,
+    ) -> _PendingManagedSnapshot:
+        """Pipelined checkpoint; the index entry and retention pass happen
+        in ``wait()`` after the background commit succeeds."""
+        self._validate_metric(metric)
+        take_kwargs = self._incremental_take_kwargs(incremental, take_kwargs)
+        pending = Snapshot.async_take(self.step_path(step), app_state, pg=self._pg_arg, **take_kwargs)
+        return _PendingManagedSnapshot(self, step, pending, metric=metric)
+
+    # ------------------------------------------------------------------
+    # resuming
+    # ------------------------------------------------------------------
+
+    def all_steps(self) -> List[int]:
+        """Committed steps, ascending."""
+        return self._read_index()
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def best_step(self) -> Optional[int]:
+        """The committed step with the best recorded metric (``best_mode``
+        ordering; the newest wins ties), or None when no step has one."""
+        index = self._with_root_storage(read_index_full_async)
+        scored = [s for s in index["steps"] if str(s) in index["metrics"]]
+        if not scored:
+            return None
+        return min(scored, key=lambda s: self._metric_sort_key(s, index["metrics"]))
+
+    def restore_best(self, app_state: AppState) -> Optional[int]:
+        """Restore the best-metric committed step; returns it, or None if
+        no step carries a metric."""
+        step = self.best_step() if self._pg.get_rank() == 0 else None
+        step = self._pg.broadcast_object(step)
+        if step is None:
+            return None
+        self.restore(step, app_state)
+        return step
+
+    def restore(self, step: int, app_state: AppState) -> None:
+        Snapshot(self.step_path(step), pg=self._pg_arg).restore(app_state)
+        telemetry.metrics().counter_inc(metric_names.MANAGER_RESTORES_TOTAL)
+
+    def restore_latest(self, app_state: AppState) -> Optional[int]:
+        """Restore the newest committed step into ``app_state``; returns
+        its step number, or None when no checkpoint exists (fresh run)."""
+        step = self.latest_step() if self._pg.get_rank() == 0 else None
+        step = self._pg.broadcast_object(step)
+        if step is None:
+            return None
+        self.restore(step, app_state)
+        return step
+
+    def async_restore(self, step: int, app_state: AppState) -> PendingRestore:
+        """Pipelined restore of ``step`` (Snapshot.async_restore): reads
+        run in the background; call ``.wait()`` to apply."""
+        pending = Snapshot(self.step_path(step), pg=self._pg_arg).async_restore(app_state)
+        # Counted at initiation: async resumes move the same counter as
+        # sync ones.
+        telemetry.metrics().counter_inc(metric_names.MANAGER_RESTORES_TOTAL)
+        return pending
+
+    def async_restore_latest(self, app_state: AppState):
+        """Start a pipelined restore of the newest committed step; returns
+        ``(step, PendingRestore)``, or None on a fresh run."""
+        step = self.latest_step() if self._pg.get_rank() == 0 else None
+        step = self._pg.broadcast_object(step)
+        if step is None:
+            return None
+        return step, self.async_restore(step, app_state)
+
+    def wait_durable(self, step: int, timeout: Optional[float] = None) -> None:
+        """The tiered durability barrier: not ported yet."""
+        raise _not_ported("wait_durable (tiered roots, the mirror)", 9)
+
+    def resume_mirrors(self) -> List[int]:
+        """Resuming interrupted tiered mirrors: not ported yet."""
+        raise _not_ported("resume_mirrors (tiered roots, the mirror)", 9)
+
+    # ------------------------------------------------------------------
+    # index and retention (rank 0 only)
+    # ------------------------------------------------------------------
+
+    def _with_root_storage(self, coro_fn):
+        """Run ``coro_fn(storage)`` against the manager root in a fresh
+        event loop, closing the plugin on every path."""
+
+        async def body():
+            storage = url_to_storage_plugin(self.root)
+            try:
+                return await coro_fn(storage)
+            finally:
+                await storage.close()
+
+        return run_in_fresh_event_loop(body())
+
+    def _commit_step(
+        self, step: int, refs: Optional[Any] = None, metric: Optional[float] = None
+    ) -> None:
+        """``refs`` may be a value or a zero-arg callable (evaluated only on
+        rank 0, which alone holds the manifest)."""
+        if self._pg.get_rank() != 0:
+            return
+        if callable(refs):
+            refs = refs()
+        self._with_root_storage(
+            lambda storage: self._commit_step_async(step, storage, refs or set(), metric)
+        )
+
+    def _retained(
+        self, steps: List[int], just_saved: int, metrics: Dict[str, float]
+    ) -> List[int]:
+        """Retention policy: newest ``keep_last_n`` ∪ best ``keep_best_n``
+        (by recorded metric) ∪ the just-saved step (never GC'd in its own
+        commit: a rollback may produce a numerically old step).
+
+        With ``keep_best_n`` alone (``keep_last_n=None``), only *scored*
+        steps compete for deletion: unscored steps are all retained."""
+        if self.keep_last_n is None and self.keep_best_n is None:
+            return list(steps)
+        keep: Set[int] = set()
+        if self.keep_last_n is not None:
+            keep.update(steps[-self.keep_last_n :])
+        if self.keep_best_n is not None:
+            scored = [s for s in steps if str(s) in metrics]
+            scored.sort(key=lambda s: self._metric_sort_key(s, metrics))
+            keep.update(scored[: self.keep_best_n])
+            if self.keep_last_n is None:
+                keep.update(s for s in steps if str(s) not in metrics)
+        if just_saved not in keep:
+            logger.warning(
+                "Just-saved step %d falls outside the retention policy "
+                "(retained: %s); keeping it anyway: the just-saved "
+                "checkpoint is never deleted",
+                just_saved,
+                sorted(keep),
+            )
+            keep.add(just_saved)
+        return [s for s in steps if s in keep]
+
+    def _metric_sort_key(self, step: int, metrics: Dict[str, float]):
+        """One ordering for retention and best_step()/restore_best(): best
+        metric first (mode-signed), the newest step wins ties."""
+        sign = 1.0 if self.best_mode == "min" else -1.0
+        return (sign * metrics[str(step)], -step)
+
+    async def _commit_step_async(
+        self,
+        step: int,
+        storage: StoragePlugin,
+        refs: Set[int],
+        metric: Optional[float] = None,
+    ) -> None:
+        index = await read_index_full_async(storage)
+        steps = sorted({*index["steps"], step})
+        refs_map: Dict[str, List[int]] = dict(index["refs"])
+        if refs:
+            refs_map[str(step)] = sorted(refs)
+        else:
+            refs_map.pop(str(step), None)
+        metrics: Dict[str, float] = dict(index["metrics"])
+        if metric is not None:
+            metrics[str(step)] = float(metric)
+        else:
+            metrics.pop(str(step), None)
+        pinned: Set[int] = set(index["pinned"])
+
+        steps = self._retained(steps, step, metrics)
+        dropped = [s for s in index["steps"] if s not in steps]
+
+        # The orphaned-base guard: in an index not marked ``refs_complete``
+        # (written before incremental refs existed) a retained step's
+        # missing refs entry means "unknown", not "none". Re-derive refs
+        # from each such step's own manifest, once: every index this code
+        # writes carries the marker.
+        if not index["refs_complete"]:
+            for s in steps:
+                if str(s) not in refs_map:
+                    derived = await self._derive_refs_async(storage, s)
+                    if derived:
+                        refs_map[str(s)] = sorted(derived)
+
+        # Pin or delete: a dropped (or previously pinned) step whose blobs a
+        # retained step's manifest still references keeps its blobs. Refs
+        # name origin steps directly (chained refs collapse at take time),
+        # so one pass over the retained steps' refs is the whole liveness
+        # set: pins don't propagate.
+        needed: Set[int] = set()
+        for s in steps:
+            needed.update(refs_map.get(str(s), ()))
+        to_delete: List[int] = []
+        for old in dropped:
+            if old in needed:
+                pinned.add(old)
+            else:
+                to_delete.append(old)
+        for p in sorted(pinned):
+            if p not in needed:
+                pinned.discard(p)
+                to_delete.append(p)
+        for gone in to_delete:
+            refs_map.pop(str(gone), None)
+            metrics.pop(str(gone), None)
+
+        await self._write_index_async(
+            steps, storage, refs=refs_map, pinned=sorted(pinned), metrics=metrics
+        )
+        registry = telemetry.metrics()
+        registry.gauge_set(metric_names.MANAGER_RETAINED_STEPS, len(steps))
+        if to_delete:
+            registry.counter_inc(metric_names.MANAGER_GC_STEPS_TOTAL, len(to_delete))
+        for old in to_delete:
+            try:
+                await self._delete_step_async(old)
+            except Exception as e:  # noqa: BLE001 - GC must not fail a save
+                logger.warning("Failed to GC step %d: %r", old, e)
+
+    async def _derive_refs_async(self, storage: StoragePlugin, step: int) -> Set[int]:
+        """A step's origin-step refs, re-derived from its committed
+        manifest. An unreadable manifest raises to the caller."""
+        read_io = ReadIO(path=f"{_step_dirname(step)}/{SNAPSHOT_METADATA_FNAME}")
+        try:
+            await storage.read(read_io)
+        except FileNotFoundError:
+            return set()
+        metadata = SnapshotMetadata.from_yaml(bytes(read_io.buf).decode())
+        return referenced_steps(metadata.manifest)
+
+    async def _write_index_async(
+        self,
+        steps: List[int],
+        storage: StoragePlugin,
+        refs: Optional[Dict[str, List[int]]] = None,
+        pinned: Optional[List[int]] = None,
+        metrics: Optional[Dict[str, float]] = None,
+    ) -> None:
+        payload_obj: Dict[str, Any] = {"steps": steps}
+        if steps:
+            # Under this marker a step's absent refs entry soundly means
+            # verified-empty.
+            payload_obj["refs_complete"] = True
+        if refs:
+            payload_obj["refs"] = refs
+        if pinned:
+            payload_obj["pinned"] = pinned
+        if metrics:
+            payload_obj["metrics"] = metrics
+        payload = json.dumps(payload_obj).encode()
+        # Backup first, primary second: a torn primary write leaves a valid
+        # new backup behind it, and a torn backup write leaves the previous
+        # (valid, one save stale) primary. "Corrupt primary + absent
+        # backup" is then only a torn first-ever write, which is what the
+        # read side's recovery rule assumes.
+        await storage.write(WriteIO(path=INDEX_BACKUP_BLOB, buf=payload))
+        crashpoint(metric_names.CRASH_INDEX_BACKUP_WRITTEN)
+        await storage.write(WriteIO(path=INDEX_BLOB, buf=payload))
+        crashpoint(metric_names.CRASH_INDEX_WRITTEN)
+
+    def _read_index(self) -> List[int]:
+        return self._with_root_storage(read_index_full_async)["steps"]
+
+    async def _delete_step_async(self, step: int) -> None:
+        """Delete a step's blobs, driven by its manifest (plugins cannot
+        list). The commit marker goes first: once it is gone the step is
+        simply uncommitted, so a crash mid-deletion leaves garbage bytes
+        but never a valid-looking damaged snapshot."""
+        storage = url_to_storage_plugin(self.step_path(step))
+        try:
+            read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
+            try:
+                await storage.read(read_io)
+            except FileNotFoundError:
+                return  # never committed; nothing authoritative to walk
+            metadata = SnapshotMetadata.from_yaml(bytes(read_io.buf).decode())
+            await storage.delete(SNAPSHOT_METADATA_FNAME)
+            crashpoint(metric_names.CRASH_GC_MARKER_DELETED)
+            # Parent-relative locations are another step's blobs (this step
+            # was incremental): never delete outside the step directory.
+            locations = {
+                loc
+                for entry in metadata.manifest.values()
+                for loc in entry_locations(entry)
+                if not loc.startswith("../")
+            }
+            locations.add(_STEP_EVENTS_BLOB)
+            for rank in range(metadata.world_size):
+                locations.add(table_path(rank))
+                locations.update(name.format(rank) for name in _RANK_SIDE_BLOBS)
+            slots = asyncio.Semaphore(knobs.get_per_rank_io_concurrency())
+
+            async def _delete_one(location: str) -> None:
+                async with slots:
+                    try:
+                        await storage.delete(location)
+                    except FileNotFoundError:
+                        pass  # checksum tables and side files are optional
+
+            # Let every delete settle before the plugin closes, then surface
+            # the first failure.
+            results = await asyncio.gather(
+                *(_delete_one(loc) for loc in sorted(locations)), return_exceptions=True
+            )
+            for r in results:
+                if isinstance(r, BaseException):
+                    raise r
+        finally:
+            await storage.close()
+        logger.info("Retention dropped step %d", step)

@@ -419,6 +419,18 @@ class SnapshotMetadata:
         )
 
 
+def entry_locations(entry: Entry) -> List[str]:
+    """Every storage location a manifest entry's bytes live at (chunks of
+    one entry may share locations; callers dedupe). The location walk of
+    the manager's GC."""
+    if isinstance(entry, ShardedArrayEntry):
+        return [shard.array.location for shard in entry.shards]
+    if isinstance(entry, ChunkedArrayEntry):
+        return [chunk.array.location for chunk in entry.chunks]
+    location = getattr(entry, "location", None)
+    return [location] if location else []
+
+
 def is_replicated(entry: Entry) -> bool:
     return bool(getattr(entry, "replicated", False))
 

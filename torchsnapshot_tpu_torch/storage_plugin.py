@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 from .io_types import StoragePlugin
 
 _ENTRY_POINT_GROUP = "torchsnapshot_tpu_torch.storage_plugins"
+# Schemes torchsnapshot_tpu serves that this package does not yet.
+_NOT_PORTED_SCHEMES = ("s3", "gs", "tiered")
 
 
 def normalize_object_key(prefix: str, path: str) -> str:
@@ -94,6 +96,12 @@ def url_to_storage_plugin(url_path: str) -> StoragePlugin:
     for ep in eps:
         if ep.name == scheme:
             return ep.load()(path)
+    if scheme in _NOT_PORTED_SCHEMES:
+        raise RuntimeError(
+            f"Unsupported storage scheme {scheme!r} in {url_path!r}: the "
+            f"{scheme}:// plugin of torchsnapshot_tpu is not ported to "
+            f"torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9)"
+        )
     raise RuntimeError(
         f"Unsupported storage scheme {scheme!r} in {url_path!r} "
         f"(built-in: fs, memory; "
