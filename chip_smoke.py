@@ -63,6 +63,28 @@ each of which raises on failure (nothing is caught):
    bit-identical tensors, logits and next-step loss. The phase keeps its
    own launch counts, set to 0 just before its loop: it must launch every
    kernel of the path.
+5. **ranks**: two processes on the card (rank r on card r % count),
+   spawned by the package's ``run_multiprocess`` over its TCP store, each
+   training the main configuration from ``--seed`` on the same tokens
+   (data-parallel replicas) with per-rank state beside it (its global RNG
+   and a 64 MiB tensor from ``--seed + rank``). The ranks first compare
+   the digests of every train-state leaf through the store: replicas that
+   differ fail the phase. Then (a) ``Snapshot.take(pg=, replicated=)``:
+   each rank copies to the host and writes half the replicated bytes
+   within 10%, plus its own; replicated entries sit under rank 0 and there
+   is one commit marker; (b) restore on both ranks into another seed's
+   state: bit-identical, and the next loss too; the world-1 snapshot that
+   the parent took of the same state restores on both ranks; (c)
+   ``async_take`` with a training step beside its drain, one commit,
+   restored bit-identical; (d) the parent, at world size 1, restores the
+   two-rank snapshot and reads rank 1's tensor with ``read_object``; (e)
+   ``CheckpointManager(keep_last_n=2, incremental=True, pg=)`` and a
+   ``PreemptionSaver(pg=)``: a full save, an ``async_save``, an
+   incremental save with half the model frozen, then SIGTERM on rank 1
+   only and one save at the agreed step on both; retention, a deep fsck
+   and ``restore_latest`` on both ranks, bit-identical; (f) rank 1's
+   writes fail: rank 0 raises within 30 s and no commit marker is left.
+   Each rank must launch every kernel of the path.
 
 The second-to-last line of stdout is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -606,7 +628,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,ranks")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -670,6 +692,10 @@ def main() -> int:
             t0 = time.monotonic()
             manager_phase(args, work_dir, card)
             log(f"phase manager: {time.monotonic() - t0:.1f} s")
+        if "ranks" in phases:
+            t0 = time.monotonic()
+            ranks_phase(args, work_dir, card)
+            log(f"phase ranks: {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -1474,6 +1500,468 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
     del state, fresh
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# ranks: two processes on the card
+# ---------------------------------------------------------------------------
+
+# The whole train state is data-parallel replicated (parameters, AdamW
+# moments and step counters, the training RNG, the step): every rank holds
+# the same bits. The global RNG state and the "own" tensor are per rank.
+REPLICATED = ["train/**"]
+RANKS = 2
+OWN_NUMEL = 16 * 1024 * 1024  # a 64 MiB float32 per-rank tensor
+
+
+def _own_tensor(seed: int, rank: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + rank)
+    return torch.randn(OWN_NUMEL, generator=gen, device="cuda")
+
+
+def _coordination_counters() -> tuple:
+    from torchsnapshot_tpu_torch.telemetry import names
+
+    return (
+        _counter(names.DEVICE_TO_HOST_BYTES_TOTAL),
+        _counter(names.COORD_STORE_REQUESTS_TOTAL),
+        _counter(names.COORD_STORE_SECONDS_TOTAL),
+    )
+
+
+def _rank_blob_bytes(path: str, rank: int) -> tuple:
+    """``(replicated, per-rank)`` bytes of the blobs ``rank`` wrote under
+    ``path``: its checksum table lists each blob it wrote, sized on disk."""
+    with open(os.path.join(path, "checksums", str(rank))) as f:
+        table = json.load(f)
+    rep = own = 0
+    for location in table:
+        size = os.path.getsize(os.path.join(path, location))
+        if location.startswith("replicated/"):
+            rep += size
+        else:
+            own += size
+    return rep, own
+
+
+def _replicated_bytes(path: str) -> int:
+    root = os.path.join(path, "replicated")
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def _require_replicas_equal(pg, state) -> int:
+    """Digest every leaf of the (declared replicated) train state on the
+    card and compare the digests of all ranks through the store: the
+    replicas must be bitwise equal, or declaring them replicated would
+    save one rank's bits for all. Returns the leaves compared."""
+    import torch
+
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+
+    _, leaves = flatten(state.state_dict(), prefix="train")
+    cuda = [(p, t) for p, t in leaves.items() if isinstance(t, torch.Tensor) and t.is_cuda]
+    rows = dd.materialize_many(dd.digest_many_async([(t, None) for _, t in cuda]))
+    mine = {p: (int(r[0]), int(r[1])) for (p, _), r in zip(cuda, rows)}
+    for p, leaf in leaves.items():
+        if p not in mine:
+            mine[p] = dd.digest_host(leaf) if isinstance(leaf, torch.Tensor) else repr(leaf)
+    gathered = PGWrapper(pg).all_gather_object(mine)
+    for p in sorted(mine):
+        values = {repr(g.get(p)) for g in gathered}
+        _require(len(values) == 1, f"replicated leaf {p} differs across ranks: {sorted(values)}")
+    return len(mine)
+
+
+def ranks_worker(pg, seed: int, work_dir: str) -> dict:
+    """One rank of the ranks phase (spawned by ``run_multiprocess``; the
+    parent built every kernel and the native runtime). Legs (a) sync take
+    with ``replicated=``, (b) restore into another seed's state, (c)
+    ``async_take`` beside a training step, the world-1 snapshot's restore,
+    (e) the managed loop with a SIGTERM on rank 1 only, (f) a failing
+    rank. Returns the rank's record."""
+    import signal
+
+    import torch
+
+    from torchsnapshot_tpu_torch import (
+        CheckpointManager,
+        PreemptionSaver,
+        RngState,
+        Snapshot,
+        TensorTreeState,
+    )
+    from torchsnapshot_tpu_torch.fsck import verify_snapshot
+    from torchsnapshot_tpu_torch.manager import referenced_steps
+    from torchsnapshot_tpu_torch.manifest import is_container_entry
+    from torchsnapshot_tpu_torch.models.transformer import (
+        init_train_state,
+        make_train_step,
+        random_tokens,
+    )
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.ops import kernels
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+    from torchsnapshot_tpu_torch.snapshot import SNAPSHOT_METADATA_FNAME
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+    from torchsnapshot_tpu_torch.test_utils import faulty_fs_plugin, patch_storage_plugin
+
+    t_start = time.monotonic()
+    rank = pg.rank
+    wrapper = PGWrapper(pg)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in kernels.kernel_names() if not os.path.exists(kernels._library_path(n))]
+    _require(not missing, f"rank {rank}: kernels {missing} not built by the parent")
+
+    cfg = main_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, seed)).cuda()
+    torch.manual_seed(seed + rank)  # the per-rank global generators RngState holds
+    state = init_train_state(cfg, seed=seed)
+    train_step = make_train_step(cfg)
+    own = TensorTreeState({"x": _own_tensor(seed, rank)})
+    app = {"train": state, "rng": RngState(), "own": own}
+    fa.reset_launch_counts()
+    dd.reset_launch_counts()
+    for _ in range(STEPS):
+        state, _ = train_step(state, tokens)
+    torch.cuda.synchronize()
+    n_leaves = _require_replicas_equal(pg, state)
+    record = {"rank": rank, "device": torch.cuda.current_device(), "replica_leaves": n_leaves}
+
+    def fresh_app(seed_shift: int) -> dict:
+        return {
+            "train": init_train_state(cfg, seed=seed + seed_shift),
+            "rng": RngState(),
+            "own": TensorTreeState({"x": torch.zeros(OWN_NUMEL, device="cuda")}),
+        }
+
+    def check_restored(restored: dict, at: dict, own_at, rng_at, what: str) -> None:
+        _require_same_state(at, restored["train"], what)
+        _require(same_bits(restored["own"].tree["x"], own_at), f"{what}: the per-rank tensor differs")
+        _require(
+            same_bits(torch.get_rng_state(), rng_at[0]) and same_bits(torch.cuda.get_rng_state(), rng_at[1]),
+            f"{what}: the per-rank RNG state differs",
+        )
+
+    # (a) Sync take with replicated= globs.
+    path_a = os.path.join(work_dir, "a")
+    torch.rand(3)
+    torch.rand(3, device="cuda")  # nontrivial per-rank global RNG states
+    rng_at = (torch.get_rng_state(), torch.cuda.get_rng_state())
+    at_a = {k: v.clone() for k, v in _state_tensors(state).items()}
+    own_at = own.tree["x"].clone()
+    before = _coordination_counters()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot.take(path_a, app, pg=pg, replicated=REPLICATED)
+    take_s = time.monotonic() - t0
+    d2h, requests, store_s = (a - b for a, b in zip(_coordination_counters(), before))
+    manifest = Snapshot(path_a).metadata.manifest
+    _require(
+        all(k.startswith("0/") for k, e in manifest.items() if getattr(e, "replicated", False)),
+        "a replicated entry sits under a rank other than 0",
+    )
+    _require(
+        not any(k.startswith("1/train/") and not is_container_entry(e) for k, e in manifest.items()),
+        "rank 1 holds train leaves",
+    )
+    _require(f"{rank}/own/x" in manifest, f"rank {rank}'s per-rank tensor is not in the manifest")
+    markers = [d for d, _, fs in os.walk(path_a) if SNAPSHOT_METADATA_FNAME in fs]
+    _require(markers == [path_a], f"commit markers: {markers}")
+    rep_total = _replicated_bytes(path_a)
+    rep_written, own_written = _rank_blob_bytes(path_a, rank)
+    own_bytes = OWN_NUMEL * 4
+    half = rep_total / RANKS
+    _require(
+        abs(rep_written - half) <= 0.1 * half,
+        f"rank {rank} wrote {rep_written} of {rep_total} replicated bytes, not half within 10%",
+    )
+    _require(
+        abs(d2h - own_bytes - half) <= 0.1 * half,
+        f"rank {rank} copied {d2h} bytes to the host: {d2h - own_bytes} replicated, not half of "
+        f"{rep_total} within 10%",
+    )
+    _require(own_written >= own_bytes, f"rank {rank} wrote {own_written} per-rank bytes")
+    # For the parent's leg (d); popped before the record is printed.
+    record["rng_at_take"] = tuple(t.numpy().tobytes() for t in rng_at)
+    record["a"] = {
+        "take_s": take_s, "d2h_bytes": d2h, "replicated_bytes": rep_total,
+        "replicated_written_bytes": rep_written, "replicated_share": rep_written / rep_total,
+        "own_written_bytes": own_written, "store_requests": requests, "store_s": store_s,
+    }
+
+    # (b) Restore into another seed's state; the next step continues bit for bit.
+    fresh = fresh_app(1)
+    torch.rand(5)
+    torch.rand(5, device="cuda")
+    _require(not same_bits(fresh["train"].model.embed, state.model.embed), "fresh model equals the trained one")
+    torch.cuda.synchronize()
+    before = _coordination_counters()
+    t0 = time.monotonic()
+    Snapshot(path_a, pg=pg).restore(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    requests, store_s = (a - b for a, b in list(zip(_coordination_counters(), before))[1:])
+    check_restored(fresh, at_a, own_at, rng_at, f"rank {rank} restore")
+    with torch.no_grad():
+        logits_a = state.model(tokens)
+        logits_b = fresh["train"].model(tokens)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(logits_a).all()), "evaluation logits not finite")
+    _require(same_bits(logits_a, logits_b), "evaluation logits differ after restore")
+    del logits_a, logits_b
+    _, loss_a = train_step(state, tokens)
+    _, loss_b = train_step(fresh["train"], tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_a, loss_b), f"next-step losses differ: {loss_a} vs {loss_b}")
+    record["b"] = {"restore_s": restore_s, "store_requests": requests, "store_s": store_s, "next_loss": float(loss_a)}
+    del fresh
+    torch.cuda.empty_cache()
+
+    # The world-1 snapshot (taken by the parent of the same state, with the
+    # same globs) restores on both ranks.
+    fresh = {"train": init_train_state(cfg, seed=seed + 1)}
+    t0 = time.monotonic()
+    Snapshot(os.path.join(work_dir, "world1"), pg=pg).restore(fresh)
+    torch.cuda.synchronize()
+    record["world1_restore_s"] = time.monotonic() - t0
+    _require_same_state(at_a, fresh["train"], f"rank {rank} restore of the world-1 snapshot")
+    del fresh, at_a
+    torch.cuda.empty_cache()
+
+    # (c) async_take with the process group, a training step beside its drain.
+    path_c = os.path.join(work_dir, "c")
+    torch.cuda.synchronize()
+    at_c = {k: v.clone() for k, v in _state_tensors(state).items()}
+    rng_at = (torch.get_rng_state(), torch.cuda.get_rng_state())
+    before = _coordination_counters()
+    t0 = time.monotonic()
+    pending = Snapshot.async_take(path_c, app, pg=pg, replicated=REPLICATED)
+    call_s = time.monotonic() - t0
+    t1 = time.monotonic()
+    state, _ = train_step(state, tokens)
+    torch.cuda.current_stream().synchronize()
+    step_beside_drain_s = time.monotonic() - t1
+    pending.wait()
+    d2h, requests, store_s = (a - b for a, b in zip(_coordination_counters(), before))
+    markers = [d for d, _, fs in os.walk(path_c) if SNAPSHOT_METADATA_FNAME in fs]
+    _require(markers == [path_c], f"async take commit markers: {markers}")
+    fresh = fresh_app(2)
+    Snapshot(path_c, pg=pg).restore(fresh)
+    torch.cuda.synchronize()
+    check_restored(fresh, at_c, own_at, rng_at, f"rank {rank} restore of the async take")
+    record["c"] = {
+        "call_s": call_s, "visible_s": pending.visible_s, "staged_s": pending.staged_s,
+        "committed_s": pending.committed_s, "step_beside_drain_s": step_beside_drain_s,
+        "d2h_bytes": d2h, "store_requests": requests, "store_s": store_s,
+    }
+    del fresh, at_c
+    torch.cuda.empty_cache()
+
+    # (e) The managed loop: full save 1, async save 2, incremental save 3
+    # with the embedding and layers 0-3 frozen, then SIGTERM on rank 1 only
+    # and one agreed save on both ranks.
+    root = os.path.join(work_dir, "managed")
+    mgr = CheckpointManager(root, keep_last_n=2, incremental=True, pg=pg)
+    n_frozen = cfg.n_layers // 2
+
+    def freeze(model) -> None:
+        for p in [model.embed] + [p for blk in model.layers[:n_frozen] for p in blk.parameters()]:
+            p.requires_grad_(False)
+
+    saves = {}
+    saver = PreemptionSaver(pg=pg, signals=(signal.SIGTERM,), poll_interval=0.05, session="ranks")
+    try:
+        state, _ = train_step(state, tokens)
+        _require(not saver.should_save(1), "should_save(1) before any signal")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mgr.save(1, app, replicated=REPLICATED)
+        saves[1] = {"s": time.monotonic() - t0}
+        freeze(state.model)
+        state, _ = train_step(state, tokens)
+        _require(not saver.should_save(2), "should_save(2) before any signal")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        pending = mgr.async_save(2, app, replicated=REPLICATED)
+        visible_s = time.monotonic() - t0
+        state, _ = train_step(state, tokens)  # step 3's update beside the drain
+        torch.cuda.current_stream().synchronize()
+        pending.wait()
+        saves[2] = {"s": time.monotonic() - t0, "visible_s": visible_s, "committed_s": pending.committed_s}
+        _require(not saver.should_save(3), "should_save(3) before any signal")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mgr.save(3, app, replicated=REPLICATED)
+        saves[3] = {"s": time.monotonic() - t0}
+        agreed = None
+        for step in range(4, 40):
+            state, _ = train_step(state, tokens)
+            torch.cuda.synchronize()
+            if rank == 1 and step == 4:
+                os.kill(os.getpid(), signal.SIGTERM)
+            if saver.should_save(step):
+                agreed = step
+                at_t = {k: v.clone() for k, v in _state_tensors(state).items()}
+                rng_at = (torch.get_rng_state(), torch.cuda.get_rng_state())
+                t0 = time.monotonic()
+                mgr.save(step, app, replicated=REPLICATED)
+                saves[step] = {"s": time.monotonic() - t0, "preemption": True}
+                break
+        _require(agreed is not None, f"rank {rank}: the ranks never agreed on a preemption save")
+    finally:
+        saver.close()
+    agreed_all = wrapper.all_gather_object(agreed)
+    _require(len(set(agreed_all)) == 1, f"the ranks saved at different steps: {agreed_all}")
+    wrapper.barrier()  # rank 0's index write and retention are done
+    retained = mgr.all_steps()
+    _require(retained == [3, agreed], f"retained steps {retained}, expected [3, {agreed}]")
+    refs = {s: sorted(referenced_steps(Snapshot(mgr.step_path(s)).metadata.manifest)) for s in retained}
+    fsck = {}
+    for s in retained:
+        t0 = time.monotonic()
+        report = verify_snapshot(mgr.step_path(s), deep=True)
+        fsck[s] = time.monotonic() - t0
+        _require(report.ok, f"rank {rank}: deep fsck of step {s}: {report.problems[:5]}")
+    fresh = fresh_app(3)
+    t0 = time.monotonic()
+    step = mgr.restore_latest(fresh)
+    torch.cuda.synchronize()
+    restore_latest_s = time.monotonic() - t0
+    _require(step == agreed, f"restore_latest returned {step}, the agreed step was {agreed}")
+    check_restored(fresh, at_t, own_at, rng_at, f"rank {rank} restore_latest")
+    freeze(fresh["train"].model)
+    _, loss_a = train_step(state, tokens)
+    _, loss_b = train_step(fresh["train"], tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_a, loss_b), f"next-step losses differ after restore_latest: {loss_a} vs {loss_b}")
+    record["e"] = {
+        "saves": saves, "agreed_step": agreed, "retained": retained, "refs": refs,
+        "fsck_deep_s": fsck, "restore_latest_s": restore_latest_s,
+    }
+    del fresh, at_t
+    torch.cuda.empty_cache()
+
+    # (f) A failing rank: rank 1's data writes fail.
+    path_f = os.path.join(work_dir, "f")
+    faulty = faulty_fs_plugin(lambda p: p.startswith(("replicated/", f"{rank}/")), exc_msg="injected write failure")
+    failed = None
+    t0 = time.monotonic()
+    try:
+        with patch_storage_plugin(faulty if rank == 1 else FSStoragePlugin):
+            Snapshot.take(path_f, app, pg=pg, replicated=REPLICATED)
+    except Exception as e:  # noqa: BLE001 - the leg expects it
+        failed = repr(e)
+    fail_s = time.monotonic() - t0
+    _require(failed is not None, f"rank {rank}: the take with a failing rank 1 did not raise")
+    _require(fail_s < 30.0, f"rank {rank} raised after {fail_s:.1f} s")
+    wrapper.barrier()
+    _require(
+        not os.path.exists(os.path.join(path_f, SNAPSHOT_METADATA_FNAME)),
+        "a commit marker was left by the failed take",
+    )
+    record["f"] = {"raised_s": fail_s, "error": failed[:200]}
+
+    launches = {**fa.launch_counts, **dd.launch_counts}
+    _require(
+        all(launches[name] for name in MAIN_PATH_KERNELS),
+        f"rank {rank}: a kernel of the path never launched in the ranks phase: {launches}",
+    )
+    record["launches"] = launches
+    record["worker_s"] = time.monotonic() - t_start
+    return record
+
+
+def ranks_phase(args, work_dir: str, card: str) -> dict:
+    """Two processes on the card (rank r on card r % count), each training
+    the main configuration and checkpointing it through a process group of
+    the package's TCP store (only metadata moves between them). The parent
+    first takes a world-1 snapshot of the same state with the same globs,
+    and afterwards restores the two-rank snapshot at world 1 (leg d)."""
+    import torch
+
+    from torchsnapshot_tpu_torch import RngState, Snapshot, TensorTreeState
+    from torchsnapshot_tpu_torch.models.transformer import (
+        init_train_state,
+        make_train_step,
+        random_tokens,
+    )
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    t_phase = time.monotonic()
+    ranks_dir = os.path.join(work_dir, "ranks")
+    os.makedirs(ranks_dir, exist_ok=True)
+    cfg = main_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
+    state = init_train_state(cfg, seed=args.seed)
+    train_step = make_train_step(cfg)
+    for _ in range(STEPS):
+        state, _ = train_step(state, tokens)
+    torch.cuda.synchronize()
+    Snapshot.take(os.path.join(ranks_dir, "world1"), {"train": state}, replicated=REPLICATED)
+
+    t0 = time.monotonic()
+    records = run_multiprocess(ranks_worker, RANKS, args=(args.seed, ranks_dir), timeout=600.0)
+    workers_s = time.monotonic() - t0
+
+    # (d) Elastic restore: this process, at world size 1, restores the
+    # two-rank snapshot of leg (a): the replicated state and rank 0's
+    # per-rank leaves; rank 1's tensor through read_object("1/own/x").
+    fresh = {
+        "train": init_train_state(cfg, seed=args.seed + 1),
+        "rng": RngState(),
+        "own": TensorTreeState({"x": torch.zeros(OWN_NUMEL, device="cuda")}),
+    }
+    path_a = os.path.join(ranks_dir, "a")
+    t0 = time.monotonic()
+    Snapshot(path_a).restore(fresh)
+    torch.cuda.synchronize()
+    elastic_s = time.monotonic() - t0
+    _require_same_state(_state_tensors(state), fresh["train"], "world-1 restore of the two-rank snapshot")
+    _require(same_bits(fresh["own"].tree["x"], _own_tensor(args.seed, 0)), "rank 0's per-rank tensor differs")
+    rng_0 = records[0].pop("rng_at_take")
+    records[1].pop("rng_at_take")
+    _require(
+        (torch.get_rng_state().numpy().tobytes(), torch.cuda.get_rng_state().numpy().tobytes()) == rng_0,
+        "rank 0's per-rank RNG state differs after the world-1 restore",
+    )
+    t0 = time.monotonic()
+    own_1 = Snapshot(path_a).read_object("1/own/x", obj_out=torch.zeros(OWN_NUMEL, device="cuda"))
+    torch.cuda.synchronize()
+    read_object_s = time.monotonic() - t0
+    _require(same_bits(own_1, _own_tensor(args.seed, 1)), "rank 1's per-rank tensor differs (read_object)")
+    del fresh, state, own_1
+    torch.cuda.empty_cache()
+
+    wall_s = time.monotonic() - t_phase
+    record = {
+        "card": card, "ranks": records, "workers_s": workers_s,
+        "d": {"restore_s": elastic_s, "read_object_s": read_object_s}, "wall_s": wall_s,
+    }
+    for r in records:
+        a, c = r["a"], r["c"]
+        log(
+            f"ranks: rank {r['rank']} on card {r['device']}: take {a['take_s']:.3f} s, "
+            f"{a['replicated_written_bytes'] / 1e9:.3f} of {a['replicated_bytes'] / 1e9:.3f} GB replicated "
+            f"written ({a['replicated_share']:.3f}), {a['d2h_bytes'] / 1e9:.3f} GB to the host, "
+            f"{a['store_requests']:.0f} store requests in {a['store_s']:.4f} s; restore "
+            f"{r['b']['restore_s']:.3f} s; async_take call {c['call_s']:.4f} s, committed "
+            f"{c['committed_s']:.3f} s; managed saves "
+            + ", ".join(f"{s}: {v['s']:.3f} s" for s, v in r["e"]["saves"].items())
+            + f"; failing peer raised in {r['f']['raised_s']:.2f} s; launches {r['launches']}"
+        )
+    log(
+        f"ranks: world-1 restore of the two-rank snapshot {elastic_s:.3f} s, read_object(1/own/x) "
+        f"{read_object_s:.3f} s, bit-identical; workers {workers_s:.1f} s, phase {wall_s:.1f} s on {card}"
+    )
+    print(json.dumps({"ranks": record}), flush=True)
+    return record
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 saves, metric retention, incremental chains with pinning and GC, the index
 and its torn-write recovery, and the refusals of what is not ported yet.
 
-Ports of the single-process cases of the JAX package's
-``tests/test_manager.py`` (the retention GC fuzz with its seeds included)
+Ports of the JAX package's ``tests/test_manager.py`` (the retention GC
+fuzz with its seeds included, and its two-process cases on the port's
+spawned harness, whose workers never import ``jax``)
 and of the manager cases of ``tests/test_incremental.py``, plus the two
 packages' managers on one root in both directions: each reads, restores,
 retains and incrementally extends what the other wrote. Everything is
@@ -18,9 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-import torchsnapshot_tpu as jts
-from torchsnapshot_tpu import knobs as jknobs
-from torchsnapshot_tpu.tricks.torch import TorchStateful
 from torchsnapshot_tpu_torch import (
     CheckpointManager,
     Snapshot,
@@ -506,10 +504,9 @@ def _cdn_knob(tmp_path, monkeypatch):
         (_cdn_knob, 9),
         (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).wait_durable(0), 9),
         (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).resume_mirrors(), 9),
-        (lambda tmp_path, mp: CheckpointManager(str(tmp_path), pg=object()), 5),
         (lambda tmp_path, mp: arm("index-written"), 9),
     ],
-    ids=["tiered", "cas", "chunk-store", "cdn", "wait-durable", "resume-mirrors", "pg", "crashpoint-arm"],
+    ids=["tiered", "cas", "chunk-store", "cdn", "wait-durable", "resume-mirrors", "crashpoint-arm"],
 )
 def test_unported_features_are_refused(tmp_path, monkeypatch, make, step) -> None:
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 step {step}"):
@@ -586,6 +583,8 @@ def _ref_origins(manifest) -> dict:
 
 @pytest.fixture
 def small_chunks():
+    from torchsnapshot_tpu import knobs as jknobs
+
     with jknobs.override_incremental_chunk_size_bytes(CHUNK), knobs.override_incremental_chunk_size_bytes(CHUNK):
         yield
 
@@ -601,6 +600,9 @@ def _three_saves(save, model) -> None:
 
 @pytest.mark.usefixtures("small_chunks")
 def test_port_manager_extends_a_jax_root(tmp_path) -> None:
+    import torchsnapshot_tpu as jts
+    from torchsnapshot_tpu.tricks.torch import TorchStateful
+
     root = str(tmp_path / "root")
     model = _model(0)
     jmgr = jts.CheckpointManager(root, keep_last_n=2, incremental=True)
@@ -642,6 +644,9 @@ def test_port_manager_extends_a_jax_root(tmp_path) -> None:
 
 @pytest.mark.usefixtures("small_chunks")
 def test_jax_manager_extends_a_port_root(tmp_path) -> None:
+    import torchsnapshot_tpu as jts
+    from torchsnapshot_tpu.tricks.torch import TorchStateful
+
     root = str(tmp_path / "root")
     model = _model(0)
     mgr = CheckpointManager(root, keep_last_n=2, incremental=True)
@@ -693,6 +698,9 @@ def test_training_loop_save_retain_preempt_resume(tmp_path) -> None:
     restore_latest into a fresh state from another seed: the state and
     the next step's loss are bit-identical, and the JAX package's manager
     restores the same root with equal tensors."""
+    import torchsnapshot_tpu as jts
+    from torchsnapshot_tpu.tricks.torch import TorchStateful
+
     from torchsnapshot_tpu_torch import PreemptionSaver
 
     cfg = tt.TransformerConfig(
@@ -766,3 +774,121 @@ def test_statedict_progress_roundtrips_through_the_manager(tmp_path) -> None:
     dst = {"progress": StateDict(step=-1)}
     assert mgr.restore_latest(dst) == 1
     assert dict(dst["progress"]) == {"step": 1, "epoch": 0}
+
+
+# ---------------------------------------------------------------------------
+# Across processes
+# ---------------------------------------------------------------------------
+
+
+def _mgr_worker(pg, root: str):
+    import shutil
+
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+
+    if pg.rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    PGWrapper(pg).barrier()  # both ranks see the clean root
+    mgr = CheckpointManager(root, keep_last_n=2, pg=pg)
+    state = {"s": TensorTreeState({"w": torch.full((4,), float(pg.rank))})}
+    assert mgr.restore_latest(state) is None  # fresh: broadcast + early return
+    mgr.save(3, state)
+    PGWrapper(pg).barrier()  # rank 0's index write is durable
+    dst = {"s": TensorTreeState({"w": torch.zeros(4)})}
+    resumed = mgr.restore_latest(dst)
+    assert torch.equal(dst["s"].tree["w"], torch.full((4,), float(pg.rank)))  # per-rank state
+    return resumed
+
+
+def test_multiprocess_fresh_restore_then_save(tmp_path) -> None:
+    """restore_latest on a fresh run (a broadcast, an early return, no
+    trailing barrier) at once followed by save's own broadcasts: the
+    shared op sequence keeps every store key unique, or a slow rank
+    would read the wrong object."""
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    assert run_multiprocess(_mgr_worker, nproc=2, args=(str(tmp_path / "root"),)) == [3, 3]
+
+
+def _mgr_async_worker(pg, root: str):
+    import shutil
+
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+
+    if pg.rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    PGWrapper(pg).barrier()
+    mgr = CheckpointManager(root, keep_last_n=2, pg=pg)
+    for step in (1, 2, 3):
+        state = {
+            "s": TensorTreeState({"w": torch.full((4,), float(step))}),
+            "progress": StateDict(rank=pg.rank),
+        }
+        mgr.async_save(step, state).wait()
+    PGWrapper(pg).barrier()  # rank 0's index write is durable everywhere
+    steps = sorted(mgr.all_steps())
+    dst = {"s": TensorTreeState({"w": torch.zeros(4)}), "progress": StateDict(rank=-1)}
+    assert mgr.restore_latest(dst) == 3
+    assert torch.equal(dst["s"].tree["w"], torch.full((4,), 3.0))
+    assert dst["progress"]["rank"] == pg.rank  # per-rank state stayed per-rank
+    return steps
+
+
+def test_multiprocess_async_save_and_retention(tmp_path) -> None:
+    """async_save across processes: the background commits of both ranks
+    meet at the store barrier, retention runs on rank 0 inside wait(),
+    and the next resume sees exactly the retained steps."""
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    results = run_multiprocess(_mgr_async_worker, nproc=2, args=(str(tmp_path / "root"),))
+    assert results == [[2, 3], [2, 3]]
+
+
+def _mgr_incremental_replicated_worker(pg, root: str):
+    """Incremental managed saves of replicated and per-rank state across
+    two ranks: the replicated leaf's skip decision agrees on both ranks,
+    an unchanged replicated chunk is referenced, not rewritten."""
+    import shutil
+
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+
+    if pg.rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    PGWrapper(pg).barrier()
+    mgr = CheckpointManager(root, keep_last_n=2, pg=pg, incremental=True)
+    frozen = torch.arange(4096.0)
+    for step in (1, 2):
+        state = {
+            "m": TensorTreeState({"frozen": frozen, "hot": torch.full((512,), float(step))}),
+            "own": TensorTreeState({"x": torch.full((64,), float(10 * step + pg.rank))}),
+        }
+        mgr.save(step, state, replicated=["m/**"])
+    PGWrapper(pg).barrier()
+    dst = {
+        "m": TensorTreeState({"frozen": torch.zeros(4096), "hot": torch.zeros(512)}),
+        "own": TensorTreeState({"x": torch.zeros(64)}),
+    }
+    assert mgr.restore_latest(dst) == 2
+    assert torch.equal(dst["m"].tree["frozen"], frozen)
+    assert torch.equal(dst["m"].tree["hot"], torch.full((512,), 2.0))
+    assert torch.equal(dst["own"].tree["x"], torch.full((64,), 20.0 + pg.rank))
+    manifest = Snapshot(mgr.step_path(2)).metadata.manifest
+    return (
+        manifest["0/m/frozen"].location,
+        manifest["0/m/hot"].location,
+        "1/m/frozen" in manifest,
+        sorted(referenced_steps(manifest)),
+    )
+
+
+def test_multiprocess_incremental_replicated_saves(tmp_path) -> None:
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    results = run_multiprocess(
+        _mgr_incremental_replicated_worker, nproc=2, args=(str(tmp_path / "root"),)
+    )
+    assert results[0] == results[1]
+    frozen_loc, hot_loc, dup, refs = results[0]
+    assert frozen_loc == "../step_0000000001/replicated/m/frozen"
+    assert hot_loc == "replicated/m/hot"
+    assert not dup and refs == [1]

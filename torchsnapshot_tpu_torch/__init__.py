@@ -5,11 +5,13 @@ optimizers, trees of tensors on the CPU or a CUDA card) with the snapshot
 format of ``torchsnapshot_tpu``: either package restores what the other
 writes. This package imports ``torch`` and never ``jax``.
 
-What is ported so far is the one-process path: ``Snapshot.take`` and
-``Snapshot.async_take`` (incremental through ``incremental_base=``, with
-content digests computed on the card by a hand-written CUDA kernel),
-``Snapshot.restore``, ``Snapshot.async_restore`` and
-``Snapshot.read_object``, to a local filesystem (or ``memory://``); the
+What is ported so far: ``Snapshot.take`` and ``Snapshot.async_take``
+(incremental through ``incremental_base=``, with content digests computed
+on the card by a hand-written CUDA kernel), ``Snapshot.restore``,
+``Snapshot.async_restore`` and ``Snapshot.read_object``, to a local
+filesystem (or ``memory://``), in one process or across the ranks of a
+process group (``pg=``, e.g. :func:`torch_process_group` in a
+``torch.distributed`` job, with ``replicated=`` state written once); the
 training loop around them, ``CheckpointManager`` (step-numbered saves,
 retention, incremental chains, ``restore_latest``) and
 ``PreemptionSaver`` (a save on SIGTERM); ``fsck`` to audit what they
@@ -19,6 +21,9 @@ kernels (``ops/``, ``csrc/``).
 """
 
 from . import telemetry
+from .dist_store import ProcessGroup, torch_process_group
+from .fsck import FsckReport, verify_snapshot
+from .knobs import override_max_chunk_size_bytes, override_per_rank_memory_budget_bytes
 from .manager import CheckpointManager
 from .preemption import PreemptionSaver
 from .rng_state import RngState, RNGState
@@ -30,9 +35,11 @@ from .version import __version__
 __all__ = [
     "AppState",
     "CheckpointManager",
+    "FsckReport",
     "PendingRestore",
     "PendingSnapshot",
     "PreemptionSaver",
+    "ProcessGroup",
     "RngState",
     "RNGState",
     "Snapshot",
@@ -40,5 +47,9 @@ __all__ = [
     "Stateful",
     "TensorTreeState",
     "__version__",
+    "override_max_chunk_size_bytes",
+    "override_per_rank_memory_budget_bytes",
     "telemetry",
+    "torch_process_group",
+    "verify_snapshot",
 ]

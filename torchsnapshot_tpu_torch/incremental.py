@@ -1,6 +1,6 @@
 """Incremental takes: skip unchanged chunks through content digests.
 
-Counterpart of ``torchsnapshot_tpu/incremental.py`` for one process. The
+Counterpart of ``torchsnapshot_tpu/incremental.py``. The
 digest of every chunk of every CUDA leaf is computed on the card, in one
 launch of the hand-written digest kernel per card
 (``ops/device_digest.py``, ``csrc/device_digest.cu``), so only 8 bytes a
@@ -15,7 +15,9 @@ Granularity is the write granularity of the preparers: whole dense
 tensors, or dim-0 chunks of large ones (tighter for digest-enabled takes:
 ``TORCHSNAPSHOT_TPU_INCREMENTAL_CHUNK_BYTES``). The referenced blobs'
 checksum entries are inherited into the new snapshot's table, so restore
-verifies them too.
+verifies them too. In a multi-rank take, :meth:`IncrementalTakeContext.synchronize`
+aligns the skip decisions of replicated leaves across ranks, since their
+entries must come out equal on every rank.
 
 Deliberate difference from the JAX package: it catches a failed digest
 dispatch and writes the leaf in full (``incremental.py:288-312``,
@@ -32,7 +34,7 @@ import asyncio
 import logging
 import os
 import posixpath
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import torch
 
@@ -179,12 +181,18 @@ class IncrementalTakeContext:
         self._results: Dict[Tuple[str, ChunkKey], Tuple[int, int]] = {}
         self._launched: List[Tuple[torch.Tensor, List[Tuple[str, ChunkKey]]]] = []
         self._current_leaves: Dict[str, Any] = {}
+        # The take's verified replicated paths (synchronize): a base chunk
+        # is referenced only under the same replicated placement.
+        self._replicated_paths: Set[str] = set()
         # new (normalized) ref location -> base-manifest location
         self.used_refs: Dict[str, str] = {}
 
     @classmethod
-    def build(cls, path: str, incremental_base: Optional[Any]) -> "IncrementalTakeContext":
-        """``incremental_base`` is a snapshot path or Snapshot. None (or a
+    def build(
+        cls, path: str, incremental_base: Optional[Any], rank: int = 0
+    ) -> "IncrementalTakeContext":
+        """``incremental_base`` is a snapshot path or Snapshot (the same on
+        every rank); ``rank`` picks the base entries this rank sees. None (or a
         base that cannot be read or referenced relatively) gives a context
         that records digests only: the take writes everything, and can
         serve as the next take's base."""
@@ -212,7 +220,9 @@ class IncrementalTakeContext:
                 base.path, path,
             )
             return cls(None, None, None, 0)
-        return cls(get_manifest_for_rank(metadata, 0), ref_prefix, base.path, metadata.world_size)
+        return cls(
+            get_manifest_for_rank(metadata, rank), ref_prefix, base.path, metadata.world_size
+        )
 
     # ------------------------------------------------------------------
     # pass 1: launch digests
@@ -288,6 +298,45 @@ class IncrementalTakeContext:
         self._launched = []
 
     # ------------------------------------------------------------------
+    # cross-rank agreement
+    # ------------------------------------------------------------------
+
+    def synchronize(self, pg_wrapper: Any, replicated_paths: Set[str]) -> None:
+        """Align skip decisions across ranks for replicated leaves.
+
+        Replicated manifest entries are asserted equal when the manifests
+        are gathered (``partitioner.consolidate_replicated_entries``), so a
+        rank that cannot reference the base (its metadata read failed)
+        must degrade every rank to full writes, and a replicated leaf is
+        digested only if every rank digests it. Rank 0 gathers both facts
+        and broadcasts the decision."""
+        self._replicated_paths = set(replicated_paths)
+        if pg_wrapper.get_world_size() == 1:
+            return
+        self._materialize_all()
+        local = (
+            self._ref_prefix is not None,
+            sorted(p for p in self._layouts if p in replicated_paths),
+        )
+        gathered = pg_wrapper.gather_object(local)
+        decision = None
+        if gathered is not None:
+            all_have_base = all(has_base for has_base, _ in gathered)
+            common_set = set(gathered[0][1])
+            for _, launched in gathered[1:]:
+                common_set &= set(launched)
+            decision = (all_have_base, sorted(common_set))
+        all_have_base, common_list = pg_wrapper.broadcast_object(decision)
+        common = set(common_list)
+        if not all_have_base:
+            # Some rank cannot reference the base: nobody may.
+            self._base_available = {}
+            self._ref_prefix = None
+        for path in list(self._layouts):
+            if path in replicated_paths and path not in common:
+                del self._layouts[path]
+
+    # ------------------------------------------------------------------
     # pass 2: compare
     # ------------------------------------------------------------------
 
@@ -300,18 +349,21 @@ class IncrementalTakeContext:
         refs: Dict[ChunkKey, Tuple[ArrayEntry, str]] = {}
         base_entry = self._base_available.get(logical_path)
         current_dtype = self._current_dtype(logical_path)
+        current_replicated = logical_path in self._replicated_paths
         if base_entry is not None and self._ref_prefix is not None and current_dtype is not None:
             for key, base_chunk in _base_chunk_map(base_entry).items():
                 # The digest covers bytes, not the type tag: the base chunk
                 # must also match the leaf's dtype and the box's shape, and
-                # be a per-rank (not replicated) entry as this take's are.
+                # its replicated placement this take's (a leaf promoted to
+                # or demoted from replicated would otherwise reference
+                # per-rank base locations from a replicated entry).
                 if (
                     key in digests
                     and base_chunk.digest == digests[key]
                     and base_chunk.dtype == current_dtype
                     and base_chunk.serializer == Serializer.BUFFER_PROTOCOL.value
                     and list(base_chunk.shape) == list(key[1])
-                    and not base_chunk.replicated
+                    and base_chunk.replicated == current_replicated
                 ):
                     template = ArrayEntry(
                         location=posixpath.normpath(

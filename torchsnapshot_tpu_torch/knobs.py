@@ -30,6 +30,11 @@ _STAGING_POOL_SLAB_BYTES_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLAB_BYTES"
 _STAGING_POOL_SLABS_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLABS"
 _CAS_ENV = "TORCHSNAPSHOT_TPU_CAS"
 _CDN_ENV = "TORCHSNAPSHOT_TPU_CDN"
+_DISABLE_PARTITIONER_ENV = "TORCHSNAPSHOT_TPU_DISABLE_PARTITIONER"
+_FANOUT_RESTORE_ENV = "TORCHSNAPSHOT_TPU_FANOUT_RESTORE"
+_TREE_BARRIER_ENV = "TORCHSNAPSHOT_TPU_TREE_BARRIER"
+_BARRIER_FANOUT_ENV = "TORCHSNAPSHOT_TPU_BARRIER_FANOUT"
+_STORE_SHARDS_ENV = "TORCHSNAPSHOT_TPU_STORE_SHARDS"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_MEMORY_BUDGET_FRACTION: float = 0.6
@@ -40,6 +45,8 @@ _DEFAULT_INCREMENTAL_CHUNK_SIZE_BYTES: int = 16 * 1024 * 1024
 _DEFAULT_RESTORE_FLUSH_BYTES: int = 128 * 1024 * 1024
 _DEFAULT_STAGING_POOL_SLAB_BYTES: int = 128 * 1024 * 1024
 _DEFAULT_STAGING_POOL_SLABS: int = 2
+_DEFAULT_BARRIER_FANOUT: int = 16
+_DEFAULT_STORE_SHARDS: int = 1
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -159,6 +166,39 @@ def is_cdn_enabled() -> bool:
     return os.environ.get(_CDN_ENV, "0") not in ("", "0")
 
 
+def is_partitioner_disabled() -> bool:
+    """With the variable set, a multi-rank take of replicated state
+    raises instead of spreading its writes over the ranks (the
+    reference raises there too)."""
+    return _DISABLE_PARTITIONER_ENV in os.environ
+
+
+def is_fanout_restore_enabled() -> bool:
+    """Single-reader fan-out restore (default OFF here, unlike the JAX
+    package). Not ported (ROADMAP queue 1 step 9): a multi-rank restore
+    reads rank 0's value and refuses when it asks for fan-out."""
+    return os.environ.get(_FANOUT_RESTORE_ENV, "0") not in ("", "0")
+
+
+def is_tree_barrier_enabled() -> bool:
+    """Tree-structured store barriers (default ON): arrive and depart
+    aggregate through a fanout-``k`` rank tree. ``"0"`` is the kill
+    switch back to the leader-centric ``LinearBarrier``."""
+    return os.environ.get(_TREE_BARRIER_ENV, "1") != "0"
+
+
+def get_barrier_fanout() -> int:
+    """The tree barrier's branching factor ``k`` (at least 2)."""
+    return max(2, _get_int_env(_BARRIER_FANOUT_ENV, _DEFAULT_BARRIER_FANOUT))
+
+
+def get_store_shards() -> int:
+    """Coordination-store shard count: more than 1 bootstraps that many
+    TCPStore servers, spread over the ranks, behind key->shard hashing.
+    Rank 0's reading decides for the job."""
+    return max(1, _get_int_env(_STORE_SHARDS_ENV, _DEFAULT_STORE_SHARDS))
+
+
 @contextlib.contextmanager
 def _override_env(name: str, value: Optional[str]) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -214,4 +254,22 @@ def override_restore_placement_flush_bytes(nbytes: int) -> Generator[None, None,
 @contextlib.contextmanager
 def disable_async_device_snapshot() -> Generator[None, None, None]:
     with _override_env(_ASYNC_DEVICE_SNAPSHOT_ENV, "0"):
+        yield
+
+
+@contextlib.contextmanager
+def disable_tree_barrier() -> Generator[None, None, None]:
+    with _override_env(_TREE_BARRIER_ENV, "0"):
+        yield
+
+
+@contextlib.contextmanager
+def override_barrier_fanout(fanout: int) -> Generator[None, None, None]:
+    with _override_env(_BARRIER_FANOUT_ENV, str(fanout)):
+        yield
+
+
+@contextlib.contextmanager
+def enable_fanout_restore() -> Generator[None, None, None]:
+    with _override_env(_FANOUT_RESTORE_ENV, "1"):
         yield

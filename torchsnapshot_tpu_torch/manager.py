@@ -29,12 +29,16 @@ retention *pins* a dropped step whose blobs a retained step still
 references (blobs stay, the step leaves the visible list) and deletes it
 as soon as no retained step references it.
 
+Across ranks (``pg=``, as ``Snapshot`` takes it), rank 0 reads the index
+and broadcasts the step to restore or to diff against, every rank takes
+the step, and rank 0 alone writes the index and runs retention, after the
+take's commit barrier.
+
 Not ported yet, and refused rather than skipped: the content-addressed
 chunk store, the CDN publish side, ``tiered://`` roots with
-``wait_durable`` / ``resume_mirrors`` (ROADMAP queue 1 step 9), and a
-process group (step 5). The JAX manager's telemetry hooks (run ledger,
-SLO evaluation, autotuner, step and restore history) come with step 10;
-the peer tier, inert without a process group, with step 9.
+``wait_durable`` / ``resume_mirrors`` (ROADMAP queue 1 step 9). The JAX
+manager's telemetry hooks (run ledger, SLO evaluation, autotuner, step
+and restore history) come with step 10; the peer tier with step 9.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ distributed take; ranks that checkpoint at different steps commit
 garbage. :class:`PreemptionSaver` turns the signal into a whole-world
 agreement to save at one specific step:
 
-    mgr = CheckpointManager(root)
-    saver = PreemptionSaver()                # installs a SIGTERM handler
+    mgr = CheckpointManager(root, pg=pg)
+    saver = PreemptionSaver(pg=pg)           # installs a SIGTERM handler
     try:
         for step in range(start, total):
             state, loss = train_step(state, batch)
@@ -39,13 +39,11 @@ collectives, so "collectives order the ranks" arguments do not hold):
 If the rendezvous does not complete within ``rendezvous_timeout`` (a
 peer already died), the saver gives up loudly and never triggers.
 
-In one process (``pg=None``, the only world this package runs so far)
-the signal alone decides: ``should_save`` returns True at the first step
-after it. The multi-rank protocol is here as it is in the JAX package and
-runs once a process group brings a coordination store (ROADMAP queue 1
-step 5). The run-ledger posts of the JAX saver (``ledger_root``) come
-with the telemetry port (step 10), and its peer-tier flush on ``close``
-with the peer tier (step 9).
+In one process (``pg=None``) the signal alone decides: ``should_save``
+returns True at the first step after it. The run-ledger posts of the JAX
+saver (``ledger_root``) come with the telemetry port (ROADMAP queue 1
+step 10), and its peer-tier flush on ``close`` with the peer tier (step
+9).
 """
 
 from __future__ import annotations

@@ -79,16 +79,25 @@ def _rss_bytes() -> int:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
-def get_process_memory_budget_bytes() -> int:
+def get_process_memory_budget_bytes(pg=None) -> int:
     """Host-memory budget for staging and consuming buffers:
-    ``min(available * fraction, 32 GiB)``, or the
-    ``TORCHSNAPSHOT_TPU_PER_RANK_MEMORY_BUDGET_BYTES`` override."""
+    ``min(available * fraction / local_world_size, 32 GiB)``, or the
+    ``TORCHSNAPSHOT_TPU_PER_RANK_MEMORY_BUDGET_BYTES`` override.
+    ``local_world_size`` counts the processes of ``pg`` (a
+    :class:`~torchsnapshot_tpu_torch.pg_wrapper.PGWrapper`) on this host,
+    by a hostname all-gather: two ranks on one host share its memory."""
     override = knobs.get_per_rank_memory_budget_bytes_override()
     if override is not None:
         logger.info("Memory budget manually set to %d bytes", override)
         return override
     available = int(available_host_memory_bytes() * knobs.get_memory_budget_fraction())
-    budget = min(available, _MAX_PER_RANK_MEMORY_BUDGET_BYTES)
+    local_world_size = 1
+    if pg is not None and pg.get_world_size() > 1:
+        import socket
+
+        hostnames = pg.all_gather_object(socket.gethostname())
+        local_world_size = sum(1 for h in hostnames if h == socket.gethostname())
+    budget = min(available // local_world_size, _MAX_PER_RANK_MEMORY_BUDGET_BYTES)
     logger.info("Memory budget set to %d bytes", budget)
     return budget
 

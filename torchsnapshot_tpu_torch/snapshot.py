@@ -1,56 +1,75 @@
 """The Snapshot user API: take / async_take / restore / async_restore /
-read_object, for one process.
+read_object, in one process or across the ranks of a process group.
 
-Counterpart of ``torchsnapshot_tpu/snapshot.py`` for ``pg=None``. Same
-protocol:
+Counterpart of ``torchsnapshot_tpu/snapshot.py``. Same protocol:
 
-- ``take``: flatten every stateful's state dict (the RNG state first),
-  plan write requests, stage and write them under the host-memory budget,
-  write the per-rank checksum table, then commit ``.snapshot_metadata``
-  (JSON). A snapshot without the metadata file never happened, which is
-  what makes an interrupted take safe. ``incremental_base=`` references
-  the base's blobs for chunks whose digest did not change
-  (``incremental.py``); ``record_digests=`` records digests so that the
-  snapshot can serve as a base.
+- ``take``: flatten every stateful's state dict (the RNG state captured
+  first), plan write requests, stage and write them under the host-memory
+  budget, write the per-rank checksum table, then commit
+  ``.snapshot_metadata`` (JSON). A snapshot without the metadata file
+  never happened, which is what makes an interrupted take safe.
+  ``incremental_base=`` references the base's blobs for chunks whose
+  digest did not change (``incremental.py``); ``record_digests=`` records
+  digests so that the snapshot can serve as a base.
+- Across ranks (``pg=``: a :class:`~torchsnapshot_tpu_torch.dist_store.ProcessGroup`,
+  a ``(store, rank, world_size)`` object or :func:`torch_process_group`'s
+  result): rank 0's path and a commit nonce are broadcast; the statefuls
+  are captured in the globally sorted key order; the ``replicated=`` globs
+  that every rank declared, and that match on every rank, mark replicated
+  leaves, whose writes are spread over the ranks (``partitioner.py``); the
+  per-rank manifests gather to rank 0; every rank writes its blobs and its
+  checksum table, and rank 0 commits after an error-propagating barrier,
+  so a rank that fails leaves no commit marker and its peers abandon in
+  seconds. Replicated entries sit under rank 0 in the manifest and are
+  visible to every rank at restore; per-rank entries only to their rank
+  (or to ``read_object`` of their ``{rank}/`` path).
 - ``async_take``: returns a :class:`PendingSnapshot` once a consistent copy
   of the state is pinned: on-device clones of the CUDA leaves, dispatched
   on the caller's current stream and not awaited, host copies of CPU
-  leaves and pickles of objects. The device-to-host copies, writes and the
-  commit run on a background thread; the caller may mutate the live
-  state at once. ``wait(phase="staged")`` returns when the bytes have left
-  the card, ``wait()`` when the snapshot is committed.
-- ``restore``: in place, like torch's ``load_state_dict``. A CUDA leaf is
-  read into a pinned host buffer and copied into the live tensor with
-  ``copy_(non_blocking=True)`` on a side stream; leaves whose reads landed
-  are placed together in rolling batches of
-  ``TORCHSNAPSHOT_TPU_RESTORE_PLACEMENT_FLUSH_BYTES`` while the other reads
-  are still in flight (streaming placement). The streams are synchronized
-  before the stateful's own ``load_state_dict`` runs. A CPU leaf is read
-  into directly. The RNG state is restored last.
+  leaves and pickles of objects. The collectives all run on the calling
+  thread; the device-to-host copies, writes and the commit (through the
+  store barrier, which is safe off the main thread) run on a background
+  thread. ``wait(phase="staged")`` returns when the bytes have left the
+  card, ``wait()`` when the snapshot is committed.
+- ``restore``: in place, like torch's ``load_state_dict``, one stateful
+  at a time in the sorted key order, with an error-propagating barrier
+  after each. A CUDA leaf is read into a pinned host buffer and copied
+  into the live tensor with ``copy_(non_blocking=True)`` on a side
+  stream; leaves whose reads landed are placed together in rolling
+  batches of ``TORCHSNAPSHOT_TPU_RESTORE_PLACEMENT_FLUSH_BYTES`` while the
+  other reads are still in flight (streaming placement). A CPU leaf is
+  read into directly. The RNG state is restored last.
 - ``async_restore``: plans on the calling thread, reads and places on a
   background thread into fresh buffers (host and card), and applies the
   state dicts only in :meth:`PendingRestore.wait`: until then the live
   leaves are untouched, and a failed read leaves them as they were.
-- ``read_object``: random access to one manifest path.
+- ``read_object``: random access to one manifest path, of any rank.
 
 The snapshot format is the JAX package's: either package reads what the
-other writes, digests included. Multi-process takes and the CAS, tiered,
-peer, fan-out and batched branches of the JAX package are not part of
-this package yet.
+other writes, digests included, and a snapshot taken by N ranks of one
+restores through N ranks of the other. Not ported yet: sharded
+(``DTensor``) leaves (ROADMAP queue 1 step 6), inference of replicated
+leaves (plain tensors carry no replication; ``DTensor`` comes with step
+6), and the CAS, tiered, peer, fan-out and batched branches (steps 8 and
+9; a multi-rank restore refuses ``TORCHSNAPSHOT_TPU_FANOUT_RESTORE=1``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import fnmatch
 import logging
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import uuid
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from . import knobs, telemetry
+from .dist_store import StoreBarrier, make_barrier
 from .flatten import _encode, flatten, inflate
 from .incremental import IncrementalTakeContext
 from .integrity import load_checksum_tables, sync_write_checksum_table
@@ -65,7 +84,9 @@ from .manifest import (
     SnapshotMetadata,
     get_manifest_for_rank,
     is_container_entry,
+    is_replicated,
 )
+from .pg_wrapper import PGWrapper
 from .rng_state import RngState
 from .scheduler import (
     DeferredIOWork,
@@ -90,20 +111,52 @@ logger: logging.Logger = logging.getLogger(__name__)
 SNAPSHOT_METADATA_FNAME = ".snapshot_metadata"
 
 
-def _check_pg(pg: Optional[Any]) -> None:
-    if pg is not None:
+def _nonce_barrier(prefix: str, pg_wrapper: PGWrapper) -> Optional[StoreBarrier]:
+    """The error-propagating rendezvous of every distributed phase (take
+    commit, restore keys, async plan and apply); None in one process."""
+    if pg_wrapper.get_world_size() <= 1:
+        return None
+    assert pg_wrapper.store is not None
+    return make_barrier(
+        prefix, pg_wrapper.store, pg_wrapper.get_rank(), pg_wrapper.get_world_size()
+    )
+
+
+@contextlib.contextmanager
+def _reporting_to(barrier: Optional[StoreBarrier], what: str):
+    """An error raised inside the block is reported into ``barrier``
+    (best-effort) before it propagates, so that peers waiting there
+    abandon within seconds instead of at the store timeout."""
+    try:
+        yield
+    except BaseException as e:
+        if barrier is not None:
+            try:
+                barrier.report_error(e)
+            except Exception as report_exc:  # noqa: BLE001 - already failing
+                logger.error(
+                    "failed to report %s error to peers (%r); they will abandon at the "
+                    "barrier timeout",
+                    what, report_exc,
+                )
+        raise
+
+
+def _refuse_fanout(fanout_agreed: bool) -> None:
+    if fanout_agreed:
         raise NotImplementedError(
-            "torchsnapshot_tpu_torch takes and restores in one process (pg=None); "
-            "multi-process snapshots are not ported yet"
+            "single-reader fan-out restore (TORCHSNAPSHOT_TPU_FANOUT_RESTORE) is not ported "
+            "to torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9); unset it or set it to 0"
         )
 
 
 class Snapshot:
-    """A reference to an existing or to-be-created snapshot at ``path``."""
+    """A reference to an existing or to-be-created snapshot at ``path``.
+    ``pg`` is the process group that restores it (None: one process)."""
 
     def __init__(self, path: str, pg: Optional[Any] = None) -> None:
-        _check_pg(pg)
         self.path = path
+        self._pg_arg = pg
         self._metadata: Optional[SnapshotMetadata] = None
 
     # ------------------------------------------------------------------
@@ -116,6 +169,7 @@ class Snapshot:
         path: str,
         app_state: AppState,
         pg: Optional[Any] = None,
+        replicated: Optional[List[str]] = None,
         incremental_base: Optional[Any] = None,
         record_digests: bool = False,
     ) -> "Snapshot":
@@ -123,28 +177,53 @@ class Snapshot:
         every byte is in storage and the snapshot is committed; the caller
         must not mutate the state's tensors while it runs.
 
-        ``incremental_base`` (a snapshot path or Snapshot) makes the take
-        incremental: chunks whose digest matches the base's recorded one
-        are neither copied to the host nor written, and the manifest
-        references the base's blob. ``record_digests`` records digests
-        without a base, so that this snapshot can serve as one."""
-        _check_pg(pg)
+        ``replicated`` lists globs of logical paths (``"model/**"``) whose
+        leaves are equal on every rank: each is written once, by one rank.
+        ``incremental_base`` (a snapshot path or Snapshot, the same on
+        every rank) makes the take incremental: chunks whose digest
+        matches the base's recorded one are neither copied to the host nor
+        written, and the manifest references the base's blob.
+        ``record_digests`` records digests without a base, so that this
+        snapshot can serve as one."""
+        pg_wrapper = PGWrapper(pg)
+        rank = pg_wrapper.get_rank()
+        # Rank 0's path wins.
+        path = pg_wrapper.broadcast_object(path)
+        # The nonce keeps the commit barrier's keys from aliasing any
+        # earlier take to the same path.
+        barrier = None
+        if pg_wrapper.get_world_size() > 1:
+            commit_nonce = pg_wrapper.broadcast_object(uuid.uuid4().hex)
+            barrier = _nonce_barrier(f"__snapshot_commit/{commit_nonce}", pg_wrapper)
         recorder = _trace_recorder()
-        take_span = recorder.begin(telemetry.names.SPAN_TAKE, path=path, rank=0)
+        take_span = recorder.begin(telemetry.names.SPAN_TAKE, path=path, rank=rank)
         event_loop = asyncio.new_event_loop()
         try:
             storage = url_to_storage_plugin(path)
-            pending, metadata = cls._take_impl(
-                path, app_state, storage, event_loop, is_async_snapshot=False,
-                incremental_base=incremental_base, record_digests=record_digests,
-            )
-            pending.sync_complete(event_loop)
-            _commit(pending, metadata, storage, event_loop)
+            with _reporting_to(barrier, "take"):
+                pending, metadata = cls._take_impl(
+                    path, app_state, pg_wrapper, replicated or [], storage, event_loop,
+                    is_async_snapshot=False, incremental_base=incremental_base,
+                    record_digests=record_digests,
+                )
+                pending.sync_complete(event_loop)
+                _write_checksum_table(pending, rank, storage, event_loop)
+            # Every rank's writes are durable before the commit marker
+            # exists anywhere. The commit window stays under
+            # _reporting_to: a failed metadata write on rank 0 releases
+            # the peers waiting at depart().
+            with _reporting_to(barrier, "commit"):
+                if barrier is not None:
+                    barrier.arrive()
+                if rank == 0:
+                    _write_snapshot_metadata(metadata, storage, event_loop)
+                if barrier is not None:
+                    barrier.depart()
             event_loop.run_until_complete(storage.close())
         finally:
             recorder.end(take_span)
             event_loop.close()
-        snapshot = cls(path=path)
+        snapshot = cls(path=path, pg=pg)
         snapshot._metadata = metadata
         return snapshot
 
@@ -154,29 +233,42 @@ class Snapshot:
         path: str,
         app_state: AppState,
         pg: Optional[Any] = None,
+        replicated: Optional[List[str]] = None,
         incremental_base: Optional[Any] = None,
         record_digests: bool = False,
     ) -> "PendingSnapshot":
         """Checkpoint whose visible span does not grow with the state's
-        size: returns once a consistent copy is pinned (on-device clones of
-        the CUDA leaves dispatched on the caller's current stream, host
-        copies of CPU leaves, pickles of objects); the device-to-host
-        copies, the writes and the commit run on a background thread
-        through a pinned staging pool of a few slabs. The caller may mutate
-        or free the live tensors as soon as this returns.
+        size: returns once the plan's collectives ran and a consistent copy
+        is pinned (on-device clones of the CUDA leaves dispatched on the
+        caller's current stream, host copies of CPU leaves, pickles of
+        objects); the device-to-host copies, the writes and the commit run
+        on a background thread through a pinned staging pool of a few
+        slabs. The caller may mutate or free the live tensors as soon as
+        this returns.
 
         ``TORCHSNAPSHOT_TPU_ASYNC_DEVICE_SNAPSHOT=0`` stages before
         returning instead (no device clone, no extra device memory).
-        ``incremental_base`` / ``record_digests`` as in :meth:`take`."""
+        ``pg``, ``replicated``, ``incremental_base`` and
+        ``record_digests`` as in :meth:`take`."""
         op_begin = time.monotonic()
-        _check_pg(pg)
+        pg_wrapper = PGWrapper(pg)
+        path = pg_wrapper.broadcast_object(path)
+        commit_nonce = pg_wrapper.broadcast_object(uuid.uuid4().hex)
+        # Error-reporting handle on the same barrier the background commit
+        # waits at: a rank that fails while staging must poison it, or
+        # peers whose commit threads wait at arrive() block out the store
+        # timeout.
+        barrier = _nonce_barrier(f"__snapshot_commit/{commit_nonce}", pg_wrapper)
         storage = url_to_storage_plugin(path)
         event_loop = asyncio.new_event_loop()
         try:
-            with _trace_recorder().span(telemetry.names.SPAN_ASYNC_TAKE_STAGE, path=path, rank=0):
+            with _trace_recorder().span(
+                telemetry.names.SPAN_ASYNC_TAKE_STAGE, path=path, rank=pg_wrapper.get_rank()
+            ), _reporting_to(barrier, "async take staging"):
                 pending, metadata = cls._take_impl(
-                    path, app_state, storage, event_loop, is_async_snapshot=True,
-                    incremental_base=incremental_base, record_digests=record_digests,
+                    path, app_state, pg_wrapper, replicated or [], storage, event_loop,
+                    is_async_snapshot=True, incremental_base=incremental_base,
+                    record_digests=record_digests,
                     defer_staging=knobs.is_async_device_snapshot_enabled(),
                 )
         except BaseException:
@@ -187,59 +279,104 @@ class Snapshot:
                 pass
             event_loop.close()
             raise
-        return PendingSnapshot(path, pending, metadata, storage, event_loop, op_begin)
+        return PendingSnapshot(
+            path, pending, pg_wrapper, metadata, storage, event_loop, op_begin, commit_nonce
+        )
 
     @classmethod
     def _take_impl(
         cls,
         path: str,
         app_state: AppState,
+        pg_wrapper: PGWrapper,
+        replicated: List[str],
         storage: StoragePlugin,
         event_loop: asyncio.AbstractEventLoop,
         is_async_snapshot: bool,
         incremental_base: Optional[Any] = None,
         record_digests: bool = False,
         defer_staging: bool = False,
-    ) -> Tuple["PendingIOWork | DeferredIOWork", SnapshotMetadata]:
-        """The take's plan and its staging. With ``defer_staging`` no
-        staging runs here: the write plan's sources are captured and the
-        returned :class:`DeferredIOWork` runs the whole pipeline later."""
+    ) -> Tuple["PendingIOWork | DeferredIOWork", Optional[SnapshotMetadata]]:
+        """The take's plan and its staging; every collective of the take
+        before the commit runs here, on the calling thread. The returned
+        metadata is None on every rank but 0 (the manifests gather there).
+        With ``defer_staging`` no staging runs here: the write plan's
+        sources are captured and the returned :class:`DeferredIOWork` runs
+        the whole pipeline later."""
         _validate_app_state(app_state)
-        manifest, flattened = _flatten_app_state(app_state)
+        rank = pg_wrapper.get_rank()
+        world_size = pg_wrapper.get_world_size()
+        replicated_patterns = _coalesce_replicated(replicated, pg_wrapper)
+
+        # The RNG state is captured first: capturing the other statefuls
+        # must not perturb what is saved as the RNG state. Its key keeps
+        # its sorted slot in the loop below, whose barriers every rank must
+        # run in the same order.
+        rng = _pop_rng_state(app_state)
+        rng_capture = flatten(rng[1].state_dict(), prefix=rng[0]) if rng is not None else None
+        manifest: Manifest = {}
+        flattened: Dict[str, Any] = {}
+        for key in _gather_keys(app_state, pg_wrapper):
+            if rng is not None and key == rng[0]:
+                entries, leaves = rng_capture
+            elif key in app_state:
+                # state_dict() may itself run collectives: every rank
+                # captures in the same order, a barrier apart.
+                entries, leaves = flatten(app_state[key].state_dict(), prefix=key)
+            else:
+                entries, leaves = {}, {}
+            pg_wrapper.barrier()
+            manifest.update(entries)
+            flattened.update(leaves)
+
+        replicated_paths = _calculate_replicated_entries(flattened, replicated_patterns, pg_wrapper)
+
         incr_ctx = None
         if incremental_base is not None or record_digests:
-            incr_ctx = IncrementalTakeContext.build(path, incremental_base)
+            incr_ctx = IncrementalTakeContext.build(path, incremental_base, rank)
             # Digests launch before any stager exists: skip decisions
             # precede the copies to the host.
             incr_ctx.launch(flattened)
+            incr_ctx.synchronize(pg_wrapper, replicated_paths)
         copier = DeviceCopier()
         write_reqs: List[WriteReq] = []
         for logical_path, leaf in flattened.items():
             entry, reqs = prepare_write(
-                obj=leaf, logical_path=logical_path, rank=0, copier=copier,
+                obj=leaf, logical_path=logical_path, rank=rank, copier=copier,
+                replicated=logical_path in replicated_paths,
                 is_async_snapshot=is_async_snapshot,
                 incremental=incr_ctx.plan_for(logical_path) if incr_ctx else None,
             )
             manifest[logical_path] = entry
             write_reqs.extend(reqs)
-        metadata = SnapshotMetadata(
-            version=__version__,
-            world_size=1,
-            manifest={f"0/{path}": entry for path, entry in manifest.items()},
+        if world_size > 1:
+            from .partitioner import partition_write_reqs
+
+            manifest, write_reqs = partition_write_reqs(manifest, write_reqs, pg_wrapper)
+
+        # The budget's collective runs before the manifest gather: the
+        # gather's consolidation is the last rank-0-only failure point of
+        # the plan, and a peer must have no collective left between its
+        # gather send and the error-propagating commit barrier.
+        budget = get_process_memory_budget_bytes(pg_wrapper)
+        global_manifest = _gather_manifest(manifest, pg_wrapper)
+        metadata = (
+            SnapshotMetadata(version=__version__, world_size=world_size, manifest=global_manifest)
+            if global_manifest is not None
+            else None
         )
-        budget = get_process_memory_budget_bytes()
         if defer_staging:
             with _trace_recorder().span(
-                telemetry.names.SPAN_DEVICE_CAPTURE, rank=0, reqs=len(write_reqs)
+                telemetry.names.SPAN_DEVICE_CAPTURE, rank=rank, reqs=len(write_reqs)
             ):
                 capture_write_reqs(write_reqs)
             pending: "PendingIOWork | DeferredIOWork" = DeferredIOWork(
-                write_reqs, storage, budget, rank=0
+                write_reqs, storage, budget, rank=rank
             )
         else:
             pending = sync_execute_write_reqs(
                 write_reqs=write_reqs, storage=storage, memory_budget_bytes=budget,
-                rank=0, event_loop=event_loop,
+                rank=rank, event_loop=event_loop,
             )
         if incr_ctx is not None:
             # Referenced blobs were not rewritten: their checksums come from
@@ -282,62 +419,142 @@ class Snapshot:
     # ------------------------------------------------------------------
 
     def restore(self, app_state: AppState) -> None:
-        """In-place restore of every stateful in ``app_state``."""
+        """In-place restore of every stateful in ``app_state``. Each rank
+        sees the replicated entries and its own per-rank ones; a
+        snapshot taken by another number of ranks restores as long as
+        every per-rank entry a rank asks for exists under its rank."""
         _validate_app_state(app_state)
+        pg_wrapper = PGWrapper(self._pg_arg)
+        rank = pg_wrapper.get_rank()
+        restore_nonce = None
+        if pg_wrapper.get_world_size() > 1:
+            # One agreement before any failure point: the nonce of the
+            # error-propagating key barriers, and rank 0's fan-out knob.
+            restore_nonce, fanout_agreed = pg_wrapper.broadcast_object(
+                (uuid.uuid4().hex, knobs.is_fanout_restore_enabled())
+            )
+            _refuse_fanout(fanout_agreed)
+
+        def key_barrier(i: int) -> Optional[StoreBarrier]:
+            if restore_nonce is None:
+                return None
+            return _nonce_barrier(f"__restore/{restore_nonce}/{i}", pg_wrapper)
+
         recorder = _trace_recorder()
-        restore_span = recorder.begin(telemetry.names.SPAN_RESTORE, path=self.path, rank=0)
+        restore_span = recorder.begin(telemetry.names.SPAN_RESTORE, path=self.path, rank=rank)
         event_loop = asyncio.new_event_loop()
         try:
             storage = url_to_storage_plugin(self.path)
-            available = get_manifest_for_rank(self.metadata, 0)
-            checksum_table = self._checksum_table(storage, event_loop)
-            budget = get_process_memory_budget_bytes()
-            for key in _restore_order(app_state):
-                plan = _plan_stateful_load(key, app_state[key], available, DeviceCopier())
-                if plan is None:
-                    continue
-                placer = _StreamingPlacer()
-                placer.register_plan(plan)
-                sync_execute_read_reqs(
-                    read_reqs=plan.read_reqs,
-                    storage=storage,
-                    memory_budget_bytes=budget,
-                    rank=0,
-                    event_loop=event_loop,
-                    checksum_table=checksum_table,
-                    on_req_complete=placer.on_req_complete,
+            # Collectives first, storage reads second: a rank failing in
+            # its setup reads reports into key barrier 0, where the peers
+            # wait next.
+            rng = _pop_rng_state(app_state)
+            keys = _gather_keys(app_state, pg_wrapper)
+            budget = get_process_memory_budget_bytes(pg_wrapper)
+            with _reporting_to(key_barrier(0) if keys else None, "restore setup"):
+                available = get_manifest_for_rank(self.metadata, rank)
+                checksum_table = self._checksum_table(storage, event_loop)
+            for i, key in enumerate(keys):
+                barrier = key_barrier(i)
+                with _reporting_to(barrier, "restore"):
+                    # The RNG state is restored last, below.
+                    if key in app_state and (rng is None or key != rng[0]):
+                        self._load_stateful(
+                            key, app_state[key], available, storage, budget, rank,
+                            event_loop, checksum_table,
+                        )
+                if barrier is not None:
+                    barrier.arrive()
+                    barrier.depart()
+            if rng is not None:
+                self._load_stateful(
+                    rng[0], rng[1], available, storage, budget, rank, event_loop, checksum_table
                 )
-                placer.flush()
-                plan.finish_reads()
-                plan.apply()
             event_loop.run_until_complete(storage.close())
         finally:
             recorder.end(restore_span)
             event_loop.close()
 
+    @staticmethod
+    def _load_stateful(
+        key: str,
+        stateful: Stateful,
+        available: Manifest,
+        storage: StoragePlugin,
+        budget: int,
+        rank: int,
+        event_loop: asyncio.AbstractEventLoop,
+        checksum_table,
+    ) -> None:
+        """Restore one stateful: its current leaves are the read
+        destinations, placed as their reads land."""
+        plan = _plan_stateful_load(key, stateful, available, DeviceCopier())
+        if plan is None:
+            return
+        placer = _StreamingPlacer()
+        placer.register_plan(plan)
+        sync_execute_read_reqs(
+            read_reqs=plan.read_reqs,
+            storage=storage,
+            memory_budget_bytes=budget,
+            rank=rank,
+            event_loop=event_loop,
+            checksum_table=checksum_table,
+            on_req_complete=placer.on_req_complete,
+        )
+        placer.flush()
+        plan.finish_reads()
+        plan.apply()
+
     def async_restore(self, app_state: AppState) -> "PendingRestore":
         """Restore whose reads and host-to-device copies run on a
         background thread; :meth:`PendingRestore.wait` applies the state
         dicts. The state dicts are captured and the reads planned here, on
-        the calling thread, into fresh host buffers and fresh device
-        tensors: until ``wait()`` returns the live leaves are untouched, and
-        ``wait()`` re-raises a background failure before applying anything.
-        Meanwhile the caller may compute, e.g. a forward pass::
+        the calling thread (with every collective), into fresh host
+        buffers and fresh device tensors: until ``wait()`` returns the
+        live leaves are untouched, and ``wait()`` re-raises a background
+        failure before applying anything. Meanwhile the caller may
+        compute, e.g. a forward pass::
 
             pending = Snapshot(path).async_restore(app_state)
             warm_up(model)    # overlaps the reads
             pending.wait()    # applies
         """
         _validate_app_state(app_state)
-        available = get_manifest_for_rank(self.metadata, 0)
+        pg_wrapper = PGWrapper(self._pg_arg)
+        rank = pg_wrapper.get_rank()
+        budget = get_process_memory_budget_bytes(pg_wrapper)
+        rng = _pop_rng_state(app_state)
+        keys = _gather_keys(app_state, pg_wrapper)
+        restore_nonce = None
+        if pg_wrapper.get_world_size() > 1:
+            restore_nonce, fanout_agreed = pg_wrapper.broadcast_object(
+                (uuid.uuid4().hex, knobs.is_fanout_restore_enabled())
+            )
+            _refuse_fanout(fanout_agreed)
+
+        def plan_barrier(i: int) -> Optional[StoreBarrier]:
+            if restore_nonce is None:
+                return None
+            return _nonce_barrier(f"__restore/{restore_nonce}/plan{i}", pg_wrapper)
+
+        with _reporting_to(plan_barrier(0) if keys else None, "async restore setup"):
+            available = get_manifest_for_rank(self.metadata, rank)
         copier = DeviceCopier()
         plans: Dict[str, _StatefulLoadPlan] = {}
-        for key in _restore_order(app_state):
-            plan = _plan_stateful_load(key, app_state[key], available, copier, fresh=True)
-            if plan is not None:
-                plans[key] = plan
+        for i, key in enumerate(keys):
+            barrier = plan_barrier(i)
+            with _reporting_to(barrier, "async restore planning"):
+                if key in app_state:
+                    plan = _plan_stateful_load(key, app_state[key], available, copier, fresh=True)
+                    if plan is not None:
+                        plans[key] = plan
+            if barrier is not None:
+                barrier.arrive()
+                barrier.depart()
         return PendingRestore(
-            self.path, plans, copier, self.metadata.world_size, get_process_memory_budget_bytes()
+            self.path, keys, plans, copier, pg_wrapper, budget, self.metadata.world_size,
+            rng[0] if rng is not None else None, restore_nonce,
         )
 
     # ------------------------------------------------------------------
@@ -351,9 +568,10 @@ class Snapshot:
         memory_budget_bytes: Optional[int] = None,
     ) -> Any:
         """Random access to one object by manifest path
-        ``"RANK/STATEFUL/KEY..."``. A dense entry comes back as a CPU tensor,
-        or is restored in place into ``obj_out`` (a tensor on the CPU or the
-        card) and returns it."""
+        ``"RANK/STATEFUL/KEY..."``, of any rank (no collective: any
+        process may read any rank's entries, at any world size). A dense
+        entry comes back as a CPU tensor, or is restored in place into
+        ``obj_out`` (a tensor on the CPU or the card) and returns it."""
         rank_str, _, logical_path = path.partition("/")
         try:
             rank = int(rank_str)
@@ -405,18 +623,26 @@ class Snapshot:
         return result["v"]
 
 
-def _commit(
+def _write_checksum_table(
     pending: "PendingIOWork | DeferredIOWork",
+    rank: int,
+    storage: StoragePlugin,
+    event_loop: asyncio.AbstractEventLoop,
+) -> None:
+    """After this rank's writes: its checksum table, before the commit
+    barrier, so that a committed snapshot always has complete tables."""
+    if pending.checksum_finalizer is not None:
+        pending.checksum_finalizer()
+    if pending.checksums:
+        sync_write_checksum_table(pending.checksums, rank, storage, event_loop)
+
+
+def _write_snapshot_metadata(
     metadata: SnapshotMetadata,
     storage: StoragePlugin,
     event_loop: asyncio.AbstractEventLoop,
 ) -> None:
-    """After the writes: the checksum table, then the commit marker. Every
-    blob is durable before the marker exists."""
-    if pending.checksum_finalizer is not None:
-        pending.checksum_finalizer()
-    if pending.checksums:
-        sync_write_checksum_table(pending.checksums, 0, storage, event_loop)
+    """The commit marker (rank 0, after every rank's blobs are durable)."""
     event_loop.run_until_complete(
         storage.write(
             WriteIO(path=SNAPSHOT_METADATA_FNAME, buf=metadata.to_json().encode("utf-8"))
@@ -424,33 +650,69 @@ def _commit(
     )
 
 
-def _flatten_app_state(app_state: AppState) -> Tuple[Manifest, Dict[str, Any]]:
-    """Container entries and leaves of every stateful. RNG first: capturing
-    other statefuls must not perturb what gets saved as the RNG state."""
-    rng = _pop_rng_state(app_state)
-    manifest: Manifest = {}
-    flattened: Dict[str, Any] = {}
-    if rng is not None:
-        entries, leaves = flatten(rng[1].state_dict(), prefix=rng[0])
-        manifest.update(entries)
-        flattened.update(leaves)
-    for key in sorted(app_state):
-        if rng is not None and key == rng[0]:
-            continue
-        entries, leaves = flatten(app_state[key].state_dict(), prefix=key)
-        manifest.update(entries)
-        flattened.update(leaves)
-    return manifest, flattened
+def _gather_keys(app_state: AppState, pg_wrapper: PGWrapper) -> List[str]:
+    """Sorted union of the app-state keys of every rank: the schedule of
+    the per-key barriers, identical on every rank (never reordered by a
+    rank-local fact such as which key holds the RNG state)."""
+    gathered = pg_wrapper.all_gather_object(list(app_state.keys()))
+    return sorted({k for ks in gathered for k in ks})
 
 
-def _restore_order(app_state: AppState) -> List[str]:
-    """Sorted keys, the RNG state last: the other statefuls'
-    ``load_state_dict`` side effects cannot disturb it."""
-    rng = _pop_rng_state(app_state)
-    keys = [k for k in sorted(app_state) if rng is None or k != rng[0]]
-    if rng is not None:
-        keys.append(rng[0])
-    return keys
+def _coalesce_replicated(replicated: List[str], pg_wrapper: PGWrapper) -> List[str]:
+    """Intersection of the replication globs of every rank: a path is
+    replicated only if every rank declared it."""
+    if pg_wrapper.get_world_size() == 1:
+        return list(replicated)
+    gathered = pg_wrapper.all_gather_object(sorted(replicated))
+    common = set(gathered[0])
+    for patterns in gathered[1:]:
+        common &= set(patterns)
+    return sorted(common)
+
+
+def _calculate_replicated_entries(
+    flattened: Dict[str, Any], patterns: List[str], pg_wrapper: PGWrapper
+) -> Set[str]:
+    """The paths the globs match on every rank; rank 0 decides and
+    everyone follows. Nothing is inferred: a plain tensor carries no
+    replication of its own, as a single-device ``jax.Array`` carries none
+    in the JAX package (``DTensor`` placements come with ROADMAP queue 1
+    step 6)."""
+    matched = {path for path in flattened if any(fnmatch.fnmatch(path, p) for p in patterns)}
+    if pg_wrapper.get_world_size() == 1:
+        return matched
+    all_matched = pg_wrapper.gather_object(sorted(matched))
+    common: List[str] = []
+    if all_matched is not None:
+        common_set: Set[str] = set(all_matched[0])
+        for paths in all_matched[1:]:
+            common_set &= set(paths)
+        common = sorted(common_set)
+    return set(pg_wrapper.broadcast_object(common))
+
+
+def _gather_manifest(rank_manifest: Manifest, pg_wrapper: PGWrapper) -> Optional[Manifest]:
+    """Gather the per-rank manifests to rank 0 and merge them into the
+    global ``{rank}/{path}`` manifest there; None on every other rank.
+    Replicated entries are consolidated across ranks and kept under rank
+    0 only."""
+    gathered = pg_wrapper.gather_object(rank_manifest)
+    if gathered is None:
+        return None
+    merged_replicated: Manifest = {}
+    if pg_wrapper.get_world_size() > 1:
+        from .partitioner import consolidate_replicated_entries
+
+        merged_replicated = consolidate_replicated_entries(gathered)
+    global_manifest: Manifest = {}
+    for rnk, manifest in enumerate(gathered):
+        for logical_path, entry in manifest.items():
+            if is_replicated(entry) and not is_container_entry(entry):
+                if rnk > 0:
+                    continue
+                entry = merged_replicated.get(logical_path, entry)
+            global_manifest[f"{rnk}/{logical_path}"] = entry
+    return global_manifest
 
 
 # ---------------------------------------------------------------------------
@@ -699,9 +961,10 @@ def _restore_destination(
 
 class PendingSnapshot:
     """Handle on an in-flight async snapshot. A background thread drains
-    staging (for device-snapshot takes) and the writes, then writes the
-    checksum table and the commit marker; a failure re-raises in
-    ``wait()`` and leaves no commit marker.
+    staging (for device-snapshot takes) and the writes, writes this rank's
+    checksum table, and meets its peers at the store barrier, after which
+    rank 0 writes the commit marker; a failure on any rank re-raises in
+    every rank's ``wait()`` and leaves no commit marker.
 
     Phases, in seconds since ``async_take`` was called: ``visible_s``
     (the call's own span, over when this handle exists), ``staged_s``
@@ -712,12 +975,16 @@ class PendingSnapshot:
         self,
         path: str,
         pending_io_work: "PendingIOWork | DeferredIOWork",
-        metadata: SnapshotMetadata,
+        pg_wrapper: PGWrapper,
+        metadata: Optional[SnapshotMetadata],
         storage: StoragePlugin,
         event_loop: asyncio.AbstractEventLoop,
         op_begin: float,
+        commit_nonce: str = "",
     ) -> None:
         self.path = path
+        self.pg = pg_wrapper
+        self.commit_nonce = commit_nonce
         self._metadata = metadata
         self._storage = storage
         self._event_loop = event_loop
@@ -746,16 +1013,33 @@ class PendingSnapshot:
         self._staged.set()
 
     def _complete_snapshot(self) -> None:
+        rank = self.pg.get_rank()
+        barrier = None
         recorder = _trace_recorder()
-        commit_span = recorder.begin(telemetry.names.SPAN_ASYNC_TAKE_COMMIT, path=self.path, rank=0)
+        commit_span = recorder.begin(telemetry.names.SPAN_ASYNC_TAKE_COMMIT, path=self.path, rank=rank)
         try:
+            barrier = _nonce_barrier(f"__snapshot_commit/{self.commit_nonce}", self.pg)
             self._pending_io_work.sync_complete(self._event_loop)
-            _commit(self._pending_io_work, self._metadata, self._storage, self._event_loop)
+            _write_checksum_table(self._pending_io_work, rank, self._storage, self._event_loop)
+            # The store barrier, not a collective: safe on this thread.
+            if barrier is not None:
+                barrier.arrive()
+            if rank == 0:
+                _write_snapshot_metadata(self._metadata, self._storage, self._event_loop)
+            if barrier is not None:
+                barrier.depart()
             self._event_loop.run_until_complete(self._storage.close())
             self.committed_s = time.monotonic() - self._op_begin
         except BaseException as e:  # noqa: BLE001 - must propagate via wait()
+            # Recorded before the peers are told: report_error talks to the
+            # store and may fail itself, but wait() must still raise.
             self._exc_info = e
             logger.error("Async snapshot failed: %r", e)
+            if barrier is not None:
+                try:
+                    barrier.report_error(e)
+                except Exception as report_exc:  # noqa: BLE001
+                    logger.error("Failed to report snapshot error to peers: %r", report_exc)
         finally:
             recorder.end(commit_span)
             self._event_loop.close()
@@ -768,8 +1052,9 @@ class PendingSnapshot:
 
         - ``"staged"``: the device-to-host copies and serialization
           finished; returns None (nothing is committed yet);
-        - ``"committed"`` (default): the writes are durable and the commit
-          marker exists; returns the :class:`Snapshot`.
+        - ``"committed"`` (default): every rank's writes are durable and
+          the commit marker exists; returns the :class:`Snapshot` (with
+          this take's process group).
 
         A background failure re-raises here, on every call that observes
         it, in either phase."""
@@ -783,7 +1068,7 @@ class PendingSnapshot:
         self._thread.join()
         if self._exc_info is not None:
             raise self._exc_info
-        snapshot = Snapshot(path=self.path)
+        snapshot = Snapshot(path=self.path, pg=self.pg)
         snapshot._metadata = self._metadata
         return snapshot
 
@@ -798,23 +1083,34 @@ class PendingSnapshot:
 
 class PendingRestore:
     """Handle on an in-flight async restore. The background thread reads,
-    verifies and places into fresh buffers; ``wait()`` joins it, re-raises
-    a failure before touching the application's state, then applies the
-    state dicts on the calling thread, the RNG state last."""
+    verifies and places into fresh buffers, and runs no collective;
+    ``wait()`` joins it, re-raises a failure before touching the
+    application's state (reporting it to the peers), then applies the
+    state dicts on the calling thread in the sorted key order, a barrier
+    apart, and the RNG state last."""
 
     def __init__(
         self,
         path: str,
+        keys: List[str],
         plans: Dict[str, _StatefulLoadPlan],
         copier: DeviceCopier,
-        world_size: int,
+        pg_wrapper: PGWrapper,
         memory_budget_bytes: int,
+        world_size: int,
+        rng_key: Optional[str] = None,
+        restore_nonce: Optional[str] = None,
     ) -> None:
         self.path = path
+        self._keys = keys
         self._plans = plans
         self._copier = copier
+        self._pg = pg_wrapper
+        self._rank = pg_wrapper.get_rank()
         self._world_size = world_size
         self._memory_budget_bytes = memory_budget_bytes
+        self._rng_key = rng_key
+        self._restore_nonce = restore_nonce
         self._exc_info: Optional[BaseException] = None
         self._applied = False
         self._done = threading.Event()
@@ -824,7 +1120,7 @@ class PendingRestore:
     def _run_reads(self) -> None:
         event_loop = asyncio.new_event_loop()
         reads_span = _trace_recorder().begin(
-            telemetry.names.SPAN_ASYNC_RESTORE_READS, path=self.path, rank=0
+            telemetry.names.SPAN_ASYNC_RESTORE_READS, path=self.path, rank=self._rank
         )
         try:
             storage = url_to_storage_plugin(self.path)
@@ -839,7 +1135,7 @@ class PendingRestore:
                 read_reqs=[r for plan in self._plans.values() for r in plan.read_reqs],
                 storage=storage,
                 memory_budget_bytes=self._memory_budget_bytes,
-                rank=0,
+                rank=self._rank,
                 event_loop=event_loop,
                 checksum_table=checksum_table,
                 on_req_complete=placer.on_req_complete,
@@ -859,19 +1155,39 @@ class PendingRestore:
             event_loop.close()
             self._done.set()
 
+    def _key_barrier(self, i: int) -> Optional[StoreBarrier]:
+        if self._restore_nonce is None:
+            return None
+        return _nonce_barrier(f"__restore/{self._restore_nonce}/{i}", self._pg)
+
     def wait(self) -> None:
         """Block until the reads finished, then apply the state dicts (once;
         a second call is a no-op). Call it from the thread that called
-        ``async_restore``."""
+        ``async_restore``: it holds the apply barriers, in the key order
+        that every rank shares."""
         self._thread.join()
         if self._exc_info is not None:
-            # Nothing was applied; the read buffers are useless.
+            # Nothing was applied; the read buffers are useless. Peers
+            # whose reads succeeded wait at the first apply barrier.
             self._plans = {}
-            raise self._exc_info
+            with _reporting_to(self._key_barrier(0) if self._keys else None, "restore reads"):
+                raise self._exc_info
         if self._applied:
             return
-        for plan in self._plans.values():  # in restore order: RNG last
-            plan.apply()
+        # One barrier per gathered key, plan or no plan: ranks may hold
+        # plans for different keys. The RNG state applies after them all.
+        for i, key in enumerate(self._keys):
+            barrier = self._key_barrier(i)
+            with _reporting_to(barrier, "restore apply"):
+                plan = self._plans.get(key)
+                if plan is not None and key != self._rng_key:
+                    plan.apply()
+            if barrier is not None:
+                barrier.arrive()
+                barrier.depart()
+        rng_plan = self._plans.get(self._rng_key) if self._rng_key is not None else None
+        if rng_plan is not None:
+            rng_plan.apply()
         self._applied = True
         # Release the state-sized buffers; the handle may outlive the restore.
         self._plans = {}
