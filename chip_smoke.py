@@ -22,7 +22,13 @@ each of which raises on failure (nothing is caught):
    split by the profiler into its main kernel and the rest (memset, table
    copy, finalize), logged with the SM clock and power while it ran, the
    host's time to build the kernel's table, and the design's reckoned
-   integer instructions per lane.
+   integer instructions per lane. Pack (``csrc/device_pack.cu``): bit for
+   bit against its plain version over 15 dtypes, row slices, 1-byte,
+   odd-sized and empty members, a non-contiguous view (copied by the
+   wrapper and counted), 1 and 10,000 members; then timed as the others
+   (its library call ``torch.cat`` of the members' uint8 views) at rank 0's
+   largest slab of the sharded phase's batched take and at 10,000 members
+   of 4 KiB.
    The host I/O runtime (``native/ts_io.cpp``) is built here too, so the
    timed takes and restores below hold no compile.
 2. **main**: the port's main path. Train the widest in-repo transformer
@@ -85,6 +91,32 @@ each of which raises on failure (nothing is caught):
    and ``restore_latest`` on both ranks, bit-identical; (f) rank 1's
    writes fail: rank 0 raises within 30 s and no commit marker is left.
    Each rank must launch every kernel of the path.
+6. **sharded**: two processes on the card, spawned as in the ranks phase,
+   with a gloo default group (no tensor collective runs on the checkpoint
+   path) and a ``cuda`` device mesh of 2. Each trains the main
+   configuration from ``--seed`` and expresses the train state FSDP-style:
+   every CUDA leaf a ``Shard(0)`` ``DTensor`` built by ``from_local`` of its
+   rank's chunk, plus a (1001, 4096) bf16 leaf (uneven rows) and a (1,
+   4096) one (rank 1's box is empty). (a) ``Snapshot.take`` with digests
+   recorded: each rank copies to the host and writes 50% +- 1% of the
+   sharded bytes, the saved boxes tile every array with no hole and no
+   overlap, one commit marker; (b) restore into ``DTensor``s from ``--seed
+   + 1``: bit-identical local shards, in place; (c1) restore into
+   ``Shard(1)`` (the tensor-parallel layout): each local shard is its
+   column slice of the replica, ranged and whole shard reads counted;
+   (c2) the parent, at world size 1, restores the two-rank snapshot into
+   plain CUDA tensors, bit-identical to its own run of the same training,
+   and one more step gives that run's loss bit for bit; (c3)
+   ``read_object(path, sharding=(mesh, [Shard(1)]))`` of the uneven leaf;
+   (d) the embedding and layers 0-3 frozen, one step, an incremental take:
+   each rank launches the digest kernel once and copies and writes exactly
+   its changed pieces' bytes, the restore is bit-identical; (e) batched
+   takes with ``ENABLE_BATCHING`` and ``DEVICE_PACK`` (one pack launch per
+   slab) and member by member, in turns, each restored bit for bit; (f) a
+   deep fsck of (a) passes and catches one flipped byte in a copy of a
+   shard blob. Each rank must launch ``flash_fwd``, ``flash_chunk``,
+   ``device_digest`` and ``device_pack``; the record's ``device_pack``
+   launches are this phase's, both ranks'.
 
 The second-to-last line of stdout is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -93,7 +125,9 @@ The second-to-last line of stdout is the kernels' JSON record; the last is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -153,6 +187,8 @@ HOLD_CYCLES = 10_000_000
 # ~50 ms: the digest wrapper's host cost was up to 2.4 ms a call, so ten
 # calls outlasted the 5 ms spin and the card's time took in the host's gaps.
 DIGEST_HOLD_CYCLES = 100_000_000
+# ~300 ms: the pack wrapper's host cost grows with its members (10,000).
+PACK_HOLD_CYCLES = 600_000_000
 
 
 def held_times(fn, iters: int = 10, warmup: int = 2, hold_cycles: int = HOLD_CYCLES) -> tuple:
@@ -597,11 +633,154 @@ def reckoned_int_ops_per_lane(table) -> float:
 
 
 # ----------------------------------------------------------------------
+# The device pack kernel
+# ----------------------------------------------------------------------
+
+
+def _pack_case_specs(seed: int) -> list:
+    """(label, specs) of the pack kernel's checks: every dtype the port
+    serializes and packs, row slices (unaligned starts included), 1-byte,
+    odd-sized and empty members, a non-contiguous view, 1 and 10,000
+    members."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dtypes = [
+        torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int64,
+        torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool,
+        torch.float8_e4m3fn, torch.float8_e5m2, torch.uint16, torch.uint32, torch.uint64,
+    ]
+
+    def make(shape, dtype):
+        """Random bytes viewed as ``dtype`` (a byte copy carries any bits)."""
+        if dtype == torch.bool:
+            return torch.rand(shape, generator=g, device="cuda") > 0.5
+        raw = torch.randint(0, 256, (*shape, dtype.itemsize), generator=g, device="cuda", dtype=torch.uint8)
+        return raw.view(dtype).reshape(shape)
+
+    big = make((1031, 77), torch.uint8)
+    return [
+        ("dtypes", [(make((33, 7), d), None) for d in dtypes]),
+        ("row slices", [(big, (0, 1)), (big, (3, 517)), (big, (9, 9)),
+                        (make((200, 3), torch.bfloat16), (7, 199))]),
+        ("1-byte, odd and empty", [(make((1,), torch.uint8), None), (make((0,), torch.float32), None),
+                                   (make((3, 5), torch.bfloat16), None), (make((17,), torch.int8), None),
+                                   (make((5,), torch.float64), None)]),
+        ("non-contiguous", [(make((64, 33), torch.float32)[:, 1::2], None), (big, None)]),
+        ("1 member", [(make((4096,), torch.float32), None)]),
+        ("10,000 members", [(make((1024,), torch.float32), None) for _ in range(10_000)]),
+    ]
+
+
+def _train_state_slab_specs(seed: int):
+    """Rank 0's largest slab of the sharded phase's batched take: each
+    CUDA leaf of the train state cut Shard(0) over two ranks (rank 0's
+    rows, a row range of the leaf), packed greedily in plan order into
+    slabs of the 128 MiB threshold, as the batcher plans them."""
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state
+
+    state = init_train_state(main_config(), seed=seed)
+    threshold = knobs.get_slab_size_threshold_bytes()
+    slabs, current, size = [], [], 0
+    for t in _state_tensors(state).values():
+        if not t.is_cuda or t.dim() == 0:
+            continue
+        rows = -(-t.shape[0] // RANKS)
+        nbytes = rows * t[0].numel() * t.element_size()
+        if current and size + nbytes > threshold:
+            slabs.append(current)
+            current, size = [], 0
+        current.append((t, (0, rows)))
+        size += nbytes
+    slabs.append(current)
+    return state, max(slabs, key=lambda specs: sum(t[a:b].numel() * t.element_size() for t, (a, b) in specs)), len(slabs)
+
+
+def pack_phase(seed: int) -> dict:
+    """Hold the pack kernel against its plain version bit for bit, then
+    time it at the train state's slab layout and at 10,000 members of
+    4 KiB; returns the record at the train state's slab."""
+    import torch
+
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    for label, specs in _pack_case_specs(seed):
+        before = dp.launch_counts["device_pack"]
+        packed = dp.pack_async(specs)
+        plain = dp.pack_plain(specs)
+        torch.cuda.synchronize()
+        _require(dp.launch_counts["device_pack"] == before + 1, f"pack {label}: not one launch")
+        _require(packed.numel() == plain.numel() and torch.equal(packed, plain),
+                 f"pack {label} differs from the plain version")
+    log(f"kernel device_pack: {len(_pack_case_specs(seed))} layouts (15 dtypes, row slices, 1-byte, "
+        f"odd and empty members, a non-contiguous view (copies counted: "
+        f"{dp.copy_counts['device_pack_contiguous']}), 1 and 10,000 members) bit-identical to the "
+        f"plain version")
+    state, specs, n_slabs = _train_state_slab_specs(seed)
+    record = _time_pack(f"train state slab (largest of {n_slabs} of rank 0's half)", specs)
+    del state, specs
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tiny = [(torch.randint(0, 255, (4096,), generator=g, device="cuda", dtype=torch.uint8), None)
+            for _ in range(10_000)]
+    _time_pack("10,000 members of 4 KiB", tiny)
+    del tiny
+    torch.cuda.empty_cache()
+    return record
+
+
+def _time_pack(label: str, specs) -> dict:
+    import torch
+
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    nbytes = dp.pack_bytes(specs)
+    packed = dp.pack_async(specs)
+    plain = dp.pack_plain(specs)
+    _require(torch.equal(packed, plain), f"pack of the {label} differs from the plain version")
+    del packed, plain
+    views = [(t if r is None else t[r[0]:r[1]]).contiguous().reshape(-1).view(torch.uint8) for t, r in specs]
+
+    def fn():
+        return dp.pack_async(specs)
+
+    bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {
+        "ms": cuda_ms(fn),
+        "plain_ms": cuda_ms(lambda: dp.pack_plain(specs), iters=3),
+        "library_ms": cuda_ms(lambda: torch.cat(views)),
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "max_abs_err": 0.0,  # bit for bit, checked above
+    }
+    device_ms, host_us = held_times(fn, hold_cycles=PACK_HOLD_CYCLES)
+    table_us = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        dp.build_table(specs)
+        table_us.append((time.perf_counter() - t0) * 1e6)
+    log(
+        f"kernel device_pack {label}: {len(specs)} members, {nbytes / 1e6:.3f} MB in one launch: "
+        f"{rec['ms']:.4f} ms back to back; device {device_ms:.4f} ms "
+        f"({2 * nbytes / device_ms / 1e9:.3f} TB/s read + written, {bound_ms / device_ms:.1%} of the "
+        f"bound), host {host_us:.1f} us per call, of which the table "
+        f"{statistics.median(table_us):.1f} us (median of 20) (plain {rec['plain_ms']:.4f} ms; "
+        f"torch.cat of the uint8 views {rec['library_ms']:.4f} ms; bound {bound_ms:.4f} ms by bytes, "
+        f"2 x {nbytes / 1e6:.3f} MB at 3.35 TB/s); bit-identical to the plain version"
+    )
+    return rec
+
+
+# ----------------------------------------------------------------------
 # Entry
 # ----------------------------------------------------------------------
 
 
 KERNEL_SOURCES = {
+    "device_pack": (
+        "torchsnapshot_tpu_torch/csrc/device_pack.cu",
+        "torchsnapshot_tpu/ops/device_pack.py:52",
+    ),
     "flash_fwd": (
         "torchsnapshot_tpu_torch/csrc/flash_attention.cu",
         "torchsnapshot_tpu/ops/flash_attention.py:395",
@@ -628,7 +807,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,ranks")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,ranks,sharded")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -647,6 +826,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
     from torchsnapshot_tpu_torch.ops import kernels
 
@@ -673,16 +853,18 @@ def main() -> int:
         t0 = time.monotonic()
         records = kernel_phase(args.seed)
         records["device_digest"] = digest_phase(args.seed, args.bulk_gib)
+        records["device_pack"] = pack_phase(args.seed)
         log(f"phase kernels: {time.monotonic() - t0:.1f} s")
 
-    # Launches are counted only in the main path's run; without it they
-    # were not measured and the record says null.
-    launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts))
+    # Launches are counted only in the main path's run (the pack's in the
+    # sharded phase, its path: both ranks' launches); without it they were
+    # not measured and the record says null.
+    launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
     try:
         if "main" in phases:
             t0 = time.monotonic()
-            launches = main_phase(args, work_dir, card)
+            launches.update(main_phase(args, work_dir, card))
             log(f"phase main: {time.monotonic() - t0:.1f} s")
         if "bulk" in phases:
             t0 = time.monotonic()
@@ -696,6 +878,11 @@ def main() -> int:
             t0 = time.monotonic()
             ranks_phase(args, work_dir, card)
             log(f"phase ranks: {time.monotonic() - t0:.1f} s")
+        if "sharded" in phases:
+            t0 = time.monotonic()
+            sharded = sharded_phase(args, work_dir, card)
+            launches["device_pack"] = sum(r["launches"]["device_pack"] for r in sharded["ranks"])
+            log(f"phase sharded: {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -1961,6 +2148,460 @@ def ranks_phase(args, work_dir: str, card: str) -> dict:
         f"{read_object_s:.3f} s, bit-identical; workers {workers_s:.1f} s, phase {wall_s:.1f} s on {card}"
     )
     print(json.dumps({"ranks": record}), flush=True)
+    return record
+
+
+# ----------------------------------------------------------------------
+# Phase 6: sharded (DTensor) state across two ranks on the card
+# ----------------------------------------------------------------------
+
+# Two extra leaves for the uneven cases: rows that do not divide over the
+# ranks, and one row (rank 1's box is empty).
+UNEVEN_SHAPES = {"extra/uneven": (1001, 4096), "extra/one": (1, 4096)}
+
+
+def _tp_dim(t) -> int:
+    """The tensor-parallel layout of leg (c1): columns (rows for 1-d
+    leaves)."""
+    return 1 if t.dim() > 1 else 0
+
+
+def _extra_leaves(seed: int) -> dict:
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    return {k: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) for k, shape in UNEVEN_SHAPES.items()}
+
+
+def _replica_leaves(state, seed: int) -> dict:
+    """The train state's tensors by name (``_state_tensors``) plus the two
+    extra leaves: the global values every rank holds."""
+    return {**_state_tensors(state), **_extra_leaves(seed)}
+
+
+def _dtensor_tree(leaves: dict, mesh, dim_of=lambda t: 0) -> dict:
+    """FSDP style: every CUDA leaf of at least one dimension becomes a
+    DTensor ``Shard(dim_of(t))`` built by ``from_local`` of this rank's
+    chunk (torch's layout, ``compute_local_shape_and_global_offset``); the
+    0-d step counters and the RNG state stay per-rank plain tensors."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    out = {}
+    for name, t in leaves.items():
+        if not t.is_cuda or t.dim() == 0:
+            out[name] = t.clone()
+            continue
+        placements = [Shard(dim_of(t))]
+        out[name] = DTensor.from_local(
+            _expected_local(t, mesh, placements).clone(), mesh, placements,
+            run_check=False, shape=t.shape, stride=t.stride(),
+        )
+    return out
+
+
+def _expected_local(full, mesh, placements):
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(full.shape, mesh, placements)
+    return full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def _require_shards(tree: dict, leaves: dict, what: str) -> None:
+    """Each DTensor's local shard is bit for bit its rank's chunk of the
+    global value; each plain leaf equals it whole."""
+    for name, x in tree.items():
+        want = leaves[name]
+        if hasattr(x, "device_mesh"):
+            got, want = x.to_local(), _expected_local(want, x.device_mesh, x.placements)
+        else:
+            got = x
+        _require(same_bits(got, want), f"{what}: {name} differs")
+
+
+def _require_tiling(path: str) -> int:
+    """Every sharded entry's saved boxes tile its array: no hole, no
+    overlap. Returns the entries checked."""
+    from torchsnapshot_tpu_torch import Snapshot
+    from torchsnapshot_tpu_torch.manifest import ShardedArrayEntry, get_manifest_for_rank
+
+    n = 0
+    for name, entry in get_manifest_for_rank(Snapshot(path).metadata, 0).items():
+        if not isinstance(entry, ShardedArrayEntry):
+            continue
+        boxes = [(s.offsets, s.sizes) for s in entry.shards]
+        vol = sum(math.prod(sz) for _, sz in boxes)
+        total = math.prod(entry.shape)
+        _require(vol == total, f"{name}: the saved boxes hold {vol} of {total} elements")
+        for i, (oa, sa) in enumerate(boxes):
+            for ob, sb in boxes[i + 1:]:
+                disjoint = any(a0 + an <= b0 or b0 + bn <= a0 for a0, an, b0, bn in zip(oa, sa, ob, sb))
+                _require(disjoint, f"{name}: saved boxes {oa}+{sa} and {ob}+{sb} overlap")
+        n += 1
+    return n
+
+
+def _rank_blobs(path: str, rank: int, prefix: str) -> tuple:
+    """``(count, bytes)`` of the blobs under ``prefix`` that ``rank`` wrote
+    (its checksum table lists each blob it wrote; refs are not written)."""
+    with open(os.path.join(path, "checksums", str(rank))) as f:
+        table = json.load(f)
+    blobs = [loc for loc in table if loc.startswith(prefix)]
+    return len(blobs), sum(os.path.getsize(os.path.join(path, loc)) for loc in blobs)
+
+
+def _changed_piece_bytes(before: dict, after: dict, chunk: int) -> int:
+    """Bytes of this rank's local pieces (its DTensors' boxes cut as a
+    digest-enabled take cuts them) whose bits differ."""
+    total = 0
+    for name, a in before.items():
+        if not hasattr(a, "device_mesh"):
+            continue
+        la, lb = a.to_local(), after[name].to_local()
+        if la.numel() == 0:
+            continue
+        row = la[0].numel() * la.element_size()
+        rows = max(1, chunk // max(1, row)) if la.numel() * la.element_size() > chunk else la.shape[0]
+        for r in range(0, la.shape[0], rows):
+            x, y = la[r:r + rows], lb[r:r + rows]
+            if not same_bits(x, y):
+                total += x.numel() * x.element_size()
+    return total
+
+
+def sharded_worker(pg, seed: int, work_dir: str) -> dict:
+    """One rank of the sharded phase (spawned by ``run_multiprocess``; the
+    parent built every kernel): a gloo default group, a ``cuda`` device
+    mesh of 2, the main configuration trained from ``--seed`` and expressed
+    FSDP-style as ``Shard(0)`` DTensors; legs (a), (b), (c1), (c3), (d),
+    (e), (f) of the module docstring. Returns the rank's record."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+
+    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState, knobs
+    from torchsnapshot_tpu_torch.flatten import _encode
+    from torchsnapshot_tpu_torch.fsck import verify_snapshot
+    from torchsnapshot_tpu_torch.models.transformer import (
+        init_train_state,
+        make_train_step,
+        random_tokens,
+    )
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.ops import kernels
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+    from torchsnapshot_tpu_torch.snapshot import SNAPSHOT_METADATA_FNAME
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+    from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.test_utils import init_torch_group, patch_storage_plugin
+
+    t_start = time.monotonic()
+    rank = pg.rank
+    wrapper = PGWrapper(pg)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in kernels.kernel_names() if not os.path.exists(kernels._library_path(n))]
+    _require(not missing, f"rank {rank}: kernels {missing} not built by the parent")
+    init_torch_group(pg)  # gloo: no tensor collective on the checkpoint path
+    try:
+        mesh = init_device_mesh("cuda", (pg.world_size,))
+        cfg = main_config()
+        tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, seed)).cuda()
+        state = init_train_state(cfg, seed=seed)
+        train_step = make_train_step(cfg)
+        for counts in (fa.launch_counts, dd.launch_counts, dp.launch_counts):
+            for k in counts:
+                counts[k] = 0
+        for _ in range(STEPS):
+            state, _ = train_step(state, tokens)
+        torch.cuda.synchronize()
+        n_leaves = _require_replicas_equal(pg, state)
+        with torch.no_grad():
+            logits = state.model(tokens)  # the evaluation forward: the fused kernel
+        _require(bool(torch.isfinite(logits).all()), "evaluation logits not finite")
+        del logits
+        record = {"rank": rank, "device": torch.cuda.current_device(), "replica_leaves": n_leaves}
+
+        def d2h() -> float:
+            return _counter(names.DEVICE_TO_HOST_BYTES_TOTAL)
+
+        def fresh_tree(shift: int, dim_of=lambda t: 0) -> dict:
+            other = _replica_leaves(init_train_state(cfg, seed=seed + shift), seed + shift)
+            return _dtensor_tree(other, mesh, dim_of)
+
+        # (a) Take of the FSDP-style state (digests recorded: the base of d).
+        leaves_a = _replica_leaves(state, seed)
+        tree_a = _dtensor_tree(leaves_a, mesh)
+        path_a = os.path.join(work_dir, "a")
+        before = d2h()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        Snapshot.take(path_a, {"train": TensorTreeState(tree_a)}, pg=pg, record_digests=True)
+        take_s = time.monotonic() - t0
+        copied = d2h() - before
+        markers = [d for d, _, fs in os.walk(path_a) if SNAPSHOT_METADATA_FNAME in fs]
+        _require(markers == [path_a], f"commit markers: {markers}")
+        tiled = _require_tiling(path_a)
+        n_blobs, written = _rank_blobs(path_a, rank, "sharded/")
+        sharded_total = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(os.path.join(path_a, "sharded")) for f in fs
+        )
+        _require(sharded_total == sum(
+            t.numel() * t.element_size() for t in leaves_a.values() if t.is_cuda and t.dim() > 0
+        ), "the sharded blobs do not hold the sharded leaves' bytes")
+        share = written / sharded_total
+        _require(abs(share - 0.5) <= 0.01, f"rank {rank} wrote {share:.4f} of the sharded bytes")
+        _require(abs(copied / sharded_total - 0.5) <= 0.01,
+                 f"rank {rank} copied {copied} bytes to the host, not half of {sharded_total} within 1%")
+        record["a"] = {
+            "take_s": take_s, "d2h_bytes": copied, "written_bytes": written, "blobs": n_blobs,
+            "sharded_bytes": sharded_total, "share": share, "entries_tiled": tiled,
+        }
+
+        # (b) Restore, same layout, into DTensors from --seed + 1.
+        tree_b = fresh_tree(1)
+        _require(not same_bits(tree_b["param/embed"].to_local(), tree_a["param/embed"].to_local()),
+                 "the fresh state equals the trained one")
+        storage_b = tree_b["param/embed"].to_local().data_ptr()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        app_b = {"train": TensorTreeState(tree_b)}
+        Snapshot(path_a, pg=pg).restore(app_b)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        _require_shards(app_b["train"].tree, leaves_a, f"rank {rank} restore (b)")
+        _require(app_b["train"].tree["param/embed"].to_local().data_ptr() == storage_b,
+                 "restore (b) did not land in place in the DTensor's local tensor")
+        record["b"] = {"restore_s": restore_s}
+        del tree_b, app_b
+
+        # (c1) Elastic: into the tensor-parallel layout (Shard(1)).
+        class CountingFS(FSStoragePlugin):
+            ranged = whole = 0
+
+            async def read(self, read_io):
+                self._count(read_io)
+                return await super().read(read_io)
+
+            async def read_with_checksum(self, read_io):
+                self._count(read_io)
+                return await super().read_with_checksum(read_io)
+
+            def _count(self, read_io):
+                if read_io.path.startswith("sharded/"):
+                    if read_io.byte_range is None:
+                        type(self).whole += 1
+                    else:
+                        type(self).ranged += 1
+
+        tree_c = fresh_tree(1, _tp_dim)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with patch_storage_plugin(CountingFS):
+            Snapshot(path_a, pg=pg).restore({"train": TensorTreeState(tree_c)})
+        torch.cuda.synchronize()
+        c1_s = time.monotonic() - t0
+        _require_shards(tree_c, leaves_a, f"rank {rank} restore into Shard(1) (c1)")
+        record["c1"] = {"restore_s": c1_s, "ranged_reads": CountingFS.ranged, "whole_reads": CountingFS.whole}
+        del tree_c
+
+        # (c3) read_object under a layout of one leaf, the uneven one.
+        t0 = time.monotonic()
+        one = Snapshot(path_a).read_object(f"0/train/{_encode('extra/uneven')}", sharding=(mesh, [Shard(1)]))
+        torch.cuda.synchronize()
+        record["c3"] = {"read_object_s": time.monotonic() - t0}
+        _require(one.placements == (Shard(1),) and one.to_local().is_cuda, "read_object: not a Shard(1) DTensor on the card")
+        _require(same_bits(one.to_local(), _expected_local(leaves_a["extra/uneven"], mesh, [Shard(1)])),
+                 "read_object(sharding=) differs")
+        del one
+
+        # (d) Incremental take: embedding and layers 0-3 frozen, one step.
+        n_frozen = cfg.n_layers // 2
+        for prm in [state.model.embed] + [prm for blk in state.model.layers[:n_frozen] for prm in blk.parameters()]:
+            prm.requires_grad_(False)
+        state, _ = train_step(state, tokens)
+        torch.cuda.synchronize()
+        leaves_d = _replica_leaves(state, seed)
+        tree_d = _dtensor_tree(leaves_d, mesh)
+        changed = _changed_piece_bytes(tree_a, tree_d, knobs.get_incremental_chunk_size_bytes())
+        digests_before = dd.launch_counts["device_digest"]
+        path_d = os.path.join(work_dir, "d")
+        before = d2h()
+        t0 = time.monotonic()
+        Snapshot.take(path_d, {"train": TensorTreeState(tree_d)}, pg=pg, incremental_base=path_a)
+        incr_s = time.monotonic() - t0
+        copied = d2h() - before
+        _, written = _rank_blobs(path_d, rank, "sharded/")
+        _require(dd.launch_counts["device_digest"] == digests_before + 1,
+                 "the incremental take did not launch the digest kernel once")
+        _require(written == changed, f"rank {rank} wrote {written} sharded bytes, its changed pieces hold {changed}")
+        _require(copied == changed, f"rank {rank} copied {copied} bytes to the host, changed {changed}")
+        tree_r = fresh_tree(2)
+        Snapshot(path_d, pg=pg).restore({"train": TensorTreeState(tree_r)})
+        torch.cuda.synchronize()
+        _require_shards(tree_r, leaves_d, f"rank {rank} restore of the incremental take (d)")
+        record["d"] = {"take_s": incr_s, "changed_bytes": changed, "written_bytes": written, "d2h_bytes": copied}
+        del tree_r, tree_a
+
+        # (e) Batched takes of the sharded state, with the device pack and
+        # member by member, in turns (pack, member, pack, member: the first
+        # of each allocates its pinned buffers cold); each turn's
+        # restore is bit-identical.
+        e = {"pack": {"take_s": []}, "per_member": {"take_s": []}}
+        for turn, (label, pack) in enumerate((("pack", True), ("per_member", False)) * 2):
+            path_e = os.path.join(work_dir, f"e_{turn}")
+            packs_before = dp.launch_counts["device_pack"]
+            before = d2h()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(knobs.enable_batching())
+                if pack:
+                    stack.enter_context(knobs.enable_device_pack())
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                Snapshot.take(path_e, {"train": TensorTreeState(tree_d)}, pg=pg)
+                e[label]["take_s"].append(time.monotonic() - t0)
+                copied = d2h() - before
+                slabs, slab_bytes = _rank_blobs(path_e, rank, "batched/")
+                packs = dp.launch_counts["device_pack"] - packs_before
+                if pack:
+                    # One launch per slab that holds two or more members on the card.
+                    cuda_members = {}
+                    for key, entry in Snapshot(path_e).metadata.manifest.items():
+                        if key.startswith(f"{rank}/") and type(entry).__name__ == "ShardedArrayEntry":
+                            for shard in entry.shards:
+                                loc = shard.array.location
+                                cuda_members[loc] = cuda_members.get(loc, 0) + 1
+                    want = sum(1 for loc, n in cuda_members.items() if loc.startswith("batched/") and n > 1)
+                    _require(packs == want and want > 0,
+                             f"rank {rank}: {packs} pack launches for {want} slabs of card members")
+                else:
+                    _require(packs == 0, "the pack ran with DEVICE_PACK unset")
+                tree_r = fresh_tree(3)
+                t0 = time.monotonic()
+                Snapshot(path_e, pg=pg).restore({"train": TensorTreeState(tree_r)})
+                torch.cuda.synchronize()
+                e[label].setdefault("restore_s", []).append(time.monotonic() - t0)
+            _require_shards(tree_r, leaves_d, f"rank {rank} restore of the batched take (e, {label})")
+            e[label].update({"slabs": slabs, "slab_bytes": slab_bytes, "d2h_bytes": copied})
+            e[label]["pack_launches"] = e[label].get("pack_launches", 0) + packs
+            del tree_r
+            shutil.rmtree(path_e, ignore_errors=True)
+        record["e"] = e
+
+        # (f) Deep fsck of (a), and of a copy with one flipped byte.
+        wrapper.barrier()
+        if rank == 0:
+            t0 = time.monotonic()
+            report = verify_snapshot(path_a, deep=True)
+            fsck_s = time.monotonic() - t0
+            _require(report.ok, f"deep fsck of (a): {report.problems[:5]}")
+            with open(os.path.join(path_a, "checksums", "1")) as f:
+                victim = sorted(loc for loc in json.load(f) if loc.startswith("sharded/"))[0]
+            bad = os.path.join(work_dir, "a_flipped")
+            _flipped_copy(path_a, victim, bad)
+            bad_report = verify_snapshot(bad, deep=True)
+            _require(not bad_report.ok, "deep fsck missed a flipped byte in a shard blob")
+            record["f"] = {"fsck_deep_s": fsck_s, "flipped": victim, "caught": [str(x) for x in bad_report.problems[:1]]}
+        wrapper.barrier()
+
+        launches = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+        _require(all(launches[k] for k in SHARDED_PATH_KERNELS),
+                 f"rank {rank}: a kernel of the path never launched in the sharded phase: {launches}")
+        record["launches"] = launches
+        record["worker_s"] = time.monotonic() - t_start
+        return record
+    finally:
+        dist.destroy_process_group()
+
+
+# The kernels the sharded phase must launch on every rank.
+SHARDED_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest", "device_pack")
+
+
+def sharded_phase(args, work_dir: str, card: str) -> dict:
+    """Two processes on the card train the main configuration and take,
+    restore and reshard it as Shard(0) DTensors (legs a-f); then this
+    process, at world size 1, restores the two-rank snapshot into plain
+    CUDA tensors (c2): bit-identical to its own run of the same training,
+    and one more step gives that run's loss bit for bit."""
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState
+    from torchsnapshot_tpu_torch.models.transformer import (
+        init_train_state,
+        make_train_step,
+        random_tokens,
+    )
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    t_phase = time.monotonic()
+    sharded_dir = os.path.join(work_dir, "sharded")
+    os.makedirs(sharded_dir, exist_ok=True)
+    t0 = time.monotonic()
+    records = run_multiprocess(sharded_worker, RANKS, args=(args.seed, sharded_dir), timeout=600.0)
+    workers_s = time.monotonic() - t0
+
+    # (c2) World 1: the two-rank snapshot into plain CUDA tensors.
+    cfg = main_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
+    replica = init_train_state(cfg, seed=args.seed)
+    train_step = make_train_step(cfg)
+    for _ in range(STEPS):
+        replica, _ = train_step(replica, tokens)
+    torch.cuda.synchronize()
+    want = _replica_leaves(replica, args.seed)
+    fresh = init_train_state(cfg, seed=args.seed + 1)
+    dest = {k: torch.zeros_like(v) for k, v in want.items()}
+    t0 = time.monotonic()
+    Snapshot(os.path.join(sharded_dir, "a")).restore({"train": TensorTreeState(dest)})
+    torch.cuda.synchronize()
+    c2_s = time.monotonic() - t0
+    for k, v in want.items():
+        _require(same_bits(dest[k], v), f"world-1 restore of the two-rank snapshot: {k} differs")
+    live = _state_tensors(fresh)
+    with torch.no_grad():
+        for k, t in live.items():
+            if k != "rng":
+                t.copy_(dest[k])
+    fresh.rng.set_state(dest["rng"])
+    fresh.step = replica.step
+    _, loss_a = train_step(replica, tokens)
+    _, loss_b = train_step(fresh, tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_a, loss_b), f"next-step losses differ after the world-1 restore: {loss_a} vs {loss_b}")
+    del replica, fresh, dest, want
+    torch.cuda.empty_cache()
+
+    wall_s = time.monotonic() - t_phase
+    record = {"card": card, "ranks": records, "workers_s": workers_s,
+              "c2": {"restore_s": c2_s, "next_loss": float(loss_a)}, "wall_s": wall_s}
+    for r in records:
+        a, d, e = r["a"], r["d"], r["e"]
+        log(
+            f"sharded: rank {r['rank']} on card {r['device']}: (a) take {a['take_s']:.3f} s, wrote "
+            f"{a['written_bytes'] / 1e9:.4f} of {a['sharded_bytes'] / 1e9:.4f} GB sharded ({a['share']:.6f}), "
+            f"{a['d2h_bytes'] / 1e9:.4f} GB to the host, {a['entries_tiled']} entries tiled; (b) restore "
+            f"{r['b']['restore_s']:.3f} s; (c1) Shard(1) restore {r['c1']['restore_s']:.3f} s, "
+            f"{r['c1']['ranged_reads']} ranged and {r['c1']['whole_reads']} whole shard reads; (c3) read_object "
+            f"{r['c3']['read_object_s']:.4f} s; (d) incremental take {d['take_s']:.3f} s, "
+            f"{d['written_bytes'] / 1e6:.3f} MB written = changed pieces; (e) batched takes, in turns, with the "
+            f"pack {', '.join(f'{x:.3f}' for x in e['pack']['take_s'])} s ({e['pack']['slabs']} slabs, "
+            f"{e['pack']['pack_launches']} pack launches in all), member by member "
+            f"{', '.join(f'{x:.3f}' for x in e['per_member']['take_s'])} s; restores "
+            f"{', '.join(f'{x:.3f}' for x in e['pack']['restore_s'] + e['per_member']['restore_s'])} s; "
+            f"launches {r['launches']}"
+        )
+    f = records[0]["f"]
+    log(
+        f"sharded: (f) deep fsck {f['fsck_deep_s']:.3f} s, caught the flipped byte in {f['flipped']}; (c2) "
+        f"world-1 restore of the two-rank snapshot {c2_s:.3f} s, bit-identical, next loss "
+        f"{float(loss_a)!r} bit for bit; workers {workers_s:.1f} s, phase {wall_s:.1f} s on {card}"
+    )
+    print(json.dumps({"sharded": record}), flush=True)
     return record
 
 

@@ -238,3 +238,48 @@ def test_async_take_of_a_source_mutated_after_return(tmp_path) -> None:
     manifest = Snapshot(str(tmp_path / "b")).get_manifest()
     assert all(c.array.location.startswith("../") for c in manifest["0/s/w"].chunks)
     assert not manifest["0/s/b"].location.startswith("../")
+
+
+def _pack_cases():
+    """(label, specs) of the pack kernel's checks on the card."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dtypes = [torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int64,
+              torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool, torch.float8_e4m3fn]
+
+    def make(shape, dtype):
+        if dtype == torch.bool:
+            return torch.rand(shape, generator=g, device="cuda") > 0.5
+        if dtype.is_floating_point:
+            return (10 * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+        return torch.randint(-100, 100, shape, generator=g, device="cuda").to(dtype)
+
+    big = make((1031, 77), torch.uint8)
+    return [
+        ("dtypes", [(make((33, 7), d), None) for d in dtypes]),
+        ("row-slices", [(big, (0, 1)), (big, (3, 517)), (make((64, 9), torch.float32), (5, 60))]),
+        ("odd-and-empty", [(make((1,), torch.uint8), None), (make((0,), torch.float32), None),
+                           (make((3, 5), torch.bfloat16), None), (make((17,), torch.int8), None)]),
+        ("non-contiguous", [(make((64, 33), torch.float32)[:, 1::2], None), (big, None)]),
+        ("one", [(make((4096,), torch.float32), None)]),
+        ("many", [(make((1024,), torch.float32), None) for _ in range(10_000)]),
+    ]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", ["dtypes", "row-slices", "odd-and-empty", "non-contiguous", "one", "many"])
+def test_cuda_pack_matches_plain_version(case) -> None:
+    """The pack kernel bit for bit against ``pack_plain``, one launch per
+    call; a non-contiguous member is copied first, and counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    specs = dict(_pack_cases())[case]
+    before, copies = dp.launch_counts["device_pack"], dp.copy_counts["device_pack_contiguous"]
+    packed = dp.pack_async(specs)
+    plain = dp.pack_plain(specs)
+    torch.cuda.synchronize()
+    assert packed.dtype == torch.uint8 and packed.is_cuda
+    assert torch.equal(packed, plain)
+    assert dp.launch_counts["device_pack"] == before + 1
+    assert dp.copy_counts["device_pack_contiguous"] == copies + (case == "non-contiguous")

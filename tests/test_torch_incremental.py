@@ -4,8 +4,10 @@ byte-exact; checksum inheritance, chained bases and the fall-backs to a full
 take. Ports of the ``pg=None`` cases of the JAX package's
 ``tests/test_incremental.py``, plus digest identity across the two packages
 in both directions: a base written by either feeds the other's incremental
-take with no rewrite of unchanged leaves. Everything is compared bit for
-bit.
+take with no rewrite of unchanged leaves. Sharded (``DTensor``) leaves on
+two gloo ranks: unchanged pieces become refs, a changed mesh rewrites, and
+the pieces' digests equal the JAX package's for the same boxes.
+Everything is compared bit for bit.
 """
 
 import os
@@ -324,3 +326,93 @@ def test_port_base_feeds_the_jax_incremental_take(tmp_path) -> None:
     Snapshot(p1).restore({"model": fresh})
     for (n, a), (_, b) in zip(model.named_parameters(), fresh.named_parameters()):
         assert _bytes(a) == _bytes(b), n
+
+
+# ---------------------------------------------------------------------------
+# Sharded (DTensor) leaves, two ranks on gloo CPU meshes
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sharded_incremental(tmp_path_factory):
+    from test_torch_resharding import sharded_incremental_worker
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    root = str(tmp_path_factory.mktemp("sharded_incr"))
+    return root, run_multiprocess(sharded_incremental_worker, 2, args=(root,))
+
+
+def test_sharded_unchanged_pieces_are_refs(sharded_incremental) -> None:
+    """Only the piece that holds the changed row is rewritten; every other
+    piece of both ranks (the uneven leaf's too) references the base."""
+    from test_torch_resharding import _entry_fields
+
+    root, results = sharded_incremental
+    assert all(r["incr"] for r in results)
+    pieces = _entry_fields(os.path.join(root, "incr"), "m/w") + _entry_fields(
+        os.path.join(root, "incr"), "m/u"
+    )
+    rewritten = [p for p in pieces if not p[2].startswith("../")]
+    assert [p[:2] for p in rewritten] == [((32, 0), (16, 16))]
+    assert rewritten[0][2] == "sharded/m/w_32_0"
+    assert len(pieces) == 4 + 2 * len(range(0, 501, 32))  # 16-row pieces of 501 and 500 rows
+    assert _blob_files(os.path.join(root, "incr")) == {"sharded/m/w_32_0"}
+
+
+def test_sharded_changed_mesh_rewrites(sharded_incremental) -> None:
+    """Column boxes match none of the base's row boxes: all rewritten."""
+    from test_torch_resharding import _entry_fields
+
+    root, results = sharded_incremental
+    assert all(r["moved"] for r in results)
+    pieces = _entry_fields(os.path.join(root, "moved"), "m/w") + _entry_fields(
+        os.path.join(root, "moved"), "m/u"
+    )
+    assert pieces and not any(p[2].startswith("../") for p in pieces)
+    assert all(p[3].startswith("mlh64:") for p in pieces)
+
+
+def test_sharded_piece_digests_equal_the_jax_package(sharded_incremental, tmp_path) -> None:
+    """The same arrays on the JAX package's 2-device mesh, cut by the same
+    knob into the same pieces, record the same digests at the same
+    locations."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from test_torch_resharding import INCR_CHUNK, _entry_fields, seeded
+
+    root, _ = sharded_incremental
+    sharding = NamedSharding(Mesh(np.array(jax.devices()[:2]), ("x",)), P("x"))
+    w = jax.device_put(jnp.asarray(seeded((64, 16), 1).numpy()), sharding)
+    # 1001 rows do not divide over 2 devices; the 1000-row prefix does not
+    # either cut like torch, so only the even leaf is compared.
+    with jknobs.override_incremental_chunk_size_bytes(INCR_CHUNK):
+        jts.Snapshot.take(str(tmp_path / "j"), {"m": jts.PyTreeState({"w": w})}, record_digests=True)
+    from torchsnapshot_tpu.manifest import get_manifest_for_rank
+
+    jentry = get_manifest_for_rank(jts.Snapshot(str(tmp_path / "j")).metadata, 0)["m/w"]
+    jfields = sorted((tuple(s.offsets), tuple(s.sizes), s.array.location, s.array.digest) for s in jentry.shards)
+    assert jfields == _entry_fields(os.path.join(root, "base"), "m/w")
+
+
+def test_sharded_deep_fsck_follows_refs(sharded_incremental, tmp_path) -> None:
+    """The deep fsck of the incremental sharded snapshot verifies its own
+    shard blobs and, through the refs, the base's; a flipped byte in a
+    referenced base shard is caught (on a copy of both snapshots)."""
+    import shutil
+
+    from torchsnapshot_tpu_torch.fsck import verify_snapshot
+
+    root, _ = sharded_incremental
+    assert verify_snapshot(os.path.join(root, "incr"), deep=True).ok
+    copy = tmp_path / "copy"
+    shutil.copytree(os.path.join(root, "base"), copy / "base")
+    shutil.copytree(os.path.join(root, "incr"), copy / "incr")
+    victim = copy / "base" / "sharded" / "m" / "w_0_0"  # referenced by incr
+    data = bytearray(victim.read_bytes())
+    data[5] ^= 0x01
+    victim.write_bytes(bytes(data))
+    report = verify_snapshot(str(copy / "incr"), deep=True)
+    assert not report.ok
+    assert any("w_0_0" in p.location for p in report.problems)

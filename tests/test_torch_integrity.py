@@ -4,8 +4,8 @@ restore, read and ``read_object``.
 Port of the JAX package's ``tests/test_integrity.py`` with torch tensors
 in ``TensorTreeState`` in place of ``PyTreeState``, plus a check that the
 two packages compute the same table entries for the same bytes. The
-sharded cases need ``DTensor`` snapshots (ROADMAP queue 1 step 6) and
-skip. Digests compare exactly.
+sharded cases take ``DTensor``s on two gloo ranks (spawned workers) and
+restore them resharded into a plain tensor. Digests compare exactly.
 """
 
 import json
@@ -28,9 +28,6 @@ from torchsnapshot_tpu_torch.integrity import (
 from torchsnapshot_tpu_torch.knobs import disable_checksums
 
 torch.set_num_threads(1)
-
-_SHARDED = "sharded (DTensor) snapshots are not ported yet (ROADMAP queue 1 step 6)"
-
 
 def _tree(**tensors):
     return {"s": TensorTreeState(dict(tensors))}
@@ -124,8 +121,28 @@ def test_missing_tables_restore_without_verification(tmp_path) -> None:
     assert torch.equal(dst["s"].tree["w"], torch.ones(4))
 
 
-def test_sharded_blobs_are_checksummed() -> None:
-    pytest.skip(_SHARDED)
+def _take_sharded(path, rows: int, cols: int, page_size=None) -> None:
+    from test_torch_resharding import row_sharded_take_worker
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    run_multiprocess(row_sharded_take_worker, 2, args=(str(path), rows, cols, page_size))
+
+
+def test_sharded_blobs_are_checksummed(tmp_path) -> None:
+    _take_sharded(tmp_path, 16, 8)
+    keys = []
+    for rank in (0, 1):
+        table = json.loads((tmp_path / table_path(rank)).read_text())
+        keys += [k for k in table if k.startswith("sharded/s/emb")]
+    assert sorted(keys) == ["sharded/s/emb_0_0", "sharded/s/emb_8_0"]
+
+    # Corrupt one shard; the resharded restore must fail.
+    victim = tmp_path / keys[0]
+    data = bytearray(victim.read_bytes())
+    data[3] ^= 0x10
+    victim.write_bytes(bytes(data))
+    with pytest.raises(ChecksumError):
+        Snapshot(str(tmp_path)).restore(_tree(emb=torch.zeros(16, 8)))
 
 
 def test_load_checksum_tables_merges_ranks(tmp_path) -> None:
@@ -147,8 +164,28 @@ def test_load_checksum_tables_merges_ranks(tmp_path) -> None:
     assert merged == {"a": ("crc32c", 1, 2), "b": ("crc32c", 3, 4)}
 
 
-def test_sharded_ranged_restore_verifies_pages() -> None:
-    pytest.skip(_SHARDED)
+def test_sharded_ranged_restore_verifies_pages(tmp_path, monkeypatch) -> None:
+    """Memory-budgeted sharded restores split each shard into ranged row
+    reads; every page a range fully covers is verified, so mid-shard
+    corruption is caught though no read sees the whole shard blob."""
+    import torchsnapshot_tpu_torch.integrity as integrity
+    from torchsnapshot_tpu_torch.knobs import override_per_rank_memory_budget_bytes
+
+    monkeypatch.setattr(integrity, "PAGE_SIZE", 64 * 1024)
+    # 128 rows x 4 KiB per rank's shard = 512 KiB a shard = 8 pages.
+    rows, cols = 256, 1024
+    _take_sharded(tmp_path, rows, cols, page_size=64 * 1024)
+    table = json.loads((tmp_path / table_path(0)).read_text())
+    shard_keys = sorted(k for k in table if k.startswith("sharded/"))
+    assert len(table[shard_keys[0]]) == 5  # paged entry
+
+    victim = tmp_path / shard_keys[0]
+    data = bytearray(victim.read_bytes())
+    data[4 * 64 * 1024 + 17] ^= 0x04  # page 4 of 8
+    victim.write_bytes(bytes(data))
+    with override_per_rank_memory_budget_bytes(128 * 1024):
+        with pytest.raises(ChecksumError, match="page 4"):
+            Snapshot(str(tmp_path)).restore(_tree(emb=torch.zeros(rows, cols)))
 
 
 def test_read_object_budgeted_verifies_pages(tmp_path, monkeypatch) -> None:

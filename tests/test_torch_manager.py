@@ -5,7 +5,8 @@ and its torn-write recovery, and the refusals of what is not ported yet.
 Ports of the JAX package's ``tests/test_manager.py`` (the retention GC
 fuzz with its seeds included, and its two-process cases on the port's
 spawned harness, whose workers never import ``jax``)
-and of the manager cases of ``tests/test_incremental.py``, plus the two
+and of the manager cases of ``tests/test_incremental.py`` (its sharded GC
+case with ``DTensor``s on two gloo ranks), plus the two
 packages' managers on one root in both directions: each reads, restores,
 retains and incrementally extends what the other wrote. Everything is
 compared bit for bit (no tolerance): a checkpoint returns the bytes it was
@@ -892,3 +893,40 @@ def test_multiprocess_incremental_replicated_saves(tmp_path) -> None:
     assert frozen_loc == "../step_0000000001/replicated/m/frozen"
     assert hot_loc == "replicated/m/hot"
     assert not dup and refs == [1]
+
+
+def _mgr_sharded_worker(pg, root: str) -> list:
+    """Two ranks save row-sharded DTensors with keep_last_n=1."""
+    import torch.distributed as dist
+
+    from test_torch_resharding import Meshes
+    from torchsnapshot_tpu_torch.test_utils import init_torch_group
+
+    init_torch_group(pg)
+    try:
+        meshes = Meshes(pg.world_size)
+        mgr = CheckpointManager(root, keep_last_n=1, pg=pg)
+        for step, v in ((1, 1.0), (2, 2.0)):
+            emb = meshes.dtensor(torch.full((8 * pg.world_size, 4), v), "row2")
+            mgr.save(step, {"s": TensorTreeState({"emb": emb})})
+        return mgr.all_steps()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_and_checksums_gced(tmp_path) -> None:
+    """Retention walks every manifest entry kind: a dropped step's shard
+    blobs (written by both ranks) and checksum tables go too."""
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    root = tmp_path / "root"
+    assert run_multiprocess(_mgr_sharded_worker, nproc=2, args=(str(root),)) == [[2], [2]]
+    step1, step2 = root / _step_dirname(1), root / _step_dirname(2)
+    assert sorted(p.name for p in (step2 / "sharded" / "s").iterdir()) == ["emb_0_0", "emb_8_0"]
+    assert (step2 / "checksums" / "1").exists()
+    assert not (step1 / SNAPSHOT_METADATA_FNAME).exists()
+    assert not (step1 / "checksums" / "0").exists() and not (step1 / "checksums" / "1").exists()
+    assert not (step1 / "sharded").exists() or not [p for p in (step1 / "sharded").rglob("*") if p.is_file()]
+    dst = {"s": TensorTreeState({"emb": torch.zeros(16, 4)})}
+    assert CheckpointManager(str(root)).restore_latest(dst) == 2
+    assert torch.equal(dst["s"].tree["emb"], torch.full((16, 4), 2.0))

@@ -136,3 +136,32 @@ def test_kernel_wrapper_raises_without_a_kernel_build(monkeypatch, tmp_path) -> 
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa.flash_causal_forward(q, q, q)
     assert fa.launch_counts == before
+
+
+# The sharded-state slice's modules: walked by the import checks above.
+SHARDED_SLICE_MODULES = [
+    "torchsnapshot_tpu_torch/parallel/overlap.py",
+    "torchsnapshot_tpu_torch/resharding.py",
+    "torchsnapshot_tpu_torch/sharded_io_preparer.py",
+    "torchsnapshot_tpu_torch/batcher.py",
+    "torchsnapshot_tpu_torch/ops/device_pack.py",
+]
+
+
+@pytest.mark.parametrize("module", SHARDED_SLICE_MODULES)
+def test_sharded_slice_modules_are_checked(module) -> None:
+    assert os.path.join(REPO, module) in set(_port_sources())
+    assert os.path.exists(os.path.join(PKG, "csrc", "device_pack.cu"))
+
+
+def test_pack_wrapper_refuses_other_devices() -> None:
+    """Off the CPU the pack wrapper launches its kernel or raises: a
+    device it has no kernel for is refused, never packed by the plain
+    version."""
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    t = _meta((4, 4))
+    before = dp.launch_counts["device_pack"]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        dp.pack_async([(t, None), (t, None)])
+    assert dp.launch_counts["device_pack"] == before

@@ -12,8 +12,13 @@ resolves lexically. Chained references collapse to the snapshot that
 wrote the bytes.
 
 Granularity is the write granularity of the preparers: whole dense
-tensors, or dim-0 chunks of large ones (tighter for digest-enabled takes:
-``TORCHSNAPSHOT_TPU_INCREMENTAL_CHUNK_BYTES``). The referenced blobs'
+tensors, or dim-0 chunks of large ones, and the pieces of the local box
+that a rank writes of a sharded ``DTensor`` (tighter for digest-enabled
+takes: ``TORCHSNAPSHOT_TPU_INCREMENTAL_CHUNK_BYTES``). A sharded leaf's
+pieces are digested in the same launch as the dense chunks of its card,
+and compared with the base's boxes of the same offsets and sizes: a box
+layout that changed since the base (another mesh) matches no box and is
+written in full. The referenced blobs'
 checksum entries are inherited into the new snapshot's table, so restore
 verifies them too. In a multi-rank take, :meth:`IncrementalTakeContext.synchronize`
 aligns the skip decisions of replicated leaves across ranks, since their
@@ -24,8 +29,7 @@ dispatch and writes the leaf in full (``incremental.py:288-312``,
 ``:433-444`` there). Here a CUDA leaf whose kernel fails to build or launch
 raises, so a broken kernel cannot hide behind full takes. Only a base that
 is missing, unreadable or not relatively addressable degrades to a full
-take, as in the reference. Sharded (``DTensor``) leaves are not ported and
-are refused.
+take, as in the reference.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from .manifest import (
 )
 from .ops import device_digest as dd
 from .serialization import DTYPE_TO_STRING, Serializer, dtype_to_string
+from .sharded_io_preparer import is_sharded_dtensor
 
 logger: logging.Logger = logging.getLogger(__name__)
 
@@ -153,12 +158,6 @@ def _base_chunk_map(entry: Entry) -> Dict[ChunkKey, ArrayEntry]:
     return out
 
 
-def _is_sharded(leaf: Any) -> bool:
-    return isinstance(leaf, torch.Tensor) and hasattr(leaf, "device_mesh") and hasattr(
-        leaf, "placements"
-    )
-
-
 class IncrementalTakeContext:
     """Take-scoped digest state: the launched digests, the base's chunk
     map, and the refs actually used (for checksum inheritance)."""
@@ -258,11 +257,10 @@ class IncrementalTakeContext:
 
         if PrimitivePreparer.should_inline(leaf):
             return
-        if _is_sharded(leaf):
-            raise NotImplementedError(
-                f"{logical_path!r} is a sharded tensor (DTensor): incremental takes of "
-                f"sharded leaves are not ported to torchsnapshot_tpu_torch yet"
-            )
+        if is_sharded_dtensor(leaf):
+            if dd.digest_supported(leaf.dtype):
+                self._collect_sharded(logical_path, leaf, batches)
+            return
         tensor = as_tensor_leaf(leaf)
         if tensor is None or not dd.digest_supported(tensor.dtype):
             return
@@ -284,6 +282,38 @@ class IncrementalTakeContext:
         elif tensor.device.type == "cpu":
             pieces = [tensor] if ranges is None else [tensor[a:b] for a, b in ranges]
             for key, piece in zip(keys, pieces):
+                self._results[(logical_path, key)] = dd.digest_host(piece)
+        else:
+            return
+        self._layouts[logical_path] = keys
+
+    def _collect_sharded(
+        self, logical_path: str, leaf: Any, batches: Dict[torch.device, _DigestBatch]
+    ) -> None:
+        """The pieces this rank writes of a sharded ``DTensor`` (its box,
+        if the write election picks it, subdivided as the sharded preparer
+        subdivides it), as row ranges of the local tensor."""
+        from .io_preparer import effective_max_shard_size_bytes
+        from .parallel.overlap import subdivide_box, writes_box
+        from .sharded_io_preparer import _local_box, local_tensor
+
+        local = local_tensor(leaf)
+        box, coord, spec = _local_box(leaf, local)
+        if not writes_box(coord, spec) or box.numel() == 0:
+            return
+        pieces = subdivide_box(box, effective_max_shard_size_bytes(True), local.element_size())
+        keys = [(tuple(p.offsets), tuple(p.sizes)) for p in pieces]
+        ranges = tuple(
+            (p.offsets[0] - box.offsets[0], p.offsets[0] - box.offsets[0] + p.sizes[0])
+            for p in pieces
+        )
+        if local.is_cuda:
+            batch = batches.setdefault(local.device, _DigestBatch())
+            batch.specs.append((local, None if len(pieces) == 1 else ranges))
+            batch.rows.extend((logical_path, k) for k in keys)
+        elif local.device.type == "cpu":
+            for key, (a, b) in zip(keys, ranges):
+                piece = local if len(pieces) == 1 else local[a:b]
                 self._results[(logical_path, key)] = dd.digest_host(piece)
         else:
             return
@@ -349,7 +379,10 @@ class IncrementalTakeContext:
         refs: Dict[ChunkKey, Tuple[ArrayEntry, str]] = {}
         base_entry = self._base_available.get(logical_path)
         current_dtype = self._current_dtype(logical_path)
-        current_replicated = logical_path in self._replicated_paths
+        # Sharded entries carry no replicated flag (False on every shard).
+        current_replicated = logical_path in self._replicated_paths and not is_sharded_dtensor(
+            self._current_leaves.get(logical_path)
+        )
         if base_entry is not None and self._ref_prefix is not None and current_dtype is not None:
             for key, base_chunk in _base_chunk_map(base_entry).items():
                 # The digest covers bytes, not the type tag: the base chunk
@@ -388,7 +421,8 @@ class IncrementalTakeContext:
     def _current_dtype(self, logical_path: str) -> Optional[str]:
         from .io_preparer import as_tensor_leaf
 
-        tensor = as_tensor_leaf(self._current_leaves.get(logical_path))
+        leaf = self._current_leaves.get(logical_path)
+        tensor = leaf if is_sharded_dtensor(leaf) else as_tensor_leaf(leaf)
         if tensor is None or tensor.dtype not in DTYPE_TO_STRING:
             return None
         return dtype_to_string(tensor.dtype)

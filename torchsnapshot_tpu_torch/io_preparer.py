@@ -2,8 +2,10 @@
 entries.
 
 Counterpart of ``torchsnapshot_tpu/io_preparer.py``, with its dispatch order:
-primitive-inline → dense tensor (chunked when larger than the chunk knob) →
-opaque object pickle. ``prepare_read`` mirrors it.
+primitive-inline → sharded ``DTensor`` (``sharded_io_preparer.py``) → dense
+tensor (chunked when larger than the chunk knob; a fully-replicated
+``DTensor``, or one on a mesh of one device, is dense through its local
+tensor) → opaque object pickle. ``prepare_read`` mirrors it.
 
 Design points for torch tensors on the card:
 
@@ -52,6 +54,7 @@ from .manifest import (
     ObjectEntry,
     PrimitiveEntry,
     Shard,
+    ShardedArrayEntry,
 )
 from .serialization import (
     DTYPE_TO_STRING,
@@ -67,6 +70,7 @@ from .serialization import (
     tensor_from_numpy,
     try_writable_byte_view,
 )
+from .sharded_io_preparer import is_dtensor, is_sharded_dtensor, local_tensor
 from .telemetry import names as metric_names
 from .utils.tracing import trace_annotation
 
@@ -80,9 +84,16 @@ def get_storage_path(logical_path: str, rank: int, replicated: bool) -> str:
 def as_tensor_leaf(obj: Any) -> Optional[torch.Tensor]:
     """The dense tensor a leaf is checkpointed as, or ``None`` when it goes
     through the object path. Numpy arrays become CPU tensors aliasing their
-    bytes; the three dtypes without a torch counterpart raise."""
+    bytes; the three dtypes without a torch counterpart raise. A dense
+    ``DTensor`` is its local tensor; a sharded one has no dense tensor and
+    raises (the sharded preparer takes it), as do placements without a
+    box (``Partial``)."""
     if isinstance(obj, np.ndarray):
         return tensor_from_numpy(obj)
+    if is_dtensor(obj):
+        if is_sharded_dtensor(obj):
+            raise ValueError("a sharded DTensor has no dense tensor; the sharded preparer takes it")
+        obj = local_tensor(obj)
     if (
         isinstance(obj, torch.Tensor)
         and obj.layout == torch.strided
@@ -145,6 +156,39 @@ class DeviceCopier:
         telemetry.metrics().counter_inc(
             metric_names.DEVICE_TO_HOST_BYTES_TOTAL, host.numel() * host.element_size()
         )
+        return host, event
+
+    def pack_to_host(
+        self, specs: List[Tuple[torch.Tensor, Optional[Tuple[int, int]]]],
+        afters: List[Optional["torch.cuda.Event"]],
+    ) -> Tuple[torch.Tensor, Optional["torch.cuda.Event"]]:
+        """Pack ``specs`` (``ops/device_pack.py``: tensors of one device,
+        each whole or a dim-0 row range) and copy the packed bytes to the
+        host in one copy. For CUDA members, the pack kernel and the copy
+        into a new pinned host tensor run on the copy stream, ordered after
+        each member's ``afters`` event (or, where one is missing, after
+        the work queued on the current stream); returns the host tensor
+        and the event that marks the copy's end. CPU members are packed at
+        once by the plain version (event None)."""
+        from .ops.device_pack import pack_async
+
+        device = specs[0][0].device
+        if device.type != "cuda":
+            return pack_async(specs), None
+        stream = self.stream(device)
+        if any(e is None for e in afters):
+            stream.wait_stream(torch.cuda.current_stream(device))
+        for event in {id(e): e for e in afters if e is not None}.values():
+            stream.wait_event(event)
+        for t, _ in specs:
+            t.record_stream(stream)
+        with torch.cuda.stream(stream):
+            packed = pack_async(specs)
+            host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            event = torch.cuda.Event(blocking=True)
+            event.record(stream)
+        telemetry.metrics().counter_inc(metric_names.DEVICE_TO_HOST_BYTES_TOTAL, host.numel())
         return host, event
 
     def mark_ready(self, device: torch.device) -> None:
@@ -414,6 +458,14 @@ def effective_max_chunk_size_bytes(incremental: Optional[Any]) -> int:
     return size
 
 
+def effective_max_shard_size_bytes(incremental: Optional[Any]) -> int:
+    """Shard-piece analog of :func:`effective_max_chunk_size_bytes`."""
+    size = knobs.get_max_shard_size_bytes()
+    if incremental is not None:
+        size = min(size, knobs.get_incremental_chunk_size_bytes())
+    return size
+
+
 class ChunkedArrayIOPreparer:
     @staticmethod
     def should_chunk(tensor: torch.Tensor, incremental: Optional[Any] = None) -> bool:
@@ -588,6 +640,12 @@ def prepare_write(
     base-referencing entries with no write request."""
     if PrimitivePreparer.should_inline(obj):
         return PrimitivePreparer.prepare_write(obj, replicated), []
+    if is_sharded_dtensor(obj):
+        from .sharded_io_preparer import ShardedArrayIOPreparer
+
+        return ShardedArrayIOPreparer.prepare_write(
+            obj, logical_path, copier, is_async_snapshot, incremental
+        )
     tensor = as_tensor_leaf(obj)
     if tensor is None:
         return ObjectIOPreparer.prepare_write(obj, logical_path, rank, replicated)
@@ -637,7 +695,8 @@ def prepare_read(
         if callback is None:
             raise ValueError("Reading an object entry requires a callback")
         return ObjectIOPreparer.prepare_read(entry, callback)
-    raise NotImplementedError(
-        f"{entry.type} entries (written by a multi-process torchsnapshot_tpu "
-        f"take) are not readable by torchsnapshot_tpu_torch yet"
-    )
+    if isinstance(entry, ShardedArrayEntry):
+        from .sharded_io_preparer import ShardedArrayIOPreparer
+
+        return ShardedArrayIOPreparer.prepare_read(entry, obj_out, buffer_size_limit_bytes)
+    raise TypeError(f"prepare_read does not handle entry type {type(entry)}")

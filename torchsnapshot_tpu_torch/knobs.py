@@ -35,6 +35,10 @@ _FANOUT_RESTORE_ENV = "TORCHSNAPSHOT_TPU_FANOUT_RESTORE"
 _TREE_BARRIER_ENV = "TORCHSNAPSHOT_TPU_TREE_BARRIER"
 _BARRIER_FANOUT_ENV = "TORCHSNAPSHOT_TPU_BARRIER_FANOUT"
 _STORE_SHARDS_ENV = "TORCHSNAPSHOT_TPU_STORE_SHARDS"
+_MAX_SHARD_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_MAX_SHARD_SIZE_BYTES"
+_SLAB_SIZE_THRESHOLD_BYTES_ENV = "TORCHSNAPSHOT_TPU_SLAB_SIZE_THRESHOLD_BYTES"
+_ENABLE_BATCHING_ENV = "TORCHSNAPSHOT_TPU_ENABLE_BATCHING"
+_DEVICE_PACK_ENV = "TORCHSNAPSHOT_TPU_DEVICE_PACK"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_MEMORY_BUDGET_FRACTION: float = 0.6
@@ -47,6 +51,8 @@ _DEFAULT_STAGING_POOL_SLAB_BYTES: int = 128 * 1024 * 1024
 _DEFAULT_STAGING_POOL_SLABS: int = 2
 _DEFAULT_BARRIER_FANOUT: int = 16
 _DEFAULT_STORE_SHARDS: int = 1
+_DEFAULT_MAX_SHARD_SIZE_BYTES: int = 512 * 1024 * 1024
+_DEFAULT_SLAB_SIZE_THRESHOLD_BYTES: int = 128 * 1024 * 1024
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -57,6 +63,30 @@ def _get_int_env(name: str, default: int) -> int:
 def get_max_chunk_size_bytes() -> int:
     """Arrays larger than this are split into chunks written independently."""
     return _get_int_env(_MAX_CHUNK_SIZE_BYTES_ENV, _DEFAULT_MAX_CHUNK_SIZE_BYTES)
+
+
+def get_max_shard_size_bytes() -> int:
+    """Local shards of a sharded (``DTensor``) leaf larger than this are
+    subdivided along dim 0 before writing."""
+    return _get_int_env(_MAX_SHARD_SIZE_BYTES_ENV, _DEFAULT_MAX_SHARD_SIZE_BYTES)
+
+
+def get_slab_size_threshold_bytes() -> int:
+    """Write requests smaller than this are eligible for slab batching."""
+    return _get_int_env(_SLAB_SIZE_THRESHOLD_BYTES_ENV, _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES)
+
+
+def is_batching_enabled() -> bool:
+    """Opt-in: the env var's presence coalesces small writes into slabs
+    (``batcher.py``)."""
+    return _ENABLE_BATCHING_ENV in os.environ
+
+
+def is_device_pack_enabled() -> bool:
+    """Opt-in: a slab's members on one device are packed there by the
+    hand-written pack kernel (``ops/device_pack.py``) and leave in one
+    device-to-host copy, instead of one copy per member."""
+    return _DEVICE_PACK_ENV in os.environ
 
 
 def get_per_rank_memory_budget_bytes_override() -> Optional[int]:
@@ -272,4 +302,28 @@ def override_barrier_fanout(fanout: int) -> Generator[None, None, None]:
 @contextlib.contextmanager
 def enable_fanout_restore() -> Generator[None, None, None]:
     with _override_env(_FANOUT_RESTORE_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def override_max_shard_size_bytes(nbytes: int) -> Generator[None, None, None]:
+    with _override_env(_MAX_SHARD_SIZE_BYTES_ENV, str(nbytes)):
+        yield
+
+
+@contextlib.contextmanager
+def override_slab_size_threshold_bytes(nbytes: int) -> Generator[None, None, None]:
+    with _override_env(_SLAB_SIZE_THRESHOLD_BYTES_ENV, str(nbytes)):
+        yield
+
+
+@contextlib.contextmanager
+def enable_batching() -> Generator[None, None, None]:
+    with _override_env(_ENABLE_BATCHING_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def enable_device_pack() -> Generator[None, None, None]:
+    with _override_env(_DEVICE_PACK_ENV, "1"):
         yield

@@ -43,15 +43,24 @@ Counterpart of ``torchsnapshot_tpu/snapshot.py``. Same protocol:
   background thread into fresh buffers (host and card), and applies the
   state dicts only in :meth:`PendingRestore.wait`: until then the live
   leaves are untouched, and a failed read leaves them as they were.
-- ``read_object``: random access to one manifest path, of any rank.
+- ``read_object``: random access to one manifest path, of any rank;
+  ``sharding=`` (a ``(DeviceMesh, placements)`` pair or a ``DTensor``
+  template) places an array entry as a ``DTensor`` under any layout.
+- Sharded state: a ``DTensor`` sharded over its mesh is written as the
+  JAX package's ``ShardedArray`` entry, each distinct box once
+  (``sharded_io_preparer.py``), and restores into ``DTensor``s of any
+  placements and world size, or into plain tensors (elastic resharding:
+  each rank reads only the saved boxes that overlap its own). A
+  fully-replicated ``DTensor`` spanning more than one device is inferred
+  replicated, as the JAX package infers a fully-replicated ``jax.Array``.
+- ``TORCHSNAPSHOT_TPU_ENABLE_BATCHING``: small writes coalesce into slabs,
+  and ranged reads of one slab merge (``batcher.py``).
 
 The snapshot format is the JAX package's: either package reads what the
 other writes, digests included, and a snapshot taken by N ranks of one
-restores through N ranks of the other. Not ported yet: sharded
-(``DTensor``) leaves (ROADMAP queue 1 step 6), inference of replicated
-leaves (plain tensors carry no replication; ``DTensor`` comes with step
-6), and the CAS, tiered, peer, fan-out and batched branches (steps 8 and
-9; a multi-rank restore refuses ``TORCHSNAPSHOT_TPU_FANOUT_RESTORE=1``).
+restores through N ranks of the other. Not ported yet: the CAS, tiered,
+peer and fan-out branches (ROADMAP queue 1 step 9; a multi-rank restore
+refuses ``TORCHSNAPSHOT_TPU_FANOUT_RESTORE=1``).
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ from .manifest import (
     Manifest,
     ObjectEntry,
     PrimitiveEntry,
+    ShardedArrayEntry,
     SnapshotMetadata,
     get_manifest_for_rank,
     is_container_entry,
@@ -100,6 +110,12 @@ from .serialization import (
     dtype_to_string,
     empty_tensor,
     tensor_from_numpy,
+)
+from .sharded_io_preparer import (
+    ShardedArrayIOPreparer,
+    is_dtensor,
+    is_sharded_dtensor,
+    placement_spec,
 )
 from .stateful import AppState, Stateful
 from .storage_plugin import url_to_storage_plugin
@@ -329,7 +345,10 @@ class Snapshot:
             manifest.update(entries)
             flattened.update(leaves)
 
-        replicated_paths = _calculate_replicated_entries(flattened, replicated_patterns, pg_wrapper)
+        replicated_paths = _calculate_replicated_entries(
+            flattened, replicated_patterns, pg_wrapper,
+            inferred=_infer_replicated_paths(flattened),
+        )
 
         incr_ctx = None
         if incremental_base is not None or record_digests:
@@ -353,6 +372,11 @@ class Snapshot:
             from .partitioner import partition_write_reqs
 
             manifest, write_reqs = partition_write_reqs(manifest, write_reqs, pg_wrapper)
+        if knobs.is_batching_enabled():
+            from .batcher import batch_write_requests
+
+            entry_list, write_reqs = batch_write_requests(list(manifest.values()), write_reqs)
+            manifest = dict(zip(manifest.keys(), entry_list))
 
         # The budget's collective runs before the manifest gather: the
         # gather's consolidation is the last rank-0-only failure point of
@@ -488,13 +512,13 @@ class Snapshot:
     ) -> None:
         """Restore one stateful: its current leaves are the read
         destinations, placed as their reads land."""
-        plan = _plan_stateful_load(key, stateful, available, DeviceCopier())
+        plan = _plan_stateful_load(key, stateful, available, DeviceCopier(), budget=budget)
         if plan is None:
             return
         placer = _StreamingPlacer()
         placer.register_plan(plan)
         sync_execute_read_reqs(
-            read_reqs=plan.read_reqs,
+            read_reqs=_batch_reads(plan.read_reqs),
             storage=storage,
             memory_budget_bytes=budget,
             rank=rank,
@@ -546,7 +570,9 @@ class Snapshot:
             barrier = plan_barrier(i)
             with _reporting_to(barrier, "async restore planning"):
                 if key in app_state:
-                    plan = _plan_stateful_load(key, app_state[key], available, copier, fresh=True)
+                    plan = _plan_stateful_load(
+                        key, app_state[key], available, copier, fresh=True, budget=budget
+                    )
                     if plan is not None:
                         plans[key] = plan
             if barrier is not None:
@@ -566,12 +592,23 @@ class Snapshot:
         path: str,
         obj_out: Optional[Any] = None,
         memory_budget_bytes: Optional[int] = None,
+        sharding: Optional[Any] = None,
     ) -> Any:
         """Random access to one object by manifest path
         ``"RANK/STATEFUL/KEY..."``, of any rank (no collective: any
-        process may read any rank's entries, at any world size). A dense
-        entry comes back as a CPU tensor, or is restored in place into
-        ``obj_out`` (a tensor on the CPU or the card) and returns it."""
+        process may read any rank's entries, at any world size). An array
+        entry (dense or sharded) comes back as a CPU tensor, or is restored
+        in place into ``obj_out`` (a tensor on the CPU or the card, or a
+        ``DTensor``) and returns it. ``sharding`` (a ``(DeviceMesh,
+        placements)`` pair, or a ``DTensor`` whose mesh and placements
+        serve as the template) returns a new ``DTensor`` under that layout,
+        reading only the saved bytes that overlap this rank's box; it is
+        exclusive with ``obj_out``."""
+        if sharding is not None and obj_out is not None:
+            raise ValueError(
+                "read_object: pass either obj_out (in-place restore into your tensor) or "
+                "sharding (a new DTensor under a target layout), not both"
+            )
         rank_str, _, logical_path = path.partition("/")
         try:
             rank = int(rank_str)
@@ -592,22 +629,26 @@ class Snapshot:
         result: Dict[str, Any] = {}
         copier = DeviceCopier()
         target: Optional[torch.Tensor] = None
+        place: Optional[Callable[[_PlacementBatch], Any]] = None
         if isinstance(entry, ObjectEntry):
             read_reqs = prepare_read(entry, callback=lambda o: result.__setitem__("v", o))
-        elif isinstance(entry, (ArrayEntry, ChunkedArrayEntry)):
+        elif isinstance(entry, ShardedArrayEntry) or sharding is not None or is_dtensor(obj_out):
+            sharded = ShardedArrayIOPreparer.prepare_read_into(
+                entry, obj_out, buffer_size_limit_bytes=memory_budget_bytes, target=sharding
+            )
+            read_reqs, place = sharded.reqs, sharded.place
+        else:
             dst, value, target, owned = _restore_destination(entry, obj_out)
             read_reqs = prepare_read(
                 entry, obj_out=dst, buffer_size_limit_bytes=memory_budget_bytes,
                 dest_owned=owned,
             )
             result["v"] = value
-        else:
-            read_reqs = prepare_read(entry)  # raises: entry type not ported yet
         event_loop = asyncio.new_event_loop()
         try:
             storage = url_to_storage_plugin(self.path)
             sync_execute_read_reqs(
-                read_reqs=read_reqs,
+                read_reqs=_batch_reads(read_reqs),
                 storage=storage,
                 memory_budget_bytes=memory_budget_bytes or get_process_memory_budget_bytes(),
                 rank=rank,
@@ -619,6 +660,11 @@ class Snapshot:
             event_loop.close()
         if target is not None:
             copier.to_device(target, dst)
+            copier.synchronize()
+        if place is not None:
+            batch = _PlacementBatch(copier)
+            result["v"] = place(batch)
+            batch.run()
             copier.synchronize()
         return result["v"]
 
@@ -670,15 +716,43 @@ def _coalesce_replicated(replicated: List[str], pg_wrapper: PGWrapper) -> List[s
     return sorted(common)
 
 
+def _infer_replicated_paths(flattened: Dict[str, Any]) -> Set[str]:
+    """Leaves replicated by their own declaration: ``DTensor``s fully
+    replicated over a mesh of more than one device (the JAX package's rule
+    for a ``jax.Array``). At world size 1 the snapshot holds one value, so
+    marking it replicated only widens where it restores; at world size > 1
+    the JAX rule asks that the devices span more than one process, which a
+    torch mesh of more than one device always does (a rank is one device).
+    A plain tensor declares nothing and is never inferred, as a
+    single-device ``jax.Array`` is not. So, unlike the JAX rule, this one
+    needs no world size."""
+    inferred: Set[str] = set()
+    for path, leaf in flattened.items():
+        if not is_dtensor(leaf) or leaf.device_mesh.size() <= 1:
+            continue
+        spec = placement_spec(leaf.placements, leaf.ndim)
+        if all(p[0] == "replicate" for p in spec):
+            inferred.add(path)
+    return inferred
+
+
 def _calculate_replicated_entries(
-    flattened: Dict[str, Any], patterns: List[str], pg_wrapper: PGWrapper
+    flattened: Dict[str, Any],
+    patterns: List[str],
+    pg_wrapper: PGWrapper,
+    inferred: Optional[Set[str]] = None,
 ) -> Set[str]:
-    """The paths the globs match on every rank; rank 0 decides and
-    everyone follows. Nothing is inferred: a plain tensor carries no
-    replication of its own, as a single-device ``jax.Array`` carries none
-    in the JAX package (``DTensor`` placements come with ROADMAP queue 1
-    step 6)."""
-    matched = {path for path in flattened if any(fnmatch.fnmatch(path, p) for p in patterns)}
+    """The paths the globs match, plus the ``inferred`` ones, on every
+    rank; rank 0 decides and everyone follows. A sharded ``DTensor`` is
+    written by its boxes whatever the globs say (its entry carries no
+    replicated flag, as in the JAX package)."""
+    matched = {
+        path
+        for path, leaf in flattened.items()
+        if any(fnmatch.fnmatch(path, p) for p in patterns) and not is_sharded_dtensor(leaf)
+    }
+    if inferred:
+        matched |= inferred & set(flattened)
     if pg_wrapper.get_world_size() == 1:
         return matched
     all_matched = pg_wrapper.gather_object(sorted(matched))
@@ -853,17 +927,31 @@ class _StreamingPlacer:
         batch.run()
 
 
+def _batch_reads(read_reqs: List[ReadReq]) -> List[ReadReq]:
+    """Ranged reads of one slab merge into one spanning read when batching
+    is on (``batcher.batch_read_requests``)."""
+    if not knobs.is_batching_enabled():
+        return read_reqs
+    from .batcher import batch_read_requests
+
+    return batch_read_requests(read_reqs)
+
+
 def _plan_stateful_load(
     key: str,
     stateful: Stateful,
     available: Manifest,
     copier: DeviceCopier,
     fresh: bool = False,
+    budget: Optional[int] = None,
 ) -> Optional[_StatefulLoadPlan]:
     """Plan one stateful's restore. Its current leaves are the read
     destinations (restore needs no second copy of the state), or with
     ``fresh`` the templates of new buffers that absorb the reads (async
-    restore: the live leaves stay untouched until apply)."""
+    restore: the live leaves stay untouched until apply). A sharded entry,
+    or any array entry restored into a ``DTensor``, reads the saved boxes
+    that overlap this rank's box, in row bands of at most ``budget``
+    bytes."""
     encoded_key = _encode(key)
     entries = {
         path: entry
@@ -887,6 +975,18 @@ def _plan_stateful_load(
             read_reqs.extend(
                 prepare_read(entry, callback=lambda o, p=path: restored.__setitem__(p, o))
             )
+        elif isinstance(entry, ShardedArrayEntry) or is_dtensor(current.get(path)):
+            sharded = ShardedArrayIOPreparer.prepare_read_into(
+                entry, current.get(path), buffer_size_limit_bytes=budget, fresh=fresh
+            )
+            read_reqs.extend(sharded.reqs)
+
+            def _place_sharded(batch: _PlacementBatch, p=path, place=sharded.place) -> None:
+                restored[p] = place(batch)
+
+            groups.append(_LeafGroup(sharded.reqs, _place_sharded))
+            if sharded.device_target is not None and fresh:
+                copier.mark_ready(sharded.device_target.device)
         elif isinstance(entry, (ArrayEntry, ChunkedArrayEntry)):
             dst, value, target, owned = _restore_destination(entry, current.get(path), fresh)
             reqs = prepare_read(entry, obj_out=dst, dest_owned=owned)
@@ -904,7 +1004,7 @@ def _plan_stateful_load(
                 # point of that stream.
                 copier.mark_ready(target.device)
         else:
-            read_reqs.extend(prepare_read(entry))  # raises: entry type not ported yet
+            read_reqs.extend(prepare_read(entry))  # raises: an unknown entry type
     return _StatefulLoadPlan(key, stateful, container_entries, restored, groups, read_reqs, copier)
 
 
@@ -1132,7 +1232,7 @@ class PendingRestore:
             for plan in self._plans.values():
                 placer.register_plan(plan)
             sync_execute_read_reqs(
-                read_reqs=[r for plan in self._plans.values() for r in plan.read_reqs],
+                read_reqs=_batch_reads([r for plan in self._plans.values() for r in plan.read_reqs]),
                 storage=storage,
                 memory_budget_bytes=self._memory_budget_bytes,
                 rank=self._rank,

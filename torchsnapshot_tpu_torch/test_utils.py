@@ -231,6 +231,22 @@ def run_multiprocess(
     return results
 
 
+def init_torch_group(pg: ProcessGroup, backend: str = "gloo") -> None:
+    """Start ``torch.distributed``'s default group over the same ranks as
+    ``pg`` (rank 0 picks a free port and shares it through ``pg``'s store),
+    so that a worker can build a ``DeviceMesh`` and ``DTensor``s. The
+    package itself moves nothing through this group; end it with
+    ``torch.distributed.destroy_process_group()``."""
+    import torch.distributed as dist
+
+    from .pg_wrapper import PGWrapper
+
+    port = PGWrapper(pg).broadcast_object(get_free_port() if pg.rank == 0 else None)
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port}", rank=pg.rank, world_size=pg.world_size
+    )
+
+
 def multiprocess_test(nproc: int):
     """Decorator: ``@multiprocess_test(nproc=2)`` turns
     ``def test_x(pg): ...`` into a fan-out test."""
