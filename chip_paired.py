@@ -14,12 +14,16 @@ same for both:
 each turn from its tree's own directory: that tree's ``chip_smoke.py``
 (all phases), then this script's ``time`` on that tree,
 which times the tree's two flash wrappers in bf16 and f32 at the main path's
-shape and at (2, 4096, 16, 128), and its digest wrapper ``digest_many_async``
-on the train state's and the bulk state's chunk tables, with one method for
-both trees: back-to-back ms, the card's ms behind a spin kernel and the
-host's us per call; for the digest also the card's time split by the
-profiler into the main kernel and the rest, and the SM clock and power
-while it ran. Each turn's output goes to
+shape and at (2, 4096, 16, 128), its digest wrapper ``digest_many_async``
+on the train state's and the bulk state's chunk tables, and its pack
+wrapper ``pack_async`` called with plain specs (the call both trees take)
+on the train state's largest slab, 10,000 members of 4 KiB and 10,000 of
+4,093 bytes, with one method for both trees: back-to-back ms, the card's
+ms behind a spin kernel and the host's us per call; for the digest also
+the card's time split by the profiler into the main kernel and the rest,
+and the SM clock and power while it ran; for the pack also the host's us
+to build its table, and the same times for a call given the slab's
+``PackLayout`` where the tree has one. Each turn's output goes to
 ``chiprun_out/paired/<turn>_<tree>.log``; its kernel lines and JSON records
 are printed too.
 """
@@ -82,6 +86,20 @@ def time_tree(tree: str) -> None:
             print(json.dumps({"paired_time": rec}), flush=True)
             del q, k, v
     time_digest(tree)
+    time_pack(tree)
+
+
+def time_pack(tree: str) -> None:
+    """Time ``tree``'s pack wrapper on the three layouts of chip_smoke's
+    ``pack_layouts``; one JSON line each."""
+    from chip_smoke import pack_layouts, pack_timings
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    if not dp.__file__.startswith(tree):
+        raise RuntimeError(f"imported {dp.__file__}, not the package of {tree}")
+    for label, specs in pack_layouts(0):
+        rec = {"tree": tree, "pack": label, **pack_timings(specs)}
+        print(json.dumps({"paired_time": rec}), flush=True)
 
 
 def time_digest(tree: str) -> None:
@@ -125,7 +143,7 @@ def run() -> int:
                 log.write(proc.stdout)
                 print(f"== turn {i} {name}: {' '.join(cmd[1:])} exited {proc.returncode}")
                 for line in proc.stdout.splitlines():
-                    if line.startswith(("kernel ", "{", "main:", "bulk:", "profile of")):
+                    if line.startswith(("kernel ", "{", "main:", "bulk:", "leaves:", "profile of")):
                         print(line)
                 if proc.returncode != 0:
                     print(proc.stdout[-3000:])

@@ -23,12 +23,16 @@ each of which raises on failure (nothing is caught):
    copy, finalize), logged with the SM clock and power while it ran, the
    host's time to build the kernel's table, and the design's reckoned
    integer instructions per lane. Pack (``csrc/device_pack.cu``): bit for
-   bit against its plain version over 15 dtypes, row slices, 1-byte,
-   odd-sized and empty members, a non-contiguous view (copied by the
-   wrapper and counted), 1 and 10,000 members; then timed as the others
-   (its library call ``torch.cat`` of the members' uint8 views) at rank 0's
-   largest slab of the sharded phase's batched take and at 10,000 members
-   of 4 KiB.
+   bit against its plain version, through plain specs and through a
+   ``PackLayout``, over 15 dtypes, row slices, 1-byte, odd-sized and empty
+   members, a non-contiguous view (copied by the wrapper and counted), 1
+   and 10,000 members, members at odd distances from alignment, a member
+   over several tiles, empty members on a tile boundary and 10,000 members
+   of 4,093 bytes; then timed as the others (its library call
+   ``torch.cat`` of the members' uint8 views), plain specs and with a
+   layout, at rank 0's largest slab of the sharded phase's batched take,
+   at 10,000 members of 4 KiB and at 10,000 of 4,093 bytes. The record's
+   ``ms`` is the call the batcher makes, with the slab's layout.
    The host I/O runtime (``native/ts_io.cpp``) is built here too, so the
    timed takes and restores below hold no compile.
 2. **main**: the port's main path. Train the widest in-repo transformer
@@ -116,7 +120,20 @@ each of which raises on failure (nothing is caught):
    deep fsck of (a) passes and catches one flipped byte in a copy of a
    shard blob. Each rank must launch ``flash_fwd``, ``flash_chunk``,
    ``device_digest`` and ``device_pack``; the record's ``device_pack``
-   launches are this phase's, both ranks'.
+   launches are this phase's, both ranks', plus the leaves phase's.
+7. **leaves**: a stress case of the state the device pack is meant for
+   (states of 10^4 small leaves): 10,000 CUDA leaves from ``--seed``
+   (sizes log-uniform from 256 B to 64 KiB; float32, bfloat16, int64,
+   uint8 and bool in turn, the last three at odd element counts, so that
+   at least a quarter of the slab's members sit at an odd distance from
+   alignment). The mix is made up, not a published configuration's. Batched takes with ``ENABLE_BATCHING`` and
+   ``DEVICE_PACK`` and member by member, in turns (pack, member, pack,
+   member), each restored bit-identical into fresh leaves and three leaves
+   read back with ``read_object``; pack launches equal the slabs of card
+   members. Logs each take's seconds, its slabs, and the pack's share of
+   it: the wrapper's host time, and its kernel's card time (CUDA events
+   behind a spin kernel that holds the stream while the host queues the
+   launch).
 
 The second-to-last line of stdout is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -641,8 +658,12 @@ def _pack_case_specs(seed: int) -> list:
     """(label, specs) of the pack kernel's checks: every dtype the port
     serializes and packs, row slices (unaligned starts included), 1-byte,
     odd-sized and empty members, a non-contiguous view, 1 and 10,000
-    members."""
+    members; members at odd distances from their slab offset's alignment,
+    one member longer than several tiles, empty members on a tile boundary
+    and 10,000 members of 4,093 bytes."""
     import torch
+
+    from torchsnapshot_tpu_torch.ops.device_pack import TILE_BYTES
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dtypes = [
@@ -659,6 +680,9 @@ def _pack_case_specs(seed: int) -> list:
         return raw.view(dtype).reshape(shape)
 
     big = make((1031, 77), torch.uint8)
+    odd = zip((1, 3, 17, 4093, 255, 16, 31, 1000, 7, 2049),
+              (torch.uint8, torch.bool, torch.bfloat16, torch.uint8, torch.int8, torch.float32,
+               torch.bfloat16, torch.bool, torch.uint8, torch.float16))
     return [
         ("dtypes", [(make((33, 7), d), None) for d in dtypes]),
         ("row slices", [(big, (0, 1)), (big, (3, 517)), (big, (9, 9)),
@@ -669,6 +693,16 @@ def _pack_case_specs(seed: int) -> list:
         ("non-contiguous", [(make((64, 33), torch.float32)[:, 1::2], None), (big, None)]),
         ("1 member", [(make((4096,), torch.float32), None)]),
         ("10,000 members", [(make((1024,), torch.float32), None) for _ in range(10_000)]),
+        ("odd distances", [(make((n,), d), None) for n, d in odd] + [(big, (5, 333)), (big, (333, 1030))]),
+        ("a member over several tiles", [(make((3,), torch.uint8), None),
+                                         (make((5 * TILE_BYTES + 7,), torch.uint8), None),
+                                         (make((9,), torch.bool), None)]),
+        ("empty members on a tile boundary", [(make((TILE_BYTES - 3,), torch.uint8), None),
+                                              (make((3,), torch.uint8), None),
+                                              (make((0,), torch.float32), None),
+                                              (make((0, 4), torch.bfloat16), None)]
+         + [(make((1024,), torch.float32), None) for _ in range(5)]),
+        ("10,000 members of 4,093 bytes", [(make((4093,), torch.uint8), None) for _ in range(10_000)]),
     ]
 
 
@@ -697,39 +731,71 @@ def _train_state_slab_specs(seed: int):
     return state, max(slabs, key=lambda specs: sum(t[a:b].numel() * t.element_size() for t, (a, b) in specs)), len(slabs)
 
 
+def pack_layouts(seed: int):
+    """The pack's three timed layouts, made on the card from ``seed``:
+    (label, specs) of the train state's largest slab, 10,000 members of
+    4 KiB and 10,000 uint8 members of 4,093 bytes (every member after the
+    first at an odd distance from its slab offset's alignment)."""
+    import torch
+
+    state, specs, n_slabs = _train_state_slab_specs(seed)
+    yield f"train state slab (largest of {n_slabs} of rank 0's half)", specs
+    del state, specs
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for label, nbytes in (("10,000 members of 4 KiB", 4096), ("10,000 members of 4,093 bytes", 4093)):
+        tiny = [(torch.randint(0, 255, (nbytes,), generator=g, device="cuda", dtype=torch.uint8), None)
+                for _ in range(10_000)]
+        yield label, tiny
+        del tiny
+    torch.cuda.empty_cache()
+
+
 def pack_phase(seed: int) -> dict:
-    """Hold the pack kernel against its plain version bit for bit, then
-    time it at the train state's slab layout and at 10,000 members of
-    4 KiB; returns the record at the train state's slab."""
+    """Hold the pack kernel against its plain version bit for bit on every
+    case, through plain specs and through a ``PackLayout``, then time it at
+    the three layouts of :func:`pack_layouts`; returns the record at the
+    train state's slab."""
+    import numpy as np
     import torch
 
     from torchsnapshot_tpu_torch.ops import device_pack as dp
 
-    for label, specs in _pack_case_specs(seed):
-        before = dp.launch_counts["device_pack"]
-        packed = dp.pack_async(specs)
+    cases = _pack_case_specs(seed)
+    for label, specs in cases:
         plain = dp.pack_plain(specs)
-        torch.cuda.synchronize()
-        _require(dp.launch_counts["device_pack"] == before + 1, f"pack {label}: not one launch")
-        _require(packed.numel() == plain.numel() and torch.equal(packed, plain),
-                 f"pack {label} differs from the plain version")
-    log(f"kernel device_pack: {len(_pack_case_specs(seed))} layouts (15 dtypes, row slices, 1-byte, "
-        f"odd and empty members, a non-contiguous view (copies counted: "
-        f"{dp.copy_counts['device_pack_contiguous']}), 1 and 10,000 members) bit-identical to the "
-        f"plain version")
-    state, specs, n_slabs = _train_state_slab_specs(seed)
-    record = _time_pack(f"train state slab (largest of {n_slabs} of rank 0's half)", specs)
-    del state, specs
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    tiny = [(torch.randint(0, 255, (4096,), generator=g, device="cuda", dtype=torch.uint8), None)
-            for _ in range(10_000)]
-    _time_pack("10,000 members of 4 KiB", tiny)
-    del tiny
-    torch.cuda.empty_cache()
+        # As the batcher makes it: sizes and row offsets, and the members
+        # that are not contiguous named for a copy at launch.
+        planned, _ = dp.PackLayout.from_specs(specs)
+        copies = [i for i, (t, _) in enumerate(specs) if not t.is_contiguous()]
+        layout = dp.PackLayout(planned.device, np.diff(planned.table[: planned.n + 1]), planned.src_offsets, copies)
+        for how, packed_fn in (
+            ("plain specs", lambda: dp.pack_async(specs)),
+            ("a layout", lambda: dp.pack_async(specs, layout=layout)),
+        ):
+            before = dp.launch_counts["device_pack"]
+            packed = packed_fn()
+            torch.cuda.synchronize()
+            _require(dp.launch_counts["device_pack"] == before + 1, f"pack {label} ({how}): not one launch")
+            _require(packed.numel() == plain.numel() and torch.equal(packed, plain),
+                     f"pack {label} ({how}) differs from the plain version")
+    log(f"kernel device_pack: {len(cases)} layouts ({', '.join(label for label, _ in cases)}; copies of "
+        f"non-contiguous members counted: {dp.copy_counts['device_pack_contiguous']}) bit-identical to the "
+        f"plain version, through plain specs and through a layout, one launch each")
+    del cases
+    record = None
+    for label, specs in pack_layouts(seed):
+        rec = _time_pack(label, specs)
+        record = record or rec
     return record
 
 
-def _time_pack(label: str, specs) -> dict:
+def pack_timings(specs) -> dict:
+    """The pack wrapper timed on ``specs`` as every tree's pack is: ms back
+    to back, card ms and host us a call behind a spin kernel, and the
+    host's us to build the table (median of 20), for the plain-specs call;
+    the plain version's and ``torch.cat``'s ms; and, where this tree has
+    ``PackLayout``, the same for a call given the slab's layout (the
+    batcher's), whose table work is the members' addresses alone."""
     import torch
 
     from torchsnapshot_tpu_torch.ops import device_pack as dp
@@ -737,38 +803,284 @@ def _time_pack(label: str, specs) -> dict:
     nbytes = dp.pack_bytes(specs)
     packed = dp.pack_async(specs)
     plain = dp.pack_plain(specs)
-    _require(torch.equal(packed, plain), f"pack of the {label} differs from the plain version")
+    _require(torch.equal(packed, plain), "the pack differs from the plain version")
     del packed, plain
     views = [(t if r is None else t[r[0]:r[1]]).contiguous().reshape(-1).view(torch.uint8) for t, r in specs]
+
+    def median_us(fn) -> float:
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        return statistics.median(times)
 
     def fn():
         return dp.pack_async(specs)
 
-    bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
-    rec = {
-        "ms": cuda_ms(fn),
-        "plain_ms": cuda_ms(lambda: dp.pack_plain(specs), iters=3),
-        "library_ms": cuda_ms(lambda: torch.cat(views)),
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
-        "max_abs_err": 0.0,  # bit for bit, checked above
-    }
-    device_ms, host_us = held_times(fn, hold_cycles=PACK_HOLD_CYCLES)
-    table_us = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        dp.build_table(specs)
-        table_us.append((time.perf_counter() - t0) * 1e6)
-    log(
-        f"kernel device_pack {label}: {len(specs)} members, {nbytes / 1e6:.3f} MB in one launch: "
-        f"{rec['ms']:.4f} ms back to back; device {device_ms:.4f} ms "
-        f"({2 * nbytes / device_ms / 1e9:.3f} TB/s read + written, {bound_ms / device_ms:.1%} of the "
-        f"bound), host {host_us:.1f} us per call, of which the table "
-        f"{statistics.median(table_us):.1f} us (median of 20) (plain {rec['plain_ms']:.4f} ms; "
-        f"torch.cat of the uint8 views {rec['library_ms']:.4f} ms; bound {bound_ms:.4f} ms by bytes, "
-        f"2 x {nbytes / 1e6:.3f} MB at 3.35 TB/s); bit-identical to the plain version"
-    )
+    rec = {"bytes": nbytes, "members": len(specs), "ms": cuda_ms(fn)}
+    # Once unmeasured first: the calls queued behind the spin each hold a
+    # pinned table buffer (this tree's pool or torch's caching host
+    # allocator), and the first such run allocates them.
+    held_times(fn, hold_cycles=PACK_HOLD_CYCLES)
+    rec["device_ms"], rec["host_us"] = held_times(fn, hold_cycles=PACK_HOLD_CYCLES)
+    rec["table_us"] = median_us(lambda: dp.build_table(specs))
+    rec["plain_ms"] = cuda_ms(lambda: dp.pack_plain(specs), iters=3)
+    rec["library_ms"] = cuda_ms(lambda: torch.cat(views))
+    if hasattr(dp, "PackLayout"):
+        layout, members = dp.PackLayout.from_specs(specs)
+        lspecs = list(zip(members, (r for _, r in specs)))
+        _require(torch.equal(dp.pack_async(lspecs, layout=layout), dp.pack_plain(specs)),
+                 "the pack through a layout differs from the plain version")
+
+        def lfn():
+            return dp.pack_async(lspecs, layout=layout)
+
+        rec["layout"] = {"ms": cuda_ms(lfn)}
+        rec["layout"]["device_ms"], rec["layout"]["host_us"] = held_times(lfn, hold_cycles=PACK_HOLD_CYCLES)
+        rec["layout"]["table_us"] = median_us(lambda: layout.addresses(members))
     return rec
+
+
+def _odd_members(specs) -> int:
+    """Members of ``specs`` with bytes whose source sits at an odd
+    distance from their slab offset's 16-byte alignment: the ones the
+    kernel shifts into place."""
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    table, _, members = dp.build_table(specs)
+    n = len(members)
+    offsets, srcs = table[:n], table[n + 1 : 2 * n + 1]
+    return int((((srcs - offsets) % 16 != 0) & (table[1 : n + 1] > offsets)).sum())
+
+
+def _time_pack(label: str, specs) -> dict:
+    """Time the pack at one layout; the record's ``ms`` is the call the
+    batcher makes, given the slab's ``PackLayout``, and ``plain_specs_ms``
+    the call with plain specs, which builds the layout each time."""
+    t = pack_timings(specs)
+    nbytes, lt = t["bytes"], t["layout"]
+    bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    log(
+        f"kernel device_pack {label}: {len(specs)} members ({_odd_members(specs)} at an odd distance from "
+        f"16-byte alignment), {nbytes / 1e6:.3f} MB in one launch: with the slab's layout (the batcher's "
+        f"call) {lt['ms']:.4f} ms back to back, device {lt['device_ms']:.4f} ms "
+        f"({2 * nbytes / lt['device_ms'] / 1e9:.3f} TB/s read + written, {bound_ms / lt['device_ms']:.1%} of "
+        f"the bound), host {lt['host_us']:.1f} us per call, of which the addresses {lt['table_us']:.1f} us; "
+        f"plain specs {t['ms']:.4f} ms back to back, device {t['device_ms']:.4f} ms, host "
+        f"{t['host_us']:.1f} us per call, of which the table {t['table_us']:.1f} us (median of 20) "
+        f"(plain {t['plain_ms']:.4f} ms; torch.cat of the uint8 views {t['library_ms']:.4f} ms; "
+        f"bound {bound_ms:.4f} ms by bytes, 2 x {nbytes / 1e6:.3f} MB at 3.35 TB/s); bit-identical to "
+        f"the plain version"
+    )
+    return {
+        "ms": lt["ms"], "plain_ms": t["plain_ms"], "library_ms": t["library_ms"], "bound_ms": bound_ms,
+        "bound_by": "bytes", "max_abs_err": 0.0,  # bit for bit, checked above
+        "path": "PackLayout", "plain_specs_ms": t["ms"],
+    }
+
+
+# ----------------------------------------------------------------------
+# Phase 7: a state of 10^4 small leaves, batched and packed
+# ----------------------------------------------------------------------
+
+LEAVES = 10_000
+LEAF_DTYPES = ("float32", "bfloat16", "int64", "uint8", "bool")
+# Of these, leaves at odd element counts: whatever follows them in a slab
+# sits at an odd distance from 16-byte alignment.
+ODD_LEAF_DTYPES = ("bfloat16", "uint8", "bool")
+
+
+def leaves_state(seed: int) -> dict:
+    """A stress case of the many-small-leaves state the device pack is
+    meant for (torchrec-style states, as the JAX package's pack names
+    them): 10,000 CUDA leaves from ``seed``, their sizes log-uniform from
+    256 B to 64 KiB, dtypes cycling float32, bfloat16, int64, uint8 and
+    bool, the bfloat16, uint8 and bool leaves at odd element counts, so
+    that most members sit at an odd distance from their slab offset's
+    alignment. The mix is made up to drive the kernel's odd-distance path,
+    not taken from a published configuration: its times say what this
+    mix costs, not what a recommender's state would. Their bits come from
+    one random buffer made on the card, cut and cloned."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sizes = torch.exp(torch.empty(LEAVES, dtype=torch.float64).uniform_(math.log(256), math.log(65536), generator=g))
+    shapes = []
+    for i, nbytes in enumerate(sizes.tolist()):
+        dtype = getattr(torch, LEAF_DTYPES[i % len(LEAF_DTYPES)])
+        numel = max(1, int(nbytes) // dtype.itemsize)
+        if LEAF_DTYPES[i % len(LEAF_DTYPES)] in ODD_LEAF_DTYPES:
+            numel |= 1
+        shapes.append((dtype, numel))
+    total = sum(dtype.itemsize * numel for dtype, numel in shapes)
+    gd = torch.Generator(device="cuda").manual_seed(seed)
+    raw = torch.randint(0, 256, (total,), generator=gd, device="cuda", dtype=torch.uint8)
+    leaves, at = {}, 0
+    for i, (dtype, numel) in enumerate(shapes):
+        nbytes = dtype.itemsize * numel
+        piece = raw[at : at + nbytes]
+        at += nbytes
+        leaves[f"leaf_{i:05d}"] = (piece & 1).bool() if dtype == torch.bool else piece.clone().view(dtype)
+    del raw
+    torch.cuda.synchronize()
+    return leaves
+
+
+# ~2 ms of spin on the card ahead of each timed pack inside a take: the
+# host queues the table copy and the launch behind it, so the events after
+# it time the card's work alone.
+PACK_SPIN_CYCLES = 4_000_000
+
+
+@contextlib.contextmanager
+def timed_packs(record: dict):
+    """Time the packs of the takes inside: each ``pack_async`` call's host
+    seconds, and its kernel's card ms. A spin kernel holds the pack's
+    stream while the host queues the launch (the table copy on its side
+    stream, the stream's wait for it, the kernel), and CUDA events after
+    the spin and after the launch bound the card's work, the table copy
+    having run during the spin. ``queue_us`` is the host's time from the
+    spin's launch to the pack's: the events hold none of the host's time
+    while it is under the spin's ~2 ms, which ``record["spin_covered"]``
+    says."""
+    import torch
+
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    orig_pack, orig_library = dp.pack_async, dp._library
+    events = []
+
+    class TimedLibrary:
+        def __init__(self, lib) -> None:
+            self._lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self._lib, name)
+
+        def ts_pack(self, *args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            torch.cuda._sleep(PACK_SPIN_CYCLES)
+            start.record()
+            err = self._lib.ts_pack(*args)
+            queue_us = (time.perf_counter() - t0) * 1e6
+            end.record()
+            events.append((start, end))
+            record["queue_us"] = max(record.get("queue_us", 0.0), queue_us)
+            return err
+
+    def timed(specs, layout=None):
+        t0 = time.perf_counter()
+        out = orig_pack(specs, layout=layout)
+        record["host_s"] = record.get("host_s", 0.0) + time.perf_counter() - t0
+        record["calls"] = record.get("calls", 0) + 1
+        return out
+
+    dp.pack_async = timed
+    dp._library = lambda: TimedLibrary(orig_library())
+    try:
+        yield
+    finally:
+        dp.pack_async, dp._library = orig_pack, orig_library
+        torch.cuda.synchronize()
+        record["card_ms"] = sum(a.elapsed_time(b) for a, b in events)
+        record["spin_covered"] = record.setdefault("queue_us", 0.0) < 1000.0
+
+
+def take_leaves(path: str, leaves: dict, pack: bool, record=None) -> float:
+    """One batched take of ``leaves``, with the device pack or member by
+    member; returns its seconds, the pack's times added to ``record``
+    where one is given (:func:`timed_packs`)."""
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState, knobs
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(knobs.enable_batching())
+        if pack:
+            stack.enter_context(knobs.enable_device_pack())
+            if record is not None:
+                stack.enter_context(timed_packs(record))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        Snapshot.take(path, {"leaves": TensorTreeState(leaves)})
+        return time.monotonic() - t0
+
+
+def leaves_phase(args, work_dir: str, card: str) -> dict:
+    """Batched takes of the 10,000-leaf stress state, with the device pack and
+    member by member, in turns (pack, member, pack, member): each restored
+    bit-identical into fresh leaves, three leaves read back with
+    ``read_object``, and one pack launch per slab of card members. Returns
+    the pack's launches in the phase (counts set to 0 just before it)."""
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    leaves = leaves_state(args.seed)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    names = sorted(leaves)
+    live = dp.pack_plain([(leaves[k], None) for k in names])
+    odd = None
+    dp.reset_launch_counts()
+    runs = {"pack": [], "per_member": []}
+    for turn, (label, pack) in enumerate((("pack", True), ("per_member", False)) * 2):
+        path = os.path.join(work_dir, f"leaves_{turn}")
+        before = dp.launch_counts["device_pack"]
+        packs: dict = {}
+        take_s = take_leaves(path, leaves, pack, packs)
+        launched = dp.launch_counts["device_pack"] - before
+        slabs: dict = {}
+        offsets = []
+        for entry in Snapshot(path).metadata.manifest.values():
+            loc = getattr(entry, "location", "")
+            if loc.startswith("batched/"):
+                slabs[loc] = slabs.get(loc, 0) + 1
+                offsets.append(entry.byte_range[0])
+        if odd is None:
+            # Members whose slab offset is not 16-byte aligned: their sources
+            # (aligned allocations) sit at an odd distance from it.
+            odd = sum(1 for o in offsets if o % 16)
+            _require(odd >= LEAVES // 4, f"leaves: only {odd} members at an odd distance")
+        want = sum(1 for n in slabs.values() if n > 1) if pack else 0
+        _require(launched == want and (want > 0 or not pack),
+                 f"leaves {label}: {launched} pack launches for {want} slabs of card members")
+        dest = {k: torch.zeros_like(v) for k, v in leaves.items()}
+        t0 = time.monotonic()
+        Snapshot(path).restore({"leaves": TensorTreeState(dest)})
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        _require(all(dest[k].dtype == leaves[k].dtype and dest[k].shape == leaves[k].shape for k in names),
+                 f"leaves {label}: a restored leaf changed dtype or shape")
+        _require(torch.equal(dp.pack_plain([(dest[k], None) for k in names]), live),
+                 f"leaves {label}: the restore is not bit-identical")
+        for k in (names[0], names[LEAVES // 2 + 1], names[-1]):
+            got = Snapshot(path).read_object(f"0/leaves/{k}")
+            _require(same_bits(got, leaves[k]), f"leaves {label}: read_object of {k} differs")
+        runs[label].append({"take_s": take_s, "restore_s": restore_s, "slabs": len(slabs),
+                            "pack_launches": launched, **packs})
+        del dest
+        shutil.rmtree(path, ignore_errors=True)
+    launches = dp.launch_counts["device_pack"]
+    for label, rs in runs.items():
+        for i, r in enumerate(rs):
+            share = ""
+            if "host_s" in r:
+                covered = "" if r["spin_covered"] else ", the host queued slower than the spin: host time inside"
+                share = (f"; the pack inside it: wrapper host {r['host_s'] * 1e3:.3f} ms over {r['calls']} "
+                         f"calls, kernel on the card {r['card_ms']:.4f} ms (events behind a spin; the host "
+                         f"queued the launch in {r['queue_us']:.1f} us{covered})")
+            log(f"leaves: {label} take {i + 1}: {r['take_s']:.3f} s, {r['slabs']} slabs, "
+                f"{r['pack_launches']} pack launches{share}; restore {r['restore_s']:.3f} s, bit-identical")
+    log(f"leaves (a stress case, not a published mix): {LEAVES} leaves, {nbytes / 1e6:.3f} MB, {odd} of them "
+        f"at an odd distance from 16-byte alignment in their slab; pack launches {launches} in the phase; three "
+        f"read_objects bit-identical; on {card}")
+    print(json.dumps({"leaves": {"bytes": nbytes, "odd_members": odd, "runs": runs}}), flush=True)
+    del leaves, live
+    torch.cuda.empty_cache()
+    return {"device_pack": launches}
 
 
 # ----------------------------------------------------------------------
@@ -807,7 +1119,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,ranks,sharded")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,ranks,sharded,leaves")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -856,9 +1168,9 @@ def main() -> int:
         records["device_pack"] = pack_phase(args.seed)
         log(f"phase kernels: {time.monotonic() - t0:.1f} s")
 
-    # Launches are counted only in the main path's run (the pack's in the
-    # sharded phase, its path: both ranks' launches); without it they were
-    # not measured and the record says null.
+    # Launches are counted only in the main path's run (the pack's in its
+    # paths: both ranks' in the sharded phase plus the leaves phase's);
+    # without them they were not measured and the record says null.
     launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
     try:
@@ -883,6 +1195,11 @@ def main() -> int:
             sharded = sharded_phase(args, work_dir, card)
             launches["device_pack"] = sum(r["launches"]["device_pack"] for r in sharded["ranks"])
             log(f"phase sharded: {time.monotonic() - t0:.1f} s")
+        if "leaves" in phases:
+            t0 = time.monotonic()
+            packs = leaves_phase(args, work_dir, card)["device_pack"]
+            launches["device_pack"] = (launches["device_pack"] or 0) + packs
+            log(f"phase leaves: {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 

@@ -254,6 +254,8 @@ def _pack_cases():
         return torch.randint(-100, 100, shape, generator=g, device="cuda").to(dtype)
 
     big = make((1031, 77), torch.uint8)
+    tile = 16 * 1024  # ops.device_pack.TILE_BYTES
+    fill = [(make((tile - 3,), torch.uint8), None), (make((3,), torch.uint8), None)]
     return [
         ("dtypes", [(make((33, 7), d), None) for d in dtypes]),
         ("row-slices", [(big, (0, 1)), (big, (3, 517)), (make((64, 9), torch.float32), (5, 60))]),
@@ -262,11 +264,31 @@ def _pack_cases():
         ("non-contiguous", [(make((64, 33), torch.float32)[:, 1::2], None), (big, None)]),
         ("one", [(make((4096,), torch.float32), None)]),
         ("many", [(make((1024,), torch.float32), None) for _ in range(10_000)]),
+        # Every member after the first at an odd distance from its slab
+        # offset's alignment, and row ranges at odd rows of odd-width rows.
+        ("odd-distances", [(make((n,), d), None) for n, d in zip(
+            (1, 3, 17, 4093, 255, 16, 31, 1000, 7, 2049),
+            (torch.uint8, torch.bool, torch.bfloat16, torch.uint8, torch.int8, torch.float32,
+             torch.bfloat16, torch.bool, torch.uint8, torch.float16))]
+         + [(big, (5, 333)), (big, (333, 1030))]),
+        # One member longer than several tiles, at an odd distance.
+        ("long-member", [(make((3,), torch.uint8), None), (make((5 * tile + 7,), torch.uint8), None),
+                         (make((9,), torch.bool), None)]),
+        # Members of zero bytes on a tile boundary, then a tile of members.
+        ("empty-on-tile-boundary", fill + [(make((0,), torch.float32), None), (make((0, 4), torch.bfloat16), None)]
+         + [(make((1024,), torch.float32), None) for _ in range(5)]),
+        ("many-4093", [(make((4093,), torch.uint8), None) for _ in range(10_000)]),
     ]
 
 
+PACK_CASES = [
+    "dtypes", "row-slices", "odd-and-empty", "non-contiguous", "one", "many", "odd-distances",
+    "long-member", "empty-on-tile-boundary", "many-4093",
+]
+
+
 @pytest.mark.cuda_only
-@pytest.mark.parametrize("case", ["dtypes", "row-slices", "odd-and-empty", "non-contiguous", "one", "many"])
+@pytest.mark.parametrize("case", PACK_CASES)
 def test_cuda_pack_matches_plain_version(case) -> None:
     """The pack kernel bit for bit against ``pack_plain``, one launch per
     call; a non-contiguous member is copied first, and counted."""
@@ -283,3 +305,29 @@ def test_cuda_pack_matches_plain_version(case) -> None:
     assert torch.equal(packed, plain)
     assert dp.launch_counts["device_pack"] == before + 1
     assert dp.copy_counts["device_pack_contiguous"] == copies + (case == "non-contiguous")
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_cuda_pack_with_a_layout_matches_plain_version(case) -> None:
+    """The batcher's launch: a ``PackLayout`` made once from the members'
+    sizes and row offsets (a member that is not contiguous named for a
+    copy), then a launch that reads only their addresses, bit for bit
+    against ``pack_plain`` in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    specs = dict(_pack_cases())[case]
+    planned, _ = dp.PackLayout.from_specs(specs)
+    copies = [i for i, (t, _) in enumerate(specs) if not t.is_contiguous()]
+    layout = dp.PackLayout(planned.device, np.diff(planned.table[: planned.n + 1]), planned.src_offsets, copies)
+    before = dp.launch_counts["device_pack"], dp.copy_counts["device_pack_contiguous"]
+    packed = dp.pack_async(specs, layout=layout)
+    plain = dp.pack_plain(specs)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, plain)
+    assert dp.launch_counts["device_pack"] == before[0] + 1
+    assert dp.copy_counts["device_pack_contiguous"] == before[1] + len(copies)

@@ -900,6 +900,7 @@ def _mgr_sharded_worker(pg, root: str) -> list:
     import torch.distributed as dist
 
     from test_torch_resharding import Meshes
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
     from torchsnapshot_tpu_torch.test_utils import init_torch_group
 
     init_torch_group(pg)
@@ -909,6 +910,7 @@ def _mgr_sharded_worker(pg, root: str) -> list:
         for step, v in ((1, 1.0), (2, 2.0)):
             emb = meshes.dtensor(torch.full((8 * pg.world_size, 4), v), "row2")
             mgr.save(step, {"s": TensorTreeState({"emb": emb})})
+        PGWrapper(pg).barrier()  # rank 0's index write is durable
         return mgr.all_steps()
     finally:
         dist.destroy_process_group()

@@ -28,7 +28,8 @@ def _port_sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(d, f)
-    yield os.path.join(REPO, "chip_smoke.py")
+    for script in ("chip_smoke.py", "chip_paired.py", "chip_pack_probe.py"):
+        yield os.path.join(REPO, script)
 
 
 def _forbidden(module: str) -> bool:

@@ -28,9 +28,11 @@ is staged into one buffer, with the same bytes.
 from __future__ import annotations
 
 import asyncio
+import math
+import operator
 import uuid
 from concurrent.futures import Executor
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 from . import _native, knobs
 from .io_types import (
@@ -70,6 +72,51 @@ def _array_entries_by_location(entries: List[Entry]) -> Dict[str, List[ArrayEntr
     return out
 
 
+_TENSOR = operator.attrgetter("tensor")
+_READY = operator.attrgetter("_ready")
+
+
+class _PackGroup(NamedTuple):
+    """A device group of one slab and its pack layout, made once when the
+    slab is planned: the members' sizes are exact (dtype x shape) and
+    their row ranges fixed, so a launch reads only their addresses."""
+
+    items: List[Member]
+    stagers: list
+    rows: list  # each member's dim-0 row range, or None
+    layout: Any  # ops.device_pack.PackLayout
+
+    @classmethod
+    def of(cls, items: List[Member]) -> "_PackGroup":
+        """The group's layout, with the checks a launch no longer makes:
+        each row range lies in its tensor's dim 0, and each planned size
+        is the member's bytes, so that the kernel reads inside every
+        member."""
+        from .ops.device_pack import PackLayout
+
+        stagers = [req.buffer_stager for req, _, _ in items]
+        rows, offsets, copies = [], [], []
+        for i, (stager, (req, _, size)) in enumerate(zip(stagers, items)):
+            t, slc = stager.tensor, stager.slc
+            if slc is None:
+                rows.append(None)
+                offsets.append(0)
+                nbytes = t.numel() * t.element_size()
+            else:
+                if t.dim() == 0 or slc.step not in (None, 1) or not 0 <= slc.start <= slc.stop <= t.shape[0]:
+                    raise ValueError(f"{req.path!r}: row range {slc} outside dim 0 of {tuple(t.shape)}")
+                row_bytes = math.prod(t.shape[1:]) * t.element_size()
+                rows.append((slc.start, slc.stop))
+                offsets.append(slc.start * row_bytes)
+                nbytes = (slc.stop - slc.start) * row_bytes
+            if nbytes != size:
+                raise ValueError(f"{req.path!r}: {nbytes} bytes to pack, planned at {size}")
+            if not t.is_contiguous():
+                copies.append(i)
+        layout = PackLayout(stagers[0].tensor.device, [size for _, _, size in items], offsets, copies)
+        return cls(items, stagers, rows, layout)
+
+
 class BatchedBufferStager(BufferStager):
     """Stages the members of one slab into one buffer. With the device
     pack on, the members of each device are packed there and copied to
@@ -80,8 +127,9 @@ class BatchedBufferStager(BufferStager):
         self.total = sum(size for _, _, size in members)
         # Fixed here: the split depends on the knob and on stager fields
         # that staging clears, and admission must see one staging cost.
-        self._packed, self._rest = self._split_device_groups()
-        pack_bytes = sum(size for items in self._packed for _, _, size in items)
+        packed, self._rest = self._split_device_groups()
+        self._packed = [_PackGroup.of(items) for items in packed]
+        pack_bytes = sum(size for items in packed for _, _, size in items)
         peak_member = max(
             (req.buffer_stager.get_staging_cost_bytes() for req, _, _ in self._rest), default=0
         )
@@ -92,8 +140,8 @@ class BatchedBufferStager(BufferStager):
     def capture(self, cache: dict) -> None:
         """The async take's capture reaches every member's source (the
         shared ``cache`` snapshots a leaf split across slabs once); the
-        group split still holds, since a captured clone stays on its
-        device."""
+        group split and the pack layouts still hold, since a captured
+        clone stays on its device, with the same shape."""
         for req, _, _ in self.members:
             req.buffer_stager.capture(cache)
 
@@ -120,21 +168,16 @@ class BatchedBufferStager(BufferStager):
                 packed.append(items)
         return packed, rest
 
-    def _launch_pack(self, items: List[Member]):
+    @staticmethod
+    def _launch_pack(group: "_PackGroup"):
         """One pack launch and one copy to the host for a device group,
         issued from the event loop's thread; returns ``(host, event)``."""
-        specs, afters = [], []
-        for req, _, _ in items:
-            stager = req.buffer_stager
-            slc = stager.slc
-            specs.append((stager.tensor, (slc.start, slc.stop) if slc is not None else None))
-            afters.append(stager._ready)
-        host, event = items[0][0].buffer_stager.copier.pack_to_host(specs, afters)
-        expected = sum(size for _, _, size in items)
-        if host.numel() != expected:
-            raise RuntimeError(f"device pack produced {host.numel()} bytes, planned {expected}")
-        for req, _, _ in items:
-            req.buffer_stager.tensor = None  # release device memory promptly
+        stagers = group.stagers
+        tensors = list(map(_TENSOR, stagers))
+        specs = list(zip(tensors, group.rows))
+        host, event = stagers[0].copier.pack_to_host(specs, list(map(_READY, stagers)), group.layout)
+        for stager in stagers:
+            stager.tensor = None  # release device memory promptly
         return host, event
 
     @staticmethod
@@ -158,7 +201,7 @@ class BatchedBufferStager(BufferStager):
 
     async def _stage_buffer_impl(self, executor: Optional[Executor] = None) -> BufferType:
         loop = asyncio.get_running_loop()
-        launched = [(items, self._launch_pack(items)) for items in self._packed]
+        launched = [(group.items, self._launch_pack(group)) for group in self._packed]
         if len(launched) == 1 and not self._rest:
             # One pack holds every member, in slab order: it is the slab.
             (_, (host, event)), = launched

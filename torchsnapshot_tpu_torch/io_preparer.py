@@ -161,20 +161,22 @@ class DeviceCopier:
     def pack_to_host(
         self, specs: List[Tuple[torch.Tensor, Optional[Tuple[int, int]]]],
         afters: List[Optional["torch.cuda.Event"]],
+        layout: Optional[Any] = None,
     ) -> Tuple[torch.Tensor, Optional["torch.cuda.Event"]]:
         """Pack ``specs`` (``ops/device_pack.py``: tensors of one device,
-        each whole or a dim-0 row range) and copy the packed bytes to the
-        host in one copy. For CUDA members, the pack kernel and the copy
-        into a new pinned host tensor run on the copy stream, ordered after
-        each member's ``afters`` event (or, where one is missing, after
-        the work queued on the current stream); returns the host tensor
-        and the event that marks the copy's end. CPU members are packed at
-        once by the plain version (event None)."""
+        each whole or a dim-0 row range; ``layout``, the slab's
+        ``PackLayout`` where the caller made one) and copy the packed bytes
+        to the host in one copy. For CUDA members, the pack kernel and the
+        copy into a new pinned host tensor run on the copy stream, ordered
+        after each member's ``afters`` event (or, where one is missing,
+        after the work queued on the current stream); returns the host
+        tensor and the event that marks the copy's end. CPU members are
+        packed at once by the plain version (event None)."""
         from .ops.device_pack import pack_async
 
-        device = specs[0][0].device
+        device = specs[0][0].device if layout is None else layout.device
         if device.type != "cuda":
-            return pack_async(specs), None
+            return pack_async(specs, layout=layout), None
         stream = self.stream(device)
         if any(e is None for e in afters):
             stream.wait_stream(torch.cuda.current_stream(device))
@@ -183,7 +185,7 @@ class DeviceCopier:
         for t, _ in specs:
             t.record_stream(stream)
         with torch.cuda.stream(stream):
-            packed = pack_async(specs)
+            packed = pack_async(specs, layout=layout)
             host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
             host.copy_(packed, non_blocking=True)
             event = torch.cuda.Event(blocking=True)
