@@ -73,7 +73,29 @@ each of which raises on failure (nothing is caught):
    bit-identical tensors, logits and next-step loss. The phase keeps its
    own launch counts, set to 0 just before its loop: it must launch every
    kernel of the path.
-5. **ranks**: two processes on the card (rank r on card r % count),
+5. **cas**: the main configuration's loop on the content-addressed chunk
+   store (``TORCHSNAPSHOT_TPU_CAS=1``, grace window 0) through
+   ``CheckpointManager(keep_last_n=2)``: step 1 a full save recording
+   digests (before it, legacy and CAS takes of the same state into new
+   roots, in turns, timed); the embedding
+   and layers 0-3 frozen; a step and step 2, a full save recording
+   digests; a step and step 3, incremental; a step and step 4, an
+   ``async_save`` with ``ENABLE_BATCHING`` and ``DEVICE_PACK`` and a step
+   beside its drain. Each save copies to the host what it must (all of the
+   card's bytes; at step 3 the changed chunks' bytes) and writes to the
+   store exactly its blobs that the store lacked, computed from the state
+   itself (every blob's chunk key from its bytes); the rest is deduped;
+   step 3 names only ``../chunks/`` locations; at step 4 each slab is one
+   chunk, and there is one pack launch per slab of two or more card
+   members. Retention reclaims the chunks only steps 1-2 named, to the
+   byte, and keeps those of steps 3-4; a deep ``fsck --cas`` passes and
+   catches one flipped byte in a copy of the root; a fresh manager over a
+   lost journal rebuilds the pins, and ``restore_latest`` into another
+   seed's state is bit-identical: tensors, logits and the loss of the step
+   run beside step 4's drain. Logs each save's seconds and the store's
+   bytes against the retained steps' dense bytes. Its digest and pack
+   launches, counted from 0, add to the record's.
+6. **ranks**: two processes on the card (rank r on card r % count),
    spawned by the package's ``run_multiprocess`` over its TCP store, each
    training the main configuration from ``--seed`` on the same tokens
    (data-parallel replicas) with per-rank state beside it (its global RNG
@@ -95,7 +117,7 @@ each of which raises on failure (nothing is caught):
    and ``restore_latest`` on both ranks, bit-identical; (f) rank 1's
    writes fail: rank 0 raises within 30 s and no commit marker is left.
    Each rank must launch every kernel of the path.
-6. **sharded**: two processes on the card, spawned as in the ranks phase,
+7. **sharded**: two processes on the card, spawned as in the ranks phase,
    with a gloo default group (no tensor collective runs on the checkpoint
    path) and a ``cuda`` device mesh of 2. Each trains the main
    configuration from ``--seed`` and expresses the train state FSDP-style:
@@ -118,10 +140,18 @@ each of which raises on failure (nothing is caught):
    takes with ``ENABLE_BATCHING`` and ``DEVICE_PACK`` (one pack launch per
    slab) and member by member, in turns, each restored bit for bit; (f) a
    deep fsck of (a) passes and catches one flipped byte in a copy of a
-   shard blob. Each rank must launch ``flash_fwd``, ``flash_chunk``,
-   ``device_digest`` and ``device_pack``; the record's ``device_pack``
-   launches are this phase's, both ranks', plus the leaves phase's.
-7. **leaves**: a stress case of the state the device pack is meant for
+   shard blob; (g) (a)'s snapshot restored into ``Shard(1)`` with
+   single-reader fan-out at its default (on), sync and async, then with
+   ``TORCHSNAPSHOT_TPU_FANOUT_RESTORE=0``: each restore bit-identical; with
+   fan-out every sharded blob is read from storage once across the two
+   ranks (a counting plugin), without it every rank reads its own; each
+   rank's seconds, coordination-store requests and seconds, and bytes
+   fetched, received and published are logged. The other multi-rank
+   restores of the phase run with fan-out at its default too. Each rank
+   must launch ``flash_fwd``, ``flash_chunk``, ``device_digest`` and
+   ``device_pack``; the record's ``device_pack`` launches are the cas
+   phase's, this phase's (both ranks') and the leaves phase's.
+8. **leaves**: a stress case of the state the device pack is meant for
    (states of 10^4 small leaves): 10,000 CUDA leaves from ``--seed``
    (sizes log-uniform from 256 B to 64 KiB; float32, bfloat16, int64,
    uint8 and bool in turn, the last three at odd element counts, so that
@@ -1119,7 +1149,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,ranks,sharded,leaves")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -1168,9 +1198,11 @@ def main() -> int:
         records["device_pack"] = pack_phase(args.seed)
         log(f"phase kernels: {time.monotonic() - t0:.1f} s")
 
-    # Launches are counted only in the main path's run (the pack's in its
-    # paths: both ranks' in the sharded phase plus the leaves phase's);
-    # without them they were not measured and the record says null.
+    # Launches are counted only in the main path's run, plus the paths of
+    # later slices, each counted from 0 (the digest's: the main and cas
+    # phases'; the pack's: the cas phase's, both ranks' in the sharded
+    # phase and the leaves phase's); without them they were not measured
+    # and the record says null.
     launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
     try:
@@ -1186,6 +1218,12 @@ def main() -> int:
             t0 = time.monotonic()
             manager_phase(args, work_dir, card)
             log(f"phase manager: {time.monotonic() - t0:.1f} s")
+        if "cas" in phases:
+            t0 = time.monotonic()
+            cas = cas_phase(args, work_dir, card)
+            for name in ("device_digest", "device_pack"):
+                launches[name] = (launches[name] or 0) + cas[name]
+            log(f"phase cas: {time.monotonic() - t0:.1f} s")
         if "ranks" in phases:
             t0 = time.monotonic()
             ranks_phase(args, work_dir, card)
@@ -1193,7 +1231,9 @@ def main() -> int:
         if "sharded" in phases:
             t0 = time.monotonic()
             sharded = sharded_phase(args, work_dir, card)
-            launches["device_pack"] = sum(r["launches"]["device_pack"] for r in sharded["ranks"])
+            launches["device_pack"] = (launches["device_pack"] or 0) + sum(
+                r["launches"]["device_pack"] for r in sharded["ranks"]
+            )
             log(f"phase sharded: {time.monotonic() - t0:.1f} s")
         if "leaves" in phases:
             t0 = time.monotonic()
@@ -2007,6 +2047,333 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# cas: the managed loop over the content-addressed chunk store
+# ---------------------------------------------------------------------------
+
+
+def _tensor_blob_keys(tensors: dict, record_digests: bool) -> list:
+    """The chunk key and size of every tensor blob a take of ``tensors``
+    writes, cut as the take cuts them (digest-recording takes chunk at the
+    incremental chunk size): the state's own bytes, hashed on the host."""
+    import torch
+
+    from torchsnapshot_tpu_torch.cas import digest_key
+    from torchsnapshot_tpu_torch.integrity import compute_checksum_entry
+    from torchsnapshot_tpu_torch.io_preparer import (
+        ChunkedArrayIOPreparer,
+        chunk_shapes,
+        effective_max_chunk_size_bytes,
+    )
+
+    out = []
+    incremental = True if record_digests else None
+    for t in tensors.values():
+        if ChunkedArrayIOPreparer.should_chunk(t, incremental):
+            size = effective_max_chunk_size_bytes(incremental)
+            pieces = [t[s:e] for s, e in chunk_shapes(list(t.shape), t.element_size(), size)]
+        else:
+            pieces = [t]
+        for p in pieces:
+            host = p.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+            out.append((digest_key(compute_checksum_entry(memoryview(host))), host.nbytes))
+    return out
+
+
+def _object_blob_keys(manifest) -> list:
+    """Chunk key and size of each pickled-object blob of a CAS manifest."""
+    from torchsnapshot_tpu_torch.cas import key_of_location, nbytes_of_key
+
+    return [
+        (key_of_location(e.location), nbytes_of_key(key_of_location(e.location)))
+        for e in manifest.values()
+        if type(e).__name__ == "ObjectEntry"
+    ]
+
+
+def _store_bytes(root: str) -> dict:
+    from torchsnapshot_tpu_torch.cas import CASStore
+
+    return CASStore(root).list_chunks()
+
+
+def cas_phase(args, work_dir: str, card: str) -> dict:
+    """The main configuration's checkpoint loop on a chunk store
+    (``TORCHSNAPSHOT_TPU_CAS=1``, grace window 0) through
+    ``CheckpointManager(keep_last_n=2)``: step 1 a full save recording
+    digests; the embedding and layers 0-3 frozen; a step, then step 2 a
+    full save recording digests; a step, then step 3 incremental; step 4 an
+    ``async_save`` with the batcher and the device pack, a step beside its
+    drain. Checks each save's bytes against the state (copied to the host,
+    written to and deduped by the store), the slabs as chunks, the chunks
+    retention reclaims, a deep ``fsck --cas`` (and a flipped byte in a
+    copy), and a fresh manager's reconcile and ``restore_latest``:
+    bit-identical tensors, logits and next-step loss. Returns the phase's
+    launch counts."""
+    import torch
+
+    from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, knobs
+    from torchsnapshot_tpu_torch.cas import CASStore, chunk_refs, is_chunk_location
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.fsck import verify_cas_store
+    from torchsnapshot_tpu_torch.manager import referenced_steps
+    from torchsnapshot_tpu_torch.manifest import entry_locations
+    from torchsnapshot_tpu_torch.models.transformer import (
+        init_train_state,
+        make_train_step,
+        random_tokens,
+    )
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.telemetry import names
+
+    cfg = main_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
+    state = init_train_state(cfg, seed=args.seed)
+    train_step = make_train_step(cfg)
+    app_state = {"train": state}
+    root = os.path.join(work_dir, "cas")
+    n_frozen = cfg.n_layers // 2
+
+    def freeze(model) -> None:
+        for p in [model.embed] + [p for blk in model.layers[:n_frozen] for p in blk.parameters()]:
+            p.requires_grad_(False)
+
+    counter_names = (
+        names.DEVICE_TO_HOST_BYTES_TOTAL, names.CAS_BYTES_WRITTEN_TOTAL, names.CAS_BYTES_DEDUPED_TOTAL,
+        names.CAS_BYTES_RECLAIMED_TOTAL,
+    )
+
+    def counters() -> dict:
+        return {n: _counter(n) for n in counter_names}
+
+    def delta(before: dict) -> dict:
+        now = counters()
+        return {n: now[n] - before[n] for n in counter_names}
+
+    def capture() -> dict:
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in _state_tensors(state).items()}
+
+    saves, refs, dense = {}, {}, {}
+
+    def after_save(step: int, seconds: float, before: dict, blobs=None, **extra) -> dict:
+        """Record a save: its counters, its chunk refs, the store's bytes
+        against the dense bytes of the retained steps; with ``blobs`` (the
+        take's blob keys from the state) the bytes it had to write are the
+        blobs new to the store before it."""
+        d = delta(before)
+        manifest = Snapshot(mgr.step_path(step)).metadata.manifest
+        refs[step] = chunk_refs(manifest)
+        rec = {
+            "s": seconds, "d2h_bytes": d[names.DEVICE_TO_HOST_BYTES_TOTAL],
+            "written_bytes": d[names.CAS_BYTES_WRITTEN_TOTAL], "deduped_bytes": d[names.CAS_BYTES_DEDUPED_TOTAL],
+            "reclaimed_bytes": d[names.CAS_BYTES_RECLAIMED_TOTAL], **extra,
+        }
+        if blobs is not None:
+            blobs = blobs + _object_blob_keys(manifest)
+            dense[step] = sum(n for _, n in blobs)
+            new = {k: n for k, n in blobs if k not in stored_before}
+            rec["expected_written_bytes"] = sum(new.values())
+            _require(set(refs[step]) == {k for k, _ in blobs}, f"save {step}: the manifest's chunks are not the state's blobs")
+            _require(
+                rec["written_bytes"] == rec["expected_written_bytes"],
+                f"save {step} wrote {rec['written_bytes']} bytes to the store; its blobs new to the store hold "
+                f"{rec['expected_written_bytes']}",
+            )
+        else:
+            dense[step] = sum(refs[step].values())
+        store = _store_bytes(root)
+        rec["store_bytes"] = sum(store.values())
+        rec["dense_retained_bytes"] = sum(dense[s] for s in mgr.all_steps())
+        saves[step] = rec
+        return rec
+
+    for counts in (fa.launch_counts, dd.launch_counts, dp.launch_counts):
+        for k in counts:
+            counts[k] = 0
+    state, _ = train_step(state, tokens)
+    at = capture()
+    # Legacy and CAS takes of the same state, each into a new root, in
+    # turns: the cost of addressing every byte by its digest before it is
+    # written, where a legacy take fuses the CRC with the write.
+    turns = {"legacy": [], "cas": []}
+    for i, label in enumerate(("legacy", "cas", "cas", "legacy")):
+        turn_root = os.path.join(work_dir, f"cas_turn_{i}")
+        with knobs.enable_cas() if label == "cas" else contextlib.nullcontext():
+            t0 = time.monotonic()
+            Snapshot.take(os.path.join(turn_root, "step_0000000000"), app_state, record_digests=True)
+            turns[label].append(time.monotonic() - t0)
+        shutil.rmtree(turn_root)
+    with knobs.enable_cas(), knobs.override_cas_gc_grace_seconds(0):
+        mgr = CheckpointManager(root, keep_last_n=2)
+        # Step 1: full save; the store holds each distinct blob once.
+        blobs = _tensor_blob_keys(at, record_digests=True)
+        stored_before = _store_bytes(root)
+        before = counters()
+        t0 = time.monotonic()
+        mgr.save(1, app_state, record_digests=True)
+        rec = after_save(1, time.monotonic() - t0, before, blobs)
+        _require(rec["store_bytes"] == sum(refs[1].values()), "step 1: the store holds other bytes than its chunks")
+        _require(rec["d2h_bytes"] == sum(t.numel() * t.element_size() for t in at.values() if t.is_cuda),
+                 "step 1 did not copy every CUDA byte to the host")
+        freeze(state.model)
+
+        # Step 2: full save after one step with half the model frozen.
+        state, _ = train_step(state, tokens)
+        at_2 = capture()
+        blobs = _tensor_blob_keys(at_2, record_digests=True)
+        stored_before = _store_bytes(root)
+        before = counters()
+        t0 = time.monotonic()
+        mgr.save(2, app_state, record_digests=True)
+        rec = after_save(2, time.monotonic() - t0, before, blobs)
+        all_cuda = sum(t.numel() * t.element_size() for t in at_2.values() if t.is_cuda)
+        _require(rec["d2h_bytes"] == all_cuda, f"step 2 copied {rec['d2h_bytes']} bytes to the host, not all {all_cuda}")
+        _require(rec["deduped_bytes"] == dense[2] - rec["written_bytes"],
+                 f"step 2 deduped {rec['deduped_bytes']} bytes, its blobs hold {dense[2]}, it wrote {rec['written_bytes']}")
+
+        # Step 3: incremental; only the changed chunks leave the card.
+        state, _ = train_step(state, tokens)
+        at_3 = capture()
+        changed = _changed_bytes(at_2, at_3)
+        del at_2
+        blobs = _tensor_blob_keys(at_3, record_digests=True)
+        stored_before = _store_bytes(root)
+        digests_before = dd.launch_counts["device_digest"]
+        before = counters()
+        t0 = time.monotonic()
+        mgr.save(3, app_state, incremental=True)
+        rec = after_save(3, time.monotonic() - t0, before, blobs, changed_bytes=changed)
+        _require(dd.launch_counts["device_digest"] > digests_before, "the incremental save launched no digest")
+        _require(rec["d2h_bytes"] == changed, f"step 3 copied {rec['d2h_bytes']} bytes to the host, {changed} changed")
+        manifest_3 = Snapshot(mgr.step_path(3)).metadata.manifest
+        locations = [loc for e in manifest_3.values() for loc in entry_locations(e)]
+        _require(referenced_steps(manifest_3) == set() and all(is_chunk_location(loc) for loc in locations),
+                 "step 3 names a location outside the chunk store")
+        del at_3
+
+        # Step 4: async, batched and packed, a step beside the drain. That
+        # step's loss, and the logits before it, are what the restored
+        # state must give.
+        state, _ = train_step(state, tokens)
+        at_4 = capture()
+        with torch.no_grad():
+            logits_4 = state.model(tokens)
+        _, leaves = flatten(app_state["train"].state_dict(), prefix="train")
+        packs_before = dp.launch_counts["device_pack"]
+        before = counters()
+        with knobs.enable_batching(), knobs.enable_device_pack():
+            t0 = time.monotonic()
+            pending = mgr.async_save(4, app_state)
+            visible_s = time.monotonic() - t0
+            t1 = time.monotonic()
+            state, loss_5 = train_step(state, tokens)
+            torch.cuda.current_stream().synchronize()
+            step_beside_drain_s = time.monotonic() - t1
+            pending.wait()
+            waited_s = time.monotonic() - t0
+        packs = dp.launch_counts["device_pack"] - packs_before
+        rec = after_save(4, waited_s, before, visible_s=visible_s, step_beside_drain_s=step_beside_drain_s,
+                         pack_launches=packs)
+        manifest_4 = Snapshot(mgr.step_path(4)).metadata.manifest
+        with open(os.path.join(mgr.step_path(4), "cas", "0")) as f:
+            slab_keys = [r["k"] for p, r in json.load(f)["paths"].items() if p.startswith("batched/")]
+        members: dict = {}
+        for path, e in manifest_4.items():
+            if getattr(e, "byte_range", None) is not None:
+                leaf = leaves[path.partition("/")[2]]
+                members.setdefault(e.location, []).append(getattr(leaf, "is_cuda", False))
+        _require(len(slab_keys) == len(set(slab_keys)) == len(members) > 0
+                 and {f"../chunks/{k}" for k in slab_keys} == set(members),
+                 f"step 4: {len(slab_keys)} slabs, {len(members)} chunks hold batched members")
+        want = sum(1 for cuda in members.values() if sum(cuda) > 1)
+        _require(packs == want, f"step 4: {packs} pack launches for {want} slabs of two or more card members")
+
+    # Retention: the chunks only steps 1-2 named are reclaimed.
+    live = set(refs[3]) | set(refs[4])
+    gone = {k: n for s in (1, 2) for k, n in refs[s].items() if k not in live}
+    reclaimed = saves[3]["reclaimed_bytes"] + saves[4]["reclaimed_bytes"]
+    _require(mgr.all_steps() == [3, 4], f"retained {mgr.all_steps()}")
+    _require(reclaimed == sum(gone.values()), f"reclaimed {reclaimed} bytes; steps 1-2 alone named {sum(gone.values())}")
+    store = _store_bytes(root)
+    _require(set(store) == live, "the store does not hold exactly the chunks steps 3 and 4 name")
+    pins, orphans = CASStore(root).load()
+    _require(pins == {3: refs[3], 4: refs[4]} and not orphans, f"journal pins {sorted(pins)}, orphans {len(orphans)}")
+
+    # fsck --cas --deep, and a flipped byte in a copy of the root.
+    t0 = time.monotonic()
+    report = verify_cas_store(root, deep=True)
+    fsck_s = time.monotonic() - t0
+    _require(report.ok and report.crcs_verified == report.chunks_referenced == len(live),
+             f"deep fsck --cas: {report.problems[:5]}")
+    victim = max(live, key=lambda k: (refs[4].get(k, 0), k))
+    flipped = os.path.join(work_dir, "cas_flipped")
+    _flipped_copy(root, f"chunks/{victim}", flipped)
+    problems = [(p.kind, p.location) for p in verify_cas_store(flipped, deep=True).problems]
+    _require(problems == [("checksum", f"chunks/{victim}")], f"deep fsck --cas of the flipped copy: {problems}")
+    shutil.rmtree(flipped)
+
+    # A fresh manager over a lost journal reconciles, and restore_latest
+    # into another seed's state is bit-identical.
+    os.remove(os.path.join(root, "chunks", ".refcounts.jsonl"))
+    fresh_mgr = CheckpointManager(root, keep_last_n=2)
+    pins, _ = CASStore(root).load()
+    _require(pins == {3: refs[3], 4: refs[4]}, f"reconcile rebuilt pins {sorted(pins)}")
+    fresh = init_train_state(cfg, seed=args.seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    step = fresh_mgr.restore_latest({"train": fresh})
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    _require(step == 4, f"restore_latest returned {step}")
+    _require_same_state(at_4, fresh, "cas restore_latest")
+    del at_4
+    with torch.no_grad():
+        logits_b = fresh.model(tokens)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(logits_4).all()) and same_bits(logits_4, logits_b),
+             "evaluation logits differ after the cas restore_latest")
+    del logits_4, logits_b
+    freeze(fresh.model)
+    _, loss_b = train_step(fresh, tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_5, loss_b), f"next-step losses differ after the cas restore_latest: {loss_5} vs {loss_b}")
+    launches = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+    _require(all(launches[k] for k in CAS_PATH_KERNELS), f"a kernel of the cas path never launched: {launches}")
+
+    record = {
+        "card": card, "saves": saves, "take_turns_s": turns, "fsck_cas_deep_s": fsck_s,
+        "fsck_bytes": report.stored_bytes, "flipped": victim, "reclaimed_bytes": reclaimed,
+        "restore_latest_s": restore_s, "next_loss": float(loss_5), "launches": launches,
+    }
+    for s, rec in saves.items():
+        log(
+            f"cas: save {s} {rec['s']:.3f} s: {rec['d2h_bytes'] / 1e6:.3f} MB to the host, "
+            f"{rec['written_bytes'] / 1e6:.3f} MB written to the store, {rec['deduped_bytes'] / 1e6:.3f} MB deduped, "
+            f"{rec['reclaimed_bytes'] / 1e6:.3f} MB reclaimed; store {rec['store_bytes'] / 1e6:.3f} MB against "
+            f"{rec['dense_retained_bytes'] / 1e6:.3f} MB of the retained steps' dense blobs"
+            + (f" (pack launches {rec['pack_launches']}, step beside the drain {rec['step_beside_drain_s']:.3f} s)"
+               if "pack_launches" in rec else "")
+        )
+    log(
+        f"cas: takes of step 1's state in turns, legacy {turns['legacy'][0]:.3f} s, CAS "
+        f"{turns['cas'][0]:.3f}, {turns['cas'][1]:.3f} s, legacy {turns['legacy'][1]:.3f} s; "
+        f"deep fsck --cas {fsck_s:.3f} s over {report.stored_bytes / 1e6:.3f} MB, flip in {victim} caught; "
+        f"reconcile and restore_latest {restore_s:.3f} s bit-identical, logits and next loss {float(loss_5)!r} too; "
+        f"launches {launches}; on {card}"
+    )
+    print(json.dumps({"cas": record}), flush=True)
+    del state, fresh
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The kernels the cas phase must launch.
+CAS_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest", "device_pack")
+
+
+# ---------------------------------------------------------------------------
 # ranks: two processes on the card
 # ---------------------------------------------------------------------------
 
@@ -2736,6 +3103,11 @@ def sharded_worker(pg, seed: int, work_dir: str) -> dict:
                  "read_object(sharding=) differs")
         del one
 
+        # (g) Fan-out restore: (a)'s snapshot into Shard(1), sync and async,
+        # with the knob at its default (on), then off. With it on, each
+        # sharded blob is read from storage once across the ranks.
+        record["g"] = _fanout_leg(pg, wrapper, path_a, leaves_a, lambda: fresh_tree(1, _tp_dim))
+
         # (d) Incremental take: embedding and layers 0-3 frozen, one step.
         n_frozen = cfg.n_layers // 2
         for prm in [state.model.embed] + [prm for blk in state.model.layers[:n_frozen] for prm in blk.parameters()]:
@@ -2835,6 +3207,85 @@ def sharded_worker(pg, seed: int, work_dir: str) -> dict:
         dist.destroy_process_group()
 
 
+def _fanout_leg(pg, wrapper, path: str, leaves: dict, make_tree) -> dict:
+    """Leg (g) of the sharded phase on one rank: four restores of the
+    snapshot at ``path`` into ``make_tree()`` (Shard(1) DTensors), fan-out
+    on and off, sync and async, each bit-identical, with the sharded blobs
+    read from storage counted across the ranks, the rank's seconds, its
+    coordination-store requests and seconds, and its fan-out bytes."""
+    import collections
+
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState
+    from torchsnapshot_tpu_torch.manifest import sharded_blob_windows
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+    from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.test_utils import patch_storage_plugin
+
+    class BlobReads(FSStoragePlugin):
+        paths: list = []
+
+        async def read(self, read_io):
+            self._count(read_io)
+            return await super().read(read_io)
+
+        async def read_with_checksum(self, read_io):
+            self._count(read_io)
+            return await super().read_with_checksum(read_io)
+
+        def _count(self, read_io):
+            if read_io.path.startswith("sharded/"):
+                BlobReads.paths.append(read_io.path)
+
+    eligible = sorted(sharded_blob_windows(Snapshot(path).metadata.manifest))
+    out = {}
+    try:
+        for fanout in (True, False):
+            if not fanout:
+                os.environ["TORCHSNAPSHOT_TPU_FANOUT_RESTORE"] = "0"
+            for use_async in (False, True):
+                label = ("on" if fanout else "off") + ("_async" if use_async else "")
+                tree = make_tree()
+                app = {"train": TensorTreeState(tree)}
+                BlobReads.paths = []
+                requests, store_s = _counter(names.COORD_STORE_REQUESTS_TOTAL), _counter(names.COORD_STORE_SECONDS_TOTAL)
+                wrapper.barrier()
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                with patch_storage_plugin(BlobReads):
+                    snapshot = Snapshot(path, pg=pg)
+                    if use_async:
+                        pending = snapshot.async_restore(app)
+                        pending.wait()
+                        io = pending.restore_telemetry
+                    else:
+                        snapshot.restore(app)
+                        io = snapshot.restore_telemetry
+                torch.cuda.synchronize()
+                seconds = time.monotonic() - t0
+                requests = _counter(names.COORD_STORE_REQUESTS_TOTAL) - requests
+                store_s = _counter(names.COORD_STORE_SECONDS_TOTAL) - store_s
+                _require_shards(tree, leaves, f"rank {pg.rank} fan-out restore (g, {label})")
+                counts = collections.Counter(p for r in wrapper.all_gather_object(BlobReads.paths) for p in r)
+                if fanout:
+                    _require(sorted(counts) == eligible and set(counts.values()) == {1},
+                             f"(g, {label}): sharded blobs read {dict(collections.Counter(counts.values()))} "
+                             f"times across the ranks, {len(eligible)} blobs")
+                else:
+                    _require(sorted(counts) == eligible and sum(counts.values()) > len(eligible),
+                             f"(g, {label}): every-rank-reads read {sum(counts.values())} times")
+                out[label] = {
+                    "restore_s": seconds, "blob_reads": len(BlobReads.paths),
+                    "blob_reads_all_ranks": sum(counts.values()), "blobs": len(eligible),
+                    "store_requests": requests, "store_s": store_s, **io,
+                }
+                del tree, app
+    finally:
+        os.environ.pop("TORCHSNAPSHOT_TPU_FANOUT_RESTORE", None)
+    return out
+
+
 # The kernels the sharded phase must launch on every rank.
 SHARDED_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest", "device_pack")
 
@@ -2911,6 +3362,18 @@ def sharded_phase(args, work_dir: str, card: str) -> dict:
             f"{', '.join(f'{x:.3f}' for x in e['per_member']['take_s'])} s; restores "
             f"{', '.join(f'{x:.3f}' for x in e['pack']['restore_s'] + e['per_member']['restore_s'])} s; "
             f"launches {r['launches']}"
+        )
+    for r in records:
+        log(
+            f"sharded: rank {r['rank']} (g) Shard(1) restores of (a): "
+            + "; ".join(
+                f"{label} {g['restore_s']:.3f} s, {g['blob_reads']} blob reads here "
+                f"({g['blob_reads_all_ranks']} for {g['blobs']} blobs across the ranks), "
+                f"{g['store_requests']:.0f} store requests in {g['store_s']:.3f} s, "
+                f"{g['bytes_fetched'] / 1e9:.4f} GB from storage, {g['bytes_received'] / 1e9:.4f} GB received, "
+                f"{g['bytes_published'] / 1e9:.4f} GB published"
+                for label, g in r["g"].items()
+            )
         )
     f = records[0]["f"]
     log(

@@ -383,16 +383,22 @@ def test_world1_replicated_snapshot_restores_on_two_ranks(tmp_path) -> None:
 
 
 def test_fanout_restore_is_refused(tmp_path) -> None:
-    """Fan-out restore is not ported: a multi-rank restore asked for it
-    by rank 0's knob raises on every rank, naming the step."""
+    """Fan-out restore, once refused, now works: a multi-rank restore asked
+    for it by rank 0's knob restores on every rank (the name is kept; the
+    fan-out cases proper are in test_torch_fanout_restore.py). Only rank 0's
+    knob counts: rank 1 turns it off and still takes part in the rounds."""
     path = str(tmp_path / "s")
     Snapshot.take(path, {"p": StateDict(step=5)}, replicated=["**"])
-    with knobs.enable_fanout_restore(), pytest.raises(AssertionError, match="ROADMAP queue 1 step 9"):
-        run_multiprocess(_fanout_worker, 2, args=(path,), timeout=60.0)
+    with knobs.enable_fanout_restore():
+        assert run_multiprocess(_fanout_worker, 2, args=(path,), timeout=60.0) == [5, 5]
 
 
 def _fanout_worker(pg, path: str):
-    Snapshot(path, pg=pg).restore({"p": StateDict(step=-1)})
+    if pg.rank == 1:
+        os.environ["TORCHSNAPSHOT_TPU_FANOUT_RESTORE"] = "0"
+    dest = {"p": StateDict(step=-1)}
+    Snapshot(path, pg=pg).restore(dest)
+    return dest["p"]["step"]
 
 
 # ---------------------------------------------------------------------------

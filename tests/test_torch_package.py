@@ -139,13 +139,19 @@ def test_kernel_wrapper_raises_without_a_kernel_build(monkeypatch, tmp_path) -> 
     assert fa.launch_counts == before
 
 
-# The sharded-state slice's modules: walked by the import checks above.
+# The modules of the sharded-state slice and of the chunk-store and fan-out
+# slice: walked by the import checks above.
 SHARDED_SLICE_MODULES = [
     "torchsnapshot_tpu_torch/parallel/overlap.py",
     "torchsnapshot_tpu_torch/resharding.py",
     "torchsnapshot_tpu_torch/sharded_io_preparer.py",
     "torchsnapshot_tpu_torch/batcher.py",
     "torchsnapshot_tpu_torch/ops/device_pack.py",
+    # The chunk store and fan-out restore.
+    "torchsnapshot_tpu_torch/cas/__init__.py",
+    "torchsnapshot_tpu_torch/cas/store.py",
+    "torchsnapshot_tpu_torch/cas/plugin.py",
+    "torchsnapshot_tpu_torch/fanout.py",
 ]
 
 

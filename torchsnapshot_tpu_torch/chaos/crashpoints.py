@@ -6,7 +6,7 @@ primary, a dropped step's commit marker deleted but not its blobs, ...).
 The ``CRASH_*`` registry in ``telemetry/names.py`` declares them. Arming a
 point needs the chaos engine and its fault plans
 (``torchsnapshot_tpu/chaos/engine.py`` and ``plan.py``), which are not
-ported yet (ROADMAP queue 1 step 9): until then every point is a no-op,
+ported yet (ROADMAP queue 1 step 9b): until then every point is a no-op,
 and :func:`arm` and :func:`arm_engine` raise.
 """
 
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 _NOT_PORTED = (
     "arming a crash point needs the chaos engine and its fault plans, which "
-    "torchsnapshot_tpu_torch does not have yet (ROADMAP queue 1 step 9)"
+    "torchsnapshot_tpu_torch does not have yet (ROADMAP queue 1 step 9b)"
 )
 
 

@@ -61,12 +61,17 @@ def scaled_poll_cap(world_size: int) -> float:
 
 class _PollPacer:
     """Deadline-aware exponential poll backoff for store wait loops: the
-    interval doubles per miss up to the cap and never sleeps past the
-    caller's deadline."""
+    interval doubles per miss up to the cap, never sleeps past the
+    caller's deadline, and ``reset`` returns to the first interval when a
+    wait observes progress."""
 
     def __init__(self, initial: Optional[float] = None, cap: Optional[float] = None) -> None:
-        self._delay = _POLL_INTERVAL_S if initial is None else initial
+        self._initial = _POLL_INTERVAL_S if initial is None else initial
+        self._delay = self._initial
         self._cap = _POLL_CAP_S if cap is None else cap
+
+    def reset(self) -> None:
+        self._delay = self._initial
 
     def sleep(self, deadline: Optional[float] = None) -> None:
         delay = self._delay

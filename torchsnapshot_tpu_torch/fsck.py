@@ -11,22 +11,33 @@ before pointing an expensive job at them. Two levels:
   its recorded CRC (the integrity.py tables, including entries inherited
   from incremental bases).
 
-Incremental snapshots are first-class: parent-relative (``../step_X``)
-locations resolve through the storage plugin like any restore would, so
-a broken chain (a GC'd base, a missing origin blob) is caught here
-instead of at restore time.
+Incremental snapshots and chunk-store snapshots are first-class:
+parent-relative locations (``../step_X/...``, ``../chunks/<key>``)
+resolve through the storage plugin like any restore would, and their
+checksum entries sit in the tables under those locations, so a broken
+chain (a GC'd base, a missing chunk) is caught here instead of at
+restore time.
+
+``--cas`` treats the path as a manager root and audits its chunk store
+(:func:`verify_cas_store`): every chunk a committed or pinned step names
+exists with the length its key claims (``--deep``: bytes matching the
+key's CRC), and unreferenced chunks are listed without failing the
+audit. ``--repair`` first rebuilds damaged copies from a copy that
+verifies (:func:`repair_cas_store`, :func:`repair_snapshot`); a root has
+one tier here, so a damaged chunk has no other copy and is moved to
+``chunks/.quarantine/``, where its refs dangle loudly.
 
 CLI::
 
-    python -m torchsnapshot_tpu_torch.fsck /path/to/snapshot [--deep]
+    python -m torchsnapshot_tpu_torch.fsck PATH [--deep] [--cas] [--repair]
 
-exits 0 when the snapshot is sound, 1 otherwise, printing one line per
-problem.
+exits 0 when the snapshot (or the store) is sound, 1 otherwise, printing
+one line per problem.
 
-Not ported yet: the per-tier and peer-placement audits (``--tier``) and
-the chunk-store audit and repair (``--cas``, ``--repair``), which come
-with ROADMAP queue 1 step 9; the telemetry summary (``--stats``) comes
-with step 10.
+Not ported yet, and refused: the per-tier and peer-placement audits
+(``--tier``, ROADMAP queue 1 step 9b) and the telemetry summary
+(``--stats``, step 10). The JAX package's repair also posts a ledger
+event; the run ledger comes with step 10.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import os
 from typing import Dict, List, Optional, Tuple
 
 from . import knobs
@@ -265,12 +277,12 @@ def verify_snapshot(path: str, deep: bool = False, tier: Optional[str] = None) -
     all yields a report with the metadata problem recorded).
 
     ``tier`` selects a tier of a ``tiered://`` path or the peer-RAM
-    placement journal; neither is ported yet (ROADMAP queue 1 step 9), so
-    any value but None raises."""
+    placement journal; neither is ported yet (ROADMAP queue 1 step 9b),
+    so any value but None raises."""
     if tier is not None:
         raise NotImplementedError(
             f"fsck tier={tier!r}: the tiered and peer audits are not ported to "
-            "torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9)"
+            "torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9b)"
         )
     problems: List[FsckProblem] = []
     event_loop = asyncio.new_event_loop()
@@ -342,6 +354,270 @@ def verify_snapshot(path: str, deep: bool = False, tier: Optional[str] = None) -
         event_loop.close()
 
 
+@dataclasses.dataclass
+class CasStoreReport:
+    """Audit of a manager root's chunk store: every referenced chunk
+    exists with the byte length its key claims (with ``deep``, bytes that
+    match the key), no committed manifest's ref dangles, and unreferenced
+    chunks are listed (never a failure: strays of crashed takes, or dead
+    chunks inside the GC grace window)."""
+
+    root: str
+    steps: List[int]
+    chunks_present: int
+    stored_bytes: int
+    chunks_referenced: int
+    logical_bytes: int  # retention-visible bytes across all steps
+    problems: List[FsckProblem]
+    unreferenced: Dict[str, int]
+    deep: bool
+    crcs_verified: int = 0
+
+    @property
+    def ok(self) -> bool:
+        return not self.problems
+
+    @property
+    def dedup_ratio(self) -> float:
+        """Logical bytes per stored byte: 1.0 means no sharing; N retained
+        steps of an unchanged state approach N."""
+        return self.logical_bytes / self.stored_bytes if self.stored_bytes else 0.0
+
+    @property
+    def bytes_per_retained_step(self) -> float:
+        return self.stored_bytes / len(self.steps) if self.steps else 0.0
+
+
+@dataclasses.dataclass
+class RepairReport:
+    """What ``fsck --repair`` did: ``quarantined`` lists the chunks whose
+    bytes no longer match their key, moved to ``chunks/.quarantine/`` so
+    that a later restore fails loudly instead of serving rot;
+    ``unrepairable`` lists the damage with no copy to rebuild from. The
+    JAX package also rewrites a damaged copy on one tier of a
+    ``tiered://`` root from the other; a root here has one copy of each
+    chunk."""
+
+    target: str
+    quarantined: List[str] = dataclasses.field(default_factory=list)
+    unrepairable: List[FsckProblem] = dataclasses.field(default_factory=list)
+    checked: int = 0
+
+    @property
+    def acted(self) -> bool:
+        return bool(self.quarantined)
+
+
+QUARANTINE_DIRNAME = ".quarantine"
+
+
+def _present_chunks(root: str) -> Dict[str, int]:
+    """``key -> size`` of the chunk files in the root's store."""
+    from .cas import CASStore, local_chunks_dir
+
+    return CASStore(root).list_chunks() if local_chunks_dir(root) else {}
+
+
+def _root_chunk_refs(root: str, on_error) -> Tuple[List[int], Dict[str, int], int]:
+    """``(steps, key -> nbytes, logical bytes)`` over the root's committed
+    and pinned steps' manifests; index and manifest damage goes to
+    ``on_error(FsckProblem)``."""
+    from . import manager as manager_mod
+    from .cas import chunk_refs
+
+    steps: List[int] = []
+    referenced: Dict[str, int] = {}
+    logical_bytes = 0
+    event_loop = asyncio.new_event_loop()
+    try:
+        storage = url_to_storage_plugin(root)
+        try:
+            try:
+                index = event_loop.run_until_complete(manager_mod.read_index_full_async(storage))
+                steps = sorted(set(index["steps"]) | set(index["pinned"]))
+            except Exception as e:  # noqa: BLE001 - index damage is a finding
+                on_error(FsckProblem(manager_mod.INDEX_BLOB, "unreadable", repr(e)))
+            for step in steps:
+                meta_path = f"{manager_mod._step_dirname(step)}/{SNAPSHOT_METADATA_FNAME}"
+                read_io = ReadIO(path=meta_path)
+                try:
+                    event_loop.run_until_complete(storage.read(read_io))
+                    metadata = SnapshotMetadata.from_yaml(bytes(read_io.buf).decode("utf-8"))
+                except FileNotFoundError:
+                    on_error(FsckProblem(meta_path, "missing", "indexed step has no commit marker"))
+                    continue
+                except Exception as e:  # noqa: BLE001
+                    on_error(FsckProblem(meta_path, "unreadable", repr(e)))
+                    continue
+                refs = chunk_refs(metadata.manifest)
+                logical_bytes += sum(refs.values())
+                for key, nbytes in refs.items():
+                    referenced[key] = max(referenced.get(key, 0), nbytes)
+        finally:
+            event_loop.run_until_complete(storage.close())
+    finally:
+        event_loop.close()
+    return steps, referenced, logical_bytes
+
+
+def _chunk_ok(root: str, key: str) -> bool:
+    """One chunk file against its self-describing key: size, and the
+    whole-blob CRC streamed in bounded pieces."""
+    from .cas import local_chunks_dir, parse_key
+
+    parsed = parse_key(key)
+    if parsed is None:
+        return False
+    alg, want_n, want_crc = parsed
+    path = os.path.join(local_chunks_dir(root), key)
+    try:
+        if os.path.getsize(path) != want_n:
+            return False
+    except OSError:
+        return False
+    if not _alg_available(alg):
+        return True  # the bytes cannot be judged here; the size is all
+    crc = 0
+    try:
+        with open(path, "rb") as f:
+            while True:
+                block = f.read(_DEEP_CHUNK_BYTES)
+                if not block:
+                    break
+                crc = _crc_of(memoryview(block), alg, seed=crc)
+    except OSError:
+        return False
+    return crc == want_crc
+
+
+def verify_cas_store(root: str, deep: bool = False) -> CasStoreReport:
+    """Audit one manager root's chunk store against its committed and
+    pinned steps' manifests. Never raises for store damage: every problem
+    lands in the report."""
+    from .cas import CHUNKS_DIRNAME, nbytes_of_key
+
+    problems: List[FsckProblem] = []
+    steps, referenced, logical_bytes = _root_chunk_refs(root, problems.append)
+    present = _present_chunks(root)
+    crcs_verified = 0
+    for key in sorted(referenced):
+        location = f"{CHUNKS_DIRNAME}/{key}"
+        want = nbytes_of_key(key)
+        if key not in present:
+            problems.append(
+                FsckProblem(
+                    location, "missing",
+                    "chunk referenced by a committed manifest is absent from the store (dangling ref)",
+                )
+            )
+        elif want is not None and present[key] != want:
+            problems.append(
+                FsckProblem(
+                    location, "truncated",
+                    f"digest key claims {want} bytes, {present[key]} stored (torn chunk write)",
+                )
+            )
+        elif deep:
+            if _chunk_ok(root, key):
+                crcs_verified += 1
+            else:
+                problems.append(FsckProblem(location, "checksum", "bytes do not match the digest key"))
+    return CasStoreReport(
+        root=root,
+        steps=steps,
+        chunks_present=len(present),
+        stored_bytes=sum(present.values()),
+        chunks_referenced=len(referenced),
+        logical_bytes=logical_bytes,
+        problems=problems,
+        unreferenced={k: n for k, n in sorted(present.items()) if k not in referenced},
+        deep=deep,
+        crcs_verified=crcs_verified,
+    )
+
+
+def repair_cas_store(root: str) -> RepairReport:
+    """Chunk repair: every chunk a committed manifest references is
+    verified against its key, and one whose bytes do not match is moved
+    to ``chunks/.quarantine/<key>``: a dangling ref that a later restore
+    fails on loudly, rather than corrupt bytes served."""
+    from .cas import local_chunks_dir
+
+    report = RepairReport(target=root)
+    _, referenced, _ = _root_chunk_refs(root, lambda problem: None)
+    present = _present_chunks(root)
+    for key in sorted(set(referenced) & set(present)):
+        report.checked += 1
+        if _chunk_ok(root, key):
+            continue
+        chunk_dir = local_chunks_dir(root)
+        os.makedirs(os.path.join(chunk_dir, QUARANTINE_DIRNAME), exist_ok=True)
+        os.replace(os.path.join(chunk_dir, key), os.path.join(chunk_dir, QUARANTINE_DIRNAME, key))
+        report.quarantined.append(key)
+        report.unrepairable.append(
+            FsckProblem(f"chunks/{key}", "checksum", "no copy verifies; quarantined (chunks/.quarantine/)")
+        )
+    for key in sorted(set(referenced) - set(present)):
+        report.unrepairable.append(
+            FsckProblem(
+                f"chunks/{key}", "missing", "referenced chunk absent (dangling ref); nothing to rebuild from"
+            )
+        )
+    return report
+
+
+def repair_snapshot(path: str) -> RepairReport:
+    """Repair of one snapshot's step-local blobs. The JAX package rewrites
+    a damaged copy on one tier of a ``tiered://`` path from the other;
+    every path here has one tier, so there is nothing to rebuild from and
+    the report is empty (a restore or a deep fsck still fails loudly on
+    the damage). Chunk refs belong to :func:`repair_cas_store`."""
+    return RepairReport(target=path)
+
+
+def _print_repair(report: RepairReport) -> None:
+    for key in report.quarantined:
+        print(f"FSCK quarantined: chunks/{key}: no copy verified; moved to chunks/{QUARANTINE_DIRNAME}/")
+    for prob in report.unrepairable:
+        print(f"FSCK unrepairable: {prob.location}: {prob.detail}")
+    if not report.acted and not report.unrepairable:
+        print(f"repair: nothing to do ({report.checked} location(s) sound)")
+
+
+def _cas_main(root: str, deep: bool, repair: bool = False) -> int:
+    if repair:
+        _print_repair(repair_cas_store(root))
+    report = verify_cas_store(root, deep=deep)
+    for prob in report.problems:
+        print(f"FSCK {prob.kind}: {prob.location}: {prob.detail}")
+    mode = "deep" if report.deep else "shallow"
+    print(
+        f"chunk store: {report.chunks_present} chunk(s), {report.stored_bytes / 1e6:.1f} MB stored "
+        f"across {len(report.steps)} retained step(s)"
+    )
+    print(
+        f"  dedup ratio: {report.dedup_ratio:.2f}x ({report.logical_bytes / 1e6:.1f} MB "
+        f"retention-visible per {report.stored_bytes / 1e6:.1f} MB stored); "
+        f"{report.bytes_per_retained_step / 1e6:.2f} MB per retained step"
+    )
+    if report.unreferenced:
+        print(
+            f"  {len(report.unreferenced)} unreferenced chunk(s) "
+            f"({sum(report.unreferenced.values()) / 1e6:.1f} MB): strays of crashed takes or dead "
+            "chunks inside the GC grace window, reclaimed by the manager's next retention pass"
+        )
+    if report.deep:
+        print(f"  {report.crcs_verified} chunk(s) CRC-verified")
+    if report.ok:
+        print(f"OK ({mode}): {report.chunks_referenced} referenced chunk(s) checked")
+        return 0
+    print(
+        f"FAILED ({mode}): {len(report.problems)} problem(s) across "
+        f"{report.chunks_referenced} referenced chunk(s)"
+    )
+    return 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     import argparse
 
@@ -355,8 +631,30 @@ def main(argv: Optional[List[str]] = None) -> int:
         action="store_true",
         help="read every blob fully and verify recorded CRCs",
     )
+    p.add_argument(
+        "--cas",
+        action="store_true",
+        help="treat PATH as a manager root and audit its content-addressed chunk store",
+    )
+    p.add_argument(
+        "--repair",
+        action="store_true",
+        help="before the audit, rebuild damaged copies from a copy that verifies (with --cas: "
+        "quarantine chunks with none)",
+    )
+    p.add_argument("--tier", default=None, help="not ported yet (ROADMAP queue 1 step 9b)")
+    p.add_argument("--stats", action="store_true", help="not ported yet (ROADMAP queue 1 step 10)")
     args = p.parse_args(argv)
-    report = verify_snapshot(args.path, deep=args.deep)
+    if args.stats:
+        raise NotImplementedError(
+            "fsck --stats (the telemetry summary) is not ported to torchsnapshot_tpu_torch yet "
+            "(ROADMAP queue 1 step 10)"
+        )
+    if args.cas:
+        return _cas_main(args.path, deep=args.deep, repair=args.repair)
+    if args.repair:
+        _print_repair(repair_snapshot(args.path))
+    report = verify_snapshot(args.path, deep=args.deep, tier=args.tier)
     for prob in report.problems:
         print(f"FSCK {prob.kind}: {prob.location}: {prob.detail}")
     mode = "deep" if report.deep else "shallow"

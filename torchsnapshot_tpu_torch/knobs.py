@@ -4,8 +4,8 @@ The knobs this package reads, under the same ``TORCHSNAPSHOT_TPU_`` names
 as torchsnapshot_tpu's, so one environment configures both packages.
 Values are read lazily on every call so tests and subprocesses can flip
 them at any time. Knobs of subsystems not ported yet (tiered storage, SLO,
-bundles, the autotuner, ...) come with those subsystems; the CAS and CDN
-knobs are here only so that the manager can refuse them.
+bundles, the autotuner, ...) come with those subsystems; the CDN knob is
+here only so that the manager can refuse it.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ _ASYNC_DEVICE_SNAPSHOT_ENV = "TORCHSNAPSHOT_TPU_ASYNC_DEVICE_SNAPSHOT"
 _STAGING_POOL_SLAB_BYTES_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLAB_BYTES"
 _STAGING_POOL_SLABS_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLABS"
 _CAS_ENV = "TORCHSNAPSHOT_TPU_CAS"
+_CAS_GC_GRACE_ENV = "TORCHSNAPSHOT_TPU_CAS_GC_GRACE_SECONDS"
 _CDN_ENV = "TORCHSNAPSHOT_TPU_CDN"
 _DISABLE_PARTITIONER_ENV = "TORCHSNAPSHOT_TPU_DISABLE_PARTITIONER"
 _FANOUT_RESTORE_ENV = "TORCHSNAPSHOT_TPU_FANOUT_RESTORE"
@@ -53,6 +54,7 @@ _DEFAULT_BARRIER_FANOUT: int = 16
 _DEFAULT_STORE_SHARDS: int = 1
 _DEFAULT_MAX_SHARD_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES: int = 128 * 1024 * 1024
+_DEFAULT_CAS_GC_GRACE_SECONDS: float = 900.0
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -183,11 +185,25 @@ def get_staging_pool_slabs() -> int:
 
 
 def is_cas_enabled() -> bool:
-    """The content-addressed chunk store of ``torchsnapshot_tpu`` (default
-    OFF). It is not ported: ``CheckpointManager`` reads this knob only to
-    refuse a root that asks for it, rather than write the plain layout in
-    its place."""
+    """Content-addressed chunk store (``cas/``), default OFF: with ``"1"``,
+    new takes write their data blobs once into a root-level ``chunks/``
+    store keyed by content digest, manifests reference the chunks
+    (``../chunks/<key>`` parent refs), and the manager refcounts them.
+    Requires a root on the local filesystem; other roots warn once and
+    take the legacy layout. Restores resolve either layout regardless of
+    this knob."""
     return os.environ.get(_CAS_ENV, "0") not in ("", "0")
+
+
+def get_cas_gc_grace_seconds() -> float:
+    """Minimum age (mtime) before the manager's chunk GC may delete a
+    refcount-dead chunk. A take that dedups against an existing chunk
+    touches its mtime before relying on it, so an in-flight (not yet
+    pinned) step's chunks look fresh to a racing GC pass and are deferred
+    as journaled orphans instead of reclaimed. Non-positive: reclaim at
+    once."""
+    val = os.environ.get(_CAS_GC_GRACE_ENV)
+    return _DEFAULT_CAS_GC_GRACE_SECONDS if val is None else float(val)
 
 
 def is_cdn_enabled() -> bool:
@@ -204,10 +220,13 @@ def is_partitioner_disabled() -> bool:
 
 
 def is_fanout_restore_enabled() -> bool:
-    """Single-reader fan-out restore (default OFF here, unlike the JAX
-    package). Not ported (ROADMAP queue 1 step 9): a multi-rank restore
-    reads rank 0's value and refuses when it asks for fan-out."""
-    return os.environ.get(_FANOUT_RESTORE_ENV, "0") not in ("", "0")
+    """Single-reader fan-out restore (default ON, as in the JAX package):
+    in a multi-rank restore each unique saved shard blob is read from
+    storage by one owner rank and shipped to the ranks that need it over
+    the coordination store (``fanout.py``). ``"0"`` is the kill switch
+    back to every-rank-reads. Rank 0's value decides for the job (it is
+    broadcast at restore start); one-process restores never fan out."""
+    return os.environ.get(_FANOUT_RESTORE_ENV, "1") != "0"
 
 
 def is_tree_barrier_enabled() -> bool:
@@ -302,6 +321,24 @@ def override_barrier_fanout(fanout: int) -> Generator[None, None, None]:
 @contextlib.contextmanager
 def enable_fanout_restore() -> Generator[None, None, None]:
     with _override_env(_FANOUT_RESTORE_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def disable_fanout_restore() -> Generator[None, None, None]:
+    with _override_env(_FANOUT_RESTORE_ENV, "0"):
+        yield
+
+
+@contextlib.contextmanager
+def enable_cas() -> Generator[None, None, None]:
+    with _override_env(_CAS_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def override_cas_gc_grace_seconds(seconds: float) -> Generator[None, None, None]:
+    with _override_env(_CAS_GC_GRACE_ENV, str(seconds)):
         yield
 
 

@@ -34,11 +34,22 @@ and broadcasts the step to restore or to diff against, every rank takes
 the step, and rank 0 alone writes the index and runs retention, after the
 take's commit barrier.
 
-Not ported yet, and refused rather than skipped: the content-addressed
-chunk store, the CDN publish side, ``tiered://`` roots with
-``wait_durable`` / ``resume_mirrors`` (ROADMAP queue 1 step 9). The JAX
-manager's telemetry hooks (run ledger, SLO evaluation, autotuner, step
-and restore history) come with step 10; the peer tier with step 9.
+Content-addressed chunk store (``cas/``): a root whose steps reference
+``../chunks/<key>`` blobs keeps a refcount journal there. Rank 0 pins a
+committing step's chunks before the index write, then, on every commit,
+unpins the steps retention deleted and reclaims the chunks no pinned step
+names once they are older than the grace window (younger ones wait as
+journaled orphans; chunks in no record at all are swept the same way).
+Construction reconciles the journal against the index and manifests,
+which heals a crash between a chunk write and its pin. GC is driven by
+what the root holds, not by the knob: a root with CAS steps keeps
+refcounted GC with ``TORCHSNAPSHOT_TPU_CAS`` off.
+
+Not ported yet, and refused rather than skipped: ``tiered://`` roots with
+``wait_durable`` / ``resume_mirrors`` (ROADMAP queue 1 step 9b), the CDN
+publish side (step 9c). The JAX manager's telemetry hooks (run ledger,
+SLO evaluation, autotuner, step and restore history) come with step 10;
+the peer tier with step 9b.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ import threading
 from typing import Any, Dict, List, Optional, Set
 
 from . import knobs, telemetry
+from .cas import CASStore, chunk_refs, local_chunks_dir
 from .chaos import crashpoint
 from .event_loop import run_in_fresh_event_loop
 from .integrity import table_path
@@ -61,7 +73,7 @@ from .manifest import Manifest, SnapshotMetadata, entry_locations
 from .pg_wrapper import PGWrapper
 from .snapshot import SNAPSHOT_METADATA_FNAME, PendingRestore, PendingSnapshot, Snapshot
 from .stateful import AppState
-from .storage_plugin import _parse_url, join_path, split_tiered_url, url_to_storage_plugin
+from .storage_plugin import join_path, split_tiered_url, url_to_storage_plugin
 from .telemetry import names as metric_names
 
 logger: logging.Logger = logging.getLogger(__name__)
@@ -69,15 +81,15 @@ logger: logging.Logger = logging.getLogger(__name__)
 INDEX_BLOB = ".manager_index"
 INDEX_BACKUP_BLOB = ".manager_index.backup"
 
-# Files the JAX package may leave in a step directory that its manifest
-# does not name (the telemetry event log; per rank: a progress heartbeat,
-# a peer placement doc, a chunk map). GC removes them too, so that
-# retention of a step the JAX package wrote leaves nothing behind.
+# Files a step directory may hold that its manifest does not name (the
+# JAX package's telemetry event log; per rank: its progress heartbeat and
+# peer placement doc, and either package's CAS chunk map). GC removes
+# them too, so that retention leaves nothing behind.
 _STEP_EVENTS_BLOB = ".telemetry.jsonl"
 _RANK_SIDE_BLOBS = (".progress-rank{}.json", ".peer_placement-rank{}.json", "cas/{}")
 
 
-def _not_ported(what: str, step: int) -> NotImplementedError:
+def _not_ported(what: str, step: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to torchsnapshot_tpu_torch yet "
         f"(ROADMAP queue 1 step {step}); use torchsnapshot_tpu for it"
@@ -198,6 +210,7 @@ class _PendingManagedSnapshot:
                     self._step,
                     refs=lambda: referenced_steps(snapshot.metadata.manifest),
                     metric=self._metric,
+                    chunk_refs=lambda: chunk_refs(snapshot.metadata.manifest),
                 )
                 telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
                 self._committed = True
@@ -251,16 +264,9 @@ class CheckpointManager:
         if best_mode not in ("min", "max"):
             raise ValueError(f"best_mode must be 'min' or 'max', got {best_mode}")
         if tiered:
-            raise _not_ported("a tiered:// root (fast and durable tiers, the mirror)", 9)
-        scheme, local_root = _parse_url(root)
-        if knobs.is_cas_enabled() or (
-            scheme == "fs" and os.path.isdir(os.path.join(local_root, "chunks"))
-        ):
-            # A root that already holds a chunk store needs its refcounted
-            # GC even with the knob off.
-            raise _not_ported("the content-addressed chunk store (TORCHSNAPSHOT_TPU_CAS)", 9)
+            raise _not_ported("a tiered:// root (fast and durable tiers, the mirror)", "9b")
         if cdn_topic is not None and knobs.is_cdn_enabled():
-            raise _not_ported("publishing steps to a CDN topic (TORCHSNAPSHOT_TPU_CDN)", 9)
+            raise _not_ported("publishing steps to a CDN topic (TORCHSNAPSHOT_TPU_CDN)", "9c")
         self.root = root
         self.keep_last_n = keep_last_n
         # Metric-driven retention: steps saved with a ``metric=`` keep the
@@ -274,6 +280,17 @@ class CheckpointManager:
         self.incremental = incremental
         self._pg_arg = pg
         self._pg = PGWrapper(pg)
+        # The root's chunk store, resolved on first use (rank 0 only):
+        # False unresolved, None for a root with no local filesystem.
+        self._cas_store: Any = False
+        # The last commit's chunk accounting (chunks and bytes new to the
+        # store against those already pinned), from _cas_pin_step.
+        self._last_cas_accounting: Optional[Dict[str, Any]] = None
+        if self._pg.get_rank() == 0:
+            try:
+                self._reconcile_cas()
+            except Exception as e:  # noqa: BLE001 - healing is best-effort
+                logger.warning("CAS refcount reconcile failed: %r", e)
 
     # ------------------------------------------------------------------
     # saving
@@ -317,7 +334,8 @@ class CheckpointManager:
         take_kwargs = self._incremental_take_kwargs(incremental, take_kwargs)
         snapshot = Snapshot.take(self.step_path(step), app_state, pg=self._pg_arg, **take_kwargs)
         self._commit_step(
-            step, refs=lambda: referenced_steps(snapshot.metadata.manifest), metric=metric
+            step, refs=lambda: referenced_steps(snapshot.metadata.manifest), metric=metric,
+            chunk_refs=lambda: chunk_refs(snapshot.metadata.manifest),
         )
         telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
         return snapshot
@@ -412,11 +430,11 @@ class CheckpointManager:
 
     def wait_durable(self, step: int, timeout: Optional[float] = None) -> None:
         """The tiered durability barrier: not ported yet."""
-        raise _not_ported("wait_durable (tiered roots, the mirror)", 9)
+        raise _not_ported("wait_durable (tiered roots, the mirror)", "9b")
 
     def resume_mirrors(self) -> List[int]:
         """Resuming interrupted tiered mirrors: not ported yet."""
-        raise _not_ported("resume_mirrors (tiered roots, the mirror)", 9)
+        raise _not_ported("resume_mirrors (tiered roots, the mirror)", "9b")
 
     # ------------------------------------------------------------------
     # index and retention (rank 0 only)
@@ -436,16 +454,24 @@ class CheckpointManager:
         return run_in_fresh_event_loop(body())
 
     def _commit_step(
-        self, step: int, refs: Optional[Any] = None, metric: Optional[float] = None
+        self,
+        step: int,
+        refs: Optional[Any] = None,
+        metric: Optional[float] = None,
+        chunk_refs: Optional[Any] = None,
     ) -> None:
-        """``refs`` may be a value or a zero-arg callable (evaluated only on
-        rank 0, which alone holds the manifest)."""
+        """``refs`` and ``chunk_refs`` may be values or zero-arg callables
+        (evaluated only on rank 0, which alone holds the manifest)."""
         if self._pg.get_rank() != 0:
             return
         if callable(refs):
             refs = refs()
+        if callable(chunk_refs):
+            chunk_refs = chunk_refs()
         self._with_root_storage(
-            lambda storage: self._commit_step_async(step, storage, refs or set(), metric)
+            lambda storage: self._commit_step_async(
+                step, storage, refs or set(), metric, chunk_refs or {}
+            )
         )
 
     def _retained(
@@ -491,6 +517,7 @@ class CheckpointManager:
         storage: StoragePlugin,
         refs: Set[int],
         metric: Optional[float] = None,
+        chunk_refs: Optional[Dict[str, int]] = None,
     ) -> None:
         index = await read_index_full_async(storage)
         steps = sorted({*index["steps"], step})
@@ -499,6 +526,10 @@ class CheckpointManager:
             refs_map[str(step)] = sorted(refs)
         else:
             refs_map.pop(str(step), None)
+        # Chunks are pinned before the index write: a crash between the
+        # two leaves a pinned but unindexed step (reconcile unpins it),
+        # never an indexed step whose chunks a GC could reclaim.
+        self._last_cas_accounting = self._cas_pin_step(step, chunk_refs or {})
         metrics: Dict[str, float] = dict(index["metrics"])
         if metric is not None:
             metrics[str(step)] = float(metric)
@@ -555,6 +586,169 @@ class CheckpointManager:
                 await self._delete_step_async(old)
             except Exception as e:  # noqa: BLE001 - GC must not fail a save
                 logger.warning("Failed to GC step %d: %r", old, e)
+        # Chunk GC after the step deletes (an interrupted pass errs toward
+        # keeping chunks), on every commit: grace-deferred orphans and the
+        # strays of crashed takes must age out even when retention drops
+        # nothing.
+        try:
+            await self._cas_collect_async(storage, to_delete)
+        except Exception as e:  # noqa: BLE001 - GC must not fail a save
+            logger.warning("CAS chunk GC failed: %r", e)
+
+    # ------------------------------------------------------------------
+    # the content-addressed chunk store (rank 0 only)
+    # ------------------------------------------------------------------
+
+    def _get_cas_store(self) -> Optional[CASStore]:
+        """The root's chunk store, or None for a root with no local
+        filesystem. Resolved once; for a legacy root the journal load is
+        one failed open."""
+        if self._cas_store is False:
+            self._cas_store = CASStore(self.root) if local_chunks_dir(self.root) else None
+        return self._cas_store
+
+    def _cas_pin_step(self, step: int, refs: Dict[str, int]) -> Optional[Dict[str, Any]]:
+        """Pin a committing step's chunks and return its accounting: the
+        chunks and bytes new to the store against those another pinned
+        step already held. None for a legacy step (no chunk refs): the
+        journal is never created for it."""
+        store = self._get_cas_store()
+        if store is None or not refs:
+            return None
+        pins, orphans = store.load()
+        pinned_before: Set[str] = set()
+        for s, chunks in pins.items():
+            if s != step:
+                pinned_before.update(chunks)
+        new = {k: n for k, n in refs.items() if k not in pinned_before}
+        store.pin(step, refs)
+        # Pinned but not yet indexed: reconcile unpins it after a crash.
+        crashpoint(metric_names.CRASH_REFCOUNT_PINNED)
+        # Chunks revived from the orphan list are live again.
+        revived = set(refs) & set(orphans)
+        if revived:
+            store.clear_orphans(revived)
+        return {
+            "step": step,
+            "chunks_new": len(new),
+            "chunks_reused": len(refs) - len(new),
+            "bytes_new": int(sum(new.values())),
+            "bytes_reused": int(sum(refs.values()) - sum(new.values())),
+            "bytes_total": int(sum(refs.values())),
+        }
+
+    async def _cas_collect_async(self, storage: StoragePlugin, deleted_steps: List[int]) -> None:
+        """Unpin GC'd steps and reclaim refcount-dead chunks. A dead chunk
+        younger than the grace window (a concurrent, not yet pinned take
+        may have just deduped against it and touched it) is journaled as
+        an orphan and retried by a later pass."""
+        from .cas import CHUNKS_DIRNAME
+
+        store = self._get_cas_store()
+        if store is None:
+            return
+        pins, orphans, leases = store.load_full()
+        candidates: Dict[str, int] = dict(orphans)
+        unpinned = False
+        for old in deleted_steps:
+            chunks = pins.pop(old, None)
+            if chunks is not None:
+                store.unpin(old)
+                unpinned = True
+                candidates.update(chunks)
+        if unpinned:
+            crashpoint(metric_names.CRASH_GC_UNPINNED)
+        # Leases (the JAX package's CDN subscribers) count as live.
+        live = store.live_chunks(pins, leases)
+        # Stray sweep: chunks on disk in no pin and no orphan record (a
+        # take that crashed before its commit pinned them) become
+        # candidates too; a concurrent take's fresh ones wait out the
+        # grace window, and its pin revives them.
+        for key, nbytes in store.list_chunks().items():
+            if key not in live and key not in candidates:
+                candidates[key] = nbytes
+        if not candidates:
+            if unpinned:
+                store.maybe_compact()
+            return
+        grace = knobs.get_cas_gc_grace_seconds()
+        reclaimed: Dict[str, int] = {}
+        cleared: Set[str] = set()
+        deferred: Dict[str, int] = {}
+        for key, nbytes in candidates.items():
+            if key in live:
+                cleared.add(key)  # pinned again since it was orphaned
+                continue
+            age = store.chunk_age_seconds(key)
+            if age is None:
+                cleared.add(key)  # already gone
+                continue
+            if grace > 0 and age < grace:
+                deferred[key] = nbytes
+                continue
+            try:
+                await storage.delete(f"{CHUNKS_DIRNAME}/{key}")
+            except FileNotFoundError:
+                pass
+            reclaimed[key] = nbytes
+        store.clear_orphans((cleared | set(reclaimed)) & set(orphans))
+        store.record_orphans({k: n for k, n in deferred.items() if k not in orphans})
+        store.maybe_compact()
+        if reclaimed:
+            registry = telemetry.metrics()
+            registry.counter_inc(metric_names.CAS_CHUNKS_RECLAIMED_TOTAL, len(reclaimed))
+            registry.counter_inc(metric_names.CAS_BYTES_RECLAIMED_TOTAL, sum(reclaimed.values()))
+        if deferred:
+            logger.info(
+                "CAS GC deferred %d dead but fresh chunk(s) inside the %.0f s grace window",
+                len(deferred), grace,
+            )
+
+    def _reconcile_cas(self) -> None:
+        """Construction-time healing (rank 0): bring the refcount journal
+        in line with the index and manifests. Heals a journal lost or torn
+        after steps committed (wholly, or one step's pin while others
+        survived) and drops the pins of steps that left the index. Reads
+        no manifest when the store is empty or every indexed step's pin
+        state already matches."""
+        store = self._get_cas_store()
+        if store is None or not os.path.isdir(store.local_dir):
+            return
+        pins, _ = store.load()
+        if not pins and not store.list_chunks():
+            return
+        index = self._with_root_storage(read_index_full_async)
+        expected = set(index["steps"]) | set(index["pinned"])
+        stale_pins = set(pins) - expected
+        # An indexed step with no pin is a legacy step (canonically absent
+        # from the journal) or a CAS step whose pin was lost: only its
+        # manifest tells, and a wrong guess would let the stray sweep
+        # reclaim a committed step's chunks.
+        missing_pins = expected - set(pins)
+        if not stale_pins and not missing_pins:
+            return
+
+        async def _refs_of_missing(storage: StoragePlugin) -> Dict[int, Dict[str, int]]:
+            mapping: Dict[int, Dict[str, int]] = {}
+            for s in sorted(missing_pins):
+                read_io = ReadIO(path=f"{_step_dirname(s)}/{SNAPSHOT_METADATA_FNAME}")
+                try:
+                    await storage.read(read_io)
+                except FileNotFoundError:
+                    mapping[s] = {}
+                    continue
+                metadata = SnapshotMetadata.from_yaml(bytes(read_io.buf).decode())
+                mapping[s] = chunk_refs(metadata.manifest)
+            return mapping
+
+        mapping = self._with_root_storage(_refs_of_missing)
+        for s in expected & set(pins):
+            mapping[s] = pins[s]
+        if store.reconcile(mapping):
+            logger.info(
+                "CAS refcount journal reconciled against the index (%d committed or pinned steps)",
+                len(expected),
+            )
 
     async def _derive_refs_async(self, storage: StoragePlugin, step: int) -> Set[int]:
         """A step's origin-step refs, re-derived from its committed

@@ -419,6 +419,33 @@ class SnapshotMetadata:
         )
 
 
+def sharded_blob_windows(manifest: Manifest) -> Dict[str, Tuple[int, int]]:
+    """Storage blobs holding ``ShardedArray`` shard payloads that a
+    fan-out restore may distribute: ``location -> [start, end)``, the
+    shard's byte window within its blob (always ``(0, nbytes)``: one shard
+    per blob). Only dedicated shard blobs (a ``sharded/`` path segment,
+    incremental refs included) of raw buffer-protocol bytes with no
+    ``byte_range`` qualify: a batched-slab member shares its blob with
+    other entries, and a chunk-store ref (``../chunks/``) carries no shard
+    path, so their reads stay every rank's own."""
+    from .serialization import Serializer, array_size_bytes
+
+    out: Dict[str, Tuple[int, int]] = {}
+    for entry in manifest.values():
+        if not isinstance(entry, ShardedArrayEntry):
+            continue
+        for shard in entry.shards:
+            arr = shard.array
+            if (
+                "sharded/" not in arr.location
+                or arr.serializer != Serializer.BUFFER_PROTOCOL.value
+                or arr.byte_range is not None
+            ):
+                continue
+            out[arr.location] = (0, array_size_bytes(arr.shape, arr.dtype))
+    return out
+
+
 def entry_locations(entry: Entry) -> List[str]:
     """Every storage location a manifest entry's bytes live at (chunks of
     one entry may share locations; callers dedupe). The location walk of

@@ -55,12 +55,23 @@ Counterpart of ``torchsnapshot_tpu/snapshot.py``. Same protocol:
   replicated, as the JAX package infers a fully-replicated ``jax.Array``.
 - ``TORCHSNAPSHOT_TPU_ENABLE_BATCHING``: small writes coalesce into slabs,
   and ranged reads of one slab merge (``batcher.py``).
+- ``TORCHSNAPSHOT_TPU_CAS=1`` (rank 0's reading, broadcast with the
+  path): data blobs go once into the root's content-addressed
+  ``chunks/`` store (``cas/``); each rank writes its ``path -> digest``
+  map before the commit barrier and rank 0 rewrites the manifest onto
+  ``../chunks/<key>`` before the commit marker.
+- Single-reader fan-out restore (on by default; rank 0's
+  ``TORCHSNAPSHOT_TPU_FANOUT_RESTORE`` decides): in a multi-rank restore
+  each unique saved shard blob is read once, by its owner rank, and
+  shipped to the ranks that need it over the coordination store
+  (``fanout.py``), one exchange round per stateful key, or one for all
+  plans in ``async_restore``. ``restore_telemetry`` then holds the
+  rank's byte accounting.
 
 The snapshot format is the JAX package's: either package reads what the
-other writes, digests included, and a snapshot taken by N ranks of one
-restores through N ranks of the other. Not ported yet: the CAS, tiered,
-peer and fan-out branches (ROADMAP queue 1 step 9; a multi-rank restore
-refuses ``TORCHSNAPSHOT_TPU_FANOUT_RESTORE=1``).
+other writes, digests and chunk stores included, and a snapshot taken by
+N ranks of one restores through N ranks of the other. Not ported yet:
+the tiered and peer branches (ROADMAP queue 1 step 9b).
 """
 
 from __future__ import annotations
@@ -158,12 +169,50 @@ def _reporting_to(barrier: Optional[StoreBarrier], what: str):
         raise
 
 
-def _refuse_fanout(fanout_agreed: bool) -> None:
-    if fanout_agreed:
-        raise NotImplementedError(
-            "single-reader fan-out restore (TORCHSNAPSHOT_TPU_FANOUT_RESTORE) is not ported "
-            "to torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9); unset it or set it to 0"
-        )
+def _maybe_cas_storage(storage: StoragePlugin, path: str, cas_on: bool) -> StoragePlugin:
+    """Wrap a take's plugin in the content-addressed write interceptor
+    when the broadcast decision says so (rank 0 decides, so ranks never
+    diverge on where data bytes land)."""
+    if not cas_on:
+        return storage
+    from .cas import CASStoragePlugin
+
+    return CASStoragePlugin(storage, path)
+
+
+def _maybe_write_cas_map(
+    storage: StoragePlugin, rank: int, event_loop: asyncio.AbstractEventLoop
+) -> None:
+    """This rank's CAS ``path -> digest`` map (``cas/{rank}``), before the
+    commit barrier like the checksum table. A no-op for legacy takes."""
+    from .cas import CASStoragePlugin
+
+    if isinstance(storage, CASStoragePlugin):
+        event_loop.run_until_complete(storage.write_chunk_map(rank))
+
+
+def _restore_telemetry(bytes_read: int, fanout_ctx) -> Dict[str, int]:
+    """A restore's byte accounting on this rank (the fields of the JAX
+    package's restore report, folded as its ``_merge_fanout_telemetry``
+    does): the bytes its read pipeline consumed; those it fetched from
+    storage (the pipeline's reads that the fan-out cache did not serve,
+    plus the owner's union-window reads); and the bytes fan-out shipped
+    in from peers and out to them."""
+    out = {"bytes_read": bytes_read, "bytes_fetched": bytes_read, "bytes_received": 0, "bytes_published": 0}
+    if fanout_ctx is not None:
+        out["bytes_fetched"] += fanout_ctx.bytes_fetched - fanout_ctx.bytes_served
+        out["bytes_received"] = fanout_ctx.bytes_received
+        out["bytes_published"] = fanout_ctx.bytes_published
+    return out
+
+
+def _build_fanout(manifest: Manifest, pg_wrapper: PGWrapper):
+    """The restore's fan-out context, or None when the manifest holds no
+    shard blob to fan out."""
+    from .fanout import FanoutRestoreContext
+
+    ctx = FanoutRestoreContext.build(manifest, pg_wrapper)
+    return ctx if ctx.owners else None
 
 
 class Snapshot:
@@ -174,6 +223,9 @@ class Snapshot:
         self.path = path
         self._pg_arg = pg
         self._metadata: Optional[SnapshotMetadata] = None
+        # This rank's byte accounting of the last restore() (see
+        # _restore_telemetry); None before one ran.
+        self.restore_telemetry: Optional[Dict[str, int]] = None
 
     # ------------------------------------------------------------------
     # take
@@ -201,10 +253,13 @@ class Snapshot:
         written, and the manifest references the base's blob.
         ``record_digests`` records digests without a base, so that this
         snapshot can serve as one."""
+        from .cas import cas_eligible
+
         pg_wrapper = PGWrapper(pg)
         rank = pg_wrapper.get_rank()
-        # Rank 0's path wins.
-        path = pg_wrapper.broadcast_object(path)
+        # Rank 0's path wins; the CAS layout decision rides the same
+        # broadcast, so ranks never diverge on where data bytes land.
+        path, cas_on = pg_wrapper.broadcast_object((path, cas_eligible(path)))
         # The nonce keeps the commit barrier's keys from aliasing any
         # earlier take to the same path.
         barrier = None
@@ -215,7 +270,7 @@ class Snapshot:
         take_span = recorder.begin(telemetry.names.SPAN_TAKE, path=path, rank=rank)
         event_loop = asyncio.new_event_loop()
         try:
-            storage = url_to_storage_plugin(path)
+            storage = _maybe_cas_storage(url_to_storage_plugin(path), path, cas_on)
             with _reporting_to(barrier, "take"):
                 pending, metadata = cls._take_impl(
                     path, app_state, pg_wrapper, replicated or [], storage, event_loop,
@@ -224,6 +279,7 @@ class Snapshot:
                 )
                 pending.sync_complete(event_loop)
                 _write_checksum_table(pending, rank, storage, event_loop)
+                _maybe_write_cas_map(storage, rank, event_loop)
             # Every rank's writes are durable before the commit marker
             # exists anywhere. The commit window stays under
             # _reporting_to: a failed metadata write on rank 0 releases
@@ -266,16 +322,18 @@ class Snapshot:
         returning instead (no device clone, no extra device memory).
         ``pg``, ``replicated``, ``incremental_base`` and
         ``record_digests`` as in :meth:`take`."""
+        from .cas import cas_eligible
+
         op_begin = time.monotonic()
         pg_wrapper = PGWrapper(pg)
-        path = pg_wrapper.broadcast_object(path)
+        path, cas_on = pg_wrapper.broadcast_object((path, cas_eligible(path)))
         commit_nonce = pg_wrapper.broadcast_object(uuid.uuid4().hex)
         # Error-reporting handle on the same barrier the background commit
         # waits at: a rank that fails while staging must poison it, or
         # peers whose commit threads wait at arrive() block out the store
         # timeout.
         barrier = _nonce_barrier(f"__snapshot_commit/{commit_nonce}", pg_wrapper)
-        storage = url_to_storage_plugin(path)
+        storage = _maybe_cas_storage(url_to_storage_plugin(path), path, cas_on)
         event_loop = asyncio.new_event_loop()
         try:
             with _trace_recorder().span(
@@ -406,6 +464,21 @@ class Snapshot:
             # Referenced blobs were not rewritten: their checksums come from
             # the base's table, read once the writes are done.
             pending.checksum_finalizer = lambda: incr_ctx.inherit_checksums(pending.checksums)
+        from .cas import CASStoragePlugin
+
+        if isinstance(storage, CASStoragePlugin):
+            # CAS takes also re-home the table's entries from the write
+            # paths to the chunk locations the rewritten manifest names,
+            # after the incremental inherit (whose refs into a CAS base
+            # are chunk locations already).
+            inherit = pending.checksum_finalizer
+
+            def _cas_finalize() -> None:
+                if inherit is not None:
+                    inherit()
+                storage.rekey_checksums(pending.checksums)
+
+            pending.checksum_finalizer = _cas_finalize
         return pending, metadata
 
     # ------------------------------------------------------------------
@@ -451,13 +524,13 @@ class Snapshot:
         pg_wrapper = PGWrapper(self._pg_arg)
         rank = pg_wrapper.get_rank()
         restore_nonce = None
+        fanout_agreed = False
         if pg_wrapper.get_world_size() > 1:
             # One agreement before any failure point: the nonce of the
             # error-propagating key barriers, and rank 0's fan-out knob.
             restore_nonce, fanout_agreed = pg_wrapper.broadcast_object(
                 (uuid.uuid4().hex, knobs.is_fanout_restore_enabled())
             )
-            _refuse_fanout(fanout_agreed)
 
         def key_barrier(i: int) -> Optional[StoreBarrier]:
             if restore_nonce is None:
@@ -475,60 +548,58 @@ class Snapshot:
             rng = _pop_rng_state(app_state)
             keys = _gather_keys(app_state, pg_wrapper)
             budget = get_process_memory_budget_bytes(pg_wrapper)
+            fanout_ctx = None
+            bytes_read = 0
             with _reporting_to(key_barrier(0) if keys else None, "restore setup"):
                 available = get_manifest_for_rank(self.metadata, rank)
                 checksum_table = self._checksum_table(storage, event_loop)
+                # The owner table comes from the committed manifest, the
+                # same bytes on every rank: no collective.
+                if fanout_agreed:
+                    fanout_ctx = _build_fanout(self.metadata.manifest, pg_wrapper)
             for i, key in enumerate(keys):
                 barrier = key_barrier(i)
                 with _reporting_to(barrier, "restore"):
-                    # The RNG state is restored last, below.
+                    # Plan first, so that the fan-out round (which every
+                    # rank runs, plan or no plan, in the key order) knows
+                    # this rank's byte windows. Its waits poll this key
+                    # barrier's error key. The RNG state is restored
+                    # last, below.
+                    plan = None
                     if key in app_state and (rng is None or key != rng[0]):
-                        self._load_stateful(
-                            key, app_state[key], available, storage, budget, rank,
-                            event_loop, checksum_table,
+                        plan = _plan_stateful_load(
+                            key, app_state[key], available, DeviceCopier(), budget=budget
                         )
+                    round_locs: List[str] = []
+                    if fanout_ctx is not None:
+                        round_locs = fanout_ctx.exchange(
+                            plan.read_reqs if plan is not None else [], storage, event_loop,
+                            rendezvous_prefix=f"__restore/{restore_nonce}/{i}",
+                        )
+                    try:
+                        if plan is not None:
+                            bytes_read += _execute_load_plan(
+                                plan, fanout_ctx.wrap(storage) if fanout_ctx is not None else storage,
+                                budget, rank, event_loop, checksum_table,
+                            )
+                    finally:
+                        if fanout_ctx is not None:
+                            fanout_ctx.drop(round_locs)
                 if barrier is not None:
                     barrier.arrive()
                     barrier.depart()
             if rng is not None:
-                self._load_stateful(
-                    rng[0], rng[1], available, storage, budget, rank, event_loop, checksum_table
-                )
+                # Outside the key rounds: no fan-out.
+                plan = _plan_stateful_load(rng[0], rng[1], available, DeviceCopier(), budget=budget)
+                if plan is not None:
+                    bytes_read += _execute_load_plan(
+                        plan, storage, budget, rank, event_loop, checksum_table
+                    )
             event_loop.run_until_complete(storage.close())
+            self.restore_telemetry = _restore_telemetry(bytes_read, fanout_ctx)
         finally:
             recorder.end(restore_span)
             event_loop.close()
-
-    @staticmethod
-    def _load_stateful(
-        key: str,
-        stateful: Stateful,
-        available: Manifest,
-        storage: StoragePlugin,
-        budget: int,
-        rank: int,
-        event_loop: asyncio.AbstractEventLoop,
-        checksum_table,
-    ) -> None:
-        """Restore one stateful: its current leaves are the read
-        destinations, placed as their reads land."""
-        plan = _plan_stateful_load(key, stateful, available, DeviceCopier(), budget=budget)
-        if plan is None:
-            return
-        placer = _StreamingPlacer()
-        placer.register_plan(plan)
-        sync_execute_read_reqs(
-            read_reqs=_batch_reads(plan.read_reqs),
-            storage=storage,
-            memory_budget_bytes=budget,
-            rank=rank,
-            event_loop=event_loop,
-            checksum_table=checksum_table,
-            on_req_complete=placer.on_req_complete,
-        )
-        placer.flush()
-        plan.finish_reads()
-        plan.apply()
 
     def async_restore(self, app_state: AppState) -> "PendingRestore":
         """Restore whose reads and host-to-device copies run on a
@@ -551,11 +622,11 @@ class Snapshot:
         rng = _pop_rng_state(app_state)
         keys = _gather_keys(app_state, pg_wrapper)
         restore_nonce = None
+        fanout_agreed = False
         if pg_wrapper.get_world_size() > 1:
             restore_nonce, fanout_agreed = pg_wrapper.broadcast_object(
                 (uuid.uuid4().hex, knobs.is_fanout_restore_enabled())
             )
-            _refuse_fanout(fanout_agreed)
 
         def plan_barrier(i: int) -> Optional[StoreBarrier]:
             if restore_nonce is None:
@@ -578,9 +649,32 @@ class Snapshot:
             if barrier is not None:
                 barrier.arrive()
                 barrier.depart()
+        fanout_ctx = None
+        if fanout_agreed:
+            # The exchange is a rendezvous, so it runs here, on the calling
+            # thread, once every plan exists: one round for all plans. The
+            # owners' reads land in this span; the background pipeline then
+            # reads the exchanged blobs from the cache.
+            exchange_prefix = f"__restore/{restore_nonce}/fanout"
+            with _reporting_to(_nonce_barrier(exchange_prefix, pg_wrapper), "fan-out exchange"):
+                fanout_ctx = _build_fanout(self.metadata.manifest, pg_wrapper)
+                if fanout_ctx is not None:
+                    exchange_loop = asyncio.new_event_loop()
+                    try:
+                        exchange_storage = url_to_storage_plugin(self.path)
+                        try:
+                            fanout_ctx.exchange(
+                                [r for plan in plans.values() for r in plan.read_reqs],
+                                exchange_storage, exchange_loop,
+                                rendezvous_prefix=exchange_prefix,
+                            )
+                        finally:
+                            exchange_loop.run_until_complete(exchange_storage.close())
+                    finally:
+                        exchange_loop.close()
         return PendingRestore(
             self.path, keys, plans, copier, pg_wrapper, budget, self.metadata.world_size,
-            rng[0] if rng is not None else None, restore_nonce,
+            rng[0] if rng is not None else None, restore_nonce, fanout_ctx,
         )
 
     # ------------------------------------------------------------------
@@ -688,7 +782,11 @@ def _write_snapshot_metadata(
     storage: StoragePlugin,
     event_loop: asyncio.AbstractEventLoop,
 ) -> None:
-    """The commit marker (rank 0, after every rank's blobs are durable)."""
+    """The commit marker (rank 0, after every rank's blobs are durable).
+    A CAS take first folds every rank's chunk map into the manifest."""
+    from .cas import maybe_rewrite_manifest
+
+    event_loop.run_until_complete(maybe_rewrite_manifest(metadata, storage))
     event_loop.run_until_complete(
         storage.write(
             WriteIO(path=SNAPSHOT_METADATA_FNAME, buf=metadata.to_json().encode("utf-8"))
@@ -937,6 +1035,34 @@ def _batch_reads(read_reqs: List[ReadReq]) -> List[ReadReq]:
     return batch_read_requests(read_reqs)
 
 
+def _execute_load_plan(
+    plan: "_StatefulLoadPlan",
+    storage: StoragePlugin,
+    budget: int,
+    rank: int,
+    event_loop: asyncio.AbstractEventLoop,
+    checksum_table,
+) -> int:
+    """Run one planned stateful load's read pipeline, placing leaves as
+    their reads land, then apply it. Returns the bytes the pipeline
+    read."""
+    placer = _StreamingPlacer()
+    placer.register_plan(plan)
+    pipeline = sync_execute_read_reqs(
+        read_reqs=_batch_reads(plan.read_reqs),
+        storage=storage,
+        memory_budget_bytes=budget,
+        rank=rank,
+        event_loop=event_loop,
+        checksum_table=checksum_table,
+        on_req_complete=placer.on_req_complete,
+    )
+    placer.flush()
+    plan.finish_reads()
+    plan.apply()
+    return int(pipeline["bytes_moved"])
+
+
 def _plan_stateful_load(
     key: str,
     stateful: Stateful,
@@ -1121,6 +1247,7 @@ class PendingSnapshot:
             barrier = _nonce_barrier(f"__snapshot_commit/{self.commit_nonce}", self.pg)
             self._pending_io_work.sync_complete(self._event_loop)
             _write_checksum_table(self._pending_io_work, rank, self._storage, self._event_loop)
+            _maybe_write_cas_map(self._storage, rank, self._event_loop)
             # The store barrier, not a collective: safe on this thread.
             if barrier is not None:
                 barrier.arrive()
@@ -1200,6 +1327,7 @@ class PendingRestore:
         world_size: int,
         rng_key: Optional[str] = None,
         restore_nonce: Optional[str] = None,
+        fanout_ctx=None,
     ) -> None:
         self.path = path
         self._keys = keys
@@ -1211,6 +1339,12 @@ class PendingRestore:
         self._memory_budget_bytes = memory_budget_bytes
         self._rng_key = rng_key
         self._restore_nonce = restore_nonce
+        # Filled by the calling thread's exchange; the background pipeline
+        # serves the exchanged shard blobs from it (no rendezvous off the
+        # calling thread: the bytes already moved).
+        self._fanout_ctx = fanout_ctx
+        # This rank's byte accounting, once the reads finished.
+        self.restore_telemetry: Optional[Dict[str, int]] = None
         self._exc_info: Optional[BaseException] = None
         self._applied = False
         self._done = threading.Event()
@@ -1231,15 +1365,17 @@ class PendingRestore:
             placer = _StreamingPlacer()
             for plan in self._plans.values():
                 placer.register_plan(plan)
-            sync_execute_read_reqs(
+            fanout_ctx = self._fanout_ctx
+            pipeline = sync_execute_read_reqs(
                 read_reqs=_batch_reads([r for plan in self._plans.values() for r in plan.read_reqs]),
-                storage=storage,
+                storage=fanout_ctx.wrap(storage) if fanout_ctx is not None else storage,
                 memory_budget_bytes=self._memory_budget_bytes,
                 rank=self._rank,
                 event_loop=event_loop,
                 checksum_table=checksum_table,
                 on_req_complete=placer.on_req_complete,
             )
+            self.restore_telemetry = _restore_telemetry(int(pipeline["bytes_moved"]), fanout_ctx)
             placer.flush()
             # What did not stream places in one final batch.
             batch = _PlacementBatch(self._copier)
@@ -1251,6 +1387,9 @@ class PendingRestore:
             self._exc_info = e
             logger.error("Async restore failed: %r", e)
         finally:
+            # The exchanged bytes go whether or not the reads succeeded.
+            if self._fanout_ctx is not None:
+                self._fanout_ctx.clear()
             _trace_recorder().end(reads_span)
             event_loop.close()
             self._done.set()

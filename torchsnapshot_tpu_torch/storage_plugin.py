@@ -100,7 +100,8 @@ def url_to_storage_plugin(url_path: str) -> StoragePlugin:
         raise RuntimeError(
             f"Unsupported storage scheme {scheme!r} in {url_path!r}: the "
             f"{scheme}:// plugin of torchsnapshot_tpu is not ported to "
-            f"torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9)"
+            f"torchsnapshot_tpu_torch yet (ROADMAP queue 1 step "
+            f"{'9b' if scheme == 'tiered' else '9d'})"
         )
     raise RuntimeError(
         f"Unsupported storage scheme {scheme!r} in {url_path!r} "

@@ -48,12 +48,12 @@ def faulty_fs_plugin(
     filter by path (data blobs only) or close over a counter. Pair with
     :func:`patch_storage_plugin`. (The JAX package's version rides its
     chaos engine, with corrupting and tearing modes too; the engine comes
-    with ROADMAP queue 1 step 9.)"""
+    with ROADMAP queue 1 step 9b.)"""
     from .storage_plugins.fs import FSStoragePlugin
 
     if mode not in ("fail", "delay"):
         raise NotImplementedError(
-            f"faulty_fs_plugin mode {mode!r} needs the chaos engine (ROADMAP queue 1 step 9)"
+            f"faulty_fs_plugin mode {mode!r} needs the chaos engine (ROADMAP queue 1 step 9b)"
         )
     unknown = set(ops) - {"write", "read", "delete"}
     if unknown:
