@@ -164,6 +164,31 @@ each of which raises on failure (nothing is caught):
    it: the wrapper's host time, and its kernel's card time (CUDA events
    behind a spin kernel that holds the stream while the host queues the
    launch).
+9. **tiered**: the main configuration's loop on a ``tiered://`` root whose
+   fast and durable tiers are two local directories of this machine (the
+   mirror's seconds are a local disk's, not an object store's), through
+   ``CheckpointManager(keep_last_n=3, keep_fast_last_n=1,
+   incremental=True)``: (a) a sync save, an ``async_save`` beside a
+   training step, an incremental save with half the model frozen (on a
+   tiered root it records digests and writes in full, in both packages),
+   a batched save with ``DEVICE_PACK``, each followed by ``wait_durable``:
+   every durable blob byte-identical to its fast copy, the journal
+   complete with the commit marker landed last, and after the eviction
+   pass only the newest step on the fast tier; the step's time alone,
+   beside the async drain and beside the mirror; (b) the restore of an
+   evicted step from the durable tier alone: bit-identical state, logits
+   and next-step loss; (c) one byte flipped in each of 3 fast blobs of
+   the newest step: the restore heals each from the durable tier (the
+   degraded-read counter moves by 3) and is bit-identical, and the same
+   flip on a plain root raises ``ChecksumError``; (d) a chaos plan fails
+   the durable writes after 4 blobs; after a mirror reset a new manager's
+   ``resume_mirrors()`` ships exactly the blobs the journal lacks, commit
+   marker last, and the durable tier alone restores the step; (e) a chunk
+   store on a tiered root: the mirror ships step 2's novel chunks, their
+   bytes equal to its ``cas_bytes_written_total``; (f) the crash matrix's
+   eight smoke points on tiered + CAS with CUDA states. Each leg prints
+   one JSON line. Its digest and pack launches, counted from 0, add to the
+   record's.
 
 The second-to-last line of stdout is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1149,7 +1174,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -1199,10 +1224,10 @@ def main() -> int:
         log(f"phase kernels: {time.monotonic() - t0:.1f} s")
 
     # Launches are counted only in the main path's run, plus the paths of
-    # later slices, each counted from 0 (the digest's: the main and cas
-    # phases'; the pack's: the cas phase's, both ranks' in the sharded
-    # phase and the leaves phase's); without them they were not measured
-    # and the record says null.
+    # later slices, each counted from 0 (the digest's: the main, cas and
+    # tiered phases'; the pack's: the cas phase's, both ranks' in the
+    # sharded phase, the leaves and tiered phases'); without them they were
+    # not measured and the record says null.
     launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
     try:
@@ -1240,6 +1265,12 @@ def main() -> int:
             packs = leaves_phase(args, work_dir, card)["device_pack"]
             launches["device_pack"] = (launches["device_pack"] or 0) + packs
             log(f"phase leaves: {time.monotonic() - t0:.1f} s")
+        if "tiered" in phases:
+            t0 = time.monotonic()
+            tiered = tiered_phase(args, work_dir, card)
+            for name in ("device_digest", "device_pack"):
+                launches[name] = (launches[name] or 0) + tiered[name]
+            log(f"phase tiered: {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -2371,6 +2402,463 @@ def cas_phase(args, work_dir: str, card: str) -> dict:
 
 # The kernels the cas phase must launch.
 CAS_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest", "device_pack")
+
+
+# ---------------------------------------------------------------------------
+# tiered: a fast tier, a durable tier and the mirror between them
+# ---------------------------------------------------------------------------
+
+# The crash matrix's tier-1 smoke points (the JAX package's
+# tests/test_chaos_matrix.py SMOKE_POINTS).
+MATRIX_SMOKE_POINTS = (
+    "take-writes-done", "checksum-table-written", "cas-chunk-written", "cas-map-written",
+    "pre-commit-marker", "commit-marker", "index-backup-written", "refcount-pinned",
+)
+# The kernels the tiered phase must launch.
+TIERED_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest", "device_pack")
+
+
+def _files(top: str) -> dict:
+    """``relative path -> size`` of every file under ``top``."""
+    out = {}
+    for d, _, names in os.walk(top):
+        for n in names:
+            full = os.path.join(d, n)
+            out[os.path.relpath(full, top)] = os.path.getsize(full)
+    return out
+
+
+def _flip_middle_byte(path: str) -> None:
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0x01]))
+
+
+def tiered_phase(args, work_dir: str, card: str) -> dict:
+    """The main configuration's loop on ``tiered://<work>/tiered_fast|
+    <work>/tiered_durable`` (both local directories of this machine: the
+    mirror's seconds are a local disk's, not an object store's) through
+    ``CheckpointManager(keep_last_n=3, keep_fast_last_n=1,
+    incremental=True)``. (a) Four saves with training between them: sync;
+    ``async_save`` beside a step; incremental after freezing half the
+    model; batched with ``DEVICE_PACK``. Each save's seconds, its
+    ``wait_durable`` seconds and what the mirror shipped; the step alone,
+    beside the async drain and beside the mirror; every durable blob
+    byte-identical to its fast copy, the journal complete with the commit
+    marker landed last; after the eviction pass only the newest step on
+    the fast tier. (b) The restore of an evicted step, wholly from the
+    durable tier: bit-identical state, logits and next-step loss. (c) One
+    byte flipped in each of k fast blobs of the newest step: the restore
+    heals each from the durable tier (``storage_degraded_reads_total
+    {tier="durable"}`` moves by k) and is bit-identical; the same flip on
+    a plain root raises ``ChecksumError``. (d) A chaos plan fails the
+    durable writes after n blobs; a new manager's ``resume_mirrors()``
+    after a mirror reset ships exactly the blobs the journal lacks, the
+    commit marker last, byte for byte. (e) A chunk store on a tiered root:
+    the mirror ships a step's novel chunks and nothing of what the durable
+    tier holds. (f) The crash matrix's eight smoke points on tiered + CAS
+    with CUDA states: every point fires and every invariant holds.
+    Returns the phase's launch counts."""
+    from unittest import mock
+
+    import torch
+
+    from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, knobs
+    from torchsnapshot_tpu_torch.chaos.harness import FULL_CONFIG, run_crash_case
+    from torchsnapshot_tpu_torch.integrity import ChecksumError
+    from torchsnapshot_tpu_torch.manager import INDEX_BACKUP_BLOB, INDEX_BLOB
+    from torchsnapshot_tpu_torch.models.transformer import (
+        init_train_state,
+        make_train_step,
+        random_tokens,
+    )
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.storage_plugin import url_to_storage_plugin
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+    from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.test_utils import faulty_fs_plugin
+    from torchsnapshot_tpu_torch.tiered import get_mirror, reset_mirror
+    from torchsnapshot_tpu_torch.tiered.journal import JOURNAL_BACKUP_BLOB, JOURNAL_BLOB
+
+    cfg = main_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
+    state = init_train_state(cfg, seed=args.seed)
+    train_step = make_train_step(cfg)
+    app_state = {"train": state}
+    fast, durable = os.path.join(work_dir, "tiered_fast"), os.path.join(work_dir, "tiered_durable")
+    root = f"tiered://{fast}|{durable}"
+    n_frozen = cfg.n_layers // 2
+    journal_files = (JOURNAL_BLOB, JOURNAL_BACKUP_BLOB)
+
+    def freeze(model) -> None:
+        for p in [model.embed] + [p for blk in model.layers[:n_frozen] for p in blk.parameters()]:
+            p.requires_grad_(False)
+
+    def capture() -> dict:
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in _state_tensors(state).items()}
+
+    def mirrored() -> tuple:
+        m = get_mirror().metrics()
+        return m["bytes_mirrored"], m["blobs_done"]
+
+    def step_dir(tier: str, step: int) -> str:
+        return os.path.join(tier, f"step_{step:010d}")
+
+    def step_step() -> float:
+        """One training step, timed to its own stream's end."""
+        nonlocal state
+        t0 = time.monotonic()
+        state, _ = train_step(state, tokens)
+        torch.cuda.current_stream().synchronize()
+        return time.monotonic() - t0
+
+    saves = {}
+
+    def finish_save(step: int, seconds: float, before: tuple, d2h_before: float, **extra) -> dict:
+        """wait_durable, then the step's durable copy against its fast one
+        (before the next commit's eviction pass drops the fast copy)."""
+        t0 = time.monotonic()
+        mgr.wait_durable(step, timeout=600)
+        wait_s = time.monotonic() - t0
+        shipped = [a - b for a, b in zip(mirrored(), before)]
+        with open(os.path.join(step_dir(fast, step), JOURNAL_BLOB)) as f:
+            journal = json.load(f)
+        on_durable = _files(step_dir(durable, step))
+        _require(set(on_durable) == set(journal["blobs"]), f"save {step}: the durable tier holds other blobs")
+        _require(
+            journal["durable_committed"] and journal["metadata"] == ".snapshot_metadata"
+            and sorted(journal["done"]) == sorted(journal["blobs"]),
+            f"save {step}: the journal is not complete",
+        )
+        for rel in journal["blobs"]:
+            with open(os.path.join(step_dir(fast, step), rel), "rb") as a, open(
+                os.path.join(step_dir(durable, step), rel), "rb"
+            ) as b:
+                _require(a.read() == b.read(), f"save {step}: durable {rel} differs from its fast copy")
+        mtimes = {rel: os.stat(os.path.join(step_dir(durable, step), rel)).st_mtime_ns for rel in on_durable}
+        marker = mtimes.pop(".snapshot_metadata")
+        _require(marker >= max(mtimes.values()), f"save {step}: a durable blob landed after the commit marker")
+        rec = {
+            "s": seconds, "wait_durable_s": wait_s, "mirrored_bytes": shipped[0], "mirrored_blobs": shipped[1],
+            "step_blobs": len(on_durable), "step_bytes": sum(on_durable.values()),
+            "d2h_bytes": _counter(names.DEVICE_TO_HOST_BYTES_TOTAL) - d2h_before, **extra,
+        }
+        saves[step] = rec
+        return rec
+
+    reset_mirror()
+    for counts in (fa.launch_counts, dd.launch_counts, dp.launch_counts):
+        for k in counts:
+            counts[k] = 0
+    mgr = CheckpointManager(root, keep_last_n=3, keep_fast_last_n=1, incremental=True)
+
+    # (a) The managed loop.
+    step_step()
+    torch.cuda.synchronize()
+    step_alone_s = step_step()
+    d2h, before = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL), mirrored()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    mgr.save(1, app_state)
+    save_s = time.monotonic() - t0
+    # A step while the mirror copies step 1.
+    busy = get_mirror().metrics()["snapshots_pending"]
+    step_beside_mirror_s = step_step()
+    busy_after = get_mirror().metrics()["snapshots_pending"]
+    finish_save(1, save_s, before, d2h, mirror_jobs_pending_around_step=[busy, busy_after])
+
+    torch.cuda.synchronize()
+    d2h, before = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL), mirrored()
+    t0 = time.monotonic()
+    pending = mgr.async_save(2, app_state)
+    visible_s = time.monotonic() - t0
+    step_beside_drain_s = step_step()
+    pending.wait()
+    finish_save(2, time.monotonic() - t0, before, d2h, visible_s=visible_s)
+
+    freeze(state.model)
+    step_step()
+    at_3 = capture()
+    with torch.no_grad():
+        logits_3 = state.model(tokens)
+    digests = dd.launch_counts["device_digest"]
+    d2h, before = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL), mirrored()
+    t0 = time.monotonic()
+    mgr.save(3, app_state)
+    finish_save(3, time.monotonic() - t0, before, d2h)
+    # Neither package's incremental take references a base on a tiered
+    # root (``incremental.relative_ref_prefix`` resolves fs, s3 and gs
+    # only), so the save records digests and writes in full.
+    _require(dd.launch_counts["device_digest"] > digests, "the incremental save launched no digest")
+    state, loss_after_3 = train_step(state, tokens)
+
+    at_4 = capture()
+    with torch.no_grad():
+        logits_4 = state.model(tokens)
+    packs = dp.launch_counts["device_pack"]
+    d2h, before = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL), mirrored()
+    with knobs.enable_batching(), knobs.enable_device_pack():
+        t0 = time.monotonic()
+        mgr.save(4, app_state)
+        save_s = time.monotonic() - t0
+    finish_save(4, save_s, before, d2h, pack_launches=dp.launch_counts["device_pack"] - packs)
+    _require(saves[4]["pack_launches"] > 0, "the batched save launched no pack")
+
+    # After step 4's eviction pass the fast tier holds the newest step only.
+    retained = mgr.all_steps()
+    with open(os.path.join(fast, INDEX_BLOB)) as f:
+        index = json.load(f)
+    _require(retained == [2, 3, 4], f"retained {retained}")
+    left = {s: _files(step_dir(fast, s)) for s in (1, 2, 3)}
+    _require(not any(left.values()), f"evicted steps left fast files: {[(s, sorted(v)[:3]) for s, v in left.items() if v]}")
+    _require(
+        index.get("evicted") == sorted(set(retained + index.get("pinned", [])) - {4}),
+        f"the index records evicted {index.get('evicted')}",
+    )
+    fast_4 = {r for r in _files(step_dir(fast, 4)) if r not in journal_files}
+    _require(fast_4 == set(_files(step_dir(durable, 4))), "step 4's fast copy is not whole")
+    leg_a = {
+        "card": card, "saves": saves, "step_alone_s": step_alone_s, "step_beside_drain_s": step_beside_drain_s,
+        "step_beside_mirror_s": step_beside_mirror_s, "retained": retained, "evicted": index.get("evicted"),
+        "pinned": index.get("pinned", []),
+    }
+    for s, rec in saves.items():
+        log(
+            f"tiered (a): save {s} {rec['s']:.3f} s, wait_durable {rec['wait_durable_s']:.3f} s; the mirror shipped "
+            f"{rec['mirrored_bytes'] / 1e6:.3f} MB in {rec['mirrored_blobs']} blobs (the step's own "
+            f"{rec['step_bytes'] / 1e6:.3f} MB in {rec['step_blobs']}, the rest the index); "
+            f"{rec['d2h_bytes'] / 1e6:.3f} MB copied to the host"
+            + (f"; {rec['pack_launches']} pack launches" if "pack_launches" in rec else "")
+        )
+    log(
+        f"tiered (a): step alone {step_alone_s:.3f} s, beside the async drain {step_beside_drain_s:.3f} s, "
+        f"beside the mirror {step_beside_mirror_s:.3f} s (mirror jobs pending at its start and end "
+        f"{saves[1]['mirror_jobs_pending_around_step']}); retained {retained}, evicted from the fast tier "
+        f"{index.get('evicted')}; both tiers local directories; on {card}"
+    )
+    print(json.dumps({"tiered_a": leg_a}), flush=True)
+
+    # (b) Restore the evicted step 3 from the durable tier alone.
+    fresh = init_train_state(cfg, seed=args.seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    snapshot = Snapshot(mgr.step_path(3))
+    snapshot.restore({"train": fresh})
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    _require_same_state(at_3, fresh, "restore of the evicted step 3")
+    _require("degraded_reads" not in snapshot.restore_telemetry, "the durable restore healed a read")
+    with torch.no_grad():
+        logits_b = fresh.model(tokens)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(logits_3).all()) and same_bits(logits_3, logits_b),
+             "evaluation logits differ after the restore of the evicted step")
+    freeze(fresh.model)
+    _, loss_b = train_step(fresh, tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_after_3, loss_b), f"next-step losses differ: {loss_after_3} vs {loss_b}")
+    state_bytes = sum(v.numel() * v.element_size() for v in at_3.values())
+    del at_3, logits_3, logits_b
+    leg_b = {"restore_s": restore_s, "state_bytes": state_bytes, "restore_gb_s": state_bytes / restore_s / 1e9,
+             "next_loss": float(loss_b)}
+    log(
+        f"tiered (b): restore of evicted step 3 from the durable tier {restore_s:.3f} s "
+        f"({leg_b['restore_gb_s']:.2f} GB/s of {state_bytes / 1e6:.3f} MB) bit-identical, logits and next "
+        f"loss {float(loss_b)!r} too; on {card}"
+    )
+    print(json.dumps({"tiered_b": leg_b}), flush=True)
+
+    # (c) Self-healing: one byte flipped in each of k fast blobs of step 4.
+    k = 3
+    own = sorted(
+        (n, r) for r, n in _files(step_dir(fast, 4)).items()
+        if r not in journal_files and not r.startswith((".snapshot_metadata", "checksums"))
+    )
+    victims = [r for _, r in own[-k:]]
+    _require(len(victims) == k, f"step 4 holds {len(own)} data blobs on the fast tier")
+    for rel in victims:
+        _flip_middle_byte(os.path.join(step_dir(fast, 4), rel))
+    healed_before = _counter(names.STORAGE_DEGRADED_READS_TOTAL)
+    fresh2 = init_train_state(cfg, seed=args.seed + 2)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    snapshot = Snapshot(mgr.step_path(4))
+    with knobs.enable_batching():
+        snapshot.restore({"train": fresh2})
+    torch.cuda.synchronize()
+    heal_restore_s = time.monotonic() - t0
+    healed = _counter(names.STORAGE_DEGRADED_READS_TOTAL) - healed_before
+    _require_same_state(at_4, fresh2, "restore of step 4 around corrupt fast blobs")
+    with torch.no_grad():
+        logits_c = fresh2.model(tokens)
+    _require(same_bits(logits_4, logits_c), "evaluation logits differ after the healed restore")
+    _require(healed == k and snapshot.restore_telemetry["tier_split"].keys() == {"durable"},
+             f"{healed} reads healed for {k} corrupt blobs ({snapshot.restore_telemetry})")
+    plain = os.path.join(work_dir, "tiered_plain")
+    Snapshot.take(plain, app_state)
+    plain_victim = max((n, r) for r, n in _files(plain).items() if not r.startswith((".snapshot", "checksums")))[1]
+    _flip_middle_byte(os.path.join(plain, plain_victim))
+    try:
+        Snapshot(plain).restore({"train": fresh2})
+        raised = None
+    except ChecksumError as e:
+        raised = str(e)
+    _require(raised is not None, "the flipped byte on a plain root was served")
+    shutil.rmtree(plain)
+    del fresh, fresh2, logits_4, logits_c
+    leg_c = {"corrupt_blobs": victims, "healed_reads": healed, "restore_s": heal_restore_s,
+             "tier_split": snapshot.restore_telemetry["tier_split"], "plain_root": raised}
+    log(
+        f"tiered (c): {k} fast blobs of step 4 with a flipped byte ({victims}); restore {heal_restore_s:.3f} s "
+        f"bit-identical, {healed:.0f} reads healed from the durable tier "
+        f"({leg_c['tier_split']['durable'] / 1e6:.3f} MB); the plain root raised ChecksumError; on {card}"
+    )
+    print(json.dumps({"tiered_c": leg_c}), flush=True)
+
+    # (d) An interrupted mirror: durable writes fail after n blobs.
+    n = 4
+    writes = {"n": 0}
+
+    def after_n(_path: str) -> bool:
+        writes["n"] += 1
+        return writes["n"] > n
+
+    faulty = faulty_fs_plugin(after_n, ops=("write",), exc_msg="durable outage")
+
+    def faulty_factory(url: str):
+        return faulty(root=url) if url.startswith(durable) else url_to_storage_plugin(url)
+
+    step_step()
+    at_5 = capture()
+    with knobs.override_mirror_progress_window_seconds(0.5), mock.patch(
+        "torchsnapshot_tpu_torch.tiered.mirror.url_to_storage_plugin", side_effect=faulty_factory
+    ):
+        t0 = time.monotonic()
+        mgr.save(5, app_state)
+        save_5_s = time.monotonic() - t0
+        _require(get_mirror().drain(timeout=600), "the failing mirror did not settle")
+        failed = [j for j in get_mirror().jobs_for(step_dir(fast, 5)) if j.error is not None]
+    _require(failed, "the chaos plan did not fail step 5's mirror")
+    with open(os.path.join(step_dir(fast, 5), JOURNAL_BLOB)) as f:
+        journal = json.load(f)
+    done = set(journal["done"])
+    lacking = set(journal["blobs"]) - done
+    _require(len(done) == n and not journal["durable_committed"], f"the journal holds {len(done)} done blobs")
+    reset_mirror()
+    shipped = []
+
+    class Recording(FSStoragePlugin):
+        async def write(self, write_io):
+            shipped.append((self.root, write_io.path))
+            await super().write(write_io)
+
+    def recording_factory(url: str):
+        return Recording(root=url) if url.startswith(durable) else url_to_storage_plugin(url)
+
+    with mock.patch("torchsnapshot_tpu_torch.tiered.mirror.url_to_storage_plugin", side_effect=recording_factory):
+        mgr2 = CheckpointManager(root, keep_last_n=3, keep_fast_last_n=1, incremental=True)
+        t0 = time.monotonic()
+        resumed = mgr2.resume_mirrors()
+        mgr2.wait_durable(5, timeout=600)
+        resume_s = time.monotonic() - t0
+        _require(get_mirror().drain(timeout=600), "the resumed mirror did not settle")
+    step_5 = [p for r, p in shipped if os.path.normpath(r) == os.path.normpath(step_dir(durable, 5))]
+    _require(resumed == [5], f"resume_mirrors resumed {resumed}")
+    _require(sorted(step_5) == sorted(lacking) and step_5[-1] == ".snapshot_metadata",
+             f"the resumed mirror shipped {len(step_5)} blobs, the journal lacked {len(lacking)}")
+    shipped_bytes = sum(os.path.getsize(os.path.join(step_dir(durable, 5), p)) for p in step_5)
+    lacking_bytes = sum(os.path.getsize(os.path.join(step_dir(fast, 5), p)) for p in lacking)
+    for rel in journal["blobs"]:
+        with open(os.path.join(step_dir(fast, 5), rel), "rb") as a, open(
+            os.path.join(step_dir(durable, 5), rel), "rb"
+        ) as b:
+            _require(a.read() == b.read(), f"durable {rel} of step 5 differs from its fast copy")
+    fresh3 = init_train_state(cfg, seed=args.seed + 3)
+    shutil.rmtree(fast)  # the durable tier alone now
+    Snapshot(mgr2.step_path(5)).restore({"train": fresh3})
+    torch.cuda.synchronize()
+    _require_same_state(at_5, fresh3, "restore of step 5 from the durable tier after the resume")
+    del at_5, fresh3
+    leg_d = {"fail_after": n, "save_s": save_5_s, "journal_done": len(done), "journal_blobs": len(journal["blobs"]),
+             "resumed": resumed, "shipped_blobs": len(step_5), "shipped_bytes": shipped_bytes,
+             "lacking_bytes": lacking_bytes, "resume_s": resume_s}
+    _require(shipped_bytes == lacking_bytes, f"shipped {shipped_bytes} bytes, the journal lacked {lacking_bytes}")
+    log(
+        f"tiered (d): durable writes failed after {n} blobs; the journal held {len(done)} of "
+        f"{len(journal['blobs'])} done; a new manager's resume_mirrors() shipped {len(step_5)} blobs "
+        f"({shipped_bytes / 1e6:.3f} MB), exactly those lacking, the commit marker last, in {resume_s:.3f} s "
+        f"with wait_durable; the durable tier alone restores step 5 bit-identical; on {card}"
+    )
+    print(json.dumps({"tiered_d": leg_d}), flush=True)
+
+    # (e) CAS on a tiered root: the mirror ships novel chunks only.
+    cas_fast, cas_durable = os.path.join(work_dir, "tiered_cas_fast"), os.path.join(work_dir, "tiered_cas_durable")
+    reset_mirror()
+    with knobs.enable_cas():
+        cmgr = CheckpointManager(f"tiered://{cas_fast}|{cas_durable}", keep_last_n=2)
+        cmgr.save(1, app_state)
+        cmgr.wait_durable(1, timeout=600)
+        step_step()
+        written, skipped, before = (
+            _counter(names.CAS_BYTES_WRITTEN_TOTAL), _counter(names.MIRROR_CHUNKS_SKIPPED_TOTAL), mirrored(),
+        )
+        t0 = time.monotonic()
+        cmgr.save(2, app_state)
+        cas_save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        cmgr.wait_durable(2, timeout=600)
+        cas_wait_s = time.monotonic() - t0
+        _require(get_mirror().drain(timeout=600), "the mirror did not settle")
+        written = _counter(names.CAS_BYTES_WRITTEN_TOTAL) - written
+        skipped = _counter(names.MIRROR_CHUNKS_SKIPPED_TOTAL) - skipped
+        shipped_bytes = mirrored()[0] - before[0]
+    control = sum(n for r, n in _files(step_dir(cas_fast, 2)).items() if r not in journal_files)
+    index_bytes = sum(os.path.getsize(os.path.join(cas_fast, b)) for b in (INDEX_BLOB, INDEX_BACKUP_BLOB))
+    chunk_bytes = shipped_bytes - control - index_bytes
+    _require(chunk_bytes == written, f"the mirror shipped {chunk_bytes} chunk bytes; step 2 wrote {written} to the store")
+    _require(skipped > 0, "the mirror probed no deduped chunk")
+    fast_chunks, durable_chunks = (_files(os.path.join(t, "chunks")) for t in (cas_fast, cas_durable))
+    fast_chunks.pop(".refcounts.jsonl", None)
+    _require(fast_chunks == durable_chunks, "the tiers hold other chunks")
+    leg_e = {"save_s": cas_save_s, "wait_durable_s": cas_wait_s, "cas_bytes_written": written,
+             "mirrored_chunk_bytes": chunk_bytes, "mirrored_bytes": shipped_bytes, "chunks_skipped": skipped}
+    log(
+        f"tiered (e): CAS step 2 saved in {cas_save_s:.3f} s, durable {cas_wait_s:.3f} s later; the mirror shipped "
+        f"{chunk_bytes / 1e6:.3f} MB of chunks = cas_bytes_written_total {written / 1e6:.3f} MB, skipped "
+        f"{skipped:.0f} chunks the durable tier held; on {card}"
+    )
+    print(json.dumps({"tiered_e": leg_e}), flush=True)
+    shutil.rmtree(cas_fast)
+    shutil.rmtree(cas_durable)
+
+    # (f) The crash matrix's smoke points, tiered + CAS, CUDA states.
+    matrix = {}
+    for point in MATRIX_SMOKE_POINTS:
+        t0 = time.monotonic()
+        result = run_crash_case(os.path.join(work_dir, "matrix"), point, FULL_CONFIG, seed=args.seed, device="cuda")
+        reset_mirror()
+        _require(result.fired and result.ok, result.describe())
+        matrix[point] = {"s": time.monotonic() - t0, "latest_step": result.latest_step}
+    shutil.rmtree(os.path.join(work_dir, "matrix"))
+    log(
+        "tiered (f): crash matrix on tiered + CAS with CUDA states, every point fired and held: "
+        + ", ".join(f"{p} {r['s']:.2f} s (latest {r['latest_step']})" for p, r in matrix.items())
+        + f"; on {card}"
+    )
+    print(json.dumps({"tiered_f": matrix}), flush=True)
+
+    launches = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+    _require(all(launches[k] for k in TIERED_PATH_KERNELS), f"a kernel of the tiered path never launched: {launches}")
+    log(f"tiered: launches {launches}")
+    shutil.rmtree(durable, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------

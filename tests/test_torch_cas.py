@@ -523,13 +523,30 @@ def test_fsck_cas_repair_quarantines_a_damaged_chunk(tmp_path, cas_on, capsys) -
     assert "repair: nothing to do" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv, step", [(["--tier", "fast"], "9b"), (["--stats"], "10")], ids=["tier", "stats"])
-def test_fsck_tier_and_stats_stay_refused(tmp_path, argv, step) -> None:
+@pytest.mark.parametrize("argv, step", [(["--tier", "fast"], None), (["--stats"], "10")], ids=["tier", "stats"])
+def test_fsck_tier_and_stats_stay_refused(tmp_path, argv, step, capsys) -> None:
+    """``--stats`` stays refused (step 10). ``--tier`` is ported: it
+    audits one tier of a ``tiered://`` snapshot, here a CAS one whose data
+    sits in the fast tier's chunk store."""
     from torchsnapshot_tpu_torch.fsck import main as fsck_main
+    from torchsnapshot_tpu_torch.tiered import reset_mirror
 
-    Snapshot.take(str(tmp_path / "s"), _state())
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 step {step}"):
-        fsck_main([str(tmp_path / "s"), *argv])
+    if step is not None:
+        Snapshot.take(str(tmp_path / "s"), _state())
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 step {step}"):
+            fsck_main([str(tmp_path / "s"), *argv])
+        return
+    reset_mirror()
+    try:
+        with knobs.enable_cas():
+            mgr = CheckpointManager(f"tiered://{tmp_path / 'fast'}|{tmp_path / 'durable'}")
+            mgr.save(0, _state())
+            mgr.wait_durable(0, timeout=60)
+    finally:
+        reset_mirror()
+    assert fsck_main([mgr.step_path(0), "--deep", *argv]) == 0
+    assert "OK (deep)" in capsys.readouterr().out
+    assert _chunk_files(tmp_path / "fast") and _chunk_files(tmp_path / "fast") == _chunk_files(tmp_path / "durable")
 
 
 def test_gc_sweeps_stray_unpinned_chunks(tmp_path, no_grace) -> None:
@@ -723,3 +740,107 @@ def test_jax_incremental_takes_over_a_port_cas_base(tmp_path, cas_on) -> None:
     assert referenced_steps(man1) == set()
     assert chunk_refs(man1) == chunk_refs(Snapshot(os.path.join(root, "step_0000000000")).metadata.manifest)
     assert torch.equal(_restored_w(os.path.join(root, "step_0000000001")), _w(offset=4.0))
+
+
+# ---------------------------------------------------------------------------
+# the mirror of a tiered root ships chunks, not steps
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def tiered_root(tmp_path):
+    """``(root URL, fast root dir, durable root dir)`` of a tiered manager
+    root, with a fresh process mirror around the test."""
+    from torchsnapshot_tpu_torch.tiered import reset_mirror
+
+    fast, dur = tmp_path / "fast" / "ckpt", tmp_path / "dur" / "ckpt"
+    reset_mirror()
+    yield f"tiered://{fast}|{dur}", str(fast), str(dur)
+    reset_mirror()
+
+
+def test_mirror_ships_only_novel_chunks(tiered_root, cas_on) -> None:
+    """A second identical step ships only its control blobs: the mirror's
+    one-byte probe finds every data chunk on the durable tier already."""
+    import shutil
+
+    from torchsnapshot_tpu_torch.tiered import get_mirror
+
+    root, fast, dur = tiered_root
+    mgr = CheckpointManager(root, keep_last_n=4)
+    mgr.save(0, _state(offset=6.0))
+    mgr.wait_durable(0)
+    shipped_first = get_mirror().metrics()["bytes_mirrored"]
+    mgr.save(1, _state(offset=6.0))
+    mgr.wait_durable(1)
+    shipped_second = get_mirror().metrics()["bytes_mirrored"] - shipped_first
+    state_bytes = N * 4 + N // 4 * 4
+    assert shipped_first > state_bytes
+    assert shipped_second < state_bytes / 4
+    assert sorted(_chunk_files(dur)) == sorted(_chunk_files(fast))
+    shutil.rmtree(os.path.dirname(fast))
+    dest = _state()
+    assert CheckpointManager(root, keep_last_n=4).restore_latest(dest) == 1
+    assert torch.equal(dest["m"].tree["w"], _w(offset=6.0))
+
+
+def test_mirror_reships_deduped_chunk_missing_from_durable(tiered_root, cas_on) -> None:
+    """A dedup hit writes nothing, but the step's durability covers the
+    chunk: a chunk the durable tier lost rides the next step's mirror job
+    and ships again. The port claims a chunk before its write (ROADMAP
+    queue 3); a claimed chunk still goes to the mirror."""
+    import shutil
+
+    root, fast, dur = tiered_root
+    mgr = CheckpointManager(root, keep_last_n=4)
+    mgr.save(0, _state(offset=8.0))
+    mgr.wait_durable(0)
+    victim = sorted(_chunk_files(dur))[0]
+    os.remove(os.path.join(dur, "chunks", victim))
+    mgr.save(1, _state(offset=8.0))  # identical: pure dedup
+    mgr.wait_durable(1)
+    assert victim in _chunk_files(dur)
+    shutil.rmtree(os.path.dirname(fast))
+    dest = _state()
+    assert CheckpointManager(root, keep_last_n=4).restore_latest(dest) == 1
+    assert torch.equal(dest["m"].tree["w"], _w(offset=8.0))
+
+
+def test_mirror_reships_torn_durable_chunk(tiered_root, cas_on) -> None:
+    """The mirror's probe reads a chunk's last byte, which the key's
+    length names: a truncated durable copy misses it and is overwritten
+    whole."""
+    root, fast, dur = tiered_root
+    mgr = CheckpointManager(root, keep_last_n=4)
+    mgr.save(0, _state(offset=9.0))
+    mgr.wait_durable(0)
+    victim = sorted(_chunk_files(dur))[0]
+    want = nbytes_of_key(victim)
+    with open(os.path.join(dur, "chunks", victim), "r+b") as f:
+        f.truncate(want // 2)
+    mgr.save(1, _state(offset=9.0))
+    mgr.wait_durable(1)
+    assert os.path.getsize(os.path.join(dur, "chunks", victim)) == want
+
+
+def test_fsck_cas_flags_torn_copy_in_one_tier(tiered_root, cas_on) -> None:
+    """A truncated chunk copy on one tier is a finding even when the other
+    tier holds the full bytes; the JAX package's fsck agrees."""
+    from torchsnapshot_tpu.fsck import verify_cas_store as jax_verify_cas_store
+    from torchsnapshot_tpu_torch.fsck import verify_cas_store
+    from torchsnapshot_tpu_torch.tiered import get_mirror
+
+    root, fast, dur = tiered_root
+    mgr = CheckpointManager(root, keep_last_n=4)
+    mgr.save(0, _state(offset=11.0))
+    mgr.wait_durable(0)
+    assert get_mirror().drain(timeout=60)
+    assert verify_cas_store(root).ok and jax_verify_cas_store(root).ok
+    victim = sorted(_chunk_files(dur))[0]
+    with open(os.path.join(dur, "chunks", victim), "r+b") as f:
+        f.truncate(nbytes_of_key(victim) // 2)
+    for report in (verify_cas_store(root), jax_verify_cas_store(root)):
+        assert any(
+            p.kind == "truncated" and victim in p.location and os.path.join(dur, "chunks") in p.detail
+            for p in report.problems
+        ), report.problems

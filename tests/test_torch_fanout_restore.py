@@ -122,16 +122,35 @@ def _owner_read_failure(pg, path: str) -> dict:
     return {"raised": raised, "s": time.monotonic() - t0, "untouched": not dest["m"].tree["w"].any()}
 
 
+def _tiered_heal(pg, url: str, use_async: bool) -> dict:
+    """A tiered restore through fan-out whose fast tier holds one corrupt
+    shard blob: the owner heals it from the durable tier before
+    publishing, so the peer receives good bytes and heals nothing."""
+    os.environ["TORCHSNAPSHOT_TPU_FANOUT_RESTORE"] = "1"
+    dest = {"m": TensorTreeState({"w": torch.zeros(ROWS, COLS)})}
+    if use_async:
+        pending = Snapshot(url, pg=pg).async_restore(dest)
+        pending.wait()
+        telemetry = pending.restore_telemetry
+    else:
+        snapshot = Snapshot(url, pg=pg)
+        snapshot.restore(dest)
+        telemetry = snapshot.restore_telemetry
+    return {"equal": torch.equal(dest["m"].tree["w"], DATA), **telemetry}
+
+
 def fanout_worker(pg, paths: dict) -> dict:
     """Every leg in one spawn of two ranks: counted restores with fan-out
-    on, off (the kill switch) and async, the uneven case, then the owner
-    read failure."""
+    on, off (the kill switch) and async, the uneven case, the owner read
+    failure, then the tiered heals."""
     return {
         "on": _counted_restore(pg, paths["four"], True),
         "off": _counted_restore(pg, paths["four"], False),
         "async": _counted_restore(pg, paths["four"], True, use_async=True),
         "uneven": _uneven_restore(pg, paths["uneven"]),
         "failure": _owner_read_failure(pg, paths["four"]),
+        "heal": _tiered_heal(pg, paths["tiered"], False),
+        "heal_async": _tiered_heal(pg, paths["tiered"], True),
     }
 
 
@@ -181,6 +200,20 @@ def snapshots(tmp_path_factory) -> dict:
     _take_sharded(paths["four"], ROWS, COLS, 4)
     _take_sharded(paths["uneven"], 30, 3, 5)
     _split_to_world2(paths["uneven"])
+    # A mirrored tiered copy of "four" whose fast tier holds one shard
+    # blob with a flipped byte (its size kept: only the digest sees it).
+    import shutil
+
+    for tier in ("fast", "durable"):
+        shutil.copytree(paths["four"], str(root / tier))
+    victim = sorted(sharded_blob_windows(Snapshot(paths["four"]).metadata.manifest))[0]
+    with open(str(root / "fast" / victim), "r+b") as f:
+        f.seek(5)
+        b = f.read(1)
+        f.seek(5)
+        f.write(bytes([b[0] ^ 1]))
+    paths["tiered"] = f"tiered://{root / 'fast'}|{root / 'durable'}"
+    paths["victim"] = victim
     return paths
 
 
@@ -244,6 +277,26 @@ def test_fanout_owner_read_failure_fails_fast(rows) -> None:
         assert f["raised"] is not None, f
         assert f["s"] < 60.0, "a peer blocked to the store timeout"
         assert f["untouched"]
+
+
+@pytest.mark.parametrize("leg", ["heal", "heal_async"])
+def test_fanout_owner_heals_corrupt_fast_blob_before_publishing(snapshots, rows, leg) -> None:
+    """Two ranks restore a tiered root through fan-out, one fast shard
+    blob corrupt: both restore bit for bit, and the blob heals exactly
+    once across the ranks (its owner, from the durable tier, before it
+    publishes): the peer's pipeline never sees bad bytes."""
+    owner = assign_shard_owners(sorted(sharded_blob_windows(Snapshot(snapshots["four"]).metadata.manifest)), 2)[
+        snapshots["victim"]
+    ]
+    nbytes = ROWS * COLS * 4 // 4
+    for rank, r in enumerate(rows):
+        h = r[leg]
+        assert h["equal"] and h["bytes_received"] > 0, h
+        if rank == owner:
+            assert h["degraded_reads"] == {"blobs": 1, "bytes": nbytes}, h
+            assert h["tier_split"] == {"durable": nbytes}
+        else:
+            assert "degraded_reads" not in h, h
 
 
 def test_fanout_failed_round_leaves_no_store_keys() -> None:

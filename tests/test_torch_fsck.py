@@ -211,8 +211,30 @@ def test_module_runs_as_a_program(tmp_path) -> None:
 
 @pytest.mark.parametrize("tier", ["fast", "durable", "peer"])
 def test_tier_audits_refused(tmp_path, tier) -> None:
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 9"):
+    """The per-tier audits of a ``tiered://`` snapshot are ported; only
+    the peer-placement audit still raises, naming its step. A tier of a
+    plain path is a caller's error, as in the JAX package."""
+    from torchsnapshot_tpu_torch.tiered import reset_mirror, wait_durable
+
+    if tier == "peer":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 9b-ii"):
+            verify_snapshot(_take(tmp_path), tier=tier)
+        return
+    with pytest.raises(ValueError, match="requires a tiered:// path"):
         verify_snapshot(_take(tmp_path), tier=tier)
+    url = f"tiered://{tmp_path / 'fast'}|{tmp_path / 'durable'}"
+    reset_mirror()
+    try:
+        Snapshot.take(url, {"model": _module()})
+        wait_durable(url, timeout=60)
+    finally:
+        reset_mirror()
+    report = verify_snapshot(url, deep=True, tier=tier)
+    assert report.ok and report.crcs_verified == report.blobs_checked > 0
+    os.remove(os.path.join(tmp_path, tier, "0", "model", "0.weight"))
+    damaged = verify_snapshot(url, tier=tier)
+    assert [p.kind for p in damaged.problems] == ["missing"]
+    assert verify_snapshot(url).ok  # the composed view reads the other tier
 
 
 # ---------------------------------------------------------------------------

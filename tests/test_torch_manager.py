@@ -28,7 +28,16 @@ from torchsnapshot_tpu_torch import (
     knobs,
     telemetry,
 )
-from torchsnapshot_tpu_torch.chaos import arm, arm_engine, crashpoint
+from torchsnapshot_tpu_torch.chaos import (
+    ChaosEngine,
+    SimulatedCrash,
+    arm,
+    arm_engine,
+    crash_plan,
+    crashpoint,
+    disarm,
+    hits,
+)
 from torchsnapshot_tpu_torch.fsck import verify_snapshot
 from torchsnapshot_tpu_torch.manager import (
     INDEX_BACKUP_BLOB,
@@ -481,6 +490,38 @@ def _tiered(tmp_path):
     return CheckpointManager(f"tiered://{tmp_path / 'fast'}|{tmp_path / 'durable'}")
 
 
+def _tiered_round_trip(tmp_path, monkeypatch):
+    """A tiered root: the step commits on the fast tier, is mirrored, and
+    restores from the durable tier once the fast tier is gone."""
+    import shutil
+
+    from torchsnapshot_tpu_torch.tiered import reset_mirror
+
+    mgr = _tiered(tmp_path)
+    mgr.save(1, _state(1.0))
+    mgr.wait_durable(1, timeout=60)
+    reset_mirror()
+    shutil.rmtree(tmp_path / "fast")
+    fresh = _state(0.0)
+    assert _tiered(tmp_path).restore_latest(fresh) == 1 and torch.equal(_w(fresh), _w(_state(1.0)))
+    assert _index(tmp_path / "durable")["steps"] == [1]
+
+
+def _armed_save_is_killed(tmp_path, monkeypatch):
+    """An armed crash point kills the save there: the step is committed
+    (the point is after its commit marker) but not indexed."""
+    mgr = CheckpointManager(str(tmp_path))
+    engine = arm("index-written")
+    try:
+        with pytest.raises(SimulatedCrash):
+            mgr.save(1, _state(1.0))
+    finally:
+        disarm()
+    assert engine.fired == [("crashpoint", "index-written", "crash")]
+    # The kill came after both index slots landed: the step is indexed.
+    assert CheckpointManager(str(tmp_path)).all_steps() == [1]
+
+
 def _cas_knob(tmp_path, monkeypatch):
     monkeypatch.setenv("TORCHSNAPSHOT_TPU_CAS", "1")
     return CheckpointManager(str(tmp_path))
@@ -499,21 +540,33 @@ def _cdn_knob(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "make, step",
     [
-        (lambda tmp_path, mp: _tiered(tmp_path), "9b"),
+        (_tiered_round_trip, "ported"),
         (_cas_knob, None),
         (_chunk_store_on_disk, None),
         (_cdn_knob, "9c"),
-        (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).wait_durable(0), "9b"),
-        (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).resume_mirrors(), "9b"),
-        (lambda tmp_path, mp: arm("index-written"), "9b"),
+        (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).wait_durable(0), "noop"),
+        (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).resume_mirrors(), "noop"),
+        (_armed_save_is_killed, "ported"),
     ],
     ids=["tiered", "cas", "chunk-store", "cdn", "wait-durable", "resume-mirrors", "crashpoint-arm"],
 )
 def test_unported_features_are_refused(tmp_path, monkeypatch, make, step) -> None:
-    """What is not ported yet raises, naming its ROADMAP step. The chunk
-    store (the ``cas`` and ``chunk-store`` cases) is ported now: a manager
-    with the CAS knob on, or over a root that holds a chunk store, saves
-    into the store and restores from it."""
+    """What is not ported yet raises, naming its ROADMAP step: only the
+    CDN publish side (step 9c) now. The chunk store (the ``cas`` and
+    ``chunk-store`` cases) is ported: a manager with the CAS knob on, or
+    over a root that holds a chunk store, saves into the store and
+    restores from it. So are the tiered root, crash-point arming (both
+    run their behaviour in ``make``) and, on a plain root,
+    ``wait_durable`` / ``resume_mirrors``, which are no-ops there as in
+    the JAX manager: the step was durable at its commit, and there is no
+    mirror to resume."""
+    if step == "ported":
+        make(tmp_path, monkeypatch)
+        return
+    if step == "noop":
+        assert make(tmp_path, monkeypatch) in (None, [])
+        assert not (tmp_path / INDEX_BLOB).exists()
+        return
     if step is None:
         # With the knob (the cas case) the step's data goes to the store;
         # a root holding a store, knob off, is managed in the plain layout.
@@ -544,13 +597,21 @@ def test_knobs_off_and_cdn_topic_alone_are_inert(tmp_path) -> None:
 
 def test_crashpoints_declared_and_unarmed() -> None:
     """The manager's crash points are declared in the CRASH_* registry and
-    are no-ops; arming needs the chaos engine (step 9)."""
+    are no-ops unarmed; an armed engine counts the hits and kills at its
+    plan's point."""
     declared = {v for k, v in vars(names).items() if k.startswith("CRASH_")}
     assert {"index-backup-written", "index-written", "gc-marker-deleted"} <= declared
     for name in declared:
         crashpoint(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 9"):
-        arm_engine(object())
+    arm_engine(ChaosEngine(crash_plan("gc-marker-deleted", after=1)))
+    try:
+        crashpoint("gc-marker-deleted")
+        with pytest.raises(SimulatedCrash):
+            crashpoint("gc-marker-deleted")
+        assert hits("gc-marker-deleted") == 2
+    finally:
+        disarm()
+    crashpoint("gc-marker-deleted")
 
 
 # ---------------------------------------------------------------------------

@@ -111,7 +111,17 @@ def test_fs_overwrite(tmp_path) -> None:
 
 @pytest.mark.parametrize("url", ["s3://bucket/run", "gs://bucket/run", "tiered:///fast|/durable"])
 def test_unported_schemes_name_their_step(url) -> None:
-    with pytest.raises(RuntimeError, match="ROADMAP queue 1 step 9"):
+    """The cloud schemes stay refused (step 9d); ``tiered://`` is ported
+    and composes its two tiers."""
+    if url.startswith("tiered://"):
+        from torchsnapshot_tpu_torch.tiered import TieredStoragePlugin
+
+        plugin = url_to_storage_plugin(url)
+        assert isinstance(plugin, TieredStoragePlugin)
+        assert (plugin.fast_url, plugin.durable_url) == ("/fast", "/durable")
+        assert isinstance(plugin.fast, FSStoragePlugin) and isinstance(plugin.durable, FSStoragePlugin)
+        return
+    with pytest.raises(RuntimeError, match="ROADMAP queue 1 step 9d"):
         url_to_storage_plugin(url)
 
 

@@ -6,8 +6,10 @@ digest live once in a root-level ``chunks/`` directory; manifests
 reference them through parent-relative locations, and the manager
 refcounts them through a crash-safe journal. ``TORCHSNAPSHOT_TPU_CAS=1``
 turns the layout on for new takes; either layout restores everywhere.
-The JAX package's mirror and peer tiers also dedup by chunk key; they
-are not ported yet (ROADMAP queue 1 step 9b).
+On a ``tiered://`` root the store lives on both tiers, and the mirror
+ships only the chunks the durable tier does not hold. The JAX package's
+peer tier also dedups by chunk key; it is not ported yet (ROADMAP queue
+1 step 9b-ii).
 """
 
 from .plugin import (

@@ -123,6 +123,12 @@ class CASStoragePlugin(StoragePlugin):
         if self._has(key, nbytes):
             write_io.variant = "deduped"
             self.records[write_io.path] = (key, nbytes, False)
+            # A tiered root: the dedup hit writes nothing, but this step's
+            # durability covers the chunk, so the mirror gets it too (its
+            # probe of the durable tier skips a chunk held there already).
+            note = getattr(self.inner, "note_written", None)
+            if note is not None:
+                note(chunk_location(key), nbytes)
             registry.counter_inc(metric_names.CAS_CHUNKS_DEDUPED_TOTAL)
             registry.counter_inc(metric_names.CAS_BYTES_DEDUPED_TOTAL, nbytes)
             return
@@ -169,6 +175,9 @@ class CASStoragePlugin(StoragePlugin):
 
     async def read_with_checksum(self, read_io: ReadIO):
         return await self.inner.read_with_checksum(read_io)
+
+    async def read_degraded(self, read_io: ReadIO) -> bool:
+        return await self.inner.read_degraded(read_io)
 
     async def delete(self, path: str) -> None:
         await self.inner.delete(path)

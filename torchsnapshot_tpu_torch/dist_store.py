@@ -365,17 +365,32 @@ _CMD_OP_NAMES = {
 }
 
 
+# The chaos seam (``chaos/engine.py`` ``install_wire_chaos``): when set,
+# every frame in both directions passes through the hook, which may fail,
+# delay, corrupt or drop it. None in production.
+_WIRE_CHAOS = None
+
+
 def send_frame(sock: socket.socket, payload: bytes) -> None:
     """Length-prefixed frame write: the wire framing of the TCP store.
     (The JAX package's wire observatory, which counts these frames, is
     not ported.)"""
+    hook = _WIRE_CHAOS
+    if hook is not None:
+        payload = hook("wire-send", payload)
+        if payload is None:
+            return  # a dropped frame: the receiver waits it out
     sock.sendall(struct.pack("<I", len(payload)) + payload)
 
 
 def recv_frame(sock: socket.socket) -> bytes:
     header = _recv_exact(sock, 4)
     (length,) = struct.unpack("<I", header)
-    return _recv_exact(sock, length)
+    payload = _recv_exact(sock, length)
+    hook = _WIRE_CHAOS
+    if hook is not None:
+        payload = hook("wire-recv", payload)
+    return payload
 
 
 def _recv_exact(sock: socket.socket, n: int) -> bytes:

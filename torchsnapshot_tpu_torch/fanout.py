@@ -85,6 +85,15 @@ class FanoutRestoreContext:
         self.bytes_received = 0
         self.bytes_published = 0
         self.bytes_served = 0
+        # The snapshot's checksum table, set by the restore before the
+        # exchange: an owner verifies each fetched window against it and
+        # heals a corrupt one from another copy (a tiered root's durable
+        # tier) before publishing, so that no peer receives bad bytes.
+        self.checksum_table: Optional[Dict[str, Any]] = None
+        # The owner-side healed reads (scheduler.heal_read's counters).
+        from .scheduler import _PipelineStats
+
+        self.heal_stats = _PipelineStats()
 
     # ------------------------------------------------------------------
     # construction
@@ -309,12 +318,13 @@ class FanoutRestoreContext:
                     async with io_slots:
                         read_io = ReadIO(path=loc, byte_range=(lo, hi))
                         await storage.read(read_io)
-                    if read_io.buf is None:
-                        raise RuntimeError(
-                            f"storage plugin {type(storage).__name__} "
-                            f"completed read() without populating the "
-                            f"buffer for {loc!r}"
-                        )
+                        if read_io.buf is None:
+                            raise RuntimeError(
+                                f"storage plugin {type(storage).__name__} "
+                                f"completed read() without populating the "
+                                f"buffer for {loc!r}"
+                            )
+                        await self._verify_or_heal(storage, read_io)
                     data = bytes(read_io.buf)
                 except BaseException as e:  # noqa: BLE001 - ship to peers
                     # The error rides the data channel itself (on top
@@ -422,6 +432,33 @@ class FanoutRestoreContext:
             if consumed:
                 self.store.multi_delete(consumed)
         return cached
+
+    async def _verify_or_heal(self, storage: StoragePlugin, read_io: ReadIO) -> None:
+        """Verify an owner's fetched window against the checksum table
+        (every page it covers fully) and heal it through the plugin's
+        ladder on a mismatch; raise when no copy verifies."""
+        entry = self.checksum_table.get(read_io.path) if self.checksum_table else None
+        if entry is None:
+            return
+        from .integrity import ChecksumError, verify_checksum, verify_range_checksum
+        from .scheduler import heal_read
+
+        lo, hi = read_io.byte_range
+        whole = lo == 0 and hi == entry[2]
+
+        def check(buf) -> None:
+            if whole:
+                verify_checksum(buf, entry, read_io.path)
+            else:
+                verify_range_checksum(buf, entry, read_io.byte_range, read_io.path)
+
+        async def verify(buf) -> None:
+            await asyncio.get_running_loop().run_in_executor(None, check, buf)
+
+        try:
+            await verify(read_io.buf)
+        except ChecksumError as first_err:
+            await heal_read(storage, read_io, verify, first_err, self.heal_stats)
 
     def drop(self, locations: List[str]) -> None:
         """Release a round's cached bytes once its pipeline consumed

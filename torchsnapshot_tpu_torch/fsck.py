@@ -18,26 +18,33 @@ checksum entries sit in the tables under those locations, so a broken
 chain (a GC'd base, a missing chunk) is caught here instead of at
 restore time.
 
+``--tier fast|durable`` audits one tier of a ``tiered://`` path (the
+default is the composed view, each blob read fast first with the
+durable fallback, as a restore reads it); the durable tier of a step
+whose mirror has not finished reports an ``unmirrored`` problem with the
+journal's progress.
+
 ``--cas`` treats the path as a manager root and audits its chunk store
 (:func:`verify_cas_store`): every chunk a committed or pinned step names
-exists with the length its key claims (``--deep``: bytes matching the
-key's CRC), and unreferenced chunks are listed without failing the
-audit. ``--repair`` first rebuilds damaged copies from a copy that
-verifies (:func:`repair_cas_store`, :func:`repair_snapshot`); a root has
-one tier here, so a damaged chunk has no other copy and is moved to
-``chunks/.quarantine/``, where its refs dangle loudly.
+exists, in every tier that holds it, with the length its key claims
+(``--deep``: bytes matching the key's CRC, per tier copy), and
+unreferenced chunks are listed without failing the audit. ``--repair``
+first rebuilds damaged copies from a tier whose copy verifies
+(:func:`repair_cas_store`, :func:`repair_snapshot`); a chunk that no tier
+holds intact is moved to ``chunks/.quarantine/``, where its refs dangle
+loudly.
 
 CLI::
 
-    python -m torchsnapshot_tpu_torch.fsck PATH [--deep] [--cas] [--repair]
+    python -m torchsnapshot_tpu_torch.fsck PATH [--deep] [--cas] [--repair] [--tier fast|durable]
 
 exits 0 when the snapshot (or the store) is sound, 1 otherwise, printing
 one line per problem.
 
-Not ported yet, and refused: the per-tier and peer-placement audits
-(``--tier``, ROADMAP queue 1 step 9b) and the telemetry summary
-(``--stats``, step 10). The JAX package's repair also posts a ledger
-event; the run ledger comes with step 10.
+Not ported yet, and refused: the peer-placement audit (``--tier peer``,
+ROADMAP queue 1 step 9b-ii) and the telemetry summary (``--stats``, step
+10). The JAX package's repair also posts a ledger event; the run ledger
+comes with step 10.
 """
 
 from __future__ import annotations
@@ -61,8 +68,9 @@ from .manifest import (
     is_container_entry,
 )
 from .serialization import array_size_bytes
+from .io_types import WriteIO
 from .snapshot import SNAPSHOT_METADATA_FNAME
-from .storage_plugin import url_to_storage_plugin
+from .storage_plugin import split_tiered_url, url_to_storage_plugin
 
 logger: logging.Logger = logging.getLogger(__name__)
 
@@ -271,23 +279,57 @@ async def _check_blob(
         )
 
 
+def _describe_partial_mirror(tiered_path: str, event_loop: asyncio.AbstractEventLoop) -> Optional[str]:
+    """For a tiered snapshot whose durable tier lacks the commit marker:
+    the mirror's progress from the fast tier's journal, or None when there
+    is no journal (nothing committed, or the mirror never started)."""
+    tiers = split_tiered_url(tiered_path)
+    if tiers is None:
+        return None
+    from .tiered.journal import MirrorJournal
+
+    fast = url_to_storage_plugin(tiers[0])
+    try:
+        journal = event_loop.run_until_complete(MirrorJournal.load(fast))
+    finally:
+        event_loop.run_until_complete(fast.close())
+    if journal is None:
+        return None
+    return (
+        f"mirror in progress: {len(journal.done)} of {len(journal.blobs)} blobs "
+        f"durable (journal in the fast tier resumes the upload)"
+    )
+
+
 def verify_snapshot(path: str, deep: bool = False, tier: Optional[str] = None) -> FsckReport:
     """Audit one committed snapshot. Never raises for snapshot damage:
     every problem lands in the report (a path that is not a snapshot at
     all yields a report with the metadata problem recorded).
 
-    ``tier`` selects a tier of a ``tiered://`` path or the peer-RAM
-    placement journal; neither is ported yet (ROADMAP queue 1 step 9b),
-    so any value but None raises."""
-    if tier is not None:
+    ``tier`` (``tiered://`` paths only) restricts the audit to one tier,
+    ``"fast"`` or ``"durable"``; the default audits the composed view.
+    The durable tier of a step whose mirror has not finished reports an
+    ``unmirrored`` problem with the journal's progress instead of a bare
+    missing commit marker. ``"peer"``, the JAX package's audit of the
+    peer-RAM placement journal, is not ported yet (ROADMAP queue 1 step
+    9b-ii) and raises."""
+    audit_path = path
+    if tier == "peer":
         raise NotImplementedError(
-            f"fsck tier={tier!r}: the tiered and peer audits are not ported to "
-            "torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9b)"
+            "fsck tier='peer': the peer-tier placement audit is not ported to "
+            "torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9b-ii)"
         )
+    if tier is not None:
+        tiers = split_tiered_url(path)
+        if tiers is None:
+            raise ValueError(f"tier={tier!r} requires a tiered:// path, got {path!r}")
+        if tier not in ("fast", "durable"):
+            raise ValueError(f"tier must be 'fast', 'durable' or 'peer', got {tier!r}")
+        audit_path = tiers[0] if tier == "fast" else tiers[1]
     problems: List[FsckProblem] = []
     event_loop = asyncio.new_event_loop()
     try:
-        storage = url_to_storage_plugin(path)
+        storage = url_to_storage_plugin(audit_path)
         try:
             read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
             try:
@@ -296,13 +338,17 @@ def verify_snapshot(path: str, deep: bool = False, tier: Optional[str] = None) -
                     bytes(read_io.buf).decode("utf-8")
                 )
             except FileNotFoundError:
-                problems.append(
-                    FsckProblem(
-                        SNAPSHOT_METADATA_FNAME,
-                        "missing",
-                        "no commit marker: not a committed snapshot",
+                partial = _describe_partial_mirror(path, event_loop) if tier == "durable" else None
+                if partial is not None:
+                    problems.append(FsckProblem(SNAPSHOT_METADATA_FNAME, "unmirrored", partial))
+                else:
+                    problems.append(
+                        FsckProblem(
+                            SNAPSHOT_METADATA_FNAME,
+                            "missing",
+                            "no commit marker: not a committed snapshot",
+                        )
                     )
-                )
                 return FsckReport(path, 0, 0, problems, deep)
             except Exception as e:  # noqa: BLE001
                 problems.append(
@@ -390,32 +436,43 @@ class CasStoreReport:
 
 @dataclasses.dataclass
 class RepairReport:
-    """What ``fsck --repair`` did: ``quarantined`` lists the chunks whose
-    bytes no longer match their key, moved to ``chunks/.quarantine/`` so
-    that a later restore fails loudly instead of serving rot;
-    ``unrepairable`` lists the damage with no copy to rebuild from. The
-    JAX package also rewrites a damaged copy on one tier of a
-    ``tiered://`` root from the other; a root here has one copy of each
-    chunk."""
+    """What ``fsck --repair`` did: ``rewritten`` maps a damaged copy to
+    the tier (directory or name) whose verifying copy replaced it;
+    ``quarantined`` lists the chunks no tier holds intact, every copy
+    moved to ``chunks/.quarantine/`` so that a later restore fails loudly
+    instead of serving rot; ``unrepairable`` lists the damage with no copy
+    to rebuild from."""
 
     target: str
+    rewritten: Dict[str, str] = dataclasses.field(default_factory=dict)
     quarantined: List[str] = dataclasses.field(default_factory=list)
     unrepairable: List[FsckProblem] = dataclasses.field(default_factory=list)
     checked: int = 0
 
     @property
     def acted(self) -> bool:
-        return bool(self.quarantined)
+        return bool(self.rewritten or self.quarantined)
 
 
 QUARANTINE_DIRNAME = ".quarantine"
 
 
-def _present_chunks(root: str) -> Dict[str, int]:
-    """``key -> size`` of the chunk files in the root's store."""
+def _present_chunks(root: str) -> Dict[str, Dict[str, int]]:
+    """The chunk files of the root's store in every local tier (fast and
+    durable for a ``tiered://`` root of local directories): ``key ->
+    {chunk directory: size}``. Sizes stay per copy, so that a torn copy
+    on one tier is a finding even when the other tier holds the bytes."""
     from .cas import CASStore, local_chunks_dir
 
-    return CASStore(root).list_chunks() if local_chunks_dir(root) else {}
+    tiers = split_tiered_url(root)
+    present: Dict[str, Dict[str, int]] = {}
+    for url in tiers if tiers is not None else (root,):
+        chunk_dir = local_chunks_dir(url)
+        if chunk_dir is None:
+            continue
+        for key, size in CASStore(url).list_chunks().items():
+            present.setdefault(key, {})[chunk_dir] = size
+    return present
 
 
 def _root_chunk_refs(root: str, on_error) -> Tuple[List[int], Dict[str, int], int]:
@@ -460,16 +517,15 @@ def _root_chunk_refs(root: str, on_error) -> Tuple[List[int], Dict[str, int], in
     return steps, referenced, logical_bytes
 
 
-def _chunk_ok(root: str, key: str) -> bool:
+def _chunk_copy_ok(path: str, key: str) -> bool:
     """One chunk file against its self-describing key: size, and the
     whole-blob CRC streamed in bounded pieces."""
-    from .cas import local_chunks_dir, parse_key
+    from .cas import parse_key
 
     parsed = parse_key(key)
     if parsed is None:
         return False
     alg, want_n, want_crc = parsed
-    path = os.path.join(local_chunks_dir(root), key)
     try:
         if os.path.getsize(path) != want_n:
             return False
@@ -492,8 +548,9 @@ def _chunk_ok(root: str, key: str) -> bool:
 
 def verify_cas_store(root: str, deep: bool = False) -> CasStoreReport:
     """Audit one manager root's chunk store against its committed and
-    pinned steps' manifests. Never raises for store damage: every problem
-    lands in the report."""
+    pinned steps' manifests, every tier's copy on its own (a good fast
+    copy must not mask a damaged durable one). Never raises for store
+    damage: every problem lands in the report."""
     from .cas import CHUNKS_DIRNAME, nbytes_of_key
 
     problems: List[FsckProblem] = []
@@ -510,74 +567,176 @@ def verify_cas_store(root: str, deep: bool = False) -> CasStoreReport:
                     "chunk referenced by a committed manifest is absent from the store (dangling ref)",
                 )
             )
-        elif want is not None and present[key] != want:
+            continue
+        torn = [(d, n) for d, n in sorted(present[key].items()) if want is not None and n != want]
+        for chunk_dir, size in torn:
             problems.append(
                 FsckProblem(
                     location, "truncated",
-                    f"digest key claims {want} bytes, {present[key]} stored (torn chunk write)",
+                    f"digest key claims {want} bytes, {size} stored in {chunk_dir} (torn chunk write)",
                 )
             )
-        elif deep:
-            if _chunk_ok(root, key):
-                crcs_verified += 1
-            else:
-                problems.append(FsckProblem(location, "checksum", "bytes do not match the digest key"))
+        if torn or not deep:
+            continue
+        bad = [d for d in sorted(present[key]) if not _chunk_copy_ok(os.path.join(d, key), key)]
+        for chunk_dir in bad:
+            problems.append(
+                FsckProblem(
+                    location, "checksum",
+                    f"bytes do not match the digest key in {chunk_dir} "
+                    "(fsck --repair rebuilds from a verifying tier)",
+                )
+            )
+        if not bad:
+            crcs_verified += 1
     return CasStoreReport(
         root=root,
         steps=steps,
         chunks_present=len(present),
-        stored_bytes=sum(present.values()),
+        stored_bytes=sum(max(copies.values()) for copies in present.values()),
         chunks_referenced=len(referenced),
         logical_bytes=logical_bytes,
         problems=problems,
-        unreferenced={k: n for k, n in sorted(present.items()) if k not in referenced},
+        unreferenced={
+            k: max(copies.values()) for k, copies in sorted(present.items()) if k not in referenced
+        },
         deep=deep,
         crcs_verified=crcs_verified,
     )
 
 
 def repair_cas_store(root: str) -> RepairReport:
-    """Chunk repair: every chunk a committed manifest references is
-    verified against its key, and one whose bytes do not match is moved
-    to ``chunks/.quarantine/<key>``: a dangling ref that a later restore
-    fails on loudly, rather than corrupt bytes served."""
-    from .cas import local_chunks_dir
-
+    """Cross-tier chunk repair: each tier's copy of every chunk a
+    committed manifest references is verified against its key; a damaged
+    copy is rewritten from a tier whose copy verifies, and a chunk with
+    no verifying copy has every copy moved to ``chunks/.quarantine/<key>``:
+    a dangling ref that a later restore fails on loudly, rather than
+    corrupt bytes served."""
     report = RepairReport(target=root)
     _, referenced, _ = _root_chunk_refs(root, lambda problem: None)
     present = _present_chunks(root)
     for key in sorted(set(referenced) & set(present)):
         report.checked += 1
-        if _chunk_ok(root, key):
+        status = {d: _chunk_copy_ok(os.path.join(d, key), key) for d in sorted(present[key])}
+        good = [d for d, ok in status.items() if ok]
+        bad = [d for d, ok in status.items() if not ok]
+        if not bad:
             continue
-        chunk_dir = local_chunks_dir(root)
-        os.makedirs(os.path.join(chunk_dir, QUARANTINE_DIRNAME), exist_ok=True)
-        os.replace(os.path.join(chunk_dir, key), os.path.join(chunk_dir, QUARANTINE_DIRNAME, key))
+        if good:
+            with open(os.path.join(good[0], key), "rb") as f:
+                data = f.read()
+            for chunk_dir in bad:
+                dst = os.path.join(chunk_dir, key)
+                tmp = dst + ".repair-tmp"
+                with open(tmp, "wb") as f:
+                    f.write(data)
+                os.replace(tmp, dst)
+                report.rewritten[f"{chunk_dir}/{key}"] = good[0]
+            continue
+        for chunk_dir in bad:
+            os.makedirs(os.path.join(chunk_dir, QUARANTINE_DIRNAME), exist_ok=True)
+            os.replace(os.path.join(chunk_dir, key), os.path.join(chunk_dir, QUARANTINE_DIRNAME, key))
         report.quarantined.append(key)
         report.unrepairable.append(
-            FsckProblem(f"chunks/{key}", "checksum", "no copy verifies; quarantined (chunks/.quarantine/)")
+            FsckProblem(
+                f"chunks/{key}", "checksum",
+                "no tier holds a verifying copy; all copies quarantined (chunks/.quarantine/)",
+            )
         )
     for key in sorted(set(referenced) - set(present)):
         report.unrepairable.append(
             FsckProblem(
-                f"chunks/{key}", "missing", "referenced chunk absent (dangling ref); nothing to rebuild from"
+                f"chunks/{key}", "missing",
+                "referenced chunk absent from every tier (dangling ref); nothing to rebuild from",
             )
         )
     return report
 
 
 def repair_snapshot(path: str) -> RepairReport:
-    """Repair of one snapshot's step-local blobs. The JAX package rewrites
-    a damaged copy on one tier of a ``tiered://`` path from the other;
-    every path here has one tier, so there is nothing to rebuild from and
-    the report is empty (a restore or a deep fsck still fails loudly on
-    the damage). Chunk refs belong to :func:`repair_cas_store`."""
-    return RepairReport(target=path)
+    """Cross-tier repair of one committed snapshot's step-local blobs
+    (``tiered://`` paths): every blob with a recorded digest is verified
+    per tier, and a damaged copy is rewritten from the tier whose copy
+    verifies. Parent-relative locations are skipped: incremental refs
+    belong to their origin step, chunk refs to :func:`repair_cas_store`.
+    A path of one tier has nothing to rebuild from, and its report is
+    empty (a restore or a deep fsck still fails loudly on the damage)."""
+    from .integrity import verify_checksum
+
+    report = RepairReport(target=path)
+    tiers = split_tiered_url(path)
+    event_loop = asyncio.new_event_loop()
+    try:
+        storage = url_to_storage_plugin(path)
+        try:
+            read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
+            try:
+                event_loop.run_until_complete(storage.read(read_io))
+                metadata = SnapshotMetadata.from_yaml(bytes(read_io.buf).decode("utf-8"))
+            except Exception as e:  # noqa: BLE001
+                report.unrepairable.append(FsckProblem(SNAPSHOT_METADATA_FNAME, "unreadable", repr(e)))
+                return report
+            table = load_checksum_tables(metadata.world_size, storage, event_loop)
+        finally:
+            event_loop.run_until_complete(storage.close())
+        if tiers is None:
+            return report  # one tier: nothing to rebuild from
+        if not table:
+            report.unrepairable.append(
+                FsckProblem(
+                    SNAPSHOT_METADATA_FNAME, "unreadable",
+                    "no checksum tables: repair cannot judge which copy is sound",
+                )
+            )
+            return report
+        locations = sorted(
+            loc for loc in blob_requirements(metadata.manifest) if not loc.startswith("../") and loc in table
+        )
+        tier_plugins = {name: url_to_storage_plugin(url) for name, url in zip(("fast", "durable"), tiers)}
+        try:
+            for loc in locations:
+                report.checked += 1
+                good: Optional[bytes] = None
+                bad: List[str] = []
+                for name, plugin in tier_plugins.items():
+                    tier_io = ReadIO(path=loc)
+                    try:
+                        event_loop.run_until_complete(plugin.read(tier_io))
+                        data: Optional[bytes] = bytes(tier_io.buf)
+                    except FileNotFoundError:
+                        continue  # absent here (evicted or not mirrored): fine
+                    except Exception:  # noqa: BLE001
+                        data = None
+                    try:
+                        if data is None:
+                            raise ValueError("unreadable")
+                        verify_checksum(data, table[loc], loc)
+                        good = data if good is None else good
+                    except Exception:  # noqa: BLE001 - damage
+                        bad.append(name)
+                if not bad:
+                    continue
+                if good is None:
+                    report.unrepairable.append(
+                        FsckProblem(loc, "checksum", f"no tier holds a verifying copy (damaged: {sorted(bad)})")
+                    )
+                    continue
+                for name in bad:
+                    event_loop.run_until_complete(tier_plugins[name].write(WriteIO(path=loc, buf=good)))
+                    report.rewritten[f"{name}:{loc}"] = "cross-tier"
+        finally:
+            for plugin in tier_plugins.values():
+                event_loop.run_until_complete(plugin.close())
+    finally:
+        event_loop.close()
+    return report
 
 
 def _print_repair(report: RepairReport) -> None:
+    for loc, src in sorted(report.rewritten.items()):
+        print(f"FSCK repaired: {loc}: rewritten from {src}")
     for key in report.quarantined:
-        print(f"FSCK quarantined: chunks/{key}: no copy verified; moved to chunks/{QUARANTINE_DIRNAME}/")
+        print(f"FSCK quarantined: chunks/{key}: no tier verified; moved to chunks/{QUARANTINE_DIRNAME}/")
     for prob in report.unrepairable:
         print(f"FSCK unrepairable: {prob.location}: {prob.detail}")
     if not report.acted and not report.unrepairable:
@@ -639,10 +798,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument(
         "--repair",
         action="store_true",
-        help="before the audit, rebuild damaged copies from a copy that verifies (with --cas: "
-        "quarantine chunks with none)",
+        help="before the audit, rebuild damaged copies from a tier whose copy verifies (with --cas: "
+        "per-tier chunk repair, quarantining chunks with no verifying copy; without: the step-local "
+        "blobs of a tiered:// snapshot)",
     )
-    p.add_argument("--tier", default=None, help="not ported yet (ROADMAP queue 1 step 9b)")
+    p.add_argument(
+        "--tier",
+        choices=("fast", "durable", "peer"),
+        default=None,
+        help="for tiered:// paths: audit only this tier (default: the composed view, each blob "
+        "fast first with the durable fallback); 'peer' is not ported yet (ROADMAP queue 1 step 9b-ii)",
+    )
     p.add_argument("--stats", action="store_true", help="not ported yet (ROADMAP queue 1 step 10)")
     args = p.parse_args(argv)
     if args.stats:

@@ -3,9 +3,9 @@
 The knobs this package reads, under the same ``TORCHSNAPSHOT_TPU_`` names
 as torchsnapshot_tpu's, so one environment configures both packages.
 Values are read lazily on every call so tests and subprocesses can flip
-them at any time. Knobs of subsystems not ported yet (tiered storage, SLO,
-bundles, the autotuner, ...) come with those subsystems; the CDN knob is
-here only so that the manager can refuse it.
+them at any time. Knobs of subsystems not ported yet (SLO, bundles, the
+autotuner, ...) come with those subsystems; the CDN knob is here only so
+that the manager can refuse it.
 """
 
 from __future__ import annotations
@@ -40,6 +40,9 @@ _MAX_SHARD_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_MAX_SHARD_SIZE_BYTES"
 _SLAB_SIZE_THRESHOLD_BYTES_ENV = "TORCHSNAPSHOT_TPU_SLAB_SIZE_THRESHOLD_BYTES"
 _ENABLE_BATCHING_ENV = "TORCHSNAPSHOT_TPU_ENABLE_BATCHING"
 _DEVICE_PACK_ENV = "TORCHSNAPSHOT_TPU_DEVICE_PACK"
+_MIRROR_IO_CONCURRENCY_ENV = "TORCHSNAPSHOT_TPU_MIRROR_IO_CONCURRENCY"
+_MIRROR_PROGRESS_WINDOW_ENV = "TORCHSNAPSHOT_TPU_MIRROR_PROGRESS_WINDOW_SECONDS"
+_WAIT_DURABLE_TIMEOUT_ENV = "TORCHSNAPSHOT_TPU_WAIT_DURABLE_TIMEOUT_SECONDS"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_MEMORY_BUDGET_FRACTION: float = 0.6
@@ -55,6 +58,7 @@ _DEFAULT_STORE_SHARDS: int = 1
 _DEFAULT_MAX_SHARD_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES: int = 128 * 1024 * 1024
 _DEFAULT_CAS_GC_GRACE_SECONDS: float = 900.0
+_DEFAULT_WAIT_DURABLE_TIMEOUT_SECONDS: float = 1800.0
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -248,6 +252,37 @@ def get_store_shards() -> int:
     return max(1, _get_int_env(_STORE_SHARDS_ENV, _DEFAULT_STORE_SHARDS))
 
 
+def get_mirror_io_concurrency() -> int:
+    """Concurrent blob copies inside the tiered mirror; defaults to the
+    per-rank I/O concurrency (the mirror contends with the next take's
+    fast-tier writes)."""
+    val = os.environ.get(_MIRROR_IO_CONCURRENCY_ENV)
+    if val is not None:
+        return int(val)
+    return get_per_rank_io_concurrency()
+
+
+def get_mirror_progress_window_seconds() -> float:
+    """Collective-progress retry window of the mirror's durable copies
+    (``storage_plugins/retry.py``: any completed copy pushes the shared
+    deadline out)."""
+    val = os.environ.get(_MIRROR_PROGRESS_WINDOW_ENV)
+    if val is not None:
+        return float(val)
+    from .storage_plugins.retry import DEFAULT_PROGRESS_WINDOW_SECONDS
+
+    return DEFAULT_PROGRESS_WINDOW_SECONDS
+
+
+def get_wait_durable_timeout_seconds() -> float:
+    """Deadline of ``wait_durable`` (manager and mirror) when the caller
+    gives none; <= 0 waits without a bound."""
+    val = os.environ.get(_WAIT_DURABLE_TIMEOUT_ENV)
+    if val is not None:
+        return float(val)
+    return _DEFAULT_WAIT_DURABLE_TIMEOUT_SECONDS
+
+
 @contextlib.contextmanager
 def _override_env(name: str, value: Optional[str]) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -363,4 +398,16 @@ def enable_batching() -> Generator[None, None, None]:
 @contextlib.contextmanager
 def enable_device_pack() -> Generator[None, None, None]:
     with _override_env(_DEVICE_PACK_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def override_mirror_progress_window_seconds(seconds: float) -> Generator[None, None, None]:
+    with _override_env(_MIRROR_PROGRESS_WINDOW_ENV, str(seconds)):
+        yield
+
+
+@contextlib.contextmanager
+def override_wait_durable_timeout_seconds(seconds: float) -> Generator[None, None, None]:
+    with _override_env(_WAIT_DURABLE_TIMEOUT_ENV, str(seconds)):
         yield

@@ -45,11 +45,22 @@ which heals a crash between a chunk write and its pin. GC is driven by
 what the root holds, not by the knob: a root with CAS steps keeps
 refcounted GC with ``TORCHSNAPSHOT_TPU_CAS`` off.
 
-Not ported yet, and refused rather than skipped: ``tiered://`` roots with
-``wait_durable`` / ``resume_mirrors`` (ROADMAP queue 1 step 9b), the CDN
-publish side (step 9c). The JAX manager's telemetry hooks (run ledger,
+Tiered roots (``tiered://<fast>|<durable>``): every step commits on the
+fast tier and the mirror copies it to the durable tier in the background;
+the index itself is mirrored after the step's blobs. ``keep_fast_last_n``
+drops the fast copy of retained steps older than the newest N once they
+are durable (never before: eviction waits for the durable commit marker),
+and records them in the index's ``evicted`` list; they restore through
+the per-blob durable fallback. ``wait_durable(step)`` blocks until the
+durable tier alone could serve the step (its commit marker, and an index
+that names it), bounded by ``TORCHSNAPSHOT_TPU_WAIT_DURABLE_TIMEOUT_SECONDS``;
+``resume_mirrors()`` re-enqueues the mirrors a restart interrupted. On a
+plain root both are no-ops, as in the JAX manager.
+
+Not ported yet, and refused rather than skipped: the CDN publish side
+(ROADMAP queue 1 step 9c). The JAX manager's telemetry hooks (run ledger,
 SLO evaluation, autotuner, step and restore history) come with step 10;
-the peer tier with step 9b.
+the peer tier (``keep_peer_last_n``) with step 9b-ii, inert until then.
 """
 
 from __future__ import annotations
@@ -122,7 +133,8 @@ async def read_index_full_async(storage: StoragePlugin) -> Dict[str, Any]:
     must not brick the manager; whichever slot survives is valid, at
     worst one save stale. Returns ``{"steps": [...], "refs": {step:
     [origin steps]}, "pinned": [...], "metrics": {step: score},
-    "refs_complete": bool}``."""
+    "evicted": [...], "refs_complete": bool}`` (``evicted``: steps whose
+    fast-tier copy retention dropped, on a tiered root)."""
     io_failed: List[str] = []
     corrupt: List[str] = []
     for slot in (INDEX_BLOB, INDEX_BACKUP_BLOB):
@@ -149,6 +161,7 @@ async def read_index_full_async(storage: StoragePlugin) -> Dict[str, Any]:
                 "metrics": {
                     str(int(k)): float(v) for k, v in raw.get("metrics", {}).items()
                 },
+                "evicted": sorted(int(s) for s in raw.get("evicted", [])),
                 # Indexes with committed steps but without the marker may
                 # predate incremental-ref recording: a missing refs entry
                 # there means "unknown", and GC must verify before
@@ -170,7 +183,9 @@ async def read_index_full_async(storage: StoragePlugin) -> Dict[str, Any]:
             f"(io_failed={io_failed!r}, corrupt={corrupt!r}); "
             "refusing to treat the step list as empty"
         )
-    return {"steps": [], "refs": {}, "pinned": [], "metrics": {}, "refs_complete": True}
+    return {
+        "steps": [], "refs": {}, "pinned": [], "metrics": {}, "evicted": [], "refs_complete": True,
+    }
 
 
 class _PendingManagedSnapshot:
@@ -243,10 +258,9 @@ class CheckpointManager:
         cdn_topic: Optional[str] = None,
         cdn_store: Optional[Any] = None,
     ) -> None:
-        # keep_fast_last_n, keep_peer_last_n, cdn_topic and cdn_store keep
-        # the JAX manager's signature. The tiered and CDN planes they
-        # configure are refused below; the peer tier is inert in one
-        # process, and a topic without the CDN knob publishes nothing.
+        # keep_peer_last_n, cdn_topic and cdn_store keep the JAX manager's
+        # signature. The peer tier is not ported (inert), the CDN plane is
+        # refused below, and a topic without the CDN knob publishes nothing.
         for name, value in (
             ("keep_last_n", keep_last_n),
             ("keep_best_n", keep_best_n),
@@ -263,12 +277,13 @@ class CheckpointManager:
             )
         if best_mode not in ("min", "max"):
             raise ValueError(f"best_mode must be 'min' or 'max', got {best_mode}")
-        if tiered:
-            raise _not_ported("a tiered:// root (fast and durable tiers, the mirror)", "9b")
         if cdn_topic is not None and knobs.is_cdn_enabled():
             raise _not_ported("publishing steps to a CDN topic (TORCHSNAPSHOT_TPU_CDN)", "9c")
         self.root = root
         self.keep_last_n = keep_last_n
+        # Tiered roots: retained steps older than the newest
+        # keep_fast_last_n lose their fast-tier copy once durable.
+        self.keep_fast_last_n = keep_fast_last_n
         # Metric-driven retention: steps saved with a ``metric=`` keep the
         # best ``keep_best_n`` scores (``best_mode``: lower or higher is
         # better) in addition to the newest ``keep_last_n``. With only
@@ -429,12 +444,85 @@ class CheckpointManager:
         return step, self.async_restore(step, app_state)
 
     def wait_durable(self, step: int, timeout: Optional[float] = None) -> None:
-        """The tiered durability barrier: not ported yet."""
-        raise _not_ported("wait_durable (tiered roots, the mirror)", "9b")
+        """Durability barrier: block until ``step`` is mirrored to the
+        durable tier and the durable tier's index names it, that is until
+        the durable tier alone could serve ``restore_latest``. A no-op on
+        a plain root (its commit was the durable write). Raises
+        ``TimeoutError`` at the deadline, and re-raises a failed mirror's
+        error (the fast tier stays restorable; the journal resumes the
+        upload). ``timeout=None`` is the
+        ``TORCHSNAPSHOT_TPU_WAIT_DURABLE_TIMEOUT_SECONDS`` knob (30 min by
+        default; <= 0 waits without a bound)."""
+        import time
+
+        from .tiered.mirror import get_mirror, wait_durable as _wait_durable
+
+        if timeout is None:
+            default_timeout = knobs.get_wait_durable_timeout_seconds()
+            timeout = default_timeout if default_timeout > 0 else None
+        tiers = split_tiered_url(self.root)
+        deadline = time.monotonic() + timeout if timeout is not None else None
+        _wait_durable(self.step_path(step), timeout=timeout)
+        if tiers is None:
+            return
+        fast_root, durable_root = tiers
+        mirror = get_mirror()
+        resumed_root = False
+        while True:
+
+            async def _read_durable_index(url: str = durable_root) -> Dict[str, Any]:
+                storage = url_to_storage_plugin(url)
+                try:
+                    return await read_index_full_async(storage)
+                finally:
+                    await storage.close()
+
+            try:
+                if step in run_in_fresh_event_loop(_read_durable_index())["steps"]:
+                    return
+            except (FileNotFoundError, RuntimeError):
+                pass  # the index is not mirrored yet
+            # The index trails through the root's own mirror jobs: if the
+            # newest failed and nothing is in flight, polling would never
+            # progress. Resume it once, then surface its error.
+            root_jobs = mirror.jobs_for(fast_root)
+            if root_jobs and all(j.done_evt.is_set() for j in root_jobs):
+                if root_jobs[-1].error is not None:
+                    if not resumed_root:
+                        resumed_root = True
+                        mirror.resume(self.root)
+                    else:
+                        raise RuntimeError(
+                            f"step {step} is durable, but mirroring the manager index "
+                            f"keeps failing; the fast tier remains authoritative and "
+                            f"resume_mirrors() retries the upload"
+                        ) from root_jobs[-1].error
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"step {step} durable, but the durable index does not name it "
+                    f"within {timeout}s"
+                )
+            time.sleep(0.05)
 
     def resume_mirrors(self) -> List[int]:
-        """Resuming interrupted tiered mirrors: not ported yet."""
-        raise _not_ported("resume_mirrors (tiered roots, the mirror)", "9b")
+        """Re-enqueue the durable-tier mirrors a restart interrupted: each
+        committed step without a durable commit marker resumes from its
+        journal (completed blobs are skipped) or, with no journal, from
+        its fast-tier manifest. Returns the resumed steps. Rank 0 only;
+        a no-op on a plain root."""
+        if split_tiered_url(self.root) is None or self._pg.get_rank() != 0:
+            return []
+        from .tiered.mirror import get_mirror, is_durable
+
+        mirror = get_mirror()
+        resumed: List[int] = []
+        for step in self.all_steps():
+            path = self.step_path(step)
+            if not is_durable(path) and mirror.resume(path) is not None:
+                resumed.append(step)
+        # The root's own blobs (the index slots) may have a journal too.
+        mirror.resume(self.root)
+        return resumed
 
     # ------------------------------------------------------------------
     # index and retention (rank 0 only)
@@ -536,6 +624,8 @@ class CheckpointManager:
         else:
             metrics.pop(str(step), None)
         pinned: Set[int] = set(index["pinned"])
+        evicted: Set[int] = set(index["evicted"])
+        evicted.discard(step)  # a re-saved step is on the fast tier again
 
         steps = self._retained(steps, step, metrics)
         dropped = [s for s in index["steps"] if s not in steps]
@@ -573,9 +663,27 @@ class CheckpointManager:
         for gone in to_delete:
             refs_map.pop(str(gone), None)
             metrics.pop(str(gone), None)
+            evicted.discard(gone)
+
+        # Fast-tier eviction (tiered roots with keep_fast_last_n): the
+        # surviving steps beyond the newest N, pinned origins included,
+        # lose their fast copies once durable. It runs before the index
+        # write, so the recorded evicted set never names a step this pass
+        # failed to evict.
+        if self.keep_fast_last_n is not None:
+            hot = set(steps[-self.keep_fast_last_n :]) | {step}
+            for old in sorted(set(steps) | pinned):
+                if old in hot or old in evicted:
+                    continue
+                try:
+                    if await self._evict_fast_async(old):
+                        evicted.add(old)
+                except Exception as e:  # noqa: BLE001 - must not fail a save
+                    logger.warning("Failed to evict step %d from the fast tier: %r", old, e)
 
         await self._write_index_async(
-            steps, storage, refs=refs_map, pinned=sorted(pinned), metrics=metrics
+            steps, storage, refs=refs_map, pinned=sorted(pinned), metrics=metrics,
+            evicted=sorted(evicted),
         )
         registry = telemetry.metrics()
         registry.gauge_set(metric_names.MANAGER_RETAINED_STEPS, len(steps))
@@ -768,6 +876,7 @@ class CheckpointManager:
         refs: Optional[Dict[str, List[int]]] = None,
         pinned: Optional[List[int]] = None,
         metrics: Optional[Dict[str, float]] = None,
+        evicted: Optional[List[int]] = None,
     ) -> None:
         payload_obj: Dict[str, Any] = {"steps": steps}
         if steps:
@@ -780,6 +889,8 @@ class CheckpointManager:
             payload_obj["pinned"] = pinned
         if metrics:
             payload_obj["metrics"] = metrics
+        if evicted:
+            payload_obj["evicted"] = evicted
         payload = json.dumps(payload_obj).encode()
         # Backup first, primary second: a torn primary write leaves a valid
         # new backup behind it, and a torn backup write leaves the previous
@@ -794,13 +905,86 @@ class CheckpointManager:
     def _read_index(self) -> List[int]:
         return self._with_root_storage(read_index_full_async)["steps"]
 
+    async def _evict_fast_async(self, step: int) -> bool:
+        """Drop one step's fast-tier copy (tiered roots); the step stays
+        committed and restorable through the durable fallback. Returns
+        False, evicting nothing, while the durable commit marker is absent
+        (the mirror is still working, or failed and will resume)."""
+        from .cas import chunk_map_path
+        from .tiered.journal import MirrorJournal
+        from .tiered.mirror import is_durable_async
+        from .tiered.plugin import TieredStoragePlugin
+
+        path = self.step_path(step)
+        if not await is_durable_async(path):
+            return False
+        storage = url_to_storage_plugin(path)
+        try:
+            if not isinstance(storage, TieredStoragePlugin):
+                return False
+            # The durable manifest says what to remove (the fast copy may
+            # be partial already).
+            read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
+            await storage.durable.read(read_io)
+            metadata = SnapshotMetadata.from_yaml(bytes(read_io.buf).decode())
+            locations = {
+                loc
+                for entry in metadata.manifest.values()
+                for loc in entry_locations(entry)
+                if not loc.startswith("../")
+            }
+            for rank in range(metadata.world_size):
+                locations.add(table_path(rank))
+                locations.add(chunk_map_path(rank))
+
+            async def _drop(location: str) -> None:
+                try:
+                    await storage.fast.delete(location)
+                except FileNotFoundError:
+                    pass
+
+            # The commit marker first (as in _delete_step_async), then the
+            # side files and the data, then the journal.
+            await _drop(SNAPSHOT_METADATA_FNAME)
+            await _drop(_STEP_EVENTS_BLOB)
+            for rank in range(metadata.world_size):
+                for name in _RANK_SIDE_BLOBS:
+                    await _drop(name.format(rank))
+            slots = asyncio.Semaphore(knobs.get_per_rank_io_concurrency())
+
+            async def _drop_slotted(location: str) -> None:
+                async with slots:
+                    await _drop(location)
+
+            results = await asyncio.gather(
+                *(_drop_slotted(loc) for loc in sorted(locations)), return_exceptions=True
+            )
+            for r in results:
+                if isinstance(r, BaseException):
+                    raise r
+            await MirrorJournal(blobs={}).delete(storage.fast)
+        finally:
+            await storage.close()
+        logger.info("Evicted step %d from the fast tier", step)
+        return True
+
     async def _delete_step_async(self, step: int) -> None:
         """Delete a step's blobs, driven by its manifest (plugins cannot
         list). The commit marker goes first: once it is gone the step is
         simply uncommitted, so a crash mid-deletion leaves garbage bytes
         but never a valid-looking damaged snapshot."""
+        from .tiered.journal import MirrorJournal
+        from .tiered.plugin import TieredStoragePlugin
+
         storage = url_to_storage_plugin(self.step_path(step))
+        tiered = isinstance(storage, TieredStoragePlugin)
         try:
+            if tiered and storage.fast_url:
+                # The step leaves both tiers: stop its in-flight mirror
+                # first (its fast-tier sources are about to vanish).
+                from .tiered.mirror import get_mirror
+
+                get_mirror().cancel_path(storage.fast_url)
             read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
             try:
                 await storage.read(read_io)
@@ -809,6 +993,8 @@ class CheckpointManager:
             metadata = SnapshotMetadata.from_yaml(bytes(read_io.buf).decode())
             await storage.delete(SNAPSHOT_METADATA_FNAME)
             crashpoint(metric_names.CRASH_GC_MARKER_DELETED)
+            if tiered:
+                await MirrorJournal(blobs={}).delete(storage.fast)
             # Parent-relative locations are another step's blobs (this step
             # was incremental): never delete outside the step directory.
             locations = {

@@ -200,8 +200,15 @@ class PreemptionSaver:
         """Register a zero-arg callable run during :meth:`close`, before
         the done marker publishes, to flush work that must fit the
         eviction grace window (an async save's ``wait()``, an upload).
-        Drain failures are logged, never raised (close() runs on the
-        teardown path)."""
+        On a tiered root, the mirror's drain::
+
+            saver.register_drain(lambda: tiered.get_mirror().drain(timeout=grace_s))
+
+        pushes in-flight durable uploads out before the host goes; what
+        misses the window is journaled, so the restarted job's
+        ``CheckpointManager.resume_mirrors()`` resumes it without
+        re-sending completed blobs. Drain failures are logged, never
+        raised (close() runs on the teardown path)."""
         self._drains.append(fn)
 
     def uninstall(self) -> None:

@@ -17,9 +17,13 @@ take that captured its sources on the card returns a
 :class:`DeferredIOWork` instead, which runs the whole pipeline on the
 background thread through a :class:`StagingPool` of pinned host slabs.
 
-The JAX package's live-progress tracker and self-healing re-read from
-another storage tier are not part of this package yet. Available host
-memory is read from ``/proc/meminfo`` (``psutil`` is not a dependency).
+A read whose bytes fail verification walks the plugin's self-healing
+ladder (:func:`heal_read`): a plugin with another copy (the tiered
+plugin's other tier) re-serves it, the bytes are verified again, and only
+verified bytes reach the consumer; with no copy left the
+``ChecksumError`` stands. The JAX package's live-progress tracker is not
+part of this package yet. Available host memory is read from
+``/proc/meminfo`` (``psutil`` is not a dependency).
 """
 
 from __future__ import annotations
@@ -30,10 +34,11 @@ import math
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, Optional
+from typing import Awaitable, Callable, List, Optional
 
 from . import knobs, telemetry
 from .integrity import (
+    ChecksumError,
     ChecksumTable,
     compute_checksum_entry,
     verify_checksum,
@@ -177,6 +182,10 @@ class _PipelineStats:
         self.bytes_moved = 0
         self.bytes_staged = 0
         self.write_variant_bytes: dict = {}
+        # Reads healed from another copy after failing verification.
+        self.degraded_reads = 0
+        self.degraded_bytes = 0
+        self.degraded_tier_bytes: dict = {}
 
 
 class _ProgressReporter:
@@ -236,6 +245,14 @@ class _ProgressReporter:
         }
         if self.stats.write_variant_bytes:
             out["write_path"] = dict(self.stats.write_variant_bytes)
+        if self.stats.degraded_reads:
+            # Reads rerouted around corruption, and the tiers that served
+            # them (the JAX package's restore report fields).
+            out["degraded_reads"] = {
+                "blobs": self.stats.degraded_reads,
+                "bytes": self.stats.degraded_bytes,
+            }
+            out["tier_split"] = dict(self.stats.degraded_tier_bytes)
         return out
 
 
@@ -483,6 +500,42 @@ class DeferredIOWork:
         inner.sync_complete(event_loop)
 
 
+async def heal_read(
+    storage: StoragePlugin,
+    read_io: ReadIO,
+    verify: Callable[[object], Awaitable[None]],
+    first_err: ChecksumError,
+    stats: Optional[_PipelineStats] = None,
+) -> object:
+    """The self-healing ladder: ``read_io``'s bytes failed ``verify``
+    with ``first_err``. Re-serve it from the plugin's other copies
+    (``StoragePlugin.read_degraded``) until one verifies, and return that
+    buffer; raise ``first_err`` when no copy is left. A healed read
+    counts in ``storage_degraded_reads_total{tier=...}`` and its bytes
+    in ``storage_degraded_read_bytes_total``, and logs a warning."""
+    while await storage.read_degraded(read_io):
+        buf = read_io.buf
+        try:
+            await verify(buf)
+        except ChecksumError:
+            continue
+        tier = read_io.served_by or "unknown"
+        nbytes = memoryview(buf).nbytes
+        if stats is not None:
+            stats.degraded_reads += 1
+            stats.degraded_bytes += nbytes
+            stats.degraded_tier_bytes[tier] = stats.degraded_tier_bytes.get(tier, 0) + nbytes
+        registry = telemetry.metrics()
+        registry.counter_inc(telemetry.names.STORAGE_DEGRADED_READS_TOTAL, tier=tier)
+        registry.counter_inc(telemetry.names.STORAGE_DEGRADED_READ_BYTES_TOTAL, nbytes, tier=tier)
+        logger.warning(
+            "read of %s failed verification (%s); healed from the %r tier copy",
+            read_io.path, first_err, tier,
+        )
+        return buf
+    raise first_err
+
+
 async def execute_read_reqs(
     read_reqs: List[ReadReq],
     storage: StoragePlugin,
@@ -515,7 +568,9 @@ async def execute_read_reqs(
         ):
             return
         small = memoryview(buf).nbytes <= _INLINE_CHECKSUM_BYTES
-        if req.byte_range is None:
+        # A ranged read of the whole blob (a slab's spanning read) verifies
+        # as the whole blob: one of a single page has no page digests.
+        if req.byte_range is None or tuple(req.byte_range) == (0, entry[2]):
             if small:
                 verify_checksum(buf, entry, req.path)
             else:
@@ -563,7 +618,17 @@ async def execute_read_reqs(
             if buf is None:
                 raise RuntimeError(f"Storage plugin did not populate buffer for {req.path}")
             if entry is not None:
-                await verify(buf, entry, req, fused_pages)
+                try:
+                    await verify(buf, entry, req, fused_pages)
+                except ChecksumError as first_err:
+                    # Verified again before any consumer (and so any copy
+                    # to the card) sees the bytes.
+                    async with io_slots:
+                        buf = await heal_read(
+                            storage, read_io,
+                            lambda b: verify(b, entry, req, None),
+                            first_err, stats,
+                        )
             if read_io.dest is None or buf is not read_io.dest:
                 stats.staging += 1
                 try:

@@ -68,10 +68,24 @@ Counterpart of ``torchsnapshot_tpu/snapshot.py``. Same protocol:
   plans in ``async_restore``. ``restore_telemetry`` then holds the
   rank's byte accounting.
 
+- ``tiered://<fast>|<durable>`` paths (``tiered/``): a take writes and
+  commits on the fast tier, and closing its plugin after the commit hands
+  the written blobs to the background mirror, commit marker last. A
+  restore reads each blob fast first with a durable fallback; a blob that
+  fails verification heals from the other tier (the scheduler's ladder)
+  before any byte of it reaches a consumer or the card.
+- Crash points (``chaos/``): the take and commit paths call the JAX
+  package's kill points at the same moments (``take-writes-done``,
+  ``checksum-table-written``, ``cas-map-written``, ``pre-commit-marker``,
+  ``commit-marker``, ``peer-enqueued``); each is a no-op unless a chaos
+  engine is armed.
+
 The snapshot format is the JAX package's: either package reads what the
 other writes, digests and chunk stores included, and a snapshot taken by
 N ranks of one restores through N ranks of the other. Not ported yet:
-the tiered and peer branches (ROADMAP queue 1 step 9b).
+the peer tier (ROADMAP queue 1 step 9b-ii), whose post-commit push is a
+no-op here (its crash point still fires), and the per-operation reports
+with their mirror state (step 10).
 """
 
 from __future__ import annotations
@@ -129,7 +143,9 @@ from .sharded_io_preparer import (
     placement_spec,
 )
 from .stateful import AppState, Stateful
+from .chaos import crashpoint
 from .storage_plugin import url_to_storage_plugin
+from .telemetry import names as metric_names
 from .telemetry.trace import get_recorder as _trace_recorder
 from .version import __version__
 
@@ -191,18 +207,37 @@ def _maybe_write_cas_map(
         event_loop.run_until_complete(storage.write_chunk_map(rank))
 
 
-def _restore_telemetry(bytes_read: int, fanout_ctx) -> Dict[str, int]:
+def _restore_telemetry(pipelines: List[dict], fanout_ctx) -> Dict[str, Any]:
     """A restore's byte accounting on this rank (the fields of the JAX
     package's restore report, folded as its ``_merge_fanout_telemetry``
-    does): the bytes its read pipeline consumed; those it fetched from
-    storage (the pipeline's reads that the fan-out cache did not serve,
-    plus the owner's union-window reads); and the bytes fan-out shipped
-    in from peers and out to them."""
-    out = {"bytes_read": bytes_read, "bytes_fetched": bytes_read, "bytes_received": 0, "bytes_published": 0}
+    does): the bytes its read pipelines consumed; those it fetched from
+    storage (the pipelines' reads that the fan-out cache did not serve,
+    plus the owner's union-window reads); the bytes fan-out shipped in
+    from peers and out to them; and, when a read healed from another copy
+    (here or in the fan-out owner's fetch), ``degraded_reads`` (blobs,
+    bytes) and ``tier_split`` (healed bytes by serving tier)."""
+    bytes_read = sum(int(p["bytes_moved"]) for p in pipelines)
+    out: Dict[str, Any] = {
+        "bytes_read": bytes_read, "bytes_fetched": bytes_read, "bytes_received": 0, "bytes_published": 0,
+    }
+    blobs = sum(p.get("degraded_reads", {}).get("blobs", 0) for p in pipelines)
+    nbytes = sum(p.get("degraded_reads", {}).get("bytes", 0) for p in pipelines)
+    split: Dict[str, int] = {}
+    for tiers in [p.get("tier_split", {}) for p in pipelines]:
+        for tier, n in tiers.items():
+            split[tier] = split.get(tier, 0) + n
     if fanout_ctx is not None:
         out["bytes_fetched"] += fanout_ctx.bytes_fetched - fanout_ctx.bytes_served
         out["bytes_received"] = fanout_ctx.bytes_received
         out["bytes_published"] = fanout_ctx.bytes_published
+        heal = fanout_ctx.heal_stats
+        blobs += heal.degraded_reads
+        nbytes += heal.degraded_bytes
+        for tier, n in heal.degraded_tier_bytes.items():
+            split[tier] = split.get(tier, 0) + n
+    if blobs:
+        out["degraded_reads"] = {"blobs": blobs, "bytes": nbytes}
+        out["tier_split"] = split
     return out
 
 
@@ -225,7 +260,7 @@ class Snapshot:
         self._metadata: Optional[SnapshotMetadata] = None
         # This rank's byte accounting of the last restore() (see
         # _restore_telemetry); None before one ran.
-        self.restore_telemetry: Optional[Dict[str, int]] = None
+        self.restore_telemetry: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------------
     # take
@@ -278,8 +313,11 @@ class Snapshot:
                     record_digests=record_digests,
                 )
                 pending.sync_complete(event_loop)
+                crashpoint(metric_names.CRASH_TAKE_WRITES_DONE)
                 _write_checksum_table(pending, rank, storage, event_loop)
+                crashpoint(metric_names.CRASH_CHECKSUM_TABLE_WRITTEN)
                 _maybe_write_cas_map(storage, rank, event_loop)
+                crashpoint(metric_names.CRASH_CAS_MAP_WRITTEN)
             # Every rank's writes are durable before the commit marker
             # exists anywhere. The commit window stays under
             # _reporting_to: a failed metadata write on rank 0 releases
@@ -291,6 +329,9 @@ class Snapshot:
                     _write_snapshot_metadata(metadata, storage, event_loop)
                 if barrier is not None:
                     barrier.depart()
+            _post_commit()
+            # After the commit: closing a tiered plugin enqueues the
+            # take's blobs to the mirror.
             event_loop.run_until_complete(storage.close())
         finally:
             recorder.end(take_span)
@@ -549,7 +590,7 @@ class Snapshot:
             keys = _gather_keys(app_state, pg_wrapper)
             budget = get_process_memory_budget_bytes(pg_wrapper)
             fanout_ctx = None
-            bytes_read = 0
+            pipelines: List[dict] = []
             with _reporting_to(key_barrier(0) if keys else None, "restore setup"):
                 available = get_manifest_for_rank(self.metadata, rank)
                 checksum_table = self._checksum_table(storage, event_loop)
@@ -557,6 +598,8 @@ class Snapshot:
                 # same bytes on every rank: no collective.
                 if fanout_agreed:
                     fanout_ctx = _build_fanout(self.metadata.manifest, pg_wrapper)
+                    if fanout_ctx is not None:
+                        fanout_ctx.checksum_table = checksum_table
             for i, key in enumerate(keys):
                 barrier = key_barrier(i)
                 with _reporting_to(barrier, "restore"):
@@ -578,10 +621,10 @@ class Snapshot:
                         )
                     try:
                         if plan is not None:
-                            bytes_read += _execute_load_plan(
+                            pipelines.append(_execute_load_plan(
                                 plan, fanout_ctx.wrap(storage) if fanout_ctx is not None else storage,
                                 budget, rank, event_loop, checksum_table,
-                            )
+                            ))
                     finally:
                         if fanout_ctx is not None:
                             fanout_ctx.drop(round_locs)
@@ -592,11 +635,11 @@ class Snapshot:
                 # Outside the key rounds: no fan-out.
                 plan = _plan_stateful_load(rng[0], rng[1], available, DeviceCopier(), budget=budget)
                 if plan is not None:
-                    bytes_read += _execute_load_plan(
+                    pipelines.append(_execute_load_plan(
                         plan, storage, budget, rank, event_loop, checksum_table
-                    )
+                    ))
             event_loop.run_until_complete(storage.close())
-            self.restore_telemetry = _restore_telemetry(bytes_read, fanout_ctx)
+            self.restore_telemetry = _restore_telemetry(pipelines, fanout_ctx)
         finally:
             recorder.end(restore_span)
             event_loop.close()
@@ -663,6 +706,9 @@ class Snapshot:
                     try:
                         exchange_storage = url_to_storage_plugin(self.path)
                         try:
+                            fanout_ctx.checksum_table = self._checksum_table(
+                                exchange_storage, exchange_loop
+                            )
                             fanout_ctx.exchange(
                                 [r for plan in plans.values() for r in plan.read_reqs],
                                 exchange_storage, exchange_loop,
@@ -787,11 +833,23 @@ def _write_snapshot_metadata(
     from .cas import maybe_rewrite_manifest
 
     event_loop.run_until_complete(maybe_rewrite_manifest(metadata, storage))
+    # The kill points around the commit write: before it the step must
+    # read as never taken, after it as committed (whether or not the
+    # index, the mirror or the peer tier ever ran).
+    crashpoint(metric_names.CRASH_PRE_COMMIT_MARKER)
     event_loop.run_until_complete(
         storage.write(
             WriteIO(path=SNAPSHOT_METADATA_FNAME, buf=metadata.to_json().encode("utf-8"))
         )
     )
+    crashpoint(metric_names.CRASH_COMMIT_MARKER)
+
+
+def _post_commit() -> None:
+    """Every rank, after the commit: the JAX package pushes this rank's
+    blobs to the peer tier here. The peer tier is not ported (ROADMAP
+    queue 1 step 9b-ii), so only its kill point fires."""
+    crashpoint(metric_names.CRASH_PEER_ENQUEUED)
 
 
 def _gather_keys(app_state: AppState, pg_wrapper: PGWrapper) -> List[str]:
@@ -1042,10 +1100,9 @@ def _execute_load_plan(
     rank: int,
     event_loop: asyncio.AbstractEventLoop,
     checksum_table,
-) -> int:
+) -> dict:
     """Run one planned stateful load's read pipeline, placing leaves as
-    their reads land, then apply it. Returns the bytes the pipeline
-    read."""
+    their reads land, then apply it. Returns the pipeline's telemetry."""
     placer = _StreamingPlacer()
     placer.register_plan(plan)
     pipeline = sync_execute_read_reqs(
@@ -1060,7 +1117,7 @@ def _execute_load_plan(
     placer.flush()
     plan.finish_reads()
     plan.apply()
-    return int(pipeline["bytes_moved"])
+    return pipeline
 
 
 def _plan_stateful_load(
@@ -1246,8 +1303,11 @@ class PendingSnapshot:
         try:
             barrier = _nonce_barrier(f"__snapshot_commit/{self.commit_nonce}", self.pg)
             self._pending_io_work.sync_complete(self._event_loop)
+            crashpoint(metric_names.CRASH_TAKE_WRITES_DONE)
             _write_checksum_table(self._pending_io_work, rank, self._storage, self._event_loop)
+            crashpoint(metric_names.CRASH_CHECKSUM_TABLE_WRITTEN)
             _maybe_write_cas_map(self._storage, rank, self._event_loop)
+            crashpoint(metric_names.CRASH_CAS_MAP_WRITTEN)
             # The store barrier, not a collective: safe on this thread.
             if barrier is not None:
                 barrier.arrive()
@@ -1255,6 +1315,7 @@ class PendingSnapshot:
                 _write_snapshot_metadata(self._metadata, self._storage, self._event_loop)
             if barrier is not None:
                 barrier.depart()
+            _post_commit()
             self._event_loop.run_until_complete(self._storage.close())
             self.committed_s = time.monotonic() - self._op_begin
         except BaseException as e:  # noqa: BLE001 - must propagate via wait()
@@ -1344,7 +1405,7 @@ class PendingRestore:
         # calling thread: the bytes already moved).
         self._fanout_ctx = fanout_ctx
         # This rank's byte accounting, once the reads finished.
-        self.restore_telemetry: Optional[Dict[str, int]] = None
+        self.restore_telemetry: Optional[Dict[str, Any]] = None
         self._exc_info: Optional[BaseException] = None
         self._applied = False
         self._done = threading.Event()
@@ -1375,7 +1436,7 @@ class PendingRestore:
                 checksum_table=checksum_table,
                 on_req_complete=placer.on_req_complete,
             )
-            self.restore_telemetry = _restore_telemetry(int(pipeline["bytes_moved"]), fanout_ctx)
+            self.restore_telemetry = _restore_telemetry([pipeline], fanout_ctx)
             placer.flush()
             # What did not stream places in one final batch.
             batch = _PlacementBatch(self._copier)

@@ -2,9 +2,11 @@
 
 Reference parity: torchsnapshot/storage_plugin.py:17-59. ``fs://`` is the
 default scheme for bare paths; ``memory://`` is used by tests and
-scratch runs. The cloud (``s3://``, ``gs://``) and ``tiered://`` plugins
-of ``torchsnapshot_tpu`` are not ported yet. Third-party plugins register
-via the ``torchsnapshot_tpu_torch.storage_plugins`` entry-point group.
+scratch runs; ``tiered://<fast_url>|<durable_url>`` composes two of them
+into a fast commit and a background durable mirror (``tiered/``). The
+cloud plugins (``s3://``, ``gs://``) of ``torchsnapshot_tpu`` are not
+ported yet. Third-party plugins register via the
+``torchsnapshot_tpu_torch.storage_plugins`` entry-point group.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from .io_types import StoragePlugin
 
 _ENTRY_POINT_GROUP = "torchsnapshot_tpu_torch.storage_plugins"
 # Schemes torchsnapshot_tpu serves that this package does not yet.
-_NOT_PORTED_SCHEMES = ("s3", "gs", "tiered")
+_NOT_PORTED_SCHEMES = ("s3", "gs")
 
 
 def normalize_object_key(prefix: str, path: str) -> str:
@@ -92,6 +94,11 @@ def url_to_storage_plugin(url_path: str) -> StoragePlugin:
         from .storage_plugins.memory import MemoryStoragePlugin
 
         return MemoryStoragePlugin(name=path or "default")
+    if scheme == "tiered":
+        from .tiered.plugin import TieredStoragePlugin
+
+        fast_url, durable_url = split_tiered_url(url_path)
+        return TieredStoragePlugin(fast_url=fast_url, durable_url=durable_url)
     eps = entry_points(group=_ENTRY_POINT_GROUP)
     for ep in eps:
         if ep.name == scheme:
@@ -100,12 +107,11 @@ def url_to_storage_plugin(url_path: str) -> StoragePlugin:
         raise RuntimeError(
             f"Unsupported storage scheme {scheme!r} in {url_path!r}: the "
             f"{scheme}:// plugin of torchsnapshot_tpu is not ported to "
-            f"torchsnapshot_tpu_torch yet (ROADMAP queue 1 step "
-            f"{'9b' if scheme == 'tiered' else '9d'})"
+            f"torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9d)"
         )
     raise RuntimeError(
         f"Unsupported storage scheme {scheme!r} in {url_path!r} "
-        f"(built-in: fs, memory; "
+        f"(built-in: fs, memory, tiered; "
         f"entry-point group: {_ENTRY_POINT_GROUP})"
     )
 

@@ -15,7 +15,6 @@ rank's coordination traffic, and :func:`drive_preemption_loop`.
 
 from __future__ import annotations
 
-import asyncio
 import multiprocessing as mp
 import os
 import pickle
@@ -39,55 +38,54 @@ def faulty_fs_plugin(
     exc_msg: str = "injected storage failure",
     delay_s: float = 0.0,
     mode: str = "fail",
+    seed: int = 0,
 ):
     """An ``FSStoragePlugin`` subclass whose listed ``ops`` ("write",
     "read", "delete"; "write" and "read" cover their fused
-    ``*_with_checksum`` variants) misbehave when ``should_fail(path)`` is
-    truthy: ``mode="fail"`` raises ``OSError(exc_msg)`` after ``delay_s``,
-    ``mode="delay"`` sleeps ``delay_s`` and proceeds. ``should_fail`` may
-    filter by path (data blobs only) or close over a counter. Pair with
-    :func:`patch_storage_plugin`. (The JAX package's version rides its
-    chaos engine, with corrupting and tearing modes too; the engine comes
-    with ROADMAP queue 1 step 9b.)"""
+    ``*_with_checksum`` variants, which the chaos wrapper declines so that
+    every op goes through the injected path) misbehave when
+    ``should_fail(path)`` is truthy.
+
+    A thin shim over one fault plan (``chaos/plan.py``), as in the JAX
+    package: each listed op becomes a predicate-triggered
+    :class:`~torchsnapshot_tpu_torch.chaos.FaultSpec`. ``mode``:
+
+    - ``"fail"`` (default): raise ``OSError(exc_msg)``, after ``delay_s``
+      if set;
+    - ``"corrupt"``: flip one byte of the written bytes or of the read
+      buffer, keeping the size (only a digest catches it);
+    - ``"torn"``: write the first half of the bytes, then raise;
+    - ``"delay"``: sleep ``delay_s``, then proceed;
+    - ``"drop"`` and ``"crash"``, as the engine defines them.
+
+    ``should_fail`` may filter by path or close over a counter. Pair with
+    :func:`patch_storage_plugin`. The class's ``chaos_engine`` attribute
+    is the backing engine (its ``fired`` log pins a replay)."""
+    from .chaos import ChaosEngine, FaultPlan, FaultSpec, chaotic_plugin_type
     from .storage_plugins.fs import FSStoragePlugin
 
-    if mode not in ("fail", "delay"):
-        raise NotImplementedError(
-            f"faulty_fs_plugin mode {mode!r} needs the chaos engine (ROADMAP queue 1 step 9b)"
-        )
-    unknown = set(ops) - {"write", "read", "delete"}
+    point_of = {"write": "storage-write", "read": "storage-read", "delete": "storage-delete"}
+    unknown = set(ops) - set(point_of)
     if unknown:
         raise ValueError(f"unknown storage ops {sorted(unknown)}")
-
-    async def _inject(op: str, path: str) -> None:
-        if op in ops and should_fail(path):
-            if delay_s > 0:
-                await asyncio.sleep(delay_s)
-            if mode == "fail":
-                raise OSError(exc_msg)
-
-    class FaultyFSStoragePlugin(FSStoragePlugin):
-        async def write(self, write_io):
-            await _inject("write", write_io.path)
-            return await super().write(write_io)
-
-        async def write_with_checksum(self, write_io):
-            await _inject("write", write_io.path)
-            return await super().write_with_checksum(write_io)
-
-        async def read(self, read_io):
-            await _inject("read", read_io.path)
-            return await super().read(read_io)
-
-        async def read_with_checksum(self, read_io):
-            await _inject("read", read_io.path)
-            return await super().read_with_checksum(read_io)
-
-        async def delete(self, path):
-            await _inject("delete", path)
-            return await super().delete(path)
-
-    return FaultyFSStoragePlugin
+    plan = FaultPlan(
+        seed=seed,
+        faults=[
+            FaultSpec(
+                point=point_of[op],
+                mode=mode,
+                times=None,
+                predicate=should_fail,
+                exc_msg=exc_msg,
+                delay_s=delay_s,
+            )
+            for op in ops
+        ],
+    )
+    engine = ChaosEngine(plan)
+    cls = chaotic_plugin_type(FSStoragePlugin, engine)
+    cls.chaos_engine = engine
+    return cls
 
 
 def patch_storage_plugin(cls):
