@@ -189,8 +189,40 @@ each of which raises on failure (nothing is caught):
    eight smoke points on tiered + CAS with CUDA states. Each leg prints
    one JSON line. Its digest and pack launches, counted from 0, add to the
    record's.
+10. **peer**: the peer-RAM tier (``tiered/peer.py``) on the sharded
+   phase's state: two processes on the card, a gloo default group, a
+   ``cuda`` mesh of 2, the main configuration as ``Shard(0)`` DTensors
+   (about 0.507 GB a rank), through ``CheckpointManager(root, pg=,
+   keep_peer_last_n=1)`` on a plain root with the tier on (the default 1
+   GiB cache a rank, a 5 s transfer timeout) and fan-out off (it would
+   pick by a content hash which rank pulls a blob). (a) A step and a sync
+   save (digests recorded), a step beside its push, a step and an
+   ``async_save`` beside a step, the drain: each rank's neighbour holds
+   exactly this rank's blobs of step 2, the same paths, entries and bytes
+   as its checksum table, step 1 evicted; ``fsck --tier peer`` passes.
+   (b) Rank 1 is preempted (its tier reset, a new manager): both ranks
+   ``restore_latest`` into zeroed DTensors, rank 1 behind a plugin that
+   counts data reads: it reads none from storage and takes at least 95%
+   of its bytes from peer RAM; every local shard bit-identical, and the
+   full state gathered from both ranks gives the evaluation logits and
+   the next step's loss of the saved state, bit for bit. (c) Both caches
+   wiped: the same restore from storage alone, no ``peer`` in the split.
+   (d) Rank 0's server stops; both save step 3: rank 1's push degrades
+   (``peer_push_failures_total`` >= 1, ``peer_tier_degraded`` 1) without
+   holding its save, the drain settles within 60 s, rank 1 restores from
+   storage bit-identical (rank 0 from peer RAM), and ``fsck --tier peer``
+   names each of rank 1's blobs as unplaced. Logs each rank's push seconds
+   and bytes, the step alone and beside the push, restore seconds from
+   peer RAM and from storage, and store requests per leg. Its digest
+   launches (both ranks') add to the record's.
 
-The second-to-last line of stdout is the kernels' JSON record; the last is
+The ranks and sharded phases pin ``TORCHSNAPSHOT_TPU_PEER_TIER=0`` in
+their workers: their checks are of the paths without the tier (each
+rank's bytes written, the file sets, which plugin reads a blob). Before
+the result lines, one ``summary <phase>:`` line per phase gives its
+seconds, its headline numbers and PASS (or FAIL with the error, before
+the script raises), then the card's name and power limit. The
+second-to-last line of stdout is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -223,6 +255,34 @@ STEPS = 3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# Each phase's headline numbers, printed as one compact line per phase
+# just before the result lines (the per-leg lines above them can be long).
+HEADLINES: dict = {}
+
+
+def _headline(phase: str, **numbers) -> None:
+    HEADLINES[phase] = numbers
+
+
+def _fmt(v) -> str:
+    if isinstance(v, float):
+        return f"{v:.4g}"
+    if isinstance(v, (list, tuple)):
+        return "/".join(_fmt(x) for x in v)
+    return str(v)
+
+
+def print_summary(done: list, failed=None) -> None:
+    """One line per phase run: its seconds, its headline numbers, and
+    PASS, or FAIL with the error for the phase that raised."""
+    for phase, seconds in done:
+        nums = ", ".join(f"{k} {_fmt(v)}" for k, v in HEADLINES.get(phase, {}).items())
+        log(f"summary {phase}: PASS in {seconds:.1f} s" + (f"; {nums}" if nums else ""))
+    if failed is not None:
+        phase, err = failed
+        log(f"summary {phase}: FAIL: {err!r}"[:400])
 
 
 def card_line() -> str:
@@ -1132,6 +1192,8 @@ def leaves_phase(args, work_dir: str, card: str) -> dict:
     log(f"leaves (a stress case, not a published mix): {LEAVES} leaves, {nbytes / 1e6:.3f} MB, {odd} of them "
         f"at an odd distance from 16-byte alignment in their slab; pack launches {launches} in the phase; three "
         f"read_objects bit-identical; on {card}")
+    _headline("leaves", take_pack_s=[r["take_s"] for r in runs["pack"]],
+              take_member_s=[r["take_s"] for r in runs["per_member"]], pack_launches=launches)
     print(json.dumps({"leaves": {"bytes": nbytes, "odd_members": odd, "runs": runs}}), flush=True)
     del leaves, live
     torch.cuda.empty_cache()
@@ -1174,7 +1236,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -1216,64 +1278,72 @@ def main() -> int:
     log(f"native I/O runtime: {time.monotonic() - t0:.1f} s to build and load")
 
     records = {}
-    if "kernels" in phases:
-        t0 = time.monotonic()
-        records = kernel_phase(args.seed)
+    # Launches are counted only in the main path's run, plus the paths of
+    # later slices, each counted from 0 (the digest's: the main, cas,
+    # tiered and peer phases'; the pack's: the cas phase's, both ranks' in
+    # the sharded phase, the leaves and tiered phases'); without them they
+    # were not measured and the record says null.
+    launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
+
+    def add(name: str, n: int) -> None:
+        launches[name] = (launches[name] or 0) + n
+
+    def kernels_phase() -> None:
+        records.update(kernel_phase(args.seed))
         records["device_digest"] = digest_phase(args.seed, args.bulk_gib)
         records["device_pack"] = pack_phase(args.seed)
-        log(f"phase kernels: {time.monotonic() - t0:.1f} s")
+        _headline("kernels", **{
+            f"{name}_ms": [r["ms"], r["plain_ms"]] for name, r in records.items() if "ms" in r
+        })
 
-    # Launches are counted only in the main path's run, plus the paths of
-    # later slices, each counted from 0 (the digest's: the main, cas and
-    # tiered phases'; the pack's: the cas phase's, both ranks' in the
-    # sharded phase, the leaves and tiered phases'); without them they were
-    # not measured and the record says null.
-    launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
+    def cas() -> None:
+        got = cas_phase(args, work_dir, card)
+        for name in ("device_digest", "device_pack"):
+            add(name, got[name])
+
+    def sharded() -> None:
+        add("device_pack", sum(r["launches"]["device_pack"] for r in sharded_phase(args, work_dir, card)["ranks"]))
+
+    def tiered() -> None:
+        got = tiered_phase(args, work_dir, card)
+        for name in ("device_digest", "device_pack"):
+            add(name, got[name])
+
+    def peer() -> None:
+        add("device_digest", sum(r["launches"]["device_digest"] for r in peer_phase(args, work_dir, card)["ranks"]))
+
+    sequence = [
+        ("kernels", kernels_phase),
+        ("main", lambda: launches.update(main_phase(args, work_dir, card))),
+        ("bulk", lambda: bulk_phase(args, work_dir, card)),
+        ("manager", lambda: manager_phase(args, work_dir, card)),
+        ("cas", cas),
+        ("ranks", lambda: ranks_phase(args, work_dir, card)),
+        ("sharded", sharded),
+        ("leaves", lambda: add("device_pack", leaves_phase(args, work_dir, card)["device_pack"])),
+        ("tiered", tiered),
+        ("peer", peer),
+    ]
+    done: list = []
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
     try:
-        if "main" in phases:
+        for name, run in sequence:
+            if name not in phases:
+                continue
             t0 = time.monotonic()
-            launches.update(main_phase(args, work_dir, card))
-            log(f"phase main: {time.monotonic() - t0:.1f} s")
-        if "bulk" in phases:
-            t0 = time.monotonic()
-            bulk_phase(args, work_dir, card)
-            log(f"phase bulk: {time.monotonic() - t0:.1f} s")
-        if "manager" in phases:
-            t0 = time.monotonic()
-            manager_phase(args, work_dir, card)
-            log(f"phase manager: {time.monotonic() - t0:.1f} s")
-        if "cas" in phases:
-            t0 = time.monotonic()
-            cas = cas_phase(args, work_dir, card)
-            for name in ("device_digest", "device_pack"):
-                launches[name] = (launches[name] or 0) + cas[name]
-            log(f"phase cas: {time.monotonic() - t0:.1f} s")
-        if "ranks" in phases:
-            t0 = time.monotonic()
-            ranks_phase(args, work_dir, card)
-            log(f"phase ranks: {time.monotonic() - t0:.1f} s")
-        if "sharded" in phases:
-            t0 = time.monotonic()
-            sharded = sharded_phase(args, work_dir, card)
-            launches["device_pack"] = (launches["device_pack"] or 0) + sum(
-                r["launches"]["device_pack"] for r in sharded["ranks"]
-            )
-            log(f"phase sharded: {time.monotonic() - t0:.1f} s")
-        if "leaves" in phases:
-            t0 = time.monotonic()
-            packs = leaves_phase(args, work_dir, card)["device_pack"]
-            launches["device_pack"] = (launches["device_pack"] or 0) + packs
-            log(f"phase leaves: {time.monotonic() - t0:.1f} s")
-        if "tiered" in phases:
-            t0 = time.monotonic()
-            tiered = tiered_phase(args, work_dir, card)
-            for name in ("device_digest", "device_pack"):
-                launches[name] = (launches[name] or 0) + tiered[name]
-            log(f"phase tiered: {time.monotonic() - t0:.1f} s")
+            try:
+                run()
+            except BaseException as e:
+                print_summary(done, failed=(name, e))
+                raise
+            done.append((name, time.monotonic() - t0))
+            log(f"phase {name}: {done[-1][1]:.1f} s")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
+    # The tail: one line per phase, the card, then the result lines.
+    print_summary(done)
+    log(card)
     if records:
         kernels_line = []
         for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -1461,6 +1531,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
         f"on {card}; restored state, logits and next-step loss {float(loss_a)!r} bit-identical; "
         f"launches {launches}"
     )
+    _headline("main", take_s=take_s, restore_s=restore_s, step_ms=step_s * 1e3, next_loss=float(loss_a))
     print(json.dumps({"main": record}), flush=True)
     del state
     torch.cuda.empty_cache()
@@ -1807,6 +1878,8 @@ def bulk_phase(args, work_dir: str, card: str) -> None:
         f"incremental take of the unchanged state {incr_take_s:.3f} s (no data written) on "
         f"{card}; bitwise equal"
     )
+    _headline("bulk", gib=nbytes / 2**30, take_gb_s=record["take_gb_s"], restore_gb_s=record["restore_gb_s"],
+              incremental_take_s=incr_take_s)
     print(json.dumps({"bulk": record}), flush=True)
     for p in (path_d, path_i):
         shutil.rmtree(p, ignore_errors=True)
@@ -2071,6 +2144,8 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
         f"({record['restore_latest_gb_s']:.2f} GB/s) bit-identical, logits and next-step loss "
         f"{float(loss_a)!r} too; launches {launches}; on {card}"
     )
+    _headline("manager", step_alone_s=step_alone_s, step_beside_drain_s=step_beside_drain_s,
+              restore_latest_s=restore_s, retained=retained)
     print(json.dumps({"manager": record}), flush=True)
     del state, fresh
     torch.cuda.empty_cache()
@@ -2394,6 +2469,8 @@ def cas_phase(args, work_dir: str, card: str) -> dict:
         f"reconcile and restore_latest {restore_s:.3f} s bit-identical, logits and next loss {float(loss_5)!r} too; "
         f"launches {launches}; on {card}"
     )
+    _headline("cas", take_legacy_cas_s=[turns["legacy"][0], turns["cas"][0]], fsck_s=fsck_s,
+              restore_latest_s=restore_s)
     print(json.dumps({"cas": record}), flush=True)
     del state, fresh
     torch.cuda.empty_cache()
@@ -2851,6 +2928,8 @@ def tiered_phase(args, work_dir: str, card: str) -> dict:
         + f"; on {card}"
     )
     print(json.dumps({"tiered_f": matrix}), flush=True)
+    _headline("tiered", durable_restore_s=leg_b["restore_s"], healed_reads=leg_c["healed_reads"],
+              resumed_blobs=leg_d["shipped_blobs"], crash_points=len(matrix))
 
     launches = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
     _require(all(launches[k] for k in TIERED_PATH_KERNELS), f"a kernel of the tiered path never launched: {launches}")
@@ -2970,6 +3049,10 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
     from torchsnapshot_tpu_torch.test_utils import faulty_fs_plugin, patch_storage_plugin
 
     t_start = time.monotonic()
+    # The peer tier off: this phase's checks are of the write and read
+    # paths without it (each rank's bytes written, the file sets, which
+    # plugin reads a blob); the peer phase drives the tier.
+    os.environ["TORCHSNAPSHOT_TPU_PEER_TIER"] = "0"
     rank = pg.rank
     wrapper = PGWrapper(pg)
     torch.cuda.set_device(rank % torch.cuda.device_count())
@@ -3319,6 +3402,8 @@ def ranks_phase(args, work_dir: str, card: str) -> dict:
         f"ranks: world-1 restore of the two-rank snapshot {elastic_s:.3f} s, read_object(1/own/x) "
         f"{read_object_s:.3f} s, bit-identical; workers {workers_s:.1f} s, phase {wall_s:.1f} s on {card}"
     )
+    _headline("ranks", take_s=[r["a"]["take_s"] for r in records], restore_s=[r["b"]["restore_s"] for r in records],
+              world1_restore_s=elastic_s)
     print(json.dumps({"ranks": record}), flush=True)
     return record
 
@@ -3470,6 +3555,10 @@ def sharded_worker(pg, seed: int, work_dir: str) -> dict:
     from torchsnapshot_tpu_torch.test_utils import init_torch_group, patch_storage_plugin
 
     t_start = time.monotonic()
+    # The peer tier off: this phase's checks are of the write and read
+    # paths without it (each rank's bytes written, the file sets, which
+    # plugin reads a blob); the peer phase drives the tier.
+    os.environ["TORCHSNAPSHOT_TPU_PEER_TIER"] = "0"
     rank = pg.rank
     wrapper = PGWrapper(pg)
     torch.cuda.set_device(rank % torch.cuda.device_count())
@@ -3869,7 +3958,398 @@ def sharded_phase(args, work_dir: str, card: str) -> dict:
         f"world-1 restore of the two-rank snapshot {c2_s:.3f} s, bit-identical, next loss "
         f"{float(loss_a)!r} bit for bit; workers {workers_s:.1f} s, phase {wall_s:.1f} s on {card}"
     )
+    _headline("sharded", take_s=[r["a"]["take_s"] for r in records],
+              restore_s=[r["b"]["restore_s"] for r in records], world1_restore_s=c2_s)
     print(json.dumps({"sharded": record}), flush=True)
+    return record
+
+
+# ----------------------------------------------------------------------
+# The peer phase: the peer-RAM tier on the sharded state
+# ----------------------------------------------------------------------
+
+
+# The kernels the peer phase must launch on every rank: the training step
+# and the evaluation forward (flash), the saves' digests.
+PEER_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
+# A dead-neighbour push gives up after this many seconds without progress;
+# the default (30 s) would only lengthen leg (d).
+PEER_TIMEOUT_S = 5.0
+
+
+def _gather_train_state(tree: dict, world: int) -> dict:
+    """The full train tensors of a Shard(0) DTensor tree (its ``param/``
+    and ``opt/`` leaves and the RNG state), each gathered from every
+    rank's restored local shard over the gloo group as CPU copies (the
+    train state's shards are equal-sized), back on the card."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for name in sorted(tree):
+        if not name.startswith(("param/", "opt/")) and name != "rng":
+            continue
+        x = tree[name]
+        if not hasattr(x, "device_mesh"):
+            out[name] = x
+            continue
+        local = x.to_local().cpu().contiguous()
+        parts = [torch.empty_like(local) for _ in range(world)]
+        dist.all_gather(parts, local)
+        out[name] = torch.cat(parts, dim=0).to("cuda")
+    return out
+
+
+def _next_loss(cfg, tensors: dict, step: int, tokens, train_step):
+    """One training step from a train state loaded with ``tensors`` (as
+    ``_state_tensors`` names them): its loss, and the evaluation logits'
+    finiteness before it (the fused flash kernel)."""
+    import torch
+
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state
+
+    fresh = init_train_state(cfg, seed=12345)
+    live = _state_tensors(fresh)
+    _require(sorted(live) == sorted(tensors), "the restored tensors are not a train state's")
+    with torch.no_grad():
+        for k, t in live.items():
+            if k != "rng":
+                t.copy_(tensors[k])
+        logits = fresh.model(tokens)
+    _require(bool(torch.isfinite(logits).all()), "evaluation logits of the restored state not finite")
+    del logits
+    fresh.rng.set_state(tensors["rng"])
+    fresh.step = step
+    _, loss = train_step(fresh, tokens)
+    torch.cuda.synchronize()
+    del fresh, live
+    return loss
+
+
+def peer_worker(pg, seed: int, work_dir: str) -> dict:
+    """One rank of the peer phase (spawned by ``run_multiprocess``; the
+    parent built every kernel): the sharded phase's state (the main
+    configuration as ``Shard(0)`` DTensors on a ``cuda`` mesh of 2 over a
+    gloo default group) through ``CheckpointManager(root, pg=,
+    keep_peer_last_n=1)`` with the peer tier on; legs (a)-(d) of the
+    module docstring. Returns the rank's record."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    # The tier on (its default, pinned against the caller's environment),
+    # a short transfer timeout for the dead neighbour of (d), and fan-out
+    # off: with fan-out an owner chosen by a content hash would pull the
+    # replacement's blobs and ship them on, and (b) holds the
+    # replacement's own ladder.
+    os.environ["TORCHSNAPSHOT_TPU_PEER_TIER"] = "1"
+    os.environ["TORCHSNAPSHOT_TPU_PEER_TRANSFER_TIMEOUT_SECONDS"] = str(PEER_TIMEOUT_S)
+    os.environ["TORCHSNAPSHOT_TPU_FANOUT_RESTORE"] = "0"
+
+    from torchsnapshot_tpu_torch import CheckpointManager, TensorTreeState, telemetry
+    from torchsnapshot_tpu_torch.fsck import verify_snapshot
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state, make_train_step, random_tokens
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.ops import kernels
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+    from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.test_utils import init_torch_group, patch_storage_plugin
+    from torchsnapshot_tpu_torch.tiered import peer
+
+    t_start = time.monotonic()
+    rank, world = pg.rank, pg.world_size
+    wrapper = PGWrapper(pg)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in kernels.kernel_names() if not os.path.exists(kernels._library_path(n))]
+    _require(not missing, f"rank {rank}: kernels {missing} not built by the parent")
+    init_torch_group(pg)
+    root = os.path.join(work_dir, "root")
+    try:
+        mesh = init_device_mesh("cuda", (world,))
+        cfg = main_config()
+        tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, seed)).cuda()
+        state = init_train_state(cfg, seed=seed)
+        train_step = make_train_step(cfg)
+        for counts in (fa.launch_counts, dd.launch_counts, dp.launch_counts):
+            for k in counts:
+                counts[k] = 0
+        for _ in range(STEPS):
+            state, _ = train_step(state, tokens)
+        torch.cuda.synchronize()
+        _require_replicas_equal(pg, state)
+        record = {"rank": rank, "device": torch.cuda.current_device()}
+
+        def timed_step() -> float:
+            nonlocal state
+            torch.cuda.current_stream().synchronize()
+            t0 = time.monotonic()
+            state, _ = train_step(state, tokens)
+            torch.cuda.current_stream().synchronize()
+            return time.monotonic() - t0
+
+        def zero_tree() -> dict:
+            return _dtensor_tree({k: torch.zeros_like(v) for k, v in _replica_leaves(state, seed).items()}, mesh)
+
+        def requests() -> float:
+            return _counter(names.COORD_STORE_REQUESTS_TOTAL)
+
+        def data_locations(step_path: str, r: int) -> dict:
+            with open(os.path.join(step_path, "checksums", str(r))) as f:
+                return json.load(f)
+
+        neighbour = (rank + 1) % world
+        mgr = CheckpointManager(root, pg=pg, keep_peer_last_n=1)
+        rep = peer.get_replicator()
+        _require(rep.configured and rep.cache.keep_last_n == 1, f"rank {rank}: the peer tier is not configured")
+
+        # (a) A sync save, then an async save beside a training step; each
+        # rank's neighbour then holds exactly the newer step's blobs of
+        # this rank, and the older step is evicted from its cache.
+        timed_step()
+        alone_s = statistics.median(timed_step() for _ in range(3))
+        tree = _dtensor_tree(_replica_leaves(state, seed), mesh)
+        r0 = requests()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mgr.save(1, {"train": TensorTreeState(tree)}, record_digests=True)
+        save1_s = time.monotonic() - t0
+        job1 = rep.last_job()
+        # The step right after the save, beside the push worker: whether
+        # the push still ran when the step began and when it ended.
+        push1_busy = [not job1.done_evt.is_set()]
+        beside_s = timed_step()
+        push1_busy.append(not job1.done_evt.is_set())
+        _require(peer.maybe_drain(timeout=120), f"rank {rank}: the push of step 1 did not settle")
+        _require(job1.error is None and job1.blobs_failed == 0, f"rank {rank}: push of step 1: {job1.error!r}")
+        del tree
+        # Copies: the step run beside the async save updates the live leaves.
+        leaves2 = {k: v.clone() for k, v in _replica_leaves(state, seed).items()}
+        saved2 = {k: leaves2[k] for k in _state_tensors(state)}
+        step2 = state.step
+        tree = _dtensor_tree(leaves2, mesh)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        pending = mgr.async_save(2, {"train": TensorTreeState(tree)}, record_digests=True)
+        async_visible_s = time.monotonic() - t0
+        beside_async_s = timed_step()
+        pending.wait()
+        async_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        _require(peer.maybe_drain(timeout=120), f"rank {rank}: the push of step 2 did not settle")
+        drain2_s = time.monotonic() - t0
+        job2 = rep.last_job()
+        _require(job2.error is None and job2.blobs_failed == 0 and job2.blobs_refused == 0,
+                 f"rank {rank}: push of step 2: {job2.error!r}, {job2.blobs_failed} failed, "
+                 f"{job2.blobs_refused} refused")
+        a_requests = requests() - r0
+        del tree
+        wrapper.barrier()  # every push settled: each cache is final
+        step2_path = mgr.step_path(2)
+        table = data_locations(step2_path, rank)
+        endpoint = rep.endpoint_for(neighbour)
+        client = peer.PeerClient(*endpoint, timeout=60)
+        try:
+            inventory = client.list_step(peer.peer_step_key(step2_path))
+            _require(sorted(inventory) == sorted(table),
+                     f"rank {rank}: the neighbour holds {len(inventory)} blobs of step 2, its table {len(table)}")
+            for loc in sorted(table):
+                _require(list(inventory[loc][:3]) == list(table[loc][:3]), f"rank {rank}: {loc}: other entry")
+                got = client.pull(peer.peer_step_key(step2_path), loc)
+                with open(os.path.join(step2_path, loc), "rb") as f:
+                    _require(got is not None and bytes(got[1]) == f.read(), f"rank {rank}: {loc}: other bytes")
+            _require(client.list_step(peer.peer_step_key(mgr.step_path(1))) == {},
+                     f"rank {rank}: step 1 not evicted from the neighbour (keep_peer_last_n=1)")
+            neighbour_stats = client.stats()
+        finally:
+            client.close()
+        if rank == 0:
+            report = verify_snapshot(step2_path, tier="peer")
+            _require(report.ok, f"fsck --tier peer of step 2: {[str(p) for p in report.problems[:5]]}")
+        record["a"] = {
+            "save_s": save1_s, "async_visible_s": async_visible_s, "async_s": async_s,
+            "push_s": [job1.seconds, job2.seconds], "push_bytes": [job1.bytes_pushed, job2.bytes_pushed],
+            "push_blobs": [job1.blobs_pushed, job2.blobs_pushed], "drain_after_async_s": drain2_s,
+            "step_alone_s": alone_s, "step_beside_push_s": beside_s, "push_busy_at_step": push1_busy,
+            "step_beside_async_s": beside_async_s, "store_requests": a_requests,
+            "neighbour_cache_bytes": neighbour_stats["bytes"], "neighbour_cache_steps": neighbour_stats["steps"],
+        }
+        wrapper.barrier()
+
+        # (b) Rank 1 is preempted: its process state and its cache go; the
+        # replacement re-announces under rank 1 and restores from rank 0's
+        # RAM, zero data blobs read from storage.
+        class DataReads(FSStoragePlugin):
+            paths: list = []
+
+            async def read(self, read_io):
+                self._count(read_io)
+                return await super().read(read_io)
+
+            async def read_with_checksum(self, read_io):
+                self._count(read_io)
+                return await super().read_with_checksum(read_io)
+
+            def _count(self, read_io):
+                if not read_io.path.startswith((".", "checksums", "cas/")):
+                    DataReads.paths.append(read_io.path)
+
+        def restore_leg(what: str, count: bool) -> dict:
+            dest = zero_tree()
+            DataReads.paths = []
+            r = requests()
+            wrapper.barrier()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            with patch_storage_plugin(DataReads) if count else contextlib.nullcontext():
+                _require(mgr.restore_latest({"train": TensorTreeState(dest)}) == restored_step,
+                         f"rank {rank} {what}: restore_latest restored another step")
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            _require_shards(dest, want_leaves, f"rank {rank} {what}")
+            full = _gather_train_state(dest, world)
+            loss = _next_loss(cfg, full, want_step, tokens, train_step)
+            _require(same_bits(loss, want_loss), f"rank {rank} {what}: next-step loss {loss} vs {want_loss}")
+            del dest, full
+            tele = dict(mgr.restore_telemetry)
+            reads = len(DataReads.paths) if count else None  # None: not counted on this rank
+            return {"restore_s": seconds, "data_reads": reads, "store_requests": requests() - r,
+                    "telemetry": tele, "next_loss": float(loss)}
+
+        restored_step, want_leaves, want_step = 2, leaves2, step2
+        want_loss = _next_loss(cfg, saved2, step2, tokens, train_step)
+        del saved2, leaves2
+        if rank == 1:
+            del mgr
+            peer.reset_peer_tier()
+            mgr = CheckpointManager(root, pg=pg, keep_peer_last_n=1)
+            _require(peer.get_replicator().configured, "the replacement's peer tier is not configured")
+        b = restore_leg("peer-RAM restore (b)", count=(rank == 1))
+        split = b["telemetry"].get("tier_split", {})
+        if rank == 1:
+            _require(b["data_reads"] == 0, f"the replacement read {b['data_reads']} data blobs from storage")
+            share = split.get("peer", 0) / max(1, sum(split.values()))
+            _require(share >= 0.95, f"the replacement took {share:.4f} of its bytes from peer RAM: {split}")
+            _require(b["telemetry"]["bytes_fetched"] == 0 and b["telemetry"]["peer"]["failures"] == 0,
+                     f"the replacement's telemetry: {b['telemetry']}")
+            b["peer_share"] = share
+        record["b"] = b
+
+        # (c) Both caches wiped (a double preemption): storage alone.
+        wrapper.barrier()
+        del mgr
+        peer.reset_peer_tier()
+        mgr = CheckpointManager(root, pg=pg, keep_peer_last_n=1)
+        wrapper.barrier()
+        c = restore_leg("storage restore (c)", count=True)
+        _require("peer" not in c["telemetry"].get("tier_split", {}), f"rank {rank} (c): {c['telemetry']}")
+        _require(c["data_reads"] > 0, f"rank {rank} (c): no data blob read from storage")
+        record["c"] = c
+
+        # (d) Rank 0's server stops (a dead neighbour for rank 1). Both
+        # ranks save step 3; rank 1's save does not wait on its push, which
+        # degrades the tier; the restore falls through to storage.
+        timed_step()
+        tree = _dtensor_tree(_replica_leaves(state, seed), mesh)
+        want_leaves, want_step = _replica_leaves(state, seed), state.step
+        want_loss = _next_loss(cfg, _state_tensors(state), state.step, tokens, train_step)
+        restored_step = 3
+        failures = _counter(names.PEER_PUSH_FAILURES_TOTAL)
+        wrapper.barrier()
+        if rank == 0:
+            peer.get_replicator().stop_server()
+        wrapper.barrier()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mgr.save(3, {"train": TensorTreeState(tree)}, record_digests=True)
+        save3_s = time.monotonic() - t0
+        del tree
+        t0 = time.monotonic()
+        drained = peer.maybe_drain(timeout=60)
+        drain3_s = time.monotonic() - t0
+        _require(drained, f"rank {rank}: the drain of step 3 did not settle within 60 s")
+        job3 = peer.get_replicator().last_job()
+        gauges = telemetry.metrics().collect()["gauges"]
+        d = {"save_s": save3_s, "drain_s": drain3_s, "push_error": repr(job3.error),
+             "push_failures": _counter(names.PEER_PUSH_FAILURES_TOTAL) - failures,
+             "degraded_gauge": gauges.get(names.PEER_TIER_DEGRADED_STATE)}
+        if rank == 1:
+            _require(d["push_failures"] >= 1 and d["degraded_gauge"] == 1 and job3.error is not None,
+                     f"rank 1 with a dead neighbour: {d}")
+        else:
+            _require(job3.error is None and d["push_failures"] == 0, f"rank 0's push of step 3: {d}")
+        wrapper.barrier()
+        d.update(restore_leg("restore after a dead neighbour (d)", count=True))
+        split = d["telemetry"].get("tier_split", {})
+        if rank == 1:
+            _require(split.get("peer", 0) == 0 and d["data_reads"] > 0,
+                     f"rank 1 (d): its blobs must come from storage: {d['telemetry']}")
+            report = verify_snapshot(mgr.step_path(3), tier="peer")
+            mine = sorted(data_locations(mgr.step_path(3), 1))
+            missing = sorted(p.location for p in report.problems if p.kind == "missing")
+            _require(not report.ok and missing == mine,
+                     f"fsck --tier peer of step 3 names {len(missing)} unplaced blobs, rank 1 wrote {len(mine)}")
+            d["fsck_unplaced"] = len(missing)
+        else:
+            _require(split.get("peer", 0) > 0, f"rank 0 (d): its blobs sit in rank 1's cache: {d['telemetry']}")
+        record["d"] = d
+        wrapper.barrier()
+
+        launches = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+        _require(all(launches[k] for k in PEER_PATH_KERNELS),
+                 f"rank {rank}: a kernel of the path never launched in the peer phase: {launches}")
+        record["launches"] = launches
+        record["worker_s"] = time.monotonic() - t_start
+        peer.reset_peer_tier()
+        return record
+    finally:
+        dist.destroy_process_group()
+
+
+def peer_phase(args, work_dir: str, card: str) -> dict:
+    """Two processes on the card run legs (a)-(d) of the peer tier on the
+    sharded state (``peer_worker``). Prints one JSON line for the phase."""
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    t_phase = time.monotonic()
+    peer_dir = os.path.join(work_dir, "peer")
+    os.makedirs(peer_dir, exist_ok=True)
+    records = run_multiprocess(peer_worker, RANKS, args=(args.seed, peer_dir), timeout=900.0)
+    wall_s = time.monotonic() - t_phase
+    for r in records:
+        a, b, c, d = r["a"], r["b"], r["c"], r["d"]
+        busy = a["push_busy_at_step"]
+        beside = f"{a['step_beside_push_s']:.4f} s (the push running at its start {busy[0]}, at its end {busy[1]})"
+        log(
+            f"peer: rank {r['rank']} (a) save {a['save_s']:.3f} s, async save {a['async_s']:.3f} s "
+            f"({a['async_visible_s']:.3f} s visible); pushes {a['push_s'][0]:.3f} and {a['push_s'][1]:.3f} s for "
+            f"{a['push_bytes'][0] / 1e9:.4f} and {a['push_bytes'][1] / 1e9:.4f} GB ({a['push_blobs'][1]} blobs), "
+            f"drain after the async save {a['drain_after_async_s']:.3f} s; step alone {a['step_alone_s']:.4f} s, "
+            f"beside the push {beside}, beside the async save {a['step_beside_async_s']:.4f} s; "
+            f"{a['store_requests']:.0f} store requests; the neighbour's cache {a['neighbour_cache_bytes'] / 1e9:.4f} "
+            f"GB in {a['neighbour_cache_steps']} step"
+        )
+        log(
+            f"peer: rank {r['rank']} (b) restore {b['restore_s']:.3f} s, tier split {b['telemetry'].get('tier_split')}, "
+            f"{b['data_reads'] if b['data_reads'] is not None else 'uncounted'} data reads from storage; (c) from storage {c['restore_s']:.3f} s, "
+            f"{c['data_reads']} data reads; (d) save {d['save_s']:.3f} s with a dead neighbour, drain "
+            f"{d['drain_s']:.3f} s, {d['push_failures']:.0f} push failures, degraded {d['degraded_gauge']}, restore "
+            f"{d['restore_s']:.3f} s, tier split {d['telemetry'].get('tier_split')}; store requests (b) "
+            f"{b['store_requests']:.0f}, (c) {c['store_requests']:.0f}, (d) {d['store_requests']:.0f}; "
+            f"launches {r['launches']}"
+        )
+    record = {"card": card, "ranks": records, "wall_s": wall_s}
+    log(f"peer: phase {wall_s:.1f} s on {card}")
+    r1 = records[1]
+    _headline("peer", push_s=r1["a"]["push_s"], push_gb=[x / 1e9 for x in r1["a"]["push_bytes"]],
+              replacement_peer_share=r1["b"]["peer_share"], restore_peer_s=r1["b"]["restore_s"],
+              restore_storage_s=r1["c"]["restore_s"], dead_neighbour_save_s=r1["d"]["save_s"],
+              dead_neighbour_drain_s=r1["d"]["drain_s"])
+    print(json.dumps({"peer": record}), flush=True)
     return record
 
 

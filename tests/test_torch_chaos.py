@@ -8,7 +8,7 @@ the repair matrix of one corrupt chunk per tier (fall through, rewrite,
 quarantine). Where the JAX file reads its restore report and doctor
 verdicts (the telemetry of ROADMAP queue 1 step 10), these read the port's
 ``restore_telemetry`` and the ``storage_degraded_reads_total`` counter.
-Its peer-ladder case waits for the peer tier (step 9b-ii). Added here: one
+Its peer-ladder case holds the port's ladder the same way. Added here: one
 ``FaultPlan`` JSON line fires the same schedule under both packages'
 engines, and a ``cuda_only`` tiered take and restore of CUDA leaves whose
 fast copy is corrupt, compared bit for bit.
@@ -421,6 +421,39 @@ def test_tiered_restore_heals_around_corrupt_fast_copy(tmp_path) -> None:
     assert snapshot.restore_telemetry["degraded_reads"] == {"blobs": 1, "bytes": nbytes}
     assert snapshot.restore_telemetry["tier_split"] == {"durable": nbytes}
     assert _degraded("durable") == before + 1
+
+
+def test_peer_ladder_healing_does_not_double_count_tiers(tmp_path) -> None:
+    """The peer ladder's ``read_degraded`` takes back the rejected serve's
+    bytes: ``tier_split`` sums to the bytes restored, not to those plus
+    every corrupt attempt."""
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+    from torchsnapshot_tpu_torch.tiered.peer import PeerRestoreContext
+    from torchsnapshot_tpu_torch.tiered.plugin import TieredStoragePlugin
+
+    fast, durable = str(tmp_path / "f"), str(tmp_path / "d")
+    payload = bytes(range(256)) * 4
+    for tier in (fast, durable):
+        os.makedirs(tier)
+        with open(os.path.join(tier, "blob"), "wb") as f:
+            f.write(payload)
+    _flip_middle_byte(os.path.join(fast, "blob"))
+    tiered = TieredStoragePlugin(fast=FSStoragePlugin(root=fast), durable=FSStoragePlugin(root=durable))
+    ctx = PeerRestoreContext(table={}, step_key="s", timeout=0.5)
+    ladder = ctx.wrap(tiered)
+
+    async def body():
+        read = ReadIO(path="blob")
+        await ladder.read(read)  # the fast tier serves, corrupt, and is counted
+        assert read.served_by == "fast"
+        assert await ladder.read_degraded(read)  # the scheduler's retry
+        assert read.served_by == "durable"
+        assert bytes(read.buf) == payload
+
+    run_in_fresh_event_loop(body())
+    split = ctx.pipeline_fields()["tier_split"]
+    assert sum(split.values()) == len(payload), split
+    assert split["durable"] == len(payload) and split["fast"] == 0
 
 
 def test_single_tier_corruption_still_raises(tmp_path) -> None:

@@ -5,8 +5,9 @@ the CLI's exit codes; and both packages' fsck on each other's snapshots.
 Ports of the 13 cases of the JAX package's ``tests/test_fsck.py``, plus
 the cross-package audit: each package's ``verify_snapshot`` passes a
 snapshot the other wrote at ``deep=True``, and a planted missing blob,
-truncation or bit flip gives the same problem kind in both. The tiered
-and peer audits are refused (ROADMAP queue 1 step 9).
+truncation or bit flip gives the same problem kind in both. The per-tier
+audits of tiered snapshots and the peer-placement audit run as in the JAX
+package (the peer tier's own cases are in ``test_torch_peer_tier.py``).
 """
 
 import os
@@ -211,14 +212,23 @@ def test_module_runs_as_a_program(tmp_path) -> None:
 
 @pytest.mark.parametrize("tier", ["fast", "durable", "peer"])
 def test_tier_audits_refused(tmp_path, tier) -> None:
-    """The per-tier audits of a ``tiered://`` snapshot are ported; only
-    the peer-placement audit still raises, naming its step. A tier of a
-    plain path is a caller's error, as in the JAX package."""
+    """The per-tier audits of a ``tiered://`` snapshot are ported, and so
+    is the peer-placement audit (any path): a snapshot that no peer push
+    placed reports its missing placement, in both packages alike. A fast
+    or durable tier of a plain path is a caller's error, as in the JAX
+    package."""
     from torchsnapshot_tpu_torch.tiered import reset_mirror, wait_durable
 
     if tier == "peer":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 9b-ii"):
-            verify_snapshot(_take(tmp_path), tier=tier)
+        import torchsnapshot_tpu.fsck as jax_fsck
+
+        path = _take(tmp_path)
+        report = verify_snapshot(path, tier=tier)
+        jax_report = jax_fsck.verify_snapshot(path, tier=tier)
+        assert not report.ok and report.blobs_checked > 0
+        assert [(p.location, p.kind) for p in report.problems] == [(".peer_placement-rank0.json", "missing")]
+        assert [(p.location, p.kind) for p in jax_report.problems] == [(p.location, p.kind) for p in report.problems]
+        assert jax_report.blobs_checked == report.blobs_checked
         return
     with pytest.raises(ValueError, match="requires a tiered:// path"):
         verify_snapshot(_take(tmp_path), tier=tier)

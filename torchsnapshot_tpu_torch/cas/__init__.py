@@ -7,9 +7,9 @@ reference them through parent-relative locations, and the manager
 refcounts them through a crash-safe journal. ``TORCHSNAPSHOT_TPU_CAS=1``
 turns the layout on for new takes; either layout restores everywhere.
 On a ``tiered://`` root the store lives on both tiers, and the mirror
-ships only the chunks the durable tier does not hold. The JAX package's
-peer tier also dedups by chunk key; it is not ported yet (ROADMAP queue
-1 step 9b-ii).
+ships only the chunks the durable tier does not hold, and the peer tier
+(``tiered/peer.py``) pools chunks by key: a push references the chunks
+its neighbour already holds (one RPC) and ships only the rest.
 """
 
 from .plugin import (

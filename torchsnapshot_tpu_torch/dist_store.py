@@ -825,6 +825,71 @@ def _bootstrap_tcp_store(kv: Store, rank: int, timeout: float = _DEFAULT_TIMEOUT
 
 
 # ---------------------------------------------------------------------------
+# Endpoint registry (the peer tier's transport bootstrap)
+# ---------------------------------------------------------------------------
+
+_ENDPOINT_PREFIX = "__endpoint"
+
+
+def publish_endpoint(store: Store, service: str, rank: int, host: str, port: int) -> None:
+    """Advertise a per-rank network endpoint through the coordination
+    store. Endpoint keys are a registry, not collective keys: a re-publish
+    overwrites (a replacement rank re-announces itself under its old rank
+    id after a preemption) and nothing cleans them up, so a surviving peer
+    stays discoverable for the whole run."""
+    store.set(f"{_ENDPOINT_PREFIX}/{service}/{rank}", f"{host}:{port}".encode())
+
+
+def _parse_endpoint(raw: bytes) -> Optional[Tuple[str, int]]:
+    try:
+        host, port = raw.decode().rsplit(":", 1)
+        return host, int(port)
+    except (ValueError, UnicodeDecodeError):
+        return None
+
+
+def lookup_endpoint(store: Store, service: str, rank: int) -> Optional[Tuple[str, int]]:
+    """The advertised ``(host, port)`` of ``rank``, or None when it never
+    published or the store read failed: an unreachable registry reads as
+    "no endpoint", never an error in a restore that can proceed without
+    peers."""
+    try:
+        raw = store.try_get(f"{_ENDPOINT_PREFIX}/{service}/{rank}")
+    except Exception:  # noqa: BLE001 - "no endpoint", never raise
+        return None
+    return None if raw is None else _parse_endpoint(raw)
+
+
+def lookup_endpoints(store: Store, service: str, ranks: Iterable[int]) -> Dict[int, Tuple[str, int]]:
+    """Every advertised ``(host, port)`` of ``ranks`` in one ``multi_get``
+    round trip. Ranks that never published, or whose entry does not
+    parse, are absent; a failed store read returns ``{}``. The resolve's
+    wall time feeds ``coordination_endpoint_seconds_total``."""
+    rank_list = list(ranks)
+    keys = [f"{_ENDPOINT_PREFIX}/{service}/{r}" for r in rank_list]
+    t0 = time.monotonic()
+    try:
+        got = store.multi_get(keys)
+    except Exception:  # noqa: BLE001 - "no endpoint", never raise
+        return {}
+    finally:
+        try:
+            telemetry, n, _ = _tele_modules()
+            telemetry.metrics().counter_inc(
+                n.COORD_ENDPOINT_SECONDS_TOTAL, time.monotonic() - t0, service=service
+            )
+        except Exception:  # noqa: BLE001 - telemetry is best-effort
+            pass
+    out: Dict[int, Tuple[str, int]] = {}
+    for rank, key in zip(rank_list, keys):
+        raw = got.get(key)
+        parsed = None if raw is None else _parse_endpoint(raw)
+        if parsed is not None:
+            out[rank] = parsed
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Barriers
 # ---------------------------------------------------------------------------
 

@@ -36,15 +36,18 @@ loudly.
 
 CLI::
 
-    python -m torchsnapshot_tpu_torch.fsck PATH [--deep] [--cas] [--repair] [--tier fast|durable]
+    python -m torchsnapshot_tpu_torch.fsck PATH [--deep] [--cas] [--repair] [--tier fast|durable|peer]
 
 exits 0 when the snapshot (or the store) is sound, 1 otherwise, printing
 one line per problem.
 
-Not ported yet, and refused: the peer-placement audit (``--tier peer``,
-ROADMAP queue 1 step 9b-ii) and the telemetry summary (``--stats``, step
-10). The JAX package's repair also posts a ledger event; the run ledger
-comes with step 10.
+``--tier peer`` (any path) audits the peer tier's placement docs
+instead of storage bytes: every required blob with no recorded peer copy,
+and every push that recorded a degradation, is a problem.
+
+Not ported yet, and refused: the telemetry summary (``--stats``, ROADMAP
+queue 1 step 10). The JAX package's repair also posts a ledger event; the
+run ledger comes with step 10.
 """
 
 from __future__ import annotations
@@ -301,6 +304,88 @@ def _describe_partial_mirror(tiered_path: str, event_loop: asyncio.AbstractEvent
     )
 
 
+def _verify_peer_placement(path: str) -> FsckReport:
+    """``fsck --tier peer``: audit the peer tier's placement docs. For each
+    rank of the snapshot's metadata, load ``.peer_placement-rank<r>.json``
+    (written by that rank's push job, on the fast tier of a tiered path)
+    and union the blobs it claims; every required data blob with no
+    claim (base-referenced locations excluded: they belong to another
+    step's placement; chunk refs included: they are this step's payload),
+    and every doc that records a degraded push, lands in the report."""
+    import json
+
+    from .cas import is_chunk_location
+    from .tiered.peer import placement_doc_path
+
+    problems: List[FsckProblem] = []
+    event_loop = asyncio.new_event_loop()
+    tiers = split_tiered_url(path)
+    storage = url_to_storage_plugin(path)
+    # Placement docs live on the fast tier only, like the mirror journal.
+    placement_storage = url_to_storage_plugin(tiers[0]) if tiers is not None else storage
+    try:
+        read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
+        try:
+            event_loop.run_until_complete(storage.read(read_io))
+            metadata = SnapshotMetadata.from_yaml(bytes(read_io.buf).decode("utf-8"))
+        except FileNotFoundError:
+            problems.append(
+                FsckProblem(SNAPSHOT_METADATA_FNAME, "missing", "no commit marker: not a committed snapshot")
+            )
+            return FsckReport(path, 0, 0, problems, False)
+        except Exception as e:  # noqa: BLE001
+            problems.append(FsckProblem(SNAPSHOT_METADATA_FNAME, "unreadable", repr(e)))
+            return FsckReport(path, 0, 0, problems, False)
+        placed = set()
+        docs = 0
+        for rank in range(metadata.world_size):
+            doc_path = placement_doc_path(rank)
+            doc_io = ReadIO(path=doc_path)
+            try:
+                event_loop.run_until_complete(placement_storage.read(doc_io))
+                doc = json.loads(bytes(doc_io.buf))
+            except FileNotFoundError:
+                continue
+            except Exception as e:  # noqa: BLE001
+                problems.append(FsckProblem(doc_path, "unreadable", repr(e)))
+                continue
+            docs += 1
+            placed.update(str(blob) for blob in doc.get("blobs", []))
+            if doc.get("error") or doc.get("blobs_failed") or doc.get("blobs_refused"):
+                problems.append(
+                    FsckProblem(
+                        doc_path,
+                        "unmirrored",
+                        f"degraded push: {doc.get('blobs_failed', 0)} failed, "
+                        f"{doc.get('blobs_refused', 0)} refused ({doc.get('error')})",
+                    )
+                )
+        required = {
+            loc for loc in blob_requirements(metadata.manifest)
+            if not loc.startswith("../") or is_chunk_location(loc)
+        }
+        if docs == 0:
+            problems.append(
+                FsckProblem(
+                    placement_doc_path(0),
+                    "missing",
+                    "no peer placement recorded: the peer tier never pushed this step "
+                    "(tier off, single-process world, or every push failed)",
+                )
+            )
+        else:
+            for loc in sorted(required - placed):
+                problems.append(
+                    FsckProblem(loc, "missing", "no peer copy recorded: a preemption now restores this blob from storage")
+                )
+        return FsckReport(path=path, blobs_checked=len(required), bytes_verified=0, problems=problems, deep=False)
+    finally:
+        event_loop.run_until_complete(storage.close())
+        if placement_storage is not storage:
+            event_loop.run_until_complete(placement_storage.close())
+        event_loop.close()
+
+
 def verify_snapshot(path: str, deep: bool = False, tier: Optional[str] = None) -> FsckReport:
     """Audit one committed snapshot. Never raises for snapshot damage:
     every problem lands in the report (a path that is not a snapshot at
@@ -310,15 +395,13 @@ def verify_snapshot(path: str, deep: bool = False, tier: Optional[str] = None) -
     ``"fast"`` or ``"durable"``; the default audits the composed view.
     The durable tier of a step whose mirror has not finished reports an
     ``unmirrored`` problem with the journal's progress instead of a bare
-    missing commit marker. ``"peer"``, the JAX package's audit of the
-    peer-RAM placement journal, is not ported yet (ROADMAP queue 1 step
-    9b-ii) and raises."""
+    missing commit marker. ``"peer"`` (any path) audits the peer tier's
+    placement docs instead of storage bytes (:func:`_verify_peer_placement`):
+    the offline view of what a preemption now could recover at RAM
+    speed."""
     audit_path = path
     if tier == "peer":
-        raise NotImplementedError(
-            "fsck tier='peer': the peer-tier placement audit is not ported to "
-            "torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9b-ii)"
-        )
+        return _verify_peer_placement(path)
     if tier is not None:
         tiers = split_tiered_url(path)
         if tiers is None:
@@ -807,7 +890,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         choices=("fast", "durable", "peer"),
         default=None,
         help="for tiered:// paths: audit only this tier (default: the composed view, each blob "
-        "fast first with the durable fallback); 'peer' is not ported yet (ROADMAP queue 1 step 9b-ii)",
+        "fast first with the durable fallback); 'peer' (any path) audits the peer tier's placement "
+        "docs: which required blobs have a recorded peer copy",
     )
     p.add_argument("--stats", action="store_true", help="not ported yet (ROADMAP queue 1 step 10)")
     args = p.parse_args(argv)

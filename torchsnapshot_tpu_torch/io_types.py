@@ -115,6 +115,11 @@ class ReadIO:
     ladder) with the tier that produced ``buf`` — the state
     :meth:`StoragePlugin.read_degraded` needs to try the *other*
     sources when verification rejects these bytes.
+
+    ``verified_entry`` is set by a plugin that verified ``buf`` itself
+    (the peer ladder verifies every pulled byte) to the checksum entry it
+    verified against: the read pipeline does not verify those bytes again
+    when that entry is the one it holds.
     """
 
     path: str
@@ -122,6 +127,7 @@ class ReadIO:
     buf: Optional[memoryview] = None
     dest: Optional[memoryview] = None
     served_by: Optional[str] = field(default=None, compare=False)
+    verified_entry: Optional[tuple] = field(default=None, compare=False)
 
 
 class BufferStager(abc.ABC):

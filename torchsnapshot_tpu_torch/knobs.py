@@ -43,6 +43,10 @@ _DEVICE_PACK_ENV = "TORCHSNAPSHOT_TPU_DEVICE_PACK"
 _MIRROR_IO_CONCURRENCY_ENV = "TORCHSNAPSHOT_TPU_MIRROR_IO_CONCURRENCY"
 _MIRROR_PROGRESS_WINDOW_ENV = "TORCHSNAPSHOT_TPU_MIRROR_PROGRESS_WINDOW_SECONDS"
 _WAIT_DURABLE_TIMEOUT_ENV = "TORCHSNAPSHOT_TPU_WAIT_DURABLE_TIMEOUT_SECONDS"
+_PEER_TIER_ENV = "TORCHSNAPSHOT_TPU_PEER_TIER"
+_PEER_RING_OFFSET_ENV = "TORCHSNAPSHOT_TPU_PEER_RING_OFFSET"
+_PEER_CACHE_BUDGET_BYTES_ENV = "TORCHSNAPSHOT_TPU_PEER_CACHE_BUDGET_BYTES"
+_PEER_TRANSFER_TIMEOUT_ENV = "TORCHSNAPSHOT_TPU_PEER_TRANSFER_TIMEOUT_SECONDS"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_MEMORY_BUDGET_FRACTION: float = 0.6
@@ -59,6 +63,9 @@ _DEFAULT_MAX_SHARD_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES: int = 128 * 1024 * 1024
 _DEFAULT_CAS_GC_GRACE_SECONDS: float = 900.0
 _DEFAULT_WAIT_DURABLE_TIMEOUT_SECONDS: float = 1800.0
+_DEFAULT_PEER_RING_OFFSET: int = 1
+_DEFAULT_PEER_CACHE_BUDGET_BYTES: int = 1024 * 1024 * 1024
+_DEFAULT_PEER_TRANSFER_TIMEOUT_SECONDS: float = 30.0
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -283,6 +290,39 @@ def get_wait_durable_timeout_seconds() -> float:
     return _DEFAULT_WAIT_DURABLE_TIMEOUT_SECONDS
 
 
+def is_peer_tier_enabled() -> bool:
+    """The peer-RAM tier (``tiered/peer.py``): every rank pushes its
+    committed blobs into a neighbour rank's host-RAM cache, and restores
+    resolve peer RAM -> local fast tier -> durable per blob. On by
+    default, but inert until a multi-rank process group configures it
+    (``CheckpointManager(pg=...)`` or ``tiered.peer.maybe_configure``):
+    a single-process job starts no server. ``"0"`` kills it: no server,
+    no pushes, no pulls."""
+    return os.environ.get(_PEER_TIER_ENV, "1") != "0"
+
+
+def get_peer_ring_offset() -> int:
+    """Ring placement distance: rank ``r`` pushes to ``(r + offset) %
+    world``. The default of 1 survives any single-rank preemption."""
+    return _get_int_env(_PEER_RING_OFFSET_ENV, _DEFAULT_PEER_RING_OFFSET)
+
+
+def get_peer_cache_budget_bytes() -> int:
+    """Host-RAM bound on one process's peer cache (the blobs pushed to
+    this rank): LRU by step with the newest committed step pinned; a
+    push that cannot fit is refused, never the cache over budget."""
+    return _get_int_env(_PEER_CACHE_BUDGET_BYTES_ENV, _DEFAULT_PEER_CACHE_BUDGET_BYTES)
+
+
+def get_peer_transfer_timeout_seconds() -> float:
+    """Deadline of one peer transfer (connect, one blob push or pull) and
+    the no-progress retry window of a push job."""
+    val = os.environ.get(_PEER_TRANSFER_TIMEOUT_ENV)
+    if val is not None:
+        return float(val)
+    return _DEFAULT_PEER_TRANSFER_TIMEOUT_SECONDS
+
+
 @contextlib.contextmanager
 def _override_env(name: str, value: Optional[str]) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -410,4 +450,34 @@ def override_mirror_progress_window_seconds(seconds: float) -> Generator[None, N
 @contextlib.contextmanager
 def override_wait_durable_timeout_seconds(seconds: float) -> Generator[None, None, None]:
     with _override_env(_WAIT_DURABLE_TIMEOUT_ENV, str(seconds)):
+        yield
+
+
+@contextlib.contextmanager
+def enable_peer_tier() -> Generator[None, None, None]:
+    with _override_env(_PEER_TIER_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def disable_peer_tier() -> Generator[None, None, None]:
+    with _override_env(_PEER_TIER_ENV, "0"):
+        yield
+
+
+@contextlib.contextmanager
+def override_peer_ring_offset(offset: int) -> Generator[None, None, None]:
+    with _override_env(_PEER_RING_OFFSET_ENV, str(offset)):
+        yield
+
+
+@contextlib.contextmanager
+def override_peer_cache_budget_bytes(nbytes: int) -> Generator[None, None, None]:
+    with _override_env(_PEER_CACHE_BUDGET_BYTES_ENV, str(nbytes)):
+        yield
+
+
+@contextlib.contextmanager
+def override_peer_transfer_timeout_seconds(seconds: float) -> Generator[None, None, None]:
+    with _override_env(_PEER_TRANSFER_TIMEOUT_ENV, str(seconds)):
         yield

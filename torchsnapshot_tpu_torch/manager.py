@@ -57,10 +57,17 @@ that names it), bounded by ``TORCHSNAPSHOT_TPU_WAIT_DURABLE_TIMEOUT_SECONDS``;
 ``resume_mirrors()`` re-enqueues the mirrors a restart interrupted. On a
 plain root both are no-ops, as in the JAX manager.
 
+With a multi-rank ``pg`` the manager brings the peer-RAM tier up
+(``tiered/peer.py``; ``TORCHSNAPSHOT_TPU_PEER_TIER``, on by default): this
+process's cache server starts and its endpoint is published, each commit
+pushes the rank's blobs into its ring neighbour's RAM, and a restore reads
+through the peer -> fast -> durable ladder. ``keep_peer_last_n`` bounds
+the steps a cache keeps; a step that retention drops is evicted from
+every peer cache (best-effort, on a background thread).
+
 Not ported yet, and refused rather than skipped: the CDN publish side
 (ROADMAP queue 1 step 9c). The JAX manager's telemetry hooks (run ledger,
-SLO evaluation, autotuner, step and restore history) come with step 10;
-the peer tier (``keep_peer_last_n``) with step 9b-ii, inert until then.
+SLO evaluation, autotuner, step and restore history) come with step 10.
 """
 
 from __future__ import annotations
@@ -258,9 +265,9 @@ class CheckpointManager:
         cdn_topic: Optional[str] = None,
         cdn_store: Optional[Any] = None,
     ) -> None:
-        # keep_peer_last_n, cdn_topic and cdn_store keep the JAX manager's
-        # signature. The peer tier is not ported (inert), the CDN plane is
-        # refused below, and a topic without the CDN knob publishes nothing.
+        # cdn_topic and cdn_store keep the JAX manager's signature: the CDN
+        # plane is refused below, and a topic without the CDN knob
+        # publishes nothing.
         for name, value in (
             ("keep_last_n", keep_last_n),
             ("keep_best_n", keep_best_n),
@@ -295,6 +302,19 @@ class CheckpointManager:
         self.incremental = incremental
         self._pg_arg = pg
         self._pg = PGWrapper(pg)
+        self.keep_peer_last_n = keep_peer_last_n
+        # ``Snapshot.restore_telemetry`` of this manager's last sync restore.
+        self.restore_telemetry: Optional[Dict[str, Any]] = None
+        # The peer tier: start this process's cache server and publish its
+        # endpoint. Inert for one process, under the kill switch, or with
+        # no store; a failure degrades (the tier is recovery insurance,
+        # never a reason a manager cannot be built).
+        try:
+            from .tiered import peer as peer_tier
+
+            peer_tier.maybe_configure(self._pg, keep_last_n=keep_peer_last_n)
+        except Exception as e:  # noqa: BLE001 - the peer tier is best-effort
+            logger.warning("peer tier: configure failed: %r", e)
         # The root's chunk store, resolved on first use (rank 0 only):
         # False unresolved, None for a root with no local filesystem.
         self._cas_store: Any = False
@@ -412,7 +432,10 @@ class CheckpointManager:
         return step
 
     def restore(self, step: int, app_state: AppState) -> None:
-        Snapshot(self.step_path(step), pg=self._pg_arg).restore(app_state)
+        snapshot = Snapshot(self.step_path(step), pg=self._pg_arg)
+        snapshot.restore(app_state)
+        # This rank's byte accounting of the restore (its tiers among them).
+        self.restore_telemetry = snapshot.restore_telemetry
         telemetry.metrics().counter_inc(metric_names.MANAGER_RESTORES_TOTAL)
 
     def restore_latest(self, app_state: AppState) -> Optional[int]:
@@ -1026,4 +1049,12 @@ class CheckpointManager:
                     raise r
         finally:
             await storage.close()
+        # The dropped step's peer-RAM copies: evicted from every advertised
+        # cache in the background (the caches bound themselves anyway).
+        try:
+            from .tiered.peer import maybe_evict_step
+
+            maybe_evict_step(self.step_path(step))
+        except Exception as e:  # noqa: BLE001 - GC must not fail a save
+            logger.warning("peer tier: evicting step %d peer copies failed: %r", step, e)
         logger.info("Retention dropped step %d", step)

@@ -40,10 +40,10 @@ If the rendezvous does not complete within ``rendezvous_timeout`` (a
 peer already died), the saver gives up loudly and never triggers.
 
 In one process (``pg=None``) the signal alone decides: ``should_save``
-returns True at the first step after it. The run-ledger posts of the JAX
-saver (``ledger_root``) come with the telemetry port (ROADMAP queue 1
-step 10), and its peer-tier flush on ``close`` with the peer tier (step
-9).
+returns True at the first step after it. ``close`` flushes the peer
+tier's pending pushes (``tiered/peer.py``) before any registered drain
+hook. The run-ledger posts of the JAX saver (``ledger_root``) come with
+the telemetry port (ROADMAP queue 1 step 10).
 """
 
 from __future__ import annotations
@@ -208,7 +208,12 @@ class PreemptionSaver:
         misses the window is journaled, so the restarted job's
         ``CheckpointManager.resume_mirrors()`` resumes it without
         re-sending completed blobs. Drain failures are logged, never
-        raised (close() runs on the teardown path)."""
+        raised (close() runs on the teardown path).
+
+        The peer tier needs no registration: ``close`` flushes its
+        pending pushes first (the last committed step into the
+        neighbour's host RAM), bounded by the rendezvous timeout; an
+        unconfigured tier makes that a no-op."""
         self._drains.append(fn)
 
     def uninstall(self) -> None:
@@ -226,6 +231,20 @@ class PreemptionSaver:
         self._stop_poller.set()
         if self._poller is not None:
             self._poller.join(timeout=self.poll_interval + 1.0)
+        # The peer-tier flush first: host-RAM bandwidth, the cheapest
+        # recovery the grace window can buy. A dead peer cannot wedge it:
+        # the push jobs time out and degrade, and the wait is bounded.
+        try:
+            from .tiered import peer as peer_tier
+
+            if not peer_tier.maybe_drain(timeout=self.rendezvous_timeout):
+                logger.warning(
+                    "preemption drain: peer-tier pushes did not settle within %.0fs; "
+                    "the restore ladder falls through to storage for what is missing",
+                    self.rendezvous_timeout,
+                )
+        except Exception as e:  # noqa: BLE001 - teardown path
+            logger.warning("preemption peer-tier drain failed: %r", e)
         for fn in self._drains:
             try:
                 fn()

@@ -32,6 +32,7 @@ import asyncio
 import logging
 import math
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Awaitable, Callable, List, Optional
@@ -172,6 +173,42 @@ class StagingPool(MemoryBudget):
         super().__init__(min(memory_budget_bytes, max(1, slabs_bytes)))
 
 
+class PeerCacheBudget:
+    """Synchronous counting budget of the peer-RAM cache
+    (``tiered/peer.py``): :class:`MemoryBudget`'s accounting without the
+    event loop. The cache server's handler threads reserve and release
+    under a plain lock, and a reservation that does not fit is refused,
+    never queued: a push that cannot fit, even after the cache's LRU
+    eviction, degrades to storage-only durability and never blocks the
+    pusher or grows the cache past its bound."""
+
+    def __init__(self, total_bytes: int) -> None:
+        self.total_bytes = max(0, int(total_bytes))
+        self.available_bytes = self.total_bytes
+        self.peak_reserved_bytes = 0
+        self._lock = threading.Lock()
+
+    def try_reserve(self, cost_bytes: int) -> bool:
+        """Reserve ``cost_bytes`` if they fit; False otherwise (the caller
+        evicts and retries, or refuses the push)."""
+        cost = int(cost_bytes)
+        with self._lock:
+            if cost > self.available_bytes:
+                return False
+            self.available_bytes -= cost
+            reserved = self.total_bytes - self.available_bytes
+            self.peak_reserved_bytes = max(self.peak_reserved_bytes, reserved)
+            return True
+
+    def release(self, cost_bytes: int) -> None:
+        with self._lock:
+            self.available_bytes = min(self.total_bytes, self.available_bytes + int(cost_bytes))
+
+    def reserved_bytes(self) -> int:
+        with self._lock:
+            return self.total_bytes - self.available_bytes
+
+
 class _PipelineStats:
     def __init__(self) -> None:
         self.pending = 0
@@ -186,6 +223,8 @@ class _PipelineStats:
         self.degraded_reads = 0
         self.degraded_bytes = 0
         self.degraded_tier_bytes: dict = {}
+        # Reads whose plugin had verified the bytes (the peer ladder).
+        self.verified_by_plugin = 0
 
 
 class _ProgressReporter:
@@ -245,6 +284,8 @@ class _ProgressReporter:
         }
         if self.stats.write_variant_bytes:
             out["write_path"] = dict(self.stats.write_variant_bytes)
+        if self.stats.verified_by_plugin:
+            out["verified_by_plugin"] = self.stats.verified_by_plugin
         if self.stats.degraded_reads:
             # Reads rerouted around corruption, and the tiers that served
             # them (the JAX package's restore report fields).
@@ -500,6 +541,18 @@ class DeferredIOWork:
         inner.sync_complete(event_loop)
 
 
+def _entry_key(entry) -> tuple:
+    return tuple(tuple(x) if isinstance(x, (list, tuple)) else x for x in entry)
+
+
+def verified_by_plugin(read_io: ReadIO, entry) -> bool:
+    """True when the plugin that served ``read_io`` verified its bytes
+    against ``entry`` already (``ReadIO.verified_entry``): a peer pull,
+    whose bytes are then verified exactly once."""
+    got = read_io.verified_entry
+    return got is not None and entry is not None and _entry_key(got) == _entry_key(entry)
+
+
 async def heal_read(
     storage: StoragePlugin,
     read_io: ReadIO,
@@ -617,7 +670,9 @@ async def execute_read_reqs(
             buf = read_io.buf
             if buf is None:
                 raise RuntimeError(f"Storage plugin did not populate buffer for {req.path}")
-            if entry is not None:
+            if entry is not None and verified_by_plugin(read_io, entry):
+                stats.verified_by_plugin += 1
+            elif entry is not None:
                 try:
                     await verify(buf, entry, req, fused_pages)
                 except ChecksumError as first_err:

@@ -80,12 +80,18 @@ Counterpart of ``torchsnapshot_tpu/snapshot.py``. Same protocol:
   ``commit-marker``, ``peer-enqueued``); each is a no-op unless a chaos
   engine is armed.
 
+- The peer-RAM tier (``tiered/peer.py``): after the commit every rank
+  queues its written blobs for its ring neighbour's host RAM (a no-op
+  unless a multi-rank manager configured the tier); a restore wraps its
+  plugin in the peer -> fast -> durable ladder before fan-out is built,
+  as the JAX package does, and ``restore_telemetry`` then carries the
+  ladder's ``tier_split`` and ``peer`` fields, with ``bytes_fetched``
+  counting only the bytes storage served.
+
 The snapshot format is the JAX package's: either package reads what the
 other writes, digests and chunk stores included, and a snapshot taken by
 N ranks of one restores through N ranks of the other. Not ported yet:
-the peer tier (ROADMAP queue 1 step 9b-ii), whose post-commit push is a
-no-op here (its crash point still fires), and the per-operation reports
-with their mirror state (step 10).
+the per-operation reports with their mirror and peer state (step 10).
 """
 
 from __future__ import annotations
@@ -207,7 +213,7 @@ def _maybe_write_cas_map(
         event_loop.run_until_complete(storage.write_chunk_map(rank))
 
 
-def _restore_telemetry(pipelines: List[dict], fanout_ctx) -> Dict[str, Any]:
+def _restore_telemetry(pipelines: List[dict], fanout_ctx, peer_ctx=None) -> Dict[str, Any]:
     """A restore's byte accounting on this rank (the fields of the JAX
     package's restore report, folded as its ``_merge_fanout_telemetry``
     does): the bytes its read pipelines consumed; those it fetched from
@@ -215,7 +221,15 @@ def _restore_telemetry(pipelines: List[dict], fanout_ctx) -> Dict[str, Any]:
     plus the owner's union-window reads); the bytes fan-out shipped in
     from peers and out to them; and, when a read healed from another copy
     (here or in the fan-out owner's fetch), ``degraded_reads`` (blobs,
-    bytes) and ``tier_split`` (healed bytes by serving tier)."""
+    bytes) and ``tier_split`` (healed bytes by serving tier).
+
+    With the peer ladder (``peer_ctx``), its fields fold in as the JAX
+    package's ``_merge_peer_telemetry`` does: its ``tier_split`` (bytes
+    served per tier of the ladder, corruption reroutes included)
+    supersedes the healed split, and ``peer`` holds its degradation
+    evidence. Bytes served from peer RAM are not storage reads:
+    ``bytes_fetched`` leaves them out, and ``verified_by_plugin`` counts
+    the pulled reads that the pipeline did not verify again."""
     bytes_read = sum(int(p["bytes_moved"]) for p in pipelines)
     out: Dict[str, Any] = {
         "bytes_read": bytes_read, "bytes_fetched": bytes_read, "bytes_received": 0, "bytes_published": 0,
@@ -238,6 +252,12 @@ def _restore_telemetry(pipelines: List[dict], fanout_ctx) -> Dict[str, Any]:
     if blobs:
         out["degraded_reads"] = {"blobs": blobs, "bytes": nbytes}
         out["tier_split"] = split
+    verified = sum(p.get("verified_by_plugin", 0) for p in pipelines)
+    if verified:
+        out["verified_by_plugin"] = verified
+    if peer_ctx is not None:
+        out.update(peer_ctx.pipeline_fields())
+        out["bytes_fetched"] = max(0, out["bytes_fetched"] - out["tier_split"]["peer"])
     return out
 
 
@@ -329,7 +349,7 @@ class Snapshot:
                     _write_snapshot_metadata(metadata, storage, event_loop)
                 if barrier is not None:
                     barrier.depart()
-            _post_commit()
+            _post_commit(path, pending)
             # After the commit: closing a tiered plugin enqueues the
             # take's blobs to the mirror.
             event_loop.run_until_complete(storage.close())
@@ -581,8 +601,18 @@ class Snapshot:
         recorder = _trace_recorder()
         restore_span = recorder.begin(telemetry.names.SPAN_RESTORE, path=self.path, rank=rank)
         event_loop = asyncio.new_event_loop()
+        peer_ctx = None
         try:
             storage = url_to_storage_plugin(self.path)
+            # The peer ladder wraps the plugin before fan-out is built
+            # (the JAX order): a fan-out owner's reads go through it too.
+            # Its build is rank-local (inventory RPCs, no collective), so
+            # ranks that build it or not cannot diverge the schedule.
+            from .tiered import peer as peer_tier
+
+            peer_ctx = peer_tier.build_restore_context(self.path)
+            if peer_ctx is not None:
+                storage = peer_ctx.wrap(storage)
             # Collectives first, storage reads second: a rank failing in
             # its setup reads reports into key barrier 0, where the peers
             # wait next.
@@ -639,8 +669,10 @@ class Snapshot:
                         plan, storage, budget, rank, event_loop, checksum_table
                     ))
             event_loop.run_until_complete(storage.close())
-            self.restore_telemetry = _restore_telemetry(pipelines, fanout_ctx)
+            self.restore_telemetry = _restore_telemetry(pipelines, fanout_ctx, peer_ctx)
         finally:
+            if peer_ctx is not None:
+                peer_ctx.close()
             recorder.end(restore_span)
             event_loop.close()
 
@@ -718,9 +750,15 @@ class Snapshot:
                             exchange_loop.run_until_complete(exchange_storage.close())
                     finally:
                         exchange_loop.close()
+        # The peer ladder's owner table is built here, on the calling
+        # thread (inventory RPCs only); the background pipeline pulls
+        # through it, beneath the fan-out cache (the JAX order).
+        from .tiered import peer as peer_tier
+
         return PendingRestore(
             self.path, keys, plans, copier, pg_wrapper, budget, self.metadata.world_size,
             rng[0] if rng is not None else None, restore_nonce, fanout_ctx,
+            peer_tier.build_restore_context(self.path),
         )
 
     # ------------------------------------------------------------------
@@ -845,10 +883,18 @@ def _write_snapshot_metadata(
     crashpoint(metric_names.CRASH_COMMIT_MARKER)
 
 
-def _post_commit() -> None:
-    """Every rank, after the commit: the JAX package pushes this rank's
-    blobs to the peer tier here. The peer tier is not ported (ROADMAP
-    queue 1 step 9b-ii), so only its kill point fires."""
+def _post_commit(path: str, pending: "PendingIOWork | DeferredIOWork") -> None:
+    """Every rank, after the commit: queue this rank's written blobs, with
+    the checksum entries the pipeline computed, for its ring neighbour's
+    host RAM (``tiered/peer.py``). Inert unless the tier is configured; a
+    failure degrades the tier and never fails the take. The kill point
+    fires after the enqueue, not after the push settles."""
+    try:
+        from .tiered import peer as peer_tier
+
+        peer_tier.maybe_enqueue_push(path, pending.checksums or {})
+    except Exception as e:  # noqa: BLE001 - the peer tier must never fail a take
+        logger.warning("peer tier: post-commit push hook failed: %r", e)
     crashpoint(metric_names.CRASH_PEER_ENQUEUED)
 
 
@@ -1315,7 +1361,9 @@ class PendingSnapshot:
                 _write_snapshot_metadata(self._metadata, self._storage, self._event_loop)
             if barrier is not None:
                 barrier.depart()
-            _post_commit()
+            # The enqueue is a queue put: the push runs on the peer
+            # replicator's own worker, not on this commit thread.
+            _post_commit(self.path, self._pending_io_work)
             self._event_loop.run_until_complete(self._storage.close())
             self.committed_s = time.monotonic() - self._op_begin
         except BaseException as e:  # noqa: BLE001 - must propagate via wait()
@@ -1389,6 +1437,7 @@ class PendingRestore:
         rng_key: Optional[str] = None,
         restore_nonce: Optional[str] = None,
         fanout_ctx=None,
+        peer_ctx=None,
     ) -> None:
         self.path = path
         self._keys = keys
@@ -1404,6 +1453,7 @@ class PendingRestore:
         # serves the exchanged shard blobs from it (no rendezvous off the
         # calling thread: the bytes already moved).
         self._fanout_ctx = fanout_ctx
+        self._peer_ctx = peer_ctx
         # This rank's byte accounting, once the reads finished.
         self.restore_telemetry: Optional[Dict[str, Any]] = None
         self._exc_info: Optional[BaseException] = None
@@ -1419,6 +1469,8 @@ class PendingRestore:
         )
         try:
             storage = url_to_storage_plugin(self.path)
+            if self._peer_ctx is not None:
+                storage = self._peer_ctx.wrap(storage)
             checksum_table = None
             if not knobs.is_checksums_disabled():
                 checksum_table = load_checksum_tables(self._world_size, storage, event_loop)
@@ -1436,7 +1488,7 @@ class PendingRestore:
                 checksum_table=checksum_table,
                 on_req_complete=placer.on_req_complete,
             )
-            self.restore_telemetry = _restore_telemetry([pipeline], fanout_ctx)
+            self.restore_telemetry = _restore_telemetry([pipeline], fanout_ctx, self._peer_ctx)
             placer.flush()
             # What did not stream places in one final batch.
             batch = _PlacementBatch(self._copier)
@@ -1448,9 +1500,12 @@ class PendingRestore:
             self._exc_info = e
             logger.error("Async restore failed: %r", e)
         finally:
-            # The exchanged bytes go whether or not the reads succeeded.
+            # The exchanged bytes go whether or not the reads succeeded,
+            # and so do the peer connections.
             if self._fanout_ctx is not None:
                 self._fanout_ctx.clear()
+            if self._peer_ctx is not None:
+                self._peer_ctx.close()
             _trace_recorder().end(reads_span)
             event_loop.close()
             self._done.set()
