@@ -215,6 +215,41 @@ each of which raises on failure (nothing is caught):
    and bytes, the step alone and beside the push, restore seconds from
    peer RAM and from storage, and store requests per leg. Its digest
    launches (both ranks') add to the record's.
+11. **cdn**: the checkpoint CDN (``cdn/``) on the main configuration. The
+   trainer (this process) hosts the package's ``TCPStore`` and saves
+   through ``CheckpointManager(root, keep_last_n=1, incremental=True,
+   cdn_topic="run", cdn_store=<client>)`` with ``TORCHSNAPSHOT_TPU_CAS=1``,
+   ``TORCHSNAPSHOT_TPU_CDN=1`` and the chunk GC's grace at 0: step 1 full,
+   step 2 after a step with the embedding and layers 0-3 frozen, step 3
+   batched with ``ENABLE_BATCHING`` and ``DEVICE_PACK``; after each save it
+   writes its parameters and the evaluation logits of a fixed 1 x 1024
+   token batch for the fleet. The fleet: 4 subscribers in 2 spawned
+   processes on the card, each with ``durable_chunk_reader(root)`` behind a
+   shim that counts reads, ``CASStore(root)`` for its lease, a 60 s pull
+   timeout and a ``WeightSwapper`` over its own serving ``Transformer``'s
+   CUDA parameters (the module itself moved to ``meta``). The assembler,
+   the serving binary's knowledge, lives here: it cuts each parameter out
+   of its chunk by the committed step's manifest entry (whole chunks, the
+   dim-0 pieces of chunked entries, byte ranges of slab chunks). After each
+   swap the subscriber serves ``functional_call(model, swapper.weights,
+   tokens)`` through the fused flash kernel. Hard checks: at every step, on
+   every subscriber, the served weights and the logits bit-identical to the
+   trainer's; the fleet's durable reads equal the step's novel chunks, with
+   no peer fallback; at steps 2 and 3 each subscriber's wire bytes equal
+   the bytes of the chunks the previous step did not announce; subscriber
+   0, armed at ``cdn-swap-staged`` at step 2, raises ``SimulatedCrash``,
+   still serves step 1 bit for bit, and its next ``track_once`` applies step
+   2; the publisher, armed at ``cdn-publish-announced`` at step 3, leaves
+   the head unmoved (no subscriber applies the torn record), and a restarted
+   publisher announces the step; after each save every chunk a live lease
+   names is on disk, and a deep ``fsck --cas`` is clean with the leases
+   outstanding; after the fleet closes (releasing its leases) save 4's GC
+   leaves exactly step 4's chunks; during each swap the allocated memory
+   rises by at most the new set's bytes plus 5%, and after it is back where
+   it was. Logs publish ms, per subscriber and step the sync s, bytes from
+   peers and from durable storage, stage and swap s, staleness (publish to
+   swap) and the serving forward's ms, the fleet's staleness median and
+   maximum, and the phase's launches, which add to the record's.
 
 The ranks and sharded phases pin ``TORCHSNAPSHOT_TPU_PEER_TIER=0`` in
 their workers: their checks are of the paths without the tier (each
@@ -1236,7 +1271,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -1280,9 +1315,10 @@ def main() -> int:
     records = {}
     # Launches are counted only in the main path's run, plus the paths of
     # later slices, each counted from 0 (the digest's: the main, cas,
-    # tiered and peer phases'; the pack's: the cas phase's, both ranks' in
-    # the sharded phase, the leaves and tiered phases'); without them they
-    # were not measured and the record says null.
+    # tiered, peer and cdn phases'; the pack's: the cas phase's, both ranks'
+    # in the sharded phase, the leaves, tiered and cdn phases'; the flash
+    # kernels': the main and cdn phases'); without them they were not
+    # measured and the record says null.
     launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
 
     def add(name: str, n: int) -> None:
@@ -1312,6 +1348,11 @@ def main() -> int:
     def peer() -> None:
         add("device_digest", sum(r["launches"]["device_digest"] for r in peer_phase(args, work_dir, card)["ranks"]))
 
+    def cdn() -> None:
+        got = cdn_phase(args, work_dir, card)
+        for name in CDN_PATH_KERNELS:
+            add(name, got[name])
+
     sequence = [
         ("kernels", kernels_phase),
         ("main", lambda: launches.update(main_phase(args, work_dir, card))),
@@ -1323,6 +1364,7 @@ def main() -> int:
         ("leaves", lambda: add("device_pack", leaves_phase(args, work_dir, card)["device_pack"])),
         ("tiered", tiered),
         ("peer", peer),
+        ("cdn", cdn),
     ]
     done: list = []
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
@@ -4351,6 +4393,568 @@ def peer_phase(args, work_dir: str, card: str) -> dict:
               dead_neighbour_drain_s=r1["d"]["drain_s"])
     print(json.dumps({"peer": record}), flush=True)
     return record
+
+
+# ---------------------------------------------------------------------------
+# cdn: a trainer publishes, a fleet of subscribers swaps onto the card
+# ---------------------------------------------------------------------------
+
+# The kernels of the cdn phase: the trainer's steps (flash_chunk), its
+# evaluations and every serving forward (flash_fwd), its incremental saves
+# (device_digest) and its batched save (device_pack).
+CDN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest", "device_pack")
+CDN_TOPIC = "run"
+CDN_FLEET_PROCS = 2
+CDN_SUBS_PER_PROC = 2
+CDN_FLEET = CDN_FLEET_PROCS * CDN_SUBS_PER_PROC
+CDN_PULL_TIMEOUT_S = 60.0
+# Each subscriber's peer cache: room for two steps of the 1.007 GB state.
+CDN_CACHE_BUDGET_BYTES = 3 << 30
+# One serving request: a batch of 1 x 1024 tokens.
+CDN_SERVE_SHAPE = (1, 1024)
+CDN_STEPS = (1, 2, 3)
+# The subscriber killed between stage and swap, and at which step.
+CDN_CRASH_SUB, CDN_CRASH_STEP = 0, 2
+# The step whose publisher is killed between the announce and the head.
+CDN_PUBLISH_CRASH_STEP = 3
+CDN_WAIT_S = 300.0
+
+
+def _cdn_key(*parts) -> str:
+    return "cdn_smoke/" + "/".join(str(p) for p in parts)
+
+
+def _cdn_param_path(name: str) -> str:
+    """The manifest path of a ``Transformer`` parameter in the train
+    state's snapshot (``layers.0.wqkv`` -> ``0/train/params/layers/0/wqkv``)."""
+    return "0/train/params/" + name.replace(".", "/")
+
+
+class _CdnManifestAssembler:
+    """The serving binary's assembler: each parameter is cut out of the
+    announced chunks by its manifest entry in the committed step (read
+    through ``Snapshot(...).metadata``): a whole chunk, a byte range of a
+    slab chunk, or the dim-0 pieces of a chunked entry. Host tensors."""
+
+    def __init__(self, root: str, names) -> None:
+        self.root = root
+        self.names = list(names)
+
+    def __call__(self, ann, chunk_bytes: dict) -> dict:
+        import torch
+
+        from torchsnapshot_tpu_torch import Snapshot
+        from torchsnapshot_tpu_torch.cas import key_of_location
+        from torchsnapshot_tpu_torch.serialization import string_to_dtype
+
+        manifest = Snapshot(os.path.join(self.root, f"step_{ann.step:010d}")).metadata.manifest
+
+        def piece(entry, shape):
+            _require(entry.serializer == "buffer_protocol", f"{entry.location}: serializer {entry.serializer}")
+            key = key_of_location(entry.location)
+            _require(key in ann.chunks, f"{entry.location} is not in announce {ann.seq}")
+            data = chunk_bytes[key]
+            lo, hi = entry.byte_range if entry.byte_range is not None else (0, len(data))
+            dtype = string_to_dtype(entry.dtype)
+            raw = torch.frombuffer(bytearray(data[lo:hi]), dtype=torch.uint8)
+            return raw.view(dtype).reshape(shape)
+
+        out = {}
+        for name in self.names:
+            entry = manifest[_cdn_param_path(name)]
+            if type(entry).__name__ == "ChunkedArrayEntry":
+                full = torch.empty(entry.shape, dtype=string_to_dtype(entry.dtype))
+                for chunk in entry.chunks:
+                    index = tuple(slice(o, o + s) for o, s in zip(chunk.offsets, chunk.sizes))
+                    full[index] = piece(chunk.array, chunk.sizes)
+                out[name] = full
+            else:
+                out[name] = piece(entry, entry.shape)
+        return out
+
+
+def cdn_fleet_worker(pg, seed: int, work_dir: str, store_port: int, root: str) -> dict:
+    """One serving process of the cdn phase (spawned by
+    ``run_multiprocess``; the parent built every kernel): two subscribers,
+    each in its own thread with its own serving ``Transformer`` whose CUDA
+    parameters a ``WeightSwapper`` holds, tracking the trainer's topic on
+    its ``TCPStore``. Each step: track until the step is applied (the
+    armed subscriber first crashes between stage and swap and serves the
+    previous step), check the served weights and one serving forward's
+    logits against the trainer's, bit for bit, then tell the trainer.
+    Returns the process's records."""
+    import threading
+
+    import torch
+    from torch.func import functional_call
+
+    os.environ["TORCHSNAPSHOT_TPU_CDN_PULL_TIMEOUT_SECONDS"] = str(CDN_PULL_TIMEOUT_S)
+
+    from torchsnapshot_tpu_torch.cas import CASStore
+    from torchsnapshot_tpu_torch.cdn import CdnSubscriber, WeightSwapper, durable_chunk_reader
+    from torchsnapshot_tpu_torch.chaos import SimulatedCrash, arm, disarm
+    from torchsnapshot_tpu_torch.dist_store import TCPStore
+    from torchsnapshot_tpu_torch.models.transformer import Transformer, random_tokens
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.ops import kernels
+    from torchsnapshot_tpu_torch.telemetry import names
+
+    proc = pg.rank
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in kernels.kernel_names() if not os.path.exists(kernels._library_path(n))]
+    _require(not missing, f"fleet process {proc}: kernels {missing} not built by the parent")
+    cfg = main_config()
+    eval_tokens = torch.from_numpy(random_tokens(cfg, *CDN_SERVE_SHAPE, seed + 1)).cuda()
+    # Swaps, and the checks and forwards that read the card's memory
+    # counters, hold this lock: both subscribers of the process share the
+    # allocator's statistics. It is taken at the end of a stage and let go
+    # at the end of the swap, so that the armed subscriber alone reaches
+    # the crash point while it is armed.
+    device_lock = threading.Lock()
+    refs: dict = {}
+    refs_lock = threading.Lock()
+    abort = TCPStore("127.0.0.1", store_port, is_server=False)
+
+    def reference(step: int) -> dict:
+        with refs_lock:
+            if step not in refs:
+                deadline = time.monotonic() + CDN_WAIT_S
+                while abort.try_get(_cdn_key("ref", step)) is None:
+                    _require(abort.try_get(_cdn_key("abort")) is None, "the trainer aborted")
+                    _require(time.monotonic() < deadline, f"no reference for step {step}")
+                    time.sleep(0.05)
+                # The load allocates on the card: under the lock, so that it
+                # never falls inside another subscriber's swap.
+                with device_lock:
+                    refs.pop(step - 1, None)
+                    refs[step] = torch.load(os.path.join(work_dir, f"ref_{step}.pt"), map_location="cuda")
+            return refs[step]
+
+    class ServingSwapper(WeightSwapper):
+        """Times the swap to the serving stream's end and reads the card's
+        allocated memory around it."""
+
+        crash_next = False
+
+        def __init__(self, *a, **kw) -> None:
+            super().__init__(*a, **kw)
+            self.swaps: list = []
+
+        def stage(self, ann, chunk_bytes):
+            t0 = time.monotonic()
+            staged = super().stage(ann, chunk_bytes)
+            self.stage_s = time.monotonic() - t0
+            device_lock.acquire()
+            if self.crash_next:
+                self.crash_next = False
+                arm(names.CRASH_CDN_SWAP_STAGED)
+            return staged
+
+        def swap(self, staged) -> None:
+            try:
+                new_bytes = sum(t.numel() * t.element_size() for t in staged.host_arrays.values())
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.monotonic()
+                super().swap(staged)
+                torch.cuda.current_stream().synchronize()
+                swap_s = time.monotonic() - t0
+                peak = torch.cuda.max_memory_allocated()
+                after = torch.cuda.memory_allocated()
+                self.swaps.append({
+                    "step": staged.announce.step, "swap_s": swap_s, "stage_s": self.stage_s,
+                    "new_bytes": new_bytes, "peak_rise": peak - before, "after_minus_before": after - before,
+                })
+                _require(peak - before <= new_bytes * 1.05,
+                         f"swap of step {staged.announce.step}: allocated memory rose by {peak - before} bytes, "
+                         f"the new set is {new_bytes}")
+                _require(after - before <= new_bytes * 0.01,
+                         f"after the swap of step {staged.announce.step} {after - before} more bytes are allocated")
+            finally:
+                device_lock.release()
+
+    class TimedSubscriber(CdnSubscriber):
+        """Adds up the seconds of its syncs (both of a killed step's)."""
+
+        sync_s = 0.0
+
+        def sync(self, ann):
+            t0 = time.monotonic()
+            out = super().sync(ann)
+            self.sync_s += time.monotonic() - t0
+            return out
+
+    members = []
+    for j in range(CDN_SUBS_PER_PROC):
+        sid = proc * CDN_SUBS_PER_PROC + j
+        model = Transformer(cfg, seed=seed + 100 + sid)
+        weights = {n: p.detach() for n, p in model.named_parameters()}
+        # The module keeps no storage: the swapper's dict is the only owner
+        # of the served tensors, so a swap frees the old set.
+        model.to("meta")
+        swapper = ServingSwapper(weights, assemble=_CdnManifestAssembler(root, weights))
+        del weights
+        reads = {"n": 0}
+        fetch = durable_chunk_reader(root)
+
+        def counting_fetch(key, _fetch=fetch, _reads=reads):
+            _reads["n"] += 1
+            return _fetch(key)
+
+        sub = TimedSubscriber(
+            TCPStore("127.0.0.1", store_port, is_server=False), CDN_TOPIC, sid, CDN_FLEET,
+            durable_fetch=counting_fetch, cache_budget_bytes=CDN_CACHE_BUDGET_BYTES,
+            cas_store=CASStore(root),
+        )
+        members.append({"sid": sid, "model": model, "swapper": swapper, "sub": sub, "reads": reads, "steps": []})
+
+    def serve(m) -> tuple:
+        """One serving forward through the fused flash kernel; the logits
+        and its ms (CUDA events around 3 more)."""
+        with torch.no_grad():
+            logits = functional_call(m["model"], m["swapper"].weights, (eval_tokens,))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                functional_call(m["model"], m["swapper"].weights, (eval_tokens,))
+            end.record()
+            end.synchronize()
+        return logits, start.elapsed_time(end) / 3
+
+    def check_served(m, step: int, what: str) -> float:
+        ref = reference(step)
+        with device_lock:
+            served = m["swapper"].weights
+            _require(sorted(served) == sorted(k for k in ref if k != "logits"), f"{what}: served leaves differ")
+            for name, t in served.items():
+                _require(t.is_cuda and same_bits(t, ref[name]), f"{what}: served {name} differs from the trainer's")
+            logits, ms = serve(m)
+            _require(same_bits(logits, ref["logits"]), f"{what}: serving logits differ from the trainer's")
+            del logits
+        return ms
+
+    def member_main(m) -> None:
+        sub, swapper, sid = m["sub"], m["swapper"], m["sid"]
+        prev = None
+        for step in CDN_STEPS:
+            wire0, reads0, fallbacks0 = sub.stats.bytes_on_wire, m["reads"]["n"], sub.stats.peer_fallbacks
+            peer0, durable0 = sub.stats.bytes_from_peer, sub.stats.bytes_from_durable
+            crashed, sub.sync_s = False, 0.0
+            if sid == CDN_CRASH_SUB and step == CDN_CRASH_STEP:
+                swapper.crash_next = True
+            deadline = time.monotonic() + CDN_WAIT_S
+            ann = None
+            while ann is None:
+                _require(abort.try_get(_cdn_key("abort")) is None, "the trainer aborted")
+                _require(time.monotonic() < deadline, f"subscriber {sid}: step {step} never arrived")
+                try:
+                    ann = sub.track_once(swapper, timeout=2.0)
+                except SimulatedCrash:
+                    disarm()
+                    device_lock.release()
+                    crashed = True
+                    _require(sub.applied_seq == step - 1 and swapper.swapped_step == step - 1,
+                             f"subscriber {sid} killed mid-swap applied seq {sub.applied_seq}")
+                    # Still the previous step, bit for bit.
+                    check_served(m, step - 1, f"subscriber {sid} killed at step {step}")
+            _require(ann.step == step and swapper.swapped_step == step,
+                     f"subscriber {sid} applied step {ann.step}, expected {step}")
+            novel = {k: n for k, n in ann.chunks.items() if prev is None or k not in prev.chunks}
+            wire = sub.stats.bytes_on_wire - wire0
+            if prev is not None:
+                _require(wire == sum(novel.values()),
+                         f"subscriber {sid} step {step}: {wire} bytes on the wire, the chunks step {step - 1} "
+                         f"did not announce hold {sum(novel.values())}")
+            serve_ms = check_served(m, step, f"subscriber {sid} step {step}")
+            rec = {
+                "sid": sid, "step": step, "seq": ann.seq, "crashed": crashed, "sync_s": sub.sync_s,
+                "wire_bytes": wire, "novel_bytes": sum(novel.values()), "novel_chunks": len(novel),
+                "bytes_from_peer": sub.stats.bytes_from_peer - peer0,
+                "bytes_from_durable": sub.stats.bytes_from_durable - durable0,
+                "durable_reads": m["reads"]["n"] - reads0,
+                "peer_fallbacks": sub.stats.peer_fallbacks - fallbacks0,
+                "staleness_s": sub.stats.staleness_s[-1], "serve_ms": serve_ms, **swapper.swaps[-1],
+            }
+            m["steps"].append(rec)
+            abort.set(_cdn_key("served", sid, step), json.dumps(rec).encode())
+            prev = ann
+
+    errors: dict = {}
+
+    def run(m) -> None:
+        try:
+            member_main(m)
+        except BaseException as e:  # noqa: BLE001 - reported to the trainer and raised below
+            errors[m["sid"]] = repr(e)
+            abort.set(_cdn_key("error", m["sid"]), repr(e).encode())
+
+    try:
+        for m in members:
+            abort.set(_cdn_key("ready", m["sid"]), b"1")
+        threads = [threading.Thread(target=run, args=(m,), daemon=True) for m in members]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(len(CDN_STEPS) * CDN_WAIT_S + 60)
+        _require(not any(t.is_alive() for t in threads), f"fleet process {proc}: a subscriber thread hung")
+        _require(not errors, f"fleet process {proc}: {errors}")
+        # Serve until the trainer has run its retention and fsck checks
+        # with the leases outstanding, then close (releasing the leases).
+        deadline = time.monotonic() + CDN_WAIT_S
+        while abort.try_get(_cdn_key("close")) is None:
+            _require(abort.try_get(_cdn_key("abort")) is None, "the trainer aborted")
+            _require(time.monotonic() < deadline, "the trainer never closed the fleet")
+            time.sleep(0.05)
+    finally:
+        for m in members:
+            m["sub"].close()
+    launches = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+    _require(launches["flash_fwd"] > 0, f"fleet process {proc} never launched flash_fwd")
+    return {"proc": proc, "steps": [r for m in members for r in m["steps"]], "launches": launches}
+
+
+def _log_cdn_step(step: int, save: dict, recs: list) -> None:
+    log(
+        f"cdn: step {step} save {save['save_s']:.3f} s, publish {save['publish_s'] * 1e3:.3f} ms; "
+        f"{save['novel_chunks']} novel chunks ({save['novel_bytes'] / 1e6:.3f} of {save['step_bytes'] / 1e6:.3f} MB), "
+        f"{save['leased_chunks']} leased chunks all on disk"
+    )
+    for r in recs:
+        log(
+            f"cdn: step {step} subscriber {r['sid']}: sync {r['sync_s']:.3f} s, {r['bytes_from_peer'] / 1e6:.3f} MB "
+            f"from peers, {r['bytes_from_durable'] / 1e6:.3f} MB from durable ({r['durable_reads']} reads), "
+            f"stage {r['stage_s']:.3f} s, swap {r['swap_s']:.4f} s (memory +{r['peak_rise'] / 1e6:.3f} MB at peak "
+            f"for {r['new_bytes'] / 1e6:.3f} MB, {r['after_minus_before']} bytes after), staleness "
+            f"{r['staleness_s']:.3f} s, serving forward {r['serve_ms']:.3f} ms"
+            + (" (killed between stage and swap first)" if r["crashed"] else "")
+        )
+
+
+def cdn_phase(args, work_dir: str, card: str) -> dict:
+    """The checkpoint CDN on the card (module docstring, phase 11): the
+    trainer here, the fleet in two spawned processes. Returns the phase's
+    launch counts."""
+    import threading
+
+    import torch
+
+    from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, knobs
+    from torchsnapshot_tpu_torch.cas import CASStore, chunk_refs
+    from torchsnapshot_tpu_torch.cdn import CdnPublisher, read_announce, read_head
+    from torchsnapshot_tpu_torch.chaos import SimulatedCrash, arm, disarm
+    from torchsnapshot_tpu_torch.dist_store import TCPStore
+    from torchsnapshot_tpu_torch.fsck import verify_cas_store
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state, make_train_step, random_tokens
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.telemetry.trace import get_recorder
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    t_phase = time.monotonic()
+    cdn_dir = os.path.join(work_dir, "cdn")
+    root = os.path.join(cdn_dir, "root")
+    os.makedirs(root)
+    server = TCPStore("127.0.0.1", 0, is_server=True)
+    client = TCPStore("127.0.0.1", server.port, is_server=False)
+    cfg = main_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
+    eval_tokens = torch.from_numpy(random_tokens(cfg, *CDN_SERVE_SHAPE, args.seed + 1)).cuda()
+    state = init_train_state(cfg, seed=args.seed)
+    train_step = make_train_step(cfg)
+    app_state = {"train": state}
+    n_frozen = cfg.n_layers // 2
+
+    def freeze(model) -> None:
+        for p in [model.embed] + [p for blk in model.layers[:n_frozen] for p in blk.parameters()]:
+            p.requires_grad_(False)
+
+    def write_reference(step: int) -> None:
+        """The trainer's parameters and its evaluation logits of the step,
+        where the fleet reads them."""
+        with torch.no_grad():
+            logits = state.model(eval_tokens)
+        ref = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+        ref["logits"] = logits.cpu()
+        torch.save(ref, os.path.join(cdn_dir, f"ref_{step}.pt"))
+        client.set(_cdn_key("ref", step), b"1")
+
+    def wait_served(step: int) -> list:
+        deadline = time.monotonic() + CDN_WAIT_S
+        recs = {}
+        while len(recs) < CDN_FLEET:
+            for sid in range(CDN_FLEET):
+                err = client.try_get(_cdn_key("error", sid))
+                _require(err is None, f"subscriber {sid} failed: {err!r}")
+                raw = client.try_get(_cdn_key("served", sid, step))
+                if raw is not None:
+                    recs[sid] = json.loads(raw)
+            _require(fleet.get("error") is None, f"the fleet failed: {fleet.get('error')}")
+            _require(time.monotonic() < deadline, f"step {step}: served by {sorted(recs)} of {CDN_FLEET}")
+            time.sleep(0.02)
+        return [recs[s] for s in range(CDN_FLEET)]
+
+    def leased_chunks_on_disk(what: str) -> int:
+        _, _, leases = CASStore(root).load_full()
+        leased = {k for chunks in leases.values() for k in chunks}
+        gone = [k for k in leased if not os.path.exists(os.path.join(root, "chunks", k))]
+        _require(not gone, f"{what}: {len(gone)} chunks a live lease names were deleted")
+        return len(leased)
+
+    fleet: dict = {}
+
+    def run_fleet() -> None:
+        try:
+            fleet["records"] = run_multiprocess(
+                cdn_fleet_worker, CDN_FLEET_PROCS, args=(args.seed, cdn_dir, server.port, root),
+                timeout=len(CDN_STEPS) * CDN_WAIT_S + 300,
+            )
+        except BaseException as e:  # noqa: BLE001 - raised by the trainer
+            fleet["error"] = repr(e)
+
+    for counts in (fa.launch_counts, dd.launch_counts, dp.launch_counts):
+        for k in counts:
+            counts[k] = 0
+    fleet_thread = threading.Thread(target=run_fleet, daemon=True)
+    fleet_thread.start()
+    announces, saves, steps = {}, {}, {}
+    try:
+        deadline = time.monotonic() + CDN_WAIT_S
+        while any(client.try_get(_cdn_key("ready", s)) is None for s in range(CDN_FLEET)):
+            _require(fleet.get("error") is None, f"the fleet failed: {fleet.get('error')}")
+            _require(time.monotonic() < deadline, "the fleet never came up")
+            time.sleep(0.05)
+        fleet_up_s = time.monotonic() - t_phase
+        with knobs.enable_cas(), knobs.enable_cdn(), knobs.override_cas_gc_grace_seconds(0):
+            mgr = CheckpointManager(root, keep_last_n=1, incremental=True, cdn_topic=CDN_TOPIC, cdn_store=client)
+            for step in CDN_STEPS:
+                if step == 2:
+                    freeze(state.model)
+                state, _ = train_step(state, tokens)
+                torch.cuda.synchronize()
+                batched = knobs.enable_batching() if step == 3 else contextlib.nullcontext()
+                pack = knobs.enable_device_pack() if step == 3 else contextlib.nullcontext()
+                mark = get_recorder().mark()
+                t0 = time.monotonic()
+                if step == CDN_PUBLISH_CRASH_STEP:
+                    # The publisher dies between the announce record and the
+                    # head: the step is committed but not announced.
+                    head = read_head(client, CDN_TOPIC)
+                    arm(names.CRASH_CDN_PUBLISH_ANNOUNCED)
+                    try:
+                        with batched, pack, contextlib.suppress(SimulatedCrash):
+                            mgr.save(step, app_state)
+                            raise AssertionError(f"save {step}: the armed publisher was not killed")
+                    finally:
+                        disarm()
+                    save_s = time.monotonic() - t0
+                    _require(read_head(client, CDN_TOPIC) == head and mgr.latest_step() == step,
+                             f"the killed publish moved the head to {read_head(client, CDN_TOPIC)}")
+                    time.sleep(1.0)
+                    _require(all(client.try_get(_cdn_key("served", s, step)) is None for s in range(CDN_FLEET)),
+                             "a subscriber applied the torn announce")
+                    write_reference(step)
+                    # The restarted trainer's publisher announces the step.
+                    refs = chunk_refs(Snapshot(mgr.step_path(step)).metadata.manifest)
+                    t1 = time.monotonic()
+                    ann = CdnPublisher(client, CDN_TOPIC, publisher_id=f"rank0@{root}").publish(step, refs)
+                    publish_s = time.monotonic() - t1
+                    _require(ann is not None and ann.seq == head + 1 and read_head(client, CDN_TOPIC) == head + 1,
+                             "the restarted publisher did not announce the step")
+                    mgr = CheckpointManager(root, keep_last_n=1, incremental=True, cdn_topic=CDN_TOPIC,
+                                            cdn_store=client)
+                else:
+                    with batched, pack:
+                        mgr.save(step, app_state)
+                    save_s = time.monotonic() - t0
+                    spans = [e for e in get_recorder().events_since(mark) if e["name"] == names.SPAN_CDN_PUBLISH]
+                    _require(len(spans) == 1, f"save {step}: {len(spans)} publish spans")
+                    publish_s = spans[0]["dur"] / 1e6
+                    write_reference(step)
+                ann = read_announce(client, CDN_TOPIC, read_head(client, CDN_TOPIC))
+                _require(ann is not None and ann.step == step, f"step {step} is not the topic's head")
+                _require(ann.chunks == chunk_refs(Snapshot(mgr.step_path(step)).metadata.manifest),
+                         f"announce {ann.seq} does not name step {step}'s chunks")
+                announces[step] = ann
+                saves[step] = {"save_s": save_s, "publish_s": publish_s, "published_ts": ann.published_ts}
+                recs = wait_served(step)
+                steps[step] = recs
+                prev = announces.get(step - 1)
+                novel = [k for k in ann.chunks if prev is None or k not in prev.chunks]
+                reads = sum(r["durable_reads"] for r in recs)
+                fallbacks = sum(r["peer_fallbacks"] for r in recs)
+                _require(reads == len(novel) and fallbacks == 0,
+                         f"step {step}: {reads} durable reads across the fleet for {len(novel)} novel chunks, "
+                         f"{fallbacks} peer fallbacks")
+                saves[step]["leased_chunks"] = leased_chunks_on_disk(f"after step {step}")
+                saves[step]["novel_chunks"] = len(novel)
+                saves[step]["novel_bytes"] = sum(ann.chunks[k] for k in novel)
+                saves[step]["step_bytes"] = ann.bytes_in_step
+                _log_cdn_step(step, saves[step], recs)
+            _require(any(r["crashed"] for r in steps[CDN_CRASH_STEP] if r["sid"] == CDN_CRASH_SUB),
+                     "the armed subscriber was never killed")
+            # Retention with the fleet's leases outstanding: fsck --cas clean.
+            t0 = time.monotonic()
+            report = verify_cas_store(root, deep=True)
+            fsck_s = time.monotonic() - t0
+            _require(report.ok, f"fsck --cas with leases outstanding: {[str(p) for p in report.problems[:5]]}")
+            leased_unreferenced = len(report.unreferenced)
+            client.set(_cdn_key("close"), b"1")
+            fleet_thread.join(CDN_WAIT_S)
+            _require(not fleet_thread.is_alive() and fleet.get("error") is None,
+                     f"the fleet did not close: {fleet.get('error')}")
+            _, _, leases = CASStore(root).load_full()
+            _require(leases == {}, f"leases outstanding after the fleet closed: {sorted(leases)}")
+            # The next save's GC reclaims every chunk no retained step names.
+            state, _ = train_step(state, tokens)
+            mgr.save(4, app_state)
+        on_disk = set(CASStore(root).list_chunks())
+        live = set(chunk_refs(Snapshot(mgr.step_path(4)).metadata.manifest))
+        _require(mgr.all_steps() == [4] and on_disk == live,
+                 f"after the fleet closed, save 4 left {len(on_disk - live)} chunks no retained step names")
+    except BaseException:
+        client.set(_cdn_key("abort"), b"1")
+        fleet_thread.join(60)
+        raise
+    finally:
+        client.close()
+        server.close()
+
+    launches = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+    for rec in fleet["records"]:
+        for k, n in rec["launches"].items():
+            launches[k] += n
+    _require(all(launches[k] for k in CDN_PATH_KERNELS), f"a kernel of the cdn path never launched: {launches}")
+    wall_s = time.monotonic() - t_phase
+    all_recs = [r for s in CDN_STEPS for r in steps[s]]
+    staleness = sorted(r["staleness_s"] for r in all_recs)
+    median = statistics.median(staleness)
+    log(
+        f"cdn: fleet of {CDN_FLEET} in {CDN_FLEET_PROCS} processes up in {fleet_up_s:.1f} s; staleness median "
+        f"{median:.3f} s, max {staleness[-1]:.3f} s; deep fsck --cas with leases {fsck_s:.3f} s "
+        f"({leased_unreferenced} leased chunks unreferenced); launches {launches}; phase {wall_s:.1f} s on {card}"
+    )
+    record = {"card": card, "saves": saves, "steps": steps, "staleness_median_s": median,
+              "staleness_max_s": staleness[-1], "fsck_s": fsck_s, "launches": launches, "wall_s": wall_s}
+    _headline(
+        "cdn", publish_ms=[saves[s]["publish_s"] * 1e3 for s in CDN_STEPS],
+        sync_s_max=[max(r["sync_s"] for r in steps[s]) for s in CDN_STEPS],
+        swap_s_max=[max(r["swap_s"] for r in steps[s]) for s in CDN_STEPS],
+        wire_mb=[sum(r["wire_bytes"] for r in steps[s]) / 1e6 for s in CDN_STEPS],
+        serve_ms=statistics.median(r["serve_ms"] for r in all_recs),
+        staleness_s=[median, staleness[-1]],
+        launches="/".join(f"{k}:{launches[k]}" for k in CDN_PATH_KERNELS),
+    )
+    print(json.dumps({"cdn": record}), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return launches
 
 
 if __name__ == "__main__":

@@ -533,8 +533,23 @@ def _chunk_store_on_disk(tmp_path, monkeypatch):
 
 
 def _cdn_knob(tmp_path, monkeypatch):
+    """With the CDN and CAS knobs on, every committed step (sync and async)
+    is announced on the topic with its manifest's chunk set."""
+    from torchsnapshot_tpu_torch.cas import chunk_refs
+    from torchsnapshot_tpu_torch.cdn import read_announce, read_head
+    from torchsnapshot_tpu_torch.dist_store import InProcessStore
+
     monkeypatch.setenv("TORCHSNAPSHOT_TPU_CDN", "1")
-    return CheckpointManager(str(tmp_path), cdn_topic="weights")
+    monkeypatch.setenv("TORCHSNAPSHOT_TPU_CAS", "1")
+    store = InProcessStore()
+    mgr = CheckpointManager(str(tmp_path), cdn_topic="weights", cdn_store=store)
+    mgr.save(1, _state(1.0))
+    mgr.async_save(2, _state(2.0)).wait()
+    assert read_head(store, "weights") == 2
+    for seq, step in ((1, 1), (2, 2)):
+        ann = read_announce(store, "weights", seq)
+        assert ann is not None and ann.step == step
+        assert ann.chunks == chunk_refs(Snapshot(mgr.step_path(step)).metadata.manifest) != {}
 
 
 @pytest.mark.parametrize(
@@ -543,7 +558,7 @@ def _cdn_knob(tmp_path, monkeypatch):
         (_tiered_round_trip, "ported"),
         (_cas_knob, None),
         (_chunk_store_on_disk, None),
-        (_cdn_knob, "9c"),
+        (_cdn_knob, "ported"),
         (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).wait_durable(0), "noop"),
         (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).resume_mirrors(), "noop"),
         (_armed_save_is_killed, "ported"),
@@ -551,15 +566,14 @@ def _cdn_knob(tmp_path, monkeypatch):
     ids=["tiered", "cas", "chunk-store", "cdn", "wait-durable", "resume-mirrors", "crashpoint-arm"],
 )
 def test_unported_features_are_refused(tmp_path, monkeypatch, make, step) -> None:
-    """What is not ported yet raises, naming its ROADMAP step: only the
-    CDN publish side (step 9c) now. The chunk store (the ``cas`` and
-    ``chunk-store`` cases) is ported: a manager with the CAS knob on, or
-    over a root that holds a chunk store, saves into the store and
-    restores from it. So are the tiered root, crash-point arming (both
-    run their behaviour in ``make``) and, on a plain root,
-    ``wait_durable`` / ``resume_mirrors``, which are no-ops there as in
-    the JAX manager: the step was durable at its commit, and there is no
-    mirror to resume."""
+    """Every feature the manager once refused is ported now. The chunk
+    store (the ``cas`` and ``chunk-store`` cases): a manager with the CAS
+    knob on, or over a root that holds a chunk store, saves into the store
+    and restores from it. The tiered root, crash-point arming and the CDN
+    publish side run their behaviour in ``make``; on a plain root
+    ``wait_durable`` / ``resume_mirrors`` are no-ops, as in the JAX
+    manager: the step was durable at its commit, and there is no mirror to
+    resume."""
     if step == "ported":
         make(tmp_path, monkeypatch)
         return
@@ -576,10 +590,6 @@ def test_unported_features_are_refused(tmp_path, monkeypatch, make, step) -> Non
         assert mgr.restore_latest(fresh) == 1 and torch.equal(_w(fresh), _w(_state(1.0)))
         in_store = [e.location.startswith("../chunks/") for e in _locations(mgr.step_path(1))]
         assert in_store and all(in_store) == knobs.is_cas_enabled() and any(in_store) == all(in_store)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 step {step}"):
-        make(tmp_path, monkeypatch)
-    assert not (tmp_path / INDEX_BLOB).exists()
 
 
 def _locations(step_path: str) -> list:

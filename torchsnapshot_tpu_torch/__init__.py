@@ -15,7 +15,11 @@ process group (``pg=``, e.g. :func:`torch_process_group` in a
 training loop around them, ``CheckpointManager`` (step-numbered saves,
 retention, incremental chains, ``restore_latest``) and
 ``PreemptionSaver`` (a save on SIGTERM); ``fsck`` to audit what they
-left on disk; plus the workload the benchmarks checkpoint, the
+left on disk; sharded ``DTensor`` state and resharding, slab batching,
+the content-addressed chunk store (``cas/``), tiered roots and the
+peer-RAM tier (``tiered/``), the chaos engine (``chaos/``) and the
+checkpoint CDN that streams committed steps to a serving fleet
+(``cdn/``); plus the workload the benchmarks checkpoint, the
 transformer of ``models/`` with its hand-written CUDA flash-attention
 kernels (``ops/``, ``csrc/``).
 """

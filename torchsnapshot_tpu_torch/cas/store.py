@@ -29,8 +29,8 @@ tail line, which load skips and the next append heals. The journal caches
 what the manifests say (a committed step's chunk refs are the
 ``../chunks/`` locations of its manifest), so a lost or stale journal is
 rebuilt from the index and manifests (:meth:`CASStore.reconcile`).
-Leases (non-step pins the JAX package's CDN subscribers hold) are kept
-through every rewrite.
+Leases (non-step pins that CDN subscribers of either package hold,
+``lease`` / ``unlease``) are kept through every rewrite.
 
 **GC** deletes a chunk that no pinned step references once its mtime is
 older than the grace window (``TORCHSNAPSHOT_TPU_CAS_GC_GRACE_SECONDS``):
@@ -328,6 +328,16 @@ class CASStore:
 
     def unpin(self, step: int) -> None:
         self._append({"op": "unpin", "step": int(step)})
+
+    def lease(self, lease_id: str, chunks: Dict[str, int]) -> None:
+        """Pin ``chunks`` outside step retention under ``lease_id`` (a CDN
+        subscriber's held set, an external reader's working set). Replaces
+        this id's previous lease: callers re-lease their full current set,
+        they never diff."""
+        self._append({"op": "lease", "id": str(lease_id), "chunks": chunks})
+
+    def unlease(self, lease_id: str) -> None:
+        self._append({"op": "unlease", "id": str(lease_id)})
 
     def record_orphans(self, chunks: Dict[str, int]) -> None:
         if chunks:

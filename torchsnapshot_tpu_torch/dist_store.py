@@ -393,6 +393,23 @@ def recv_frame(sock: socket.socket) -> bytes:
     return payload
 
 
+# The JAX package's frame trace header (``telemetry/wire.py``): magic,
+# version, reserved, a 24-byte op, trace and span ids, crc32. Its clients
+# lead a frame with one inside a ``wire.propagate`` scope (a CDN sync, a
+# fan-out exchange, a peer RPC).
+_TRACE_MAGIC = b"TSWC"
+_TRACE_HEADER_LEN = 4 + 1 + 1 + 24 + 8 + 8 + 4
+
+
+def _strip_trace_header(payload: bytes) -> bytes:
+    """A frame's body without the JAX package's trace header, when one
+    leads it (a pickled request starts with the protocol byte, never
+    with the magic). A torn header passes through, as there."""
+    if payload[:4] == _TRACE_MAGIC and len(payload) >= _TRACE_HEADER_LEN:
+        return payload[_TRACE_HEADER_LEN:]
+    return payload
+
+
 def _recv_exact(sock: socket.socket, n: int) -> bytes:
     chunks = []
     while n:
@@ -422,7 +439,8 @@ class _StoreRequestHandler(socketserver.BaseRequestHandler):
         server: _StoreServer = self.server  # type: ignore[assignment]
         try:
             while True:
-                cmd, key, arg = pickle.loads(recv_frame(self.request))
+                # A JAX client's frame may lead with a trace header.
+                cmd, key, arg = pickle.loads(_strip_trace_header(recv_frame(self.request)))
                 with server.kv_lock:
                     if cmd == _CMD_SET:
                         server.kv[key] = arg

@@ -4,8 +4,7 @@ The knobs this package reads, under the same ``TORCHSNAPSHOT_TPU_`` names
 as torchsnapshot_tpu's, so one environment configures both packages.
 Values are read lazily on every call so tests and subprocesses can flip
 them at any time. Knobs of subsystems not ported yet (SLO, bundles, the
-autotuner, ...) come with those subsystems; the CDN knob is here only so
-that the manager can refuse it.
+autotuner, ...) come with those subsystems.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ _STAGING_POOL_SLABS_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLABS"
 _CAS_ENV = "TORCHSNAPSHOT_TPU_CAS"
 _CAS_GC_GRACE_ENV = "TORCHSNAPSHOT_TPU_CAS_GC_GRACE_SECONDS"
 _CDN_ENV = "TORCHSNAPSHOT_TPU_CDN"
+_CDN_PULL_TIMEOUT_ENV = "TORCHSNAPSHOT_TPU_CDN_PULL_TIMEOUT_SECONDS"
 _DISABLE_PARTITIONER_ENV = "TORCHSNAPSHOT_TPU_DISABLE_PARTITIONER"
 _FANOUT_RESTORE_ENV = "TORCHSNAPSHOT_TPU_FANOUT_RESTORE"
 _TREE_BARRIER_ENV = "TORCHSNAPSHOT_TPU_TREE_BARRIER"
@@ -218,8 +218,12 @@ def get_cas_gc_grace_seconds() -> float:
 
 
 def is_cdn_enabled() -> bool:
-    """The checkpoint CDN's publish side (default OFF). Not ported:
-    ``CheckpointManager`` reads it only to refuse."""
+    """The checkpoint CDN's publish side (``cdn/``), default OFF: with
+    ``"1"``, a manager constructed with a ``cdn_topic`` announces every
+    committed step (its chunk-store keys) to the topic on the coordination
+    store. Off, the manager never touches the topic keys; subscribers
+    built explicitly work either way (the knob gates the training job's
+    side, where a publish adds store traffic to every commit)."""
     return os.environ.get(_CDN_ENV, "0") not in ("", "0")
 
 
@@ -321,6 +325,18 @@ def get_peer_transfer_timeout_seconds() -> float:
     if val is not None:
         return float(val)
     return _DEFAULT_PEER_TRANSFER_TIMEOUT_SECONDS
+
+
+def get_cdn_pull_timeout_seconds() -> float:
+    """Per-chunk deadline of a CDN subscriber's peer pull (connect and one
+    digest-verified transfer) and of its wait for the chunk's elected
+    owner to hold it. On expiry the subscriber reads the chunk from
+    durable storage: correctness never rides a peer, only the one-read-
+    per-chunk economics do. Defaults to the peer transfer timeout."""
+    val = os.environ.get(_CDN_PULL_TIMEOUT_ENV)
+    if val is not None:
+        return float(val)
+    return get_peer_transfer_timeout_seconds()
 
 
 @contextlib.contextmanager
@@ -480,4 +496,20 @@ def override_peer_cache_budget_bytes(nbytes: int) -> Generator[None, None, None]
 @contextlib.contextmanager
 def override_peer_transfer_timeout_seconds(seconds: float) -> Generator[None, None, None]:
     with _override_env(_PEER_TRANSFER_TIMEOUT_ENV, str(seconds)):
+        yield
+
+
+@contextlib.contextmanager
+def enable_cdn() -> Generator[None, None, None]:
+    """The CDN publish hook on for the block (the suite's conftest pins it
+    off, so that manager tests see no announce traffic)."""
+    with _override_env(_CDN_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def override_cdn_pull_timeout_seconds(seconds: float) -> Generator[None, None, None]:
+    """Pin the CDN peer-pull deadline for the block (subscribers read it
+    at each pull)."""
+    with _override_env(_CDN_PULL_TIMEOUT_ENV, str(seconds)):
         yield

@@ -65,9 +65,15 @@ through the peer -> fast -> durable ladder. ``keep_peer_last_n`` bounds
 the steps a cache keeps; a step that retention drops is evicted from
 every peer cache (best-effort, on a background thread).
 
-Not ported yet, and refused rather than skipped: the CDN publish side
-(ROADMAP queue 1 step 9c). The JAX manager's telemetry hooks (run ledger,
-SLO evaluation, autotuner, step and restore history) come with step 10.
+Checkpoint CDN (``cdn/``): with ``TORCHSNAPSHOT_TPU_CDN=1`` and a
+``cdn_topic``, rank 0 announces every committed step's chunk-store keys to
+the topic on the coordination store (``cdn_store``, else the ``pg``'s),
+after the commit, so that a serving fleet can track the run. A step with
+no chunk-store chunks is not announced, and a failed publish is logged and
+never fails the save.
+
+Not ported yet: the JAX manager's telemetry hooks (run ledger, SLO
+evaluation, autotuner, step and restore history) come with step 10.
 """
 
 from __future__ import annotations
@@ -107,11 +113,10 @@ _STEP_EVENTS_BLOB = ".telemetry.jsonl"
 _RANK_SIDE_BLOBS = (".progress-rank{}.json", ".peer_placement-rank{}.json", "cas/{}")
 
 
-def _not_ported(what: str, step: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to torchsnapshot_tpu_torch yet "
-        f"(ROADMAP queue 1 step {step}); use torchsnapshot_tpu for it"
-    )
+def _manifest_chunk_refs(manifest: Manifest) -> Dict[str, int]:
+    """The chunk-store chunks a manifest references (digest key ->
+    nbytes); empty for a legacy-layout snapshot."""
+    return chunk_refs(manifest)
 
 
 def _step_dirname(step: int) -> str:
@@ -232,9 +237,10 @@ class _PendingManagedSnapshot:
                     self._step,
                     refs=lambda: referenced_steps(snapshot.metadata.manifest),
                     metric=self._metric,
-                    chunk_refs=lambda: chunk_refs(snapshot.metadata.manifest),
+                    chunk_refs=lambda: _manifest_chunk_refs(snapshot.metadata.manifest),
                 )
                 telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
+                self._manager._publish_cdn_step(self._step, snapshot)
                 self._committed = True
         return snapshot
 
@@ -265,9 +271,6 @@ class CheckpointManager:
         cdn_topic: Optional[str] = None,
         cdn_store: Optional[Any] = None,
     ) -> None:
-        # cdn_topic and cdn_store keep the JAX manager's signature: the CDN
-        # plane is refused below, and a topic without the CDN knob
-        # publishes nothing.
         for name, value in (
             ("keep_last_n", keep_last_n),
             ("keep_best_n", keep_best_n),
@@ -284,8 +287,6 @@ class CheckpointManager:
             )
         if best_mode not in ("min", "max"):
             raise ValueError(f"best_mode must be 'min' or 'max', got {best_mode}")
-        if cdn_topic is not None and knobs.is_cdn_enabled():
-            raise _not_ported("publishing steps to a CDN topic (TORCHSNAPSHOT_TPU_CDN)", "9c")
         self.root = root
         self.keep_last_n = keep_last_n
         # Tiered roots: retained steps older than the newest
@@ -315,6 +316,13 @@ class CheckpointManager:
             peer_tier.maybe_configure(self._pg, keep_last_n=keep_peer_last_n)
         except Exception as e:  # noqa: BLE001 - the peer tier is best-effort
             logger.warning("peer tier: configure failed: %r", e)
+        # The CDN publish side: with the CDN knob on and a topic named,
+        # rank 0 announces every committed step's chunk set. ``cdn_store``
+        # overrides the pg's store. The publisher is built at the first
+        # commit: constructing a manager touches no store.
+        self.cdn_topic = cdn_topic
+        self._cdn_store_arg = cdn_store
+        self._cdn_publisher: Any = None
         # The root's chunk store, resolved on first use (rank 0 only):
         # False unresolved, None for a root with no local filesystem.
         self._cas_store: Any = False
@@ -370,9 +378,10 @@ class CheckpointManager:
         snapshot = Snapshot.take(self.step_path(step), app_state, pg=self._pg_arg, **take_kwargs)
         self._commit_step(
             step, refs=lambda: referenced_steps(snapshot.metadata.manifest), metric=metric,
-            chunk_refs=lambda: chunk_refs(snapshot.metadata.manifest),
+            chunk_refs=lambda: _manifest_chunk_refs(snapshot.metadata.manifest),
         )
         telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
+        self._publish_cdn_step(step, snapshot)
         return snapshot
 
     @staticmethod
@@ -726,6 +735,37 @@ class CheckpointManager:
         except Exception as e:  # noqa: BLE001 - GC must not fail a save
             logger.warning("CAS chunk GC failed: %r", e)
 
+    def _publish_cdn_step(self, step: int, snapshot: Snapshot) -> None:
+        """Announce the just-committed step's chunk set on the CDN topic.
+        Rank 0 only, after the commit: the announced chunks are durable. A
+        step without chunk-store chunks (CAS off) has nothing a fleet can
+        pull by key, so it is skipped, not half-announced. Best-effort: a
+        publish failure degrades serving freshness, never the save."""
+        if self.cdn_topic is None or self._pg.get_rank() != 0 or not knobs.is_cdn_enabled():
+            return
+        try:
+            chunks = _manifest_chunk_refs(snapshot.metadata.manifest)
+            if not chunks:
+                logger.debug("cdn: step %d carries no chunk-store chunks; not published", step)
+                return
+            if self._cdn_publisher is None:
+                store = self._cdn_store_arg if self._cdn_store_arg is not None else self._pg.store
+                if store is None:
+                    logger.warning(
+                        "cdn: topic %r configured but no coordination store is reachable; "
+                        "steps will not be published", self.cdn_topic,
+                    )
+                    self.cdn_topic = None
+                    return
+                from .cdn import CdnPublisher
+
+                self._cdn_publisher = CdnPublisher(
+                    store, self.cdn_topic, publisher_id=f"rank0@{self.root}", root=self.root
+                )
+            self._cdn_publisher.publish(step, chunks)
+        except Exception as e:  # noqa: BLE001 - publishing is best-effort
+            logger.warning("cdn: could not publish step %d: %r", step, e)
+
     # ------------------------------------------------------------------
     # the content-addressed chunk store (rank 0 only)
     # ------------------------------------------------------------------
@@ -789,7 +829,7 @@ class CheckpointManager:
                 candidates.update(chunks)
         if unpinned:
             crashpoint(metric_names.CRASH_GC_UNPINNED)
-        # Leases (the JAX package's CDN subscribers) count as live.
+        # Leases (CDN subscribers of either package) count as live.
         live = store.live_chunks(pins, leases)
         # Stray sweep: chunks on disk in no pin and no orphan record (a
         # take that crashed before its commit pinned them) become

@@ -69,6 +69,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from .. import knobs, telemetry
 from ..dist_store import (
     Store,
+    _strip_trace_header,
     lookup_endpoint,
     lookup_endpoints,
     publish_endpoint,
@@ -97,21 +98,7 @@ PEER_PLACEMENT_PREFIX = ".peer_placement-rank"
 # transport is fine, the bytes are not).
 _PULL_DEAD_AFTER_FAILURES = 2
 
-# The JAX package's frame trace header (``telemetry/wire.py``): magic,
-# version, reserved, a 24-byte op, trace and span ids, crc32.
-_TRACE_MAGIC = b"TSWC"
-_TRACE_HEADER_LEN = 4 + 1 + 1 + 24 + 8 + 8 + 4
-
 _STEP_DIR_RE = re.compile(r"^step_(\d+)$")
-
-
-def _strip_trace_header(payload: bytes) -> bytes:
-    """A frame's body without the JAX package's trace header, when one
-    leads it (a pickled request starts with the protocol byte, never
-    with the magic). A torn header passes through, as there."""
-    if payload[:4] == _TRACE_MAGIC and len(payload) >= _TRACE_HEADER_LEN:
-        return payload[_TRACE_HEADER_LEN:]
-    return payload
 
 
 def step_from_path(snapshot_path: str) -> Optional[int]:
