@@ -70,9 +70,24 @@ each of which raises on failure (nothing is caught):
    name and deletes the other, commit marker first; a deep fsck passes
    every retained step through its refs and catches one flipped byte in
    a copy; ``restore_latest`` into a fresh state from another seed gives
-   bit-identical tensors, logits and next-step loss. The phase keeps its
-   own launch counts, set to 0 just before its loop: it must launch every
-   kernel of the path.
+   bit-identical tensors, logits and next-step loss. The loop runs with
+   every record on: the run ledger, heartbeats and history at their
+   defaults, ``TORCHSNAPSHOT_TPU_TELEMETRY`` and ``TORCHSNAPSHOT_TPU_TRACE``
+   set, and the saver's ``ledger_root``. The ledger holds one run-start, a
+   step-committed per save but the deleted step's (pruned), its
+   gc-reclaimed, a visible-stall per take and the async take's
+   staged-drain with the bytes each take wrote, the preemption at step 4
+   and a restore-served with the bytes of step 4's blobs; the goodput
+   buckets sum to the ledger's wall, which is the measured wall within 5%;
+   the history holds a row per save and one for the restore; each take's
+   report moved the bytes it wrote (the card's bytes plus at most 1 MiB of
+   host-side leaves); every heartbeat ended done and was removed; the
+   step-3 take's Chrome trace holds the take's envelope. The same loop
+   then runs on new roots with every record off and on again, and each
+   save's seconds and the step beside the drain are logged in the three
+   turns. The phase
+   keeps its own launch counts, set to 0 just before its first loop: it
+   must launch every kernel of the path.
 5. **cas**: the main configuration's loop on the content-addressed chunk
    store (``TORCHSNAPSHOT_TPU_CAS=1``, grace window 0) through
    ``CheckpointManager(keep_last_n=2)``: step 1 a full save recording
@@ -114,8 +129,12 @@ each of which raises on failure (nothing is caught):
    ``PreemptionSaver(pg=)``: a full save, an ``async_save``, an
    incremental save with half the model frozen, then SIGTERM on rank 1
    only and one save at the agreed step on both; retention, a deep fsck
-   and ``restore_latest`` on both ranks, bit-identical; (f) rank 1's
-   writes fail: rank 0 raises within 30 s and no commit marker is left.
+   and ``restore_latest`` on both ranks, bit-identical, and the root's run
+   ledger written by rank 0 alone; (f) rank 1's writes fail: rank 0 raises
+   within 30 s and no commit marker is left. Take (a) runs with the report
+   sink on: each rank's report is in the log and rank 0's carries the
+   gathered spread and straggler of every metric; its store requests
+   include the gather's.
    Each rank must launch every kernel of the path.
 7. **sharded**: two processes on the card, spawned as in the ranks phase,
    with a gloo default group (no tensor collective runs on the checkpoint
@@ -124,7 +143,8 @@ each of which raises on failure (nothing is caught):
    every CUDA leaf a ``Shard(0)`` ``DTensor`` built by ``from_local`` of its
    rank's chunk, plus a (1001, 4096) bf16 leaf (uneven rows) and a (1,
    4096) one (rank 1's box is empty). (a) ``Snapshot.take`` with digests
-   recorded: each rank copies to the host and writes 50% +- 1% of the
+   recorded and the report sink on (rank 0's report gathers both
+   ranks'): each rank copies to the host and writes 50% +- 1% of the
    sharded bytes, the saved boxes tile every array with no hole and no
    overlap, one commit marker; (b) restore into ``DTensor``s from ``--seed
    + 1``: bit-identical local shards, in place; (c1) restore into
@@ -173,7 +193,9 @@ each of which raises on failure (nothing is caught):
    tiered root it records digests and writes in full, in both packages),
    a batched save with ``DEVICE_PACK``, each followed by ``wait_durable``:
    every durable blob byte-identical to its fast copy, the journal
-   complete with the commit marker landed last, and after the eviction
+   complete with the commit marker landed last, the settled job's
+   ``kind: "mirror"`` report and its ``mirror-settled`` ledger event each
+   with the bytes the job shipped (the report and trace sinks on), and after the eviction
    pass only the newest step on the fast tier; the step's time alone,
    beside the async drain and beside the mirror; (b) the restore of an
    evicted step from the durable tier alone: bit-identical state, logits
@@ -246,13 +268,18 @@ each of which raises on failure (nothing is caught):
    outstanding; after the fleet closes (releasing its leases) save 4's GC
    leaves exactly step 4's chunks; during each swap the allocated memory
    rises by at most the new set's bytes plus 5%, and after it is back where
-   it was. Logs publish ms, per subscriber and step the sync s, bytes from
+   it was; the trainer's run ledger holds a ``cdn-published`` event per
+   announced step and a ``cdn-swapped`` event per subscriber per applied
+   step (the subscribers post to the trainer's root). Logs publish ms, per
+   subscriber and step the sync s, bytes from
    peers and from durable storage, stage and swap s, staleness (publish to
    swap) and the serving forward's ms, the fleet's staleness median and
    maximum, and the phase's launches, which add to the record's.
 
-The ranks and sharded phases pin ``TORCHSNAPSHOT_TPU_PEER_TIER=0`` in
-their workers: their checks are of the paths without the tier (each
+Every phase runs with the record knobs at their defaults (the run ledger,
+heartbeats and history on; the report and trace sinks off) except where
+a phase says otherwise. The ranks and sharded phases pin
+``TORCHSNAPSHOT_TPU_PEER_TIER=0`` in their workers: their checks are of the paths without the tier (each
 rank's bytes written, the file sets, which plugin reads a blob). Before
 the result lines, one ``summary <phase>:`` line per phase gives its
 seconds, its headline numbers and PASS (or FAIL with the error, before
@@ -1625,13 +1652,13 @@ def _changed_bytes(before: dict, after: dict) -> int:
 
 
 def _written_data_bytes(path: str) -> int:
-    """Bytes of the data blobs under a snapshot (commit marker and checksum
-    tables excluded)."""
+    """Bytes of the data blobs under a snapshot (commit marker, checksum
+    tables and telemetry records excluded)."""
     total = 0
     for d, _, files in os.walk(path):
         for f in files:
             rel = os.path.relpath(os.path.join(d, f), path)
-            if not rel.startswith((".snapshot_metadata", "checksums")):
+            if not rel.startswith((".snapshot_metadata", "checksums")) and not _is_side_file(rel):
                 total += os.path.getsize(os.path.join(d, f))
     return total
 
@@ -1959,24 +1986,79 @@ def _flipped_copy(step_dir: str, location: str, dest: str) -> None:
                 os.symlink(src, dst)
 
 
+def _is_side_file(rel: str) -> bool:
+    """A telemetry record that both packages write beside a snapshot or a
+    manager root, not data: the report log, trace exports, progress
+    heartbeats, the step history and the run ledger."""
+    from torchsnapshot_tpu_torch.telemetry.history import HISTORY_BASENAME
+    from torchsnapshot_tpu_torch.telemetry.ledger import LEDGER_BASENAME
+    from torchsnapshot_tpu_torch.telemetry.progress import SNAPSHOT_PROGRESS_PREFIX
+    from torchsnapshot_tpu_torch.telemetry.sink import SNAPSHOT_EVENTS_BASENAME
+    from torchsnapshot_tpu_torch.telemetry.trace import SNAPSHOT_TRACE_PREFIX
+
+    base = os.path.basename(rel)
+    return base in (SNAPSHOT_EVENTS_BASENAME, HISTORY_BASENAME, LEDGER_BASENAME) or base.startswith(
+        (SNAPSHOT_TRACE_PREFIX, SNAPSHOT_PROGRESS_PREFIX)
+    )
+
+
+# The record knobs at their defaults with the report and trace sinks on
+# (set), and every record off (the second pass of the manager phase).
+RECORDS_ON = ({"TORCHSNAPSHOT_TPU_TELEMETRY": "1", "TORCHSNAPSHOT_TPU_TRACE": "1"},
+              ("TORCHSNAPSHOT_TPU_LEDGER", "TORCHSNAPSHOT_TPU_PROGRESS_SECONDS",
+               "TORCHSNAPSHOT_TPU_HISTORY_MAX_RECORDS"))
+RECORDS_OFF = ({"TORCHSNAPSHOT_TPU_LEDGER": "0", "TORCHSNAPSHOT_TPU_PROGRESS_SECONDS": "0",
+                "TORCHSNAPSHOT_TPU_HISTORY_MAX_RECORDS": "0"},
+               ("TORCHSNAPSHOT_TPU_TELEMETRY", "TORCHSNAPSHOT_TPU_TRACE"))
+# test_goodput.py's tolerance of the ledger's wall against a measured one.
+GOODPUT_WALL_REL = 0.05
+
+
+@contextlib.contextmanager
+def _env(knobs_set: tuple):
+    """The environment with ``knobs_set`` = (values to set, names to
+    remove), restored after the block."""
+    values, removed = knobs_set
+    names = list(values) + list(removed)
+    before = {k: os.environ.get(k) for k in names}
+    os.environ.update(values)
+    for k in removed:
+        os.environ.pop(k, None)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def manager_phase(args, work_dir: str, card: str) -> dict:
     """A training job's checkpoint loop on the main configuration, through
     ``CheckpointManager(keep_last_n=2, incremental=True)`` and a
-    ``PreemptionSaver`` on SIGTERM: step 1 saved in full (recording
-    digests); the embedding and layers 0-3 frozen; step 2 saved with
-    ``async_save`` while step 3's update runs beside its drain; step 3
+    ``PreemptionSaver(ledger_root=)`` on SIGTERM, with every record on (the
+    run ledger, progress heartbeats and the step history at their
+    defaults, the report and trace sinks set): step 1 saved in full
+    (recording digests); the embedding and layers 0-3 frozen; step 2 saved
+    with ``async_save`` while step 3's update runs beside its drain; step 3
     saved in sync; SIGTERM sent after step 4's update, and step 4 saved on
     ``should_save``. Then the retained, pinned and deleted steps against
     the steps' refs, a deep fsck of every retained step and of a copy with
     one flipped byte, and ``restore_latest`` into a fresh state from
-    another seed: bit-identical state, logits and next-step loss. Returns
-    the phase's launch counts."""
+    another seed: bit-identical state, logits and next-step loss. Then the
+    records: the ledger's events and their bytes against the bytes each
+    take wrote, the dropped step's pruned record, the goodput attribution
+    against the measured wall, the history's rows, each take's report, the
+    heartbeats and a trace. The loop then runs on new roots with every
+    record off and on again, for its seconds. Returns the first loop's
+    launch counts."""
     import signal
 
     import torch
 
     from torchsnapshot_tpu_torch import CheckpointManager, PreemptionSaver, Snapshot
-    from torchsnapshot_tpu_torch.fsck import verify_snapshot
+    from torchsnapshot_tpu_torch.fsck import blob_requirements, verify_snapshot
     from torchsnapshot_tpu_torch.manager import INDEX_BLOB, referenced_steps
     from torchsnapshot_tpu_torch.models.transformer import (
         init_train_state,
@@ -1986,15 +2068,13 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
     from torchsnapshot_tpu_torch.ops import device_digest as dd
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
     from torchsnapshot_tpu_torch.snapshot import SNAPSHOT_METADATA_FNAME
-    from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.telemetry import goodput, history, ledger, names, progress
+    from torchsnapshot_tpu_torch.telemetry.sink import load_events
+    from torchsnapshot_tpu_torch.telemetry.trace import spans_from_chrome
 
     cfg = main_config()
     tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
-    state = init_train_state(cfg, seed=args.seed)
     train_step = make_train_step(cfg)
-    app_state = {"train": state}
-    root = os.path.join(work_dir, "managed")
-    mgr = CheckpointManager(root, keep_last_n=2, incremental=True)
     n_frozen = cfg.n_layers // 2
 
     def freeze(model) -> None:
@@ -2004,141 +2084,189 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
     def counters() -> tuple:
         return _counter(names.DEVICE_TO_HOST_BYTES_TOTAL), _counter(names.STORAGE_WRITE_BYTES_TOTAL)
 
-    captured, saves = {}, {}
+    def run_loop(root: str, records: bool) -> dict:
+        """The four saves on a fresh state; returns the manager, the state,
+        each save's record, the step's seconds alone and beside the drain,
+        the state saved at step 4 and the moment the manager was built. With ``records``, each take's report
+        is held against the bytes it wrote."""
+        state = init_train_state(cfg, seed=args.seed)
+        app_state = {"train": state}
+        opened = time.monotonic()  # the ledger's run starts here
+        mgr = CheckpointManager(root, keep_last_n=2, incremental=True)
+        captured, saves = {}, {}
 
-    def record_save(step: int, seconds: float, before: tuple, at=None, **extra) -> None:
-        """Bytes of the save of ``step``: copied to the host, written as
-        data blobs, and the bytes of the chunks that changed since the
-        previous save (``at``: the state saved, by default the state now)."""
-        torch.cuda.synchronize()
-        if at is None:
-            at = {k: v.clone() for k, v in _state_tensors(state).items()}
-        captured[step] = at
-        d2h, written_all = (a - b for a, b in zip(counters(), before))
-        rec = {
-            "s": seconds, "d2h_bytes": d2h, "written_bytes": _written_data_bytes(mgr.step_path(step)),
-            "written_all_bytes": written_all, **extra,
-        }
-        if step - 1 in captured:
-            rec["changed_bytes"] = changed = _changed_bytes(captured.pop(step - 1), at)
-            _require(d2h == changed, f"save {step} copied {d2h} bytes to the host, {changed} changed")
-            _require(
-                changed <= rec["written_bytes"] <= changed + (1 << 20),
-                f"save {step} wrote {rec['written_bytes']} data bytes, {changed} changed",
+        def record_save(step: int, seconds: float, before: tuple, at=None, **extra) -> None:
+            """Bytes of the save of ``step``: copied to the host, written as
+            data blobs, and the bytes of the chunks that changed since the
+            previous save (``at``: the state saved, by default the state
+            now); with records, the take's report (read before retention
+            can drop the step) against them."""
+            torch.cuda.synchronize()
+            if at is None:
+                at = {k: v.clone() for k, v in _state_tensors(state).items()}
+            captured[step] = at
+            d2h, written_all = (a - b for a, b in zip(counters(), before))
+            rec = {
+                "s": seconds, "d2h_bytes": d2h, "written_bytes": _written_data_bytes(mgr.step_path(step)),
+                "written_all_bytes": written_all, **extra,
+            }
+            if step - 1 in captured:
+                rec["changed_bytes"] = changed = _changed_bytes(captured.pop(step - 1), at)
+                _require(d2h == changed, f"save {step} copied {d2h} bytes to the host, {changed} changed")
+                _require(
+                    changed <= rec["written_bytes"] <= changed + (1 << 20),
+                    f"save {step} wrote {rec['written_bytes']} data bytes, {changed} changed",
+                )
+            if records:
+                reports = [
+                    e for e in load_events(os.path.join(mgr.step_path(step), ".telemetry.jsonl"))
+                    if e["kind"] in ("take", "async_take")
+                ]
+                _require(len(reports) == 1, f"save {step}: {len(reports)} take reports")
+                moved = rec["report_bytes_moved"] = reports[0]["bytes_moved"]
+                # The report counts every blob the take wrote: the card's
+                # bytes and the small host-side leaves beside them.
+                _require(
+                    moved == rec["written_bytes"] and d2h <= moved <= d2h + (1 << 20),
+                    f"save {step}: the report moved {moved} bytes; {rec['written_bytes']} data bytes "
+                    f"written, {d2h} copied to the host",
+                )
+            saves[step] = rec
+
+        saver = PreemptionSaver(signals=(signal.SIGTERM,), ledger_root=root if records else None)
+        try:
+            state, _ = train_step(state, tokens)
+            _require(not saver.should_save(1), "should_save(1) before any signal")
+            before = counters()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            mgr.save(1, app_state)
+            record_save(1, time.monotonic() - t0, before)
+            freeze(state.model)
+
+            state, _ = train_step(state, tokens)
+            _require(not saver.should_save(2), "should_save(2) before any signal")
+            torch.cuda.synchronize()
+            at_2 = {k: v.clone() for k, v in _state_tensors(state).items()}
+            before = counters()
+            t0 = time.monotonic()
+            pending = mgr.async_save(2, app_state)
+            visible_s = time.monotonic() - t0
+            # Step 3's update runs while step 2 drains; it ends at its own
+            # stream's end (a device-wide synchronize would wait for the
+            # drain).
+            t1 = time.monotonic()
+            state, _ = train_step(state, tokens)
+            torch.cuda.current_stream().synchronize()
+            step_beside_drain_s = time.monotonic() - t1
+            pending.wait()
+            # To wait()'s return: the commit, then the index update and GC.
+            waited_s = time.monotonic() - t0
+            record_save(
+                2, waited_s, before, at=at_2, visible_s=visible_s, staged_s=pending.staged_s,
+                committed_s=pending.committed_s,
             )
-        saves[step] = rec
+            del at_2
+
+            _require(not saver.should_save(3), "should_save(3) before any signal")
+            before = counters()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            mgr.save(3, app_state)
+            record_save(3, time.monotonic() - t0, before)
+
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, _ = train_step(state, tokens)
+            torch.cuda.current_stream().synchronize()
+            step_alone_s = time.monotonic() - t0
+            os.kill(os.getpid(), signal.SIGTERM)
+            _require(saver.preempted and saver.should_save(4), "SIGTERM after step 4 did not make should_save(4) true")
+            before = counters()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            mgr.save(4, app_state)
+            record_save(4, time.monotonic() - t0, before)
+            _require(saver.exit_after_save and not saver.should_save(5), "the saver asked for a second save")
+        finally:
+            saver.close()
+        return {"mgr": mgr, "state": state, "saves": saves, "at_4": captured.pop(4), "opened": opened,
+                "step_alone_s": step_alone_s, "step_beside_drain_s": step_beside_drain_s}
+
+    # The first loop, every record on; the heartbeats' trackers are kept.
+    root = os.path.join(work_dir, "managed")
+    trackers = []
+    real_track = progress.track
+
+    def tracking(kind: str, path: str, rank: int):
+        trackers.append(real_track(kind, path, rank))
+        return trackers[-1]
 
     fa.reset_launch_counts()
     dd.reset_launch_counts()
-    saver = PreemptionSaver(signals=(signal.SIGTERM,))
+    progress.track = tracking
     try:
-        state, _ = train_step(state, tokens)
-        _require(not saver.should_save(1), "should_save(1) before any signal")
-        before = counters()
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        mgr.save(1, app_state)
-        record_save(1, time.monotonic() - t0, before)
-        freeze(state.model)
+        with _env(RECORDS_ON):
+            loop = run_loop(root, records=True)
+            mgr, state, saves, at_4 = loop["mgr"], loop["state"], loop["saves"], loop["at_4"]
 
-        state, _ = train_step(state, tokens)
-        _require(not saver.should_save(2), "should_save(2) before any signal")
-        torch.cuda.synchronize()
-        at_2 = {k: v.clone() for k, v in _state_tensors(state).items()}
-        before = counters()
-        t0 = time.monotonic()
-        pending = mgr.async_save(2, app_state)
-        visible_s = time.monotonic() - t0
-        # Step 3's update runs while step 2 drains; it ends at its own
-        # stream's end (a device-wide synchronize would wait for the drain).
-        t1 = time.monotonic()
-        state, _ = train_step(state, tokens)
-        torch.cuda.current_stream().synchronize()
-        step_beside_drain_s = time.monotonic() - t1
-        pending.wait()
-        # To wait()'s return: the commit, then the index update and GC.
-        waited_s = time.monotonic() - t0
-        record_save(
-            2, waited_s, before, at=at_2, visible_s=visible_s, staged_s=pending.staged_s,
-            committed_s=pending.committed_s,
-        )
-        del at_2
+            # Retention: the newest two steps are visible; a dropped step is
+            # pinned exactly when a retained step's manifest references it,
+            # and deleted (commit marker and every blob) otherwise.
+            retained = mgr.all_steps()
+            _require(retained == [3, 4], f"retained steps {retained}, expected [3, 4]")
+            refs = {s: sorted(referenced_steps(Snapshot(mgr.step_path(s)).metadata.manifest)) for s in retained}
+            pinned = sorted({r for rs in refs.values() for r in rs} - set(retained))
+            deleted = sorted({1, 2} - set(pinned))
+            with open(os.path.join(root, INDEX_BLOB)) as f:
+                index_pins = json.load(f).get("pinned", [])
+            _require(index_pins == pinned, f"the index pins {index_pins}; the refs {refs} need {pinned}")
+            for s in pinned:
+                _require(
+                    os.path.exists(os.path.join(mgr.step_path(s), SNAPSHOT_METADATA_FNAME)),
+                    f"pinned step {s} lost its commit marker",
+                )
+            for s in deleted:
+                # Neither package's GC removes a step's trace exports.
+                left = [f for _, _, fs in os.walk(mgr.step_path(s)) for f in fs if not _is_side_file(f)]
+                _require(not left, f"deleted step {s} left files behind: {left[:5]}")
 
-        _require(not saver.should_save(3), "should_save(3) before any signal")
-        before = counters()
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        mgr.save(3, app_state)
-        record_save(3, time.monotonic() - t0, before)
+            # Deep fsck of every retained step, through the refs into pinned
+            # steps; then of a copy of step 4 with one byte of one of its own
+            # blobs flipped.
+            fsck_records = {}
+            for s in retained:
+                t0 = time.monotonic()
+                report = verify_snapshot(mgr.step_path(s), deep=True)
+                seconds = time.monotonic() - t0
+                _require(report.ok, f"deep fsck of step {s}: {report.problems[:5]}")
+                _require(report.crcs_verified == report.blobs_checked,
+                         f"deep fsck of step {s} verified a blob by length only")
+                fsck_records[s] = {
+                    "s": seconds, "bytes": report.bytes_verified, "blobs": report.blobs_checked,
+                    "gb_s": report.bytes_verified / seconds / 1e9,
+                }
+            manifest_4 = Snapshot(mgr.step_path(4)).metadata.manifest
+            own = _data_locations(manifest_4)
+            target = min(own, key=lambda loc: (os.path.getsize(os.path.join(mgr.step_path(4), loc)) < 4096, loc))
+            flipped = os.path.join(root, "step_flipped")
+            _flipped_copy(mgr.step_path(4), target, flipped)
+            problems = [(p.kind, p.location) for p in verify_snapshot(flipped, deep=True).problems]
+            _require(problems == [("checksum", target)], f"deep fsck of the flipped copy reported {problems}")
+            shutil.rmtree(flipped)
 
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        state, _ = train_step(state, tokens)
-        torch.cuda.current_stream().synchronize()
-        step_alone_s = time.monotonic() - t0
-        os.kill(os.getpid(), signal.SIGTERM)
-        _require(saver.preempted and saver.should_save(4), "SIGTERM after step 4 did not make should_save(4) true")
-        before = counters()
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        mgr.save(4, app_state)
-        record_save(4, time.monotonic() - t0, before)
-        _require(saver.exit_after_save and not saver.should_save(5), "the saver asked for a second save")
+            # restore_latest into a fresh state from another seed.
+            fresh = init_train_state(cfg, seed=args.seed + 1)
+            _require(not same_bits(fresh.model.embed, state.model.embed), "fresh model equals the trained one")
+            state_bytes = sum(v.numel() * v.element_size() for v in at_4.values())
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            step = mgr.restore_latest({"train": fresh})
+            torch.cuda.synchronize()
+            restore_s = time.monotonic() - t0
+            measured_wall_s = time.monotonic() - loop["opened"]
     finally:
-        saver.close()
-    at_4 = captured.pop(4)
-    captured.clear()
-
-    # Retention: the newest two steps are visible; a dropped step is pinned
-    # exactly when a retained step's manifest references it, and deleted
-    # (commit marker and every blob) otherwise.
-    retained = mgr.all_steps()
-    _require(retained == [3, 4], f"retained steps {retained}, expected [3, 4]")
-    refs = {s: sorted(referenced_steps(Snapshot(mgr.step_path(s)).metadata.manifest)) for s in retained}
-    pinned = sorted({r for rs in refs.values() for r in rs} - set(retained))
-    deleted = sorted({1, 2} - set(pinned))
-    with open(os.path.join(root, INDEX_BLOB)) as f:
-        index_pins = json.load(f).get("pinned", [])
-    _require(index_pins == pinned, f"the index pins {index_pins}; the refs {refs} need {pinned}")
-    for s in pinned:
-        _require(
-            os.path.exists(os.path.join(mgr.step_path(s), SNAPSHOT_METADATA_FNAME)),
-            f"pinned step {s} lost its commit marker",
-        )
-    for s in deleted:
-        left = [f for _, _, fs in os.walk(mgr.step_path(s)) for f in fs]
-        _require(not left, f"deleted step {s} left files behind: {left[:5]}")
-
-    # Deep fsck of every retained step, through the refs into pinned steps;
-    # then of a copy of step 4 with one byte of one of its own blobs flipped.
-    fsck_records = {}
-    for s in retained:
-        t0 = time.monotonic()
-        report = verify_snapshot(mgr.step_path(s), deep=True)
-        seconds = time.monotonic() - t0
-        _require(report.ok, f"deep fsck of step {s}: {report.problems[:5]}")
-        _require(report.crcs_verified == report.blobs_checked, f"deep fsck of step {s} verified a blob by length only")
-        fsck_records[s] = {
-            "s": seconds, "bytes": report.bytes_verified, "blobs": report.blobs_checked,
-            "gb_s": report.bytes_verified / seconds / 1e9,
-        }
-    own = _data_locations(Snapshot(mgr.step_path(4)).metadata.manifest)
-    target = min(own, key=lambda loc: (os.path.getsize(os.path.join(mgr.step_path(4), loc)) < 4096, loc))
-    flipped = os.path.join(root, "step_flipped")
-    _flipped_copy(mgr.step_path(4), target, flipped)
-    problems = [(p.kind, p.location) for p in verify_snapshot(flipped, deep=True).problems]
-    _require(problems == [("checksum", target)], f"deep fsck of the flipped copy reported {problems}")
-    shutil.rmtree(flipped)
-
-    # restore_latest into a fresh state from another seed.
-    fresh = init_train_state(cfg, seed=args.seed + 1)
-    _require(not same_bits(fresh.model.embed, state.model.embed), "fresh model equals the trained one")
-    state_bytes = sum(v.numel() * v.element_size() for v in at_4.values())
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    step = mgr.restore_latest({"train": fresh})
-    torch.cuda.synchronize()
-    restore_s = time.monotonic() - t0
+        progress.track = real_track
     _require(step == 4, f"restore_latest returned {step}")
     _require_same_state(at_4, fresh, "restore_latest")
     del at_4
@@ -2160,12 +2288,90 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
         f"a kernel of the path never launched in the manager phase: {launches}",
     )
 
+    # The records of the first loop. The ledger: one run, a committed
+    # record per save but the deleted step's (pruned), its GC, a stall per
+    # take and the drain of the async one, each with the bytes the take
+    # wrote, the preemption at step 4, and the restore with the bytes of
+    # step 4's blobs.
+    events = ledger.load_ledger(os.path.join(root, ledger.LEDGER_BASENAME))
+
+    def of(event: str) -> list:
+        return [r for r in events if r["event"] == event]
+
+    _require(len(of(names.EVENT_RUN_START)) == 1, f"{len(of(names.EVENT_RUN_START))} run-start events")
+    committed = [r["step"] for r in of(names.EVENT_STEP_COMMITTED)]
+    _require(committed == sorted({1, 2, 3, 4} - set(deleted)),
+             f"step-committed for steps {committed}; GC deleted {deleted}")
+    _require([r["step"] for r in of(names.EVENT_GC_RECLAIMED)] == deleted,
+             f"gc-reclaimed for {[r['step'] for r in of(names.EVENT_GC_RECLAIMED)]}, deleted {deleted}")
+    stalls = {r["step"]: r["nbytes"] for r in of(names.EVENT_VISIBLE_STALL)}
+    _require(stalls == {s: rec["written_bytes"] for s, rec in saves.items()},
+             f"visible-stall bytes {stalls}; the takes wrote {[rec['written_bytes'] for rec in saves.values()]}")
+    drains = [(r["step"], r["nbytes"]) for r in of(names.EVENT_STAGED_DRAIN)]
+    _require(drains == [(2, saves[2]["written_bytes"])], f"staged-drain events {drains}")
+    preempt = [(r["step"], r["target_step"]) for r in of(names.EVENT_PREEMPTION)]
+    _require(preempt == [(4, 4)], f"preemption events {preempt}")
+    restore_bytes = sum(
+        os.path.getsize(os.path.normpath(os.path.join(mgr.step_path(4), loc))) for loc in blob_requirements(manifest_4)
+    )
+    served = [(r["step"], r["nbytes"]) for r in of(names.EVENT_RESTORE_SERVED)]
+    _require(served == [(4, restore_bytes)] and restore_bytes >= state_bytes,
+             f"restore-served {served}; step 4's blobs hold {restore_bytes} bytes")
+    # Goodput: the buckets sum to the ledger's wall, and that wall is the
+    # measured one (the tolerance of test_goodput.py).
+    run = goodput.latest_run(goodput.analyze_root(root))
+    buckets = run["train_s"] + run["visible_stall_s"] + run["restore_s"] + run["lost_work_s"]
+    _require(abs(buckets - run["wall_s"]) <= max(1e-3, 1e-6 * run["wall_s"]),
+             f"goodput buckets sum to {buckets} s, the ledger's wall is {run['wall_s']} s")
+    _require(abs(run["wall_s"] - measured_wall_s) <= GOODPUT_WALL_REL * measured_wall_s,
+             f"the ledger's wall {run['wall_s']} s, measured {measured_wall_s} s")
+    # The history: a row per save and one for the restore.
+    rows = [(r["kind"], r["step"]) for r in history.load_history(os.path.join(root, history.HISTORY_BASENAME))]
+    _require(rows == [("take", 1), ("async_take", 2), ("take", 3), ("take", 4), ("restore", 4)],
+             f"history rows {rows}")
+    # Heartbeats: every op wrote one, ended done in its last phase, and
+    # removed it; the deleted step's went with it.
+    beats = [(t.kind, t.snapshot()["terminal"], t.snapshot()["phase"], t._file) for t in trackers]
+    _require(len(beats) == 5 and all(
+        f is not None and term == "done" and ph in ("committing", "applying") and not os.path.exists(f)
+        for _, term, ph, f in beats
+    ), f"heartbeats {beats}")
+    # The step-3 take's trace parses and holds the take's envelope.
+    with open(os.path.join(mgr.step_path(3), ".trace-take-rank0.json")) as f:
+        spans = {s["name"] for s in spans_from_chrome(json.load(f))}
+    _require(names.SPAN_TAKE in spans, f"the step-3 trace holds {sorted(spans)}")
+    records_on = {s: rec["s"] for s, rec in saves.items()}
+    del state, fresh
+    torch.cuda.empty_cache()
+
+    # The same loop with every record off, then on again, for their
+    # seconds: the turns on, off, on keep a warm-up from passing as the
+    # records' cost.
+    turns = {"on": {"saves_s": records_on, "step_alone_s": loop["step_alone_s"],
+                    "step_beside_drain_s": loop["step_beside_drain_s"]}}
+    for name, knobs_set, records in (("off", RECORDS_OFF, False), ("on_again", RECORDS_ON, True)):
+        turn_root = os.path.join(work_dir, f"managed_{name}")
+        with _env(knobs_set):
+            again = run_loop(turn_root, records=records)
+        if not records:
+            side = [os.path.relpath(os.path.join(d, f), turn_root) for d, _, fs in os.walk(turn_root) for f in fs
+                    if _is_side_file(f)]
+            _require(not side, f"the loop with every record off wrote {side[:5]}")
+        turns[name] = {"saves_s": {s: rec["s"] for s, rec in again["saves"].items()},
+                       "step_alone_s": again["step_alone_s"], "step_beside_drain_s": again["step_beside_drain_s"]}
+        del again
+        torch.cuda.empty_cache()
+
     record = {
-        "card": card, "saves": saves, "step_alone_s": step_alone_s,
-        "step_beside_drain_s": step_beside_drain_s, "restore_latest_s": restore_s,
+        "card": card, "saves": saves, "step_alone_s": loop["step_alone_s"],
+        "step_beside_drain_s": loop["step_beside_drain_s"], "restore_latest_s": restore_s,
         "restore_latest_gb_s": state_bytes / restore_s / 1e9, "state_bytes": state_bytes,
         "fsck_deep": fsck_records, "flipped": target, "retained": retained, "refs": refs,
         "pinned": pinned, "deleted": deleted, "next_loss": float(loss_a), "launches": launches,
+        "ledger_events": len(events), "goodput": {k: run[k] for k in (
+            "wall_s", "train_s", "visible_stall_s", "restore_s", "lost_work_s", "overhead_fraction",
+            "staged_drain_s")},
+        "measured_wall_s": measured_wall_s, "turns": turns,
     }
     for s, rec in saves.items():
         log(
@@ -2175,22 +2381,35 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
                 f"committed {rec['committed_s']:.3f} s)" if "visible_s" in rec else ""
             )
             + f": {rec['d2h_bytes'] / 1e6:.3f} MB copied to the host, {rec['written_bytes'] / 1e6:.3f} MB "
-            f"of data written"
+            f"of data written (the report: {rec['report_bytes_moved'] / 1e6:.3f} MB)"
             + (f", {rec['changed_bytes'] / 1e6:.3f} MB of chunks changed" if "changed_bytes" in rec else "")
         )
     log(
-        f"manager: step alone {step_alone_s:.3f} s, beside the async drain {step_beside_drain_s:.3f} s; "
-        f"retained {retained}, refs {refs}, pinned {pinned}, deleted {deleted}; deep fsck "
+        f"manager: step alone {loop['step_alone_s']:.3f} s, beside the async drain "
+        f"{loop['step_beside_drain_s']:.3f} s; retained {retained}, refs {refs}, pinned {pinned}, "
+        f"deleted {deleted}; deep fsck "
         + ", ".join(f"step {s} {r['s']:.3f} s ({r['gb_s']:.2f} GB/s)" for s, r in fsck_records.items())
         + f", flip in {target} caught; restore_latest {restore_s:.3f} s "
         f"({record['restore_latest_gb_s']:.2f} GB/s) bit-identical, logits and next-step loss "
         f"{float(loss_a)!r} too; launches {launches}; on {card}"
     )
-    _headline("manager", step_alone_s=step_alone_s, step_beside_drain_s=step_beside_drain_s,
-              restore_latest_s=restore_s, retained=retained)
+    log(
+        f"manager records: {len(events)} ledger events; goodput wall {run['wall_s']:.3f} s (measured "
+        f"{measured_wall_s:.3f} s): train {run['train_s']:.3f}, visible stall {run['visible_stall_s']:.3f}, "
+        f"restore {run['restore_s']:.3f}, lost {run['lost_work_s']:.3f}, overhead "
+        f"{run['overhead_fraction']:.4f}; {len(rows)} history rows, {len(beats)} heartbeats settled"
+    )
+    order = ("on", "off", "on_again")
+    log(
+        "manager records on / off / on: saves "
+        + ", ".join(f"{s}: " + " / ".join(f"{turns[t]['saves_s'][s]:.3f}" for t in order) + " s" for s in records_on)
+        + "; step alone " + " / ".join(f"{turns[t]['step_alone_s']:.3f}" for t in order)
+        + " s, beside the drain " + " / ".join(f"{turns[t]['step_beside_drain_s']:.3f}" for t in order) + " s"
+    )
+    _headline("manager", step_alone_s=loop["step_alone_s"], step_beside_drain_s=loop["step_beside_drain_s"],
+              restore_latest_s=restore_s, retained=retained, ledger_events=len(events),
+              drain_step_on_off_on_s=[turns[t]["step_beside_drain_s"] for t in ("on", "off", "on_again")])
     print(json.dumps({"manager": record}), flush=True)
-    del state, fresh
-    torch.cuda.empty_cache()
     return launches
 
 
@@ -2538,12 +2757,14 @@ TIERED_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest", "device_pack
 
 
 def _files(top: str) -> dict:
-    """``relative path -> size`` of every file under ``top``."""
+    """``relative path -> size`` of every file under ``top`` but the
+    telemetry records."""
     out = {}
     for d, _, names in os.walk(top):
         for n in names:
             full = os.path.join(d, n)
-            out[os.path.relpath(full, top)] = os.path.getsize(full)
+            if not _is_side_file(n):
+                out[os.path.relpath(full, top)] = os.path.getsize(full)
     return out
 
 
@@ -2600,6 +2821,8 @@ def tiered_phase(args, work_dir: str, card: str) -> dict:
     from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
     from torchsnapshot_tpu_torch.telemetry import names
     from torchsnapshot_tpu_torch.test_utils import faulty_fs_plugin
+    from torchsnapshot_tpu_torch.telemetry import ledger
+    from torchsnapshot_tpu_torch.telemetry.sink import load_events
     from torchsnapshot_tpu_torch.tiered import get_mirror, reset_mirror
     from torchsnapshot_tpu_torch.tiered.journal import JOURNAL_BACKUP_BLOB, JOURNAL_BLOB
 
@@ -2662,6 +2885,19 @@ def tiered_phase(args, work_dir: str, card: str) -> dict:
         mtimes = {rel: os.stat(os.path.join(step_dir(durable, step), rel)).st_mtime_ns for rel in on_durable}
         marker = mtimes.pop(".snapshot_metadata")
         _require(marker >= max(mtimes.values()), f"save {step}: a durable blob landed after the commit marker")
+        # The settled job's report beside the fast step and its ledger
+        # event, each with the bytes the job shipped.
+        step_bytes = sum(on_durable.values())
+        reports = [
+            (e["bytes_moved"], e["error"]) for e in load_events(os.path.join(step_dir(fast, step), ".telemetry.jsonl"))
+            if e["kind"] == "mirror"
+        ]
+        settled = [
+            (r["nbytes"], r["error"]) for r in ledger.load_ledger(os.path.join(fast, ledger.LEDGER_BASENAME))
+            if r["event"] == names.EVENT_MIRROR_SETTLED and r.get("step") == step
+        ]
+        _require(reports == settled == [(step_bytes, None)],
+                 f"save {step}: mirror reports {reports}, mirror-settled {settled}, {step_bytes} bytes mirrored")
         rec = {
             "s": seconds, "wait_durable_s": wait_s, "mirrored_bytes": shipped[0], "mirrored_blobs": shipped[1],
             "step_blobs": len(on_durable), "step_bytes": sum(on_durable.values()),
@@ -2674,9 +2910,11 @@ def tiered_phase(args, work_dir: str, card: str) -> dict:
     for counts in (fa.launch_counts, dd.launch_counts, dp.launch_counts):
         for k in counts:
             counts[k] = 0
+    # (a) The managed loop, with the report and trace sinks on.
+    records = contextlib.ExitStack()
+    records.enter_context(_env(RECORDS_ON))
     mgr = CheckpointManager(root, keep_last_n=3, keep_fast_last_n=1, incremental=True)
 
-    # (a) The managed loop.
     step_step()
     torch.cuda.synchronize()
     step_alone_s = step_step()
@@ -2726,6 +2964,7 @@ def tiered_phase(args, work_dir: str, card: str) -> dict:
         mgr.save(4, app_state)
         save_s = time.monotonic() - t0
     finish_save(4, save_s, before, d2h, pack_launches=dp.launch_counts["device_pack"] - packs)
+    records.close()
     _require(saves[4]["pack_launches"] > 0, "the batched save launched no pack")
 
     # After step 4's eviction pass the fast tier holds the newest step only.
@@ -3056,6 +3295,32 @@ def _require_replicas_equal(pg, state) -> int:
     return len(mine)
 
 
+def _require_gathered_reports(path: str, kind: str) -> int:
+    """Each rank's report of a take at ``path`` is in its log, and rank 0's
+    alone carries the gathered spread: min, median, max and the straggler
+    rank of every metric. Returns the number of metrics."""
+    from torchsnapshot_tpu_torch.telemetry.sink import load_events
+
+    reports = {e["rank"]: e for e in load_events(os.path.join(path, ".telemetry.jsonl")) if e["kind"] == kind}
+    _require(sorted(reports) == list(range(RANKS)), f"{kind} reports of ranks {sorted(reports)}")
+    agg = reports[0]["aggregated"] or {}
+    _require(
+        "bytes_moved" in agg and all(
+            set(v) == {"min", "median", "max", "straggler"} and v["straggler"] in range(RANKS) for v in agg.values()
+        ),
+        f"rank 0's {kind} report aggregated {agg}",
+    )
+    _require(all(reports[r]["aggregated"] is None for r in range(1, RANKS)), "a report of rank > 0 aggregated")
+    _require(len(reports[0]["clock_offsets_s"] or []) == RANKS, "rank 0's report has no clock offsets")
+    return len(agg)
+
+
+def _ledger_events(root: str) -> list:
+    from torchsnapshot_tpu_torch.telemetry.ledger import LEDGER_BASENAME, load_ledger
+
+    return load_ledger(os.path.join(root, LEDGER_BASENAME))
+
+
 def ranks_worker(pg, seed: int, work_dir: str) -> dict:
     """One rank of the ranks phase (spawned by ``run_multiprocess``; the
     parent built every kernel and the native runtime). Legs (a) sync take
@@ -3143,9 +3408,12 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
     before = _coordination_counters()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    Snapshot.take(path_a, app, pg=pg, replicated=REPLICATED)
+    with _env(RECORDS_ON):
+        Snapshot.take(path_a, app, pg=pg, replicated=REPLICATED)
     take_s = time.monotonic() - t0
     d2h, requests, store_s = (a - b for a, b in zip(_coordination_counters(), before))
+    wrapper.barrier()  # both ranks' reports are in the log
+    aggregated = _require_gathered_reports(path_a, "take") if rank == 0 else None
     manifest = Snapshot(path_a).metadata.manifest
     _require(
         all(k.startswith("0/") for k, e in manifest.items() if getattr(e, "replicated", False)),
@@ -3178,6 +3446,7 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
         "take_s": take_s, "d2h_bytes": d2h, "replicated_bytes": rep_total,
         "replicated_written_bytes": rep_written, "replicated_share": rep_written / rep_total,
         "own_written_bytes": own_written, "store_requests": requests, "store_s": store_s,
+        "aggregated_metrics": aggregated,
     }
 
     # (b) Restore into another seed's state; the next step continues bit for bit.
@@ -3304,6 +3573,17 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
     agreed_all = wrapper.all_gather_object(agreed)
     _require(len(set(agreed_all)) == 1, f"the ranks saved at different steps: {agreed_all}")
     wrapper.barrier()  # rank 0's index write and retention are done
+    if rank == 0:
+        # Rank 0 alone appends to the root's run ledger: one run, one
+        # stall and one committed record per take, none twice.
+        events = [r["event"] for r in _ledger_events(root)]
+        committed = [r["step"] for r in _ledger_events(root) if r["event"] == "step-committed"]
+        _require(
+            events.count("run-start") == 1 and _ledger_events(root)[0].get("world_size") == RANKS
+            and events.count("visible-stall") == len(saves) and len(committed) == len(set(committed)),
+            f"the two-rank run's ledger: {events}",
+        )
+        record["ledger_events"] = len(events)
     retained = mgr.all_steps()
     _require(retained == [3, agreed], f"retained steps {retained}, expected [3, {agreed}]")
     refs = {s: sorted(referenced_steps(Snapshot(mgr.step_path(s)).metadata.manifest)) for s in retained}
@@ -3434,8 +3714,9 @@ def ranks_phase(args, work_dir: str, card: str) -> dict:
             f"ranks: rank {r['rank']} on card {r['device']}: take {a['take_s']:.3f} s, "
             f"{a['replicated_written_bytes'] / 1e9:.3f} of {a['replicated_bytes'] / 1e9:.3f} GB replicated "
             f"written ({a['replicated_share']:.3f}), {a['d2h_bytes'] / 1e9:.3f} GB to the host, "
-            f"{a['store_requests']:.0f} store requests in {a['store_s']:.4f} s; restore "
-            f"{r['b']['restore_s']:.3f} s; async_take call {c['call_s']:.4f} s, committed "
+            f"{a['store_requests']:.0f} store requests in {a['store_s']:.4f} s (the report gather's included"
+            + (f"; rank 0's report aggregates {a['aggregated_metrics']} metrics" if r["rank"] == 0 else "")
+            + f"); restore {r['b']['restore_s']:.3f} s; async_take call {c['call_s']:.4f} s, committed "
             f"{c['committed_s']:.3f} s; managed saves "
             + ", ".join(f"{s}: {v['s']:.3f} s" for s, v in r["e"]["saves"].items())
             + f"; failing peer raised in {r['f']['raised_s']:.2f} s; launches {r['launches']}"
@@ -3642,9 +3923,12 @@ def sharded_worker(pg, seed: int, work_dir: str) -> dict:
         before = d2h()
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        Snapshot.take(path_a, {"train": TensorTreeState(tree_a)}, pg=pg, record_digests=True)
+        with _env(RECORDS_ON):
+            Snapshot.take(path_a, {"train": TensorTreeState(tree_a)}, pg=pg, record_digests=True)
         take_s = time.monotonic() - t0
         copied = d2h() - before
+        wrapper.barrier()  # both ranks' reports are in the log
+        aggregated = _require_gathered_reports(path_a, "take") if rank == 0 else None
         markers = [d for d, _, fs in os.walk(path_a) if SNAPSHOT_METADATA_FNAME in fs]
         _require(markers == [path_a], f"commit markers: {markers}")
         tiled = _require_tiling(path_a)
@@ -3663,6 +3947,7 @@ def sharded_worker(pg, seed: int, work_dir: str) -> dict:
         record["a"] = {
             "take_s": take_s, "d2h_bytes": copied, "written_bytes": written, "blobs": n_blobs,
             "sharded_bytes": sharded_total, "share": share, "entries_tiled": tiled,
+            "aggregated_metrics": aggregated,
         }
 
         # (b) Restore, same layout, into DTensors from --seed + 1.
@@ -3971,7 +4256,9 @@ def sharded_phase(args, work_dir: str, card: str) -> dict:
         log(
             f"sharded: rank {r['rank']} on card {r['device']}: (a) take {a['take_s']:.3f} s, wrote "
             f"{a['written_bytes'] / 1e9:.4f} of {a['sharded_bytes'] / 1e9:.4f} GB sharded ({a['share']:.6f}), "
-            f"{a['d2h_bytes'] / 1e9:.4f} GB to the host, {a['entries_tiled']} entries tiled; (b) restore "
+            f"{a['d2h_bytes'] / 1e9:.4f} GB to the host, {a['entries_tiled']} entries tiled"
+            + (f", the report aggregates {a['aggregated_metrics']} metrics" if r["rank"] == 0 else "")
+            + f"; (b) restore "
             f"{r['b']['restore_s']:.3f} s; (c1) Shard(1) restore {r['c1']['restore_s']:.3f} s, "
             f"{r['c1']['ranged_reads']} ranged and {r['c1']['whole_reads']} whole shard reads; (c3) read_object "
             f"{r['c3']['read_object_s']:.4f} s; (d) incremental take {d['take_s']:.3f} s, "
@@ -4609,7 +4896,7 @@ def cdn_fleet_worker(pg, seed: int, work_dir: str, store_port: int, root: str) -
         sub = TimedSubscriber(
             TCPStore("127.0.0.1", store_port, is_server=False), CDN_TOPIC, sid, CDN_FLEET,
             durable_fetch=counting_fetch, cache_budget_bytes=CDN_CACHE_BUDGET_BYTES,
-            cas_store=CASStore(root),
+            cas_store=CASStore(root), root=root,
         )
         members.append({"sid": sid, "model": model, "swapper": swapper, "sub": sub, "reads": reads, "steps": []})
 
@@ -4863,7 +5150,7 @@ def cdn_phase(args, work_dir: str, card: str) -> dict:
                     # The restarted trainer's publisher announces the step.
                     refs = chunk_refs(Snapshot(mgr.step_path(step)).metadata.manifest)
                     t1 = time.monotonic()
-                    ann = CdnPublisher(client, CDN_TOPIC, publisher_id=f"rank0@{root}").publish(step, refs)
+                    ann = CdnPublisher(client, CDN_TOPIC, publisher_id=f"rank0@{root}", root=root).publish(step, refs)
                     publish_s = time.monotonic() - t1
                     _require(ann is not None and ann.seq == head + 1 and read_head(client, CDN_TOPIC) == head + 1,
                              "the restarted publisher did not announce the step")
@@ -4918,6 +5205,15 @@ def cdn_phase(args, work_dir: str, card: str) -> dict:
         live = set(chunk_refs(Snapshot(mgr.step_path(4)).metadata.manifest))
         _require(mgr.all_steps() == [4] and on_disk == live,
                  f"after the fleet closed, save 4 left {len(on_disk - live)} chunks no retained step names")
+        # The run ledger of the trainer's root: a cdn-published event per
+        # announced step (the killed publish posted none, its restart one)
+        # and a cdn-swapped event per subscriber per applied step.
+        events = _ledger_events(root)
+        published = [r["step"] for r in events if r["event"] == names.EVENT_CDN_PUBLISHED]
+        swapped = sorted((r["subscriber"], r["step"]) for r in events if r["event"] == names.EVENT_CDN_SWAPPED)
+        _require(published == [*CDN_STEPS, 4], f"cdn-published for steps {published}")
+        _require(swapped == [(sid, s) for sid in range(CDN_FLEET) for s in CDN_STEPS],
+                 f"cdn-swapped (subscriber, step) {swapped}")
     except BaseException:
         client.set(_cdn_key("abort"), b"1")
         fleet_thread.join(60)
@@ -4937,7 +5233,8 @@ def cdn_phase(args, work_dir: str, card: str) -> dict:
     median = statistics.median(staleness)
     log(
         f"cdn: fleet of {CDN_FLEET} in {CDN_FLEET_PROCS} processes up in {fleet_up_s:.1f} s; staleness median "
-        f"{median:.3f} s, max {staleness[-1]:.3f} s; deep fsck --cas with leases {fsck_s:.3f} s "
+        f"{median:.3f} s, max {staleness[-1]:.3f} s; the ledger {len(published)} cdn-published and "
+        f"{len(swapped)} cdn-swapped events; deep fsck --cas with leases {fsck_s:.3f} s "
         f"({leased_unreferenced} leased chunks unreferenced); launches {launches}; phase {wall_s:.1f} s on {card}"
     )
     record = {"card": card, "saves": saves, "steps": steps, "staleness_median_s": median,

@@ -205,24 +205,48 @@ def _port_store():
 
 
 def test_port_cdn_posts_no_run_ledger_events(tmp_path):
-    """Left out until the telemetry port (step 10): the JAX publisher and
-    subscriber post ``cdn-published`` / ``cdn-swapped`` to the run ledger
-    under ``root`` (``torchsnapshot_tpu/cdn/publisher.py:156``,
-    ``subscriber.py:366``). The port keeps ``root=`` and writes nothing
-    there."""
-    root = tmp_path / "run"
-    root.mkdir()
-    store = _port_store()
-    data = b"\x01" * 64
-    from torchsnapshot_tpu_torch.cas import digest_key
-    from torchsnapshot_tpu_torch.integrity import compute_checksum_entry
+    """Parity of the CDN's ledger events (the name dates from before the
+    port had a run ledger): under a root whose run a manager opened, each
+    package's publisher posts ``cdn-published`` and its subscriber
+    ``cdn-swapped`` (``torchsnapshot_tpu/cdn/publisher.py:156``,
+    ``subscriber.py:366``), with the same fields; under a root with no
+    ledger neither writes anything."""
+    from torchsnapshot_tpu.cas import digest_key as jax_digest_key
+    from torchsnapshot_tpu.integrity import compute_checksum_entry as jax_checksum
+    from torchsnapshot_tpu.telemetry import ledger as jax_ledger
+    from torchsnapshot_tpu_torch.telemetry import ledger as port_ledger
 
-    key = digest_key(compute_checksum_entry(memoryview(data)))
-    pub = pcdn.CdnPublisher(store, "t", root=str(root))
-    sub = pcdn.CdnSubscriber(store, "t", 0, 1, durable_fetch={key: data}.__getitem__, root=str(root))
-    try:
-        assert pub.publish(1, {key: len(data)}) is not None
-        assert sub.track_once(timeout=5.0) is not None
-    finally:
-        sub.close()
-    assert list(root.iterdir()) == []
+    data = b"\x01" * 64
+    key = jax_digest_key(jax_checksum(memoryview(data)))
+    seen = {}
+    for pkg in ("jax", "port"):
+        cdn, ledger_mod = (jcdn, jax_ledger) if pkg == "jax" else (pcdn, port_ledger)
+        store = jts.dist_store.InProcessStore() if pkg == "jax" else _port_store()
+        root = tmp_path / pkg
+        bare = tmp_path / f"{pkg}-bare"
+        root.mkdir()
+        bare.mkdir()
+        with knobs.enable_ledger():
+            assert ledger_mod.open_run(str(root)) is not None
+            for where, topic in ((root, "t"), (bare, "u")):
+                pub = cdn.CdnPublisher(store, topic, root=str(where))
+                sub = cdn.CdnSubscriber(
+                    store, topic, 0, 1, durable_fetch={key: data}.__getitem__, root=str(where)
+                )
+                try:
+                    assert pub.publish(1, {key: len(data)}) is not None
+                    assert sub.track_once(timeout=5.0) is not None
+                finally:
+                    sub.close()
+            records = ledger_mod.load_ledger(str(root / ".ledger.jsonl"))
+        ledger_mod.reset_owned_roots()
+        assert list(bare.iterdir()) == []
+        seen[pkg] = [
+            (r["event"], sorted(r)) for r in records if r["event"] != "run-start"
+        ], {r["event"]: r for r in records}
+    assert seen["port"][0] == seen["jax"][0]
+    assert [e for e, _ in seen["port"][0]] == ["cdn-published", "cdn-swapped"]
+    for event, fields in (("cdn-published", ("topic", "seq", "step", "chunks", "bytes_in_step")),
+                          ("cdn-swapped", ("topic", "seq", "step", "subscriber", "bytes_on_wire"))):
+        for f in fields:
+            assert seen["port"][1][event][f] == seen["jax"][1][event][f], (event, f)

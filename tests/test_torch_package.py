@@ -139,8 +139,8 @@ def test_kernel_wrapper_raises_without_a_kernel_build(monkeypatch, tmp_path) -> 
     assert fa.launch_counts == before
 
 
-# The modules of the sharded-state slice and of the chunk-store and fan-out
-# slice: walked by the import checks above.
+# The modules of the sharded-state slice, of the chunk-store and fan-out
+# slice and of the telemetry slice: walked by the import checks above.
 SHARDED_SLICE_MODULES = [
     "torchsnapshot_tpu_torch/parallel/overlap.py",
     "torchsnapshot_tpu_torch/resharding.py",
@@ -152,6 +152,15 @@ SHARDED_SLICE_MODULES = [
     "torchsnapshot_tpu_torch/cas/store.py",
     "torchsnapshot_tpu_torch/cas/plugin.py",
     "torchsnapshot_tpu_torch/fanout.py",
+    # Reports, sinks, heartbeats, history, the run ledger, goodput and
+    # the trace export.
+    "torchsnapshot_tpu_torch/telemetry/report.py",
+    "torchsnapshot_tpu_torch/telemetry/sink.py",
+    "torchsnapshot_tpu_torch/telemetry/progress.py",
+    "torchsnapshot_tpu_torch/telemetry/history.py",
+    "torchsnapshot_tpu_torch/telemetry/ledger.py",
+    "torchsnapshot_tpu_torch/telemetry/goodput.py",
+    "torchsnapshot_tpu_torch/telemetry/trace.py",
 ]
 
 

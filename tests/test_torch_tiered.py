@@ -8,8 +8,8 @@ and its slow training-loop case, still slow-marked. Added here, across
 the two packages: each restores and fscks the other's durable tree after
 the fast tier is lost entirely, each package's mirror resumes the other's
 journal and ships only the blobs the journal lacks, the journal's JSON is
-the same document both ways, and a port-mirrored root holds no run
-ledger and no mirror trace (the JAX package's telemetry hooks, step 10).
+the same document both ways, and a port-mirrored root holds the run
+ledger and mirror trace a JAX-mirrored one holds.
 Everything is compared bit for bit.
 """
 
@@ -629,19 +629,61 @@ def test_journal_json_is_the_jax_packages_document() -> None:
 
 
 def test_port_mirrored_root_has_no_ledger_or_mirror_trace(tmp_path) -> None:
-    """The JAX mirror posts each settled job to the run ledger and writes
-    a per-job trace; the port leaves both out until the telemetry of
-    ROADMAP queue 1 step 10 lands, so its tiers hold only the step, the
-    index and the journal."""
-    fast, durable, root = _tiers(tmp_path)
-    mgr = CheckpointManager(root, keep_last_n=2)
-    mgr.save(1, _app(_w(1.0, 64)))
-    mgr.wait_durable(1, timeout=60)
-    assert get_mirror().drain(timeout=60)
-    for tier in (fast, durable):
-        names = {n for _, _, files in os.walk(tier) for n in files}
-        assert not {n for n in names if "ledger" in n or "trace" in n}, names
-    assert sorted(os.listdir(durable)) == [".manager_index", ".manager_index.backup", "step_0000000001"]
-    assert set(os.listdir(fast)) == {
-        ".manager_index", ".manager_index.backup", JOURNAL_BLOB, JOURNAL_BACKUP_BLOB, "step_0000000001",
-    }
+    """Parity of the mirror's records (the name dates from before the
+    port had a run ledger): with the ledger and the trace sink on, the
+    port's mirrored root holds the record files a JAX manager's holds on
+    the same schedule (the ledger with its ``mirror-settled`` event, the
+    take's and the mirror job's traces on the fast tier) and none on the
+    durable tier, and the two ledgers hold the same sequence of events."""
+    import re
+
+    import torchsnapshot_tpu as jts
+    from torchsnapshot_tpu.telemetry import ledger as jax_ledger
+    from torchsnapshot_tpu.tiered import mirror as jax_mirror
+    from torchsnapshot_tpu_torch.telemetry import ledger as port_ledger
+
+    def records_of(tier):
+        return sorted(
+            re.sub(r"pid\d+", "pid", os.path.relpath(os.path.join(d, n), tier))
+            for d, _, files in os.walk(tier)
+            for n in files
+            if "ledger" in n or "trace" in n
+        )
+
+    leaves = _leaves(n_leaves=2, size=64)
+    seen = {}
+    for pkg in ("jax", "port"):
+        fast, durable, root = _tiers(tmp_path / pkg)
+        jax_mirror.reset_mirror()
+        reset_mirror()
+        try:
+            with knobs.enable_ledger(), knobs.enable_trace():
+                if pkg == "jax":
+                    mgr = jts.CheckpointManager(root, keep_last_n=2)
+                    mgr.save(1, {"m": jts.PyTreeState(dict(leaves))})
+                    mgr.wait_durable(1, timeout=60)
+                    assert jax_mirror.get_mirror().drain(timeout=60)
+                    events = jax_ledger.load_ledger(os.path.join(fast, ".ledger.jsonl"))
+                else:
+                    mgr = CheckpointManager(root, keep_last_n=2)
+                    mgr.save(1, {"m": TensorTreeState({k: torch.from_numpy(v) for k, v in leaves.items()})})
+                    mgr.wait_durable(1, timeout=60)
+                    assert get_mirror().drain(timeout=60)
+                    events = port_ledger.load_ledger(os.path.join(fast, ".ledger.jsonl"))
+        finally:
+            jax_mirror.reset_mirror()
+            reset_mirror()
+            jax_ledger.reset_owned_roots()
+            port_ledger.reset_owned_roots()
+        # One settle per mirror job: the step's, then the index's (no step).
+        settled = [e for e in events if e["event"] == "mirror-settled"]
+        assert [e.get("step") for e in settled] == [1, None], settled
+        assert all(e["error"] is None for e in settled)
+        seen[pkg] = (records_of(fast), records_of(durable), [e["event"] for e in events], settled[0])
+    assert seen["port"][0] == seen["jax"][0]
+    assert ".ledger.jsonl" in seen["port"][0]
+    assert "step_0000000001/.trace-mirror-pid-rank0.json" in seen["port"][0]
+    assert seen["port"][1] == seen["jax"][1] == []
+    assert seen["port"][2] == seen["jax"][2]
+    assert seen["port"][3]["nbytes"] == seen["jax"][3]["nbytes"] > 0
+    assert seen["port"][3]["blobs"] == seen["jax"][3]["blobs"]

@@ -13,10 +13,10 @@ Publishing is metadata only: the chunks were made durable by the commit
 the announce describes. A publish failure degrades the fleet's freshness,
 never the training job's checkpoint.
 
-Left out against the JAX package until the telemetry port (ROADMAP step
-10): the run-ledger event ``cdn-published`` (``root=`` is accepted and
-kept for it), the wire-context propagation of the writes and the fleet
-metrics plane.
+With ``root`` (the manager root), each publish posts ``cdn-published``
+to that root's run ledger, as the JAX package does. Left out until the
+wire observatory is ported (ROADMAP step 10c): the wire-context
+propagation of the writes and the fleet metrics plane.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Dict, Optional
 from .. import telemetry
 from ..chaos import crashpoint
 from ..dist_store import Store
+from ..telemetry import ledger
 from ..telemetry import names as metric_names
 from ..telemetry.trace import get_recorder as _trace_recorder
 from .topic import Announce, announce_key, head_key, manifest_digest, read_head
@@ -43,8 +44,9 @@ _ANNOUNCE_RETAIN = 2
 
 class CdnPublisher:
     """Publish committed steps' chunk sets to one topic. ``root`` (the
-    manager's root URL) is where the JAX package posts its run-ledger
-    events; the port accepts the argument and posts none yet."""
+    manager's root URL) receives a ``cdn-published`` ledger event per
+    publish (only where a run ledger exists); omit it for store-only
+    publishing."""
 
     def __init__(
         self,
@@ -56,6 +58,7 @@ class CdnPublisher:
         self._store = store
         self.topic = topic
         self.publisher_id = publisher_id
+        self._root = root
         # The head, cached: the publisher is the topic's single writer, so
         # after one read it alone knows the tip.
         self._seq: Optional[int] = None
@@ -102,8 +105,19 @@ class CdnPublisher:
         registry = telemetry.metrics()
         registry.counter_inc(metric_names.CDN_PUBLISHES_TOTAL)
         registry.counter_inc(metric_names.CDN_ANNOUNCE_BYTES_TOTAL, float(len(encoded)))
+        if self._root is not None:
+            ledger.post_event(
+                self._root,
+                metric_names.EVENT_CDN_PUBLISHED,
+                topic=self.topic,
+                seq=seq,
+                step=int(step),
+                chunks=len(chunks),
+                bytes_in_step=ann.bytes_in_step,
+                published_ts=round(ann.published_ts, 6),
+            )
         return ann
 
     def close(self) -> None:
         """Nothing to release: the JAX publisher's fleet-plane snapshot is
-        not ported (step 10)."""
+        not ported (step 10c)."""

@@ -20,10 +20,10 @@ Every accepted byte, peer or durable, is verified against the chunk key's
 embedded digest before it is pooled or swapped in: a fleet of N
 subscribers costs about one durable read per novel chunk, not N.
 
-Left out against the JAX package until the telemetry port (ROADMAP step
-10): the run-ledger event ``cdn-swapped`` (``root=`` is accepted and
-kept for it), the wire-context propagation of a sync round and the fleet
-metrics plane. Every ``cdn_*`` counter and histogram and the
+With ``root`` (the training job's manager root), each applied step posts
+``cdn-swapped`` to that root's run ledger, as the JAX package does. Left
+out until the wire observatory is ported (ROADMAP step 10c): the
+wire-context propagation of a sync round and the fleet metrics plane. Every ``cdn_*`` counter and histogram and the
 ``cdn:sync`` / ``cdn:swap`` spans are kept.
 """
 
@@ -41,6 +41,7 @@ from ..chaos import crashpoint
 from ..dist_store import Store, _PollPacer, lookup_endpoints, publish_endpoint, scaled_poll_cap
 from ..resharding import assign_shard_owners
 from ..scheduler import PeerCacheBudget
+from ..telemetry import ledger
 from ..telemetry import names as metric_names
 from ..telemetry.trace import get_recorder as _trace_recorder
 from ..tiered.peer import PeerCache, PeerClient, PeerTransferError, _PeerServer
@@ -96,9 +97,9 @@ class CdnSubscriber:
     ``durable_fetch(key) -> bytes`` reads a chunk from storage (owners
     always, others only after a pull times out). ``cas_store`` (optional)
     records the held chunk set as a lease, so that the training job's GC
-    never deletes chunks the fleet still serves from. ``root`` is where
-    the JAX package posts its run-ledger events; the port accepts it and
-    posts none yet."""
+    never deletes chunks the fleet still serves from. ``root`` (the
+    training job's manager root) receives a ``cdn-swapped`` ledger event
+    per applied step, where a run ledger exists."""
 
     def __init__(
         self,
@@ -118,6 +119,7 @@ class CdnSubscriber:
         self.fleet_size = max(1, int(fleet_size))
         self._durable_fetch = durable_fetch
         self._cas_store = cas_store
+        self._root = root
         self.stats = SubscriberStats()
         self.applied_seq = 0
         self.applied_step: Optional[int] = None
@@ -286,6 +288,18 @@ class CdnSubscriber:
         registry.histogram_observe(metric_names.CDN_STALENESS_SECONDS, staleness)
         registry.histogram_observe(metric_names.CDN_SWAP_SECONDS, swap_s)
         self._lease_held()
+        if self._root is not None:
+            ledger.post_event(
+                self._root,
+                metric_names.EVENT_CDN_SWAPPED,
+                topic=self.topic,
+                seq=ann.seq,
+                step=ann.step,
+                subscriber=self.subscriber_id,
+                staleness_s=round(staleness, 6),
+                swap_s=round(swap_s, 6),
+                bytes_on_wire=self.stats.bytes_on_wire,
+            )
         return True
 
     def track_once(self, swapper: Optional[object] = None, timeout: Optional[float] = None) -> Optional[Announce]:

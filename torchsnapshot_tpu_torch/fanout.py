@@ -30,7 +30,7 @@ owner read raises on every rank, and a failed round leaves no key behind.
 
 Kill switch: ``TORCHSNAPSHOT_TPU_FANOUT_RESTORE=0`` (rank 0's reading)
 restores every-rank-reads. The JAX package's wire observatory, which
-tags the round's store frames, is not ported (ROADMAP queue 1 step 10).
+tags the round's store frames, is not ported (ROADMAP queue 1 step 10c).
 """
 
 from __future__ import annotations

@@ -45,9 +45,13 @@ one line per problem.
 instead of storage bytes: every required blob with no recorded peer copy,
 and every push that recorded a degradation, is a problem.
 
+A repair that acted posts ``repair-performed`` to the root's run ledger
+(where a manager opened one), and the printed report of a path whose root
+has a run ledger ends with the ledger's summary: event counts, runs and
+segments, interrupted segments and their lost work.
+
 Not ported yet, and refused: the telemetry summary (``--stats``, ROADMAP
-queue 1 step 10). The JAX package's repair also posts a ledger event; the
-run ledger comes with step 10.
+step 10d).
 """
 
 from __future__ import annotations
@@ -733,6 +737,8 @@ def repair_cas_store(root: str) -> RepairReport:
                 "referenced chunk absent from every tier (dangling ref); nothing to rebuild from",
             )
         )
+    if report.acted:
+        _post_repair_event(root, report)
     return report
 
 
@@ -812,7 +818,52 @@ def repair_snapshot(path: str) -> RepairReport:
                 event_loop.run_until_complete(plugin.close())
     finally:
         event_loop.close()
+    if report.acted:
+        from .cas.store import root_url_of_snapshot
+
+        try:
+            _post_repair_event(root_url_of_snapshot(path), report)
+        except ValueError:
+            pass  # a path of no root shape has no ledger
     return report
+
+
+def _post_repair_event(root: str, report: RepairReport) -> None:
+    """Record the repair in the root's run ledger (only a root a manager
+    opened a run for has one: no ledger is created here)."""
+    try:
+        from .telemetry import ledger as run_ledger
+        from .telemetry import names as event_names
+
+        run_ledger.post_event(
+            root,
+            event_names.EVENT_REPAIR_PERFORMED,
+            target=report.target,
+            rewritten=len(report.rewritten),
+            quarantined=len(report.quarantined),
+            unrepairable=len(report.unrepairable),
+            locations=sorted(list(report.rewritten) + report.quarantined)[:20],
+        )
+    except Exception as e:  # noqa: BLE001 - repair must not fail on telemetry
+        logger.warning("could not post repair-performed event: %r", e)
+
+
+def _print_ledger(path: str) -> None:
+    """The run ledger's summary, when ``path`` (a root or a step of one)
+    has a ledger: the evidence of how the run's checkpoints went."""
+    from .telemetry.ledger import describe, find_ledger_for, load_ledger
+
+    try:
+        ledger_file = find_ledger_for(path)
+        records = load_ledger(ledger_file) if ledger_file else []
+    except Exception:  # noqa: BLE001 - the summary is an aid, not the audit
+        return
+    if not records:
+        return
+    print(f"run ledger ({ledger_file}):")
+    for line in describe(records):
+        print(f"  {line}")
+    print("  full attribution: python -m torchsnapshot_tpu_torch.telemetry.goodput <root>")
 
 
 def _print_repair(report: RepairReport) -> None:
@@ -850,6 +901,7 @@ def _cas_main(root: str, deep: bool, repair: bool = False) -> int:
         )
     if report.deep:
         print(f"  {report.crcs_verified} chunk(s) CRC-verified")
+    _print_ledger(root)
     if report.ok:
         print(f"OK ({mode}): {report.chunks_referenced} referenced chunk(s) checked")
         return 0
@@ -893,12 +945,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         "fast first with the durable fallback); 'peer' (any path) audits the peer tier's placement "
         "docs: which required blobs have a recorded peer copy",
     )
-    p.add_argument("--stats", action="store_true", help="not ported yet (ROADMAP queue 1 step 10)")
+    p.add_argument("--stats", action="store_true", help="not ported yet (ROADMAP step 10d)")
     args = p.parse_args(argv)
     if args.stats:
         raise NotImplementedError(
             "fsck --stats (the telemetry summary) is not ported to torchsnapshot_tpu_torch yet "
-            "(ROADMAP queue 1 step 10)"
+            "(ROADMAP queue 1 step 10d)"
         )
     if args.cas:
         return _cas_main(args.path, deep=args.deep, repair=args.repair)
@@ -914,6 +966,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "tables, or checksums are disabled locally) — this deep "
             "audit checked existence and length only"
         )
+    _print_ledger(args.path)
     if report.ok:
         extra = (
             f", {report.crcs_verified} CRC-verified "

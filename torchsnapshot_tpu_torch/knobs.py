@@ -4,14 +4,16 @@ The knobs this package reads, under the same ``TORCHSNAPSHOT_TPU_`` names
 as torchsnapshot_tpu's, so one environment configures both packages.
 Values are read lazily on every call so tests and subprocesses can flip
 them at any time. Knobs of subsystems not ported yet (SLO, bundles, the
-autotuner, ...) come with those subsystems.
+watchdog, the autotuner, ...) come with those subsystems; until the
+autotuner lands there is no programmatic override layer, so every
+tunable reads its env var or its default.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Generator, Optional
+from typing import Dict, Generator, Optional, Union
 
 _MAX_CHUNK_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_MAX_CHUNK_SIZE_BYTES"
 _PER_RANK_MEMORY_BUDGET_BYTES_ENV = "TORCHSNAPSHOT_TPU_PER_RANK_MEMORY_BUDGET_BYTES"
@@ -47,6 +49,16 @@ _PEER_TIER_ENV = "TORCHSNAPSHOT_TPU_PEER_TIER"
 _PEER_RING_OFFSET_ENV = "TORCHSNAPSHOT_TPU_PEER_RING_OFFSET"
 _PEER_CACHE_BUDGET_BYTES_ENV = "TORCHSNAPSHOT_TPU_PEER_CACHE_BUDGET_BYTES"
 _PEER_TRANSFER_TIMEOUT_ENV = "TORCHSNAPSHOT_TPU_PEER_TRANSFER_TIMEOUT_SECONDS"
+_TELEMETRY_ENV = "TORCHSNAPSHOT_TPU_TELEMETRY"
+_TELEMETRY_DIR_ENV = "TORCHSNAPSHOT_TPU_TELEMETRY_DIR"
+_PROM_FILE_ENV = "TORCHSNAPSHOT_TPU_PROM_FILE"
+_TRACE_ENV = "TORCHSNAPSHOT_TPU_TRACE"
+_TRACE_DIR_ENV = "TORCHSNAPSHOT_TPU_TRACE_DIR"
+_PROGRESS_SECONDS_ENV = "TORCHSNAPSHOT_TPU_PROGRESS_SECONDS"
+_PROGRESS_DIR_ENV = "TORCHSNAPSHOT_TPU_PROGRESS_DIR"
+_HISTORY_MAX_RECORDS_ENV = "TORCHSNAPSHOT_TPU_HISTORY_MAX_RECORDS"
+_LEDGER_ENV = "TORCHSNAPSHOT_TPU_LEDGER"
+_LEDGER_MAX_RECORDS_ENV = "TORCHSNAPSHOT_TPU_LEDGER_MAX_RECORDS"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_MEMORY_BUDGET_FRACTION: float = 0.6
@@ -66,6 +78,9 @@ _DEFAULT_WAIT_DURABLE_TIMEOUT_SECONDS: float = 1800.0
 _DEFAULT_PEER_RING_OFFSET: int = 1
 _DEFAULT_PEER_CACHE_BUDGET_BYTES: int = 1024 * 1024 * 1024
 _DEFAULT_PEER_TRANSFER_TIMEOUT_SECONDS: float = 30.0
+_DEFAULT_PROGRESS_SECONDS: float = 1.0
+_DEFAULT_HISTORY_MAX_RECORDS: int = 512
+_DEFAULT_LEDGER_MAX_RECORDS: int = 4096
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -339,6 +354,115 @@ def get_cdn_pull_timeout_seconds() -> float:
     return get_peer_transfer_timeout_seconds()
 
 
+def get_telemetry_dir() -> Optional[str]:
+    """Local directory for the telemetry JSONL event log
+    (``<dir>/events.jsonl``). Takes precedence over the snapshot-adjacent
+    sink; unset = no directory sink."""
+    return os.environ.get(_TELEMETRY_DIR_ENV) or None
+
+
+def is_telemetry_sink_enabled() -> bool:
+    """Snapshot-adjacent JSONL sink toggle: with the env var present (any
+    value, ``0`` included), every take/restore/mirror against a *local*
+    snapshot path appends its SnapshotReport to
+    ``<snapshot>/.telemetry.jsonl``. A telemetry dir also counts as
+    enablement; reports then go there instead. The registry itself always
+    records; these knobs only control whether anything is written out."""
+    return _TELEMETRY_ENV in os.environ or get_telemetry_dir() is not None
+
+
+def get_prometheus_textfile() -> Optional[str]:
+    """Prometheus text-exposition file, rewritten atomically after every
+    report emission (the node-exporter textfile-collector convention).
+    Unset = disabled."""
+    return os.environ.get(_PROM_FILE_ENV) or None
+
+
+def get_trace_dir() -> Optional[str]:
+    """Local directory for flight-recorder Chrome-trace exports
+    (``<dir>/trace-<kind>-rank<r>.json``). Takes precedence over the
+    snapshot-adjacent trace files; unset = no directory sink."""
+    return os.environ.get(_TRACE_DIR_ENV) or None
+
+
+def is_trace_sink_enabled() -> bool:
+    """Trace-export toggle: with the env var present (any value, ``0``
+    included), every take/restore/mirror against a *local* snapshot path
+    writes its span timeline to ``<snapshot>/.trace-<kind>-rank<r>.json``.
+    A trace dir also counts as enablement. The recorder itself always
+    records into its bounded ring."""
+    return _TRACE_ENV in os.environ or get_trace_dir() is not None
+
+
+def get_progress_interval_seconds() -> float:
+    """Minimum interval between live-progress heartbeat rewrites
+    (``<snapshot>/.progress-rank<r>.json``, telemetry/progress.py). <= 0
+    disables the file heartbeat; the in-memory
+    ``telemetry.current_progress()`` view is always on."""
+    val = os.environ.get(_PROGRESS_SECONDS_ENV)
+    if val is not None:
+        return float(val)
+    return _DEFAULT_PROGRESS_SECONDS
+
+
+def get_progress_dir() -> Optional[str]:
+    """Local directory for live-progress heartbeat files
+    (``<dir>/progress-<digest>-<kind>-rank<r>.json``). Takes precedence
+    over the snapshot-adjacent heartbeat; unset = snapshot-adjacent when
+    the snapshot path is local."""
+    return os.environ.get(_PROGRESS_DIR_ENV) or None
+
+
+def get_history_max_records() -> int:
+    """Bound on the per-manager rolling step history
+    (``<root>/.telemetry-history.jsonl``, telemetry/history.py): the
+    newest N summaries are kept. <= 0 disables history recording."""
+    val = os.environ.get(_HISTORY_MAX_RECORDS_ENV)
+    if val is not None:
+        return int(val)
+    return _DEFAULT_HISTORY_MAX_RECORDS
+
+
+def is_ledger_enabled() -> bool:
+    """The run ledger (``<root>/.ledger.jsonl``, telemetry/ledger.py): on
+    by default. The manager, snapshot envelopes, tiered mirror, preemption
+    saver, CDN and GC post typed events rank-0-only, and the goodput
+    engine attributes the run's wall time from them. ``"0"`` disables
+    every ledger read and write; so does a non-positive max-records
+    bound."""
+    return os.environ.get(_LEDGER_ENV, "1") != "0" and get_ledger_max_records() > 0
+
+
+def get_ledger_max_records() -> int:
+    """Bound on the run ledger: the newest N records are kept (the newest
+    run-start always survives a trim). <= 0 disables ledger recording."""
+    val = os.environ.get(_LEDGER_MAX_RECORDS_ENV)
+    if val is not None:
+        return int(val)
+    return _DEFAULT_LEDGER_MAX_RECORDS
+
+
+def tunable_snapshot() -> Dict[str, Union[int, float]]:
+    """Effective value of every tunable knob the port reads, under the
+    JAX package's short names: the ``tunables`` field each SnapshotReport
+    records. The JAX package's ``write_vectorized`` is absent (the port
+    has no vectorized slab write), and with no autotuner yet each value
+    is the env var's or the default."""
+    return {
+        "staging_threads": get_staging_threads(),
+        "io_concurrency": get_per_rank_io_concurrency(),
+        "staging_pool_slab_bytes": get_staging_pool_slab_bytes(),
+        "staging_pool_slabs": get_staging_pool_slabs(),
+        "memory_budget_fraction": get_memory_budget_fraction(),
+        "max_chunk_size_bytes": get_max_chunk_size_bytes(),
+        "max_shard_size_bytes": get_max_shard_size_bytes(),
+        "slab_size_threshold_bytes": get_slab_size_threshold_bytes(),
+        "fs_direct_io": int(is_fs_direct_io_enabled()),
+        "barrier_fanout": get_barrier_fanout(),
+        "store_shards": get_store_shards(),
+    }
+
+
 @contextlib.contextmanager
 def _override_env(name: str, value: Optional[str]) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -512,4 +636,79 @@ def override_cdn_pull_timeout_seconds(seconds: float) -> Generator[None, None, N
     """Pin the CDN peer-pull deadline for the block (subscribers read it
     at each pull)."""
     with _override_env(_CDN_PULL_TIMEOUT_ENV, str(seconds)):
+        yield
+
+
+@contextlib.contextmanager
+def enable_telemetry() -> Generator[None, None, None]:
+    with _override_env(_TELEMETRY_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def override_telemetry_dir(path: str) -> Generator[None, None, None]:
+    with _override_env(_TELEMETRY_DIR_ENV, path):
+        yield
+
+
+@contextlib.contextmanager
+def override_prometheus_textfile(path: str) -> Generator[None, None, None]:
+    with _override_env(_PROM_FILE_ENV, path):
+        yield
+
+
+@contextlib.contextmanager
+def enable_trace() -> Generator[None, None, None]:
+    with _override_env(_TRACE_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def override_trace_dir(path: str) -> Generator[None, None, None]:
+    with _override_env(_TRACE_DIR_ENV, path):
+        yield
+
+
+@contextlib.contextmanager
+def override_trace_buffer_events(n: int) -> Generator[None, None, None]:
+    with _override_env(_TRACE_BUFFER_EVENTS_ENV, str(n)):
+        yield
+
+
+@contextlib.contextmanager
+def override_progress_interval_seconds(seconds: float) -> Generator[None, None, None]:
+    with _override_env(_PROGRESS_SECONDS_ENV, str(seconds)):
+        yield
+
+
+@contextlib.contextmanager
+def override_progress_dir(path: str) -> Generator[None, None, None]:
+    with _override_env(_PROGRESS_DIR_ENV, path):
+        yield
+
+
+@contextlib.contextmanager
+def override_history_max_records(n: int) -> Generator[None, None, None]:
+    with _override_env(_HISTORY_MAX_RECORDS_ENV, str(n)):
+        yield
+
+
+@contextlib.contextmanager
+def enable_ledger() -> Generator[None, None, None]:
+    """The run ledger on for the block (the suite's conftest pins it off
+    so that manager dirs hold exactly the files the code under test
+    wrote)."""
+    with _override_env(_LEDGER_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def disable_ledger() -> Generator[None, None, None]:
+    with _override_env(_LEDGER_ENV, "0"):
+        yield
+
+
+@contextlib.contextmanager
+def override_ledger_max_records(n: int) -> Generator[None, None, None]:
+    with _override_env(_LEDGER_MAX_RECORDS_ENV, str(n)):
         yield

@@ -72,8 +72,15 @@ after the commit, so that a serving fleet can track the run. A step with
 no chunk-store chunks is not announced, and a failed publish is logged and
 never fails the save.
 
-Not ported yet: the JAX manager's telemetry hooks (run ledger, SLO
-evaluation, autotuner, step and restore history) come with step 10.
+Telemetry, as in the JAX manager: rank 0 opens (or resumes) the run in
+the root's ``.ledger.jsonl`` at construction, and after each commit posts
+``step-committed`` with the step's new and reused bytes, refreshes the
+``goodput_*`` gauges and appends the step's report summary to
+``.telemetry-history.jsonl``; each manager restore appends its own
+summary; GC posts ``gc-reclaimed``, prunes the dropped step's
+``step-committed`` record and reaps its shared-dir heartbeats. The JAX
+manager's SLO evaluation and autotuner (ROADMAP step 10b) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -93,7 +100,13 @@ from .chaos import crashpoint
 from .event_loop import run_in_fresh_event_loop
 from .integrity import table_path
 from .io_types import ReadIO, StoragePlugin, WriteIO
-from .manifest import Manifest, SnapshotMetadata, entry_locations
+from .manifest import (
+    ChunkedArrayEntry,
+    Manifest,
+    ShardedArrayEntry,
+    SnapshotMetadata,
+    entry_locations,
+)
 from .pg_wrapper import PGWrapper
 from .snapshot import SNAPSHOT_METADATA_FNAME, PendingRestore, PendingSnapshot, Snapshot
 from .stateful import AppState
@@ -117,6 +130,31 @@ def _manifest_chunk_refs(manifest: Manifest) -> Dict[str, int]:
     """The chunk-store chunks a manifest references (digest key ->
     nbytes); empty for a legacy-layout snapshot."""
     return chunk_refs(manifest)
+
+
+def _manifest_digest_map(manifest: Manifest) -> Dict[Any, Any]:
+    """Every on-device digest a manifest records, keyed by structural
+    position ``(manifest path, offsets, sizes)``, with the bytes it
+    covers: comparing two consecutive steps' maps measures how much of the
+    state the digests say was unchanged (the ledger's
+    ``bytes_digest_unchanged``). Empty for digest-less takes."""
+    from .serialization import array_size_bytes
+
+    out: Dict[Any, Any] = {}
+    for path, entry in manifest.items():
+        if isinstance(entry, (ShardedArrayEntry, ChunkedArrayEntry)):
+            pieces = entry.shards if isinstance(entry, ShardedArrayEntry) else entry.chunks
+            for piece in pieces:
+                if piece.array.digest:
+                    out[(path, tuple(piece.offsets), tuple(piece.sizes))] = (
+                        piece.array.digest,
+                        array_size_bytes(piece.array.shape, piece.array.dtype),
+                    )
+        else:
+            digest = getattr(entry, "digest", None)
+            if digest:
+                out[(path, (), ())] = (digest, array_size_bytes(entry.shape, entry.dtype))
+    return out
 
 
 def _step_dirname(step: int) -> str:
@@ -240,6 +278,8 @@ class _PendingManagedSnapshot:
                     chunk_refs=lambda: _manifest_chunk_refs(snapshot.metadata.manifest),
                 )
                 telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
+                self._manager._record_step_history(self._step)
+                self._manager._post_step_ledger(self._step, snapshot)
                 self._manager._publish_cdn_step(self._step, snapshot)
                 self._committed = True
         return snapshot
@@ -252,6 +292,33 @@ class _PendingManagedSnapshot:
 
     def __getattr__(self, name: str) -> Any:
         # The wrapped handle's phase times (visible_s, staged_s, committed_s).
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return getattr(self._pending, name)
+
+
+class _ManagedPendingRestore:
+    """Wraps a PendingRestore so that the restore's summary lands in the
+    manager's step history once the apply succeeds (the async restore's
+    report is emitted at ``wait()``). Delegates everything else to the
+    wrapped handle."""
+
+    def __init__(self, manager: "CheckpointManager", step: int, pending: PendingRestore):
+        self._manager = manager
+        self._step = step
+        self._pending = pending
+        self._recorded = False
+
+    def wait(self) -> None:
+        self._pending.wait()
+        if not self._recorded:
+            self._recorded = True
+            self._manager._record_restore_history(self._step)
+
+    def done(self) -> bool:
+        return self._pending.done()
+
+    def __getattr__(self, name: str) -> Any:
         if name.startswith("_"):
             raise AttributeError(name)
         return getattr(self._pending, name)
@@ -329,11 +396,24 @@ class CheckpointManager:
         # The last commit's chunk accounting (chunks and bytes new to the
         # store against those already pinned), from _cas_pin_step.
         self._last_cas_accounting: Optional[Dict[str, Any]] = None
+        # The previous committed manifest's digest map, for the ledger's
+        # bytes_digest_unchanged.
+        self._prev_digest_map: Dict[Any, Any] = {}
         if self._pg.get_rank() == 0:
             try:
                 self._reconcile_cas()
             except Exception as e:  # noqa: BLE001 - healing is best-effort
                 logger.warning("CAS refcount reconcile failed: %r", e)
+        # The run ledger: rank 0 opens the run, or resumes the root's run id
+        # (whichever package opened it) with the next segment, and becomes
+        # the root's only ledger writer. None with the ledger off.
+        self._ledger_run_id: Optional[str] = None
+        if knobs.is_ledger_enabled() and self._pg.get_rank() == 0:
+            from .telemetry import ledger as run_ledger
+
+            self._ledger_run_id = run_ledger.open_run(
+                self.root, world_size=self._pg.get_world_size()
+            )
 
     # ------------------------------------------------------------------
     # saving
@@ -381,6 +461,8 @@ class CheckpointManager:
             chunk_refs=lambda: _manifest_chunk_refs(snapshot.metadata.manifest),
         )
         telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
+        self._record_step_history(step)
+        self._post_step_ledger(step, snapshot)
         self._publish_cdn_step(step, snapshot)
         return snapshot
 
@@ -408,6 +490,85 @@ class CheckpointManager:
         take_kwargs = self._incremental_take_kwargs(incremental, take_kwargs)
         pending = Snapshot.async_take(self.step_path(step), app_state, pg=self._pg_arg, **take_kwargs)
         return _PendingManagedSnapshot(self, step, pending, metric=metric)
+
+    def _record_step_history(self, step: int) -> None:
+        """Append the committed step's report summary to the root's
+        rolling history (``.telemetry-history.jsonl``). Rank 0 only;
+        best-effort; bounded by TORCHSNAPSHOT_TPU_HISTORY_MAX_RECORDS (<= 0
+        disables it)."""
+        self._append_history(step, "take", "async_take")
+
+    def _record_restore_history(self, step: int) -> None:
+        """Append a served restore's summary to the same history (the
+        history's trend baselines are per kind)."""
+        self._append_history(step, "restore", "async_restore")
+
+    def _append_history(self, step: int, *kinds: str) -> None:
+        if self._pg.get_rank() != 0:
+            return
+        try:
+            from .telemetry import history, last_report
+
+            # Keyed by path: overlapping async saves each find their own
+            # step's report.
+            report = last_report(*kinds, path=self.step_path(step))
+            if report is not None:
+                history.append_summary(self.root, history.summarize_report(report, step=step))
+        except Exception as e:  # noqa: BLE001 - history is best-effort
+            logger.warning("could not record step %d %s history: %r", step, kinds[0], e)
+
+    def _post_step_ledger(self, step: int, snapshot: Snapshot) -> None:
+        """Post the committed step to the run ledger with its storage
+        accounting (bytes newly written against bytes referenced from a
+        base or already in the chunk store), then refresh the run's
+        ``goodput_*`` gauges. Rank 0 only; best-effort."""
+        if self._pg.get_rank() != 0 or not knobs.is_ledger_enabled():
+            return
+        try:
+            from .fsck import blob_requirements
+            from .telemetry import last_report
+            from .telemetry import ledger as run_ledger
+            from .telemetry.goodput import publish_gauges
+
+            need = blob_requirements(snapshot.metadata.manifest)
+            bytes_new = sum(n for loc, n in need.items() if not loc.startswith("../"))
+            bytes_reused = sum(n for loc, n in need.items() if loc.startswith("../"))
+            fields: Dict[str, Any] = {
+                "step": step,
+                "bytes_new": int(bytes_new),
+                "bytes_reused": int(bytes_reused),
+                "bytes_total": int(bytes_new + bytes_reused),
+                "blobs": len(need),
+            }
+            # A CAS step's data locations are all ``../chunks/`` refs: the
+            # exact split is the commit's pin accounting (chunks already
+            # pinned are reused).
+            acct = self._last_cas_accounting
+            if acct is not None and acct.get("step") == step:
+                fields.update(
+                    cas=True,
+                    bytes_new=acct["bytes_new"],
+                    bytes_reused=acct["bytes_reused"],
+                    bytes_total=acct["bytes_total"],
+                    chunks_new=acct["chunks_new"],
+                    chunks_reused=acct["chunks_reused"],
+                )
+            cur_digests = _manifest_digest_map(snapshot.metadata.manifest)
+            if cur_digests:
+                prev = self._prev_digest_map
+                fields["bytes_digest_unchanged"] = int(
+                    sum(n for k, (d, n) in cur_digests.items() if prev.get(k, (None, 0))[0] == d)
+                )
+                fields["bytes_digest_covered"] = int(sum(n for _, n in cur_digests.values()))
+            self._prev_digest_map = cur_digests
+            report = last_report("take", "async_take", path=self.step_path(step))
+            if report is not None:
+                fields["kind"] = report.kind
+                fields["take_s"] = round(max(report.phases.values(), default=0.0), 6)
+            run_ledger.post_event(self.root, metric_names.EVENT_STEP_COMMITTED, **fields)
+            publish_gauges(self.root)
+        except Exception as e:  # noqa: BLE001 - the ledger is best-effort
+            logger.warning("could not post step %d to the run ledger: %r", step, e)
 
     # ------------------------------------------------------------------
     # resuming
@@ -446,6 +607,7 @@ class CheckpointManager:
         # This rank's byte accounting of the restore (its tiers among them).
         self.restore_telemetry = snapshot.restore_telemetry
         telemetry.metrics().counter_inc(metric_names.MANAGER_RESTORES_TOTAL)
+        self._record_restore_history(step)
 
     def restore_latest(self, app_state: AppState) -> Optional[int]:
         """Restore the newest committed step into ``app_state``; returns
@@ -457,14 +619,14 @@ class CheckpointManager:
         self.restore(step, app_state)
         return step
 
-    def async_restore(self, step: int, app_state: AppState) -> PendingRestore:
+    def async_restore(self, step: int, app_state: AppState) -> _ManagedPendingRestore:
         """Pipelined restore of ``step`` (Snapshot.async_restore): reads
         run in the background; call ``.wait()`` to apply."""
         pending = Snapshot(self.step_path(step), pg=self._pg_arg).async_restore(app_state)
         # Counted at initiation: async resumes move the same counter as
         # sync ones.
         telemetry.metrics().counter_inc(metric_names.MANAGER_RESTORES_TOTAL)
-        return pending
+        return _ManagedPendingRestore(self, step, pending)
 
     def async_restore_latest(self, app_state: AppState):
         """Start a pipelined restore of the newest committed step; returns
@@ -731,7 +893,7 @@ class CheckpointManager:
         # strays of crashed takes must age out even when retention drops
         # nothing.
         try:
-            await self._cas_collect_async(storage, to_delete)
+            await self._cas_collect_async(storage, step, to_delete)
         except Exception as e:  # noqa: BLE001 - GC must not fail a save
             logger.warning("CAS chunk GC failed: %r", e)
 
@@ -808,11 +970,14 @@ class CheckpointManager:
             "bytes_total": int(sum(refs.values())),
         }
 
-    async def _cas_collect_async(self, storage: StoragePlugin, deleted_steps: List[int]) -> None:
+    async def _cas_collect_async(
+        self, storage: StoragePlugin, trigger_step: int, deleted_steps: List[int]
+    ) -> None:
         """Unpin GC'd steps and reclaim refcount-dead chunks. A dead chunk
         younger than the grace window (a concurrent, not yet pinned take
         may have just deduped against it and touched it) is journaled as
-        an orphan and retried by a later pass."""
+        an orphan and retried by a later pass. Reclaimed bytes are posted
+        to the run ledger against the committing ``trigger_step``."""
         from .cas import CHUNKS_DIRNAME
 
         store = self._get_cas_store()
@@ -869,6 +1034,15 @@ class CheckpointManager:
             registry = telemetry.metrics()
             registry.counter_inc(metric_names.CAS_CHUNKS_RECLAIMED_TOTAL, len(reclaimed))
             registry.counter_inc(metric_names.CAS_BYTES_RECLAIMED_TOTAL, sum(reclaimed.values()))
+            # Reclaimed chunk bytes, so that the goodput storage curve
+            # tracks what retention keeps.
+            from .telemetry import ledger as run_ledger
+
+            run_ledger.post_event(
+                self.root, metric_names.EVENT_GC_RECLAIMED,
+                step=trigger_step,
+                bytes_reclaimed=int(sum(reclaimed.values())), blobs=len(reclaimed), chunks=True,
+            )
         if deferred:
             logger.info(
                 "CAS GC deferred %d dead but fresh chunk(s) inside the %.0f s grace window",
@@ -1058,6 +1232,11 @@ class CheckpointManager:
             crashpoint(metric_names.CRASH_GC_MARKER_DELETED)
             if tiered:
                 await MirrorJournal(blobs={}).delete(storage.fast)
+            # Heartbeats in a shared progress dir have no other reaper
+            # (the snapshot-adjacent ones go with the side files below).
+            from .telemetry.progress import remove_dir_heartbeats
+
+            remove_dir_heartbeats(self.step_path(step))
             # Parent-relative locations are another step's blobs (this step
             # was incremental): never delete outside the step directory.
             locations = {
@@ -1097,4 +1276,27 @@ class CheckpointManager:
             maybe_evict_step(self.step_path(step))
         except Exception as e:  # noqa: BLE001 - GC must not fail a save
             logger.warning("peer tier: evicting step %d peer copies failed: %r", step, e)
+        self._post_gc_ledger(step, metadata.manifest)
         logger.info("Retention dropped step %d", step)
+
+    def _post_gc_ledger(self, step: int, manifest: Manifest) -> None:
+        """Record the GC'd step in the run ledger (its own bytes; those it
+        referenced belong to other steps) and prune its ``step-committed``
+        record, so that the goodput storage curve tracks what retention
+        keeps. Rank 0 (GC is rank-0 work); best-effort."""
+        if not knobs.is_ledger_enabled():
+            return
+        try:
+            from .fsck import blob_requirements
+            from .telemetry import ledger as run_ledger
+
+            own = {
+                loc: n for loc, n in blob_requirements(manifest).items() if not loc.startswith("../")
+            }
+            run_ledger.post_event(
+                self.root, metric_names.EVENT_GC_RECLAIMED, step=step,
+                bytes_reclaimed=int(sum(own.values())), blobs=len(own),
+            )
+            run_ledger.prune_steps(self.root, {step})
+        except Exception as e:  # noqa: BLE001 - GC must not fail a save
+            logger.warning("could not record GC of step %d in the run ledger: %r", step, e)

@@ -42,8 +42,9 @@ peer already died), the saver gives up loudly and never triggers.
 In one process (``pg=None``) the signal alone decides: ``should_save``
 returns True at the first step after it. ``close`` flushes the peer
 tier's pending pushes (``tiered/peer.py``) before any registered drain
-hook. The run-ledger posts of the JAX saver (``ledger_root``) come with
-the telemetry port (ROADMAP queue 1 step 10).
+hook. With ``ledger_root`` (a manager root), rank 0 posts ``preemption``
+events to that root's run ledger, as the JAX saver does: the step the
+world was at and the agreed save target, or the give-up.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ import time
 from typing import Any, List, Optional
 
 from .pg_wrapper import PGWrapper
+from .telemetry import names as event_names
 
 logger: logging.Logger = logging.getLogger(__name__)
 
@@ -83,6 +85,12 @@ class PreemptionSaver:
             marker land. Defaults to ``max(1, 2 * poll_interval)``;
             deployments with slow coordination stores should widen it
             (the marker publish must fit inside it).
+        ledger_root: the CheckpointManager root whose run ledger
+            (telemetry/ledger.py) records this saver's preemption events:
+            the step the world was at when the notice landed and the
+            agreed save target, or the give-up. The goodput engine's
+            lost-work accounting anchors on them. Rank 0 posts only;
+            None (the default) records nothing.
     """
 
     def __init__(
@@ -95,8 +103,10 @@ class PreemptionSaver:
         session: str = "",
         poll_interval: float = 1.0,
         peer_grace: Optional[float] = None,
+        ledger_root: Optional[str] = None,
     ) -> None:
         self._pg = PGWrapper(pg)
+        self._ledger_root = ledger_root
         # Store keys are namespaced per session: saver lifetimes sharing
         # one persistent store (restarted loops, tests over one
         # coordinator) must not observe each other's stale flag/step
@@ -132,6 +142,19 @@ class PreemptionSaver:
                 self._pg.get_rank(),
                 self._pg.get_world_size(),
             )
+
+    def _post_ledger(self, **fields: Any) -> None:
+        """A ``preemption`` event in the run ledger (rank 0, with a
+        ``ledger_root`` only). Best-effort: it must never perturb the
+        agreement protocol."""
+        if self._ledger_root is None or self._pg.get_rank() != 0:
+            return
+        try:
+            from .telemetry import ledger as run_ledger
+
+            run_ledger.post_event(self._ledger_root, event_names.EVENT_PREEMPTION, **fields)
+        except Exception as e:  # noqa: BLE001 - the ledger is best-effort
+            logger.warning("preemption ledger post failed: %r", e)
 
     def _key(self, suffix: str) -> str:
         return f"{_PREFIX}/{self._session}/{suffix}"
@@ -275,6 +298,7 @@ class PreemptionSaver:
         if store is None or self._pg.get_world_size() <= 1:
             if self._flagged.is_set():
                 self._saved = True
+                self._post_ledger(step=step, target_step=step)
                 return True
             return False
 
@@ -300,6 +324,9 @@ class PreemptionSaver:
             if self._target_step is None:
                 self._give_up(store)
                 return False
+            # The lost-work anchor: where this rank was when the world
+            # agreed, and the step the save will capture.
+            self._post_ledger(step=step, target_step=self._target_step)
             logger.warning(
                 "preemption agreed: world saves at step %d",
                 self._target_step,
@@ -395,6 +422,7 @@ class PreemptionSaver:
         rendezvous would otherwise complete against this rank's stale
         step key cannot save alone (the asymmetric-deadlock case)."""
         self._gave_up = True
+        self._post_ledger(gave_up=True)
         try:
             # Sticky per-session tombstone, same contract as done/:
             # peers must read it after this process is gone.

@@ -4,8 +4,8 @@ Counterpart of ``torchsnapshot_tpu/scalemodel/``, cut to the CDN
 subscriber storm (:mod:`.cdn_storm`): a publishing trainer and a fleet of
 real :class:`~torchsnapshot_tpu_torch.cdn.CdnSubscriber` threads, with
 read amplification, staleness and the dedup ratio. The thousand-rank
-storm harness (``harness.py``) comes with the telemetry port (ROADMAP
-step 10).
+storm harness (``harness.py``) comes with the wire observatory (ROADMAP
+step 10c).
 """
 
 from .cdn_storm import (  # noqa: F401

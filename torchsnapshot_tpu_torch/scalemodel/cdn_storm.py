@@ -87,7 +87,7 @@ class CdnStormResult:
     # Per-tier pull-latency quantiles pooled across the fleet
     # ({tier: {p50_s, p95_s, samples}}).
     pull_latency: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
-    # The JAX package's per-op wire report; not ported (step 10): None.
+    # The JAX package's per-op wire report; not ported (step 10c): None.
     wire: Optional[Dict[str, object]] = None
 
     @property

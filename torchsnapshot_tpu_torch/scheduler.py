@@ -21,8 +21,9 @@ A read whose bytes fail verification walks the plugin's self-healing
 ladder (:func:`heal_read`): a plugin with another copy (the tiered
 plugin's other tier) re-serves it, the bytes are verified again, and only
 verified bytes reach the consumer; with no copy left the
-``ChecksumError`` stands. The JAX package's live-progress tracker is not
-part of this package yet. Available host memory is read from
+``ChecksumError`` stands. A pipeline given the enclosing operation's
+``progress`` tracker (``telemetry/progress.py``) feeds it from its live
+counters, as the JAX package's does. Available host memory is read from
 ``/proc/meminfo`` (``psutil`` is not a dependency).
 """
 
@@ -35,7 +36,7 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Awaitable, Callable, List, Optional
+from typing import TYPE_CHECKING, Awaitable, Callable, List, Optional
 
 from . import knobs, telemetry
 from .integrity import (
@@ -48,6 +49,9 @@ from .integrity import (
 )
 from .io_types import BufferList, ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
 from .telemetry.trace import get_recorder as _trace_recorder
+
+if TYPE_CHECKING:
+    from .telemetry.progress import ProgressTracker
 
 logger: logging.Logger = logging.getLogger(__name__)
 
@@ -169,8 +173,12 @@ class StagingPool(MemoryBudget):
     idle escape hatch)."""
 
     def __init__(self, memory_budget_bytes: int) -> None:
-        slabs_bytes = knobs.get_staging_pool_slab_bytes() * knobs.get_staging_pool_slabs()
-        super().__init__(min(memory_budget_bytes, max(1, slabs_bytes)))
+        self.slab_bytes = knobs.get_staging_pool_slab_bytes()
+        self.slabs = knobs.get_staging_pool_slabs()
+        super().__init__(min(memory_budget_bytes, max(1, self.slab_bytes * self.slabs)))
+
+    def geometry(self) -> dict:
+        return {"capacity_bytes": self.total_bytes, "slab_bytes": self.slab_bytes, "slabs": self.slabs}
 
 
 class PeerCacheBudget:
@@ -227,18 +235,33 @@ class _PipelineStats:
         self.verified_by_plugin = 0
 
 
+# report_phase_done -> the phase the op is in once that one completed,
+# published to the live-progress heartbeat.
+_NEXT_PHASE = {"staging": "writing", "writing": "committing", "loading": "applying"}
+
+
 class _ProgressReporter:
-    """Progress rows with RSS delta, budget and GB moved."""
+    """Progress rows with RSS delta, budget and GB moved, and the feed of
+    the enclosing operation's live-progress tracker (``progress``; None
+    when the caller runs no heartbeat, as ``read_object`` does)."""
 
     _ROW = (
         "{rank:>4} {pending:>9} {staging:>9} {waiting:>9} {io:>9} "
         "{rss_delta:>15} {budget:>19} {moved:>15}"
     )
 
-    def __init__(self, stats: _PipelineStats, budget: MemoryBudget, rank: int, total: int) -> None:
+    def __init__(
+        self,
+        stats: _PipelineStats,
+        budget: MemoryBudget,
+        rank: int,
+        total: int,
+        progress: Optional["ProgressTracker"] = None,
+    ) -> None:
         self.stats = stats
         self.budget = budget
         self.rank = rank
+        self.progress = progress
         self.phase_s: dict = {}
         self.begin_ts = time.monotonic()
         self.baseline_rss = _rss_bytes()
@@ -265,10 +288,28 @@ class _ProgressReporter:
         if self.stats.done % self.report_every == 0:
             self.report()
 
+    def publish_progress(self) -> None:
+        """Feed the op's tracker from this pipeline's counters (its file
+        writes are interval-gated; the in-memory view updates each time)."""
+        if self.progress is None:
+            return
+        self.progress.update_pipeline(
+            pending=self.stats.pending,
+            staging=self.stats.staging,
+            inflight=self.stats.waiting_io + self.stats.io,
+            done=self.stats.done,
+            staged_bytes=self.stats.bytes_staged,
+            done_bytes=self.stats.bytes_moved,
+            budget_wait_s=self.budget.wait_s,
+        )
+
     def report_phase_done(self, phase: str) -> None:
         elapsed = time.monotonic() - self.begin_ts
         self.phase_s[phase] = round(elapsed, 3)
         telemetry.record_phase(phase, elapsed)
+        self.publish_progress()
+        if self.progress is not None and phase in _NEXT_PHASE:
+            self.progress.set_phase(_NEXT_PHASE[phase])
         logger.info(
             "Rank %d completed %s in %.2fs (throughput %.2f MB/s)",
             self.rank, phase, elapsed, safe_rate_mb_s(self.stats.bytes_moved, elapsed),
@@ -282,6 +323,8 @@ class _ProgressReporter:
             "budget_wait_s": round(self.budget.wait_s, 6),
             "peak_staged_bytes": self.budget.peak_reserved_bytes,
         }
+        if isinstance(self.budget, StagingPool):
+            out["staging_pool"] = self.budget.geometry()
         if self.stats.write_variant_bytes:
             out["write_path"] = dict(self.stats.write_variant_bytes)
         if self.stats.verified_by_plugin:
@@ -355,15 +398,23 @@ async def execute_write_reqs(
     memory_budget_bytes: int,
     rank: int,
     staging_pool: Optional[MemoryBudget] = None,
+    progress: Optional["ProgressTracker"] = None,
 ) -> PendingIOWork:
     """Run the staged write pipeline; returns once every request is past
     staging, with storage I/O continuing inside the returned handle.
     ``staging_pool`` replaces the process budget as the admission control
-    (deferred async takes, whose pinned footprint must stay pool-sized)."""
+    (deferred async takes, whose pinned footprint must stay pool-sized);
+    ``progress`` (the enclosing op's tracker) receives the live counters."""
     budget = staging_pool if staging_pool is not None else MemoryBudget(memory_budget_bytes)
     stats = _PipelineStats()
     stats.pending = len(write_reqs)
-    reporter = _ProgressReporter(stats, budget, rank, len(write_reqs))
+    reporter = _ProgressReporter(stats, budget, rank, len(write_reqs), progress)
+    if progress is not None:
+        progress.begin_pipeline(
+            len(write_reqs),
+            sum(r.buffer_stager.get_staging_cost_bytes() for r in write_reqs),
+            phase="staging",
+        )
     executor = ThreadPoolExecutor(
         max_workers=knobs.get_staging_threads(), thread_name_prefix="ts-stage"
     )
@@ -441,6 +492,7 @@ async def execute_write_reqs(
         stats.done += 1
         stats.bytes_moved += buf_len
         reporter.maybe_report()
+        reporter.publish_progress()
 
     async def stage_one(req: WriteReq) -> None:
         recorder = _trace_recorder()
@@ -465,6 +517,7 @@ async def execute_write_reqs(
         stats.staging -= 1
         stats.waiting_io += 1
         stats.bytes_staged += len(buf)
+        reporter.publish_progress()
         await budget.adjust(len(buf) - cost)
         io_tasks.append(asyncio.create_task(write_one(req, buf)))
         del buf
@@ -492,9 +545,10 @@ def sync_execute_write_reqs(
     memory_budget_bytes: int,
     rank: int,
     event_loop: asyncio.AbstractEventLoop,
+    progress: Optional["ProgressTracker"] = None,
 ) -> PendingIOWork:
     return event_loop.run_until_complete(
-        execute_write_reqs(write_reqs, storage, memory_budget_bytes, rank)
+        execute_write_reqs(write_reqs, storage, memory_budget_bytes, rank, progress=progress)
     )
 
 
@@ -504,7 +558,8 @@ class DeferredIOWork:
     and returns; the background thread then calls ``sync_complete``, which
     runs the whole pipeline (device-to-host copies, serialization, writes)
     through a :class:`StagingPool`. Same surface as :class:`PendingIOWork`
-    (``sync_complete``, ``checksums``, ``checksum_finalizer``). ``on_staged`` fires on
+    (``sync_complete``, ``checksums``, ``checksum_finalizer``,
+    ``pipeline_telemetry``). ``on_staged`` fires on
     the drain thread the moment staging finished: the take's ``staged``
     phase (``PendingSnapshot.wait(phase="staged")``)."""
 
@@ -514,11 +569,14 @@ class DeferredIOWork:
         storage: StoragePlugin,
         memory_budget_bytes: int,
         rank: int,
+        progress: Optional["ProgressTracker"] = None,
     ) -> None:
         self.write_reqs = write_reqs
         self._storage = storage
         self._memory_budget_bytes = memory_budget_bytes
         self._rank = rank
+        self._progress = progress
+        self._inner: Optional[PendingIOWork] = None
         # Rebound to the live pipeline's table once staging starts; stable
         # only after sync_complete() returns.
         self.checksums: ChecksumTable = {}
@@ -529,9 +587,10 @@ class DeferredIOWork:
         inner = event_loop.run_until_complete(
             execute_write_reqs(
                 self.write_reqs, self._storage, self._memory_budget_bytes, self._rank,
-                staging_pool=StagingPool(self._memory_budget_bytes),
+                staging_pool=StagingPool(self._memory_budget_bytes), progress=self._progress,
             )
         )
+        self._inner = inner
         # The inner table is the live one: the checksum-table write and an
         # incremental take's inherit closure read ``self.checksums``.
         self.checksums = inner.checksums
@@ -539,6 +598,9 @@ class DeferredIOWork:
         if self.on_staged is not None:
             self.on_staged()
         inner.sync_complete(event_loop)
+
+    def pipeline_telemetry(self) -> dict:
+        return self._inner.pipeline_telemetry() if self._inner is not None else {}
 
 
 def _entry_key(entry) -> tuple:
@@ -596,15 +658,23 @@ async def execute_read_reqs(
     rank: int,
     checksum_table: Optional[ChecksumTable] = None,
     on_req_complete: Optional[Callable[[ReadReq], None]] = None,
+    progress: Optional["ProgressTracker"] = None,
 ) -> dict:
     """Read pipeline: storage read -> verify -> consume, budgeted by each
     request's consuming cost. ``on_req_complete`` fires on the event loop
-    after a request's bytes are verified and consumed. Returns the run's
+    after a request's bytes are verified and consumed; ``progress`` (the
+    enclosing op's tracker) receives the live counters. Returns the run's
     pipeline telemetry."""
     budget = MemoryBudget(memory_budget_bytes)
     stats = _PipelineStats()
     stats.pending = len(read_reqs)
-    reporter = _ProgressReporter(stats, budget, rank, len(read_reqs))
+    reporter = _ProgressReporter(stats, budget, rank, len(read_reqs), progress)
+    if progress is not None:
+        progress.begin_pipeline(
+            len(read_reqs),
+            sum(r.buffer_consumer.get_consuming_cost_bytes() for r in read_reqs),
+            phase="loading",
+        )
     executor = ThreadPoolExecutor(
         max_workers=knobs.get_staging_threads(), thread_name_prefix="ts-consume"
     )
@@ -701,6 +771,7 @@ async def execute_read_reqs(
             if on_req_complete is not None:
                 on_req_complete(req)
             reporter.maybe_report()
+            reporter.publish_progress()
         finally:
             await budget.release(cost)
 
@@ -733,9 +804,11 @@ def sync_execute_read_reqs(
     event_loop: asyncio.AbstractEventLoop,
     checksum_table: Optional[ChecksumTable] = None,
     on_req_complete: Optional[Callable[[ReadReq], None]] = None,
+    progress: Optional["ProgressTracker"] = None,
 ) -> dict:
     return event_loop.run_until_complete(
         execute_read_reqs(
-            read_reqs, storage, memory_budget_bytes, rank, checksum_table, on_req_complete
+            read_reqs, storage, memory_budget_bytes, rank, checksum_table, on_req_complete,
+            progress=progress,
         )
     )

@@ -88,10 +88,19 @@ Counterpart of ``torchsnapshot_tpu/snapshot.py``. Same protocol:
   ladder's ``tier_split`` and ``peer`` fields, with ``bytes_fetched``
   counting only the bytes storage served.
 
+- Telemetry (``telemetry/``): every take, async take, restore and async
+  restore tracks its live progress (``.progress-rank<r>.json`` beside a
+  local snapshot, removed on success), builds a ``SnapshotReport``
+  gathered across ranks under ``__telemetry/{kind}/{nonce}`` (rank 0's
+  carries the per-metric spread and the straggler), hands it to the
+  knob-gated sinks, posts its run-ledger events on rank 0 when this
+  process's manager owns the root, and exports its span window as a
+  Chrome trace when the trace sink is on. Telemetry never fails an op.
+
 The snapshot format is the JAX package's: either package reads what the
 other writes, digests and chunk stores included, and a snapshot taken by
-N ranks of one restores through N ranks of the other. Not ported yet:
-the per-operation reports with their mirror and peer state (step 10).
+N ranks of one restores through N ranks of the other; so are the
+telemetry records.
 """
 
 from __future__ import annotations
@@ -112,7 +121,7 @@ from . import knobs, telemetry
 from .dist_store import StoreBarrier, make_barrier
 from .flatten import _encode, flatten, inflate
 from .incremental import IncrementalTakeContext
-from .integrity import load_checksum_tables, sync_write_checksum_table
+from .integrity import _alg_available, load_checksum_tables, sync_write_checksum_table
 from .io_preparer import DeviceCopier, capture_write_reqs, prepare_read, prepare_write
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
 from .manifest import (
@@ -152,6 +161,8 @@ from .stateful import AppState, Stateful
 from .chaos import crashpoint
 from .storage_plugin import url_to_storage_plugin
 from .telemetry import names as metric_names
+from .telemetry import progress as _progress
+from .telemetry.trace import TraceMark, export_op_trace
 from .telemetry.trace import get_recorder as _trace_recorder
 from .version import __version__
 
@@ -261,6 +272,111 @@ def _restore_telemetry(pipelines: List[dict], fanout_ctx, peer_ctx=None) -> Dict
     return out
 
 
+def _restore_pipeline(pipelines: List[dict], restore_telemetry: Dict[str, Any], bytes_needed: int) -> dict:
+    """A restore's pipeline telemetry for its report: the read pipelines
+    folded together, with the byte fields and the tier split of
+    ``restore_telemetry`` (the JAX package's fetched / received / needed
+    triple, and the peer ladder's or the healed reads' split)."""
+    pipeline = telemetry.merge_pipeline_telemetry(pipelines)
+    pipeline["bytes_needed"] = bytes_needed
+    pipeline["bytes_fetched"] = restore_telemetry["bytes_fetched"]
+    pipeline["bytes_received"] = restore_telemetry["bytes_received"]
+    for key in ("tier_split", "degraded_reads", "peer"):
+        if key in restore_telemetry:
+            pipeline[key] = restore_telemetry[key]
+    return pipeline
+
+
+def _needed_bytes(read_reqs: List[ReadReq]) -> int:
+    """The destination bytes a read plan fills, before batching: the
+    denominator of the read-amplification fields."""
+    return sum(int(r.buffer_consumer.get_consuming_cost_bytes()) for r in read_reqs)
+
+
+def _mirror_state_for(path: str) -> Dict[str, Any]:
+    """The process mirror's queue and lag state for a tiered path ({}
+    otherwise): at report time a take's mirror job was just enqueued, so
+    this is the durability backlog the take added to."""
+    from .tiered.mirror import mirror_state_for_path
+
+    return dict(mirror_state_for_path(path) or {})
+
+
+def _emit_snapshot_report(
+    kind: str,
+    path: str,
+    pg_wrapper: PGWrapper,
+    pipeline: Optional[dict],
+    counter_baseline: Dict[str, float],
+    nonce: Optional[str],
+    trace_mark: Optional[TraceMark] = None,
+    tunables: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Build this rank's SnapshotReport, aggregate it across ranks, and
+    hand it to the sinks; post the op's run-ledger events (rank 0, an
+    owned root only) and export its trace window (``trace_mark``, taken
+    at the op's start). Best-effort, except that the cross-rank gather is
+    symmetric: every rank that reaches this call joins it, whatever its
+    sink knobs say. The gather is store-based, not a collective, so it is
+    safe on the async take's commit thread, and it has its own 60 s
+    timeout: a rank dying after the commit barrier costs rank 0 at most
+    that, and only the aggregation."""
+    try:
+        registry = telemetry.metrics()
+        report = telemetry.build_report(
+            kind=kind,
+            path=path,
+            rank=pg_wrapper.get_rank(),
+            world_size=pg_wrapper.get_world_size(),
+            pipeline=pipeline,
+            counter_deltas=registry.counters_delta_since(counter_baseline),
+            mirror=_mirror_state_for(path),
+            # The knob values the op ran under, captured at its start.
+            tunables=tunables if tunables is not None else knobs.tunable_snapshot(),
+        )
+        gathered = None
+        if nonce and pg_wrapper.get_world_size() > 1 and pg_wrapper.store is not None:
+            try:
+                # Each rank stamps its wall clock at the gather's entry,
+                # moments after the same barrier: the per-rank deltas are
+                # the trace merge's clock offsets.
+                own = report.to_dict()
+                own["gather_unix_ts"] = time.time()
+                gathered = pg_wrapper.store.gather(
+                    f"__telemetry/{kind}/{nonce}",
+                    pg_wrapper.get_rank(),
+                    pg_wrapper.get_world_size(),
+                    own,
+                    timeout=60.0,
+                )
+            except Exception as e:  # noqa: BLE001 - emit the rank-local report
+                logger.warning(
+                    "telemetry: cross-rank gather for %s failed (%r); emitting the "
+                    "unaggregated rank-local report",
+                    kind, e,
+                )
+                gathered = None
+            if gathered is not None:
+                report.aggregated = telemetry.aggregate_across_ranks(gathered)
+                report.clock_offsets_s = telemetry.clock_offsets_from_gather(gathered)
+        telemetry.emit_report(report, registry)
+        if pg_wrapper.get_rank() == 0:
+            from .telemetry import ledger as run_ledger
+
+            # A restore's tier split summed over the gathered ranks: the
+            # ledger records the world's recovery, not rank 0's alone.
+            splits = [r["tier_split"] for r in gathered or [] if r.get("tier_split")]
+            world_tier_split = {} if splits else None
+            for split in splits:
+                for tier, n in split.items():
+                    world_tier_split[tier] = world_tier_split.get(tier, 0) + int(n)
+            run_ledger.post_op_event(kind, path, report, world_tier_split=world_tier_split)
+        if trace_mark is not None:
+            export_op_trace(kind, path, pg_wrapper.get_rank(), trace_mark)
+    except Exception as e:  # noqa: BLE001 - telemetry must not fail the op
+        logger.warning("telemetry: %s report emission failed: %r", kind, e)
+
+
 def _build_fanout(manifest: Manifest, pg_wrapper: PGWrapper):
     """The restore's fan-out context, or None when the manifest holds no
     shard blob to fan out."""
@@ -318,11 +434,19 @@ class Snapshot:
         # The nonce keeps the commit barrier's keys from aliasing any
         # earlier take to the same path.
         barrier = None
+        commit_nonce = ""
         if pg_wrapper.get_world_size() > 1:
             commit_nonce = pg_wrapper.broadcast_object(uuid.uuid4().hex)
             barrier = _nonce_barrier(f"__snapshot_commit/{commit_nonce}", pg_wrapper)
+        counter_baseline = telemetry.metrics().counters_snapshot()
+        tunables = knobs.tunable_snapshot()
         recorder = _trace_recorder()
+        trace_mark = recorder.mark()
         take_span = recorder.begin(telemetry.names.SPAN_TAKE, path=path, rank=rank)
+        # The op's live-progress heartbeat: success removes its file, a
+        # failure leaves a terminal document.
+        tracker = _progress.track("take", path, rank)
+        op_error: Optional[BaseException] = None
         event_loop = asyncio.new_event_loop()
         try:
             storage = _maybe_cas_storage(url_to_storage_plugin(path), path, cas_on)
@@ -330,7 +454,7 @@ class Snapshot:
                 pending, metadata = cls._take_impl(
                     path, app_state, pg_wrapper, replicated or [], storage, event_loop,
                     is_async_snapshot=False, incremental_base=incremental_base,
-                    record_digests=record_digests,
+                    record_digests=record_digests, progress_tracker=tracker,
                 )
                 pending.sync_complete(event_loop)
                 crashpoint(metric_names.CRASH_TAKE_WRITES_DONE)
@@ -353,8 +477,20 @@ class Snapshot:
             # After the commit: closing a tiered plugin enqueues the
             # take's blobs to the mirror.
             event_loop.run_until_complete(storage.close())
-        finally:
+            # The envelope closes first, so that the exported trace holds
+            # the take's whole extent; the report follows the close, so
+            # that a tiered take's report sees its mirror job.
             recorder.end(take_span)
+            _emit_snapshot_report(
+                "take", path, pg_wrapper, pending.pipeline_telemetry(), counter_baseline,
+                commit_nonce, trace_mark=trace_mark, tunables=tunables,
+            )
+        except BaseException as e:
+            op_error = e
+            raise
+        finally:
+            tracker.finish(op_error)
+            recorder.end(take_span)  # a no-op once closed
             event_loop.close()
         snapshot = cls(path=path, pg=pg)
         snapshot._metadata = metadata
@@ -394,10 +530,15 @@ class Snapshot:
         # peers whose commit threads wait at arrive() block out the store
         # timeout.
         barrier = _nonce_barrier(f"__snapshot_commit/{commit_nonce}", pg_wrapper)
+        counter_baseline = telemetry.metrics().counters_snapshot()
+        tunables = knobs.tunable_snapshot()
+        recorder = _trace_recorder()
+        trace_mark = recorder.mark()
         storage = _maybe_cas_storage(url_to_storage_plugin(path), path, cas_on)
+        tracker = _progress.track("async_take", path, pg_wrapper.get_rank())
         event_loop = asyncio.new_event_loop()
         try:
-            with _trace_recorder().span(
+            with recorder.span(
                 telemetry.names.SPAN_ASYNC_TAKE_STAGE, path=path, rank=pg_wrapper.get_rank()
             ), _reporting_to(barrier, "async take staging"):
                 pending, metadata = cls._take_impl(
@@ -405,9 +546,11 @@ class Snapshot:
                     is_async_snapshot=True, incremental_base=incremental_base,
                     record_digests=record_digests,
                     defer_staging=knobs.is_async_device_snapshot_enabled(),
+                    progress_tracker=tracker,
                 )
-        except BaseException:
-            # No background thread will close them.
+        except BaseException as e:
+            # No background thread will settle or close them.
+            tracker.finish(e)
             try:
                 event_loop.run_until_complete(storage.close())
             except Exception:  # noqa: BLE001 - already failing
@@ -415,7 +558,9 @@ class Snapshot:
             event_loop.close()
             raise
         return PendingSnapshot(
-            path, pending, pg_wrapper, metadata, storage, event_loop, op_begin, commit_nonce
+            path, pending, pg_wrapper, metadata, storage, event_loop, op_begin, commit_nonce,
+            counter_baseline=counter_baseline, trace_mark=trace_mark, progress_tracker=tracker,
+            tunables=tunables,
         )
 
     @classmethod
@@ -431,6 +576,7 @@ class Snapshot:
         incremental_base: Optional[Any] = None,
         record_digests: bool = False,
         defer_staging: bool = False,
+        progress_tracker: Optional[_progress.ProgressTracker] = None,
     ) -> Tuple["PendingIOWork | DeferredIOWork", Optional[SnapshotMetadata]]:
         """The take's plan and its staging; every collective of the take
         before the commit runs here, on the calling thread. The returned
@@ -513,13 +659,15 @@ class Snapshot:
                 telemetry.names.SPAN_DEVICE_CAPTURE, rank=rank, reqs=len(write_reqs)
             ):
                 capture_write_reqs(write_reqs)
+            if progress_tracker is not None:
+                progress_tracker.set_phase("captured")
             pending: "PendingIOWork | DeferredIOWork" = DeferredIOWork(
-                write_reqs, storage, budget, rank=rank
+                write_reqs, storage, budget, rank=rank, progress=progress_tracker
             )
         else:
             pending = sync_execute_write_reqs(
                 write_reqs=write_reqs, storage=storage, memory_budget_bytes=budget,
-                rank=rank, event_loop=event_loop,
+                rank=rank, event_loop=event_loop, progress=progress_tracker,
             )
         if incr_ctx is not None:
             # Referenced blobs were not rewritten: their checksums come from
@@ -598,12 +746,27 @@ class Snapshot:
                 return None
             return _nonce_barrier(f"__restore/{restore_nonce}/{i}", pg_wrapper)
 
+        counter_baseline = telemetry.metrics().counters_snapshot()
+        tunables = knobs.tunable_snapshot()
         recorder = _trace_recorder()
+        trace_mark = recorder.mark()
         restore_span = recorder.begin(telemetry.names.SPAN_RESTORE, path=self.path, rank=rank)
+        tracker = _progress.track("restore", self.path, rank)
+        op_error: Optional[BaseException] = None
+        # The cold start: the envelope's work before the first storage
+        # byte can move, by cause (the report's ``cold_start``).
+        cold_start: Dict[str, float] = {}
+        cold_t = time.monotonic()
         event_loop = asyncio.new_event_loop()
+        cold_start["event_loop_s"] = time.monotonic() - cold_t
         peer_ctx = None
         try:
+            cold_t = time.monotonic()
             storage = url_to_storage_plugin(self.path)
+            cold_start["plugin_open_s"] = time.monotonic() - cold_t
+            cold_t = time.monotonic()
+            _alg_available("crc32c")  # the first call loads the native library
+            cold_start["native_load_s"] = time.monotonic() - cold_t
             # The peer ladder wraps the plugin before fan-out is built
             # (the JAX order): a fan-out owner's reads go through it too.
             # Its build is rank-local (inventory RPCs, no collective), so
@@ -621,6 +784,7 @@ class Snapshot:
             budget = get_process_memory_budget_bytes(pg_wrapper)
             fanout_ctx = None
             pipelines: List[dict] = []
+            bytes_needed = 0
             with _reporting_to(key_barrier(0) if keys else None, "restore setup"):
                 available = get_manifest_for_rank(self.metadata, rank)
                 checksum_table = self._checksum_table(storage, event_loop)
@@ -651,9 +815,10 @@ class Snapshot:
                         )
                     try:
                         if plan is not None:
+                            bytes_needed += _needed_bytes(plan.read_reqs)
                             pipelines.append(_execute_load_plan(
                                 plan, fanout_ctx.wrap(storage) if fanout_ctx is not None else storage,
-                                budget, rank, event_loop, checksum_table,
+                                budget, rank, event_loop, checksum_table, tracker,
                             ))
                     finally:
                         if fanout_ctx is not None:
@@ -665,15 +830,30 @@ class Snapshot:
                 # Outside the key rounds: no fan-out.
                 plan = _plan_stateful_load(rng[0], rng[1], available, DeviceCopier(), budget=budget)
                 if plan is not None:
+                    bytes_needed += _needed_bytes(plan.read_reqs)
                     pipelines.append(_execute_load_plan(
-                        plan, storage, budget, rank, event_loop, checksum_table
+                        plan, storage, budget, rank, event_loop, checksum_table, tracker
                     ))
             event_loop.run_until_complete(storage.close())
             self.restore_telemetry = _restore_telemetry(pipelines, fanout_ctx, peer_ctx)
+            recorder.end(restore_span)
+            pipeline = _restore_pipeline(pipelines, self.restore_telemetry, bytes_needed)
+            # Parts rounded before the sum, so that the total matches the
+            # serialized parts.
+            pipeline["cold_start"] = {k: round(v, 6) for k, v in cold_start.items()}
+            pipeline["cold_start_s"] = round(sum(pipeline["cold_start"].values()), 6)
+            _emit_snapshot_report(
+                "restore", self.path, pg_wrapper, pipeline, counter_baseline, restore_nonce,
+                trace_mark=trace_mark, tunables=tunables,
+            )
+        except BaseException as e:
+            op_error = e
+            raise
         finally:
+            tracker.finish(op_error)
             if peer_ctx is not None:
                 peer_ctx.close()
-            recorder.end(restore_span)
+            recorder.end(restore_span)  # a no-op once closed
             event_loop.close()
 
     def async_restore(self, app_state: AppState) -> "PendingRestore":
@@ -693,6 +873,7 @@ class Snapshot:
         _validate_app_state(app_state)
         pg_wrapper = PGWrapper(self._pg_arg)
         rank = pg_wrapper.get_rank()
+        trace_mark = _trace_recorder().mark()
         budget = get_process_memory_budget_bytes(pg_wrapper)
         rng = _pop_rng_state(app_state)
         keys = _gather_keys(app_state, pg_wrapper)
@@ -759,6 +940,9 @@ class Snapshot:
             self.path, keys, plans, copier, pg_wrapper, budget, self.metadata.world_size,
             rng[0] if rng is not None else None, restore_nonce, fanout_ctx,
             peer_tier.build_restore_context(self.path),
+            counter_baseline=telemetry.metrics().counters_snapshot(),
+            trace_mark=trace_mark,
+            tunables=knobs.tunable_snapshot(),
         )
 
     # ------------------------------------------------------------------
@@ -1146,6 +1330,7 @@ def _execute_load_plan(
     rank: int,
     event_loop: asyncio.AbstractEventLoop,
     checksum_table,
+    progress_tracker: Optional[_progress.ProgressTracker] = None,
 ) -> dict:
     """Run one planned stateful load's read pipeline, placing leaves as
     their reads land, then apply it. Returns the pipeline's telemetry."""
@@ -1159,6 +1344,7 @@ def _execute_load_plan(
         event_loop=event_loop,
         checksum_table=checksum_table,
         on_req_complete=placer.on_req_complete,
+        progress=progress_tracker,
     )
     placer.flush()
     plan.finish_reads()
@@ -1310,10 +1496,18 @@ class PendingSnapshot:
         event_loop: asyncio.AbstractEventLoop,
         op_begin: float,
         commit_nonce: str = "",
+        counter_baseline: Optional[Dict[str, float]] = None,
+        trace_mark: Optional[TraceMark] = None,
+        progress_tracker: Optional[_progress.ProgressTracker] = None,
+        tunables: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.path = path
         self.pg = pg_wrapper
         self.commit_nonce = commit_nonce
+        self._counter_baseline = counter_baseline or {}
+        self._trace_mark = trace_mark
+        self._progress_tracker = progress_tracker
+        self._tunables = tunables
         self._metadata = metadata
         self._storage = storage
         self._event_loop = event_loop
@@ -1366,6 +1560,17 @@ class PendingSnapshot:
             _post_commit(self.path, self._pending_io_work)
             self._event_loop.run_until_complete(self._storage.close())
             self.committed_s = time.monotonic() - self._op_begin
+            recorder.end(commit_span)
+            # Store gather and file appends only: safe on this thread. The
+            # pipeline carries the visible / staged split.
+            pipeline = dict(self._pending_io_work.pipeline_telemetry())
+            pipeline["visible_s"] = round(self.visible_s, 6)
+            if self.staged_s is not None:
+                pipeline["staged_s"] = round(self.staged_s, 6)
+            _emit_snapshot_report(
+                "async_take", self.path, self.pg, pipeline, self._counter_baseline,
+                self.commit_nonce, trace_mark=self._trace_mark, tunables=self._tunables,
+            )
         except BaseException as e:  # noqa: BLE001 - must propagate via wait()
             # Recorded before the peers are told: report_error talks to the
             # store and may fail itself, but wait() must still raise.
@@ -1377,9 +1582,12 @@ class PendingSnapshot:
                 except Exception as report_exc:  # noqa: BLE001
                     logger.error("Failed to report snapshot error to peers: %r", report_exc)
         finally:
-            recorder.end(commit_span)
+            # The heartbeat settles (terminal on a failure) and the error
+            # is recorded before any waiter wakes.
+            if self._progress_tracker is not None:
+                self._progress_tracker.finish(self._exc_info)
+            recorder.end(commit_span)  # a no-op once closed
             self._event_loop.close()
-            # The error is recorded before any waiter wakes.
             self._staged.set()
             self._done.set()
 
@@ -1438,6 +1646,9 @@ class PendingRestore:
         restore_nonce: Optional[str] = None,
         fanout_ctx=None,
         peer_ctx=None,
+        counter_baseline: Optional[Dict[str, float]] = None,
+        trace_mark: Optional[TraceMark] = None,
+        tunables: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.path = path
         self._keys = keys
@@ -1456,6 +1667,12 @@ class PendingRestore:
         self._peer_ctx = peer_ctx
         # This rank's byte accounting, once the reads finished.
         self.restore_telemetry: Optional[Dict[str, Any]] = None
+        self._counter_baseline = counter_baseline or {}
+        self._trace_mark = trace_mark
+        self._tunables = tunables
+        # Created here, fed and settled by the background read thread.
+        self._progress_tracker = _progress.track("async_restore", path, self._rank)
+        self._pipeline: Optional[dict] = None
         self._exc_info: Optional[BaseException] = None
         self._applied = False
         self._done = threading.Event()
@@ -1479,16 +1696,20 @@ class PendingRestore:
             for plan in self._plans.values():
                 placer.register_plan(plan)
             fanout_ctx = self._fanout_ctx
+            read_reqs = [r for plan in self._plans.values() for r in plan.read_reqs]
+            bytes_needed = _needed_bytes(read_reqs)
             pipeline = sync_execute_read_reqs(
-                read_reqs=_batch_reads([r for plan in self._plans.values() for r in plan.read_reqs]),
+                read_reqs=_batch_reads(read_reqs),
                 storage=fanout_ctx.wrap(storage) if fanout_ctx is not None else storage,
                 memory_budget_bytes=self._memory_budget_bytes,
                 rank=self._rank,
                 event_loop=event_loop,
                 checksum_table=checksum_table,
                 on_req_complete=placer.on_req_complete,
+                progress=self._progress_tracker,
             )
             self.restore_telemetry = _restore_telemetry([pipeline], fanout_ctx, self._peer_ctx)
+            self._pipeline = _restore_pipeline([pipeline], self.restore_telemetry, bytes_needed)
             placer.flush()
             # What did not stream places in one final batch.
             batch = _PlacementBatch(self._copier)
@@ -1506,6 +1727,7 @@ class PendingRestore:
                 self._fanout_ctx.clear()
             if self._peer_ctx is not None:
                 self._peer_ctx.close()
+            self._progress_tracker.finish(self._exc_info)
             _trace_recorder().end(reads_span)
             event_loop.close()
             self._done.set()
@@ -1544,6 +1766,12 @@ class PendingRestore:
         if rng_plan is not None:
             rng_plan.apply()
         self._applied = True
+        # A rank-local report (no nonce, so no gather): wait() runs when
+        # the application says, and must add no rendezvous of its own.
+        _emit_snapshot_report(
+            "async_restore", self.path, self._pg, self._pipeline, self._counter_baseline,
+            None, trace_mark=self._trace_mark, tunables=self._tunables,
+        )
         # Release the state-sized buffers; the handle may outlive the restore.
         self._plans = {}
 

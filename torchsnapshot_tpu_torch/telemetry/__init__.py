@@ -1,27 +1,80 @@
-"""Checkpoint telemetry: the process-wide metrics registry and the span
-recorder that the write/read pipeline and the storage plugins record into.
+"""Checkpoint telemetry: the process-wide metrics registry, the span
+recorder, per-operation reports and their sinks, live progress
+heartbeats, the per-manager step history, the run ledger and the goodput
+engine.
 
-The counterpart of ``torchsnapshot_tpu/telemetry/__init__.py``, cut to
-what the take/restore path calls: ``metrics()``, ``record_phase``,
-``observe_io`` and ``safe_rate_mb_s``. The per-operation reports, sinks,
-doctor, SLO engine, incident bundles, ledger and watchdog are not part of
-this package yet.
+The counterpart of ``torchsnapshot_tpu/telemetry/__init__.py``, in the
+same file formats: a take, restore or mirror job of the port leaves the
+records a JAX run leaves (``.telemetry.jsonl`` reports with the sink on,
+``.trace-<kind>-rank<r>.json`` exports with the trace sink on,
+``.progress-rank<r>.json`` heartbeats, and under a manager root
+``.telemetry-history.jsonl`` and ``.ledger.jsonl``), and each package's
+readers parse the other's. ``python -m
+torchsnapshot_tpu_torch.telemetry.goodput <root>`` attributes a run's
+wall time; ``python -m torchsnapshot_tpu_torch.telemetry.trace <snapshot>``
+merges its per-rank traces.
+
+Not part of this package yet: the SLO engine and the autotuner (ROADMAP
+step 10b), the wire observatory (10c), and the doctor, critical-path
+attribution, incident bundles, the stats CLI and the stall watchdog
+(10d).
 """
 
 from __future__ import annotations
 
-from . import names, trace
-from .registry import MetricsRegistry
+from . import goodput, history, ledger, names, progress, trace
+from .progress import current_progress
+from .registry import (
+    DEFAULT_SECONDS_BUCKETS,
+    MetricsRegistry,
+    parse_series_key,
+    series_key,
+)
+from .report import (
+    SnapshotReport,
+    aggregate_across_ranks,
+    build_report,
+    clock_offsets_from_gather,
+    merge_pipeline_telemetry,
+)
+from .sink import (
+    emit_report,
+    events_path_for,
+    last_report,
+    load_events,
+    render_prometheus,
+    write_prometheus_textfile,
+)
 
 __all__ = [
+    "DEFAULT_SECONDS_BUCKETS",
     "MetricsRegistry",
+    "SnapshotReport",
+    "aggregate_across_ranks",
+    "build_report",
+    "clock_offsets_from_gather",
+    "current_progress",
+    "emit_report",
+    "events_path_for",
+    "goodput",
+    "history",
+    "last_report",
+    "ledger",
+    "load_events",
+    "merge_pipeline_telemetry",
     "metrics",
     "names",
     "observe_io",
+    "parse_series_key",
+    "progress",
     "record_phase",
+    "render_prometheus",
     "reset_metrics",
+    "reset_trace",
     "safe_rate_mb_s",
+    "series_key",
     "trace",
+    "write_prometheus_textfile",
 ]
 
 _REGISTRY = MetricsRegistry()
@@ -46,6 +99,12 @@ def metrics() -> MetricsRegistry:
 def reset_metrics() -> None:
     """Drop all recorded metrics (tests simulating a fresh process)."""
     _REGISTRY.reset()
+
+
+def reset_trace() -> None:
+    """Drop the flight recorder's ring and open-span table (tests
+    simulating a fresh process)."""
+    trace.get_recorder().reset()
 
 
 def record_phase(phase: str, elapsed_s: float) -> None:

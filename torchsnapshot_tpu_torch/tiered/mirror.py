@@ -22,16 +22,19 @@ Uploads retry under the collective-progress strategy
 journal and raises from ``wait_durable``, while the fast-tier snapshot
 stays committed and restorable.
 
-Left out against the JAX package until the run ledger and the trace
-exports are ported (ROADMAP queue 1 step 10): a settled job's snapshot
-report, its run-ledger post and its per-job trace file. A root the port
-mirrors holds no ``.ledger.jsonl`` and no mirror trace.
+A settled job emits a ``kind: "mirror"`` snapshot report, posts
+``mirror-settled`` to the run ledger of the manager root this process
+owns (rank 0), and exports its span window as a Chrome trace beside the
+fast tier's take trace, as the JAX package does. Left out until the
+critical-path attribution is ported (ROADMAP step 10d): the report's
+``critical_path`` stays None.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import queue
 import threading
 import time
@@ -43,6 +46,7 @@ from ..io_types import ReadIO, WriteIO
 from ..storage_plugin import split_tiered_url, url_to_storage_plugin
 from ..storage_plugins.retry import CollectiveProgressRetryStrategy
 from ..telemetry import names as metric_names
+from ..telemetry.trace import export_op_trace
 from ..telemetry.trace import get_recorder as _trace_recorder
 from .journal import MirrorJournal
 
@@ -83,6 +87,9 @@ class MirrorJob:
         # This job's progress (the Mirror keeps the process totals).
         self.blobs_done = 0
         self.bytes_done = 0
+        # The recorder's cursor when the job started running: the window
+        # its trace export covers.
+        self.trace_mark = 0
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self.done_evt.wait(timeout)
@@ -270,6 +277,7 @@ class Mirror:
                 return
             began = time.monotonic()
             recorder = _trace_recorder()
+            job.trace_mark = recorder.mark()
             job_span = recorder.begin(
                 metric_names.SPAN_MIRROR_JOB,
                 fast=job.fast_url,
@@ -294,9 +302,12 @@ class Mirror:
                 )
             finally:
                 recorder.end(job_span)
-                telemetry.record_phase("mirroring", time.monotonic() - began)
-                # Counters settle before the done event wakes a waiter.
-                self._settle_telemetry(job)
+                elapsed = time.monotonic() - began
+                telemetry.record_phase("mirroring", elapsed)
+                # Telemetry settles before the done event: a waiter that
+                # unblocks on wait_durable() finds the job's report and
+                # ledger event already written.
+                self._settle_telemetry(job, elapsed)
                 job.done_evt.set()
                 try:
                     # Gauge refresh AFTER the event: the queue-depth/lag
@@ -307,9 +318,11 @@ class Mirror:
                 self._queue.task_done()
 
     @staticmethod
-    def _settle_telemetry(job: MirrorJob) -> None:
-        """Registry counters of a settled job (best effort: telemetry
-        never fails a job)."""
+    def _settle_telemetry(job: MirrorJob, elapsed: float) -> None:
+        """Registry counters, the job's report (kind "mirror", with the
+        durability lag: how long the step's data existed only on the fast
+        tier), its ledger post and its trace export. Best effort:
+        telemetry never fails a job."""
         try:
             registry = telemetry.metrics()
             registry.counter_inc(metric_names.MIRROR_JOBS_DONE_TOTAL)
@@ -319,6 +332,39 @@ class Mirror:
                 registry.counter_inc(metric_names.MIRROR_JOBS_FAILED_TOTAL)
             registry.counter_inc(metric_names.MIRROR_BLOBS_DONE_TOTAL, job.blobs_done)
             registry.counter_inc(metric_names.MIRROR_BYTES_TOTAL, job.bytes_done)
+            if job.cancelled:
+                # A cancelled job's step is being deleted: a
+                # snapshot-adjacent sink write would resurrect its fast
+                # directory as an orphan.
+                return
+            lag_s = time.monotonic() - job.created_ts
+            report = telemetry.SnapshotReport(
+                kind="mirror",
+                path=f"tiered://{job.fast_url}|{job.durable_url}",
+                unix_ts=time.time(),
+                phases={"mirroring": round(elapsed, 3)},
+                bytes_moved=job.bytes_done,
+                blobs=job.blobs_done,
+                mirror={
+                    "lag_s": round(lag_s, 3),
+                    "blobs_total": len(job.blobs),
+                    "cancelled": job.cancelled,
+                    "resumed": not job.fresh,
+                },
+                error=repr(job.error) if job.error is not None else None,
+            )
+            telemetry.emit_report(report, registry)
+            # The owned-root gate keeps the post rank-0-only: a co-hosted
+            # rank's mirror resolves to a ledger it did not open.
+            from ..telemetry import ledger as run_ledger
+
+            run_ledger.post_mirror_settled(
+                job.fast_url, lag_s=lag_s, nbytes=job.bytes_done,
+                blobs=job.blobs_done, error=job.error,
+            )
+            # The mirror has no rank: the file name carries the pid, so
+            # that co-hosted ranks sharing a fast root keep their own.
+            export_op_trace(f"mirror-pid{os.getpid()}", report.path, 0, job.trace_mark)
         except Exception as e:  # noqa: BLE001 - telemetry is best-effort
             logger.warning("mirror telemetry failed: %r", e)
 
@@ -549,6 +595,18 @@ def get_mirror() -> Mirror:
         if _default_mirror is None:
             _default_mirror = Mirror()
         return _default_mirror
+
+
+def mirror_state_for_path(path_url: str) -> Optional[Dict[str, float]]:
+    """The process mirror's queue and lag state when ``path_url`` is
+    tiered, else None: what snapshot reports and progress heartbeats
+    record about the durability backlog."""
+    try:
+        if split_tiered_url(path_url) is None:
+            return None
+    except ValueError:
+        return None
+    return dict(get_mirror().metrics())
 
 
 def reset_mirror() -> None:

@@ -46,7 +46,7 @@ pulls). Knobs: ring offset, cache budget, transfer timeout (``knobs.py``).
 Left out against the JAX package (ROADMAP queue 3): the wire observatory
 (dial, RPC, pool-checkout and accept-depth accounting, frame counts) and
 the trace-context propagation of its frames, with the ``wire:rpc`` /
-``wire:handler`` spans, come with the telemetry port (step 10). A peer
+``wire:handler`` spans, come with the wire observatory (step 10c). A peer
 pull stamps ``ReadIO.verified_entry``, so the read pipeline does not
 verify those bytes a second time (the JAX pipeline does).
 """
@@ -59,7 +59,6 @@ import logging
 import os
 import pickle
 import queue
-import re
 import socket
 import socketserver
 import threading
@@ -83,6 +82,7 @@ from ..scheduler import PeerCacheBudget
 from ..storage_plugin import split_tiered_url, url_to_storage_plugin
 from ..storage_plugins.retry import CollectiveProgressRetryStrategy, RetriesExhausted
 from ..telemetry import names as metric_names
+from ..telemetry.ledger import step_from_path
 from ..telemetry.trace import get_recorder as _trace_recorder
 
 logger: logging.Logger = logging.getLogger(__name__)
@@ -97,17 +97,6 @@ PEER_PLACEMENT_PREFIX = ".peer_placement-rank"
 # consecutive transport failures (a checksum mismatch does not count: the
 # transport is fine, the bytes are not).
 _PULL_DEAD_AFTER_FAILURES = 2
-
-_STEP_DIR_RE = re.compile(r"^step_(\d+)$")
-
-
-def step_from_path(snapshot_path: str) -> Optional[int]:
-    """The manager step a snapshot path encodes (basename ``step_<n>``),
-    or None for a free-form path. (A copy of the JAX package's
-    ``telemetry/ledger.py`` helper; the run ledger is step 10.)"""
-    m = _STEP_DIR_RE.match(os.path.basename(snapshot_path.rstrip("/")))
-    return int(m.group(1)) if m else None
-
 
 def peer_step_key(path_url: str) -> str:
     """The cache key of one snapshot path: the fast-tier URL of a tiered
