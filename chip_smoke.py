@@ -82,10 +82,27 @@ each of which raises on failure (nothing is caught):
    the history holds a row per save and one for the restore; each take's
    report moved the bytes it wrote (the card's bytes plus at most 1 MiB of
    host-side leaves); every heartbeat ended done and was removed; the
-   step-3 take's Chrome trace holds the take's envelope. The same loop
-   then runs on new roots with every record off and on again, and each
-   save's seconds and the step beside the drain are logged in the three
-   turns. The phase
+   step-3 take's Chrome trace holds the take's envelope; each take's
+   report carries a critical path whose segments partition its wall
+   (coverage >= 0.95), logged with its dominant segment. The first loop
+   also runs with diagnosis on (the stall watchdog at 60 s, the SLO engine
+   and bundle capture at their defaults). The same loop then runs on new
+   roots with every record and diagnosis off and both on again, and each
+   save's seconds, the step beside the drain and the turn's ``slo-breach``
+   events are logged in the three turns. Then the diagnosis legs, each on
+   a new root: (w) one managed take whose storage write the chaos engine
+   delays 3 s past a 1 s watchdog deadline: one stall, one
+   ``watchdog:stall`` instant in the take's trace, one bundle, and the
+   step restores bit-identical; (s) three saves with the async-visible
+   budget below what the card measures: exactly one ``slo-breach``
+   event, one bundle, and the doctor names ``slo-burning``; (d) ``python
+   -m torchsnapshot_tpu_torch.telemetry doctor`` on that root and
+   ``stats`` on a step's report log, their output logged; (t) six saves
+   with ``TORCHSNAPSHOT_TPU_AUTOTUNE=1`` and staging threads pinned in the
+   environment: each decision (action, tunable, from, to) and each save's
+   seconds logged, every value within its tunable's bounds, the pinned
+   knob never moved, ``restore_latest`` bit-identical under the last
+   vector. The phase
    keeps its own launch counts, set to 0 just before its first loop: it
    must launch every kernel of the path.
 5. **cas**: the main configuration's loop on the content-addressed chunk
@@ -131,10 +148,12 @@ each of which raises on failure (nothing is caught):
    only and one save at the agreed step on both; retention, a deep fsck
    and ``restore_latest`` on both ranks, bit-identical, and the root's run
    ledger written by rank 0 alone; (f) rank 1's writes fail: rank 0 raises
-   within 30 s and no commit marker is left. Take (a) runs with the report
-   sink on: each rank's report is in the log and rank 0's carries the
-   gathered spread and straggler of every metric; its store requests
-   include the gather's.
+   within 30 s and no commit marker is left; (g) two managed saves with
+   the autotuner on leave both ranks with the same applied vector. Take
+   (a) runs with the report sink on: each rank's report is in the log
+   with its critical path, and rank 0's carries the gathered spread and
+   straggler of every metric, each rank's critical-path segments folded
+   in; its store requests include the gather's.
    Each rank must launch every kernel of the path.
 7. **sharded**: two processes on the card, spawned as in the ranks phase,
    with a gloo default group (no tensor collective runs on the checkpoint
@@ -144,7 +163,7 @@ each of which raises on failure (nothing is caught):
    rank's chunk, plus a (1001, 4096) bf16 leaf (uneven rows) and a (1,
    4096) one (rank 1's box is empty). (a) ``Snapshot.take`` with digests
    recorded and the report sink on (rank 0's report gathers both
-   ranks'): each rank copies to the host and writes 50% +- 1% of the
+   ranks', critical paths folded): each rank copies to the host and writes 50% +- 1% of the
    sharded bytes, the saved boxes tile every array with no hole and no
    overlap, one commit marker; (b) restore into ``DTensor``s from ``--seed
    + 1``: bit-identical local shards, in place; (c1) restore into
@@ -195,7 +214,8 @@ each of which raises on failure (nothing is caught):
    every durable blob byte-identical to its fast copy, the journal
    complete with the commit marker landed last, the settled job's
    ``kind: "mirror"`` report and its ``mirror-settled`` ledger event each
-   with the bytes the job shipped (the report and trace sinks on), and after the eviction
+   with the bytes the job shipped (the report and trace sinks on), the
+   take's and the job's reports each with a critical path, and after the eviction
    pass only the newest step on the fast tier; the step's time alone,
    beside the async drain and beside the mirror; (b) the restore of an
    evicted step from the durable tier alone: bit-identical state, logits
@@ -277,8 +297,13 @@ each of which raises on failure (nothing is caught):
    maximum, and the phase's launches, which add to the record's.
 
 Every phase runs with the record knobs at their defaults (the run ledger,
-heartbeats and history on; the report and trace sinks off) except where
-a phase says otherwise. The ranks and sharded phases pin
+heartbeats and history on; the report and trace sinks off) and the stall
+watchdog at its default 60 s, except where a phase says otherwise. The
+SLO engine, incident bundles and the autotuner are pinned off
+(``TORCHSNAPSHOT_TPU_SLO``, ``..._BUNDLE_MAX_BYTES`` and ``..._AUTOTUNE``
+at 0 unless set): the phases hold byte counts, ledger events and file
+sets of a fixed knob geometry, and the manager and ranks phases turn each
+on where they measure it. The ranks and sharded phases pin
 ``TORCHSNAPSHOT_TPU_PEER_TIER=0`` in their workers: their checks are of the paths without the tier (each
 rank's bytes written, the file sets, which plugin reads a blob). Before
 the result lines, one ``summary <phase>:`` line per phase gives its
@@ -1303,6 +1328,13 @@ def main() -> int:
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
     phases = set(args.phases.split(","))
+    # The phases hold byte counts, ledger events and file sets of a fixed
+    # knob geometry: the SLO engine, incident bundles and the autotuner (on
+    # by default, as in the JAX package) are pinned off, as in the test
+    # suite, and the manager and ranks phases turn each on where they
+    # measure it. The stall watchdog and the critical path run everywhere.
+    for name in ("TORCHSNAPSHOT_TPU_SLO", "TORCHSNAPSHOT_TPU_BUNDLE_MAX_BYTES", "TORCHSNAPSHOT_TPU_AUTOTUNE"):
+        os.environ.setdefault(name, "0")
 
     import torch
 
@@ -1986,6 +2018,34 @@ def _flipped_copy(step_dir: str, location: str, dest: str) -> None:
                 os.symlink(src, dst)
 
 
+def _require_critical_paths(reports: list, what: str) -> list:
+    """Each report's ``critical_path`` partitions its op's wall: the
+    segments sum to the wall and cover at least ``MIN_COVERAGE`` of it.
+    Returns ``(kind, rank, dominant, wall_s, segments)`` per report."""
+    from torchsnapshot_tpu_torch.telemetry.critpath import MIN_COVERAGE
+
+    out = []
+    for r in reports:
+        cp = r.get("critical_path")
+        _require(cp is not None, f"{what}: the {r['kind']} report of rank {r.get('rank')} has no critical_path")
+        total = sum(cp["segments"].values())
+        _require(
+            cp["coverage"] >= MIN_COVERAGE and abs(total - cp["wall_s"]) <= 1e-4 * max(1.0, cp["wall_s"])
+            and cp["dominant"] in cp["segments"],
+            f"{what}: the {r['kind']} report's critical path {cp}",
+        )
+        out.append((r["kind"], r.get("rank"), cp["dominant"], cp["wall_s"], cp["segments"]))
+    return out
+
+
+def _critpath_line(paths: list) -> str:
+    return "; ".join(
+        f"{kind}@rank{rank} {wall:.3f} s, dominant {dom}: "
+        + ", ".join(f"{seg} {sec:.3f}" for seg, sec in segs.items())
+        for kind, rank, dom, wall, segs in paths
+    )
+
+
 def _is_side_file(rel: str) -> bool:
     """A telemetry record that both packages write beside a snapshot or a
     manager root, not data: the report log, trace exports, progress
@@ -2010,6 +2070,14 @@ RECORDS_ON = ({"TORCHSNAPSHOT_TPU_TELEMETRY": "1", "TORCHSNAPSHOT_TPU_TRACE": "1
 RECORDS_OFF = ({"TORCHSNAPSHOT_TPU_LEDGER": "0", "TORCHSNAPSHOT_TPU_PROGRESS_SECONDS": "0",
                 "TORCHSNAPSHOT_TPU_HISTORY_MAX_RECORDS": "0"},
                ("TORCHSNAPSHOT_TPU_TELEMETRY", "TORCHSNAPSHOT_TPU_TRACE"))
+# Diagnosis at the JAX package's defaults (the stall watchdog at 60 s, the
+# SLO engine on, bundle capture at 64 MiB), and off: the manager phase's
+# loop runs with records and diagnosis on, off, and on again. The critical
+# path has no switch (in either package): every report carries one.
+DIAGNOSIS_ON = ({"TORCHSNAPSHOT_TPU_WATCHDOG_SECONDS": "60", "TORCHSNAPSHOT_TPU_SLO": "1",
+                 "TORCHSNAPSHOT_TPU_BUNDLE_MAX_BYTES": str(64 << 20)}, ())
+DIAGNOSIS_OFF = ({"TORCHSNAPSHOT_TPU_WATCHDOG_SECONDS": "0", "TORCHSNAPSHOT_TPU_SLO": "0",
+                  "TORCHSNAPSHOT_TPU_BUNDLE_MAX_BYTES": "0"}, ())
 # test_goodput.py's tolerance of the ledger's wall against a measured one.
 GOODPUT_WALL_REL = 0.05
 
@@ -2123,6 +2191,7 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
                     if e["kind"] in ("take", "async_take")
                 ]
                 _require(len(reports) == 1, f"save {step}: {len(reports)} take reports")
+                rec["critical_path"] = _require_critical_paths(reports, f"save {step}")[0]
                 moved = rec["report_bytes_moved"] = reports[0]["bytes_moved"]
                 # The report counts every blob the take wrote: the card's
                 # bytes and the small host-side leaves beside them.
@@ -2206,7 +2275,7 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
     dd.reset_launch_counts()
     progress.track = tracking
     try:
-        with _env(RECORDS_ON):
+        with _env(RECORDS_ON), _env(DIAGNOSIS_ON):
             loop = run_loop(root, records=True)
             mgr, state, saves, at_4 = loop["mgr"], loop["state"], loop["saves"], loop["at_4"]
 
@@ -2344,23 +2413,38 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
     del state, fresh
     torch.cuda.empty_cache()
 
+    def slo_breaches(turn_root: str) -> list:
+        """The turn's slo-breach events (with diagnosis on, the SLO engine
+        judges every commit at the default budgets)."""
+        return [(r["objective"], r["step"]) for r in events_of(turn_root) if r["event"] == names.EVENT_SLO_BREACH]
+
+    def events_of(turn_root: str) -> list:
+        path = os.path.join(turn_root, ledger.LEDGER_BASENAME)
+        return ledger.load_ledger(path) if os.path.exists(path) else []
+
     # The same loop with every record off, then on again, for their
     # seconds: the turns on, off, on keep a warm-up from passing as the
     # records' cost.
     turns = {"on": {"saves_s": records_on, "step_alone_s": loop["step_alone_s"],
-                    "step_beside_drain_s": loop["step_beside_drain_s"]}}
-    for name, knobs_set, records in (("off", RECORDS_OFF, False), ("on_again", RECORDS_ON, True)):
+                    "step_beside_drain_s": loop["step_beside_drain_s"], "slo_breaches": slo_breaches(root)}}
+    for name, knobs_set, diagnosis, records in (
+        ("off", RECORDS_OFF, DIAGNOSIS_OFF, False), ("on_again", RECORDS_ON, DIAGNOSIS_ON, True),
+    ):
         turn_root = os.path.join(work_dir, f"managed_{name}")
-        with _env(knobs_set):
+        with _env(knobs_set), _env(diagnosis):
             again = run_loop(turn_root, records=records)
         if not records:
             side = [os.path.relpath(os.path.join(d, f), turn_root) for d, _, fs in os.walk(turn_root) for f in fs
                     if _is_side_file(f)]
             _require(not side, f"the loop with every record off wrote {side[:5]}")
         turns[name] = {"saves_s": {s: rec["s"] for s, rec in again["saves"].items()},
-                       "step_alone_s": again["step_alone_s"], "step_beside_drain_s": again["step_beside_drain_s"]}
+                       "step_alone_s": again["step_alone_s"], "step_beside_drain_s": again["step_beside_drain_s"],
+                       "slo_breaches": slo_breaches(turn_root)}
         del again
         torch.cuda.empty_cache()
+    _require(not turns["off"]["slo_breaches"], f"the SLO engine judged with diagnosis off: {turns['off']}")
+
+    diagnosis = diagnosis_legs(args, work_dir, card, cfg, tokens, train_step)
 
     record = {
         "card": card, "saves": saves, "step_alone_s": loop["step_alone_s"],
@@ -2371,7 +2455,7 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
         "ledger_events": len(events), "goodput": {k: run[k] for k in (
             "wall_s", "train_s", "visible_stall_s", "restore_s", "lost_work_s", "overhead_fraction",
             "staged_drain_s")},
-        "measured_wall_s": measured_wall_s, "turns": turns,
+        "measured_wall_s": measured_wall_s, "turns": turns, "diagnosis": diagnosis,
     }
     for s, rec in saves.items():
         log(
@@ -2399,9 +2483,12 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
         f"restore {run['restore_s']:.3f}, lost {run['lost_work_s']:.3f}, overhead "
         f"{run['overhead_fraction']:.4f}; {len(rows)} history rows, {len(beats)} heartbeats settled"
     )
+    log("manager critical paths: " + _critpath_line([rec["critical_path"] for rec in saves.values()]))
     order = ("on", "off", "on_again")
+    log("manager slo-breach events with diagnosis on / off / on: "
+        + " / ".join(str(turns[t]["slo_breaches"]) for t in order))
     log(
-        "manager records on / off / on: saves "
+        "manager records and diagnosis on / off / on: saves "
         + ", ".join(f"{s}: " + " / ".join(f"{turns[t]['saves_s'][s]:.3f}" for t in order) + " s" for s in records_on)
         + "; step alone " + " / ".join(f"{turns[t]['step_alone_s']:.3f}" for t in order)
         + " s, beside the drain " + " / ".join(f"{turns[t]['step_beside_drain_s']:.3f}" for t in order) + " s"
@@ -2411,6 +2498,203 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
               drain_step_on_off_on_s=[turns[t]["step_beside_drain_s"] for t in ("on", "off", "on_again")])
     print(json.dumps({"manager": record}), flush=True)
     return launches
+
+
+# The watchdog leg's deadline and the storage write the chaos engine
+# delays past it.
+WATCHDOG_DEADLINE_S = 1.0
+WATCHDOG_DELAY_S = 3.0
+# The autotuner leg's saves, and the knob it must leave alone (pinned in
+# the environment at its default).
+TUNER_SAVES = 6
+TUNER_PINNED = ("TORCHSNAPSHOT_TPU_STAGING_THREADS", "staging_threads", "4")
+
+
+def diagnosis_legs(args, work_dir: str, card: str, cfg, tokens, train_step) -> dict:
+    """The manager phase's diagnosis and control legs, each on a new root
+    with the run ledger on and a fresh state of the main configuration:
+    (w) a managed take whose one storage write the chaos engine delays
+    3 s past a 1 s watchdog deadline: ``watchdog_stalls_total`` rises by
+    exactly 1, the take's trace holds one ``watchdog:stall`` instant, one
+    ``watchdog-stall`` bundle is captured, and the step restores
+    bit-identical; (s) three saves with the async-visible budget below
+    what the card measures (and the overhead objective off): exactly one
+    ``slo-breach`` event and one ``slo-breach`` bundle, and the doctor on
+    the root names ``slo-burning``; (t) six saves with the autotuner on
+    and staging threads pinned in the environment: each decision logged,
+    every value within its tunable's bounds, the pinned knob never moved,
+    and ``restore_latest`` bit-identical under the last vector; (d) the
+    ``doctor`` and ``stats`` CLIs on (s)'s root. Returns the legs' record."""
+    import subprocess
+
+    import torch
+
+    from torchsnapshot_tpu_torch import CheckpointManager, knobs
+    from torchsnapshot_tpu_torch.chaos import ChaosEngine, FaultPlan, FaultSpec, chaotic_plugin_type
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+    from torchsnapshot_tpu_torch.telemetry import bundle, doctor, ledger, names, slo
+    from torchsnapshot_tpu_torch.test_utils import patch_storage_plugin
+    from torchsnapshot_tpu_torch.tuner import TUNABLES, load_state
+
+    def trained(seed_shift: int = 0):
+        st = init_train_state(cfg, seed=args.seed + seed_shift)
+        st, _ = train_step(st, tokens)
+        torch.cuda.synchronize()
+        return st
+
+    def capture(st) -> dict:
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in _state_tensors(st).items()}
+
+    def events(root: str, event: str) -> list:
+        return [r for r in ledger.load_ledger(ledger.ledger_path_for(root)) if r["event"] == event]
+
+    record = {}
+    bundle_on = {"TORCHSNAPSHOT_TPU_BUNDLE_MAX_BYTES": str(64 << 20)}
+
+    # (w) The stall watchdog. The watchdog captures its bundle at the
+    # first root this process opened a ledger at: this one.
+    root_w = os.path.join(work_dir, "diag_watchdog")
+    ledger.reset_owned_roots()
+    state = trained()
+    at = capture(state)
+    engine = ChaosEngine(FaultPlan(seed=args.seed, faults=[
+        FaultSpec(point="storage-write", mode="delay", match="0/train/", times=1, delay_s=WATCHDOG_DELAY_S),
+    ]))
+    stalls_before = _counter(names.WATCHDOG_STALLS_TOTAL)
+    with _env(({"TORCHSNAPSHOT_TPU_WATCHDOG_SECONDS": str(WATCHDOG_DEADLINE_S), "TORCHSNAPSHOT_TPU_TRACE": "1",
+                **bundle_on}, ())):
+        mgr = CheckpointManager(root_w, keep_last_n=2)
+        with patch_storage_plugin(chaotic_plugin_type(FSStoragePlugin, engine)):
+            t0 = time.monotonic()
+            mgr.save(1, {"train": state})
+            take_s = time.monotonic() - t0
+        time.sleep(WATCHDOG_DEADLINE_S)  # four more scans, which must stay quiet
+    stalls = _counter(names.WATCHDOG_STALLS_TOTAL) - stalls_before
+    _require(engine.fired and engine.fired[0][2] == "delay", f"the chaos engine fired {engine.fired}")
+    _require(stalls == 1, f"watchdog_stalls_total rose by {stalls} over one stalled take")
+    with open(os.path.join(mgr.step_path(1), ".trace-take-rank0.json")) as f:
+        instants = [e for e in json.load(f)["traceEvents"]
+                    if e["ph"] == "i" and e["name"] == names.INSTANT_WATCHDOG_STALL]
+    _require(len(instants) == 1, f"the take's trace holds {len(instants)} watchdog:stall instants")
+    bundles_w = bundle.list_bundles(root_w)
+    _require([b["trigger"] for b in bundles_w] == ["watchdog-stall"]
+             and instants[0]["args"]["bundle"] == bundles_w[0]["path"], f"watchdog bundles {bundles_w}")
+    fresh = init_train_state(cfg, seed=args.seed + 1)
+    _require(mgr.restore_latest({"train": fresh}) == 1, "restore_latest of the stalled take")
+    _require_same_state(at, fresh, "the stalled take's restore")
+    stall = instants[0]["args"]
+    record["watchdog"] = {
+        "take_s": take_s, "stalls": stalls, "span": stall["span"], "age_s": stall["age_s"],
+        "idle_s": stall["idle_s"], "gating_segment": stall["gating_segment"], "bundle_files": bundles_w[0]["files"],
+        "bundle_bytes": bundles_w[0]["bytes"],
+    }
+    log(f"manager diagnosis (w): one write delayed {WATCHDOG_DELAY_S} s past a {WATCHDOG_DEADLINE_S} s deadline; "
+        f"the take {take_s:.3f} s, {stalls:.0f} stall on span {stall['span']} open {stall['age_s']} s (idle "
+        f"{stall['idle_s']} s, segment {stall['gating_segment']}), bundle of {bundles_w[0]['files']} files "
+        f"{bundles_w[0]['bytes']} bytes; restored bit-identical")
+    del state, fresh, at
+    torch.cuda.empty_cache()
+
+    # (s) The SLO engine: every take's visible span is a bad sample of
+    # take-visible-stall; the overhead objective is off, so that exactly
+    # one objective burns.
+    root_s = os.path.join(work_dir, "diag_slo")
+    slo_env = ({"TORCHSNAPSHOT_TPU_SLO": "1", "TORCHSNAPSHOT_TPU_TELEMETRY": "1",
+                "TORCHSNAPSHOT_TPU_ASYNC_VISIBLE_BUDGET_SECONDS": "0.0001",
+                "TORCHSNAPSHOT_TPU_SLO_OVERHEAD_FRACTION": "0", **bundle_on}, ())
+    state = trained()
+    saves_s = []
+    with _env(slo_env):
+        mgr = CheckpointManager(root_s, keep_last_n=2)
+        for step in (1, 2, 3):
+            state, _ = train_step(state, tokens)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            if step == 2:
+                mgr.async_save(step, {"train": state}).wait()
+            else:
+                mgr.save(step, {"train": state})
+            saves_s.append(time.monotonic() - t0)
+        breaches = [(r["objective"], r["step"]) for r in events(root_s, names.EVENT_SLO_BREACH)]
+        judged = slo.evaluate_root(root_s)
+        verdicts = doctor.diagnose_snapshot(root_s)
+    _require(breaches == [(names.SLO_TAKE_VISIBLE_STALL, 1)], f"slo-breach events {breaches}")
+    _require(judged["breaching"] == [names.SLO_TAKE_VISIBLE_STALL], f"the SLO judgment {judged['breaching']}")
+    bundles_s = bundle.list_bundles(root_s)
+    _require([b["trigger"] for b in bundles_s] == ["slo-breach"], f"SLO bundles {bundles_s}")
+    _require(names.RULE_SLO_BURNING in {v.rule for v in verdicts},
+             f"the doctor on the root: {[v.rule for v in verdicts]}")
+    burn = next(o for o in judged["objectives"] if o["objective"] == names.SLO_TAKE_VISIBLE_STALL)
+    record["slo"] = {"saves_s": saves_s, "breaches": breaches, "burn_rate": burn["burn_rate"],
+                     "last_visible_s": burn["last_value"], "verdicts": sorted({v.rule for v in verdicts})}
+    log(f"manager diagnosis (s): saves {', '.join(f'{x:.3f}' for x in saves_s)} s; breaches {breaches}; "
+        f"take-visible-stall burn {burn['burn_rate']} (last visible {burn['last_value']} s against 0.0001 s); "
+        f"one bundle; doctor verdicts {record['slo']['verdicts']}")
+    del state
+    torch.cuda.empty_cache()
+
+    # (d) The telemetry CLI on (s)'s root, as an operator runs it; the two
+    # processes run side by side (each spends seconds importing torch).
+    cli = {}
+    env = dict(os.environ, **slo_env[0])
+    t0 = time.monotonic()
+    procs = {
+        argv[0]: subprocess.Popen([sys.executable, "-m", "torchsnapshot_tpu_torch.telemetry", *argv], cwd=HERE,
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for argv in (["doctor", root_s], ["stats", os.path.join(root_s, "step_0000000003", ".telemetry.jsonl")])
+    }
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=120)
+        cli[name] = {"rc": proc.returncode, "s": time.monotonic() - t0}
+        for line in out.splitlines():
+            log(f"telemetry {name}: {line}")
+        _require(proc.returncode == (2 if name == "doctor" else 0),
+                 f"telemetry {name} exited {proc.returncode}: {err[-2000:]}")
+        _require(name != "doctor" or names.RULE_SLO_BURNING in out, "the doctor CLI did not name slo-burning")
+    record["cli"] = cli
+
+    # (t) The autotuner, with staging threads pinned in the environment.
+    root_t = os.path.join(work_dir, "diag_tuner")
+    env_name, pinned, pinned_value = TUNER_PINNED
+    state = trained()
+    tuner_saves = []
+    with _env(({env_name: pinned_value}, ())), knobs.enable_autotune():
+        mgr = CheckpointManager(root_t, keep_last_n=2)
+        for step in range(1, TUNER_SAVES + 1):
+            state, _ = train_step(state, tokens)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            mgr.save(step, {"train": state})
+            seconds = time.monotonic() - t0
+            d = load_state(root_t).decisions[-1]
+            tuner_saves.append({"step": step, "s": seconds, **{
+                k: d["decision"].get(k) for k in ("action", "tunable", "from_value", "to_value", "reason")}})
+            for name, value in d["vector"].items():
+                t = TUNABLES[name]
+                _require(t.lo <= value <= t.hi, f"step {step}: {name} = {value} outside [{t.lo}, {t.hi}]")
+            _require(knobs.tunable_snapshot()[pinned] == int(pinned_value) and env_name not in
+                     knobs.get_tuner_overrides(), f"step {step}: the pinned {pinned} moved")
+        at = capture(state)
+        vector = dict(load_state(root_t).vector)
+        fresh = init_train_state(cfg, seed=args.seed + 1)
+        t0 = time.monotonic()
+        _require(mgr.restore_latest({"train": fresh}) == TUNER_SAVES, "restore_latest under the tuned vector")
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        _require_same_state(at, fresh, "restore_latest under the tuned vector")
+    _require(all(s["tunable"] != pinned for s in tuner_saves), f"a decision moved the pinned {pinned}")
+    _require(not knobs.get_tuner_overrides(), "tuner overrides outlived the leg")
+    record["tuner"] = {"saves": tuner_saves, "vector": vector, "restore_latest_s": restore_s}
+    for s_ in tuner_saves:
+        log(f"manager diagnosis (t): save {s_['step']} {s_['s']:.3f} s, then {s_['action']} {s_['tunable'] or ''} "
+            f"{s_['from_value']} -> {s_['to_value']} ({s_['reason']})")
+    log(f"manager diagnosis (t): last vector {vector}; restore_latest {restore_s:.3f} s bit-identical; "
+        f"{pinned} held at {pinned_value}; on {card}")
+    del state, fresh, at
+    torch.cuda.empty_cache()
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -2898,10 +3182,18 @@ def tiered_phase(args, work_dir: str, card: str) -> dict:
         ]
         _require(reports == settled == [(step_bytes, None)],
                  f"save {step}: mirror reports {reports}, mirror-settled {settled}, {step_bytes} bytes mirrored")
+        # The take's and the mirror job's reports carry critical paths.
+        paths = _require_critical_paths(
+            load_events(os.path.join(step_dir(fast, step), ".telemetry.jsonl")), f"tiered save {step}"
+        )
+        _require(sorted(k for k, *_ in paths) in (["mirror", "take"], ["async_take", "mirror"]),
+                 f"tiered save {step}: reports {[k for k, *_ in paths]}")
+        log(f"tiered save {step} critical paths: {_critpath_line(paths)}")
         rec = {
             "s": seconds, "wait_durable_s": wait_s, "mirrored_bytes": shipped[0], "mirrored_blobs": shipped[1],
             "step_blobs": len(on_durable), "step_bytes": sum(on_durable.values()),
-            "d2h_bytes": _counter(names.DEVICE_TO_HOST_BYTES_TOTAL) - d2h_before, **extra,
+            "d2h_bytes": _counter(names.DEVICE_TO_HOST_BYTES_TOTAL) - d2h_before,
+            "critical_paths": {k: {"dominant": d, "wall_s": w, "segments": sg} for k, _, d, w, sg in paths}, **extra,
         }
         saves[step] = rec
         return rec
@@ -3312,6 +3604,14 @@ def _require_gathered_reports(path: str, kind: str) -> int:
     )
     _require(all(reports[r]["aggregated"] is None for r in range(1, RANKS)), "a report of rank > 0 aggregated")
     _require(len(reports[0]["clock_offsets_s"] or []) == RANKS, "rank 0's report has no clock offsets")
+    # Every rank's report carries its critical path, and rank 0's
+    # aggregate folds each segment over both ranks.
+    paths = _require_critical_paths([reports[r] for r in range(RANKS)], f"{kind} at {path}")
+    folded = {k for k in agg if k.startswith("critpath_")}
+    segments = {seg for *_, segs in paths for seg in segs}
+    _require(folded == {f"critpath_{seg}_s" for seg in segments},
+             f"rank 0's aggregate folds {sorted(folded)}, the ranks' segments are {sorted(segments)}")
+    log(f"{kind} critical paths at {os.path.basename(path)}: {_critpath_line(paths)}")
     return len(agg)
 
 
@@ -3612,6 +3912,24 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
     del fresh, at_t
     torch.cuda.empty_cache()
 
+    # (g) Two managed saves with the autotuner on: rank 0 decides after
+    # each commit and both ranks apply the vector it broadcasts.
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.tuner import current_vector
+
+    with knobs.enable_autotune():
+        mgr_t = CheckpointManager(os.path.join(work_dir, "tuned"), keep_last_n=2, pg=pg)
+        tuned_s = []
+        for step in (1, 2):
+            state, _ = train_step(state, tokens)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            mgr_t.save(step, app, replicated=REPLICATED)
+            tuned_s.append(time.monotonic() - t0)
+        vectors = wrapper.all_gather_object(current_vector())
+    _require(vectors[0] == vectors[1], f"the ranks applied different vectors: {vectors}")
+    record["g"] = {"saves_s": tuned_s, "vector": vectors[rank]}
+
     # (f) A failing rank: rank 1's data writes fail.
     path_f = os.path.join(work_dir, "f")
     faulty = faulty_fs_plugin(lambda p: p.startswith(("replicated/", f"{rank}/")), exc_msg="injected write failure")
@@ -3719,6 +4037,8 @@ def ranks_phase(args, work_dir: str, card: str) -> dict:
             + f"); restore {r['b']['restore_s']:.3f} s; async_take call {c['call_s']:.4f} s, committed "
             f"{c['committed_s']:.3f} s; managed saves "
             + ", ".join(f"{s}: {v['s']:.3f} s" for s, v in r["e"]["saves"].items())
+            + "; tuned saves " + ", ".join(f"{x:.3f}" for x in r["g"]["saves_s"])
+            + f" s, applied vector {r['g']['vector']}"
             + f"; failing peer raised in {r['f']['raised_s']:.2f} s; launches {r['launches']}"
         )
     log(

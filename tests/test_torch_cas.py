@@ -523,18 +523,22 @@ def test_fsck_cas_repair_quarantines_a_damaged_chunk(tmp_path, cas_on, capsys) -
     assert "repair: nothing to do" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv, step", [(["--tier", "fast"], None), (["--stats"], "10")], ids=["tier", "stats"])
+@pytest.mark.parametrize("argv, step", [(["--tier", "fast"], None), (["--stats"], "10d")], ids=["tier", "stats"])
 def test_fsck_tier_and_stats_stay_refused(tmp_path, argv, step, capsys) -> None:
-    """``--stats`` stays refused (step 10). ``--tier`` is ported: it
-    audits one tier of a ``tiered://`` snapshot, here a CAS one whose data
-    sits in the fast tier's chunk store."""
+    """Both are ported. ``--stats`` (step 10d) audits a CAS take, then
+    lists its report and the doctor's verdicts. ``--tier`` audits one
+    tier of a ``tiered://`` snapshot, here a CAS one whose data sits in
+    the fast tier's chunk store."""
     from torchsnapshot_tpu_torch.fsck import main as fsck_main
     from torchsnapshot_tpu_torch.tiered import reset_mirror
 
     if step is not None:
-        Snapshot.take(str(tmp_path / "s"), _state())
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 step {step}"):
-            fsck_main([str(tmp_path / "s"), *argv])
+        with knobs.enable_cas(), knobs.enable_telemetry():
+            mgr = CheckpointManager(str(tmp_path / "root"))
+            mgr.save(0, _state())
+        assert fsck_main([mgr.step_path(0), *argv]) == 0
+        out = capsys.readouterr().out
+        assert "telemetry (1 event(s)):" in out and "OK (shallow)" in out
         return
     reset_mirror()
     try:

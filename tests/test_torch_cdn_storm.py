@@ -2,7 +2,7 @@
 convergence, read amplification of 1.0, the rolling update's dedup ratio
 and warmup left out of the staleness figures. The ports of
 ``tests/test_cdn_storm.py``'s 4 storm cases; its staleness doctor rule
-comes with the telemetry port (ROADMAP step 10)."""
+cases are in ``tests/test_torch_doctor.py``."""
 
 import os
 
@@ -39,7 +39,8 @@ def test_storm_converges_at_one_x_amplification():
     assert r.staleness_samples == 6 * 2
     assert r.staleness_max_s >= r.staleness_median_s >= 0.0
     assert set(r.pull_latency) == {"durable", "peer"}
-    # The wire report is the JAX package's telemetry: not ported (step 10).
+    # The wire report is the JAX package's wire observatory: not ported
+    # (step 10c).
     assert r.wire is None
 
 

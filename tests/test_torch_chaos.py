@@ -6,8 +6,8 @@ determinism, the injection modes over real plugins and over the TCP
 store's wire, crash-point arming, the restore-time corruption ladder and
 the repair matrix of one corrupt chunk per tier (fall through, rewrite,
 quarantine). Where the JAX file reads its restore report and doctor
-verdicts (the telemetry of ROADMAP queue 1 step 10), these read the port's
-``restore_telemetry`` and the ``storage_degraded_reads_total`` counter.
+verdicts, these read the port's ``restore_telemetry`` and the
+``storage_degraded_reads_total`` counter.
 Its peer-ladder case holds the port's ladder the same way. Added here: one
 ``FaultPlan`` JSON line fires the same schedule under both packages'
 engines, and a ``cuda_only`` tiered take and restore of CUDA leaves whose

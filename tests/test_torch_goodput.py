@@ -4,11 +4,11 @@ manager's restore rows in the step history.
 
 Ports of the JAX package's ``tests/test_goodput.py``, each docstring naming
 the case it ports, on torch state, except ``test_doctor_trend_appends_run_
-level_verdicts`` and ``test_fsck_stats_summarizes_ledger`` (the doctor and
-``fsck --stats`` are ROADMAP step 10d). The JAX cases that judge a ledger
-through the doctor's ``recovery-cost-high`` / ``goodput-degraded`` rules
-hold here the attribution those rules read, against the rules' JAX
-thresholds (60 s of recovery, 15% overhead). This file imports no ``jax``.
+level_verdicts`` and ``test_fsck_stats_summarizes_ledger``, which are in
+``tests/test_torch_doctor.py``. The JAX cases that judge a ledger through
+the doctor's ``recovery-cost-high`` / ``goodput-degraded`` rules hold here
+the attribution those rules read, against the rules' JAX thresholds (60 s
+of recovery, 15% overhead). This file imports no ``jax``.
 """
 
 import json

@@ -552,6 +552,63 @@ def _cdn_knob(tmp_path, monkeypatch):
         assert ann.chunks == chunk_refs(Snapshot(mgr.step_path(step)).metadata.manifest) != {}
 
 
+def _slo_hook(tmp_path, monkeypatch):
+    """With the ledger and the SLO engine on and a restore budget below
+    any real restore, the commit after a restore posts one
+    ``slo-breach`` for ``restore-wall``, and the next commit, still
+    burning, posts none: the event is edge-triggered."""
+    from torchsnapshot_tpu_torch.telemetry import ledger, slo
+
+    ledger.reset_owned_roots()
+    slo.reset_slo_state()
+    try:
+        # The overhead objective off: back-to-back test saves are all
+        # checkpoint overhead.
+        with knobs.enable_ledger(), knobs.enable_slo(), knobs.override_slo_windows(2, 4), (
+            knobs.override_slo_restore_seconds(1e-9)
+        ), knobs.override_slo_overhead_fraction(0):
+            mgr = CheckpointManager(str(tmp_path))
+            mgr.save(1, _state(1.0))
+            assert mgr.restore_latest(_state(0.0)) == 1
+            mgr.save(2, _state(2.0))
+            mgr.async_save(3, _state(3.0)).wait()
+            breaches = [
+                r for r in ledger.load_ledger(ledger.find_ledger_for(str(tmp_path)))
+                if r["event"] == names.EVENT_SLO_BREACH
+            ]
+    finally:
+        ledger.reset_owned_roots()
+        slo.reset_slo_state()
+    assert [(r["objective"], r["step"]) for r in breaches] == [("restore-wall", 2)]
+
+
+def _autotune_hook(tmp_path, monkeypatch):
+    """With the autotuner on, each commit (sync and async) logs one
+    decision in ``.tuner-state.json`` and installs its vector."""
+    from torchsnapshot_tpu_torch.tuner import current_vector, load_state
+
+    with knobs.enable_autotune():
+        mgr = CheckpointManager(str(tmp_path))
+        mgr.save(1, _state(1.0))
+        mgr.async_save(2, _state(2.0)).wait()
+        state = load_state(str(tmp_path))
+        assert [d["step"] for d in state.decisions] == [1, 2]
+        assert knobs.get_tuner_overrides() and state.vector == current_vector()
+    assert not knobs.get_tuner_overrides()
+
+
+def _doctor_fleet(tmp_path, monkeypatch):
+    from torchsnapshot_tpu_torch.telemetry.doctor import main
+
+    main([str(tmp_path), "--fleet"])
+
+
+def _telemetry_fleet(tmp_path, monkeypatch):
+    from torchsnapshot_tpu_torch.telemetry.stats import main
+
+    main(["fleet", "localhost:1"])
+
+
 @pytest.mark.parametrize(
     "make, step",
     [
@@ -562,11 +619,21 @@ def _cdn_knob(tmp_path, monkeypatch):
         (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).wait_durable(0), "noop"),
         (lambda tmp_path, mp: CheckpointManager(str(tmp_path)).resume_mirrors(), "noop"),
         (_armed_save_is_killed, "ported"),
+        (_slo_hook, "ported"),
+        (_autotune_hook, "ported"),
+        (_doctor_fleet, "10c"),
+        (_telemetry_fleet, "10c"),
     ],
-    ids=["tiered", "cas", "chunk-store", "cdn", "wait-durable", "resume-mirrors", "crashpoint-arm"],
+    ids=[
+        "tiered", "cas", "chunk-store", "cdn", "wait-durable", "resume-mirrors", "crashpoint-arm", "slo",
+        "autotune", "doctor-fleet", "telemetry-fleet",
+    ],
 )
 def test_unported_features_are_refused(tmp_path, monkeypatch, make, step) -> None:
-    """Every feature the manager once refused is ported now. The chunk
+    """What stays unported is refused by name: the fleet metrics plane
+    (``doctor --fleet``, ``telemetry fleet``; ROADMAP step 10c). Every
+    feature the manager once refused is ported now; the SLO evaluation
+    and the autotuner run after each commit, sync and async. The chunk
     store (the ``cas`` and ``chunk-store`` cases): a manager with the CAS
     knob on, or over a root that holds a chunk store, saves into the store
     and restores from it. The tiered root, crash-point arming and the CDN
@@ -576,6 +643,10 @@ def test_unported_features_are_refused(tmp_path, monkeypatch, make, step) -> Non
     resume."""
     if step == "ported":
         make(tmp_path, monkeypatch)
+        return
+    if step == "10c":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 10c"):
+            make(tmp_path, monkeypatch)
         return
     if step == "noop":
         assert make(tmp_path, monkeypatch) in (None, [])

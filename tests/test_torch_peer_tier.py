@@ -7,12 +7,12 @@ Ports of the 19 cases of the JAX package's ``tests/test_peer_tier.py``,
 its two chunk-pool cases of ``tests/test_cas.py``, the peer half of
 ``tests/test_knobs.py``'s knob test and the peer sweep of
 ``tests/test_dist_crash_sweep.py`` (a dead peer mid-push, mid-pull, and
-between commit and drain). Where a JAX case reads its restore report, its
-run ledger or its doctor (ROADMAP queue 1 step 10), the port's case reads
-the same numbers from ``Snapshot.restore_telemetry``: ``tier_split``,
-``peer`` (the degradation evidence the JAX doctor rule reads) and, for the
-acceptance harness, each rank's own split instead of the ledger's world
-sum. Added here: a pulled blob is verified once, not again by the read
+between commit and drain). Where a JAX case reads its restore report or
+its run ledger, the port's case reads the same numbers from
+``Snapshot.restore_telemetry``: ``tier_split``, ``peer`` (the degradation
+evidence the doctor's ``peer-tier-degraded`` rule reads, which the port's
+doctor judges here too) and, for the acceptance harness, each rank's own
+split instead of the ledger's world sum. Added here: a pulled blob is verified once, not again by the read
 pipeline; ``bytes_fetched`` leaves peer bytes out; an ``async_restore``
 reads through the ladder; a chunk-store step pushes its chunks once and
 dedups the next step's; and the cross-package cases: each package's
@@ -417,11 +417,16 @@ def test_fsck_tier_peer_reports_unplaced_blobs(fake_world, tmp_path) -> None:
 
 
 def test_degradation_evidence_quiet_when_healthy() -> None:
-    """The JAX case holds its doctor rule quiet on takes, on reports
-    without peer fields and on a healthy split; the doctor is step 10, so
-    the port holds the evidence it reads: a context that served or missed
-    nothing reports not degraded, and one failure or one fallthrough
-    byte turns it on."""
+    """The doctor's ``peer-tier-degraded`` rule stays quiet on takes, on
+    reports without peer fields and on a healthy split, and fires once a
+    fallthrough byte is recorded; the port holds the evidence it reads
+    too: a context that served or missed nothing reports not degraded,
+    and one failure or one fallthrough byte turns it on."""
+    from torchsnapshot_tpu_torch.telemetry.doctor import diagnose_reports
+
+    def degraded(report):
+        return [v for v in diagnose_reports([report]) if v.rule == metric_names.RULE_PEER_TIER_DEGRADED]
+
     ctx = peer.PeerRestoreContext({}, "s", timeout=1)
     ctx.count("peer", 100)
     fields = ctx.pipeline_fields()
@@ -429,8 +434,13 @@ def test_degradation_evidence_quiet_when_healthy() -> None:
     assert fields["peer"] == {
         "eligible_blobs": 0, "served_blobs": 1, "failures": 0, "fallthrough_bytes": 0, "degraded": False,
     }
+    assert not degraded({"kind": "restore", **fields})
+    assert not degraded({"kind": "take", **fields})
+    assert not degraded({"kind": "restore"})
     ctx.note_fallthrough(10)
-    assert ctx.pipeline_fields()["peer"]["degraded"]
+    fields = ctx.pipeline_fields()
+    assert fields["peer"]["degraded"]
+    assert degraded({"kind": "restore", **fields})[0].evidence["fallthrough_bytes"] == 10
 
 
 def test_preemption_close_flushes_peer_tier(fake_world, tmp_path) -> None:

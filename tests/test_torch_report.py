@@ -6,8 +6,9 @@ tiered mirror's report, Prometheus exposition, the cross-rank aggregation
 
 Ports of the report, sink and Prometheus cases of the JAX package's
 ``tests/test_telemetry.py`` (each docstring names the case it ports), on
-torch state; the stats-CLI and RSS-profiler cases are ROADMAP step 10d and
-stay out. This file imports no ``jax``: the cross-package reads are in
+torch state; the stats-CLI and RSS-profiler cases are in
+``tests/test_torch_doctor.py`` and ``tests/test_torch_rss_profiler.py``.
+This file imports no ``jax``: the cross-package reads are in
 ``tests/test_torch_telemetry_crosspkg.py``.
 """
 
@@ -64,7 +65,8 @@ def test_phase_timings_and_reports_do_not_leak_across_takes(tmp_path):
 def test_take_report_via_jsonl_sink(tmp_path):
     """Ports the report half of ``test_take_report_via_jsonl_sink_and_
     stats_cli``: phases, per-plugin bytes, the zero-filled retry counter,
-    bytes moved and peak staged bytes."""
+    bytes moved and peak staged bytes, and the take's critical path,
+    whose segments partition its wall."""
     path = str(tmp_path / "step_0000000001")
     with knobs.enable_telemetry():
         Snapshot.take(path, {"m": TensorTreeState(_state(size=4096))})
@@ -80,7 +82,10 @@ def test_take_report_via_jsonl_sink(tmp_path):
     assert report["bytes_moved"] == 3 * 4096 * 4
     assert report["peak_staged_bytes"] > 0
     assert report["tunables"] == knobs.tunable_snapshot()
-    assert report["critical_path"] is None and report["wire"] is None
+    cp = report["critical_path"]
+    assert cp["coverage"] >= 0.95 and cp["dominant"] in cp["segments"]
+    assert sum(cp["segments"].values()) == pytest.approx(cp["wall_s"], abs=1e-5)
+    assert report["wire"] is None
 
 
 def test_restore_report_emitted(tmp_path):

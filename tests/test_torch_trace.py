@@ -5,8 +5,9 @@ merge CLI.
 
 Ports of the JAX package's ``tests/test_trace.py`` recorder, export, merge
 and clock-offset cases, under the same names, on torch state; the
-watchdog, RSS-profiler and ``fsck --stats`` cases are ROADMAP step 10d and
-stay out. The merge CLI is ``python -m
+watchdog, RSS-profiler and ``fsck --stats`` cases are in
+``tests/test_torch_watchdog.py``, ``tests/test_torch_rss_profiler.py`` and
+``tests/test_torch_doctor.py``. The merge CLI is ``python -m
 torchsnapshot_tpu_torch.telemetry.trace`` (its ``main``). This file
 imports no ``jax``: merging a port trace with a JAX one is in
 ``tests/test_torch_telemetry_crosspkg.py``.

@@ -50,8 +50,10 @@ A repair that acted posts ``repair-performed`` to the root's run ledger
 has a run ledger ends with the ledger's summary: event counts, runs and
 segments, interrupted segments and their lost work.
 
-Not ported yet, and refused: the telemetry summary (``--stats``, ROADMAP
-step 10d).
+``--stats`` adds the snapshot's telemetry after the audit, as in the
+JAX package: its reports as a table, its flight-recorder traces, leftover
+progress heartbeats, the incident bundles captured under its root, and
+the doctor's verdicts, all from one sweep of the recorded artifacts.
 """
 
 from __future__ import annotations
@@ -866,6 +868,78 @@ def _print_ledger(path: str) -> None:
     print("  full attribution: python -m torchsnapshot_tpu_torch.telemetry.goodput <root>")
 
 
+def _print_stats(path: str) -> None:
+    """``--stats``: one sweep of the snapshot's recorded artifacts
+    (``doctor.gather_evidence``) drives both the listings and the
+    doctor's diagnosis. The run ledger's summary follows the audit, as
+    for every path."""
+    from .telemetry.bundle import list_bundles
+    from .telemetry.doctor import diagnose_evidence, gather_evidence
+    from .telemetry.stats import render_summary
+
+    evidence = gather_evidence(path)
+    print()
+    if evidence.reports:
+        print(f"telemetry ({len(evidence.reports)} event(s)):")
+        print(render_summary(evidence.reports))
+    else:
+        print(
+            "telemetry: no events recorded for this snapshot (take it with "
+            "TORCHSNAPSHOT_TPU_TELEMETRY=1 for the snapshot-adjacent sink, or run this "
+            "command with the TORCHSNAPSHOT_TPU_TELEMETRY_DIR the take used)"
+        )
+    n_traces = len(evidence.trace_spans) + len(evidence.trace_unreadable)
+    if n_traces:
+        print()
+        print(f"flight-recorder traces ({n_traces} file(s)):")
+        for tf, tops in sorted(evidence.trace_spans.items()):
+            print(f"  {tf}: " + ", ".join(f"{t['name']}={t['dur_ms']}ms" for t in tops[:3]))
+        for tf, err in sorted(evidence.trace_unreadable.items()):
+            print(f"  {tf}: unreadable ({err})")
+        print("  merge + straggler summary: python -m torchsnapshot_tpu_torch.telemetry trace <snapshot>")
+    # A completed op removes its heartbeat: a leftover is a live, failed
+    # (terminal document) or crashed (non-terminal) op.
+    if evidence.progress_files:
+        print()
+        print(
+            f"progress heartbeats ({len(evidence.progress_files)} leftover file(s); completed "
+            "ops remove theirs):"
+        )
+        docs_by_file = {d.get("file"): d for d in evidence.progress}
+        for pf in evidence.progress_files:
+            doc = docs_by_file.get(pf)
+            if doc is None:
+                print(f"  {pf}: unreadable")
+                continue
+            status = doc.get("terminal") or "NOT TERMINAL (live or crashed)"
+            print(
+                f"  {pf}: {doc.get('kind', '?')} rank {doc.get('rank', '?')} "
+                f"{doc.get('phase', '?')} — {doc.get('written_bytes', 0)}/"
+                f"{doc.get('planned_bytes', 0)} bytes, {doc.get('items_done', 0)}/"
+                f"{doc.get('planned_items', 0)} items [{status}]"
+            )
+    try:
+        bundles = list_bundles(path)
+    except Exception:  # noqa: BLE001 - the listing is an aid, not the audit
+        bundles = []
+    if bundles:
+        print()
+        print(f"incident bundles ({len(bundles)}):")
+        for b in bundles:
+            print(
+                f"  {b['path']}: trigger {b.get('trigger')!r}, {b.get('files', 0)} files, "
+                f"{b.get('bytes', 0)} bytes"
+            )
+        print("  analyze: python -m torchsnapshot_tpu_torch.telemetry doctor --bundle <path>")
+    verdicts = diagnose_evidence(evidence)
+    if verdicts:
+        print()
+        print(f"doctor verdicts ({len(verdicts)}):")
+        for v in verdicts:
+            print(f"  {v.format()}")
+    print()
+
+
 def _print_repair(report: RepairReport) -> None:
     for loc, src in sorted(report.rewritten.items()):
         print(f"FSCK repaired: {loc}: rewritten from {src}")
@@ -945,18 +1019,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         "fast first with the durable fallback); 'peer' (any path) audits the peer tier's placement "
         "docs: which required blobs have a recorded peer copy",
     )
-    p.add_argument("--stats", action="store_true", help="not ported yet (ROADMAP step 10d)")
+    p.add_argument(
+        "--stats",
+        action="store_true",
+        help="after the audit, summarize the snapshot's telemetry: reports, traces, leftover "
+        "heartbeats, incident bundles and the doctor's verdicts",
+    )
     args = p.parse_args(argv)
-    if args.stats:
-        raise NotImplementedError(
-            "fsck --stats (the telemetry summary) is not ported to torchsnapshot_tpu_torch yet "
-            "(ROADMAP queue 1 step 10d)"
-        )
     if args.cas:
         return _cas_main(args.path, deep=args.deep, repair=args.repair)
     if args.repair:
         _print_repair(repair_snapshot(args.path))
     report = verify_snapshot(args.path, deep=args.deep, tier=args.tier)
+    if args.stats:
+        _print_stats(args.path)
     for prob in report.problems:
         print(f"FSCK {prob.kind}: {prob.location}: {prob.detail}")
     mode = "deep" if report.deep else "shallow"

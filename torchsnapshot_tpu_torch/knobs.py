@@ -3,16 +3,25 @@
 The knobs this package reads, under the same ``TORCHSNAPSHOT_TPU_`` names
 as torchsnapshot_tpu's, so one environment configures both packages.
 Values are read lazily on every call so tests and subprocesses can flip
-them at any time. Knobs of subsystems not ported yet (SLO, bundles, the
-watchdog, the autotuner, ...) come with those subsystems; until the
-autotuner lands there is no programmatic override layer, so every
-tunable reads its env var or its default.
+them at any time. Knobs of subsystems not ported yet come with those
+subsystems.
+
+The throughput knobs (the *tunable* set: staging threads, per-rank I/O
+concurrency, staging-pool geometry, memory-budget fraction, chunk, shard
+and slab-threshold sizes, direct I/O, barrier fanout, store shards) also
+honor a **programmatic override layer**, the write surface of the
+autotuner (``tuner/``), as in the JAX package: an env var always wins, a
+tuner override applies only where no env var is set, and the default
+closes the chain. The override layer is process-local: nothing the tuner
+does reaches a subprocess or outlives the process (its decision log,
+``.tuner-state.json``, does).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import Dict, Generator, Optional, Union
 
 _MAX_CHUNK_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_MAX_CHUNK_SIZE_BYTES"
@@ -59,6 +68,24 @@ _PROGRESS_DIR_ENV = "TORCHSNAPSHOT_TPU_PROGRESS_DIR"
 _HISTORY_MAX_RECORDS_ENV = "TORCHSNAPSHOT_TPU_HISTORY_MAX_RECORDS"
 _LEDGER_ENV = "TORCHSNAPSHOT_TPU_LEDGER"
 _LEDGER_MAX_RECORDS_ENV = "TORCHSNAPSHOT_TPU_LEDGER_MAX_RECORDS"
+_WATCHDOG_SECONDS_ENV = "TORCHSNAPSHOT_TPU_WATCHDOG_SECONDS"
+_ASYNC_VISIBLE_BUDGET_ENV = "TORCHSNAPSHOT_TPU_ASYNC_VISIBLE_BUDGET_SECONDS"
+_COLD_START_BUDGET_FRACTION_ENV = "TORCHSNAPSHOT_TPU_COLD_START_BUDGET_FRACTION"
+_CDN_STALENESS_BUDGET_ENV = "TORCHSNAPSHOT_TPU_CDN_STALENESS_BUDGET_SECONDS"
+_AUTOTUNE_ENV = "TORCHSNAPSHOT_TPU_AUTOTUNE"
+_SLO_ENV = "TORCHSNAPSHOT_TPU_SLO"
+_SLO_FAST_WINDOW_ENV = "TORCHSNAPSHOT_TPU_SLO_FAST_WINDOW"
+_SLO_SLOW_WINDOW_ENV = "TORCHSNAPSHOT_TPU_SLO_SLOW_WINDOW"
+_SLO_FAST_BURN_ENV = "TORCHSNAPSHOT_TPU_SLO_FAST_BURN_THRESHOLD"
+_SLO_SLOW_BURN_ENV = "TORCHSNAPSHOT_TPU_SLO_SLOW_BURN_THRESHOLD"
+_SLO_ERROR_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_ERROR_BUDGET_FRACTION"
+_SLO_RESTORE_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_RESTORE_SECONDS"
+_SLO_MIRROR_LAG_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_MIRROR_LAG_SECONDS"
+_SLO_OVERHEAD_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_OVERHEAD_FRACTION"
+_SLO_COORD_BUDGET_ENV = "TORCHSNAPSHOT_TPU_SLO_COORDINATION_FRACTION"
+_BUNDLE_DIR_ENV = "TORCHSNAPSHOT_TPU_BUNDLE_DIR"
+_BUNDLE_MAX_BYTES_ENV = "TORCHSNAPSHOT_TPU_BUNDLE_MAX_BYTES"
+_BUNDLE_MIN_INTERVAL_ENV = "TORCHSNAPSHOT_TPU_BUNDLE_MIN_INTERVAL_SECONDS"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
 _DEFAULT_MEMORY_BUDGET_FRACTION: float = 0.6
@@ -81,6 +108,21 @@ _DEFAULT_PEER_TRANSFER_TIMEOUT_SECONDS: float = 30.0
 _DEFAULT_PROGRESS_SECONDS: float = 1.0
 _DEFAULT_HISTORY_MAX_RECORDS: int = 512
 _DEFAULT_LEDGER_MAX_RECORDS: int = 4096
+_DEFAULT_WATCHDOG_SECONDS: float = 60.0
+_DEFAULT_ASYNC_VISIBLE_BUDGET_SECONDS: float = 5.0
+_DEFAULT_COLD_START_BUDGET_FRACTION: float = 0.5
+_DEFAULT_CDN_STALENESS_BUDGET_SECONDS: float = 5.0
+_DEFAULT_SLO_FAST_WINDOW: int = 8
+_DEFAULT_SLO_SLOW_WINDOW: int = 64
+_DEFAULT_SLO_FAST_BURN_THRESHOLD: float = 2.0
+_DEFAULT_SLO_SLOW_BURN_THRESHOLD: float = 1.0
+_DEFAULT_SLO_ERROR_BUDGET_FRACTION: float = 0.1
+_DEFAULT_SLO_RESTORE_SECONDS: float = 60.0
+_DEFAULT_SLO_MIRROR_LAG_SECONDS: float = 120.0
+_DEFAULT_SLO_OVERHEAD_FRACTION: float = 0.1
+_DEFAULT_SLO_COORDINATION_FRACTION: float = 0.3
+_DEFAULT_BUNDLE_MAX_BYTES: int = 64 * 1024 * 1024
+_DEFAULT_BUNDLE_MIN_INTERVAL_SECONDS: float = 300.0
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -88,20 +130,78 @@ def _get_int_env(name: str, default: int) -> int:
     return default if val is None else int(val)
 
 
+def _get_float_env(name: str, default: float) -> float:
+    val = os.environ.get(name)
+    return default if val is None else float(val)
+
+
+# Programmatic tunable overrides, keyed by env-var name so that a tuner
+# decision and the operator's env var name the same thing. Locked: an
+# async save's commit thread applies a vector while pipelines read.
+_TUNER_OVERRIDES: Dict[str, Union[int, float]] = {}
+_TUNER_OVERRIDES_LOCK = threading.Lock()
+
+
+def set_tuner_override(env_name: str, value: Union[int, float]) -> None:
+    """Install one tunable's programmatic value. It applies only while no
+    env var of the same name is set: a hand-set value always wins."""
+    with _TUNER_OVERRIDES_LOCK:
+        _TUNER_OVERRIDES[env_name] = value
+
+
+def clear_tuner_override(env_name: str) -> None:
+    with _TUNER_OVERRIDES_LOCK:
+        _TUNER_OVERRIDES.pop(env_name, None)
+
+
+def clear_tuner_overrides() -> None:
+    """Drop every programmatic override (kill switch, test teardown)."""
+    with _TUNER_OVERRIDES_LOCK:
+        _TUNER_OVERRIDES.clear()
+
+
+def get_tuner_overrides() -> Dict[str, Union[int, float]]:
+    """A copy of the active programmatic overrides."""
+    with _TUNER_OVERRIDES_LOCK:
+        return dict(_TUNER_OVERRIDES)
+
+
+def _get_tunable_int(name: str, default: int) -> int:
+    """Env var, else tuner override, else default: the read every
+    tunable getter goes through."""
+    val = os.environ.get(name)
+    if val is not None:
+        return int(val)
+    with _TUNER_OVERRIDES_LOCK:
+        ov = _TUNER_OVERRIDES.get(name)
+    return default if ov is None else int(ov)
+
+
+def _get_tunable_float(name: str, default: float) -> float:
+    val = os.environ.get(name)
+    if val is not None:
+        return float(val)
+    with _TUNER_OVERRIDES_LOCK:
+        ov = _TUNER_OVERRIDES.get(name)
+    return default if ov is None else float(ov)
+
+
 def get_max_chunk_size_bytes() -> int:
     """Arrays larger than this are split into chunks written independently."""
-    return _get_int_env(_MAX_CHUNK_SIZE_BYTES_ENV, _DEFAULT_MAX_CHUNK_SIZE_BYTES)
+    return _get_tunable_int(_MAX_CHUNK_SIZE_BYTES_ENV, _DEFAULT_MAX_CHUNK_SIZE_BYTES)
 
 
 def get_max_shard_size_bytes() -> int:
     """Local shards of a sharded (``DTensor``) leaf larger than this are
     subdivided along dim 0 before writing."""
-    return _get_int_env(_MAX_SHARD_SIZE_BYTES_ENV, _DEFAULT_MAX_SHARD_SIZE_BYTES)
+    return _get_tunable_int(_MAX_SHARD_SIZE_BYTES_ENV, _DEFAULT_MAX_SHARD_SIZE_BYTES)
 
 
 def get_slab_size_threshold_bytes() -> int:
     """Write requests smaller than this are eligible for slab batching."""
-    return _get_int_env(_SLAB_SIZE_THRESHOLD_BYTES_ENV, _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES)
+    return _get_tunable_int(
+        _SLAB_SIZE_THRESHOLD_BYTES_ENV, _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES
+    )
 
 
 def is_batching_enabled() -> bool:
@@ -126,18 +226,17 @@ def get_per_rank_memory_budget_bytes_override() -> Optional[int]:
 def get_memory_budget_fraction() -> float:
     """Fraction of *available* host memory the per-process staging budget
     may claim (scheduler.get_process_memory_budget_bytes)."""
-    val = os.environ.get(_MEMORY_BUDGET_FRACTION_ENV)
-    return _DEFAULT_MEMORY_BUDGET_FRACTION if val is None else float(val)
+    return _get_tunable_float(_MEMORY_BUDGET_FRACTION_ENV, _DEFAULT_MEMORY_BUDGET_FRACTION)
 
 
 def get_per_rank_io_concurrency() -> int:
     """Max concurrent storage I/O ops per process."""
-    return _get_int_env(_PER_RANK_IO_CONCURRENCY_ENV, _DEFAULT_PER_RANK_IO_CONCURRENCY)
+    return _get_tunable_int(_PER_RANK_IO_CONCURRENCY_ENV, _DEFAULT_PER_RANK_IO_CONCURRENCY)
 
 
 def get_staging_threads() -> int:
     """Threads for device->host staging / (de)serialization."""
-    return _get_int_env(_STAGING_THREADS_ENV, _DEFAULT_STAGING_THREADS)
+    return _get_tunable_int(_STAGING_THREADS_ENV, _DEFAULT_STAGING_THREADS)
 
 
 def is_checksums_disabled() -> bool:
@@ -159,7 +258,7 @@ def is_fs_direct_io_enabled() -> bool:
     the aligned body of a qualifying blob bypasses the page cache, the
     unaligned tail is written buffered. Unsupported filesystems (tmpfs:
     EINVAL) decline sticky-per-plugin back to the buffered path."""
-    return _get_int_env(_FS_DIRECT_IO_ENV, 0) != 0
+    return _get_tunable_int(_FS_DIRECT_IO_ENV, 0) != 0
 
 
 def get_trace_buffer_events() -> int:
@@ -200,14 +299,14 @@ def get_staging_pool_slab_bytes() -> int:
     """Slab size of the background drain's pinned staging pool
     (``scheduler.StagingPool``); with the slab count it bounds a deferred
     async take's host staging footprint."""
-    return _get_int_env(_STAGING_POOL_SLAB_BYTES_ENV, _DEFAULT_STAGING_POOL_SLAB_BYTES)
+    return _get_tunable_int(_STAGING_POOL_SLAB_BYTES_ENV, _DEFAULT_STAGING_POOL_SLAB_BYTES)
 
 
 def get_staging_pool_slabs() -> int:
     """Slab count of the staging pool. 2 is double buffering: one slab's
     worth of requests copies to the host while the previous one drains to
     storage."""
-    return _get_int_env(_STAGING_POOL_SLABS_ENV, _DEFAULT_STAGING_POOL_SLABS)
+    return _get_tunable_int(_STAGING_POOL_SLABS_ENV, _DEFAULT_STAGING_POOL_SLABS)
 
 
 def is_cas_enabled() -> bool:
@@ -268,14 +367,14 @@ def is_tree_barrier_enabled() -> bool:
 
 def get_barrier_fanout() -> int:
     """The tree barrier's branching factor ``k`` (at least 2)."""
-    return max(2, _get_int_env(_BARRIER_FANOUT_ENV, _DEFAULT_BARRIER_FANOUT))
+    return max(2, _get_tunable_int(_BARRIER_FANOUT_ENV, _DEFAULT_BARRIER_FANOUT))
 
 
 def get_store_shards() -> int:
     """Coordination-store shard count: more than 1 bootstraps that many
     TCPStore servers, spread over the ranks, behind key->shard hashing.
     Rank 0's reading decides for the job."""
-    return max(1, _get_int_env(_STORE_SHARDS_ENV, _DEFAULT_STORE_SHARDS))
+    return max(1, _get_tunable_int(_STORE_SHARDS_ENV, _DEFAULT_STORE_SHARDS))
 
 
 def get_mirror_io_concurrency() -> int:
@@ -442,12 +541,135 @@ def get_ledger_max_records() -> int:
     return _DEFAULT_LEDGER_MAX_RECORDS
 
 
+def get_watchdog_deadline_seconds() -> float:
+    """Open-span age past which the stall watchdog fires (a
+    ``watchdog:stall`` instant, the open-span tree and thread stacks in
+    the log, ``watchdog_stalls_total`` and an incident bundle), when the
+    recorder has also been idle that long. <= 0 disables the watchdog
+    (the suite's conftest pins 0). Re-read on every scan."""
+    return _get_float_env(_WATCHDOG_SECONDS_ENV, _DEFAULT_WATCHDOG_SECONDS)
+
+
+def get_async_visible_budget_seconds() -> float:
+    """Threshold of the doctor's ``async-visible-stall`` rule: an async
+    take whose training-visible span (``visible_s``) exceeds it is
+    flagged. <= 0 disables the rule."""
+    return _get_float_env(_ASYNC_VISIBLE_BUDGET_ENV, _DEFAULT_ASYNC_VISIBLE_BUDGET_SECONDS)
+
+
+def get_cold_start_budget_fraction() -> float:
+    """Threshold of the doctor's ``restore-cold-start-slow`` rule: the
+    share of a restore's wall its recorded ``cold_start_s`` may take.
+    <= 0 disables the rule."""
+    return _get_float_env(
+        _COLD_START_BUDGET_FRACTION_ENV, _DEFAULT_COLD_START_BUDGET_FRACTION
+    )
+
+
+def get_cdn_staleness_budget_seconds() -> float:
+    """Publish-to-swap latency budget of the doctor's
+    ``cdn-staleness-high`` rule (median over the ledger's
+    ``cdn-swapped`` records)."""
+    return _get_float_env(_CDN_STALENESS_BUDGET_ENV, _DEFAULT_CDN_STALENESS_BUDGET_SECONDS)
+
+
+def is_autotune_enabled() -> bool:
+    """The write-path autotuner (``tuner/``), on by default: after each
+    manager commit rank 0 decides the next knob vector from the step's
+    report and the doctor's verdicts, and every rank applies it. ``"0"``
+    is the kill switch: no tuner object, no ``.tuner-state.json``, no
+    override, no broadcast (the suite's conftest pins it). A knob set in
+    the environment is never moved either way."""
+    return os.environ.get(_AUTOTUNE_ENV, "1") != "0"
+
+
+def is_slo_enabled() -> bool:
+    """The SLO engine (``telemetry/slo.py``), on by default: after each
+    manager commit rank 0 judges the declared objectives with
+    multi-window burn rates over the run ledger and step history, sets
+    the ``slo_burn_rate`` gauges and posts an edge-triggered
+    ``slo-breach`` ledger event. ``"0"`` disables it (the suite's
+    conftest pins it); it needs the ledger on to have samples."""
+    return os.environ.get(_SLO_ENV, "1") != "0"
+
+
+def get_slo_fast_window() -> int:
+    """Sample count of the fast burn window (the look that catches
+    cliffs). <= 0 disables it."""
+    return _get_int_env(_SLO_FAST_WINDOW_ENV, _DEFAULT_SLO_FAST_WINDOW)
+
+
+def get_slo_slow_window() -> int:
+    """Sample count of the slow burn window (the look that catches
+    drift). <= 0 disables it."""
+    return _get_int_env(_SLO_SLOW_WINDOW_ENV, _DEFAULT_SLO_SLOW_WINDOW)
+
+
+def get_slo_fast_burn_threshold() -> float:
+    """Burn rate at which the fast window fires (1.0 spends the error
+    budget at exactly the sustainable rate)."""
+    return _get_float_env(_SLO_FAST_BURN_ENV, _DEFAULT_SLO_FAST_BURN_THRESHOLD)
+
+
+def get_slo_slow_burn_threshold() -> float:
+    """Burn rate at which the slow window fires."""
+    return _get_float_env(_SLO_SLOW_BURN_ENV, _DEFAULT_SLO_SLOW_BURN_THRESHOLD)
+
+
+def get_slo_error_budget_fraction() -> float:
+    """Allowed bad-sample fraction per objective: burn rate = observed
+    bad fraction / this."""
+    return _get_float_env(_SLO_ERROR_BUDGET_ENV, _DEFAULT_SLO_ERROR_BUDGET_FRACTION)
+
+
+def get_slo_restore_seconds() -> float:
+    """Target of the ``restore-wall`` objective. <= 0 disables it."""
+    return _get_float_env(_SLO_RESTORE_BUDGET_ENV, _DEFAULT_SLO_RESTORE_SECONDS)
+
+
+def get_slo_mirror_lag_seconds() -> float:
+    """Target of the ``mirror-durability-lag`` objective: how long a
+    step's bytes may live only on the fast tier. <= 0 disables it."""
+    return _get_float_env(_SLO_MIRROR_LAG_BUDGET_ENV, _DEFAULT_SLO_MIRROR_LAG_SECONDS)
+
+
+def get_slo_overhead_fraction() -> float:
+    """Target of the ``goodput-overhead`` objective: the share of a
+    commit interval that checkpoint overhead may take. <= 0 disables
+    it."""
+    return _get_float_env(_SLO_OVERHEAD_BUDGET_ENV, _DEFAULT_SLO_OVERHEAD_FRACTION)
+
+
+def get_slo_coordination_fraction() -> float:
+    """Target of the ``coordination-fraction`` objective: the share of a
+    take's wall that coordination may take. <= 0 disables it."""
+    return _get_float_env(_SLO_COORD_BUDGET_ENV, _DEFAULT_SLO_COORDINATION_FRACTION)
+
+
+def get_bundle_dir() -> Optional[str]:
+    """Where incident bundles land. Unset: ``<root>/.bundles`` beside the
+    root that triggered the capture (the fast tier of a tiered root)."""
+    return os.environ.get(_BUNDLE_DIR_ENV) or None
+
+
+def get_bundle_max_bytes() -> int:
+    """Size cap of one incident bundle; <= 0 disables capture (the
+    suite's conftest pins 0)."""
+    return _get_int_env(_BUNDLE_MAX_BYTES_ENV, _DEFAULT_BUNDLE_MAX_BYTES)
+
+
+def get_bundle_min_interval_seconds() -> float:
+    """Least time between two captures into one bundle dir: a breach
+    storm leaves one black box, not one per step."""
+    return _get_float_env(_BUNDLE_MIN_INTERVAL_ENV, _DEFAULT_BUNDLE_MIN_INTERVAL_SECONDS)
+
+
 def tunable_snapshot() -> Dict[str, Union[int, float]]:
     """Effective value of every tunable knob the port reads, under the
     JAX package's short names: the ``tunables`` field each SnapshotReport
-    records. The JAX package's ``write_vectorized`` is absent (the port
-    has no vectorized slab write), and with no autotuner yet each value
-    is the env var's or the default."""
+    records: env var, else tuner override, else default. The JAX
+    package's ``write_vectorized`` is absent (the port has no vectorized
+    slab write)."""
     return {
         "staging_threads": get_staging_threads(),
         "io_concurrency": get_per_rank_io_concurrency(),
@@ -711,4 +933,86 @@ def disable_ledger() -> Generator[None, None, None]:
 @contextlib.contextmanager
 def override_ledger_max_records(n: int) -> Generator[None, None, None]:
     with _override_env(_LEDGER_MAX_RECORDS_ENV, str(n)):
+        yield
+
+
+@contextlib.contextmanager
+def override_watchdog_deadline_seconds(seconds: float) -> Generator[None, None, None]:
+    with _override_env(_WATCHDOG_SECONDS_ENV, str(seconds)):
+        yield
+
+
+@contextlib.contextmanager
+def override_async_visible_budget_seconds(seconds: float) -> Generator[None, None, None]:
+    with _override_env(_ASYNC_VISIBLE_BUDGET_ENV, str(seconds)):
+        yield
+
+
+@contextlib.contextmanager
+def override_cold_start_budget_fraction(fraction: float) -> Generator[None, None, None]:
+    with _override_env(_COLD_START_BUDGET_FRACTION_ENV, str(fraction)):
+        yield
+
+
+@contextlib.contextmanager
+def enable_autotune() -> Generator[None, None, None]:
+    """The autotuner on for the block (the suite's conftest pins it off);
+    the overrides it installs are cleared on exit."""
+    with _override_env(_AUTOTUNE_ENV, "1"):
+        try:
+            yield
+        finally:
+            clear_tuner_overrides()
+
+
+@contextlib.contextmanager
+def override_staging_threads(n: int) -> Generator[None, None, None]:
+    with _override_env(_STAGING_THREADS_ENV, str(n)):
+        yield
+
+
+@contextlib.contextmanager
+def override_per_rank_io_concurrency(n: int) -> Generator[None, None, None]:
+    with _override_env(_PER_RANK_IO_CONCURRENCY_ENV, str(n)):
+        yield
+
+
+@contextlib.contextmanager
+def enable_slo() -> Generator[None, None, None]:
+    """The SLO engine on for the block (the suite's conftest pins it
+    off)."""
+    with _override_env(_SLO_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def override_slo_windows(fast: int, slow: int) -> Generator[None, None, None]:
+    with _override_env(_SLO_FAST_WINDOW_ENV, str(fast)):
+        with _override_env(_SLO_SLOW_WINDOW_ENV, str(slow)):
+            yield
+
+
+@contextlib.contextmanager
+def override_slo_restore_seconds(seconds: float) -> Generator[None, None, None]:
+    with _override_env(_SLO_RESTORE_BUDGET_ENV, str(seconds)):
+        yield
+
+
+@contextlib.contextmanager
+def override_slo_overhead_fraction(fraction: float) -> Generator[None, None, None]:
+    with _override_env(_SLO_OVERHEAD_BUDGET_ENV, str(fraction)):
+        yield
+
+
+@contextlib.contextmanager
+def override_bundle_max_bytes(nbytes: int) -> Generator[None, None, None]:
+    """Bundle capture on, and bounded, for the block (the suite's
+    conftest pins the cap to 0)."""
+    with _override_env(_BUNDLE_MAX_BYTES_ENV, str(nbytes)):
+        yield
+
+
+@contextlib.contextmanager
+def override_bundle_min_interval_seconds(seconds: float) -> Generator[None, None, None]:
+    with _override_env(_BUNDLE_MIN_INTERVAL_ENV, str(seconds)):
         yield

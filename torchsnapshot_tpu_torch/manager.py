@@ -78,9 +78,16 @@ the root's ``.ledger.jsonl`` at construction, and after each commit posts
 ``goodput_*`` gauges and appends the step's report summary to
 ``.telemetry-history.jsonl``; each manager restore appends its own
 summary; GC posts ``gc-reclaimed``, prunes the dropped step's
-``step-committed`` record and reaps its shared-dir heartbeats. The JAX
-manager's SLO evaluation and autotuner (ROADMAP step 10b) are not ported
-yet.
+``step-committed`` record and reaps its shared-dir heartbeats.
+
+Closed-loop control, as in the JAX manager, after each commit (sync and
+async saves alike; an async save's runs on its commit thread): rank 0
+judges the declared SLOs (``telemetry/slo.py``: the ``slo_burn_rate``
+gauges, an edge-triggered ``slo-breach`` ledger event and an incident
+bundle per episode), and, with ``TORCHSNAPSHOT_TPU_AUTOTUNE`` on, the
+write-path autotuner (``tuner/``) decides the next knob vector on rank 0
+and every rank applies it, broadcast over the coordination store. A
+failure of either is logged and never fails the save.
 """
 
 from __future__ import annotations
@@ -280,7 +287,9 @@ class _PendingManagedSnapshot:
                 telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
                 self._manager._record_step_history(self._step)
                 self._manager._post_step_ledger(self._step, snapshot)
+                self._manager._evaluate_slos(self._step)
                 self._manager._publish_cdn_step(self._step, snapshot)
+                self._manager._autotune_step(self._step)
                 self._committed = True
         return snapshot
 
@@ -404,6 +413,10 @@ class CheckpointManager:
                 self._reconcile_cas()
             except Exception as e:  # noqa: BLE001 - healing is best-effort
                 logger.warning("CAS refcount reconcile failed: %r", e)
+        # The write-path autotuner, built at the first commit it tunes
+        # after; None while the kill switch is set (no state file, no
+        # broadcast).
+        self._autotuner: Optional[Any] = None
         # The run ledger: rank 0 opens the run, or resumes the root's run id
         # (whichever package opened it) with the next segment, and becomes
         # the root's only ledger writer. None with the ledger off.
@@ -463,7 +476,9 @@ class CheckpointManager:
         telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
         self._record_step_history(step)
         self._post_step_ledger(step, snapshot)
+        self._evaluate_slos(step)
         self._publish_cdn_step(step, snapshot)
+        self._autotune_step(step)
         return snapshot
 
     @staticmethod
@@ -516,6 +531,47 @@ class CheckpointManager:
                 history.append_summary(self.root, history.summarize_report(report, step=step))
         except Exception as e:  # noqa: BLE001 - history is best-effort
             logger.warning("could not record step %d %s history: %r", step, kinds[0], e)
+
+    def _evaluate_slos(self, step: int) -> None:
+        """Re-judge the declared SLOs against the run's recorded evidence
+        (``telemetry/slo.py``): the burn-rate gauges, one ``slo-breach``
+        ledger event per objective episode and one incident bundle per
+        evaluation that saw a fresh breach. Rank 0 only, with the ledger
+        on; best-effort."""
+        if (
+            self._pg.get_rank() != 0
+            or not knobs.is_slo_enabled()
+            or not knobs.is_ledger_enabled()
+        ):
+            return
+        try:
+            from .telemetry import slo
+
+            slo.evaluate_step(self.root, step)
+        except Exception as e:  # noqa: BLE001 - the SLO engine is best-effort
+            logger.warning("could not evaluate SLOs at step %d: %r", step, e)
+
+    def _autotune_step(self, step: int) -> None:
+        """One tuning pass after ``step`` committed: rank 0 reads the
+        step's report and decides the next knob vector, and every rank
+        applies the decision it broadcasts over the store
+        (``tuner/autotuner.py``). The kill switch must be set alike on
+        every rank. Best-effort: tuning never fails a save."""
+        if not knobs.is_autotune_enabled():
+            return
+        try:
+            if self._autotuner is None:
+                from .tuner import Autotuner
+
+                self._autotuner = Autotuner(self.root)
+            report = None
+            if self._pg.get_rank() == 0:
+                from .telemetry import last_report
+
+                report = last_report("take", "async_take", path=self.step_path(step))
+            self._autotuner.tune_after_step(step, report, self._pg)
+        except Exception as e:  # noqa: BLE001 - tuning is best-effort
+            logger.warning("autotuner: skipped tuning after step %d: %r", step, e)
 
     def _post_step_ledger(self, step: int, snapshot: Snapshot) -> None:
         """Post the committed step to the run ledger with its storage

@@ -334,6 +334,19 @@ def _emit_snapshot_report(
             # The knob values the op ran under, captured at its start.
             tunables=tunables if tunables is not None else knobs.tunable_snapshot(),
         )
+        # Blocking-chain attribution over the op's recorder window,
+        # before the gather, so that every rank's dict carries its
+        # segments into the cross-rank fold. The envelope span closed
+        # before this call, so the window holds the op's whole extent.
+        if trace_mark is not None:
+            try:
+                from .telemetry import critpath
+
+                report.critical_path = critpath.critical_path_from_events(
+                    _trace_recorder().events_since(trace_mark), kind
+                )
+            except Exception as e:  # noqa: BLE001 - attribution is best-effort
+                logger.warning("telemetry: critical-path attribution failed: %r", e)
         gathered = None
         if nonce and pg_wrapper.get_world_size() > 1 and pg_wrapper.store is not None:
             try:

@@ -1,7 +1,8 @@
 """Checkpoint telemetry: the process-wide metrics registry, the span
-recorder, per-operation reports and their sinks, live progress
-heartbeats, the per-manager step history, the run ledger and the goodput
-engine.
+recorder and its stall watchdog, per-operation reports with their
+critical paths and their sinks, live progress heartbeats, the
+per-manager step history, the run ledger and the goodput engine, and
+above them the doctor, the SLO engine and incident bundles.
 
 The counterpart of ``torchsnapshot_tpu/telemetry/__init__.py``, in the
 same file formats: a take, restore or mirror job of the port leaves the
@@ -9,20 +10,35 @@ records a JAX run leaves (``.telemetry.jsonl`` reports with the sink on,
 ``.trace-<kind>-rank<r>.json`` exports with the trace sink on,
 ``.progress-rank<r>.json`` heartbeats, and under a manager root
 ``.telemetry-history.jsonl`` and ``.ledger.jsonl``), and each package's
-readers parse the other's. ``python -m
-torchsnapshot_tpu_torch.telemetry.goodput <root>`` attributes a run's
-wall time; ``python -m torchsnapshot_tpu_torch.telemetry.trace <snapshot>``
-merges its per-rank traces.
+readers parse the other's, with incident bundles under
+``<root>/.bundles/`` and the autotuner's ``.tuner-state.json`` beside
+them.
 
-Not part of this package yet: the SLO engine and the autotuner (ROADMAP
-step 10b), the wire observatory (10c), and the doctor, critical-path
-attribution, incident bundles, the stats CLI and the stall watchdog
-(10d).
+``python -m torchsnapshot_tpu_torch.telemetry`` is the JAX package's
+CLI: ``stats <events.jsonl>`` (the default), ``trace <snapshot>``,
+``doctor <snapshot>`` (``--trend``, ``--bundle``), ``goodput <root>``,
+``diff <a> <b>``, ``slo <root>`` and ``bundle <root>``.
+
+Not part of this package yet: the wire observatory and the fleet metrics
+plane (ROADMAP step 10c); ``telemetry fleet``, ``doctor --fleet`` and
+``doctor.diagnose_fleet`` raise ``NotImplementedError`` naming the step.
 """
 
 from __future__ import annotations
 
-from . import goodput, history, ledger, names, progress, trace
+from . import (
+    bundle,
+    critpath,
+    doctor,
+    goodput,
+    history,
+    ledger,
+    names,
+    progress,
+    slo,
+    trace,
+    watchdog,
+)
 from .progress import current_progress
 from .registry import (
     DEFAULT_SECONDS_BUCKETS,
@@ -52,8 +68,11 @@ __all__ = [
     "SnapshotReport",
     "aggregate_across_ranks",
     "build_report",
+    "bundle",
     "clock_offsets_from_gather",
+    "critpath",
     "current_progress",
+    "doctor",
     "emit_report",
     "events_path_for",
     "goodput",
@@ -73,7 +92,9 @@ __all__ = [
     "reset_trace",
     "safe_rate_mb_s",
     "series_key",
+    "slo",
     "trace",
+    "watchdog",
     "write_prometheus_textfile",
 ]
 

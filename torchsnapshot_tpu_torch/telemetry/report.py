@@ -1,12 +1,12 @@
 """SnapshotReport: one JSON-serializable record per checkpoint operation.
 
 Copy of ``torchsnapshot_tpu/telemetry/report.py``, in the same schema, so
-that either package's readers parse the other's reports. Three fields come
-from parts of the telemetry stack not ported yet and keep the JAX
-package's empty values in the port's reports: ``critical_path`` (the
-blocking-chain attribution) stays None; ``wire`` is None because no wire
-counter is recorded (``wire_from_deltas`` finds none); ``tunables`` holds
-``knobs.tunable_snapshot()``, the port's knob values under the JAX names.
+that either package's readers parse the other's reports.
+``critical_path`` is filled by ``telemetry/critpath.py`` for every take,
+restore and mirror job; ``wire`` is None because no wire counter is
+recorded (``wire_from_deltas`` finds none; ROADMAP step 10c);
+``tunables`` holds ``knobs.tunable_snapshot()``, the vector the op ran
+under, under the JAX names.
 
 Every ``Snapshot.take`` / ``async_take`` / ``restore`` /
 ``async_restore`` and every tiered mirror job produces one of these.

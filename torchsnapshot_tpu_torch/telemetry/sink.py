@@ -1,8 +1,8 @@
 """Report sinks: JSONL event log + Prometheus text exposition.
 
-Copy of ``torchsnapshot_tpu/telemetry/sink.py``. The JAX package also
-freezes an incident bundle when a failed op's report is emitted; bundles
-are not part of this package yet, so a failed op's report is only logged.
+Copy of ``torchsnapshot_tpu/telemetry/sink.py``. A failed op's report
+(rank 0) also freezes an incident bundle (``telemetry/bundle.py``), as
+in the JAX package.
 
 Two knob-controlled outputs, both best-effort (a telemetry write must
 never fail a checkpoint — failures log a warning and the operation
@@ -160,9 +160,20 @@ def emit_report(
                 "telemetry: could not write prometheus file %r: %r", prom, e
             )
     if report.error and report.rank == 0:
-        logger.warning(
-            "telemetry: %s of %s failed: %s", report.kind, report.path, report.error
-        )
+        # A failed op is a black-box trigger: freeze the evidence while
+        # the failure's traces, heartbeats and ledger tail still exist.
+        # Rate-limited and size-capped inside capture_bundle.
+        try:
+            from .bundle import capture_bundle
+
+            capture_bundle(
+                report.path,
+                trigger="failed-op",
+                reason=f"{report.kind}: {report.error}"[:200],
+                snapshot_path=report.path,
+            )
+        except Exception as e:  # noqa: BLE001
+            logger.warning("telemetry: failed-op bundle capture failed: %r", e)
     return path
 
 

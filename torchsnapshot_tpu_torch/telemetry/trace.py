@@ -25,9 +25,8 @@ Copy of ``torchsnapshot_tpu/telemetry/trace.py``:
   rank), correcting per-rank clock offsets measured by the report
   gather, and prints a straggler / longest-span summary.
 
-The stall watchdog that scans the open spans (ROADMAP step 10d) is not
-part of this package yet: where the JAX recorder starts it at a span's
-begin, this one starts nothing.
+The stall watchdog (watchdog.py) scans this recorder's open spans; the
+first span's begin starts it.
 """
 
 from __future__ import annotations
@@ -155,8 +154,10 @@ class SpanRecorder:
             self._open[token] = _OpenSpan(
                 name, ts, self._seq, self._tid_locked(key), args
             )
-        # The JAX recorder starts its stall watchdog here; the watchdog
-        # is not ported yet (ROADMAP step 10d), so nothing starts.
+        # Outside the lock: may start the watchdog thread.
+        from . import watchdog
+
+        watchdog.ensure_started(self)
         return token
 
     def end(self, token: int, **extra_args: Any) -> None:

@@ -25,9 +25,8 @@ stays committed and restorable.
 A settled job emits a ``kind: "mirror"`` snapshot report, posts
 ``mirror-settled`` to the run ledger of the manager root this process
 owns (rank 0), and exports its span window as a Chrome trace beside the
-fast tier's take trace, as the JAX package does. Left out until the
-critical-path attribution is ported (ROADMAP step 10d): the report's
-``critical_path`` stays None.
+fast tier's take trace, as the JAX package does; the report's
+``critical_path`` attributes the job's wall over its span window.
 """
 
 from __future__ import annotations
@@ -353,6 +352,16 @@ class Mirror:
                 },
                 error=repr(job.error) if job.error is not None else None,
             )
+            # Which segment (per-blob copies, storage writes) gated the
+            # replication wall.
+            try:
+                from ..telemetry import critpath
+
+                report.critical_path = critpath.critical_path_from_events(
+                    _trace_recorder().events_since(job.trace_mark), "mirror"
+                )
+            except Exception as e:  # noqa: BLE001 - attribution is best-effort
+                logger.warning("mirror: critical-path attribution failed: %r", e)
             telemetry.emit_report(report, registry)
             # The owned-root gate keeps the post rank-0-only: a co-hosted
             # rank's mirror resolves to a ledger it did not open.
