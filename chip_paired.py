@@ -8,11 +8,13 @@ same for both:
     git add -A
     python3 chip_paired.py prepare PARENT_REV     # in the git checkout
     python3 chip_paired.py run                     # on the card
+    python3 chip_paired.py run --phases peer,cdn   # those phases only
 
 ``prepare`` unpacks ``git archive PARENT_REV`` and the index's tree
 (``git write-tree``) under ``build/paired/{parent,change}``. ``run`` takes
 each turn from its tree's own directory: that tree's ``chip_smoke.py``
-(all phases), then this script's ``time`` on that tree,
+(all phases, or those of ``--phases`` and nothing else), then this
+script's ``time`` on that tree,
 which times the tree's two flash wrappers in bf16 and f32 at the main path's
 shape and at (2, 4096, 16, 128), its digest wrapper ``digest_many_async``
 on the train state's and the bulk state's chunk tables, and its pack
@@ -128,22 +130,22 @@ def time_digest(tree: str) -> None:
     del state, specs, bulk, flat, bulk_specs
 
 
-def run() -> int:
+def run(phases: str = "") -> int:
     os.makedirs(OUT, exist_ok=True)
     for i, name in enumerate(TURNS):
         tree = os.path.join(PAIRED, name)
         log_path = os.path.join(OUT, f"{i}_{name}.log")
+        smoke = [sys.executable, "chip_smoke.py"]
+        cmds = [smoke + ["--phases", phases]] if phases else [
+            smoke, [sys.executable, os.path.join(HERE, "chip_paired.py"), "time", tree]]
         with open(log_path, "w") as log:
-            for cmd in (
-                [sys.executable, "chip_smoke.py"],
-                [sys.executable, os.path.join(HERE, "chip_paired.py"), "time", tree],
-            ):
+            for cmd in cmds:
                 proc = subprocess.run(cmd, cwd=tree, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
                 log.write(proc.stdout)
                 print(f"== turn {i} {name}: {' '.join(cmd[1:])} exited {proc.returncode}")
                 for line in proc.stdout.splitlines():
-                    if line.startswith(("kernel ", "{", "main:", "bulk:", "leaves:", "profile of")):
+                    if line.startswith(("kernel ", "{", "main:", "bulk:", "leaves:", "profile of", "summary ")):
                         print(line)
                 if proc.returncode != 0:
                     print(proc.stdout[-3000:])
@@ -155,7 +157,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
     sub.add_parser("prepare").add_argument("parent_rev")
-    sub.add_parser("run")
+    sub.add_parser("run").add_argument("--phases", default="", help="chip_smoke.py's phases only, no time")
     sub.add_parser("time").add_argument("tree")
     args = p.parse_args()
     if args.cmd == "prepare":
@@ -163,7 +165,7 @@ def main() -> int:
     elif args.cmd == "time":
         time_tree(os.path.abspath(args.tree))
     else:
-        return run()
+        return run(args.phases)
     return 0
 
 

@@ -153,8 +153,17 @@ each of which raises on failure (nothing is caught):
    (a) runs with the report sink on: each rank's report is in the log
    with its critical path, and rank 0's carries the gathered spread and
    straggler of every metric, each rank's critical-path segments folded
-   in; its store requests include the gather's.
-   Each rank must launch every kernel of the path.
+   in; its store requests include the gather's; each rank's report
+   carries a non-empty wire split (store frames, bytes and RPCs), logged
+   with its store RPC seconds by op id beside the critical path's
+   ``coordination`` and ``other``. Each rank must launch every kernel of
+   the path. Then the storm leg, host only, in the parent:
+   ``scalemodel.run_storm`` at 256 simulated ranks (threads) over the
+   package's barriers, store and fan-out exchange: at step 0 every rank's
+   exchanged bytes verify; at step 1 three ranks are preempted mid-round
+   and every survivor abandons with ``BarrierError`` / ``FanoutError``
+   within half the 60 s round timeout. Logs each structure's straggler
+   seconds and the store requests by op.
 7. **sharded**: two processes on the card, spawned as in the ranks phase,
    with a gloo default group (no tensor collective runs on the checkpoint
    path) and a ``cuda`` device mesh of 2. Each trains the main
@@ -253,11 +262,19 @@ each of which raises on failure (nothing is caught):
    (``peer_push_failures_total`` >= 1, ``peer_tier_degraded`` 1) without
    holding its save, the drain settles within 60 s, rank 1 restores from
    storage bit-identical (rank 0 from peer RAM), and ``fsck --tier peer``
-   names each of rank 1's blobs as unplaced. Logs each rank's push seconds
+   names each of rank 1's blobs as unplaced. Each leg's ``wire:*`` spans
+   of both ranks, exported per rank and merged with
+   ``trace.merge_traces``, stitch at least one client -> handler pair per
+   push job (a) and per restore that took bytes from peer RAM (b, d).
+   Logs each rank's push seconds
    and bytes, the step alone and beside the push, restore seconds from
-   peer RAM and from storage, and store requests per leg. Its digest
+   peer RAM and from storage, store requests per leg, and per leg the RPC
+   seconds by op id (``peer-push``, ``peer-pull``, ``store-*``) and the
+   frame bytes by endpoint and direction; first, the host's microseconds
+   to put the 50-byte trace header on a frame and take it off. Its digest
    launches (both ranks') add to the record's.
-11. **cdn**: the checkpoint CDN (``cdn/``) on the main configuration. The
+11. **cdn**: the checkpoint CDN (``cdn/``) on the main configuration,
+   with the fleet metrics plane on (``TORCHSNAPSHOT_TPU_FLEET_OBS=1``). The
    trainer (this process) hosts the package's ``TCPStore`` and saves
    through ``CheckpointManager(root, keep_last_n=1, incremental=True,
    cdn_topic="run", cdn_store=<client>)`` with ``TORCHSNAPSHOT_TPU_CAS=1``,
@@ -290,11 +307,21 @@ each of which raises on failure (nothing is caught):
    rises by at most the new set's bytes plus 5%, and after it is back where
    it was; the trainer's run ledger holds a ``cdn-published`` event per
    announced step and a ``cdn-swapped`` event per subscriber per applied
-   step (the subscribers post to the trainer's root). Logs publish ms, per
-   subscriber and step the sync s, bytes from
+   step (the subscribers post to the trainer's root). The wire
+   observatory, hard checks: while the fleet serves, ``wire.collect_fleet``
+   on the trainer's store returns one fresh ``__obs/`` entry for the
+   publisher and one for each subscriber, each within 4096 bytes; ``python
+   -m torchsnapshot_tpu_torch.telemetry fleet <host:port> --once`` (a
+   subprocess) exits 0 with one row per member, and ``doctor --fleet``
+   runs; after the fleet and the publisher close no ``__obs/`` key is
+   left; the fleet processes' wire spans, merged, stitch every served peer
+   pull to its client span, some across the two processes. Logs publish
+   ms, per subscriber and step the sync s, bytes from
    peers and from durable storage, stage and swap s, staleness (publish to
    swap) and the serving forward's ms, the fleet's staleness median and
-   maximum, and the phase's launches, which add to the record's.
+   maximum, each fleet process's wire split (frames, bytes, dials, RPC
+   seconds by op id), the fleet table and the doctor's verdicts, and the
+   phase's launches, which add to the record's.
 
 Every phase runs with the record knobs at their defaults (the run ledger,
 heartbeats and history on; the report and trace sinks off) and the stall
@@ -3615,6 +3642,35 @@ def _require_gathered_reports(path: str, kind: str) -> int:
     return len(agg)
 
 
+def _require_wire_split(path: str, kind: str, rank: int) -> dict:
+    """``rank``'s ``kind`` report at ``path`` carries a non-empty wire split
+    (``report.wire``): frames, bytes and RPCs over the coordination store,
+    with the RPC seconds by op id. Returns the split beside the report's
+    critical-path ``coordination`` and ``other`` seconds."""
+    from torchsnapshot_tpu_torch.telemetry.sink import load_events
+
+    reports = [e for e in load_events(os.path.join(path, ".telemetry.jsonl")) if (e["kind"], e["rank"]) == (kind, rank)]
+    _require(len(reports) == 1, f"rank {rank}: {len(reports)} {kind} reports at {path}")
+    wire = reports[0].get("wire") or {}
+    store = {op: t for op, t in (wire.get("ops") or {}).items() if op.startswith("store-")}
+    _require(min(wire.get("frames", 0), wire.get("bytes", 0), wire.get("rpcs", 0)) > 0 and store,
+             f"rank {rank}'s {kind} report at {path} has no wire split over the store: {wire}")
+    segments = reports[0]["critical_path"]["segments"]
+    return {
+        "frames": wire["frames"], "bytes": wire["bytes"], "rpcs": wire["rpcs"], "rpc_s": wire["rpc_s"],
+        "store_ops": {op: [t["rpcs"], t["rpc_s"]] for op, t in sorted(store.items())},
+        "coordination_s": segments.get("coordination", 0.0), "other_s": segments.get("other", 0.0),
+    }
+
+
+def _wire_line(w: dict) -> str:
+    return (
+        f"{w['frames']:.0f} frames, {w['bytes'] / 1e6:.4f} MB, {w['rpcs']:.0f} store RPCs in {w['rpc_s']:.4f} s ("
+        + ", ".join(f"{op} {n:.0f} in {sec:.4f} s" for op, (n, sec) in w["store_ops"].items())
+        + f"); critical path coordination {w['coordination_s']:.4f} s, other {w['other_s']:.4f} s"
+    )
+
+
 def _ledger_events(root: str) -> list:
     from torchsnapshot_tpu_torch.telemetry.ledger import LEDGER_BASENAME, load_ledger
 
@@ -3714,6 +3770,7 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
     d2h, requests, store_s = (a - b for a, b in zip(_coordination_counters(), before))
     wrapper.barrier()  # both ranks' reports are in the log
     aggregated = _require_gathered_reports(path_a, "take") if rank == 0 else None
+    wire_a = _require_wire_split(path_a, "take", rank)
     manifest = Snapshot(path_a).metadata.manifest
     _require(
         all(k.startswith("0/") for k, e in manifest.items() if getattr(e, "replicated", False)),
@@ -3746,7 +3803,7 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
         "take_s": take_s, "d2h_bytes": d2h, "replicated_bytes": rep_total,
         "replicated_written_bytes": rep_written, "replicated_share": rep_written / rep_total,
         "own_written_bytes": own_written, "store_requests": requests, "store_s": store_s,
-        "aggregated_metrics": aggregated,
+        "aggregated_metrics": aggregated, "wire": wire_a,
     }
 
     # (b) Restore into another seed's state; the next step continues bit for bit.
@@ -3960,6 +4017,45 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
     return record
 
 
+# The ranks phase's storm leg: the scale model's simulated ranks (threads of
+# this process) over the package's barriers, store and fan-out exchange.
+STORM_WORLD = 256
+STORM_KILLED = frozenset({7, 41, 200})
+STORM_TIMEOUT_S = 60.0
+
+
+def storm_leg() -> dict:
+    """``scalemodel.run_storm`` at world 256, host only: at step 0 the save
+    and restore storms run to the end and every rank's exchanged bytes
+    verify; at step 1 three ranks are preempted mid-round, and every
+    survivor must abandon with ``BarrierError`` / ``FanoutError`` well
+    inside the round timeout."""
+    import collections
+
+    from torchsnapshot_tpu_torch.scalemodel import StormConfig, run_storm
+
+    t0 = time.monotonic()
+    r = run_storm(StormConfig(
+        world_size=STORM_WORLD, steps=2, kill_ranks=STORM_KILLED, kill_step=1, timeout_s=STORM_TIMEOUT_S,
+    ))
+    wall_s = time.monotonic() - t0
+    survivors = sorted(set(range(STORM_WORLD)) - STORM_KILLED)
+    _require(r.survivors_aborted_cleanly(), f"storm: {r.hung_ranks} ranks hung, errors of {len(r.errors)} ranks")
+    _require(all("SimulatedPreemption" in r.errors[k] for k in STORM_KILLED), "storm: a victim was not preempted")
+    abandoned = [k for k in survivors if r.errors[k].startswith(("BarrierError", "FanoutError"))]
+    _require(len(abandoned) == len(survivors),
+             f"storm: survivors {sorted(set(survivors) - set(abandoned))[:5]} raised otherwise: "
+             f"{[r.errors[k] for k in survivors if k not in abandoned][:2]}")
+    _require(r.verified_ranks == STORM_WORLD, f"storm: {r.verified_ranks} of {STORM_WORLD} exchanges verified")
+    _require(wall_s < STORM_TIMEOUT_S / 2, f"storm: the survivors took {wall_s:.1f} s to abandon")
+    return {
+        "world": STORM_WORLD, "killed": sorted(STORM_KILLED), "wall_s": wall_s, "straggler_s": r.max_s,
+        "mean_s": r.mean_s, "store_requests": r.store_requests, "store_request_ops": r.store_request_ops,
+        "hot_data_key": r.hot_data_key, "hot_data_key_touches": r.hot_data_key_touches,
+        "errors": dict(sorted(collections.Counter(e.split("(")[0] for e in r.errors.values()).items())),
+    }
+
+
 def ranks_phase(args, work_dir: str, card: str) -> dict:
     """Two processes on the card (rank r on card r % count), each training
     the main configuration and checkpointing it through a process group of
@@ -4020,11 +4116,12 @@ def ranks_phase(args, work_dir: str, card: str) -> dict:
     _require(same_bits(own_1, _own_tensor(args.seed, 1)), "rank 1's per-rank tensor differs (read_object)")
     del fresh, state, own_1
     torch.cuda.empty_cache()
+    storm = storm_leg()
 
     wall_s = time.monotonic() - t_phase
     record = {
         "card": card, "ranks": records, "workers_s": workers_s,
-        "d": {"restore_s": elastic_s, "read_object_s": read_object_s}, "wall_s": wall_s,
+        "d": {"restore_s": elastic_s, "read_object_s": read_object_s}, "storm": storm, "wall_s": wall_s,
     }
     for r in records:
         a, c = r["a"], r["c"]
@@ -4041,12 +4138,21 @@ def ranks_phase(args, work_dir: str, card: str) -> dict:
             + f" s, applied vector {r['g']['vector']}"
             + f"; failing peer raised in {r['f']['raised_s']:.2f} s; launches {r['launches']}"
         )
+        log(f"ranks: rank {r['rank']} take (a) wire: {_wire_line(a['wire'])}")
+    log(
+        f"ranks: storm of {storm['world']} simulated ranks, {len(storm['killed'])} preempted at step 1: "
+        f"abandoned in {storm['wall_s']:.3f} s ({storm['errors']}); straggler s "
+        + ", ".join(f"{k} {v:.4f}" for k, v in storm["straggler_s"].items())
+        + f"; {storm['store_requests']} store requests {storm['store_request_ops']}; hottest data key "
+        f"{storm['hot_data_key']!r} touched {storm['hot_data_key_touches']} times"
+    )
     log(
         f"ranks: world-1 restore of the two-rank snapshot {elastic_s:.3f} s, read_object(1/own/x) "
         f"{read_object_s:.3f} s, bit-identical; workers {workers_s:.1f} s, phase {wall_s:.1f} s on {card}"
     )
     _headline("ranks", take_s=[r["a"]["take_s"] for r in records], restore_s=[r["b"]["restore_s"] for r in records],
-              world1_restore_s=elastic_s)
+              world1_restore_s=elastic_s, take_store_rpc_s=[r["a"]["wire"]["rpc_s"] for r in records],
+              storm_abandon_s=storm["wall_s"])
     print(json.dumps({"ranks": record}), flush=True)
     return record
 
@@ -4675,6 +4781,96 @@ def _next_loss(cfg, tensors: dict, step: int, tokens, train_step):
     return loss
 
 
+class WireWindow:
+    """One leg's wire record on one rank of a two-rank phase: the wire
+    counters' deltas (RPCs and their seconds by op id, frame bytes by
+    endpoint and direction) and the leg's ``wire:*`` spans, which every
+    rank exports and then merges with both ranks' files
+    (``trace.merge_traces``) to count the stitched client -> handler
+    pairs in which it is the client."""
+
+    def __init__(self, wrapper, rank: int, world: int, work_dir: str, leg: str) -> None:
+        from torchsnapshot_tpu_torch import telemetry
+        from torchsnapshot_tpu_torch.telemetry.trace import get_recorder
+
+        self.wrapper, self.rank = wrapper, rank
+        self.paths = [os.path.join(work_dir, f"wire-{leg}-rank{r}.json") for r in range(world)]
+        self.mark = get_recorder().mark()
+        self.counters = telemetry.metrics().counters_snapshot()
+
+    def close(self) -> dict:
+        """Export, wait for the other rank's file, merge; every rank calls it."""
+        from torchsnapshot_tpu_torch import telemetry
+        from torchsnapshot_tpu_torch.telemetry import names
+        from torchsnapshot_tpu_torch.telemetry.registry import parse_series_key
+        from torchsnapshot_tpu_torch.telemetry.trace import (
+            chrome_trace,
+            get_recorder,
+            merge_traces,
+            stitched_wire_pairs,
+            write_trace_file,
+        )
+
+        rpcs: dict = {}
+        frame_bytes: dict = {}
+        for key, v in telemetry.metrics().counters_delta_since(self.counters).items():
+            name, labels = parse_series_key(key)
+            if name in (names.WIRE_RPCS_TOTAL, names.WIRE_RPC_SECONDS_TOTAL):
+                rpcs.setdefault(labels["op"], [0.0, 0.0])[name == names.WIRE_RPC_SECONDS_TOTAL] += v
+            elif name == names.WIRE_BYTES_TOTAL:
+                key = f"{labels['endpoint']}/{labels['dir']}"
+                frame_bytes[key] = frame_bytes.get(key, 0.0) + v
+        rec = get_recorder()
+        spans = [e for e in rec.events_since(self.mark) if e["name"] in (names.SPAN_WIRE_RPC, names.SPAN_WIRE_HANDLER)]
+        write_trace_file(self.paths[self.rank], chrome_trace(
+            spans, rec.tid_names(), rank=self.rank, dropped=rec.dropped - self.mark.dropped))
+        self.wrapper.barrier()
+        merged = merge_traces(self.paths)
+        stitched: dict = {}
+        for client, handler in stitched_wire_pairs(merged):
+            if client["pid"] == self.rank and handler["pid"] != self.rank:
+                op = client["args"]["op"]
+                stitched[op] = stitched.get(op, 0) + 1
+        clients: dict = {}
+        for e in spans:
+            if e["name"] == names.SPAN_WIRE_RPC:
+                clients[e["args"]["op"]] = clients.get(e["args"]["op"], 0) + 1
+        return {
+            "rpcs": dict(sorted(rpcs.items())), "frame_bytes": dict(sorted(frame_bytes.items())),
+            "stitched": dict(sorted(stitched.items())), "client_rpcs": dict(sorted(clients.items())),
+            "stitched_total": merged["otherData"]["wire_stitched"],
+            "dropped_events": merged["otherData"]["dropped_events"],
+        }
+
+
+def _peer_wire_line(leg: str, w: dict) -> str:
+    return (
+        f"{leg} RPCs " + ", ".join(f"{op} {n:.0f} in {sec:.4f} s" for op, (n, sec) in w["rpcs"].items())
+        + "; frame MB " + ", ".join(f"{k} {v / 1e6:.3f}" for k, v in w["frame_bytes"].items())
+        + "; stitched as the client " + ", ".join(
+            f"{op} {w['stitched'].get(op, 0)} of {n}" for op, n in w["client_rpcs"].items())
+    )
+
+
+def wire_header_cost(frames: int = 20000) -> dict:
+    """Host microseconds to put the trace header on a 256-byte frame and
+    to take it off (``wire.encode_frame`` / ``decode_frame``)."""
+    from torchsnapshot_tpu_torch.telemetry import names, wire
+
+    ctx = wire.WireContext(wire.new_id(), wire.new_id(), names.RPC_PEER_PULL)
+    body = bytes(256)
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        framed = wire.encode_frame(ctx, body)
+    encode_us = (time.perf_counter() - t0) / frames * 1e6
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        got, _ = wire.decode_frame(framed)
+    decode_us = (time.perf_counter() - t0) / frames * 1e6
+    _require(got == ctx, "the header did not round-trip")
+    return {"header_bytes": wire.HEADER_LEN, "encode_us": encode_us, "decode_us": decode_us}
+
+
 def peer_worker(pg, seed: int, work_dir: str) -> dict:
     """One rank of the peer phase (spawned by ``run_multiprocess``; the
     parent built every kernel): the sharded phase's state (the main
@@ -4759,6 +4955,7 @@ def peer_worker(pg, seed: int, work_dir: str) -> dict:
         # (a) A sync save, then an async save beside a training step; each
         # rank's neighbour then holds exactly the newer step's blobs of
         # this rank, and the older step is evicted from its cache.
+        window = WireWindow(wrapper, rank, world, work_dir, "a")
         timed_step()
         alone_s = statistics.median(timed_step() for _ in range(3))
         tree = _dtensor_tree(_replica_leaves(state, seed), mesh)
@@ -4798,6 +4995,9 @@ def peer_worker(pg, seed: int, work_dir: str) -> dict:
         a_requests = requests() - r0
         del tree
         wrapper.barrier()  # every push settled: each cache is final
+        wire_a = window.close()
+        _require(wire_a["stitched"].get(names.RPC_PEER_PUSH, 0) >= 1,
+                 f"rank {rank} (a): no push of its job stitched to the neighbour's handler: {wire_a}")
         step2_path = mgr.step_path(2)
         table = data_locations(step2_path, rank)
         endpoint = rep.endpoint_for(neighbour)
@@ -4826,6 +5026,7 @@ def peer_worker(pg, seed: int, work_dir: str) -> dict:
             "step_alone_s": alone_s, "step_beside_push_s": beside_s, "push_busy_at_step": push1_busy,
             "step_beside_async_s": beside_async_s, "store_requests": a_requests,
             "neighbour_cache_bytes": neighbour_stats["bytes"], "neighbour_cache_steps": neighbour_stats["steps"],
+            "wire": wire_a,
         }
         wrapper.barrier()
 
@@ -4852,6 +5053,7 @@ def peer_worker(pg, seed: int, work_dir: str) -> dict:
             DataReads.paths = []
             r = requests()
             wrapper.barrier()
+            window = WireWindow(wrapper, rank, world, work_dir, what.split("(")[-1].rstrip(")"))
             torch.cuda.synchronize()
             t0 = time.monotonic()
             with patch_storage_plugin(DataReads) if count else contextlib.nullcontext():
@@ -4866,8 +5068,14 @@ def peer_worker(pg, seed: int, work_dir: str) -> dict:
             del dest, full
             tele = dict(mgr.restore_telemetry)
             reads = len(DataReads.paths) if count else None  # None: not counted on this rank
+            wire_leg = window.close()
+            # Every pull job (a restore that took bytes from peer RAM) shows
+            # in the merged trace as stitched client -> handler pairs.
+            if tele.get("tier_split", {}).get("peer", 0) > 0:
+                _require(wire_leg["stitched"].get(names.RPC_PEER_PULL, 0) >= 1,
+                         f"rank {rank} {what}: no peer pull stitched to the serving handler: {wire_leg}")
             return {"restore_s": seconds, "data_reads": reads, "store_requests": requests() - r,
-                    "telemetry": tele, "next_loss": float(loss)}
+                    "telemetry": tele, "next_loss": float(loss), "wire": wire_leg}
 
         restored_step, want_leaves, want_step = 2, leaves2, step2
         want_loss = _next_loss(cfg, saved2, step2, tokens, train_step)
@@ -4967,6 +5175,9 @@ def peer_phase(args, work_dir: str, card: str) -> dict:
     t_phase = time.monotonic()
     peer_dir = os.path.join(work_dir, "peer")
     os.makedirs(peer_dir, exist_ok=True)
+    header = wire_header_cost()
+    log(f"peer: the wire header, {header['header_bytes']} bytes: {header['encode_us']:.3f} us to put on a "
+        f"256-byte frame, {header['decode_us']:.3f} us to take off (host)")
     records = run_multiprocess(peer_worker, RANKS, args=(args.seed, peer_dir), timeout=900.0)
     wall_s = time.monotonic() - t_phase
     for r in records:
@@ -4991,13 +5202,17 @@ def peer_phase(args, work_dir: str, card: str) -> dict:
             f"{b['store_requests']:.0f}, (c) {c['store_requests']:.0f}, (d) {d['store_requests']:.0f}; "
             f"launches {r['launches']}"
         )
-    record = {"card": card, "ranks": records, "wall_s": wall_s}
+        for leg, w in (("(a)", a["wire"]), ("(b)", b["wire"]), ("(c)", c["wire"]), ("(d)", d["wire"])):
+            log(f"peer: rank {r['rank']} wire {_peer_wire_line(leg, w)}")
+    record = {"card": card, "ranks": records, "wire_header": header, "wall_s": wall_s}
     log(f"peer: phase {wall_s:.1f} s on {card}")
     r1 = records[1]
     _headline("peer", push_s=r1["a"]["push_s"], push_gb=[x / 1e9 for x in r1["a"]["push_bytes"]],
               replacement_peer_share=r1["b"]["peer_share"], restore_peer_s=r1["b"]["restore_s"],
               restore_storage_s=r1["c"]["restore_s"], dead_neighbour_save_s=r1["d"]["save_s"],
-              dead_neighbour_drain_s=r1["d"]["drain_s"])
+              dead_neighbour_drain_s=r1["d"]["drain_s"],
+              pull_rpc_s=r1["b"]["wire"]["rpcs"].get("peer-pull", [0, 0])[1],
+              header_us=header["encode_us"] + header["decode_us"])
     print(json.dumps({"peer": record}), flush=True)
     return record
 
@@ -5025,6 +5240,8 @@ CDN_CRASH_SUB, CDN_CRASH_STEP = 0, 2
 # The step whose publisher is killed between the announce and the head.
 CDN_PUBLISH_CRASH_STEP = 3
 CDN_WAIT_S = 300.0
+# The fleet processes' flight-recorder ring (completed events).
+CDN_TRACE_EVENTS = 1 << 20
 
 
 def _cdn_key(*parts) -> str:
@@ -5096,7 +5313,10 @@ def cdn_fleet_worker(pg, seed: int, work_dir: str, store_port: int, root: str) -
     from torch.func import functional_call
 
     os.environ["TORCHSNAPSHOT_TPU_CDN_PULL_TIMEOUT_SECONDS"] = str(CDN_PULL_TIMEOUT_S)
+    # A flight-recorder ring that holds every wire span of the phase.
+    os.environ["TORCHSNAPSHOT_TPU_TRACE_BUFFER_EVENTS"] = str(CDN_TRACE_EVENTS)
 
+    from torchsnapshot_tpu_torch import telemetry
     from torchsnapshot_tpu_torch.cas import CASStore
     from torchsnapshot_tpu_torch.cdn import CdnSubscriber, WeightSwapper, durable_chunk_reader
     from torchsnapshot_tpu_torch.chaos import SimulatedCrash, arm, disarm
@@ -5107,8 +5327,13 @@ def cdn_fleet_worker(pg, seed: int, work_dir: str, store_port: int, root: str) -
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
     from torchsnapshot_tpu_torch.ops import kernels
     from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.telemetry.report import wire_from_deltas
+    from torchsnapshot_tpu_torch.telemetry.trace import chrome_trace, get_recorder, write_trace_file
 
     proc = pg.rank
+    telemetry.reset_trace()
+    mark = get_recorder().mark()
+    counters = telemetry.metrics().counters_snapshot()
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5317,12 +5542,19 @@ def cdn_fleet_worker(pg, seed: int, work_dir: str, store_port: int, root: str) -
             _require(abort.try_get(_cdn_key("abort")) is None, "the trainer aborted")
             _require(time.monotonic() < deadline, "the trainer never closed the fleet")
             time.sleep(0.05)
+        # Every subscriber applied the last step: no pull is in flight. The
+        # process's wire spans go where the trainer merges them.
+        rec = get_recorder()
+        spans = [e for e in rec.events_since(mark) if e["name"] in (names.SPAN_WIRE_RPC, names.SPAN_WIRE_HANDLER)]
+        write_trace_file(os.path.join(work_dir, f"wire-fleet-proc{proc}.json"),
+                         chrome_trace(spans, rec.tid_names(), rank=proc, dropped=rec.dropped - mark.dropped))
+        wire = wire_from_deltas(telemetry.metrics().counters_delta_since(counters))
     finally:
         for m in members:
             m["sub"].close()
     launches = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
     _require(launches["flash_fwd"] > 0, f"fleet process {proc} never launched flash_fwd")
-    return {"proc": proc, "steps": [r for m in members for r in m["steps"]], "launches": launches}
+    return {"proc": proc, "steps": [r for m in members for r in m["steps"]], "launches": launches, "wire": wire}
 
 
 def _log_cdn_step(step: int, save: dict, recs: list) -> None:
@@ -5342,10 +5574,73 @@ def _log_cdn_step(step: int, save: dict, recs: list) -> None:
         )
 
 
+def fleet_plane_checks(store, port: int, publisher_id: str) -> dict:
+    """The fleet metrics plane while the fleet serves: one fresh ``__obs/``
+    entry for the publisher and one for each subscriber, each within the
+    entry bound; ``telemetry fleet`` (a subprocess) renders one row per
+    member; ``doctor --fleet`` runs."""
+    from torchsnapshot_tpu_torch.telemetry import wire
+
+    raw = store.multi_get(store.scan(wire.OBS_PREFIX + "/"))
+    sizes = {k: len(v) - len(b"%08x:" % 0) for k, v in raw.items()}
+    entries = wire.collect_fleet(store)
+    members = sorted((e["role"], e["id"]) for e in entries)
+    _require(members == [("publisher", publisher_id)] + [("subscriber", str(s)) for s in range(CDN_FLEET)],
+             f"the fleet plane holds {members}")
+    _require(len(sizes) == len(entries) and all(0 < n <= wire.SNAPSHOT_MAX_BYTES for n in sizes.values()),
+             f"fleet entries of {sorted(sizes.values())} bytes, the bound is {wire.SNAPSHOT_MAX_BYTES}")
+    # The two CLIs side by side: each spends most of its seconds importing torch.
+    cli = [sys.executable, "-m", "torchsnapshot_tpu_torch.telemetry"]
+    t0 = time.monotonic()
+    procs = [
+        subprocess.Popen(cli + args, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for args in (["fleet", f"127.0.0.1:{port}", "--once"], ["doctor", "--fleet", f"127.0.0.1:{port}"])
+    ]
+    (table, table_err), (doctor, doctor_err) = (p.communicate(timeout=180) for p in procs)
+    clis_s = time.monotonic() - t0
+    rows = [ln for ln in table.splitlines() if ln.split()[:1] in (["publisher"], ["subscriber"])]
+    _require(procs[0].returncode == 0 and len(rows) == 1 + CDN_FLEET,
+             f"telemetry fleet exited {procs[0].returncode} with {len(rows)} member rows: {table[-2000:]}"
+             f"{table_err[-2000:]}")
+    _require(procs[1].returncode in (0, 2) and "doctor fleet" in doctor,
+             f"doctor --fleet exited {procs[1].returncode}: {doctor[-2000:]}{doctor_err[-2000:]}")
+    return {"entry_bytes": sorted(sizes.values()), "ages_s": [round(e["age_s"], 3) for e in entries],
+            "table": table, "doctor": doctor, "clis_s": clis_s}
+
+
+def stitched_fleet_pulls(paths: list) -> dict:
+    """Merge the fleet processes' wire spans: every peer pull that reached a
+    server is stitched to its client span, and some cross processes."""
+    from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.telemetry.trace import merge_traces, spans_from_chrome, stitched_wire_pairs
+
+    merged = merge_traces(paths)
+    pulls = [(c, h) for c, h in stitched_wire_pairs(merged) if c["args"].get("op") == names.RPC_PEER_PULL]
+    spans = spans_from_chrome(merged)
+    handlers = [s for s in spans if s["name"] == names.SPAN_WIRE_HANDLER and s["args"].get("op") == names.RPC_PEER_PULL]
+    clients = [s for s in spans if s["name"] == names.SPAN_WIRE_RPC and s["args"].get("op") == names.RPC_PEER_PULL]
+    cross = sum(1 for c, h in pulls if c["pid"] != h["pid"])
+    dropped = merged["otherData"]["dropped_events"]
+    _require(dropped == 0 and len(pulls) == len(handlers) and cross > 0,
+             f"the fleet's merged trace: {len(pulls)} stitched pulls, {len(handlers)} served, {cross} across "
+             f"processes, {dropped} events dropped")
+    return {"client_pulls": len(clients), "served_pulls": len(handlers), "stitched_pulls": len(pulls),
+            "cross_process": cross}
+
+
 def cdn_phase(args, work_dir: str, card: str) -> dict:
-    """The checkpoint CDN on the card (module docstring, phase 11): the
-    trainer here, the fleet in two spawned processes. Returns the phase's
-    launch counts."""
+    """The checkpoint CDN on the card (module docstring, phase 11) with the
+    fleet metrics plane on (``TORCHSNAPSHOT_TPU_FLEET_OBS=1``; the fleet's
+    processes inherit it)."""
+    from torchsnapshot_tpu_torch import knobs
+
+    with knobs.enable_fleet_obs():
+        return _cdn_phase(args, work_dir, card)
+
+
+def _cdn_phase(args, work_dir: str, card: str) -> dict:
+    """The trainer here, the fleet in two spawned processes. Returns the
+    phase's launch counts."""
     import threading
 
     import torch
@@ -5431,6 +5726,7 @@ def cdn_phase(args, work_dir: str, card: str) -> dict:
     fleet_thread = threading.Thread(target=run_fleet, daemon=True)
     fleet_thread.start()
     announces, saves, steps = {}, {}, {}
+    restarted = None
     try:
         deadline = time.monotonic() + CDN_WAIT_S
         while any(client.try_get(_cdn_key("ready", s)) is None for s in range(CDN_FLEET)):
@@ -5470,7 +5766,8 @@ def cdn_phase(args, work_dir: str, card: str) -> dict:
                     # The restarted trainer's publisher announces the step.
                     refs = chunk_refs(Snapshot(mgr.step_path(step)).metadata.manifest)
                     t1 = time.monotonic()
-                    ann = CdnPublisher(client, CDN_TOPIC, publisher_id=f"rank0@{root}", root=root).publish(step, refs)
+                    restarted = CdnPublisher(client, CDN_TOPIC, publisher_id=f"rank0@{root}", root=root)
+                    ann = restarted.publish(step, refs)
                     publish_s = time.monotonic() - t1
                     _require(ann is not None and ann.seq == head + 1 and read_head(client, CDN_TOPIC) == head + 1,
                              "the restarted publisher did not announce the step")
@@ -5506,6 +5803,7 @@ def cdn_phase(args, work_dir: str, card: str) -> dict:
                 _log_cdn_step(step, saves[step], recs)
             _require(any(r["crashed"] for r in steps[CDN_CRASH_STEP] if r["sid"] == CDN_CRASH_SUB),
                      "the armed subscriber was never killed")
+            plane = fleet_plane_checks(client, server.port, f"rank0@{root}")
             # Retention with the fleet's leases outstanding: fsck --cas clean.
             t0 = time.monotonic()
             report = verify_cas_store(root, deep=True)
@@ -5518,6 +5816,12 @@ def cdn_phase(args, work_dir: str, card: str) -> dict:
                      f"the fleet did not close: {fleet.get('error')}")
             _, _, leases = CASStore(root).load_full()
             _require(leases == {}, f"leases outstanding after the fleet closed: {sorted(leases)}")
+            # The fleet and the trainer's publisher closed: the plane is reaped.
+            restarted.close()
+            left = client.scan("__obs/")
+            _require(left == [], f"fleet-plane keys left after the fleet closed: {left}")
+            stitched = stitched_fleet_pulls(
+                [os.path.join(cdn_dir, f"wire-fleet-proc{p}.json") for p in range(CDN_FLEET_PROCS)])
             # The next save's GC reclaims every chunk no retained step names.
             state, _ = train_step(state, tokens)
             mgr.save(4, app_state)
@@ -5551,6 +5855,21 @@ def cdn_phase(args, work_dir: str, card: str) -> dict:
     all_recs = [r for s in CDN_STEPS for r in steps[s]]
     staleness = sorted(r["staleness_s"] for r in all_recs)
     median = statistics.median(staleness)
+    for rec in fleet["records"]:
+        w = rec["wire"] or {}
+        log(
+            f"cdn: fleet process {rec['proc']} wire: {w.get('frames', 0):.0f} frames, {w.get('bytes', 0) / 1e6:.3f} MB, "
+            f"dials {w.get('dials', 0):.0f} in {w.get('dial_s', 0):.4f} s; RPCs "
+            + ", ".join(f"{op} {t['rpcs']:.0f} in {t['rpc_s']:.4f} s" for op, t in (w.get("ops") or {}).items())
+        )
+    log(
+        f"cdn: fleet plane: {len(plane['entry_bytes'])} entries of {plane['entry_bytes']} bytes, ages "
+        f"{plane['ages_s']} s; telemetry fleet and doctor --fleet side by side {plane['clis_s']:.2f} s; "
+        f"merged fleet trace: {stitched['stitched_pulls']} of {stitched['served_pulls']} served pulls stitched "
+        f"({stitched['cross_process']} across processes; {stitched['client_pulls']} client pulls)"
+    )
+    for line in (plane["table"] + plane["doctor"]).splitlines():
+        log(f"cdn: | {line}")
     log(
         f"cdn: fleet of {CDN_FLEET} in {CDN_FLEET_PROCS} processes up in {fleet_up_s:.1f} s; staleness median "
         f"{median:.3f} s, max {staleness[-1]:.3f} s; the ledger {len(published)} cdn-published and "
@@ -5558,7 +5877,9 @@ def cdn_phase(args, work_dir: str, card: str) -> dict:
         f"({leased_unreferenced} leased chunks unreferenced); launches {launches}; phase {wall_s:.1f} s on {card}"
     )
     record = {"card": card, "saves": saves, "steps": steps, "staleness_median_s": median,
-              "staleness_max_s": staleness[-1], "fsck_s": fsck_s, "launches": launches, "wall_s": wall_s}
+              "staleness_max_s": staleness[-1], "fsck_s": fsck_s, "launches": launches, "wall_s": wall_s,
+              "fleet_wire": [rec["wire"] for rec in fleet["records"]], "stitched": stitched,
+              "fleet_entry_bytes": plane["entry_bytes"]}
     _headline(
         "cdn", publish_ms=[saves[s]["publish_s"] * 1e3 for s in CDN_STEPS],
         sync_s_max=[max(r["sync_s"] for r in steps[s]) for s in CDN_STEPS],

@@ -7,6 +7,7 @@ cases are in ``tests/test_torch_doctor.py``."""
 import os
 
 from torchsnapshot_tpu_torch.scalemodel import CdnStormConfig, build_step_chunks, run_cdn_storm
+from torchsnapshot_tpu_torch.telemetry import names
 
 
 def test_schedule_is_deterministic_with_churn():
@@ -39,9 +40,11 @@ def test_storm_converges_at_one_x_amplification():
     assert r.staleness_samples == 6 * 2
     assert r.staleness_max_s >= r.staleness_median_s >= 0.0
     assert set(r.pull_latency) == {"durable", "peer"}
-    # The wire report is the JAX package's wire observatory: not ported
-    # (step 10c).
-    assert r.wire is None
+    # The wire report: the fleet's peer pulls rode the peer endpoint, one
+    # RPC per pulled chunk at least.
+    assert r.wire is not None
+    assert r.wire["frames"] > 0 and r.wire["bytes"] > 0
+    assert r.wire["ops"][names.RPC_PEER_PULL]["rpcs"] > 0
 
 
 def test_storm_without_swapper_still_tracks():

@@ -157,7 +157,10 @@ def test_two_process_take_and_fanout_restore_meet_coverage_bar(tmp_path):
 
 def test_peer_served_restore_attributes_peer_segment(tmp_path):
     """The peer -> fast -> durable ladder, peer-served: blob reads gated
-    by ``peer:pull`` attribute to the ``peer`` segment."""
+    by ``peer:pull`` attribute to the ``peer`` segment, and the pull's
+    round trip, a ``wire:rpc`` span inside ``peer:pull`` (the innermost
+    frame gates), to ``wire``; the chain cites the pull through one of
+    the two."""
     import glob
 
     from test_torch_peer_tier import _FakeWorld
@@ -181,7 +184,8 @@ def test_peer_served_restore_attributes_peer_segment(tmp_path):
     restore = [e for e in telemetry.load_events(os.path.join(path, ".telemetry.jsonl")) if e["kind"] == "restore"][-1]
     cp = _assert_coverage(restore)
     assert cp["segments"].get("peer", 0.0) > 0.0
-    assert any(c["segment"] == "peer" for c in cp["chain"])
+    assert cp["segments"].get("wire", 0.0) > 0.0
+    assert any(c["span"] in (names.SPAN_PEER_PULL, names.SPAN_WIRE_RPC) for c in cp["chain"])
 
 
 # ---------------------------------------------------------------------------

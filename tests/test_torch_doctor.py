@@ -24,8 +24,9 @@ import torch
 
 from torchsnapshot_tpu.telemetry import doctor as jdoctor
 from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, StateDict, knobs, telemetry
+from torchsnapshot_tpu_torch.dist_store import TCPStore
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
-from torchsnapshot_tpu_torch.telemetry import doctor, history, ledger, names
+from torchsnapshot_tpu_torch.telemetry import doctor, history, ledger, names, wire
 from torchsnapshot_tpu_torch.telemetry.stats import main as stats_main
 
 torch.set_num_threads(1)
@@ -679,19 +680,50 @@ def test_fsck_stats_summarizes_ledger(tmp_path, capsys):
 
 
 # ---------------------------------------------------------------------------
-# The fleet rules: ids kept, diagnosis refused (ROADMAP step 10c)
+# The fleet rules over a live coordination store
 # ---------------------------------------------------------------------------
+
+
+def _fleet_diagnose(store, capsys):
+    entries = wire.collect_fleet(store)
+    assert [e["id"] for e in entries] == ["7"]
+    assert doctor.diagnose_fleet(entries) == []
+    assert doctor.diagnose_fleet([]) == []
+    return 0
+
+
+def _fleet_doctor_cli(store, capsys):
+    rc = doctor.main(["--fleet", f"127.0.0.1:{store.port}"])
+    assert "doctor fleet" in capsys.readouterr().out
+    return rc
+
+
+def _fleet_table_cli(store, capsys):
+    rc = stats_main(["fleet", f"127.0.0.1:{store.port}", "--once"])
+    out = capsys.readouterr().out
+    assert "ROLE" in out and "trainer" in out
+    return rc
 
 
 @pytest.mark.parametrize(
     "call",
-    [
-        lambda: doctor.diagnose_fleet([]),
-        lambda: doctor.main(["--fleet"]),
-        lambda: stats_main(["fleet", "localhost:1"]),
-    ],
+    [_fleet_diagnose, _fleet_doctor_cli, _fleet_table_cli],
     ids=["diagnose_fleet", "doctor-fleet", "telemetry-fleet"],
 )
-def test_fleet_diagnosis_is_refused(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 10c"):
-        call()
+def test_fleet_diagnosis_is_refused(call, capsys):
+    """Once refused by name, now run: ``diagnose_fleet``, ``doctor
+    --fleet`` and ``telemetry fleet`` read one live publisher's snapshot
+    off a coordination store served in this process, and a healthy
+    fleet gives no verdict."""
+    telemetry.reset_metrics()
+    wire.reset_recent_dials()
+    store = TCPStore("127.0.0.1", 0, is_server=True)
+    reporter = wire.FleetReporter(store, "trainer", 7, interval_s=0)
+    try:
+        assert reporter.publish(phase="write", force=True)
+        assert call(store, capsys) == 0
+    finally:
+        reporter.close()
+        store.close()
+        telemetry.reset_metrics()
+        wire.reset_recent_dials()

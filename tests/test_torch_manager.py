@@ -597,16 +597,33 @@ def _autotune_hook(tmp_path, monkeypatch):
     assert not knobs.get_tuner_overrides()
 
 
+def _fleet_root(tmp_path, run):
+    """A root that advertises a live coordination store (``.fleet-endpoint``)
+    holding one publisher's fleet snapshot; ``run(port)`` is the CLI."""
+    from torchsnapshot_tpu_torch.dist_store import TCPStore
+    from torchsnapshot_tpu_torch.telemetry import wire
+
+    store = TCPStore("127.0.0.1", 0, is_server=True)
+    reporter = wire.FleetReporter(store, "publisher", "topic", interval_s=0)
+    try:
+        assert reporter.publish(force=True)
+        wire.write_fleet_endpoint(str(tmp_path), "127.0.0.1", store.port)
+        assert run(store.port) == 0
+    finally:
+        reporter.close()
+        store.close()
+
+
 def _doctor_fleet(tmp_path, monkeypatch):
     from torchsnapshot_tpu_torch.telemetry.doctor import main
 
-    main([str(tmp_path), "--fleet"])
+    _fleet_root(tmp_path, lambda port: main([str(tmp_path), "--fleet"]))
 
 
 def _telemetry_fleet(tmp_path, monkeypatch):
     from torchsnapshot_tpu_torch.telemetry.stats import main
 
-    main(["fleet", "localhost:1"])
+    _fleet_root(tmp_path, lambda port: main(["fleet", f"127.0.0.1:{port}", "--once"]))
 
 
 @pytest.mark.parametrize(
@@ -621,8 +638,8 @@ def _telemetry_fleet(tmp_path, monkeypatch):
         (_armed_save_is_killed, "ported"),
         (_slo_hook, "ported"),
         (_autotune_hook, "ported"),
-        (_doctor_fleet, "10c"),
-        (_telemetry_fleet, "10c"),
+        (_doctor_fleet, "ported"),
+        (_telemetry_fleet, "ported"),
     ],
     ids=[
         "tiered", "cas", "chunk-store", "cdn", "wait-durable", "resume-mirrors", "crashpoint-arm", "slo",
@@ -630,10 +647,10 @@ def _telemetry_fleet(tmp_path, monkeypatch):
     ],
 )
 def test_unported_features_are_refused(tmp_path, monkeypatch, make, step) -> None:
-    """What stays unported is refused by name: the fleet metrics plane
-    (``doctor --fleet``, ``telemetry fleet``; ROADMAP step 10c). Every
-    feature the manager once refused is ported now; the SLO evaluation
-    and the autotuner run after each commit, sync and async. The chunk
+    """Every feature the manager once refused is ported now; the SLO
+    evaluation and the autotuner run after each commit, sync and async,
+    and ``doctor --fleet`` / ``telemetry fleet`` read a root's advertised
+    fleet plane (``.fleet-endpoint``). The chunk
     store (the ``cas`` and ``chunk-store`` cases): a manager with the CAS
     knob on, or over a root that holds a chunk store, saves into the store
     and restores from it. The tiered root, crash-point arming and the CDN
@@ -643,10 +660,6 @@ def test_unported_features_are_refused(tmp_path, monkeypatch, make, step) -> Non
     resume."""
     if step == "ported":
         make(tmp_path, monkeypatch)
-        return
-    if step == "10c":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 10c"):
-            make(tmp_path, monkeypatch)
         return
     if step == "noop":
         assert make(tmp_path, monkeypatch) in (None, [])

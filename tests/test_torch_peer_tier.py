@@ -927,8 +927,8 @@ def _drive_client(client_mod, endpoint) -> None:
 
 def test_jax_server_serves_port_client_and_the_reverse() -> None:
     """The wire is the same: a JAX ``_PeerServer`` answers the port's
-    ``PeerClient``, and the port's server answers the JAX client (whose
-    frames carry a trace header the port's server strips)."""
+    ``PeerClient``, and the port's server answers the JAX client (the
+    frames of both carry a trace header, which each server decodes)."""
     from torchsnapshot_tpu.scheduler import PeerCacheBudget as JaxBudget
     from torchsnapshot_tpu.tiered import peer as jax_peer
 

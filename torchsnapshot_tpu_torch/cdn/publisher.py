@@ -14,9 +14,11 @@ the announce describes. A publish failure degrades the fleet's freshness,
 never the training job's checkpoint.
 
 With ``root`` (the manager root), each publish posts ``cdn-published``
-to that root's run ledger, as the JAX package does. Left out until the
-wire observatory is ported (ROADMAP step 10c): the wire-context
-propagation of the writes and the fleet metrics plane.
+to that root's run ledger, as the JAX package does. The two writes run
+inside ``wire.propagate(RPC_CDN_PUBLISH)``; with the fleet metrics plane
+on (``TORCHSNAPSHOT_TPU_FLEET_OBS=1``) the publisher keeps one
+``__obs/publisher/<id>`` snapshot, refreshed per publish and reaped by
+:meth:`CdnPublisher.close`.
 """
 
 from __future__ import annotations
@@ -25,11 +27,12 @@ import logging
 import time
 from typing import Dict, Optional
 
-from .. import telemetry
+from .. import knobs, telemetry
 from ..chaos import crashpoint
 from ..dist_store import Store
 from ..telemetry import ledger
 from ..telemetry import names as metric_names
+from ..telemetry import wire
 from ..telemetry.trace import get_recorder as _trace_recorder
 from .topic import Announce, announce_key, head_key, manifest_digest, read_head
 
@@ -62,6 +65,9 @@ class CdnPublisher:
         # The head, cached: the publisher is the topic's single writer, so
         # after one read it alone knows the tip.
         self._seq: Optional[int] = None
+        self._fleet: Optional[wire.FleetReporter] = None
+        if knobs.is_fleet_obs_enabled():
+            self._fleet = wire.FleetReporter(store, "publisher", publisher_id or topic)
 
     @property
     def last_seq(self) -> int:
@@ -84,7 +90,9 @@ class CdnPublisher:
         )
         encoded = ann.encode()
         try:
-            with _trace_recorder().span(metric_names.SPAN_CDN_PUBLISH, topic=self.topic, step=int(step)):
+            with wire.propagate(metric_names.RPC_CDN_PUBLISH), _trace_recorder().span(
+                metric_names.SPAN_CDN_PUBLISH, topic=self.topic, step=int(step)
+            ):
                 # Record first, head second: the head is the commit marker.
                 self._store.set(announce_key(self.topic, seq), encoded)
                 crashpoint(metric_names.CRASH_CDN_PUBLISH_ANNOUNCED)
@@ -105,6 +113,8 @@ class CdnPublisher:
         registry = telemetry.metrics()
         registry.counter_inc(metric_names.CDN_PUBLISHES_TOTAL)
         registry.counter_inc(metric_names.CDN_ANNOUNCE_BYTES_TOTAL, float(len(encoded)))
+        if self._fleet is not None:
+            self._publish_fleet(step, seq, len(chunks))
         if self._root is not None:
             ledger.post_event(
                 self._root,
@@ -118,6 +128,25 @@ class CdnPublisher:
             )
         return ann
 
+    def _publish_fleet(self, step: int, seq: int, nchunks: int) -> None:
+        """Refresh this publisher's fleet snapshot, with the training job's
+        SLO burn rate (the fleet table's BURN column) where one is known."""
+        try:
+            extra = {"seq": seq, "chunks": nchunks}
+            try:
+                from ..telemetry import slo
+
+                burn = slo.current_burn()
+                if burn is not None:
+                    extra["slo_burn"] = round(burn, 4)
+            except Exception:  # noqa: BLE001 - observability never blocks
+                pass
+            self._fleet.publish(phase=f"published:{int(step)}", extra=extra)
+        except Exception:  # noqa: BLE001 - observability never blocks
+            pass
+
     def close(self) -> None:
-        """Nothing to release: the JAX publisher's fleet-plane snapshot is
-        not ported (step 10c)."""
+        """Reap this publisher's fleet-plane snapshot, if it keeps one."""
+        if self._fleet is not None:
+            self._fleet.close()
+            self._fleet = None

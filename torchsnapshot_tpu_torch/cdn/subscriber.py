@@ -21,10 +21,12 @@ embedded digest before it is pooled or swapped in: a fleet of N
 subscribers costs about one durable read per novel chunk, not N.
 
 With ``root`` (the training job's manager root), each applied step posts
-``cdn-swapped`` to that root's run ledger, as the JAX package does. Left
-out until the wire observatory is ported (ROADMAP step 10c): the
-wire-context propagation of a sync round and the fleet metrics plane. Every ``cdn_*`` counter and histogram and the
-``cdn:sync`` / ``cdn:swap`` spans are kept.
+``cdn-swapped`` to that root's run ledger, as the JAX package does. A sync
+round runs inside one ``wire.propagate(RPC_CDN_SYNC)``, so each peer pull
+of the round carries the round's trace id; with the fleet metrics plane
+on (``TORCHSNAPSHOT_TPU_FLEET_OBS=1``) the subscriber keeps one
+``__obs/subscriber/<id>`` snapshot, refreshed per applied step and reaped
+by :meth:`CdnSubscriber.close`.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..resharding import assign_shard_owners
 from ..scheduler import PeerCacheBudget
 from ..telemetry import ledger
 from ..telemetry import names as metric_names
+from ..telemetry import wire
 from ..telemetry.trace import get_recorder as _trace_recorder
 from ..tiered.peer import PeerCache, PeerClient, PeerTransferError, _PeerServer
 from .topic import CDN_SERVICE, Announce, read_announce, read_head, verify_chunk_bytes
@@ -140,6 +143,9 @@ class CdnSubscriber:
         self._thread.start()
         self.host, self.port = self._server.server_address[:2]
         publish_endpoint(store, CDN_SERVICE, self.subscriber_id, self.host, self.port)
+        self._fleet: Optional[wire.FleetReporter] = None
+        if knobs.is_fleet_obs_enabled():
+            self._fleet = wire.FleetReporter(store, "subscriber", str(self.subscriber_id), world=self.fleet_size)
 
     # -- topic tracking ---------------------------------------------------
 
@@ -234,7 +240,9 @@ class CdnSubscriber:
         out: Dict[str, bytes] = {}
         wanted = sorted(set(ann.chunks) - set(self._held))
         owners = assign_shard_owners((chunk_location(k) for k in wanted), self.fleet_size)
-        with _trace_recorder().span(metric_names.SPAN_CDN_SYNC, topic=self.topic, seq=ann.seq, novel=len(wanted)):
+        with wire.propagate(metric_names.RPC_CDN_SYNC), _trace_recorder().span(
+            metric_names.SPAN_CDN_SYNC, topic=self.topic, seq=ann.seq, novel=len(wanted)
+        ):
             for key in sorted(ann.chunks):
                 path = chunk_location(key)
                 if key not in wanted:
@@ -286,6 +294,15 @@ class CdnSubscriber:
         registry = telemetry.metrics()
         registry.counter_inc(metric_names.CDN_UPDATES_APPLIED_TOTAL)
         registry.histogram_observe(metric_names.CDN_STALENESS_SECONDS, staleness)
+        if self._fleet is not None:
+            try:
+                self._fleet.publish(
+                    phase=f"serving:{ann.step}",
+                    written_bytes=self.stats.bytes_on_wire,
+                    extra={"seq": ann.seq, "staleness_s": round(staleness, 3)},
+                )
+            except Exception:  # noqa: BLE001 - observability never blocks
+                pass
         registry.histogram_observe(metric_names.CDN_SWAP_SECONDS, swap_s)
         self._lease_held()
         if self._root is not None:
@@ -330,6 +347,9 @@ class CdnSubscriber:
             logger.warning("cdn: lease update for %r failed: %r", self.lease_id, e)
 
     def close(self, release_lease: bool = True) -> None:
+        if self._fleet is not None:
+            self._fleet.close()
+            self._fleet = None
         if release_lease and self._cas_store is not None:
             try:
                 self._cas_store.unlease(self.lease_id)

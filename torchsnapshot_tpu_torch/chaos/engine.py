@@ -20,8 +20,10 @@ Three wrapping surfaces:
   :class:`StoragePlugin` (instance wrapper / subclass factory for
   ``patch_storage_plugin``-style class injection).
 - :class:`ChaosStore` — any coordination ``Store``.
-- :func:`install_wire_chaos` — the socket framing of the TCP store
-  (``dist_store.send_frame``/``recv_frame``).
+- :func:`install_wire_chaos` — the socket framing of the TCP store and
+  the peer tier (``dist_store.send_frame``/``recv_frame``): a sent frame
+  reaches the hook with its trace header in front, a received one before
+  the header is decoded, so damage lands where wire damage would.
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ Injection points (the ``point`` of a spec):
   wrapped coordination :class:`~torchsnapshot_tpu_torch.dist_store.Store` op;
   ``key`` is the store key.
 - ``wire-send`` / ``wire-recv`` — one length-prefixed frame crossing
-  the socket framing of the TCP store (``dist_store.send_frame`` /
-  ``recv_frame``); ``key`` is the frame length.
+  the socket framing of the TCP store or the peer tier
+  (``dist_store.send_frame`` / ``recv_frame``); ``key`` is the frame
+  length, trace header included.
 - ``crashpoint`` — a named kill point threaded through the take/commit/
   GC/mirror paths; ``key`` is the declared ``CRASH_*`` id
   (telemetry/names.py).

@@ -9,7 +9,8 @@ rather than NCCL: two ranks can even share one card. This module provides:
   batched ``multi_*``) plus the object collectives built on it
   (``exchange``, ``gather``, ``broadcast``, ``scatter``, ``barrier``);
 - :class:`TCPStore`: a self-contained socket KV server hosted by one rank,
-  and :class:`InProcessStore` for thread-based tests;
+  and :class:`InProcessStore` for thread-based tests; both enumerate keys
+  by prefix (``scan``, the fleet metrics plane's reader);
 - :class:`ShardedStore` and :func:`bootstrap_sharded_store`: N member
   stores behind deterministic key->shard hashing;
 - :class:`LinearBarrier` and :class:`TreeBarrier`: two-phase
@@ -23,8 +24,12 @@ rather than NCCL: two ranks can even share one card. This module provides:
 Every wait loop backs off exponentially (:class:`_PollPacer`, cap ~100 ms),
 and store requests feed the ``coordination_store_*`` counters; barrier
 waits feed ``coordination_barrier_wait_seconds_total`` and the
-``barrier:*`` spans. Collective keys are transient: the last participant
-to finish an operation deletes them, so a long-lived store does not leak.
+``barrier:*`` spans. The length-prefixed frames (:func:`send_frame` /
+:func:`recv_frame`, shared with the peer tier) carry the wire
+observatory's trace header inside a ``telemetry.wire.propagate`` block
+and feed its per-endpoint frame, dial and RPC series. Collective keys
+are transient: the last participant to finish an operation deletes them,
+so a long-lived store does not leak.
 """
 
 from __future__ import annotations
@@ -48,6 +53,20 @@ _POLL_INTERVAL_S = 0.005
 _POLL_CAP_S = 0.1
 _CONNECT_TIMEOUT_S = 30.0
 
+# Process-wide (initial, cap) each pacer binds when it is built. Not an
+# operator knob: the scale-model harness's legacy baseline sets initial
+# == cap to reproduce fixed-interval polling.
+_POLL_PROFILE: Tuple[float, float] = (_POLL_INTERVAL_S, _POLL_CAP_S)
+
+
+def _set_poll_profile(initial: float, cap: float) -> Tuple[float, float]:
+    """Swap the process-wide poll profile; returns the previous one. For
+    the scale-model harness only; pacers built after the call see it."""
+    global _POLL_PROFILE
+    prev = _POLL_PROFILE
+    _POLL_PROFILE = (float(initial), float(cap))
+    return prev
+
 # Aggregate idle-poll budget a wait loop sizes its backoff cap against:
 # cap ~ world / _POLL_QPS_BUDGET, clamped to [initial, _POLL_CAP_S]. A
 # 2-rank barrier keeps ~5 ms detection latency; a 1000-rank one backs off
@@ -56,7 +75,8 @@ _POLL_QPS_BUDGET = 5000.0
 
 
 def scaled_poll_cap(world_size: int) -> float:
-    return min(_POLL_CAP_S, max(_POLL_INTERVAL_S, world_size / _POLL_QPS_BUDGET))
+    initial, cap = _POLL_PROFILE
+    return min(cap, max(initial, world_size / _POLL_QPS_BUDGET))
 
 
 class _PollPacer:
@@ -66,9 +86,9 @@ class _PollPacer:
     wait observes progress."""
 
     def __init__(self, initial: Optional[float] = None, cap: Optional[float] = None) -> None:
-        self._initial = _POLL_INTERVAL_S if initial is None else initial
+        self._initial = _POLL_PROFILE[0] if initial is None else initial
         self._delay = self._initial
-        self._cap = _POLL_CAP_S if cap is None else cap
+        self._cap = _POLL_PROFILE[1] if cap is None else cap
 
     def reset(self) -> None:
         self._delay = self._initial
@@ -94,6 +114,20 @@ def _tele_modules():
     from .telemetry import names, trace
 
     return telemetry, names, trace
+
+
+_WIRE_MODULE = None
+
+
+def _wire():
+    """``telemetry.wire``, imported on first use (the observatory counts
+    this module's frames, and this module sits below the package)."""
+    global _WIRE_MODULE
+    if _WIRE_MODULE is None:
+        from .telemetry import wire
+
+        _WIRE_MODULE = wire
+    return _WIRE_MODULE
 
 
 def _observe_store_requests(op: str, seconds: float, requests: int = 1) -> None:
@@ -191,6 +225,13 @@ class Store(abc.ABC):
     def multi_delete(self, keys: Iterable[str]) -> None:
         for key in keys:
             self.delete(key)
+
+    def scan(self, prefix: str) -> List[str]:
+        """Every present key that starts with ``prefix``, sorted. For
+        registry readers (the fleet plane listing ``__obs/``): not every
+        store can enumerate, so the default refuses rather than return
+        nothing."""
+        raise NotImplementedError(f"{type(self).__name__} does not support prefix scans")
 
     # -- blocking helpers -------------------------------------------------
 
@@ -353,6 +394,8 @@ _CMD_SET, _CMD_TRY_GET, _CMD_ADD, _CMD_DELETE = 0, 1, 2, 3
 # Batched commands: one frame each way per batch; ``arg`` carries the
 # key->value dict or the key list and the scalar ``key`` slot is "".
 _CMD_MULTI_SET, _CMD_MULTI_GET, _CMD_MULTI_DELETE = 4, 5, 6
+# Prefix scan: ``key`` carries the prefix, the reply is the sorted key list.
+_CMD_SCAN = 7
 
 _CMD_OP_NAMES = {
     _CMD_SET: "set",
@@ -362,7 +405,24 @@ _CMD_OP_NAMES = {
     _CMD_MULTI_SET: "multi_set",
     _CMD_MULTI_GET: "multi_get",
     _CMD_MULTI_DELETE: "multi_delete",
+    _CMD_SCAN: "scan",
 }
+
+
+def _store_rpc_ids() -> Dict[int, str]:
+    """Command -> declared RPC op id (``names.RPC_STORE_*``), the label of
+    the store client's per-request wire series."""
+    _, n, _ = _tele_modules()
+    return {
+        _CMD_SET: n.RPC_STORE_SET,
+        _CMD_TRY_GET: n.RPC_STORE_TRY_GET,
+        _CMD_ADD: n.RPC_STORE_ADD,
+        _CMD_DELETE: n.RPC_STORE_DELETE,
+        _CMD_MULTI_SET: n.RPC_STORE_MULTI_SET,
+        _CMD_MULTI_GET: n.RPC_STORE_MULTI_GET,
+        _CMD_MULTI_DELETE: n.RPC_STORE_MULTI_DELETE,
+        _CMD_SCAN: n.RPC_STORE_SCAN,
+    }
 
 
 # The chaos seam (``chaos/engine.py`` ``install_wire_chaos``): when set,
@@ -371,47 +431,65 @@ _CMD_OP_NAMES = {
 _WIRE_CHAOS = None
 
 
-def send_frame(sock: socket.socket, payload: bytes) -> None:
-    """Length-prefixed frame write: the wire framing of the TCP store.
-    (The JAX package's wire observatory, which counts these frames, is
-    not ported.)"""
+def send_frame(sock: socket.socket, payload: bytes, endpoint: str = "store") -> None:
+    """Length-prefixed frame write: the one framing of the TCP store and
+    the peer tier's transport (``tiered/peer.py``).
+
+    Inside a ``telemetry.wire.propagate`` block the payload is prefixed
+    with the thread's trace header before the chaos hook sees it, so
+    chaos damages the header as real wire damage would and the receiver
+    degrades it to a context-free frame. Frames and bytes are counted per
+    ``endpoint`` ("store" or "peer"). The length, the header and the
+    payload are joined once, as a headerless frame's length and payload
+    are: a header costs no copy of the payload."""
+    header = b""
+    try:
+        w = _wire()
+        ctx = w.current_context()
+        if ctx is not None:
+            header = w.encode_header(ctx)
+    except Exception:  # noqa: BLE001 - observability never breaks the wire
+        pass
     hook = _WIRE_CHAOS
     if hook is not None:
-        payload = hook("wire-send", payload)
+        payload, header = hook("wire-send", header + payload), b""
         if payload is None:
             return  # a dropped frame: the receiver waits it out
-    sock.sendall(struct.pack("<I", len(payload)) + payload)
+    length = len(header) + len(payload)
+    try:
+        _wire().observe_frame(endpoint, "send", length + 4)
+    except Exception:  # noqa: BLE001 - observability never breaks the wire
+        pass
+    sock.sendall(b"".join((struct.pack("<I", length), header, payload)))
 
 
-def recv_frame(sock: socket.socket) -> bytes:
-    header = _recv_exact(sock, 4)
-    (length,) = struct.unpack("<I", header)
-    payload = _recv_exact(sock, length)
+def recv_frame(sock: socket.socket, endpoint: str = "store") -> bytes:
+    """Read one frame; returns its body, with any trace header decoded
+    (``telemetry.wire.decode_frame``) and its context stashed for this
+    thread's handler (``wire.last_received_context``). The first
+    ``HEADER_LEN`` bytes are read alone, so that a header comes off
+    without a copy of the body behind it."""
+    (length,) = struct.unpack("<I", _recv_exact(sock, 4))
+    w = _wire()
     hook = _WIRE_CHAOS
     if hook is not None:
-        payload = hook("wire-recv", payload)
-    return payload
+        # The chaos hook sees the whole payload, header included.
+        head, rest = hook("wire-recv", _recv_exact(sock, length)), 0
+    else:
+        head = _recv_exact(sock, min(length, w.HEADER_LEN))
+        rest = length - len(head)
+    try:
+        w.observe_frame(endpoint, "recv", len(head) + rest + 4)
+        ctx, head = w.decode_frame(head)
+        w.set_received_context(ctx)
+    except Exception:  # noqa: BLE001 - observability never breaks the wire
+        pass
+    return _recv_exact(sock, rest, prefix=head) if rest else head
 
 
-# The JAX package's frame trace header (``telemetry/wire.py``): magic,
-# version, reserved, a 24-byte op, trace and span ids, crc32. Its clients
-# lead a frame with one inside a ``wire.propagate`` scope (a CDN sync, a
-# fan-out exchange, a peer RPC).
-_TRACE_MAGIC = b"TSWC"
-_TRACE_HEADER_LEN = 4 + 1 + 1 + 24 + 8 + 8 + 4
-
-
-def _strip_trace_header(payload: bytes) -> bytes:
-    """A frame's body without the JAX package's trace header, when one
-    leads it (a pickled request starts with the protocol byte, never
-    with the magic). A torn header passes through, as there."""
-    if payload[:4] == _TRACE_MAGIC and len(payload) >= _TRACE_HEADER_LEN:
-        return payload[_TRACE_HEADER_LEN:]
-    return payload
-
-
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
-    chunks = []
+def _recv_exact(sock: socket.socket, n: int, prefix: bytes = b"") -> bytes:
+    """``prefix`` and the next ``n`` bytes of ``sock``, joined once."""
+    chunks = [prefix] if prefix else []
     while n:
         chunk = sock.recv(n)
         if not chunk:
@@ -432,15 +510,25 @@ class _StoreServer(socketserver.ThreadingTCPServer):
         super().__init__(addr, _StoreRequestHandler)
         self.kv: Dict[str, bytes] = {}
         self.kv_lock = threading.Lock()
+        # Connections being served: the wire observatory's userspace proxy
+        # for accept pressure (the kernel's accept queue is not readable).
+        self.active_handlers = 0
+        self.active_lock = threading.Lock()
 
 
 class _StoreRequestHandler(socketserver.BaseRequestHandler):
     def handle(self) -> None:
         server: _StoreServer = self.server  # type: ignore[assignment]
+        with server.active_lock:
+            server.active_handlers += 1
+            depth = server.active_handlers
+        try:
+            _wire().observe_accept_depth("store", depth)
+        except Exception:  # noqa: BLE001 - observability is best-effort
+            pass
         try:
             while True:
-                # A JAX client's frame may lead with a trace header.
-                cmd, key, arg = pickle.loads(_strip_trace_header(recv_frame(self.request)))
+                cmd, key, arg = pickle.loads(recv_frame(self.request))
                 with server.kv_lock:
                     if cmd == _CMD_SET:
                         server.kv[key] = arg
@@ -463,11 +551,16 @@ class _StoreRequestHandler(socketserver.BaseRequestHandler):
                         for k in arg:
                             server.kv.pop(k, None)
                         reply = None
+                    elif cmd == _CMD_SCAN:
+                        reply = sorted(k for k in server.kv if k.startswith(key))
                     else:  # pragma: no cover
                         raise ValueError(f"bad store command {cmd}")
                 send_frame(self.request, pickle.dumps(reply))
         except (ConnectionError, EOFError):
             return
+        finally:
+            with server.active_lock:
+                server.active_handlers -= 1
 
 
 class TCPStore(Store):
@@ -503,9 +596,16 @@ class TCPStore(Store):
                 # an unreachable host cannot hold the dial for minutes.
                 remaining = deadline - time.monotonic()
                 try:
+                    t_dial = time.monotonic()
                     sock = socket.create_connection(
                         (self.host, self.port), timeout=max(0.05, min(5.0, remaining))
                     )
+                    try:
+                        # A full listen backlog shows here as whole-second
+                        # SYN-retransmit quanta (wire-dial-stalled).
+                        _wire().observe_dial("store", time.monotonic() - t_dial)
+                    except Exception:  # noqa: BLE001 - best-effort
+                        pass
                     sock.settimeout(None)
                     sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                     self._sock = sock
@@ -515,6 +615,10 @@ class TCPStore(Store):
                     # not a leader that has not bound yet: fail fast.
                     raise
                 except OSError as e:
+                    try:
+                        _wire().observe_dial("store", 0.0, ok=False)
+                    except Exception:  # noqa: BLE001 - best-effort
+                        pass
                     if time.monotonic() > deadline:
                         raise StoreTimeoutError(
                             f"Timed out connecting to store at {self.host}:{self.port} after "
@@ -529,7 +633,12 @@ class TCPStore(Store):
             sock = self._connect()
             send_frame(sock, pickle.dumps((cmd, key, arg)))
             reply = pickle.loads(recv_frame(sock))
-        _observe_store_requests(_CMD_OP_NAMES.get(cmd, "other"), time.monotonic() - t0)
+        elapsed = time.monotonic() - t0
+        _observe_store_requests(_CMD_OP_NAMES.get(cmd, "other"), elapsed)
+        try:
+            _wire().observe_rpc("store", _store_rpc_ids()[cmd], elapsed)
+        except Exception:  # noqa: BLE001 - telemetry is best-effort
+            pass
         return reply
 
     def set(self, key: str, value: bytes) -> None:
@@ -552,6 +661,9 @@ class TCPStore(Store):
 
     def multi_delete(self, keys: Iterable[str]) -> None:
         self._request(_CMD_MULTI_DELETE, "", list(keys))
+
+    def scan(self, prefix: str) -> List[str]:
+        return self._request(_CMD_SCAN, prefix)
 
     def close(self) -> None:
         with self._sock_lock:
@@ -602,6 +714,10 @@ class InProcessStore(Store):
             for k in keys:
                 self._kv.pop(k, None)
 
+    def scan(self, prefix: str) -> List[str]:
+        with self._lock:
+            return sorted(k for k in self._kv if k.startswith(prefix))
+
 
 # ---------------------------------------------------------------------------
 # Sharded store
@@ -625,6 +741,10 @@ class ShardedStore(Store):
         if not stores:
             raise ValueError("ShardedStore needs at least one member store")
         self._stores: List[Store] = list(stores)
+
+    @property
+    def num_shards(self) -> int:
+        return len(self._stores)
 
     def _count_shard(self, shard: int, requests: int = 1) -> None:
         """Per-shard request accounting (``coordination_store_shard_requests_total``)."""
@@ -674,6 +794,12 @@ class ShardedStore(Store):
     def multi_delete(self, keys: Iterable[str]) -> None:
         for shard, shard_keys in self._group(keys).items():
             self._stores[shard].multi_delete(shard_keys)
+
+    def scan(self, prefix: str) -> List[str]:
+        out: List[str] = []
+        for member in self._stores:
+            out.extend(member.scan(prefix))
+        return sorted(set(out))
 
     def close(self) -> None:
         for member in self._stores:

@@ -28,9 +28,12 @@ round's barrier poisons through ``report_error``), so a peer failing in
 planning, fetching or setup aborts the exchange within seconds; a failing
 owner read raises on every rank, and a failed round leaves no key behind.
 
+Each round runs inside one ``wire.propagate(RPC_FANOUT_EXCHANGE)``: every
+store frame of its needs gather and blob exchange carries the same trace
+id.
+
 Kill switch: ``TORCHSNAPSHOT_TPU_FANOUT_RESTORE=0`` (rank 0's reading)
-restores every-rank-reads. The JAX package's wire observatory, which
-tags the round's store frames, is not ported (ROADMAP queue 1 step 10c).
+restores every-rank-reads.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from .dist_store import Store, StoreTimeoutError, _PollPacer, scaled_poll_cap
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO
 from .manifest import Manifest, sharded_blob_windows
 from .resharding import assign_shard_owners
+from .telemetry import wire as _wire
 from .telemetry.trace import get_recorder as _trace_recorder
 
 logger: logging.Logger = logging.getLogger(__name__)
@@ -216,9 +220,12 @@ class FanoutRestoreContext:
             reqs=len(read_reqs),
         )
         try:
-            return self._exchange_impl(
-                read_reqs, storage, event_loop, rendezvous_prefix, timeout
-            )
+            # One wire context for the whole round: the merged trace shows
+            # its store frames as one tree.
+            with _wire.propagate(telemetry.names.RPC_FANOUT_EXCHANGE):
+                return self._exchange_impl(
+                    read_reqs, storage, event_loop, rendezvous_prefix, timeout
+                )
         finally:
             _trace_recorder().end(span)
             try:

@@ -41,6 +41,7 @@ _STAGING_POOL_SLABS_ENV = "TORCHSNAPSHOT_TPU_STAGING_POOL_SLABS"
 _CAS_ENV = "TORCHSNAPSHOT_TPU_CAS"
 _CAS_GC_GRACE_ENV = "TORCHSNAPSHOT_TPU_CAS_GC_GRACE_SECONDS"
 _CDN_ENV = "TORCHSNAPSHOT_TPU_CDN"
+_FLEET_OBS_ENV = "TORCHSNAPSHOT_TPU_FLEET_OBS"
 _CDN_PULL_TIMEOUT_ENV = "TORCHSNAPSHOT_TPU_CDN_PULL_TIMEOUT_SECONDS"
 _DISABLE_PARTITIONER_ENV = "TORCHSNAPSHOT_TPU_DISABLE_PARTITIONER"
 _FANOUT_RESTORE_ENV = "TORCHSNAPSHOT_TPU_FANOUT_RESTORE"
@@ -339,6 +340,17 @@ def is_cdn_enabled() -> bool:
     built explicitly work either way (the knob gates the training job's
     side, where a publish adds store traffic to every commit)."""
     return os.environ.get(_CDN_ENV, "0") not in ("", "0")
+
+
+def is_fleet_obs_enabled() -> bool:
+    """The fleet metrics plane (``telemetry/wire.py``), default OFF: with
+    ``"1"``, storm ranks, CDN publishers and CDN subscribers publish one
+    compact crc-guarded wire snapshot each under ``__obs/`` on the
+    coordination store (paced by world size, reaped on a clean close),
+    which ``python -m torchsnapshot_tpu_torch.telemetry fleet <target>``
+    renders as a live table. Off, no ``__obs/`` key is written; the fleet
+    CLI still reads what another process published."""
+    return os.environ.get(_FLEET_OBS_ENV, "0") not in ("", "0")
 
 
 def is_partitioner_disabled() -> bool:
@@ -850,6 +862,14 @@ def enable_cdn() -> Generator[None, None, None]:
     """The CDN publish hook on for the block (the suite's conftest pins it
     off, so that manager tests see no announce traffic)."""
     with _override_env(_CDN_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def enable_fleet_obs() -> Generator[None, None, None]:
+    """The fleet metrics plane on for the block (the suite's conftest pins
+    it off, so that store-traffic tests see only the keys they wrote)."""
+    with _override_env(_FLEET_OBS_ENV, "1"):
         yield
 
 

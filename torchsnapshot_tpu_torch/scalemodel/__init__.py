@@ -1,11 +1,13 @@
 """Scale models of the coordination plane.
 
-Counterpart of ``torchsnapshot_tpu/scalemodel/``, cut to the CDN
-subscriber storm (:mod:`.cdn_storm`): a publishing trainer and a fleet of
-real :class:`~torchsnapshot_tpu_torch.cdn.CdnSubscriber` threads, with
-read amplification, staleness and the dedup ratio. The thousand-rank
-storm harness (``harness.py``) comes with the wire observatory (ROADMAP
-step 10c).
+Counterpart of ``torchsnapshot_tpu/scalemodel/``: hundreds to a thousand
+simulated ranks (threads with mock device state) drive the real
+coordination code (``dist_store`` barriers and collectives, ``pg_wrapper``,
+the ``fanout`` owner-table exchange, the endpoint registry) through save,
+restore and preemption storms (:mod:`.harness`), and a publishing trainer
+with a fleet of real :class:`~torchsnapshot_tpu_torch.cdn.CdnSubscriber`
+threads measures read amplification, staleness, the dedup ratio and the
+wire split (:mod:`.cdn_storm`).
 """
 
 from .cdn_storm import (  # noqa: F401
@@ -13,4 +15,12 @@ from .cdn_storm import (  # noqa: F401
     CdnStormResult,
     build_step_chunks,
     run_cdn_storm,
+)
+from .harness import (  # noqa: F401
+    CountingStore,
+    PerKeyStore,
+    SimulatedPreemption,
+    StormConfig,
+    StormResult,
+    run_storm,
 )

@@ -18,9 +18,9 @@ What the storm reports:
   p90, max), warmup steps excluded.
 - **dedup ratio**: fleet bytes on the wire over fleet bytes in steps: a
   rolling update ships only churned chunks.
-
-Left out against the JAX package until the telemetry port (ROADMAP step
-10): the wire report, so :attr:`CdnStormResult.wire` is always None.
+- **wire split**: the wire observatory's report over the storm's window
+  (:attr:`CdnStormResult.wire`: frames, bytes, dials and RPC seconds, with
+  a per-op table keyed by the declared RPC ids).
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ from ..cas import digest_key
 from ..cdn import CdnPublisher, CdnSubscriber, WeightSwapper
 from ..dist_store import InProcessStore, Store
 from ..knobs import override_cdn_pull_timeout_seconds
+from ..telemetry import metrics
+from ..telemetry.report import wire_from_deltas
 
 
 @dataclasses.dataclass
@@ -87,7 +89,8 @@ class CdnStormResult:
     # Per-tier pull-latency quantiles pooled across the fleet
     # ({tier: {p50_s, p95_s, samples}}).
     pull_latency: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
-    # The JAX package's per-op wire report; not ported (step 10c): None.
+    # The wire report (report.wire_from_deltas) of the storm's window:
+    # where the bytes rode and how long each RPC op took.
     wire: Optional[Dict[str, object]] = None
 
     @property
@@ -163,6 +166,7 @@ def run_cdn_storm(cfg: CdnStormConfig, store: Optional[Store] = None) -> CdnStor
     errors: Dict[int, str] = {}
     errors_lock = threading.Lock()
     started = time.monotonic()
+    counter_baseline = metrics().counters_snapshot()
     try:
         subs = [
             CdnSubscriber(store, cfg.topic, i, cfg.fleet_size, durable_fetch=durable_fetch)
@@ -236,6 +240,7 @@ def run_cdn_storm(cfg: CdnStormConfig, store: Optional[Store] = None) -> CdnStor
             peer_fallbacks=sum(s.stats.peer_fallbacks for s in subs),
             errors=errors,
             pull_latency=pull_latency,
+            wire=wire_from_deltas(metrics().counters_delta_since(counter_baseline)),
         )
     finally:
         for sub in subs:

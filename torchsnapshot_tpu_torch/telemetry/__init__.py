@@ -14,14 +14,17 @@ readers parse the other's, with incident bundles under
 ``<root>/.bundles/`` and the autotuner's ``.tuner-state.json`` beside
 them.
 
+Under them all, the wire observatory (wire.py) puts a trace context on
+every frame sent inside a ``wire.propagate`` block, counts frames, bytes,
+dials and RPCs per endpoint, and runs the fleet metrics plane: bounded
+``__obs/`` snapshots on the coordination store that ``telemetry fleet``
+renders and ``doctor.diagnose_fleet`` judges.
+
 ``python -m torchsnapshot_tpu_torch.telemetry`` is the JAX package's
 CLI: ``stats <events.jsonl>`` (the default), ``trace <snapshot>``,
-``doctor <snapshot>`` (``--trend``, ``--bundle``), ``goodput <root>``,
-``diff <a> <b>``, ``slo <root>`` and ``bundle <root>``.
-
-Not part of this package yet: the wire observatory and the fleet metrics
-plane (ROADMAP step 10c); ``telemetry fleet``, ``doctor --fleet`` and
-``doctor.diagnose_fleet`` raise ``NotImplementedError`` naming the step.
+``doctor <snapshot>`` (``--trend``, ``--bundle``, ``--fleet``),
+``goodput <root>``, ``diff <a> <b>``, ``fleet <host:port | root>``,
+``slo <root>`` and ``bundle <root>``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from . import (
     slo,
     trace,
     watchdog,
+    wire,
 )
 from .progress import current_progress
 from .registry import (
@@ -95,6 +99,7 @@ __all__ = [
     "slo",
     "trace",
     "watchdog",
+    "wire",
     "write_prometheus_textfile",
 ]
 

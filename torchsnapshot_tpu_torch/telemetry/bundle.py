@@ -50,15 +50,13 @@ import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from .. import knobs
+from .wire import FLEET_ENDPOINT_BASENAME
 
 logger = logging.getLogger(__name__)
 
 BUNDLE_DIR_BASENAME = ".bundles"
 MANIFEST_BASENAME = "manifest.json"
 BUNDLE_VERSION = 1
-# The JAX package's fleet-plane endpoint file (its telemetry/wire.py):
-# copied into a bundle where a JAX job wrote one to the same root.
-FLEET_ENDPOINT_BASENAME = ".fleet-endpoint"
 
 # Rate-limit state per bundle dir (monotonic stamp of the last capture
 # attempt that passed the gate). Process-local, lock-guarded: the

@@ -2,9 +2,8 @@
 
 Copy of ``torchsnapshot_tpu/telemetry/critpath.py``: the same recorder
 events give the same ``critical_path`` in either package, and the port's
-spans carry the JAX package's names, so the segment map applies as is.
-The port records no ``wire:*`` spans (ROADMAP step 10c): the wire segment
-and the cross-process descent stay empty for its traces.
+spans carry the JAX package's names, so the segment map applies as is,
+the ``wire:rpc`` / ``wire:handler`` spans of the peer tier included.
 
 The flight recorder (trace.py) answers "which spans ran"; the
 SnapshotReport's phases answer "how long each stage's wall clock was".

@@ -3,10 +3,9 @@
 Copy of ``torchsnapshot_tpu/telemetry/doctor.py``, with the same rules,
 thresholds and verdict ids: either package's doctor reads a snapshot or a
 root the other wrote and gives the same verdicts. The three fleet-scope
-rules read the wire observatory's metrics plane (ROADMAP step 10c), which
-this package does not have: their ids stay in the catalogue
-(:func:`registered_rule_ids`), and :func:`diagnose_fleet` and ``doctor
---fleet`` raise ``NotImplementedError`` naming the step.
+rules judge the wire observatory's ``__obs/`` metrics plane
+(:func:`diagnose_fleet`, ``doctor --fleet <host:port | root>`` and the
+``telemetry fleet`` table).
 
 The doctor answers "why was that take slow?": a declared registry of rules, each
 consuming a completed (or live) operation's artifacts — SnapshotReport
@@ -121,6 +120,24 @@ COORD_MIN_S = 0.05
 # cold-start swap from convicting the whole fleet.
 CDN_STALENESS_WINDOW = 20
 CDN_STALENESS_MIN_SAMPLES = 5
+# wire-dial-stalled: a fleet member's recent dial latencies cluster on
+# whole seconds — the SYN-retransmit signature of a listen backlog
+# overflowing. The quantization thresholds themselves (minimum latency,
+# whole-second tolerance, sample and fraction floors) live in wire.py
+# beside the dial ring they describe.
+# wire-hot-endpoint: one endpoint carries at least this multiple of the
+# mean per-endpoint byte volume (folded across every fleet member's
+# view), with at least this many endpoints in play — a 2-endpoint
+# topology always has a lopsided one — and a byte floor so test-scale
+# traffic never flags.
+WIRE_HOT_ENDPOINT_FACTOR = 4.0
+WIRE_HOT_MIN_ENDPOINTS = 3
+WIRE_HOT_MIN_BYTES = float(1 << 20)
+# store-hot-shard: one coordination-store shard serves at least this
+# multiple of the mean per-shard request count (summed across the
+# fleet's reports), over a request floor so short runs never flag.
+STORE_HOT_SHARD_FACTOR = 4.0
+STORE_HOT_MIN_REQUESTS = 512.0
 # Bench-trial epistemics:
 # adjacent probes disagreeing beyond this factor = unstable link;
 # achieved/bracket below this ratio on a stable bracket = in-take stall.
@@ -162,31 +179,22 @@ class _DoctorRule:
 _REPORT_RULES: List[_DoctorRule] = []
 _EVIDENCE_RULES: List[_DoctorRule] = []
 
+_FLEET_RULES: List[_DoctorRule] = []
+
 _RULE_BUCKETS = {
     "report": _REPORT_RULES,
     "evidence": _EVIDENCE_RULES,
+    "fleet": _FLEET_RULES,
 }
-
-# The fleet-scope rules of the JAX doctor judge the wire observatory's
-# ``__obs/`` metrics plane (ROADMAP step 10c, not ported): their ids stay
-# in the catalogue, so that both packages register the same rule ids.
-_FLEET_RULE_IDS = (
-    names.RULE_WIRE_DIAL_STALLED,
-    names.RULE_WIRE_HOT_ENDPOINT,
-    names.RULE_STORE_HOT_SHARD,
-)
-_FLEET_REFUSAL = (
-    "the fleet metrics plane (telemetry/wire.py) is not ported to "
-    "torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 10c)"
-)
 
 
 def doctor_rule(
     rule_id: str, scope: str = "report"
 ) -> Callable[[Callable], Callable]:
     """Register a diagnosis rule under a declared id. ``scope`` is
-    "report" (called once per SnapshotReport dict) or "evidence" (called
-    once with the full artifact bundle). The
+    "report" (called once per SnapshotReport dict), "evidence" (called
+    once with the full artifact bundle), or "fleet" (called once with
+    the list of decoded ``__obs/`` metrics-plane entries). The
     decorated function returns a verdict-shaped dict
     (summary/evidence/severity/source), a list of them, or None; the
     engine stamps the registered id so no literal id ever appears at an
@@ -209,9 +217,8 @@ def registered_rule_ids() -> List[str]:
         names.RULE_BENCH_REGRESSION,
     ]
     return sorted(
-        {r.rule_id for r in _REPORT_RULES + _EVIDENCE_RULES}
+        {r.rule_id for r in _REPORT_RULES + _EVIDENCE_RULES + _FLEET_RULES}
         | set(static)
-        | set(_FLEET_RULE_IDS)
     )
 
 
@@ -1316,14 +1323,147 @@ def _mirror_lagging_live(ev: Evidence):
 
 
 # ---------------------------------------------------------------------------
+# Fleet rules (over decoded __obs/ metrics-plane entries — wire.py)
+# ---------------------------------------------------------------------------
+
+
+def _fleet_source(entry: Dict[str, Any]) -> str:
+    return f"{entry.get('role', '?')}/{entry.get('id', '?')}"
+
+
+@doctor_rule(names.RULE_WIRE_DIAL_STALLED, scope="fleet")
+def _wire_dial_stalled(entries: Sequence[Dict[str, Any]]):
+    """Whole-second-quantized dial latencies on one fleet member: SYNs
+    are being retransmitted because the server's listen backlog is
+    overflowing — raise its ``request_queue_size``."""
+    from .wire import (
+        DIAL_STALL_MIN_FRACTION,
+        DIAL_STALL_MIN_SAMPLES,
+        quantized_dial_fraction,
+    )
+
+    out = []
+    for entry in entries:
+        wire_summary = entry.get("wire") or {}
+        dials = [float(s) for s in (wire_summary.get("dials_s") or [])]
+        slow, frac = quantized_dial_fraction(dials)
+        if slow < DIAL_STALL_MIN_SAMPLES or frac < DIAL_STALL_MIN_FRACTION:
+            continue
+        out.append(
+            {
+                "summary": (
+                    "dial latencies quantize to whole seconds — the "
+                    "SYN-retransmit signature of an overflowing listen "
+                    "backlog (raise the server's request_queue_size)"
+                ),
+                "evidence": {
+                    "slow_dials": slow,
+                    "quantized_fraction": round(frac, 3),
+                    "dial_p95_s": wire_summary.get("dial_p95_s"),
+                    "threshold_fraction": DIAL_STALL_MIN_FRACTION,
+                },
+                "severity": "critical",
+                "source": _fleet_source(entry),
+            }
+        )
+    return out
+
+
+@doctor_rule(names.RULE_WIRE_HOT_ENDPOINT, scope="fleet")
+def _wire_hot_endpoint(entries: Sequence[Dict[str, Any]]):
+    """One endpoint soaking up a disproportionate share of the fleet's
+    wire bytes (every subscriber pulling from the same serving peer, a
+    skewed owner map): fold per-endpoint bytes across every member's
+    view and flag the outlier against the mean."""
+    bytes_by_endpoint: Dict[str, float] = {}
+    for entry in entries:
+        endpoints = (entry.get("wire") or {}).get("endpoints") or {}
+        for endpoint, fields in endpoints.items():
+            bytes_by_endpoint[endpoint] = bytes_by_endpoint.get(
+                endpoint, 0.0
+            ) + float(fields.get("bytes", 0.0))
+    if len(bytes_by_endpoint) < WIRE_HOT_MIN_ENDPOINTS:
+        return None
+    hot, hot_bytes = max(bytes_by_endpoint.items(), key=lambda kv: kv[1])
+    mean = sum(bytes_by_endpoint.values()) / len(bytes_by_endpoint)
+    if (
+        hot_bytes < WIRE_HOT_MIN_BYTES
+        or hot_bytes < WIRE_HOT_ENDPOINT_FACTOR * mean
+    ):
+        return None
+    return {
+        "summary": (
+            "one endpoint is carrying a disproportionate share of the "
+            "fleet's wire bytes (skewed owner map or a single serving "
+            "peer soaking the whole subscriber fleet)"
+        ),
+        "evidence": {
+            "endpoint": hot,
+            "endpoint_mb": round(hot_bytes / 1024**2, 2),
+            "fleet_mean_mb": round(mean / 1024**2, 2),
+            "endpoints": len(bytes_by_endpoint),
+            "threshold_factor": WIRE_HOT_ENDPOINT_FACTOR,
+        },
+        "source": "fleet",
+    }
+
+
+@doctor_rule(names.RULE_STORE_HOT_SHARD, scope="fleet")
+def _store_hot_shard(entries: Sequence[Dict[str, Any]]):
+    """One coordination-store shard serving far more requests than its
+    siblings (a key-hashing skew or a hot prefix): fold the per-shard
+    request counts every member reports and flag max-vs-mean skew."""
+    requests_by_shard: Dict[str, float] = {}
+    for entry in entries:
+        shards = (entry.get("wire") or {}).get("store_shards") or {}
+        for shard, count in shards.items():
+            requests_by_shard[shard] = requests_by_shard.get(
+                shard, 0.0
+            ) + float(count)
+    if len(requests_by_shard) < 2:
+        return None
+    total = sum(requests_by_shard.values())
+    if total < STORE_HOT_MIN_REQUESTS:
+        return None
+    hot, hot_requests = max(requests_by_shard.items(), key=lambda kv: kv[1])
+    mean = total / len(requests_by_shard)
+    if hot_requests < STORE_HOT_SHARD_FACTOR * mean:
+        return None
+    return {
+        "summary": (
+            "one coordination-store shard is serving a disproportionate "
+            "share of the fleet's requests (hot key prefix or hashing "
+            "skew — rebalance the shard map)"
+        ),
+        "evidence": {
+            "shard": hot,
+            "shard_requests": round(hot_requests),
+            "mean_requests": round(mean, 1),
+            "shards": len(requests_by_shard),
+            "threshold_factor": STORE_HOT_SHARD_FACTOR,
+        },
+        "source": "fleet",
+    }
+
+
+# ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
 
 
 def diagnose_fleet(entries: Sequence[Dict[str, Any]]) -> List[Verdict]:
-    """The JAX doctor's fleet-scope rules over the wire observatory's
-    metrics-plane entries: refused, as that plane is not ported."""
-    raise NotImplementedError(f"doctor fleet rules: {_FLEET_REFUSAL}")
+    """Fleet-scope rules over the decoded ``__obs/`` metrics-plane
+    entries: what ``telemetry fleet`` appends under its live table."""
+    verdicts: List[Verdict] = []
+    for rule in _FLEET_RULES:
+        try:
+            raw = rule.fn(list(entries))
+        except Exception as e:  # noqa: BLE001 - a broken rule must not
+            # take down the diagnosis
+            logger.warning("doctor: rule %s failed: %r", rule.rule_id, e)
+            continue
+        verdicts.extend(_as_verdicts(rule.rule_id, raw))
+    return rank_verdicts(verdicts)
 
 
 def diagnose_reports(reports: Sequence[Dict[str, Any]]) -> List[Verdict]:
@@ -1545,6 +1685,29 @@ def _resolve_history_path(target: str) -> Optional[str]:
     return history_path_for(target)
 
 
+def _main_fleet(target: str, as_json: bool) -> int:
+    """``doctor --fleet <target>``: the fleet rules over the live entries."""
+    import json as _json
+
+    from .wire import collect_fleet, open_fleet_store
+
+    store = open_fleet_store(target)
+    try:
+        entries = collect_fleet(store)
+    finally:
+        store.close()
+    verdicts = diagnose_fleet(entries)
+    if as_json:
+        print(_json.dumps([v.to_dict() for v in verdicts], indent=1))
+    else:
+        print(f"doctor fleet: {target} ({len(entries)} live publisher(s))")
+        if not verdicts:
+            print("no findings")
+        for v in verdicts:
+            print(v.format())
+    return 0 if not verdicts else 2
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     import argparse
     import json as _json
@@ -1591,11 +1754,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument(
         "--fleet",
         action="store_true",
-        help="not ported yet (ROADMAP step 10c)",
+        help="fleet mode: the target is a coordination store (host:port) "
+        "or a root holding .fleet-endpoint; run the fleet-scope rules over "
+        "its live __obs/ metrics-plane entries",
     )
     args = p.parse_args(list(argv) if argv is not None else None)
     if args.fleet:
-        raise NotImplementedError(f"doctor --fleet: {_FLEET_REFUSAL}")
+        if args.target is None:
+            p.error("--fleet needs a target (host:port or a root)")
+        return _main_fleet(args.target, args.json)
 
     if args.bundle is not None:
         from .bundle import is_bundle, load_manifest

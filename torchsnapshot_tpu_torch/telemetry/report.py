@@ -3,8 +3,9 @@
 Copy of ``torchsnapshot_tpu/telemetry/report.py``, in the same schema, so
 that either package's readers parse the other's reports.
 ``critical_path`` is filled by ``telemetry/critpath.py`` for every take,
-restore and mirror job; ``wire`` is None because no wire counter is
-recorded (``wire_from_deltas`` finds none; ROADMAP step 10c);
+restore and mirror job; ``wire`` is the wire observatory's split of the
+op's window (``wire_from_deltas``: frames, bytes, dials and RPC seconds,
+with a per-op table), None when the op put nothing on a socket;
 ``tunables`` holds ``knobs.tunable_snapshot()``, the vector the op ran
 under, under the JAX names.
 

@@ -322,18 +322,29 @@ def evaluate_root(root: str) -> Optional[Dict[str, Any]]:
     }
 
 
-# Edge-trigger state: per (root, objective) breach flags. Process-local,
-# guarded: async-save commit threads and the training loop both evaluate.
-# (The JAX module also keeps each root's last max burn for its fleet
-# plane, ROADMAP step 10c, which is not ported.)
+# Edge-trigger and fleet-plane state: per (root, objective) breach flags
+# and each root's last max burn. Process-local, guarded: async-save commit
+# threads and the training loop both evaluate.
 _STATE_LOCK = threading.Lock()
 _BREACHING: Dict[Tuple[str, str], bool] = {}
+_LAST_BURN: Dict[str, float] = {}
 
 
 def reset_slo_state() -> None:
-    """Drop breach edges (tests)."""
+    """Drop breach edges and burn caches (tests)."""
     with _STATE_LOCK:
         _BREACHING.clear()
+        _LAST_BURN.clear()
+
+
+def current_burn() -> Optional[float]:
+    """The largest burn rate across this process's evaluated roots at
+    their latest evaluation: what the fleet plane publishes as the
+    ``slo_burn`` extra. None before any evaluation."""
+    with _STATE_LOCK:
+        if not _LAST_BURN:
+            return None
+        return max(_LAST_BURN.values())
 
 
 def evaluate_step(root: str, step: int) -> Optional[Dict[str, Any]]:
@@ -350,6 +361,7 @@ def evaluate_step(root: str, step: int) -> Optional[Dict[str, Any]]:
     registry = metrics()
     root_key = os.path.abspath(root)
     fresh: List[str] = []
+    max_burn = 0.0
     with _STATE_LOCK:
         for obj in result["objectives"]:
             if obj["disabled"]:
@@ -360,11 +372,13 @@ def evaluate_step(root: str, step: int) -> Optional[Dict[str, Any]]:
                 obj["burn_rate"],
                 objective=obj["objective"],
             )
+            max_burn = max(max_burn, obj["burn_rate"])
             key = (root_key, obj["objective"])
             was_breaching = _BREACHING.get(key, False)
             if obj["breaching"] and not was_breaching:
                 fresh.append(obj["objective"])
             _BREACHING[key] = obj["breaching"]
+        _LAST_BURN[root_key] = max_burn
     for slo_id in fresh:
         obj = next(
             o for o in result["objectives"] if o["objective"] == slo_id

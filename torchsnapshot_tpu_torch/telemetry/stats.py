@@ -22,15 +22,15 @@ CLI (``python -m torchsnapshot_tpu_torch.telemetry``)::
                                           # (telemetry/critpath.py;
                                           # operands may be incident
                                           # bundle dirs)
+    snapshot-stats fleet <host:port|root> # live fleet table of the wire
+                                          # observatory's __obs/ plane
+                                          # (telemetry/wire.py)
     snapshot-stats slo <root>             # judge the declared SLOs with
                                           # burn-rate math
                                           # (telemetry/slo.py)
     snapshot-stats bundle <root>          # list / capture incident
                                           # black-box bundles
                                           # (telemetry/bundle.py)
-
-``fleet`` (the live table of the wire observatory's metrics plane,
-ROADMAP step 10c) is not ported and raises ``NotImplementedError``.
 
 Output: one row per (path, kind, rank) record — phase durations,
 bytes, throughput, budget wait, retries — followed by a per-tier
@@ -231,10 +231,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
         return diff_main(argv[1:])
     if argv and argv[0] == "fleet":
-        raise NotImplementedError(
-            "telemetry fleet: the fleet metrics plane (telemetry/wire.py) is not ported to "
-            "torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 10c)"
-        )
+        # ``python -m torchsnapshot_tpu_torch.telemetry fleet <target>``:
+        # the live per-publisher table of the __obs/ metrics plane on the
+        # coordination store (telemetry/wire.py).
+        from .wire import fleet_main
+
+        return fleet_main(argv[1:])
     if argv and argv[0] == "slo":
         # ``python -m torchsnapshot_tpu_torch.telemetry slo <root>``: judge
         # the declared SLOs over a root's (or bundle's) run ledger +

@@ -16,9 +16,12 @@ Topology and transport:
 - Requests are pickled ``(cmd, args)`` tuples of builtin types in the
   store's length-prefixed frames (``dist_store.send_frame``, so the chaos
   wire hook covers them), so a server of either package answers a client
-  of the other. The JAX client prefixes its frames with a trace header;
-  this server strips it (:func:`_strip_trace_header`). The port's frames
-  carry none.
+  of the other. Each request runs inside ``wire.propagate(cmd)`` under a
+  ``wire:rpc`` span, so its frame carries a trace header; the serving
+  handler runs under a ``wire:handler`` span whose args name the sender's
+  ``trace_id`` and ``parent_span_id``, and the merged trace links the two.
+  Dials, round trips, pool checkouts and accept depth feed the wire
+  observatory's ``endpoint="peer"`` series.
 - Endpoints ride the store's endpoint registry
   (``dist_store.publish_endpoint``, overwritten on re-publish: a
   replacement rank re-announces itself under its old rank id).
@@ -43,11 +46,7 @@ to storage for that blob: a restore is correct, at worst slower.
 Kill switch: ``TORCHSNAPSHOT_TPU_PEER_TIER=0`` (no server, no pushes, no
 pulls). Knobs: ring offset, cache budget, transfer timeout (``knobs.py``).
 
-Left out against the JAX package (ROADMAP queue 3): the wire observatory
-(dial, RPC, pool-checkout and accept-depth accounting, frame counts) and
-the trace-context propagation of its frames, with the ``wire:rpc`` /
-``wire:handler`` spans, come with the wire observatory (step 10c). A peer
-pull stamps ``ReadIO.verified_entry``, so the read pipeline does not
+A peer pull stamps ``ReadIO.verified_entry``, so the read pipeline does not
 verify those bytes a second time (the JAX pipeline does).
 """
 
@@ -68,7 +67,6 @@ from typing import Any, Dict, List, Optional, Tuple
 from .. import knobs, telemetry
 from ..dist_store import (
     Store,
-    _strip_trace_header,
     lookup_endpoint,
     lookup_endpoints,
     publish_endpoint,
@@ -82,6 +80,7 @@ from ..scheduler import PeerCacheBudget
 from ..storage_plugin import split_tiered_url, url_to_storage_plugin
 from ..storage_plugins.retry import CollectiveProgressRetryStrategy, RetriesExhausted
 from ..telemetry import names as metric_names
+from ..telemetry import wire
 from ..telemetry.ledger import step_from_path
 from ..telemetry.trace import get_recorder as _trace_recorder
 
@@ -324,6 +323,9 @@ class _PeerServer(socketserver.ThreadingTCPServer):
     def __init__(self, addr, cache: PeerCache) -> None:
         super().__init__(addr, _PeerRequestHandler)
         self.cache = cache
+        # Connections being served: the accept-pressure proxy.
+        self.active_handlers = 0
+        self.active_lock = threading.Lock()
 
 
 class _PeerRequestHandler(socketserver.BaseRequestHandler):
@@ -362,13 +364,37 @@ class _PeerRequestHandler(socketserver.BaseRequestHandler):
         return None
 
     def handle(self) -> None:
-        cache = self.server.cache  # type: ignore[attr-defined]
+        server: _PeerServer = self.server  # type: ignore[assignment]
+        cache = server.cache
+        with server.active_lock:
+            server.active_handlers += 1
+            depth = server.active_handlers
+        try:
+            wire.observe_accept_depth("peer", depth)
+        except Exception:  # noqa: BLE001 - observability is best-effort
+            pass
         try:
             while True:
-                cmd, args = pickle.loads(_strip_trace_header(recv_frame(self.request)))
-                send_frame(self.request, pickle.dumps(self._dispatch(cmd, args, cache)))
+                cmd, args = pickle.loads(recv_frame(self.request, endpoint="peer"))
+                # The handler span names the client's span as its parent,
+                # so the merged trace links the pull to the work it caused.
+                ctx = wire.last_received_context()
+                if ctx is not None:
+                    with _trace_recorder().span(
+                        metric_names.SPAN_WIRE_HANDLER,
+                        op=ctx.op,
+                        trace_id=ctx.trace_id,
+                        parent_span_id=ctx.span_id,
+                    ):
+                        reply = self._dispatch(cmd, args, cache)
+                else:
+                    reply = self._dispatch(cmd, args, cache)
+                send_frame(self.request, pickle.dumps(reply), endpoint="peer")
         except (ConnectionError, EOFError, OSError):
             return
+        finally:
+            with server.active_lock:
+                server.active_handlers -= 1
 
 
 class PeerClient:
@@ -386,21 +412,46 @@ class PeerClient:
 
     def _connect(self) -> socket.socket:
         if self._sock is None:
-            sock = socket.create_connection((self.host, self.port), timeout=self.timeout)
+            t_dial = time.monotonic()
+            try:
+                sock = socket.create_connection((self.host, self.port), timeout=self.timeout)
+            except OSError:
+                try:
+                    wire.observe_dial("peer", 0.0, ok=False)
+                except Exception:  # noqa: BLE001 - best-effort
+                    pass
+                raise
+            try:
+                # A full listen backlog on the serving peer shows here as
+                # whole-second SYN-retransmit quanta (wire-dial-stalled).
+                wire.observe_dial("peer", time.monotonic() - t_dial)
+            except Exception:  # noqa: BLE001 - best-effort
+                pass
             sock.settimeout(self.timeout)
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             self._sock = sock
         return self._sock
 
     def request(self, cmd: str, *args: Any) -> Any:
+        t0 = time.monotonic()
         with self._lock:
             try:
-                sock = self._connect()
-                send_frame(sock, pickle.dumps((cmd, args)))
-                return pickle.loads(_strip_trace_header(recv_frame(sock)))
+                # ``cmd`` is the declared RPC id (names.RPC_PEER_*): the
+                # request frame carries it with this thread's trace id.
+                with wire.propagate(cmd) as ctx, _trace_recorder().span(
+                    metric_names.SPAN_WIRE_RPC, op=cmd, trace_id=ctx.trace_id, span_id=ctx.span_id
+                ):
+                    sock = self._connect()
+                    send_frame(sock, pickle.dumps((cmd, args)), endpoint="peer")
+                    reply = pickle.loads(recv_frame(sock, endpoint="peer"))
             except (OSError, EOFError, pickle.PickleError) as e:
                 self._teardown_locked()
                 raise PeerTransferError(f"peer {self.host}:{self.port} {cmd} failed: {e!r}") from e
+        try:
+            wire.observe_rpc("peer", cmd, time.monotonic() - t0)
+        except Exception:  # noqa: BLE001 - telemetry is best-effort
+            pass
+        return reply
 
     def _teardown_locked(self) -> None:
         if self._sock is not None:
@@ -963,12 +1014,20 @@ class PeerRestoreContext:
 
     def _borrow(self, endpoint: Tuple[str, int]) -> Optional[PeerClient]:
         with self._lock:
+            client = None
             if self._endpoint_failures.get(endpoint, 0) >= _PULL_DEAD_AFTER_FAILURES:
-                return None
-            free = self._free_clients.get(endpoint)
-            if free:
-                return free.pop()
-        return PeerClient(endpoint[0], endpoint[1], timeout=self.timeout)
+                outcome = "dead"
+            elif self._free_clients.get(endpoint):
+                outcome = "reused"
+                client = self._free_clients[endpoint].pop()
+            else:
+                outcome = "new"
+                client = PeerClient(endpoint[0], endpoint[1], timeout=self.timeout)
+        try:
+            wire.observe_pool_checkout("peer", outcome)
+        except Exception:  # noqa: BLE001 - telemetry is best-effort
+            pass
+        return client
 
     def _give_back(self, endpoint: Tuple[str, int], client: PeerClient) -> None:
         with self._lock:
