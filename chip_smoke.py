@@ -322,6 +322,31 @@ each of which raises on failure (nothing is caught):
    maximum, each fleet process's wire split (frames, bytes, dials, RPC
    seconds by op id), the fleet table and the doctor's verdicts, and the
    phase's launches, which add to the record's.
+12. **bridge**: the migration bridge (``tricks/``, ``lowp.py``) on the
+   main configuration, trained ``STEPS`` steps from ``--seed``. (a)
+   ``write_reference_snapshot`` of its model and optimizer state (the
+   reference TorchSnapshot 0.0.3 format, JSON metadata) and
+   ``read_reference_snapshot`` back onto the card: every leaf
+   bit-identical, and the evaluation logits of a fresh model loaded from
+   it equal the live model's bit for bit. (b) The same state as a
+   four-rank reference snapshot (``test_utils.write_sharded_reference_snapshot``:
+   2-D leaves ``ShardedTensor`` shards on dim 0, small leaves in batched
+   slabs with ``byte_range``), placed by two spawned processes (a gloo
+   default group, a ``cuda`` mesh of 2) with ``read_sharded`` as
+   ``Shard(0)``, ``Shard(1)`` and ``Replicate()`` DTensors: each local
+   bit-identical to its slice of the trained leaf; each rank's ranged and
+   whole-blob reads and its peak host bytes against the state's are
+   logged. (c) ``convert`` of (a)'s snapshot (read onto the card, taken
+   with digests by the card), restored into a fresh state bit for bit;
+   with the embedding and layers 0-3 frozen one more step gives the live
+   run's loss bit for bit; an incremental take on the converted base
+   copies to the host exactly the changed chunks' bytes and writes them
+   (plus at most 1 MiB of CPU leaves), and a deep fsck passes; the
+   convert's read and take seconds and the digest launches are logged.
+   (d) Every float leaf encoded per tensor and every 2-D leaf per channel
+   on axis 0 (``lowp``), on the card and on the CPU: equal bytes, and the
+   card's decode equals the CPU's; each codec's encode GB/s on the card is
+   logged. Its launches, counted from 0, add to the record's.
 
 Every phase runs with the record knobs at their defaults (the run ledger,
 heartbeats and history on; the report and trace sinks off) and the stall
@@ -1350,7 +1375,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -1401,10 +1426,10 @@ def main() -> int:
     records = {}
     # Launches are counted only in the main path's run, plus the paths of
     # later slices, each counted from 0 (the digest's: the main, cas,
-    # tiered, peer and cdn phases'; the pack's: the cas phase's, both ranks'
-    # in the sharded phase, the leaves, tiered and cdn phases'; the flash
-    # kernels': the main and cdn phases'); without them they were not
-    # measured and the record says null.
+    # tiered, peer, cdn and bridge phases'; the pack's: the cas phase's,
+    # both ranks' in the sharded phase, the leaves, tiered and cdn phases';
+    # the flash kernels': the main, cdn and bridge phases'); without them
+    # they were not measured and the record says null.
     launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
 
     def add(name: str, n: int) -> None:
@@ -1439,6 +1464,11 @@ def main() -> int:
         for name in CDN_PATH_KERNELS:
             add(name, got[name])
 
+    def bridge() -> None:
+        got = bridge_phase(args, work_dir, card)
+        for name in BRIDGE_PATH_KERNELS:
+            add(name, got[name])
+
     sequence = [
         ("kernels", kernels_phase),
         ("main", lambda: launches.update(main_phase(args, work_dir, card))),
@@ -1451,6 +1481,7 @@ def main() -> int:
         ("tiered", tiered),
         ("peer", peer),
         ("cdn", cdn),
+        ("bridge", bridge),
     ]
     done: list = []
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
@@ -5890,6 +5921,356 @@ def _cdn_phase(args, work_dir: str, card: str) -> dict:
         launches="/".join(f"{k}:{launches[k]}" for k in CDN_PATH_KERNELS),
     )
     print(json.dumps({"cdn": record}), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+
+# ----------------------------------------------------------------------
+# The bridge phase: reference-format checkpoints on the card
+# ----------------------------------------------------------------------
+
+
+# The kernels the bridge phase must launch: the training steps and the
+# evaluation forwards (flash), the converted snapshot's and the
+# incremental take's digests.
+BRIDGE_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
+# Leg (b): the reference snapshot's ranks, and the processes that place it.
+BRIDGE_SAVED_RANKS = 4
+BRIDGE_RANKS = 2
+
+
+def _tree_leaves(tree, prefix: str) -> dict:
+    """``{path: leaf}`` of a nested state, by the package's flatten."""
+    from torchsnapshot_tpu_torch.flatten import flatten
+
+    return flatten(tree, prefix=prefix)[1]
+
+
+def _tensor_bytes(leaves: dict) -> int:
+    import torch
+
+    return sum(v.numel() * v.element_size() for v in leaves.values() if isinstance(v, torch.Tensor))
+
+
+def bridge_worker(pg, ref_sharded: str, ref_dense: str) -> dict:
+    """One rank of bridge leg (b) (spawned by ``run_multiprocess``): a gloo
+    default group and a ``cuda`` device mesh of 2 place every tensor
+    entry of the four-rank reference snapshot with ``read_sharded`` as
+    ``Shard(0)``, ``Shard(1)`` and ``Replicate()`` DTensors (the layouts
+    its rank admits). Each local must be bit-identical to its slice of
+    the trained leaf, read densely from leg (a)'s snapshot."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    from torchsnapshot_tpu_torch.test_utils import init_torch_group
+    from torchsnapshot_tpu_torch.tricks.torchsnapshot_reader import (
+        ReferenceSnapshotReader,
+        read_reference_snapshot,
+    )
+
+    rank = pg.rank
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    init_torch_group(pg)
+    try:
+        mesh = init_device_mesh("cuda", (pg.world_size,))
+        truth = _tree_leaves(read_reference_snapshot(ref_dense)["train"], "train")
+        reader = ReferenceSnapshotReader(ref_sharded)
+        view = reader.manifest_for_rank(rank)
+        # One untimed call first: the first DTensor of a process pays its
+        # one-time set-up.
+        t0 = time.monotonic()
+        first = next(p for p, e in view.items() if e.get("type") == "Tensor")
+        ReferenceSnapshotReader(ref_sharded).read_sharded(first, (mesh, [Replicate()]), rank=rank)
+        torch.cuda.synchronize()
+        warmup_s = time.monotonic() - t0
+        # Seconds inside the storage reads, apart from assembly and copies.
+        read_s = [0.0]
+        reads = reader._read_blobs
+
+        def timed_reads(*a):
+            t0 = time.monotonic()
+            try:
+                return reads(*a)
+            finally:
+                read_s[0] += time.monotonic() - t0
+
+        reader._read_blobs = timed_reads
+        kinds = {}
+        seconds = {"Shard(0)": 0.0, "Shard(1)": 0.0, "Replicate()": 0.0}
+        placed = dict.fromkeys(seconds, 0)
+        for path, entry in view.items():
+            if entry.get("type") not in ("Tensor", "ShardedTensor", "ChunkedTensor"):
+                continue
+            kinds[entry["type"]] = kinds.get(entry["type"], 0) + 1
+            full = truth[path]
+            layouts = [[Replicate()]] + [[Shard(d)] for d in range(min(full.ndim, 2))]
+            for placements in layouts:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                dt = reader.read_sharded(path, (mesh, placements), rank=rank)
+                torch.cuda.synchronize()
+                label = "Replicate()" if isinstance(placements[0], Replicate) else f"Shard({placements[0].dim})"
+                seconds[label] += time.monotonic() - t0
+                placed[label] += 1
+                local = dt.to_local()
+                _require(local.is_cuda, f"rank {rank}: {path} {label} local not on the card")
+                _require(
+                    tuple(dt.shape) == tuple(full.shape) and same_bits(local, _expected_local(full, mesh, placements)),
+                    f"rank {rank}: {path} placed as {label} differs from its slice of the trained leaf",
+                )
+                del dt, local
+        stats = reader.stats
+        reader.close()
+        return {
+            "rank": rank, "kinds": kinds, "placed": placed, "seconds": seconds,
+            "ranged_reads": stats.ranged_reads, "direct_reads": stats.direct_reads,
+            "whole_reads": stats.whole_reads, "read_s": read_s[0], "warmup_s": warmup_s,
+            "bytes_read": stats.bytes_read, "peak_host_bytes": stats.peak_host_bytes,
+            "state_bytes": _tensor_bytes(truth),
+        }
+    finally:
+        dist.destroy_process_group()
+
+
+def _codec_leg(leaves: dict) -> dict:
+    """Bridge leg (d): every float leaf encoded per tensor, every 2-D leaf
+    per channel on axis 0, on the card and on the CPU: the bytes must be
+    equal, and the card's decode must equal the CPU's decode."""
+    import torch
+
+    from torchsnapshot_tpu_torch import lowp
+
+    out = {}
+    for codec, encode, decode, wanted in (
+        ("per_tensor", lowp.encode_per_tensor, lowp.decode_per_tensor, lambda t: True),
+        ("per_channel", lambda t: lowp.encode_per_channel(t, 0), lowp.decode_per_channel, lambda t: t.ndim == 2),
+    ):
+        card_s = host_s = 0.0
+        nbytes = n = 0
+        rates = []
+        for path, t in leaves.items():
+            if not (isinstance(t, torch.Tensor) and t.is_cuda and t.is_floating_point() and wanted(t)):
+                continue
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            on_card = encode(t)
+            dt = time.monotonic() - t0
+            host = t.cpu()
+            t0 = time.monotonic()
+            on_host = encode(host)
+            host_s += time.monotonic() - t0
+            if on_card != on_host:
+                a = torch.frombuffer(bytearray(on_card), dtype=torch.uint8)
+                b = torch.frombuffer(bytearray(on_host), dtype=torch.uint8)
+                flips = int((a != b).sum()) if a.numel() == b.numel() else -1
+                raise AssertionError(f"bridge (d): {codec} bytes of {path} differ: {flips} bytes flipped")
+            dec_card = decode(on_card, tuple(t.shape))
+            dec_host = decode(on_host, tuple(t.shape), device="cpu")
+            _require(dec_card.is_cuda and same_bits(dec_host, dec_card), f"bridge (d): {codec} decode of {path} differs")
+            del dec_card, dec_host, host
+            card_s += dt
+            nbytes += t.numel() * t.element_size()
+            n += 1
+            rates.append(t.numel() * t.element_size() / dt / 1e9)
+        out[codec] = {"leaves": n, "bytes": nbytes, "card_s": card_s, "card_gb_s": nbytes / card_s / 1e9,
+                      "host_s": host_s, "leaf_gb_s_min": min(rates), "leaf_gb_s_max": max(rates)}
+    return out
+
+
+def bridge_phase(args, work_dir: str, card: str) -> dict:
+    """The migration bridge on the main configuration: (a) write the
+    trained state in the reference format and read it back onto the card,
+    bit for bit, logits included; (b) a four-rank reference snapshot of
+    it placed as DTensors by two processes; (c) convert (a) to the native
+    format, restore, resume one step bit for bit and take incrementally on
+    the converted base; (d) the int8 codecs on the card against the CPU.
+    Returns the kernels' launches of the phase."""
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot
+    from torchsnapshot_tpu_torch.fsck import verify_snapshot
+    from torchsnapshot_tpu_torch.models.transformer import (
+        init_train_state,
+        make_train_step,
+        params_tree,
+        random_tokens,
+    )
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.state_dict import load_tree_into
+    from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess, write_sharded_reference_snapshot
+    from torchsnapshot_tpu_torch.tricks.convert import convert
+    from torchsnapshot_tpu_torch.tricks.torchsnapshot_reader import read_reference_snapshot
+    from torchsnapshot_tpu_torch.tricks.torchsnapshot_writer import write_reference_snapshot
+
+    t_phase = time.monotonic()
+    root = os.path.join(work_dir, "bridge")
+    os.makedirs(root, exist_ok=True)
+    cfg = main_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
+    state = init_train_state(cfg, seed=args.seed)
+    train_step = make_train_step(cfg)
+    fa.reset_launch_counts()
+    dd.reset_launch_counts()
+    for _ in range(STEPS):
+        state, _ = train_step(state, tokens)
+    torch.cuda.synchronize()
+
+    # (a) Write the reference format, read it back onto the card.
+    legs = {}
+    t_leg = time.monotonic()
+    ref_a = os.path.join(root, "ref")
+    live = _tree_leaves(state.state_dict(), "train")
+    state_bytes = sum(v.numel() * v.element_size() for v in live.values() if isinstance(v, torch.Tensor) and v.is_cuda)
+    t0 = time.monotonic()
+    write_reference_snapshot(ref_a, {"train": state.state_dict()})
+    write_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    back_tree = read_reference_snapshot(ref_a)
+    torch.cuda.synchronize()
+    read_s = time.monotonic() - t0
+    back = _tree_leaves(back_tree["train"], "train")
+    _require(sorted(back) == sorted(live), "bridge (a): the read state holds other leaves")
+    for k, v in live.items():
+        if isinstance(v, torch.Tensor):
+            _require(back[k].is_cuda and same_bits(v, back[k]), f"bridge (a): {k} differs after the round trip")
+        else:
+            _require(back[k] == v, f"bridge (a): {k} is {back[k]!r}, written {v!r}")
+    fresh = init_train_state(cfg, seed=args.seed + 1)
+    load_tree_into(params_tree(fresh.model), back_tree["train"]["params"])
+    del back_tree, back
+    fwd0 = fa.launch_counts["flash_fwd"]
+    with torch.no_grad():
+        logits_live = state.model(tokens)
+        logits_read = fresh.model(tokens)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(logits_live).all()), "bridge (a): logits not finite")
+    _require(same_bits(logits_live, logits_read), "bridge (a): logits of the model read back differ")
+    _require(fa.launch_counts["flash_fwd"] - fwd0 == 2 * cfg.n_layers, "bridge (a): the forwards skipped the fused kernel")
+    del logits_live, logits_read, fresh
+    torch.cuda.empty_cache()
+    ref_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ref_a) for f in fs)
+    log(
+        f"bridge (a): reference-format write {write_s:.3f} s ({state_bytes / write_s / 1e9:.2f} GB/s of the "
+        f"card's {state_bytes / 1e9:.4f} GB; {ref_bytes / 1e9:.4f} GB on disk), read onto the card {read_s:.3f} s "
+        f"({state_bytes / read_s / 1e9:.2f} GB/s); {len(live)} leaves and the evaluation logits bit-identical, on {card}"
+    )
+
+    legs["a"] = time.monotonic() - t_leg
+
+    # (b) A four-rank reference snapshot, placed as DTensors by two processes.
+    t_leg = time.monotonic()
+    ref_b = os.path.join(root, "ref4")
+    t0 = time.monotonic()
+    fixture = write_sharded_reference_snapshot(ref_b, {"train": state.state_dict()}, world_size=BRIDGE_SAVED_RANKS)
+    fixture_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    ranks = run_multiprocess(bridge_worker, BRIDGE_RANKS, args=(ref_b, ref_a), timeout=300.0)
+    workers_s = time.monotonic() - t0
+    for r in ranks:
+        _require(r["ranged_reads"] > 0, f"bridge (b): rank {r['rank']} read no row window")
+        log(
+            f"bridge (b): rank {r['rank']}: {r['kinds']} entries placed "
+            + ", ".join(f"{k} x{r['placed'][k]} in {r['seconds'][k]:.3f} s" for k in r["seconds"])
+            + f" (storage reads {r['read_s']:.3f} s of the three; a first call {r['warmup_s']:.3f} s before); "
+            f"{r['ranged_reads']} ranged reads (row windows and slab members; {r['direct_reads']} straight into "
+            f"the local box) "
+            f"and {r['whole_reads']} whole-blob reads, "
+            f"{r['bytes_read'] / 1e9:.4f} GB read; peak host bytes {r['peak_host_bytes'] / 1e6:.3f} MB against "
+            f"the state's {r['state_bytes'] / 1e9:.4f} GB"
+        )
+    log(f"bridge (b): fixture {fixture} written in {fixture_s:.3f} s; workers {workers_s:.1f} s; every local bit for bit")
+
+    legs["b"] = time.monotonic() - t_leg
+
+    # (c) Convert (a), restore, resume, take incrementally on the converted base.
+    t_leg = time.monotonic()
+    conv = os.path.join(root, "converted")
+    digests0 = dd.launch_counts["device_digest"]
+    conv_times = convert(ref_a, conv)
+    convert_digests = dd.launch_counts["device_digest"] - digests0
+    _require(convert_digests > 0, "bridge (c): the convert's take launched no digest kernel")
+    resumed = init_train_state(cfg, seed=args.seed + 2)
+    t0 = time.monotonic()
+    Snapshot(conv).restore({"train": resumed})
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    _require_same_state({k: v for k, v in _state_tensors(state).items()}, resumed, "bridge (c) restore of the converted snapshot")
+    for s in (state, resumed):
+        for p in [s.model.embed] + [p for blk in s.model.layers[: cfg.n_layers // 2] for p in blk.parameters()]:
+            p.requires_grad_(False)
+    before = {k: v.clone() for k, v in _state_tensors(resumed).items()}
+    _, loss_live = train_step(state, tokens)
+    _, loss_resumed = train_step(resumed, tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_live, loss_resumed), f"bridge (c): resumed loss {loss_resumed} differs from {loss_live}")
+    changed = _changed_bytes(before, _state_tensors(resumed))
+    del before
+    incr = os.path.join(root, "incr")
+    d2h0 = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL)
+    digests0 = dd.launch_counts["device_digest"]
+    t0 = time.monotonic()
+    Snapshot.take(incr, {"train": resumed}, incremental_base=conv)
+    incr_s = time.monotonic() - t0
+    incr_digests = dd.launch_counts["device_digest"] - digests0
+    d2h = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL) - d2h0
+    written = _written_data_bytes(incr)
+    _require(d2h == changed, f"bridge (c): the incremental take copied {d2h} bytes to the host, {changed} changed")
+    _require(changed <= written <= changed + (1 << 20), f"bridge (c): incremental take wrote {written} bytes, {changed} changed")
+    t0 = time.monotonic()
+    report = verify_snapshot(incr, deep=True)
+    fsck_s = time.monotonic() - t0
+    _require(not report.problems, f"bridge (c): deep fsck of the incremental take: {report.problems[:3]}")
+    log(
+        f"bridge (c): convert read {conv_times['read_s']:.3f} s, take {conv_times['take_s']:.3f} s "
+        f"({convert_digests} digest launches); restore {restore_s:.3f} s bit-identical; resumed loss "
+        f"{float(loss_resumed)!r} bit for bit; incremental take on the converted base {incr_s:.3f} s "
+        f"({incr_digests} digest launches): {d2h / 1e6:.3f} MB to the host and {written / 1e6:.3f} MB written for "
+        f"{changed / 1e6:.3f} MB changed; deep fsck {fsck_s:.3f} s clean"
+    )
+    del resumed
+    torch.cuda.empty_cache()
+
+    legs["c"] = time.monotonic() - t_leg
+
+    # (d) The int8 codecs on the card against the CPU.
+    t_leg = time.monotonic()
+    codecs = _codec_leg(_tree_leaves(state.state_dict(), "train"))
+    legs["d"] = time.monotonic() - t_leg
+    for codec, c in codecs.items():
+        log(
+            f"bridge (d): {codec}: {c['leaves']} leaves, {c['bytes'] / 1e9:.4f} GB: encode on the card "
+            f"{c['card_s']:.3f} s ({c['card_gb_s']:.2f} GB/s; a leaf {c['leaf_gb_s_min']:.2f}-{c['leaf_gb_s_max']:.2f} "
+            f"GB/s), on the CPU {c['host_s']:.3f} s; bytes and decodes equal"
+        )
+
+    launches = {k: v for k, v in {**fa.launch_counts, **dd.launch_counts}.items() if k in BRIDGE_PATH_KERNELS}
+    _require(all(launches[k] for k in BRIDGE_PATH_KERNELS), f"bridge: a kernel of the path never launched: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.monotonic() - t_phase
+    record = {
+        "card": card, "state_bytes": state_bytes, "write_s": write_s, "read_s": read_s,
+        "fixture": fixture, "ranks": ranks, "convert": conv_times, "convert_digests": convert_digests,
+        "restore_s": restore_s, "incremental_s": incr_s, "incremental_written": written,
+        "changed": changed, "fsck_s": fsck_s, "codecs": codecs, "launches": launches, "legs_s": legs,
+        "wall_s": wall_s,
+    }
+    log(
+        f"bridge: launches {launches}; legs " + ", ".join(f"({k}) {v:.1f} s" for k, v in legs.items())
+        + f"; phase {wall_s:.1f} s on {card}"
+    )
+    _headline(
+        "bridge", write_s=write_s, read_s=read_s, convert_s=[conv_times["read_s"], conv_times["take_s"]],
+        ranged_reads=[r["ranged_reads"] for r in ranks], incremental_s=incr_s,
+        encode_gb_s=[codecs["per_tensor"]["card_gb_s"], codecs["per_channel"]["card_gb_s"]],
+        launches="/".join(f"{k}:{launches[k]}" for k in BRIDGE_PATH_KERNELS),
+    )
+    print(json.dumps({"bridge": record}), flush=True)
     del state
     torch.cuda.empty_cache()
     return launches

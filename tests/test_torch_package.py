@@ -161,6 +161,14 @@ SHARDED_SLICE_MODULES = [
     "torchsnapshot_tpu_torch/telemetry/ledger.py",
     "torchsnapshot_tpu_torch/telemetry/goodput.py",
     "torchsnapshot_tpu_torch/telemetry/trace.py",
+    # The migration bridge and the int8 codecs.
+    "torchsnapshot_tpu_torch/lowp.py",
+    "torchsnapshot_tpu_torch/tricks/__init__.py",
+    "torchsnapshot_tpu_torch/tricks/torch.py",
+    "torchsnapshot_tpu_torch/tricks/torchsnapshot_reader.py",
+    "torchsnapshot_tpu_torch/tricks/torchsnapshot_writer.py",
+    "torchsnapshot_tpu_torch/tricks/convert.py",
+    "torchsnapshot_tpu_torch/utils/device.py",
 ]
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -30,21 +30,7 @@ from ..ops.attention import causal_attention
 from ..ops.flash_attention import flash_causal_attention
 from ..serialization import tensor_from_numpy
 from ..state_dict import load_tree_into
-
-Device = Union[str, torch.device, None]
-
-
-def resolve_device(device: Device) -> torch.device:
-    """``None`` means the CUDA card; without one that raises unless the
-    caller asked for the CPU explicitly."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: torchsnapshot_tpu_torch's models run on the card; "
-                "pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+from ..utils.device import Device, resolve_device  # noqa: F401 - re-export
 
 
 @dataclasses.dataclass(frozen=True)

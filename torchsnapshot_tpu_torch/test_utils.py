@@ -290,3 +290,116 @@ def drive_preemption_loop(
             break
     saver.close()
     return saved_at
+
+
+def write_sharded_reference_snapshot(
+    path: str, app_state: Dict[str, Any], world_size: int = 4, slab_max_bytes: int = 1 << 20
+) -> Dict[str, int]:
+    """Write ``app_state`` as a ``world_size``-rank snapshot in the format
+    of the reference TorchSnapshot 0.0.3 (its manifest schema, written from
+    the schema alone, as the reference's ranks would leave it), at the
+    local directory ``path``:
+
+    - a tensor of two or more dimensions becomes a ``ShardedTensor``: rank
+      r's entry holds one shard, the r-th dim-0 chunk (``torch.chunk``'s
+      ceil split, so trailing ranks may hold none), in its own blob;
+    - other tensors of at most ``slab_max_bytes`` share batched slabs
+      (``batched/slab_<n>``, each entry a ``byte_range`` of its slab), and
+      larger ones have a blob each; both are replicated ``Tensor`` entries
+      that rank 0 records (the post-partitioning form);
+    - primitives are inline entries and other leaves ``torch_save``
+      objects, replicated, recorded by rank 0;
+    - every rank records the containers.
+
+    Tensors may be on the card. Returns the counts of sharded entries,
+    shards, slabs, slab members and whole-blob tensors."""
+    import io as _io
+
+    import torch
+
+    from .flatten import flatten
+    from .parallel.overlap import placements_box
+    from .serialization import tensor_as_memoryview
+    from .tricks.torchsnapshot_writer import (
+        _BUFFER_PROTOCOL_DTYPES,
+        _container_to_reference,
+        _prepare_leaf,
+        metadata_text,
+    )
+
+    def _write(location: str, data) -> None:
+        full = os.path.join(path, location)
+        os.makedirs(os.path.dirname(full), exist_ok=True)
+        with open(full, "wb") as f:
+            f.write(data)
+
+    def _tensor(location: str, t, byte_range=None, replicated=True) -> Dict[str, Any]:
+        return {
+            "type": "Tensor", "location": location, "serializer": "buffer_protocol",
+            "dtype": _BUFFER_PROTOCOL_DTYPES[t.dtype], "shape": list(t.shape),
+            "replicated": replicated, "byte_range": byte_range,
+        }
+
+    counts = dict.fromkeys(("sharded", "shards", "slabs", "slab_members", "whole"), 0)
+    manifest: Dict[str, Any] = {}
+    slab = _io.BytesIO()
+    slab_entries: List[str] = []
+
+    def _flush_slab() -> None:
+        if slab_entries:
+            _write(f"batched/slab_{counts['slabs']}", slab.getvalue())
+            counts["slabs"] += 1
+            slab.seek(0)
+            slab.truncate()
+            slab_entries.clear()
+
+    for key, value in app_state.items():
+        containers, leaves = flatten(value, prefix=key)
+        for rank in range(world_size):
+            for cpath, centry in containers.items():
+                manifest[f"{rank}/{cpath}"] = _container_to_reference(centry)
+        for lpath, leaf in leaves.items():
+            if not isinstance(leaf, torch.Tensor):
+                entry, blob = _prepare_leaf(lpath, leaf)
+                entry["replicated"] = True
+                if blob is not None:
+                    entry["location"] = f"replicated/{lpath}"
+                    _write(entry["location"], blob)
+                manifest[f"0/{lpath}"] = entry
+                continue
+            t = leaf.detach().contiguous().cpu()
+            if t.ndim >= 2:
+                counts["sharded"] += 1
+                for rank in range(world_size):
+                    box = placements_box(tuple(t.shape), (world_size,), (rank,), (("shard", 0),))
+                    if not box.sizes[0]:
+                        continue
+                    piece = t[box.offsets[0] : box.offsets[0] + box.sizes[0]].contiguous()
+                    location = f"sharded/{lpath}_{box.offsets[0]}"
+                    _write(location, tensor_as_memoryview(piece))
+                    manifest[f"{rank}/{lpath}"] = {"type": "ShardedTensor", "shards": [{
+                        "offsets": list(box.offsets), "sizes": list(box.sizes),
+                        "tensor": _tensor(location, piece, replicated=False),
+                    }]}
+                    counts["shards"] += 1
+                continue
+            data = tensor_as_memoryview(t)
+            if data.nbytes <= slab_max_bytes:
+                if slab.tell() + data.nbytes > slab_max_bytes:
+                    _flush_slab()
+                start = slab.tell()
+                slab.write(data)
+                location = f"batched/slab_{counts['slabs']}"
+                manifest[f"0/{lpath}"] = _tensor(location, t, byte_range=[start, start + data.nbytes])
+                slab_entries.append(lpath)
+                counts["slab_members"] += 1
+            else:
+                location = f"replicated/{lpath}"
+                _write(location, data)
+                manifest[f"0/{lpath}"] = _tensor(location, t)
+                counts["whole"] += 1
+    _flush_slab()
+    doc = {"version": "0.0.3", "world_size": world_size, "manifest": manifest}
+    with open(os.path.join(path, ".snapshot_metadata"), "w", encoding="utf-8") as f:
+        f.write(metadata_text(doc))
+    return counts
