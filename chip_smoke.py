@@ -347,6 +347,43 @@ each of which raises on failure (nothing is caught):
    on axis 0 (``lowp``), on the card and on the CPU: equal bytes, and the
    card's decode equals the CPU's; each codec's encode GB/s on the card is
    logged. Its launches, counted from 0, add to the record's.
+13. **moe**: the MoE configuration at full width (``benchmarks/pod/main.py
+   --experts 4``: the main configuration with every second block a
+   soft-routed MoE block of 4 experts; 268.5 M parameters, a 1.611 GB
+   train state, half of it expert-stacked). (a) One process: ``STEPS``
+   steps from ``--seed``; ``Snapshot.take`` and a restore into another
+   seed's state, bit-identical, with equal evaluation logits and the next
+   step's loss bit for bit; the same state taken again as a tree of
+   tensors and as pp = 1 stage stacks (for legs b and c); then main's
+   legs (a)-(c) (an async take beside a step, an incremental take with
+   half the layers frozen that copies and writes exactly the changed
+   chunks' bytes, an async restore; one digest launch each take); a
+   batched take with ``ENABLE_BATCHING`` and ``DEVICE_PACK``: one pack
+   launch per slab of card members, restored bit for bit, equal logits.
+   (b) Expert parallel, two spawned processes on the card (a gloo default
+   group, a ``cuda`` mesh of 2), each training the same replica: the take
+   of the state with every expert-stacked leaf and its moments ``Shard(0)``
+   over the experts (JAX's ep layout, 2 experts a rank) and the rest
+   declared replicated; the saved boxes tile every expert leaf, and each
+   rank writes 50% +- 1% of the expert bytes; restored under the same
+   layout bit for bit; (a)'s world-1 tree restored into the layout bit for
+   bit. (c) The pipeline, the same processes: the 8 blocks as 2 stages of
+   4 (``parallel/pipeline.py``; embedding, final norm and unembedding on
+   every rank), the stage leaves and their moments ``Shard(0)`` over
+   ``pp``; (a)'s pp = 1 stacks restored into pp = 2 bit for bit; 2 AdamW
+   steps through ``pipelined_apply`` with 4 microbatches (the hops'
+   transport named: gloo moves a CUDA activation through the host), the
+   first step's loss within ``PP_LOSS_RTOL`` of the unpipelined step's;
+   a pp = 2 take (each rank 50% +- 1% of the stage bytes) restored bit for
+   bit, the next pipelined step's loss equal bit for bit. Then this
+   process, at world 1: the expert-parallel snapshot into plain tensors,
+   bit-identical to (a)'s state, and one more step gives (a)'s next loss
+   bit for bit; the pp = 2 snapshot into full stacks (each stage
+   bit-identical to its rank's, by digest) and the unpipelined model built
+   from them, its loss within ``PP_LOSS_RTOL`` of the pipelined one. Logs
+   take and restore s and GB/s per leg, each rank's bytes, ms per step
+   pipelined and not, the hops' transport, count, bytes and ms, and the
+   phase's launches (its workers' included), which add to the record's.
 
 Every phase runs with the record knobs at their defaults (the run ledger,
 heartbeats and history on; the report and trace sinks off) and the stall
@@ -369,6 +406,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -1375,7 +1414,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge,moe")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -1426,10 +1465,11 @@ def main() -> int:
     records = {}
     # Launches are counted only in the main path's run, plus the paths of
     # later slices, each counted from 0 (the digest's: the main, cas,
-    # tiered, peer, cdn and bridge phases'; the pack's: the cas phase's,
-    # both ranks' in the sharded phase, the leaves, tiered and cdn phases';
-    # the flash kernels': the main, cdn and bridge phases'); without them
-    # they were not measured and the record says null.
+    # tiered, peer, cdn, bridge and moe phases'; the pack's: the cas
+    # phase's, both ranks' in the sharded phase, the leaves, tiered, cdn and
+    # moe phases'; the flash kernels': the main, cdn, bridge and moe
+    # phases'); without them they were not measured and the record says
+    # null.
     launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
 
     def add(name: str, n: int) -> None:
@@ -1469,6 +1509,11 @@ def main() -> int:
         for name in BRIDGE_PATH_KERNELS:
             add(name, got[name])
 
+    def moe() -> None:
+        got = moe_phase(args, work_dir, card)
+        for name in MOE_PATH_KERNELS:
+            add(name, got[name])
+
     sequence = [
         ("kernels", kernels_phase),
         ("main", lambda: launches.update(main_phase(args, work_dir, card))),
@@ -1482,6 +1527,7 @@ def main() -> int:
         ("peer", peer),
         ("cdn", cdn),
         ("bridge", bridge),
+        ("moe", moe),
     ]
     done: list = []
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
@@ -1761,9 +1807,10 @@ def _counter(name: str) -> float:
     )
 
 
-def async_and_incremental(args, work_dir, card, cfg, state, tokens, train_step, sync_take_s) -> dict:
+def async_and_incremental(args, work_dir, card, cfg, state, tokens, train_step, sync_take_s, label="main") -> dict:
     """Main phase legs (a) async take, (b) incremental take, (c) async
-    restore, on the trained state."""
+    restore, on the trained state (the moe phase runs them too; ``label``
+    names the phase in the log)."""
     import torch
 
     from torchsnapshot_tpu_torch import Snapshot
@@ -1797,7 +1844,7 @@ def async_and_incremental(args, work_dir, card, cfg, state, tokens, train_step, 
     del at_call, fresh
     shutil.rmtree(path_a, ignore_errors=True)
     log(
-        f"main (a): async_take visible {pending.visible_s:.4f} s (call {visible_s:.4f} s), "
+        f"{label} (a): async_take visible {pending.visible_s:.4f} s (call {visible_s:.4f} s), "
         f"staged {pending.staged_s:.3f} s, committed {pending.committed_s:.3f} s after the call "
         f"(sync take {sync_take_s:.3f} s); a training step of {step_during_drain_s:.3f} s ran while "
         f"it drained (alone {step_alone_s:.3f} s); restored state bit-identical to the state at the call, on {card}"
@@ -1842,7 +1889,7 @@ def async_and_incremental(args, work_dir, card, cfg, state, tokens, train_step, 
     now = {k: v.clone() for k, v in _state_tensors(state).items()}
     _require_same_state(now, fresh_b, "incremental take")
     log(
-        f"main (b): {len(frozen)} of {len(list(state.model.parameters()))} parameters frozen; "
+        f"{label} (b): {len(frozen)} of {len(list(state.model.parameters()))} parameters frozen; "
         f"base take {base_take_s:.3f} s, incremental take {incr_take_s:.3f} s: {d2h / 1e6:.3f} MB "
         f"copied to the host and {written / 1e6:.3f} MB of data written ({written_all / 1e6:.3f} MB "
         f"with checksum table and commit marker) for {changed_bytes / 1e6:.3f} MB of chunks that "
@@ -1870,7 +1917,7 @@ def async_and_incremental(args, work_dir, card, cfg, state, tokens, train_step, 
     restore_s = time.monotonic() - t0
     _require_same_state(now, fresh_c, "async restore")
     log(
-        f"main (c): async_restore visible {restore_visible_s:.4f} s, reads and placement done "
+        f"{label} (c): async_restore visible {restore_visible_s:.4f} s, reads and placement done "
         f"{reads_s:.3f} s, applied {restore_s:.3f} s; live leaves untouched until wait() and "
         f"bit-identical after, on {card}"
     )
@@ -6273,6 +6320,832 @@ def bridge_phase(args, work_dir: str, card: str) -> dict:
     print(json.dumps({"bridge": record}), flush=True)
     del state
     torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# The moe phase: MoE blocks, expert parallel, the GPipe pipeline
+# ----------------------------------------------------------------------
+
+
+# The kernels the moe phase must launch (its process and its workers
+# together): the training steps' chunk kernel, the evaluation forwards'
+# fused kernel, the digests of the digest-recording and incremental takes
+# (and the workers' replica check), the batched take's pack.
+MOE_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest", "device_pack")
+# The expert count of examples/sharded_example.py:40 and tests/test_model.py.
+MOE_EXPERTS = 4
+MOE_RANKS = 2
+# Leg (c): the 8 blocks as 2 stages of 4 (dense, MoE, dense, MoE), 4
+# microbatches of 2 sequences, 2 AdamW steps.
+PP_STAGES = 2
+PP_MICROBATCHES = 4
+PP_STEPS = 2
+# The pipelined step against the unpipelined one from the same state.
+# Microbatching gives every product other row counts (2 sequences a call,
+# not 8), so cuBLAS may pick other kernels and split-K orders: bf16
+# outputs that differ in their last bits, carried through 8 blocks, and a
+# stage's gradient summed over 4 microbatches in bf16. Each limit is set
+# from readings on an H100 (PERF.md, PR 20), between the largest sound one
+# and the controls: the loss's relative gap (7.3e-6); the largest relative
+# L2 gap of a leaf's gradient (3.9e-3; the unpipelined gradient summed
+# over the same microbatches 3.6e-3; a doubled or a lost cotangent 1.0);
+# the parameters' L2 gap after the step relative to the unpipelined
+# update, over all of a rank's leaves (1.4e-2; a doubled or a lost
+# cotangent 0.11-0.20).
+PP_LOSS_RTOL = 2.0 ** -13
+PP_GRAD_RTOL = 2.0 ** -6
+PP_UPDATE_RTOL = 2.0 ** -5
+
+
+def moe_config():
+    """The repo's MoE configuration at full width: ``benchmarks/pod/main.py``
+    with ``--experts 4``, every second block MoE."""
+    return dataclasses.replace(main_config(), n_experts=MOE_EXPERTS, moe_every=2)
+
+
+def _is_expert_leaf(t) -> bool:
+    """The expert-stacked leaves of a train state: the MoE blocks' 3-D
+    ``w_in`` / ``w_out`` and their moments (no other leaf has 3 dims)."""
+    return t.is_cuda and t.dim() == 3
+
+
+def _ep_tree(leaves: dict, mesh) -> dict:
+    """JAX's ep layout for this rank: every expert-stacked leaf a
+    ``Shard(0)`` DTensor over the experts, built from this rank's experts;
+    every other leaf a plain copy (declared replicated by the take)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    out = {}
+    for name, t in leaves.items():
+        if not _is_expert_leaf(t):
+            out[name] = t.clone()
+            continue
+        out[name] = DTensor.from_local(
+            _expected_local(t, mesh, [Shard(0)]).clone(), mesh, [Shard(0)],
+            run_check=False, shape=t.shape, stride=t.stride(),
+        )
+    return out
+
+
+def _sharded_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(os.path.join(path, "sharded")) for f in fs)
+
+
+def _tree_bytes(tree) -> int:
+    import torch
+
+    return sum(
+        t.numel() * t.element_size() for t in _tree_leaves(tree, "x").values() if isinstance(t, torch.Tensor)
+    )
+
+
+class PipelineState:
+    """The MoE model as pipeline training state: its blocks as
+    ``PP_STAGES`` stage stacks (block ``s * per + j`` is slot ``j`` of stage
+    ``s``; every second block being MoE, the slots of both stages match),
+    the embedding, final norm and unembedding outside the pipeline on every
+    rank, and AdamW over all of it.
+
+    Its tensors are one tree (:meth:`tree`, the checkpointed state):
+    ``params``, ``exp_avg`` and ``exp_avg_sq`` each hold the slots' stacked
+    leaves under ``stages`` (as ``stack_stage_params`` gives them: with a
+    ``pp`` mesh ``Shard(0)`` DTensors, one stage a rank; without one, full
+    stacks) and the rest by name; ``step`` the step counts. The state
+    adopts the tensors of the tree it is built from, and :meth:`tree`
+    shares their storage, so a restore into it writes in place."""
+
+    REST = ("embed", "ln_f_scale", "unembed")
+    MOMENTS = ("exp_avg", "exp_avg_sq")
+
+    def __init__(self, cfg, tree: dict, mesh=None) -> None:
+        from torch.utils._pytree import tree_flatten
+
+        from torchsnapshot_tpu_torch.models.transformer import make_adamw
+
+        self.cfg, self.mesh = cfg, mesh
+        self.per = cfg.n_layers // PP_STAGES
+        self.lo = mesh.get_local_rank(0) if mesh is not None else 0
+        self.stages = tree["params"]["stages"]
+        self.rest = {n: tree["params"][n] for n in self.REST}
+        stage_leaves, self._spec = tree_flatten(self.stages)
+        for p in self.params():
+            p.requires_grad_(True)
+        # An AdamW's foreach step takes DTensors or plain tensors, not both.
+        self.opts = (make_adamw(cfg, stage_leaves), make_adamw(cfg, self.rest.values()))
+        self._states = [opt.state[p] for opt in self.opts for p in opt.param_groups[0]["params"]]
+        for key in self.MOMENTS:
+            for st, m in zip(self._states, self._flat(tree[key])):
+                st[key] = m
+        for st, step in zip(self._states, tree["step"]):
+            st["step"] = step
+
+    @classmethod
+    def of(cls, cfg, state, mesh=None) -> "PipelineState":
+        """From copies of a train state's parameters, moments and step
+        counts, its blocks stacked by ``stack_stage_params`` (with a mesh,
+        each rank stacks only its own stage)."""
+        import torch
+
+        from torchsnapshot_tpu_torch.parallel import stack_stage_params
+
+        per = cfg.n_layers // PP_STAGES
+        layers = [blk.tree() for blk in state.model.layers]
+        moments = state.optimizer.state
+        getters = {"params": lambda p: p.detach(), **{k: (lambda p, k=k: moments[p][k]) for k in cls.MOMENTS}}
+        tree = {}
+        with torch.no_grad():
+            for key, get in getters.items():
+                per_stage = [
+                    [{n: get(t) for n, t in layers[s * per + j].items()} for j in range(per)]
+                    for s in range(PP_STAGES)
+                ]
+                tree[key] = {
+                    "stages": stack_stage_params(per_stage, mesh),
+                    **{n: get(getattr(state.model, n)).clone() for n in cls.REST},
+                }
+        step = moments[state.model.embed]["step"]
+        tree["step"] = [step.clone() for _ in cls._flat(tree["params"])]
+        return cls(cfg, tree, mesh)
+
+    @classmethod
+    def _flat(cls, part: dict) -> list:
+        from torch.utils._pytree import tree_leaves
+
+        return tree_leaves(part["stages"]) + [part[n] for n in cls.REST]
+
+    def params(self) -> list:
+        return self._flat({"stages": self.stages, **self.rest})
+
+    def tree(self) -> dict:
+        """The checkpointed state, sharing storage with the live tensors."""
+        from torch.utils._pytree import tree_unflatten
+
+        k = self._spec.num_leaves
+        out = {}
+        for key, leaves in (
+            ("params", [p.detach() for p in self.params()]),
+            *((key, [st[key] for st in self._states]) for key in self.MOMENTS),
+        ):
+            out[key] = {"stages": tree_unflatten(leaves[:k], self._spec), **dict(zip(self.REST, leaves[k:]))}
+        out["step"] = [st["step"] for st in self._states]
+        return out
+
+    def targets(self, mesh=None) -> dict:
+        """Zeroed restore destinations of :meth:`tree`'s structure at pp =
+        ``mesh``'s size: the stage leaves under ``pipeline_stage_shardings``
+        (full stacks without a mesh), the rest and the step counts plain."""
+        import torch
+        from torch.distributed.tensor import zeros as dtensor_zeros
+        from torch.utils._pytree import tree_map
+
+        from torchsnapshot_tpu_torch.parallel import pipeline_stage_shardings
+
+        def zeros(t, sharding=None):
+            if sharding is None:
+                return torch.zeros(t.shape, dtype=t.dtype, device=t.device)
+            return dtensor_zeros(*t.shape, dtype=t.dtype, device_mesh=sharding[0], placements=sharding[1])
+
+        out = {}
+        for key, part in self.tree().items():
+            if key == "step":
+                out[key] = [zeros(t) for t in part]
+                continue
+            shardings = () if mesh is None else (pipeline_stage_shardings(part["stages"], mesh),)
+            out[key] = {"stages": tree_map(zeros, part["stages"], *shardings), **{n: zeros(part[n]) for n in self.REST}}
+        return out
+
+    def digest(self, stage: int) -> str:
+        """blake2b of stage ``stage``'s slice of every stacked leaf and of
+        every other leaf, in path order."""
+        import torch
+
+        h = hashlib.blake2b(digest_size=16)
+        for path, t in sorted(_pp_locals(self.tree()).items()):
+            if "/stages/" in path:
+                t = t[stage - self.lo]
+            h.update(path.encode())
+            h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def step(self, tokens):
+        """One pipelined AdamW step; its loss. The step's gradients stay
+        in the leaves' ``.grad``."""
+        import torch.nn.functional as F
+
+        from torchsnapshot_tpu_torch.models.transformer import _rmsnorm, block_forward
+        from torchsnapshot_tpu_torch.parallel import pipelined_apply
+
+        cfg = self.cfg
+
+        def stage_fn(blocks, x):
+            for blk in blocks:
+                x = block_forward(cfg, blk, x)
+            return x
+
+        for opt in self.opts:
+            opt.zero_grad(set_to_none=True)
+        x = F.embedding(tokens, self.rest["embed"])
+        y = pipelined_apply(stage_fn, self.stages, x, mesh=self.mesh, n_microbatches=PP_MICROBATCHES)
+        logits = (_rmsnorm(y, self.rest["ln_f_scale"]) @ self.rest["unembed"]).float()[:, :-1]
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+        loss.backward()
+        for opt in self.opts:
+            opt.step()
+        return loss.detach()
+
+    def mine(self, model) -> list:
+        """``(name, leaf, row, the model's parameter)`` of this rank's
+        leaves: its stage's (row ``row`` of the local stack: stage ``lo``)
+        and the rest (``row`` None), with their counterparts in ``model``."""
+        out = []
+        for j, blk in enumerate(self.stages):
+            i = self.lo * self.per + j
+            out += [(f"layers/{i}/{n}", t, 0, getattr(model.layers[i], n)) for n, t in blk.items()]
+        return out + [(n, t, None, getattr(model, n)) for n, t in self.rest.items()]
+
+    def to_model(self, seed: int):
+        """The unpipelined model of the full stacks (no mesh only)."""
+        import torch
+
+        from torchsnapshot_tpu_torch.models.transformer import Transformer
+
+        _require(self.mesh is None, "to_model needs the full stacks")
+        model = Transformer(self.cfg, seed=seed)
+        with torch.no_grad():
+            for j, blk in enumerate(self.stages):
+                for s in range(PP_STAGES):
+                    for n, t in blk.items():
+                        getattr(model.layers[s * self.per + j], n).copy_(t[s])
+            for n, t in self.rest.items():
+                getattr(model, n).copy_(t)
+        return model
+
+
+def _pp_locals(tree: dict) -> dict:
+    """Every tensor of a pipeline state's tree by path, DTensors as their
+    local shards."""
+    return {k: (v.to_local() if hasattr(v, "device_mesh") else v) for k, v in _tree_leaves(tree, "pp").items()}
+
+
+def _require_same_pp(a: dict, b: dict, what: str) -> None:
+    la, lb = _pp_locals(a), _pp_locals(b)
+    _require(sorted(la) == sorted(lb), f"{what}: the states hold other leaves")
+    for k in la:
+        _require(same_bits(la[k], lb[k]), f"{what}: {k} differs")
+
+
+def _row(t, row):
+    """A leaf's (or its gradient's) local tensor, or its row ``row``."""
+    t = (t.to_local() if hasattr(t, "device_mesh") else t).detach()
+    return t if row is None else t[row]
+
+
+def _norm2(t) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(t.float().reshape(-1))) ** 2
+
+
+def _rel_gap(diff2: float, base2: float) -> float:
+    """``sqrt(diff2 / base2)``: 0 where both are 0, infinite where only
+    the difference is not."""
+    return math.sqrt(diff2 / base2) if base2 else (0.0 if diff2 == 0 else math.inf)
+
+
+def _unpipelined_reference(live: PipelineState, replica, tokens) -> dict:
+    """The unpipelined step on the replica, from the state ``live`` was
+    built from: by the names of ``live.mine``, the gradients of the full
+    batch and (the control) accumulated over ``PP_MICROBATCHES``
+    microbatches as the pipeline cuts the batch, the parameters before and
+    after the full batch's AdamW step; and its loss."""
+    from torchsnapshot_tpu_torch.models.transformer import loss_fn
+
+    model, opt = replica.model, replica.optimizer
+    mine = [(name, p) for name, _, _, p in live.mine(model)]
+    opt.zero_grad(set_to_none=True)
+    mb = tokens.shape[0] // PP_MICROBATCHES
+    for i in range(PP_MICROBATCHES):
+        (loss_fn(model, tokens[i * mb:(i + 1) * mb]) / PP_MICROBATCHES).backward()
+    grad_mb = {name: p.grad.clone() for name, p in mine}
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model, tokens)
+    loss.backward()
+    ref = {
+        "loss": float(loss), "grad": {name: p.grad.clone() for name, p in mine}, "grad_mb": grad_mb,
+        "before": {name: p.detach().clone() for name, p in mine},
+    }
+    opt.step()
+    ref["after"] = {name: p.detach().clone() for name, p in mine}
+    opt.zero_grad(set_to_none=True)
+    return ref
+
+
+def _first_step_gaps(live: PipelineState, ref: dict, model) -> dict:
+    """After the first pipelined step, per leaf of this rank: the relative
+    L2 gap of its gradient to the unpipelined one (``grad``) and the
+    control's, the microbatched unpipelined gradient's (``control``); the
+    gap of its parameters to the unpipelined step's, relative to that
+    step's update (``update``), and the same over all the rank's leaves
+    together (``update_all``)."""
+    out = {"grad": {}, "control": {}, "update": {}}
+    diff_all = update_all = 0.0
+    for name, p, row, _ in live.mine(model):
+        want = ref["grad"][name]
+        want2 = _norm2(want)
+        out["grad"][name] = _rel_gap(_norm2(_row(p.grad, row).float() - want.float()), want2)
+        out["control"][name] = _rel_gap(_norm2(ref["grad_mb"][name].float() - want.float()), want2)
+        after = ref["after"][name].float()
+        diff2 = _norm2(_row(p, row).float() - after)
+        update2 = _norm2(after - ref["before"][name].float())
+        out["update"][name] = _rel_gap(diff2, update2)
+        diff_all, update_all = diff_all + diff2, update_all + update2
+    out["update_all"] = _rel_gap(diff_all, update_all)
+    return out
+
+
+def _pipeline_moves(before: dict) -> dict:
+    """The pipeline's moves since the registry snapshot ``before``: calls,
+    bytes and seconds by kind, and the device-copy bytes."""
+    from torchsnapshot_tpu_torch import telemetry
+    from torchsnapshot_tpu_torch.telemetry import names
+    from torchsnapshot_tpu_torch.telemetry.registry import parse_series_key
+
+    fields = {
+        names.PIPELINE_TRANSFERS_TOTAL: "calls", names.PIPELINE_TRANSFER_BYTES_TOTAL: "bytes",
+        names.PIPELINE_TRANSFER_SECONDS_TOTAL: "seconds",
+    }
+    copies = {names.DEVICE_TO_HOST_BYTES_TOTAL: "d2h_bytes", names.HOST_TO_DEVICE_BYTES_TOTAL: "h2d_bytes"}
+    out = {kind: {"calls": 0, "bytes": 0, "seconds": 0.0} for kind in ("hop", "broadcast", "sum")}
+    out.update({v: 0 for v in copies.values()})
+    for key, v in telemetry.metrics().counters_delta_since(before).items():
+        name, labels = parse_series_key(key)
+        if name in fields:
+            out[labels["kind"]][fields[name]] += v
+        elif name in copies:
+            out[copies[name]] += v
+    return out
+
+
+def _ep_leg(pg, mesh, cfg, replica, seed: int, work_dir: str, path_w1: str) -> dict:
+    """Leg (b) on one rank: the expert-parallel take, its restore under the
+    same layout, and the world-1 take's restore into the layout."""
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state
+    from torchsnapshot_tpu_torch.telemetry import names
+
+    rank = pg.rank
+    leaves = _state_tensors(replica)
+    tree = _ep_tree(leaves, mesh)
+    expert_bytes = sum(t.numel() * t.element_size() for t in leaves.values() if _is_expert_leaf(t))
+    path = os.path.join(work_dir, "ep")
+    d2h0 = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot.take(path, {"train": TensorTreeState(tree)}, pg=pg, replicated=["train/**"])
+    take_s = time.monotonic() - t0
+    copied = _counter(names.DEVICE_TO_HOST_BYTES_TOTAL) - d2h0
+    tiled = _require_tiling(path)
+    n_expert = sum(1 for t in leaves.values() if _is_expert_leaf(t))
+    _require(tiled == n_expert, f"{tiled} sharded entries tiled, {n_expert} expert-stacked leaves")
+    _require(_sharded_bytes(path) == expert_bytes, "the sharded blobs do not hold the expert-stacked bytes")
+    _, written = _rank_blobs(path, rank, "sharded/")
+    _, replicated_written = _rank_blobs(path, rank, "replicated/")
+    share = written / expert_bytes
+    _require(abs(share - 0.5) <= 0.01, f"rank {rank} wrote {share:.4f} of the expert bytes")
+
+    fresh = _ep_tree(_state_tensors(init_train_state(cfg, seed=seed + 1)), mesh)
+    _require(not same_bits(fresh["param/embed"], leaves["param/embed"]), "the fresh state equals the trained one")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot(path, pg=pg).restore({"train": TensorTreeState(fresh)})
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    _require_shards(fresh, leaves, f"rank {rank} restore of the expert-parallel take")
+    del fresh
+
+    fresh = _ep_tree(_state_tensors(init_train_state(cfg, seed=seed + 2)), mesh)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot(path_w1, pg=pg).restore({"train": TensorTreeState(fresh)})
+    torch.cuda.synchronize()
+    from_w1_s = time.monotonic() - t0
+    _require_shards(fresh, leaves, f"rank {rank} restore of the world-1 take into the expert-parallel layout")
+    del fresh, tree
+    torch.cuda.empty_cache()
+    return {
+        "take_s": take_s, "restore_s": restore_s, "from_world1_s": from_w1_s, "state_bytes": _tensor_bytes(leaves),
+        "expert_bytes": expert_bytes, "written_expert_bytes": written, "share": share,
+        "written_replicated_bytes": replicated_written, "d2h_bytes": copied, "entries_tiled": tiled,
+    }
+
+
+def _pp_leg(pg, mesh, cfg, replica, seed: int, tokens, work_dir: str, path_p1: str, loss_a: float) -> dict:
+    """Leg (c) on one rank: the parent's pp = 1 take into pp = 2, two
+    pipelined AdamW steps (the first's loss, gradients and parameters
+    against the unpipelined step's from the same state), the pp = 2 take
+    and its restore, the next step on both."""
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot, TensorTreeState, telemetry
+    from torchsnapshot_tpu_torch.parallel import pipeline as pl
+
+    rank = pg.rank
+    live = PipelineState.of(cfg, replica, mesh)
+    app = {"pp": TensorTreeState(live.targets(mesh))}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot(path_p1, pg=pg).restore(app)
+    torch.cuda.synchronize()
+    from_pp1_s = time.monotonic() - t0
+    _require_same_pp(app["pp"].tree, live.tree(), f"rank {rank}: the pp = 1 take restored into pp = 2")
+    del app
+
+    ref = _unpipelined_reference(live, replica, tokens)
+    before = telemetry.metrics().counters_snapshot()
+    losses, step_ms = [], []
+    for i in range(PP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(live.step(tokens))
+        torch.cuda.current_stream().synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        if i == 0:
+            gaps = _first_step_gaps(live, ref, replica.model)
+    ref_loss = ref["loss"]
+    del ref
+    moves = _pipeline_moves(before)
+    route = pl.transport(mesh.get_group(0), tokens.device)
+    losses = [float(x) for x in losses]
+    _require(all(x == x and abs(x) < 1e4 for x in losses), f"pipelined losses not finite: {losses}")
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    _require(rel <= PP_LOSS_RTOL, f"pipelined loss {losses[0]!r} against the unpipelined {ref_loss!r}: {rel:.3e} > {PP_LOSS_RTOL:.3e}")
+    worst = {k: max(gaps[k].items(), key=lambda kv: kv[1]) for k in ("grad", "control", "update")}
+    log(
+        f"moe (c) rank {rank}: step 1 against the unpipelined step: loss {rel:.3e}, gradients {worst['grad'][1]:.3e} "
+        f"({worst['grad'][0]}; control {worst['control'][1]:.3e}, {worst['control'][0]}), parameters {gaps['update_all']:.3e} "
+        f"of the update (largest leaf {worst['update'][1]:.3e}, {worst['update'][0]})"
+    )
+    _require(worst["grad"][1] <= PP_GRAD_RTOL,
+             f"rank {rank}: the pipelined gradient of {worst['grad'][0]} is {worst['grad'][1]:.3e} from the unpipelined one")
+    _require(gaps["update_all"] <= PP_UPDATE_RTOL,
+             f"rank {rank}: the pipelined step's parameters are {gaps['update_all']:.3e} of its update from the unpipelined step's")
+    moved = sum(moves[k]["bytes"] for k in ("hop", "broadcast", "sum"))
+    if route == "gloo via host":
+        _require(moves["d2h_bytes"] == moves["h2d_bytes"] == moved,
+                 f"rank {rank}: the device-copy counters {moves['d2h_bytes']} / {moves['h2d_bytes']} against {moved} bytes moved")
+
+    path = os.path.join(work_dir, "pp2")
+    state_bytes = _tree_bytes(live.tree())
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot.take(path, {"pp": TensorTreeState(live.tree())}, pg=pg, replicated=["pp/**"])
+    take_s = time.monotonic() - t0
+    tiled = _require_tiling(path)
+    stage_bytes = _sharded_bytes(path)
+    _, written = _rank_blobs(path, rank, "sharded/")
+    share = written / stage_bytes
+    _require(abs(share - 0.5) <= 0.01, f"rank {rank} wrote {share:.4f} of the stage bytes")
+    digest = live.digest(rank)
+
+    app = {"pp": TensorTreeState(live.targets(mesh))}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot(path, pg=pg).restore(app)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    _require_same_pp(app["pp"].tree, live.tree(), f"rank {rank}: the pp = 2 restore")
+    fresh = PipelineState(cfg, app["pp"].tree, mesh)
+    loss_live = live.step(tokens)
+    loss_fresh = fresh.step(tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_live, loss_fresh), f"next pipelined losses differ after the pp = 2 restore: {loss_live} vs {loss_fresh}")
+    del live, fresh, app
+    torch.cuda.empty_cache()
+    return {
+        "from_pp1_s": from_pp1_s, "losses": losses, "loss_rel_to_unpipelined": rel, "step_ms": step_ms,
+        "transport": route, "transfers": moves, "take_s": take_s, "restore_s": restore_s,
+        "state_bytes": state_bytes, "stage_bytes": stage_bytes, "written_stage_bytes": written, "share": share,
+        "entries_tiled": tiled, "digest": digest, "next_loss": float(loss_live),
+        "unpipelined_loss": ref_loss, "unpipelined_loss_is_parents": ref_loss == loss_a,
+        "grad_gap": worst["grad"], "control_gap": worst["control"], "update_gap_leaf": worst["update"],
+        "update_gap": gaps["update_all"], "gaps": gaps,
+    }
+
+
+def moe_worker(pg, seed: int, work_dir: str, path_w1: str, path_p1: str, loss_a: float) -> dict:
+    """One rank of the moe phase's legs (b) and (c) (spawned by
+    ``run_multiprocess``; the parent built every kernel): a gloo default
+    group, a ``cuda`` mesh of 2; the MoE configuration trained ``STEPS``
+    steps from ``--seed`` (the state of the parent's world-1 take), then
+    leg (b) expert parallel and leg (c) the pipeline."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state, make_train_step, random_tokens
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.ops import kernels
+    from torchsnapshot_tpu_torch.test_utils import init_torch_group
+
+    t_start = time.monotonic()
+    os.environ["TORCHSNAPSHOT_TPU_PEER_TIER"] = "0"  # the write paths without the tier, as the sharded phase
+    rank = pg.rank
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in kernels.kernel_names() if not os.path.exists(kernels._library_path(n))]
+    _require(not missing, f"rank {rank}: kernels {missing} not built by the parent")
+    init_torch_group(pg)
+    try:
+        cfg = moe_config()
+        tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, seed)).cuda()
+        replica = init_train_state(cfg, seed=seed)
+        train_step = make_train_step(cfg)
+        for counts in (fa.launch_counts, dd.launch_counts, dp.launch_counts):
+            for k in counts:
+                counts[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(STEPS):
+            replica, _ = train_step(replica, tokens)
+        torch.cuda.current_stream().synchronize()
+        step_ms = (time.monotonic() - t0) / STEPS * 1e3
+        record = {"rank": rank, "device": torch.cuda.current_device(), "step_ms": step_ms,
+                  "replica_leaves": _require_replicas_equal(pg, replica)}
+        record["b"] = _ep_leg(pg, init_device_mesh("cuda", (pg.world_size,)), cfg, replica, seed, work_dir, path_w1)
+        pp_mesh = init_device_mesh("cuda", (pg.world_size,), mesh_dim_names=("pp",))
+        record["c"] = _pp_leg(pg, pp_mesh, cfg, replica, seed, tokens, work_dir, path_p1, loss_a)
+        record["launches"] = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+        record["worker_s"] = time.monotonic() - t_start
+        return record
+    finally:
+        dist.destroy_process_group()
+
+
+def _batched_leg(args, work_dir: str, cfg, state, tokens) -> dict:
+    """Leg (a)'s batched take with ``ENABLE_BATCHING`` and ``DEVICE_PACK``:
+    one pack launch per slab of two or more card members, the restore bit
+    for bit, the restored model's evaluation logits equal the live one's."""
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot, knobs
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    path = os.path.join(work_dir, "moe_batched")
+    now = {k: v.clone() for k, v in _state_tensors(state).items()}
+    _, leaves = flatten(state.state_dict(), prefix="train")
+    packs_before = dp.launch_counts["device_pack"]
+    with knobs.enable_batching(), knobs.enable_device_pack():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        Snapshot.take(path, {"train": state})
+        take_s = time.monotonic() - t0
+    packs = dp.launch_counts["device_pack"] - packs_before
+    members: dict = {}
+    for key, e in Snapshot(path).metadata.manifest.items():
+        if getattr(e, "byte_range", None) is not None:
+            members.setdefault(e.location, []).append(getattr(leaves[key.partition("/")[2]], "is_cuda", False))
+    want = sum(1 for cuda in members.values() if sum(cuda) > 1)
+    _require(packs == want and want > 0, f"moe batched take: {packs} pack launches for {want} slabs of card members")
+    fresh = init_train_state(cfg, seed=args.seed + 6)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot(path).restore({"train": fresh})
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    _require_same_state(now, fresh, "moe batched take")
+    with torch.no_grad():
+        same = same_bits(state.model(tokens), fresh.model(tokens))
+    _require(same, "evaluation logits of the batched take's restore differ")
+    shutil.rmtree(path, ignore_errors=True)
+    del fresh, now
+    torch.cuda.empty_cache()
+    return {"take_s": take_s, "restore_s": restore_s, "slabs": len(members), "pack_launches": packs}
+
+
+def moe_phase(args, work_dir: str, card: str) -> dict:
+    """The MoE configuration: leg (a) in this process, legs (b) and (c) in
+    two spawned processes, then their world-1 and pp = 1 restores here.
+    Returns the kernels' launches of the phase (workers' included)."""
+    import torch
+
+    from torchsnapshot_tpu_torch import RngState, Snapshot, TensorTreeState
+    from torchsnapshot_tpu_torch.models.transformer import (
+        init_train_state,
+        is_moe_layer,
+        make_train_step,
+        random_tokens,
+    )
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    t_phase = time.monotonic()
+    legs = {}
+    moe_dir = os.path.join(work_dir, "moe")
+    os.makedirs(moe_dir, exist_ok=True)
+    cfg = moe_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
+    torch.manual_seed(args.seed)
+    state = init_train_state(cfg, seed=args.seed)
+    train_step = make_train_step(cfg)
+    for counts in (fa.launch_counts, dd.launch_counts, dp.launch_counts):
+        for k in counts:
+            counts[k] = 0
+
+    # (a) One process: train, take, restore into a fresh state.
+    t_leg = time.monotonic()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses = []
+    for _ in range(STEPS):
+        state, loss = train_step(state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) / STEPS * 1e3
+    losses = [float(x) for x in losses]
+    _require(all(x == x and abs(x) < 1e4 for x in losses), f"losses not finite: {losses}")
+    tensors = _state_tensors(state)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    expert_params = sum(p.numel() for p in state.model.parameters() if p.dim() == 3)
+    state_bytes = sum(t.numel() * t.element_size() for k, t in tensors.items() if t.is_cuda)
+    expert_bytes = sum(t.numel() * t.element_size() for t in tensors.values() if _is_expert_leaf(t))
+    log(
+        f"moe: {n_params / 1e6:.1f} M params ({expert_params / 1e6:.1f} M expert-stacked, "
+        f"{sum(1 for i in range(cfg.n_layers) if is_moe_layer(cfg, i))} MoE blocks of {cfg.n_experts} experts), "
+        f"train state {state_bytes / 1e9:.3f} GB ({expert_bytes / 1e9:.3f} GB expert-stacked); "
+        f"{STEPS} steps, {step_ms:.1f} ms/step (first step included), losses {losses}"
+    )
+    torch.rand(3)
+    torch.rand(3, device="cuda")
+    path_a = os.path.join(moe_dir, "a")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot.take(path_a, {"train": state, "rng": RngState()})
+    take_s = time.monotonic() - t0
+    at_a1 = {k: v.clone() for k, v in _state_tensors(state).items()}
+    # The same state as a tree of tensors (leg b restores it into the
+    # expert-parallel layout) and as pp = 1 stage stacks (leg c, into pp =
+    # 2), declared replicated as a data-parallel job declares its state: a
+    # rank of a larger world then sees every entry.
+    path_w1, path_p1 = os.path.join(moe_dir, "w1"), os.path.join(moe_dir, "pp1")
+    Snapshot.take(path_w1, {"train": TensorTreeState(_state_tensors(state))}, replicated=["train/**"])
+    pp1 = PipelineState.of(cfg, state)
+    t0 = time.monotonic()
+    Snapshot.take(path_p1, {"pp": TensorTreeState(pp1.tree())}, replicated=["pp/**"])
+    pp1_take_s = time.monotonic() - t0
+    pp1_bytes = _tree_bytes(pp1.tree())
+    fresh = init_train_state(cfg, seed=args.seed + 1)
+    _require(not same_bits(fresh.model.layers[1].w_in, state.model.layers[1].w_in), "fresh model equals the trained one")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot(path_a).restore({"train": fresh, "rng": RngState()})
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    _require_same_state(at_a1, fresh, "moe restore (a)")
+    with torch.no_grad():
+        logits_a = state.model(tokens)
+        logits_b = fresh.model(tokens)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(logits_a).all()) and logits_a.shape == (8, 1024, cfg.vocab_size), "evaluation logits")
+    _require(same_bits(logits_a, logits_b), "evaluation logits differ after restore")
+    del logits_a, logits_b
+    _, loss_a = train_step(state, tokens)
+    _, loss_b = train_step(fresh, tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_a, loss_b), f"next-step losses differ: {loss_a} vs {loss_b}")
+    del fresh
+    torch.cuda.empty_cache()
+    digests_before = dd.launch_counts["device_digest"]
+    async_record = async_and_incremental(args, moe_dir, card, cfg, state, tokens, train_step, take_s, label="moe")
+    # One digest launch each: the async take's (recording), the base's and the incremental take's.
+    _require(dd.launch_counts["device_digest"] - digests_before == 3,
+             f"the async and incremental takes launched the digest {dd.launch_counts['device_digest'] - digests_before} times, not 3")
+    batched = _batched_leg(args, moe_dir, cfg, state, tokens)
+    legs["a"] = time.monotonic() - t_leg
+    log(
+        f"moe (a): take {take_s:.3f} s ({state_bytes / take_s / 1e9:.2f} GB/s), restore {restore_s:.3f} s "
+        f"({state_bytes / restore_s / 1e9:.2f} GB/s) of {state_bytes / 1e9:.3f} GB; restored state, logits and "
+        f"next-step loss {float(loss_a)!r} bit-identical; pp = 1 stacks take {pp1_take_s:.3f} s of "
+        f"{pp1_bytes / 1e9:.3f} GB; batched take with the pack {batched['take_s']:.3f} s ({batched['slabs']} slabs, "
+        f"{batched['pack_launches']} pack launches), restore {batched['restore_s']:.3f} s bit-identical, logits equal; "
+        f"on {card}"
+    )
+    del state
+    torch.cuda.empty_cache()
+
+    # (b), (c): two processes on the card.
+    t_leg = time.monotonic()
+    records = run_multiprocess(
+        moe_worker, MOE_RANKS, args=(args.seed, moe_dir, path_w1, path_p1, float(loss_a)), timeout=600.0
+    )
+    legs["workers"] = time.monotonic() - t_leg
+
+    # (b2) World 1: the expert-parallel snapshot into plain tensors,
+    # continuing with the live run's loss bit for bit.
+    t_leg = time.monotonic()
+    dest = {k: torch.zeros_like(v) for k, v in at_a1.items()}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot(os.path.join(moe_dir, "ep")).restore({"train": TensorTreeState(dest)})
+    torch.cuda.synchronize()
+    ep_w1_s = time.monotonic() - t0
+    for k, v in at_a1.items():
+        _require(same_bits(dest[k], v), f"world-1 restore of the expert-parallel snapshot: {k} differs")
+    loss_w1 = _next_loss(cfg, dest, STEPS, tokens, train_step)
+    _require(same_bits(loss_w1, loss_a), f"next loss after the world-1 restore {loss_w1} vs {loss_a}")
+    del dest, at_a1
+    torch.cuda.empty_cache()
+
+    # (c4) pp = 1: the pp = 2 snapshot into full stacks; the unpipelined
+    # model from them.
+    app = {"pp": TensorTreeState(pp1.targets())}
+    del pp1
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot(os.path.join(moe_dir, "pp2")).restore(app)
+    torch.cuda.synchronize()
+    pp1_restore_s = time.monotonic() - t0
+    pp = PipelineState(cfg, app["pp"].tree)
+    del app
+    for r in records:
+        _require(pp.digest(r["rank"]) == r["c"]["digest"], f"pp = 1 restore: stage {r['rank']} differs from rank {r['rank']}'s")
+    model = pp.to_model(seed=args.seed + 7)
+    del pp
+    with torch.no_grad():
+        logits = model(tokens)[:, :-1]
+        seq_loss = float(torch.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1)))
+    del model, logits
+    pipelined = records[0]["c"]["next_loss"]
+    rel_pp1 = abs(seq_loss - pipelined) / abs(pipelined)
+    _require(rel_pp1 <= PP_LOSS_RTOL, f"unpipelined loss {seq_loss!r} from the pp = 1 restore against the pipelined {pipelined!r}")
+    legs["world1"] = time.monotonic() - t_leg
+    torch.cuda.empty_cache()
+
+    launches = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+    for r in records:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    launches = {k: launches[k] for k in MOE_PATH_KERNELS}
+    _require(all(launches.values()), f"moe: a kernel of the path never launched: {launches}")
+    shutil.rmtree(moe_dir, ignore_errors=True)
+    wall_s = time.monotonic() - t_phase
+    for r in records:
+        b, c = r["b"], r["c"]
+        hop = c["transfers"]["hop"]
+        log(
+            f"moe: rank {r['rank']} on card {r['device']}: {r['step_ms']:.1f} ms/step unpipelined (two processes "
+            f"on the card); (b) expert-parallel take {b['take_s']:.3f} s ({b['state_bytes'] / b['take_s'] / 1e9:.2f} GB/s "
+            f"of the {b['state_bytes'] / 1e9:.3f} GB state), wrote {b['written_expert_bytes'] / 1e9:.4f} of "
+            f"{b['expert_bytes'] / 1e9:.4f} GB expert-stacked ({b['share']:.6f}) and {b['written_replicated_bytes'] / 1e9:.4f} "
+            f"GB replicated, {b['d2h_bytes'] / 1e9:.4f} GB to the host, {b['entries_tiled']} entries tiled; restore "
+            f"{b['restore_s']:.3f} s ({b['state_bytes'] / b['restore_s'] / 1e9:.2f} GB/s); the world-1 take into the "
+            f"layout {b['from_world1_s']:.3f} s; (c) the pp = 1 take into pp = 2 {c['from_pp1_s']:.3f} s; pipelined "
+            f"steps {', '.join(f'{x:.1f}' for x in c['step_ms'])} ms, losses {c['losses']} (step 1 within "
+            f"{c['loss_rel_to_unpipelined']:.3e} of the unpipelined {c['unpipelined_loss']!r}, the parent's "
+            f"{'the same' if c['unpipelined_loss_is_parents'] else repr(float(loss_a))}); step 1's gradients within "
+            f"{c['grad_gap'][1]:.3e} ({c['grad_gap'][0]}; the microbatched unpipelined control's largest "
+            f"{c['control_gap'][1]:.3e}, {c['control_gap'][0]}), its parameters within {c['update_gap']:.3e} of "
+            f"the unpipelined update (largest leaf {c['update_gap_leaf'][1]:.3e}, {c['update_gap_leaf'][0]}); "
+            f"hops {hop['calls']} by {c['transport']}, {hop['bytes'] / 1e6:.1f} MB in {hop['seconds'] * 1e3:.1f} ms "
+            f"({hop['seconds'] * 1e3 / max(1, hop['calls']):.2f} ms a hop); output broadcasts "
+            f"{c['transfers']['broadcast']['seconds'] * 1e3:.1f} ms, input cotangent sums "
+            f"{c['transfers']['sum']['seconds'] * 1e3:.1f} ms, {c['transfers']['d2h_bytes'] / 1e6:.1f} MB to the "
+            f"host and back; pp = 2 take {c['take_s']:.3f} s "
+            f"({c['state_bytes'] / c['take_s'] / 1e9:.2f} GB/s of {c['state_bytes'] / 1e9:.3f} GB), wrote "
+            f"{c['written_stage_bytes'] / 1e9:.4f} of {c['stage_bytes'] / 1e9:.4f} GB of stages ({c['share']:.6f}), "
+            f"restore {c['restore_s']:.3f} s ({c['state_bytes'] / c['restore_s'] / 1e9:.2f} GB/s), next loss "
+            f"{c['next_loss']!r} bit for bit; launches {r['launches']}; worker {r['worker_s']:.1f} s"
+        )
+    log(
+        f"moe: world-1 restore of the expert-parallel snapshot {ep_w1_s:.3f} s, bit-identical, next loss "
+        f"{float(loss_w1)!r} bit for bit; pp = 1 restore of the pp = 2 snapshot {pp1_restore_s:.3f} s, stages "
+        f"bit-identical, unpipelined loss {seq_loss!r} within {rel_pp1:.3e} of the pipelined {pipelined!r}; "
+        f"launches {launches}; legs " + ", ".join(f"({k}) {v:.1f} s" for k, v in legs.items())
+        + f"; phase {wall_s:.1f} s on {card}"
+    )
+    record = {
+        "card": card, "params": n_params, "expert_params": expert_params, "state_bytes": state_bytes,
+        "expert_bytes": expert_bytes, "step_ms": step_ms, "losses": losses, "take_s": take_s,
+        "restore_s": restore_s, "next_loss": float(loss_a), "pp1_take_s": pp1_take_s, "batched": batched,
+        **async_record, "ranks": records, "ep_world1_restore_s": ep_w1_s, "pp1_restore_s": pp1_restore_s,
+        "pp1_sequential_loss": seq_loss, "launches": launches, "legs_s": legs, "wall_s": wall_s,
+    }
+    _headline(
+        "moe", take_s=take_s, restore_s=restore_s, step_ms=step_ms,
+        ep_take_s=[r["b"]["take_s"] for r in records], pp_step_ms=[r["c"]["step_ms"][-1] for r in records],
+        hop_ms=[r["c"]["transfers"]["hop"]["seconds"] * 1e3 / max(1, r["c"]["transfers"]["hop"]["calls"]) for r in records],
+        launches="/".join(f"{k}:{launches[k]}" for k in MOE_PATH_KERNELS),
+    )
+    print(json.dumps({"moe": record}), flush=True)
     return launches
 
 

@@ -140,7 +140,8 @@ def test_kernel_wrapper_raises_without_a_kernel_build(monkeypatch, tmp_path) -> 
 
 
 # The modules of the sharded-state slice, of the chunk-store and fan-out
-# slice and of the telemetry slice: walked by the import checks above.
+# slice, of the telemetry slice, the bridge and the pipeline: walked by
+# the import checks above.
 SHARDED_SLICE_MODULES = [
     "torchsnapshot_tpu_torch/parallel/overlap.py",
     "torchsnapshot_tpu_torch/resharding.py",
@@ -169,6 +170,8 @@ SHARDED_SLICE_MODULES = [
     "torchsnapshot_tpu_torch/tricks/torchsnapshot_writer.py",
     "torchsnapshot_tpu_torch/tricks/convert.py",
     "torchsnapshot_tpu_torch/utils/device.py",
+    # The GPipe schedule.
+    "torchsnapshot_tpu_torch/parallel/pipeline.py",
 ]
 
 

@@ -4,7 +4,9 @@ from .transformer import (
     TrainState,
     Transformer,
     TransformerConfig,
+    block_forward,
     init_train_state,
+    is_moe_layer,
     make_train_step,
     params_from_jax,
     params_tree,
@@ -14,7 +16,9 @@ __all__ = [
     "TrainState",
     "Transformer",
     "TransformerConfig",
+    "block_forward",
     "init_train_state",
+    "is_moe_layer",
     "make_train_step",
     "params_from_jax",
     "params_tree",

@@ -11,15 +11,23 @@ cross-entropy over ``tokens[:, 1:]``, and AdamW with optax's defaults
 (``weight_decay=1e-4``, ``eps=1e-8``, betas ``(0.9, 0.999)``), its moments
 kept in the parameter dtype as ``optax.adamw`` keeps them.
 
-Dense blocks only: the MoE blocks, the sharded mesh layouts and the ring
-attention variants of the JAX module are not ported yet.
+With ``n_experts > 0`` every ``moe_every``-th block is a soft-routed MoE
+block, as in the JAX module: a ``router`` ``(d_model, n_experts)`` and
+expert-stacked ``w_in`` ``(n_experts, d_model, d_ff)`` and ``w_out``
+``(n_experts, d_ff, d_model)``; every expert runs on every token and the
+f32 softmax of the router's logits combines their outputs. Those products
+are plain einsums here as there (no kernel of the JAX package computes
+them). The JAX module's sharded mesh layouts and ring attention variants
+are not ported: the port's layouts are ``DTensor`` trees built by the
+caller (expert parallel: the expert-stacked leaves ``Shard(0)``) or
+:mod:`..parallel.pipeline`'s stage stacks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +48,8 @@ class TransformerConfig:
     n_heads: int = 8
     n_layers: int = 4
     d_ff: int = 2048
-    n_experts: int = 0  # MoE blocks are not ported: 0 only
+    n_experts: int = 0  # 0 = dense MLP in every block
+    moe_every: int = 2  # every k-th block is MoE (when n_experts > 0)
     dtype: torch.dtype = torch.bfloat16
     learning_rate: float = 1e-3
     # "ulysses": the dense einsum attention (ops/attention.py); "flash": the
@@ -57,10 +66,18 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * scale
 
 
+def is_moe_layer(cfg: TransformerConfig, i: int) -> bool:
+    return cfg.n_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1
+
+
+DENSE_NAMES = ("ln1_scale", "ln2_scale", "wqkv", "wo", "w_in", "w_out")
+MOE_NAMES = ("ln1_scale", "ln2_scale", "wqkv", "wo", "router", "w_in", "w_out")
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
+    def __init__(self, cfg: TransformerConfig, device: torch.device, moe: bool = False) -> None:
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
 
         def p(*shape: int) -> nn.Parameter:
             return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device))
@@ -69,8 +86,54 @@ class Block(nn.Module):
         self.ln2_scale = p(d)
         self.wqkv = p(d, 3 * d)
         self.wo = p(d, d)
-        self.w_in = p(d, f)
-        self.w_out = p(f, d)
+        if moe:
+            self.router = p(d, e)
+            self.w_in = p(e, d, f)
+            self.w_out = p(e, f, d)
+        else:
+            self.w_in = p(d, f)
+            self.w_out = p(f, d)
+        self.names = MOE_NAMES if moe else DENSE_NAMES
+
+    def tree(self) -> Dict[str, torch.Tensor]:
+        """The block's leaves by their JAX names (live parameters)."""
+        return {n: getattr(self, n) for n in self.names}
+
+
+def _moe_mlp(block: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Soft-routed MoE, the JAX ``_moe_mlp``: the router's logits and
+    softmax in f32 (jnp promotes the bf16 x f32 einsum), the gates cast to
+    the activation dtype, every expert on every token, the outputs
+    gate-combined."""
+    logits = torch.einsum("bsd,de->bse", x.float(), block["router"].float())
+    gates = torch.softmax(logits, dim=-1).to(x.dtype)
+    h = F.gelu(torch.einsum("bsd,edf->ebsf", x, block["w_in"]), approximate="tanh")
+    y = torch.einsum("ebsf,efd->ebsd", h, block["w_out"])
+    return torch.einsum("ebsd,bse->bsd", y, gates)
+
+
+def block_forward(cfg: TransformerConfig, block: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """One transformer block on ``(batch, seq, d_model)`` activations, its
+    leaves given by their JAX names (a ``Block.tree()``, or one stage's
+    slice of pipeline-stacked leaves); MoE iff it holds a ``router``."""
+    b, s, d = x.shape
+    h = _rmsnorm(x, block["ln1_scale"])
+    qkv = (h @ block["wqkv"]).reshape(b, s, 3, cfg.n_heads, cfg.head_dim)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if cfg.attn_impl == "flash":
+        if s % 128:
+            raise ValueError(
+                f"attn_impl='flash' requires seq % 128 == 0, got seq={s}; "
+                f"pad the sequence or use attn_impl='ulysses'"
+            )
+        attn = flash_causal_attention(q, k, v)
+    else:
+        attn = causal_attention(q, k, v)
+    x = x + attn.reshape(b, s, d) @ block["wo"]
+    h = _rmsnorm(x, block["ln2_scale"])
+    if "router" in block:
+        return x + _moe_mlp(block, h)
+    return x + F.gelu(h @ block["w_in"], approximate="tanh") @ block["w_out"]
 
 
 class Transformer(nn.Module):
@@ -78,8 +141,8 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, device: Device = None, seed: int = 0) -> None:
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError("MoE blocks are not ported yet (n_experts must be 0)")
+        if cfg.n_experts < 0 or cfg.moe_every < 1:
+            raise ValueError(f"need n_experts >= 0 and moe_every >= 1, got {cfg.n_experts}, {cfg.moe_every}")
         if cfg.attn_impl not in ("ulysses", "flash"):
             raise ValueError(
                 f"unknown or unported attn_impl {cfg.attn_impl!r}; expected 'ulysses' or 'flash'"
@@ -89,7 +152,9 @@ class Transformer(nn.Module):
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab_size, cfg.d_model), dtype=cfg.dtype, device=device)
         )
-        self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            Block(cfg, device, moe=is_moe_layer(cfg, i)) for i in range(cfg.n_layers)
+        )
         self.ln_f_scale = nn.Parameter(torch.empty(cfg.d_model, dtype=cfg.dtype, device=device))
         self.unembed = nn.Parameter(
             torch.empty((cfg.d_model, cfg.vocab_size), dtype=cfg.dtype, device=device)
@@ -110,25 +175,9 @@ class Transformer(nn.Module):
                 param.copy_(w)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
         x = F.embedding(tokens, self.embed)
-        b, s, d = x.shape
         for blk in self.layers:
-            h = _rmsnorm(x, blk.ln1_scale)
-            qkv = (h @ blk.wqkv).reshape(b, s, 3, cfg.n_heads, cfg.head_dim)
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            if cfg.attn_impl == "flash":
-                if s % 128:
-                    raise ValueError(
-                        f"attn_impl='flash' requires seq % 128 == 0, got seq={s}; "
-                        f"pad the sequence or use attn_impl='ulysses'"
-                    )
-                attn = flash_causal_attention(q, k, v)
-            else:
-                attn = causal_attention(q, k, v)
-            x = x + attn.reshape(b, s, d) @ blk.wo
-            h = _rmsnorm(x, blk.ln2_scale)
-            x = x + F.gelu(h @ blk.w_in, approximate="tanh") @ blk.w_out
+            x = block_forward(self.cfg, blk.tree(), x)
         x = _rmsnorm(x, self.ln_f_scale)
         return (x @ self.unembed).float()
 
@@ -137,10 +186,7 @@ def params_tree(model: Transformer) -> Dict[str, Any]:
     """The parameters as the JAX module's ``Params`` tree (live tensors)."""
     return {
         "embed": model.embed,
-        "layers": [
-            {n: getattr(blk, n) for n in ("ln1_scale", "ln2_scale", "wqkv", "wo", "w_in", "w_out")}
-            for blk in model.layers
-        ],
+        "layers": [blk.tree() for blk in model.layers],
         "ln_f_scale": model.ln_f_scale,
         "unembed": model.unembed,
     }
@@ -169,21 +215,26 @@ def params_from_jax(cfg: TransformerConfig, jax_params: Dict[str, Any]) -> Dict[
 # ----------------------------------------------------------------------
 
 
-def make_optimizer(cfg: TransformerConfig, model: Transformer) -> torch.optim.AdamW:
-    """``optax.adamw(cfg.learning_rate)`` in torch, its state made at once
-    (as ``opt.init(params)`` makes it) so that a restore finds live moment
-    tensors to write into."""
+def make_adamw(cfg: TransformerConfig, params: Iterable[torch.Tensor]) -> torch.optim.AdamW:
+    """``optax.adamw(cfg.learning_rate)`` in torch over ``params``, its
+    state made at once (as ``opt.init(params)`` makes it) so that a restore
+    finds live moment tensors to write into."""
+    params = list(params)
     opt = torch.optim.AdamW(
-        model.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=1e-4,
+        params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
     )
-    for p in model.parameters():
+    for p in params:
         opt.state[p] = {
             "step": torch.tensor(0.0, dtype=torch.float32),
             "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
             "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
         }
     return opt
+
+
+def make_optimizer(cfg: TransformerConfig, model: Transformer) -> torch.optim.AdamW:
+    """The model's AdamW (:func:`make_adamw` over its parameters)."""
+    return make_adamw(cfg, model.parameters())
 
 
 @dataclasses.dataclass

@@ -13,7 +13,8 @@ small and low-cardinality):
 - ``phase``:  staging | writing | loading | mirroring
 - ``plugin``: fs | s3 | gcs | memory | tiered
 - ``scope``:  which retry strategy instance (s3 | gcs | mirror)
-- ``kind``:   take | async_take | restore | async_restore | mirror
+- ``kind``:   take | async_take | restore | async_restore | mirror;
+              hop | broadcast | sum (the pipeline schedule's moves)
 """
 
 # -- pipeline (scheduler.py) -------------------------------------------------
@@ -25,8 +26,9 @@ MEMORY_BUDGET_PEAK_STAGED_BYTES = "memory_budget_peak_staged_bytes"
 # -- storage plugins (storage_plugins/{fs,s3,gcs}.py) ------------------------
 
 STORAGE_WRITE_BYTES_TOTAL = "storage_write_bytes_total"
-# Bytes the port copies between the card and pinned host memory
-# (io_preparer.DeviceCopier): a take's staging and a restore's placement.
+# Bytes the port copies between the card and host memory: a take's
+# staging and a restore's placement (io_preparer.DeviceCopier, pinned), and
+# a pipeline move's round trip on gloo (parallel/pipeline.py).
 DEVICE_TO_HOST_BYTES_TOTAL = "device_to_host_bytes_total"
 HOST_TO_DEVICE_BYTES_TOTAL = "host_to_device_bytes_total"
 STORAGE_WRITE_OPS_TOTAL = "storage_write_ops_total"
@@ -210,6 +212,18 @@ GOODPUT_INCREMENTAL_REUSE_RATIO = "goodput_incremental_reuse_ratio"
 OBJECTIVE_BURN_RATE = "slo_burn_rate"
 OBJECTIVE_BREACHES_TOTAL = "slo_breaches_total"
 BUNDLE_CAPTURES_TOTAL = "bundle_captures_total"
+
+# -- pipeline parallelism (parallel/pipeline.py) -----------------------------
+#
+# The moves of ``pipelined_apply`` (forward and backward), labelled
+# ``kind``: an activation's or a cotangent's hop, the output's broadcast
+# from the last stage, the input cotangent's sum. Seconds include a CUDA
+# tensor's host round trip on a gloo group (its bytes also count in
+# DEVICE_TO_HOST_BYTES_TOTAL and HOST_TO_DEVICE_BYTES_TOTAL).
+
+PIPELINE_TRANSFERS_TOTAL = "pipeline_transfers_total"
+PIPELINE_TRANSFER_BYTES_TOTAL = "pipeline_transfer_bytes_total"
+PIPELINE_TRANSFER_SECONDS_TOTAL = "pipeline_transfer_seconds_total"
 
 # ---------------------------------------------------------------------------
 # Flight-recorder span/instant names (telemetry/trace.py).
