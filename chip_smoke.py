@@ -384,6 +384,42 @@ each of which raises on failure (nothing is caught):
    take and restore s and GB/s per leg, each rank's bytes, ms per step
    pipelined and not, the hops' transport, count, bytes and ms, and the
    phase's launches (its workers' included), which add to the record's.
+14. **ring**: ring attention over a sequence-parallel group
+   (``ops/ring_attention.py``), the main configuration at ``attn_impl=
+   "ring_flash"``, two spawned processes on the card (a gloo default group,
+   a ``cuda`` mesh with an ``sp`` dimension of 2: each rank 512 of the 1024
+   positions; its ring hops go through the host). (a) Attention alone,
+   bf16 (8, 1024, 16, 64) in the fused-qkv layout: each rank's ``ring``
+   and ``ring_flash`` output block within ``FUSED_TOL`` of its block of
+   the world-1 ``flash_causal_forward``, and its q, k, v gradients (a
+   random cotangent) within 2^-6 relative L2 of ``_FlashCausal``'s; the
+   chunk kernel on this rank's queries against every key block at or
+   behind them, causal and unmasked, held against its plain version
+   (``compare_with_plain``). (b) ``STEPS`` AdamW steps at sp = 2 from the
+   same initial state as a world-1 ``flash`` step on a replica: the first
+   step's loss within 2^-13 and every leaf's gradient within 2^-6
+   (relative L2; the moe phase's limits), the parameters within 2^-3 of
+   the update (``RING_FIRST_UPDATE_RTOL``: AdamW's first update is the
+   sign of the gradient); beside it a control, the world-1 step with its
+   gradient summed over two halves of the batch; then both ranks' states
+   equal by every leaf's ``mlh64`` digest. (c) ``Snapshot.take(pg=, replicated=["train/**"])``: each rank
+   writes 50% +- 10% of the replicated bytes; restored at world 2 into
+   another seed's state bit for bit, and the next step's loss equals the
+   live run's bit for bit. (c2) This process restores the snapshot at
+   world 1 into a ``flash`` model's state: every leaf's digest equal to
+   the saved state's; its next flash step is within the moe phase's
+   limits (the parameters 2^-5 of the update) of the sp run's next step. The workers meet at gates between legs; a rank whose
+   check fails posts its error under a key every rank polls, and the
+   others stop at once (e). Logs each rank's step ms, its ring hops and
+   gradient sums through the host (calls, MB, ms), the chunk kernel's
+   launches by mode, the world-1 flash step's ms, and the unmasked chunk
+   at a ring step's shape, bf16 (8, 512, 16, 64): ms, card ms, host us,
+   plain ms, SDPA ``is_causal=False`` ms and the bound. The counts are
+   set to 0 after (a) and the world-1 reference step and read at the
+   workers' end: the path must launch the chunk kernel in both modes and
+   the digest; its launches add to the record's, and the record's
+   ``flash_chunk_unmasked`` entry carries the unmasked ones with that
+   timing.
 
 Every phase runs with the record knobs at their defaults (the run ledger,
 heartbeats and history on; the report and trace sinks off) and the stall
@@ -1406,6 +1442,13 @@ KERNEL_SOURCES = {
         "torchsnapshot_tpu_torch/csrc/flash_attention.cu",
         "torchsnapshot_tpu/ops/flash_attention.py:395",
     ),
+    # The chunk kernel's unmasked mode (a ring step's block behind the
+    # queries), timed at a ring step's shape; its launches are the ring
+    # phase's unmasked ones (flash_chunk counts both modes).
+    "flash_chunk_unmasked": (
+        "torchsnapshot_tpu_torch/csrc/flash_attention.cu",
+        "torchsnapshot_tpu/ops/flash_attention.py:223",
+    ),
 }
 # The kernels the main path must launch (it trains in bf16: no f32 entry,
 # so no split pre-pass).
@@ -1414,7 +1457,7 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge,moe")
+    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge,moe,ring")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -1465,12 +1508,14 @@ def main() -> int:
     records = {}
     # Launches are counted only in the main path's run, plus the paths of
     # later slices, each counted from 0 (the digest's: the main, cas,
-    # tiered, peer, cdn, bridge and moe phases'; the pack's: the cas
+    # tiered, peer, cdn, bridge, moe and ring phases'; the pack's: the cas
     # phase's, both ranks' in the sharded phase, the leaves, tiered, cdn and
-    # moe phases'; the flash kernels': the main, cdn, bridge and moe
-    # phases'); without them they were not measured and the record says
-    # null.
-    launches = dict.fromkeys(list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts))
+    # moe phases'; the flash kernels': the main, cdn, bridge, moe and ring
+    # phases', the unmasked chunk's the ring phase's); without them they
+    # were not measured and the record says null.
+    launches = dict.fromkeys(
+        list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts) + ["flash_chunk_unmasked"]
+    )
 
     def add(name: str, n: int) -> None:
         launches[name] = (launches[name] or 0) + n
@@ -1514,6 +1559,12 @@ def main() -> int:
         for name in MOE_PATH_KERNELS:
             add(name, got[name])
 
+    def ring() -> None:
+        got = ring_phase(args, work_dir, card)
+        for name in RING_PATH_KERNELS + ("flash_chunk_unmasked",):
+            add(name, got[name])
+        records["flash_chunk_unmasked"] = got["record"]
+
     sequence = [
         ("kernels", kernels_phase),
         ("main", lambda: launches.update(main_phase(args, work_dir, card))),
@@ -1528,6 +1579,7 @@ def main() -> int:
         ("cdn", cdn),
         ("bridge", bridge),
         ("moe", moe),
+        ("ring", ring),
     ]
     done: list = []
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
@@ -1552,6 +1604,8 @@ def main() -> int:
     if records:
         kernels_line = []
         for name, (source, replaces) in KERNEL_SOURCES.items():
+            if name not in records:  # a kernel whose phase did not run
+                continue
             kernels_line.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name], **records[name],
@@ -3667,16 +3721,14 @@ def _replicated_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
 
 
-def _require_replicas_equal(pg, state) -> int:
-    """Digest every leaf of the (declared replicated) train state on the
-    card and compare the digests of all ranks through the store: the
-    replicas must be bitwise equal, or declaring them replicated would
-    save one rank's bits for all. Returns the leaves compared."""
+def _leaf_digests(state) -> dict:
+    """The ``mlh64`` digest of every leaf of a train state by path: the CUDA
+    leaves in one launch of the digest kernel, the host ones on the host,
+    other values by ``repr``."""
     import torch
 
     from torchsnapshot_tpu_torch.flatten import flatten
     from torchsnapshot_tpu_torch.ops import device_digest as dd
-    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
 
     _, leaves = flatten(state.state_dict(), prefix="train")
     cuda = [(p, t) for p, t in leaves.items() if isinstance(t, torch.Tensor) and t.is_cuda]
@@ -3685,6 +3737,17 @@ def _require_replicas_equal(pg, state) -> int:
     for p, leaf in leaves.items():
         if p not in mine:
             mine[p] = dd.digest_host(leaf) if isinstance(leaf, torch.Tensor) else repr(leaf)
+    return mine
+
+
+def _require_replicas_equal(pg, state) -> int:
+    """Digest every leaf of the (declared replicated) train state on the
+    card and compare the digests of all ranks through the store: the
+    replicas must be bitwise equal, or declaring them replicated would
+    save one rank's bits for all. Returns the leaves compared."""
+    from torchsnapshot_tpu_torch.pg_wrapper import PGWrapper
+
+    mine = _leaf_digests(state)
     gathered = PGWrapper(pg).all_gather_object(mine)
     for p in sorted(mine):
         values = {repr(g.get(p)) for g in gathered}
@@ -6666,7 +6729,8 @@ def _first_step_gaps(live: PipelineState, ref: dict, model) -> dict:
 
 def _pipeline_moves(before: dict) -> dict:
     """The pipeline's moves since the registry snapshot ``before``: calls,
-    bytes and seconds by kind, and the device-copy bytes."""
+    bytes and seconds by kind (the pipeline's, and the ring's ``ring`` and
+    ``sp_sum`` moves), and the device-copy bytes."""
     from torchsnapshot_tpu_torch import telemetry
     from torchsnapshot_tpu_torch.telemetry import names
     from torchsnapshot_tpu_torch.telemetry.registry import parse_series_key
@@ -6681,7 +6745,8 @@ def _pipeline_moves(before: dict) -> dict:
     for key, v in telemetry.metrics().counters_delta_since(before).items():
         name, labels = parse_series_key(key)
         if name in fields:
-            out[labels["kind"]][fields[name]] += v
+            moves = out.setdefault(labels["kind"], {"calls": 0, "bytes": 0, "seconds": 0.0})
+            moves[fields[name]] += v
         elif name in copies:
             out[copies[name]] += v
     return out
@@ -7147,6 +7212,505 @@ def moe_phase(args, work_dir: str, card: str) -> dict:
     )
     print(json.dumps({"moe": record}), flush=True)
     return launches
+
+
+# ----------------------------------------------------------------------
+# Phase 14: ring attention over a sequence-parallel group
+# ----------------------------------------------------------------------
+
+# The kernels the ring path must launch (both workers' counted windows
+# together): the chunk kernel in each ring step of training (causal on
+# the diagonal; unmasked only on rank 1, whose block 0 is behind it), the
+# digest in the replica checks.
+RING_PATH_KERNELS = ("flash_chunk", "device_digest")
+RING_RANKS = 2
+# Leg (a)'s attention at the model's width: q, k, v (b, seq, heads, dim).
+RING_QKV = (8, 1024, 16, 64)
+# Leg (a): the ring's q, k, v gradients against the world-1 flash step's,
+# relative L2 per tensor. Both round f32 gradients to bf16 once (at most
+# 2^-8 of a value each, so at most 2^-7 apart) on top of f32 gaps of
+# ~1e-5; 2^-6 is the moe phase's gradient limit (PP_GRAD_RTOL).
+RING_GRAD_RTOL = 2.0 ** -6
+# Leg (b): the first sp step's parameters against the world-1 flash
+# step's, relative to the update. The loss and the gradients keep the moe
+# phase's limits, and so does (c2)'s later step; this one does not. AdamW's
+# first update is lr * g / (|g| + eps), lr times the sign of g: an element
+# whose gradient changes sign between two sound computations moves 2 lr.
+# The ring rounds the second half's attention outputs otherwise than the
+# one-pass kernel (leg (a): one bf16 ulp), which flips the signs of a few
+# gradients near 0. Readings on an H100 (PERF.md, the ring findings): 7.462e-2 in four
+# runs (the embedding's leaf 0.11); the control with the world-1 forward
+# and the gradient summed over two halves of the batch 1.962e-2; a mutated
+# copy whose gradients are not summed over sp 0.786 and 1.001 (its
+# gradients 0.69 and 0.96). 2^-3 is 1.7x the sound reading and 6x under
+# the broken one.
+RING_FIRST_UPDATE_RTOL = 2.0 ** -3
+RING_TIMEOUT_S = 600.0
+
+
+def ring_configs() -> tuple:
+    """``(flash, ring_flash)``: the main configuration, and the same model
+    with ring attention with the chunk kernel."""
+    cfg = main_config()
+    return cfg, dataclasses.replace(cfg, attn_impl="ring_flash")
+
+
+def _rel_l2(a, b) -> float:
+    """``||a - b|| / ||b||`` in f32."""
+    return _rel_gap(_norm2(a.float() - b.float()), _norm2(b))
+
+
+class _FailTogether:
+    """Leg (e): the ring phase's workers fail together. A rank whose check
+    fails posts its error under ``<prefix>/error`` in the package's store;
+    the legs meet at gates that read that key; and a watcher thread in every
+    rank polls it and interrupts its main thread (a ``KeyboardInterrupt``)
+    when a peer's error lands, wherever that thread waits (in a take's
+    store collectives, or a gloo transfer that the peer never joins)."""
+
+    POLL_S = 0.2
+
+    def __init__(self, pg, prefix: str) -> None:
+        import threading
+
+        self.pg, self.prefix, self.key = pg, prefix, f"{prefix}/error"
+        self.peer_error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, name="fail-together", daemon=True)
+        self._thread.start()
+
+    def _watch(self) -> None:
+        import _thread
+
+        while not self._stop.wait(self.POLL_S):
+            try:
+                raw = self.pg.store.try_get(self.key)
+            except OSError:
+                return  # the store's host is gone: the main thread's next wait fails by itself
+            if raw is not None and not self._stop.is_set():
+                self.peer_error = raw.decode(errors="replace")
+                _thread.interrupt_main()
+                return
+
+    def gate(self, name: str, timeout: float = RING_TIMEOUT_S) -> None:
+        """Wait until every rank reached gate ``name``; raise at once if a
+        rank posted its error."""
+        store = self.pg.store
+        store.set(f"{self.prefix}/{name}/{self.pg.rank}", b"1")
+        keys = [f"{self.prefix}/{name}/{r}" for r in range(self.pg.world_size)]
+        deadline = time.monotonic() + timeout
+        while True:
+            got = store.multi_get([self.key] + keys)
+            if got[self.key] is not None:
+                self.peer_error = got[self.key].decode(errors="replace")
+                raise AssertionError(f"rank {self.pg.rank}: a peer failed: {self.peer_error}")
+            if all(got[k] is not None for k in keys):
+                return
+            _require(time.monotonic() < deadline, f"rank {self.pg.rank}: gate {name!r} timed out")
+            time.sleep(0.02)
+
+    def fail(self, exc: BaseException) -> BaseException:
+        """What the worker raises for ``exc``: its own failure, posted for
+        its peers first; or a peer's, named."""
+        self.close()
+        if self.peer_error is not None:
+            return AssertionError(f"rank {self.pg.rank} stopped: a peer failed first: {self.peer_error}")
+        with contextlib.suppress(OSError):  # a store whose host is gone: the peers fail on it anyway
+            self.pg.store.set(self.key, f"rank {self.pg.rank}: {exc!r}"[:2000].encode())
+        return exc
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def _ring_attention_leg(mesh, seed: int) -> dict:
+    """Leg (a) on one rank: the ring and ring_flash output blocks and q, k,
+    v gradients against the world-1 flash entries' on the same inputs; the
+    chunk kernel's causal and unmasked launches at the ring's shapes held
+    against the plain version."""
+    import torch
+
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.ops.ring_attention import ring_causal_attention
+
+    r, n = mesh.get_local_rank(0), mesh.size(0)
+    b, seq, h, d = RING_QKV
+    s = seq // n
+    blk = lambda t: t[:, r * s:(r + 1) * s]  # noqa: E731
+    q, k, v = _qkv(RING_QKV, torch.bfloat16, seed, fused_qkv=True)
+    g = torch.randn(RING_QKV, generator=torch.Generator(device="cuda").manual_seed(seed + 1), device="cuda")
+    g = g.to(torch.bfloat16)
+    want = fa.flash_causal_forward(q, k, v)
+    q1, k1, v1 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_causal_attention(q1, k1, v1).backward(g)
+    rtol, atol = fa.FUSED_TOL[torch.bfloat16]
+    out = {}
+    for impl, flash in (("ring", False), ("ring_flash", True)):
+        modes = dict(fa.chunk_launches_by_mode)
+        ql, kl, vl = (blk(t).detach().clone().requires_grad_() for t in (q, k, v))
+        y = ring_causal_attention(ql, kl, vl, mesh=mesh, use_flash=flash)
+        y.backward(blk(g))
+        torch.cuda.synchronize()
+        err = (y.detach().float() - blk(want).float()).abs().max().item()
+        torch.testing.assert_close(y.detach().float(), blk(want).float(), rtol=rtol, atol=atol)
+        gaps = {name: _rel_l2(t.grad, blk(w.grad)) for name, t, w in (("q", ql, q1), ("k", kl, k1), ("v", vl, v1))}
+        _require(max(gaps.values()) <= RING_GRAD_RTOL,
+                 f"rank {r}: {impl} gradients {gaps} against flash's (limit {RING_GRAD_RTOL:.3e})")
+        out[impl] = {"max_abs_err": err, "grad_gaps": gaps,
+                     "chunk_launches": {m: fa.chunk_launches_by_mode[m] - modes[m] for m in modes}}
+    # The chunk kernel at the ring's shapes: this rank's queries against
+    # each block at or behind them (the diagonal causal, the rest unmasked).
+    checks = {}
+    for src in range(r + 1):
+        kv = torch.stack((k[:, src * s:(src + 1) * s], v[:, src * s:(src + 1) * s]))
+        errs = fa.compare_with_plain(blk(q), kv[0], kv[1], 128)
+        checks[f"src {src}"] = {m: errs[m] for m in ("flash_chunk_causal", "flash_chunk_unmasked", "chunk_atol")}
+    out["chunk_checks"] = checks
+    del q, k, v, g, want, q1, k1, v1
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_record(state, train_step, tokens, halves: bool = False) -> dict:
+    """One step of ``state`` (in place): its loss; per parameter its
+    gradient and its value before and after AdamW. With ``halves`` (a
+    world-1 step, the control of the sp step's gradient sum) the gradient
+    is accumulated in the parameters' dtype over two halves of the batch,
+    as the sp step sums two ranks' halves of the sequence."""
+    from torchsnapshot_tpu_torch.models.transformer import loss_fn
+
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    if halves:
+        state.optimizer.zero_grad(set_to_none=True)
+        half = tokens.shape[0] // 2
+        losses = []
+        for part in (tokens[:half], tokens[half:]):
+            loss = loss_fn(state.model, part) / 2
+            loss.backward()
+            losses.append(float(loss))
+        state.optimizer.step()
+        loss = sum(losses)
+    else:
+        _, loss = train_step(state, tokens)
+    return {
+        "loss": float(loss), "before": before,
+        "grad": {n: p.grad.detach().clone() for n, p in state.model.named_parameters()},
+        "after": {n: p.detach().clone() for n, p in state.model.named_parameters()},
+    }
+
+
+def _step_gaps(got: dict, want: dict) -> dict:
+    """``got``'s step against ``want``'s (both ``_step_record``s from the
+    same parameters): the loss's relative gap; the largest leaf gradient's
+    relative L2 gap; the parameters' L2 gap after the step relative to
+    ``want``'s update, over all leaves, and the largest leaf's."""
+    grads, updates = {}, {}
+    diff2 = update2 = 0.0
+    for n, after in want["after"].items():
+        grads[n] = _rel_l2(got["grad"][n], want["grad"][n].to(got["grad"][n].device))
+        after = after.to(got["after"][n].device).float()
+        d2, u2 = _norm2(got["after"][n].float() - after), _norm2(after - got["before"][n].float())
+        updates[n] = _rel_gap(d2, u2)
+        diff2, update2 = diff2 + d2, update2 + u2
+    return {
+        "loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+        "grad": max(grads.items(), key=lambda kv: kv[1]),
+        "update": _rel_gap(diff2, update2),
+        "update_leaf": max(updates.items(), key=lambda kv: kv[1]),
+    }
+
+
+def _gaps_line(g: dict) -> str:
+    return (
+        f"loss {g['loss']:.3e}, gradients {g['grad'][1]:.3e} ({g['grad'][0]}), parameters {g['update']:.3e} of "
+        f"the update (largest leaf {g['update_leaf'][1]:.3e}, {g['update_leaf'][0]})"
+    )
+
+
+def _require_step_gaps(g: dict, what: str, update_rtol: float = PP_UPDATE_RTOL) -> None:
+    """The moe phase's limits on a step against another (the parameters'
+    limit given for the sp run's first step)."""
+    _require(g["loss"] <= PP_LOSS_RTOL and g["grad"][1] <= PP_GRAD_RTOL and g["update"] <= update_rtol,
+             f"{what}: {_gaps_line(g)}; limits {PP_LOSS_RTOL:.3e}, {PP_GRAD_RTOL:.3e}, {update_rtol:.3e}")
+
+
+def ring_worker(pg, seed: int, work_dir: str) -> dict:
+    """One rank of the ring phase (spawned by ``run_multiprocess``; the
+    parent built every kernel): a gloo default group, a ``cuda`` mesh with
+    an ``sp`` dimension of 2; legs (a)-(c), meeting at gates."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torchsnapshot_tpu_torch import Snapshot, telemetry
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state, make_train_step, random_tokens
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.ops import kernels
+    from torchsnapshot_tpu_torch.test_utils import init_torch_group
+
+    t_start = time.monotonic()
+    os.environ["TORCHSNAPSHOT_TPU_PEER_TIER"] = "0"  # the write paths without the tier, as the ranks phase
+    rank = pg.rank
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in kernels.kernel_names() if not os.path.exists(kernels._library_path(n))]
+    _require(not missing, f"rank {rank}: kernels {missing} not built by the parent")
+    init_torch_group(pg)
+    together = _FailTogether(pg, "ring")
+    try:
+        mesh = init_device_mesh("cuda", (pg.world_size,), mesh_dim_names=("sp",))
+        record = {"rank": rank, "device": torch.cuda.current_device(), "sp_rank": mesh.get_local_rank(0)}
+        together.gate("start")
+        record["a"] = _ring_attention_leg(mesh, seed)
+        together.gate("a")
+
+        # (b) Training: the world-1 flash step on a replica, then STEPS
+        # sequence-parallel steps from the same initial state.
+        cfg_flash, cfg_ring = ring_configs()
+        tokens = torch.from_numpy(random_tokens(cfg_ring, 8, 1024, seed)).cuda()
+        replica = init_train_state(cfg_flash, seed=seed)
+        want = _step_record(replica, make_train_step(cfg_flash), tokens)
+        replica = init_train_state(cfg_flash, seed=seed)
+        control = _step_gaps(_step_record(replica, None, tokens, halves=True), want)
+        del replica
+        state = init_train_state(cfg_ring, seed=seed)
+        train_step = make_train_step(cfg_ring, mesh)
+        for counts in (fa.launch_counts, fa.chunk_launches_by_mode, dd.launch_counts, dp.launch_counts):
+            for k in counts:
+                counts[k] = 0
+        before = telemetry.metrics().counters_snapshot()
+        losses, step_ms = [], []
+        for i in range(STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            if i == 0:
+                got = _step_record(state, train_step, tokens)
+                losses.append(got["loss"])
+            else:
+                losses.append(float(train_step(state, tokens)[1]))
+            torch.cuda.current_stream().synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            if i == 0:
+                gaps = _step_gaps(got, want)
+                del got, want
+                log(f"ring (b) rank {rank}: step 1 against the world-1 flash step: {_gaps_line(gaps)}; the control "
+                    f"(the world-1 step's gradient summed over two halves of the batch): {_gaps_line(control)}")
+                _require_step_gaps(gaps, f"rank {rank}: the sp step against the world-1 step", RING_FIRST_UPDATE_RTOL)
+        moves = _pipeline_moves(before)
+        _require(all(x == x and abs(x) < 1e4 for x in losses), f"rank {rank}: losses not finite: {losses}")
+        record["b"] = {"losses": losses, "step_ms": step_ms, "gaps": gaps, "control": control, "moves": moves,
+                       "replica_leaves": _require_replicas_equal(pg, state)}
+        together.gate("b")
+
+        # (c) The sp job's take, each rank writing its share of the
+        # replicated bytes; restored at world 2 into another seed's state,
+        # the next step's loss bit for bit. Rank 0 leaves the saved
+        # state's digests and the live run's next step for the parent.
+        path = os.path.join(work_dir, "sp2")
+        saved = {k: v.clone() for k, v in _state_tensors(state).items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        Snapshot.take(path, {"train": state}, pg=pg, replicated=["train/**"])
+        take_s = time.monotonic() - t0
+        together.gate("taken")
+        written, _ = _rank_blob_bytes(path, rank)
+        total = _replicated_bytes(path)
+        share = written / total
+        _require(abs(share - 0.5) <= 0.1, f"rank {rank} wrote {share:.4f} of the replicated bytes")
+        fresh = init_train_state(cfg_ring, seed=seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        Snapshot(path, pg=pg).restore({"train": fresh})
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        _require_same_state(saved, fresh, f"rank {rank}: the world-2 restore")
+        digests = _leaf_digests(fresh)
+        nxt = _step_record(state, train_step, tokens)
+        _, loss_fresh = train_step(fresh, tokens)
+        torch.cuda.synchronize()
+        _require(nxt["loss"] == float(loss_fresh),
+                 f"rank {rank}: next losses differ after the world-2 restore: {nxt['loss']!r} vs {float(loss_fresh)!r}")
+        if rank == 0:
+            torch.save({key: nxt[key] if key == "loss" else {n: t.cpu() for n, t in nxt[key].items()}
+                        for key in ("loss", "grad", "after")}, os.path.join(work_dir, "next_step.pt"))
+        record["c"] = {"take_s": take_s, "restore_s": restore_s, "written_bytes": written, "replicated_bytes": total,
+                       "share": share, "next_loss": nxt["loss"], "digests": digests}
+        del nxt, fresh, saved
+        record["launches"] = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+        record["chunk_modes"] = dict(fa.chunk_launches_by_mode)
+        together.gate("c")
+        record["worker_s"] = time.monotonic() - t_start
+        return record
+    except BaseException as e:
+        raise together.fail(e)
+    finally:
+        together.close()
+        dist.destroy_process_group()
+
+
+def _unmasked_chunk_record(seed: int) -> dict:
+    """The chunk kernel's unmasked mode at a ring step's shape (bf16 (8,
+    512, 16, 64), the queries a slice of the fused qkv, k and v of one
+    stacked buffer, as the ring passes them): held against its plain
+    version, timed as the kernels phase times a kernel, beside SDPA
+    (``is_causal=False``) on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    b, seq, h, d = RING_QKV
+    s = seq // RING_RANKS
+    q, k, v = _qkv((b, s, h, d), torch.bfloat16, seed, fused_qkv=True)
+    kv = torch.stack((k, v))
+    k, v = kv[0], kv[1]
+    errs = fa.compare_with_plain(q, k, v, 128)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+    def fn():
+        return fa.flash_attention_chunk(q, k, v, causal=False)
+
+    flops = fa.attention_flops(b, h, s, s, d, causal=False)
+    nbytes = 3 * b * s * h * d * q.element_size() + 4 * b * h * s * (d + 2)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    rec = {
+        "ms": cuda_ms(fn),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_chunk_plain(q, k, v, False), iters=3),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=False)),
+        "bound_ms": max(bytes_ms, op_ms),
+        "bound_by": "bytes" if bytes_ms > op_ms else "operations",
+        "max_abs_err": errs["flash_chunk_unmasked"],
+    }
+    device_ms, host_us = held_times(fn)
+    sdpa_device_ms, _ = held_times(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=False))
+    log(
+        f"kernel flash_chunk unmasked {(b, s, h, d)} bf16 (a ring step's block): {rec['ms']:.4f} ms back to back, "
+        f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s; device {device_ms:.4f} ms, host {host_us:.1f} us per call (plain "
+        f"{rec['plain_ms']:.4f} ms, SDPA is_causal=False {rec['library_ms']:.4f} ms, device {sdpa_device_ms:.4f} ms; "
+        f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}: bytes {nbytes / 1e6:.3f} MB {bytes_ms:.4f} ms, "
+        f"operations {flops / 1e9:.3f} GFLOP {op_ms:.4f} ms), max |err| {rec['max_abs_err']:.3e} (chunk o/l atol "
+        f"{errs['chunk_atol']:.3e}, m and l {fa.F32_TOL})"
+    )
+    rec["device_ms"], rec["host_us"], rec["sdpa_device_ms"] = device_ms, host_us, sdpa_device_ms
+    return rec
+
+
+def ring_phase(args, work_dir: str, card: str) -> dict:
+    """Legs (a)-(c) in two spawned processes on the card, then (c2) the
+    sp job's snapshot restored here at world 1 and continued with a flash
+    step, and the unmasked chunk timed. Returns the launches of the ring
+    path (both workers' counted windows), by kernel and by chunk mode, and
+    the unmasked mode's kernel record."""
+    import torch
+
+    from torchsnapshot_tpu_torch import Snapshot
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state, make_train_step, random_tokens
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+
+    t_phase = time.monotonic()
+    ring_dir = os.path.join(work_dir, "ring")
+    os.makedirs(ring_dir, exist_ok=True)
+    records = run_multiprocess(ring_worker, RING_RANKS, args=(args.seed, ring_dir), timeout=RING_TIMEOUT_S)
+    workers_s = time.monotonic() - t_phase
+
+    # (c2) World 1: the sp = 2 snapshot into a flash model's state,
+    # bit-identical to the saved state by digest; its next flash step
+    # against the sp run's next step.
+    cfg_flash, _ = ring_configs()
+    tokens = torch.from_numpy(random_tokens(cfg_flash, 8, 1024, args.seed)).cuda()
+    fresh = init_train_state(cfg_flash, seed=args.seed + 2)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    Snapshot(os.path.join(ring_dir, "sp2")).restore({"train": fresh})
+    torch.cuda.synchronize()
+    world1_restore_s = time.monotonic() - t0
+    want_digests = records[0]["c"]["digests"]
+    got_digests = _leaf_digests(fresh)
+    _require(sorted(got_digests) == sorted(want_digests), "the world-1 restore holds other leaves")
+    for p in want_digests:
+        _require(got_digests[p] == want_digests[p], f"world-1 restore of the sp = 2 snapshot: {p} differs")
+    flash_step = make_train_step(cfg_flash)
+    got = _step_record(fresh, flash_step, tokens)
+    sp_next = torch.load(os.path.join(ring_dir, "next_step.pt"))
+    world1_gaps = _step_gaps(got, sp_next)
+    log(f"ring (c2): the world-1 restore's next flash step against the sp run's: {_gaps_line(world1_gaps)}")
+    _require_step_gaps(world1_gaps, "the world-1 restore's next step against the sp run's")
+    del got, sp_next
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    flash_step(fresh, tokens)
+    torch.cuda.current_stream().synchronize()
+    flash_step_ms = (time.monotonic() - t0) * 1e3
+    del fresh
+    torch.cuda.empty_cache()
+    unmasked = _unmasked_chunk_record(args.seed)
+
+    launches = {k: sum(r["launches"][k] for r in records) for k in RING_PATH_KERNELS}
+    modes = {m: sum(r["chunk_modes"][m] for r in records) for m in ("causal", "unmasked")}
+    _require(all(launches.values()) and all(modes.values()),
+             f"ring: a kernel or chunk mode of the path never launched: {launches}, {modes}")
+    shutil.rmtree(ring_dir, ignore_errors=True)
+    wall_s = time.monotonic() - t_phase
+    for r in records:
+        a, b, c = r["a"], r["b"], r["c"]
+        ring_moves, sums = b["moves"].get("ring", {}), b["moves"].get("sp_sum", {})
+        log(
+            f"ring: rank {r['rank']} (sp {r['sp_rank']}) on card {r['device']}: (a) attention {RING_QKV} bf16 against "
+            f"the world-1 flash entries: "
+            + "; ".join(
+                f"{impl} output max |err| {a[impl]['max_abs_err']:.3e} (FUSED_TOL bf16), gradients "
+                + ", ".join(f"d{n} {g:.3e}" for n, g in a[impl]["grad_gaps"].items())
+                + f" (limit {RING_GRAD_RTOL:.3e}), chunk launches {a[impl]['chunk_launches']}"
+                for impl in ("ring", "ring_flash")
+            )
+            + "; chunk kernel against plain "
+            + "; ".join(f"{src}: causal {e['flash_chunk_causal']:.3e}, unmasked {e['flash_chunk_unmasked']:.3e}"
+                        for src, e in a["chunk_checks"].items())
+        )
+        log(
+            f"ring: rank {r['rank']} (b) ring_flash at sp = 2: steps {', '.join(f'{x:.1f}' for x in b['step_ms'])} ms, "
+            f"losses {b['losses']}; step 1 against the world-1 flash step: {_gaps_line(b['gaps'])} (the control: "
+            f"{_gaps_line(b['control'])}); "
+            f"{b['replica_leaves']} leaves' digests equal across the ranks; ring hops {ring_moves.get('calls', 0)}, "
+            f"{ring_moves.get('bytes', 0) / 1e6:.1f} MB in {ring_moves.get('seconds', 0.0) * 1e3:.1f} ms "
+            f"({ring_moves.get('seconds', 0.0) * 1e3 / max(1, ring_moves.get('calls', 0)):.2f} ms a hop); sp sums "
+            f"{sums.get('calls', 0)}, {sums.get('bytes', 0) / 1e6:.1f} MB in {sums.get('seconds', 0.0) * 1e3:.1f} ms; "
+            f"{b['moves']['d2h_bytes'] / 1e6:.1f} MB to the host and {b['moves']['h2d_bytes'] / 1e6:.1f} MB back; "
+            f"(c) take {c['take_s']:.3f} s, wrote {c['written_bytes'] / 1e9:.4f} of {c['replicated_bytes'] / 1e9:.4f} GB "
+            f"replicated ({c['share']:.4f}), restore at world 2 {c['restore_s']:.3f} s bit-identical, next loss "
+            f"{c['next_loss']!r} bit for bit; launches {r['launches']}, chunk modes {r['chunk_modes']}; worker "
+            f"{r['worker_s']:.1f} s"
+        )
+    log(
+        f"ring: world-1 restore of the sp = 2 snapshot {world1_restore_s:.3f} s, every leaf's digest equal; its next "
+        f"flash step against the sp run's next step: "
+        f"{_gaps_line(world1_gaps)}; one more flash step {flash_step_ms:.1f} ms (this process alone on the card); "
+        f"launches {launches}, chunk modes {modes}; workers "
+        f"{workers_s:.1f} s, phase {wall_s:.1f} s on {card}"
+    )
+    record = {
+        "card": card, "ranks": [{k: v for k, v in r.items() if k != "c"} for r in records],
+        "take_s": [r["c"]["take_s"] for r in records], "restore_s": [r["c"]["restore_s"] for r in records],
+        "shares": [r["c"]["share"] for r in records], "world1_restore_s": world1_restore_s,
+        "world1_gaps": world1_gaps, "flash_step_ms": flash_step_ms, "launches": launches, "chunk_modes": modes,
+        "unmasked_chunk": unmasked, "workers_s": workers_s, "wall_s": wall_s,
+    }
+    _headline(
+        "ring", ring_step_ms=[r["b"]["step_ms"][-1] for r in records], flash_step_ms=flash_step_ms,
+        hop_ms=[r["b"]["moves"].get("ring", {}).get("seconds", 0.0) * 1e3
+                / max(1, r["b"]["moves"].get("ring", {}).get("calls", 0)) for r in records],
+        unmasked_ms=[unmasked["ms"], unmasked["device_ms"], unmasked["library_ms"], unmasked["bound_ms"]],
+        launches="/".join(f"{k}:{launches[k]}" for k in RING_PATH_KERNELS) + f"; modes {modes['causal']}/{modes['unmasked']}",
+    )
+    print(json.dumps({"ring": record}, default=str), flush=True)
+    return {**launches, "flash_chunk_unmasked": modes["unmasked"], "record": {
+        k: unmasked[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    }}
 
 
 if __name__ == "__main__":

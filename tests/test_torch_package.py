@@ -82,6 +82,30 @@ def test_import_loads_no_jax() -> None:
     assert out.returncode == 0, out.stderr[-2000:]
 
 
+def test_import_loads_no_cloud_client_library() -> None:
+    """Importing every module of the port and ``chip_smoke.py`` loads none
+    of the cloud plugins' client libraries (aiobotocore, botocore,
+    google-auth, google-resumable-media, requests): the card's machine may
+    lack them, and the plugins import them only when they are built."""
+    modules = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
+        for p in _port_sources()
+        if p.startswith(PKG)
+    ) + ["chip_smoke"]
+    code = (
+        "import importlib, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "roots = ('aiobotocore', 'botocore', 'google', 'requests')\n"
+        "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in roots)\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 def _tiny_cfg() -> tt.TransformerConfig:
     return tt.TransformerConfig(
         vocab_size=64, d_model=32, n_heads=2, n_layers=1, d_ff=64, dtype=torch.float32
@@ -140,8 +164,8 @@ def test_kernel_wrapper_raises_without_a_kernel_build(monkeypatch, tmp_path) -> 
 
 
 # The modules of the sharded-state slice, of the chunk-store and fan-out
-# slice, of the telemetry slice, the bridge and the pipeline: walked by
-# the import checks above.
+# slice, of the telemetry slice, the bridge, the pipeline, ring attention
+# and the cloud plugins: walked by the import checks above.
 SHARDED_SLICE_MODULES = [
     "torchsnapshot_tpu_torch/parallel/overlap.py",
     "torchsnapshot_tpu_torch/resharding.py",
@@ -172,6 +196,10 @@ SHARDED_SLICE_MODULES = [
     "torchsnapshot_tpu_torch/utils/device.py",
     # The GPipe schedule.
     "torchsnapshot_tpu_torch/parallel/pipeline.py",
+    # Ring attention and the cloud plugins.
+    "torchsnapshot_tpu_torch/ops/ring_attention.py",
+    "torchsnapshot_tpu_torch/storage_plugins/s3.py",
+    "torchsnapshot_tpu_torch/storage_plugins/gcs.py",
 ]
 
 

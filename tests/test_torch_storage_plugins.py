@@ -3,9 +3,9 @@ deletes, URL dispatch.
 
 Port of the JAX package's ``tests/test_storage_plugins.py``, plus a blob
 written by either package's fs plugin read back byte for byte by the
-other's, and the refusal of the schemes not ported yet: the s3 and gcs
-plugins, the retry wrapper around them and ``tiered://`` come with ROADMAP
-queue 1 step 9.
+other's, and the dispatch of the other schemes (``s3://``, ``gs://``,
+``tiered://``) to their plugins; the cloud plugins themselves are held by
+``tests/test_torch_cloud_storage.py`` and ``test_torch_gcs_emulator.py``.
 """
 
 import asyncio
@@ -110,9 +110,11 @@ def test_fs_overwrite(tmp_path) -> None:
 
 
 @pytest.mark.parametrize("url", ["s3://bucket/run", "gs://bucket/run", "tiered:///fast|/durable"])
-def test_unported_schemes_name_their_step(url) -> None:
-    """The cloud schemes stay refused (step 9d); ``tiered://`` is ported
-    and composes its two tiers."""
+def test_unported_schemes_name_their_step(url, monkeypatch) -> None:
+    """Every scheme of the JAX package dispatches to its plugin (the cloud
+    ones since ROADMAP step 9d; none is refused any more). The s3 client
+    library is stubbed and the gcs plugin pointed at an emulator address:
+    building a plugin opens no connection."""
     if url.startswith("tiered://"):
         from torchsnapshot_tpu_torch.tiered import TieredStoragePlugin
 
@@ -121,8 +123,21 @@ def test_unported_schemes_name_their_step(url) -> None:
         assert (plugin.fast_url, plugin.durable_url) == ("/fast", "/durable")
         assert isinstance(plugin.fast, FSStoragePlugin) and isinstance(plugin.durable, FSStoragePlugin)
         return
-    with pytest.raises(RuntimeError, match="ROADMAP queue 1 step 9d"):
-        url_to_storage_plugin(url)
+    if url.startswith("s3://"):
+        from torchsnapshot_tpu_torch.storage_plugins import s3
+
+        monkeypatch.setattr(s3, "_import_aiobotocore", lambda: lambda: object())
+        plugin = url_to_storage_plugin(url)
+        assert isinstance(plugin, s3.S3StoragePlugin)
+        assert (plugin.bucket, plugin.prefix) == ("bucket", "run")
+        return
+    from torchsnapshot_tpu_torch.storage_plugins.gcs import GCSStoragePlugin
+
+    monkeypatch.setenv("STORAGE_EMULATOR_HOST", "127.0.0.1:9")
+    plugin = url_to_storage_plugin(url)
+    assert isinstance(plugin, GCSStoragePlugin)
+    assert (plugin.bucket, plugin.prefix, plugin._base_url) == ("bucket", "run", "http://127.0.0.1:9")
+    _run(plugin.close())
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])

@@ -28,6 +28,7 @@ _MAX_CHUNK_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_MAX_CHUNK_SIZE_BYTES"
 _PER_RANK_MEMORY_BUDGET_BYTES_ENV = "TORCHSNAPSHOT_TPU_PER_RANK_MEMORY_BUDGET_BYTES"
 _MEMORY_BUDGET_FRACTION_ENV = "TORCHSNAPSHOT_TPU_MEMORY_BUDGET_FRACTION"
 _PER_RANK_IO_CONCURRENCY_ENV = "TORCHSNAPSHOT_TPU_PER_RANK_IO_CONCURRENCY"
+_S3_ENDPOINT_URL_ENV = "TORCHSNAPSHOT_TPU_S3_ENDPOINT"
 _STAGING_THREADS_ENV = "TORCHSNAPSHOT_TPU_STAGING_THREADS"
 _DISABLE_CHECKSUMS_ENV = "TORCHSNAPSHOT_TPU_DISABLE_CHECKSUMS"
 _DISABLE_NATIVE_ENV = "TORCHSNAPSHOT_TPU_DISABLE_NATIVE"
@@ -233,6 +234,12 @@ def get_memory_budget_fraction() -> float:
 def get_per_rank_io_concurrency() -> int:
     """Max concurrent storage I/O ops per process."""
     return _get_tunable_int(_PER_RANK_IO_CONCURRENCY_ENV, _DEFAULT_PER_RANK_IO_CONCURRENCY)
+
+
+def get_s3_endpoint_url() -> Optional[str]:
+    """Non-AWS S3-compatible endpoint (MinIO, private object stores);
+    unset = real S3."""
+    return os.environ.get(_S3_ENDPOINT_URL_ENV) or None
 
 
 def get_staging_threads() -> int:

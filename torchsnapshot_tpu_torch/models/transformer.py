@@ -17,17 +17,28 @@ expert-stacked ``w_in`` ``(n_experts, d_model, d_ff)`` and ``w_out``
 ``(n_experts, d_ff, d_model)``; every expert runs on every token and the
 f32 softmax of the router's logits combines their outputs. Those products
 are plain einsums here as there (no kernel of the JAX package computes
-them). The JAX module's sharded mesh layouts and ring attention variants
-are not ported: the port's layouts are ``DTensor`` trees built by the
-caller (expert parallel: the expert-stacked leaves ``Shard(0)``) or
-:mod:`..parallel.pipeline`'s stage stacks.
+them).
+
+Sequence parallel (``attn_impl="ring"`` or ``"ring_flash"``, the JAX
+module's ``forward`` with a mesh): given a ``DeviceMesh`` with an ``sp``
+dimension, each rank embeds and runs its own block of the sequence;
+attention is the ring (:mod:`..ops.ring_attention`), everything else is
+position-local (the model has no position embedding). :func:`loss_fn`
+scores each rank's block against the next tokens, normalized by the
+global count, and the step sums the loss and the replicated gradients
+over ``sp`` in rank order before AdamW, so that every rank's state stays
+bit-identical. Without a mesh, ``ring`` and ``ring_flash`` run the dense
+attention, as in the JAX module. The JAX module's GSPMD layouts over
+``dp`` and ``tp`` are not ported: the port's other layouts are ``DTensor``
+trees built by the caller (expert parallel: the expert-stacked leaves
+``Shard(0)``) or :mod:`..parallel.pipeline`'s stage stacks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +47,7 @@ from torch import nn
 
 from ..ops.attention import causal_attention
 from ..ops.flash_attention import flash_causal_attention
+from ..ops.ring_attention import ring_causal_attention, sp_size
 from ..serialization import tensor_from_numpy
 from ..state_dict import load_tree_into
 from ..utils.device import Device, resolve_device  # noqa: F401 - re-export
@@ -53,7 +65,10 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     learning_rate: float = 1e-3
     # "ulysses": the dense einsum attention (ops/attention.py); "flash": the
-    # flash kernels (ops/flash_attention.py; needs seq % 128 == 0).
+    # flash kernels (ops/flash_attention.py; needs seq % 128 == 0); "ring" /
+    # "ring_flash": the ring over a mesh's sp dimension, each step einsums
+    # or the chunk kernel (ops/ring_attention.py; ring_flash needs
+    # seq_local % 64 == 0); without a mesh, the dense attention.
     attn_impl: str = "ulysses"
 
     @property
@@ -112,15 +127,24 @@ def _moe_mlp(block: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor
     return torch.einsum("ebsd,bse->bsd", y, gates)
 
 
-def block_forward(cfg: TransformerConfig, block: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+RING_IMPLS = ("ring", "ring_flash")
+ATTN_IMPLS = ("ulysses", "flash") + RING_IMPLS
+
+
+def block_forward(
+    cfg: TransformerConfig, block: Mapping[str, torch.Tensor], x: torch.Tensor, mesh: Any = None
+) -> torch.Tensor:
     """One transformer block on ``(batch, seq, d_model)`` activations, its
     leaves given by their JAX names (a ``Block.tree()``, or one stage's
-    slice of pipeline-stacked leaves); MoE iff it holds a ``router``."""
+    slice of pipeline-stacked leaves); MoE iff it holds a ``router``. With
+    ``mesh`` and a ring ``attn_impl``, ``x`` is this rank's sequence block."""
     b, s, d = x.shape
     h = _rmsnorm(x, block["ln1_scale"])
     qkv = (h @ block["wqkv"]).reshape(b, s, 3, cfg.n_heads, cfg.head_dim)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    if cfg.attn_impl == "flash":
+    if cfg.attn_impl in RING_IMPLS and mesh is not None:
+        attn = ring_causal_attention(q, k, v, mesh=mesh, use_flash=cfg.attn_impl == "ring_flash")
+    elif cfg.attn_impl == "flash":
         if s % 128:
             raise ValueError(
                 f"attn_impl='flash' requires seq % 128 == 0, got seq={s}; "
@@ -143,10 +167,8 @@ class Transformer(nn.Module):
         super().__init__()
         if cfg.n_experts < 0 or cfg.moe_every < 1:
             raise ValueError(f"need n_experts >= 0 and moe_every >= 1, got {cfg.n_experts}, {cfg.moe_every}")
-        if cfg.attn_impl not in ("ulysses", "flash"):
-            raise ValueError(
-                f"unknown or unported attn_impl {cfg.attn_impl!r}; expected 'ulysses' or 'flash'"
-            )
+        if cfg.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}")
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(
@@ -174,10 +196,12 @@ class Transformer(nn.Module):
                 w.normal_(generator=g).mul_(1.0 / math.sqrt(param.shape[-2]))
                 param.copy_(w)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+        """With a ``mesh`` (ring ``attn_impl``), ``tokens`` and the logits
+        are this rank's sequence block (:func:`sequence_block`)."""
         x = F.embedding(tokens, self.embed)
         for blk in self.layers:
-            x = block_forward(self.cfg, blk.tree(), x)
+            x = block_forward(self.cfg, blk.tree(), x, mesh)
         x = _rmsnorm(x, self.ln_f_scale)
         return (x @ self.unembed).float()
 
@@ -274,23 +298,97 @@ def init_train_state(cfg: TransformerConfig, seed: int = 0, device: Device = Non
     )
 
 
-def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    logits = model(tokens)[:, :-1]
-    return F.cross_entropy(
-        logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1)
+def sequence_block(tokens: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """This rank's block of the global ``(batch, seq)`` tokens along the
+    mesh's ``sp`` dimension."""
+    n, r = sp_size(mesh), _sp_rank(mesh)
+    seq = tokens.shape[1]
+    if seq % n:
+        raise ValueError(f"seq {seq} must divide over the {n} ranks of the sp dimension")
+    s = seq // n
+    return tokens[:, r * s:(r + 1) * s]
+
+
+def _sp_rank(mesh: Any) -> int:
+    return mesh.get_local_rank(mesh.mesh_dim_names.index("sp"))
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    """The mean cross-entropy of the next token over the global
+    ``(batch, seq)`` tokens. With a mesh of ``sp`` > 1 (ring ``attn_impl``)
+    each rank returns its block's share: its positions' summed losses
+    (the last global position has no target) over ``batch * (seq - 1)``,
+    so that the ranks' shares sum to the mean."""
+    if model.cfg.attn_impl not in RING_IMPLS or sp_size(mesh) == 1:
+        logits = model(tokens, mesh)[:, :-1]
+        return F.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1)
+        )
+    block = sequence_block(tokens, mesh)
+    b, s = block.shape
+    start = _sp_rank(mesh) * s
+    targets = tokens[:, start + 1:start + s + 1]
+    logits = model(block, mesh)[:, :targets.shape[1]]
+    total = F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), reduction="sum"
     )
+    return total / (b * (tokens.shape[1] - 1))
+
+
+def _sum_over_sp(mesh: Any, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each tensor summed over the ``sp`` ranks, in rank order and in f32,
+    back in its dtype: the same bits on every rank. One gather a dtype."""
+    from ..parallel.pipeline import _Ring
+
+    ring = _Ring(mesh, "sp")
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for dtype, idx in by_dtype.items():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        parts = ring.gather(flat, kind="sp_sum")
+        total = parts[0].float()
+        for part in parts[1:]:
+            total += part.float()
+        total = total.to(dtype)
+        offset = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = total[offset:offset + n].view(tensors[i].shape)
+            offset += n
+    return out  # type: ignore[return-value]
 
 
 def make_train_step(
-    cfg: TransformerConfig,
+    cfg: TransformerConfig, mesh: Any = None,
 ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
     """The full training step (forward, loss, backward, AdamW), updating
-    ``state`` in place; returns it with the step's loss."""
+    ``state`` in place; returns it with the step's loss.
+
+    With a ``DeviceMesh`` whose ``sp`` dimension has more than one rank
+    (ring ``attn_impl``), every rank calls the step with the same global
+    tokens; the loss and the gradients are summed over ``sp`` before AdamW,
+    so every rank returns the global loss and keeps the same state. The
+    mesh may have no other dimension of more than one rank."""
+    sequence_parallel = cfg.attn_impl in RING_IMPLS and sp_size(mesh) > 1
+    if sequence_parallel and any(
+        mesh.size(i) > 1 for i, name in enumerate(mesh.mesh_dim_names) if name != "sp"
+    ):
+        raise ValueError(
+            f"the sequence-parallel step sums over sp only; the mesh {mesh.mesh_dim_names} "
+            f"{tuple(mesh.shape)} has another dimension of more than one rank"
+        )
 
     def train_step(state: TrainState, tokens: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state.model, tokens)
+        loss = loss_fn(state.model, tokens, mesh if sequence_parallel else None)
         loss.backward()
+        if sequence_parallel:
+            params = [p for p in state.model.parameters() if p.grad is not None]
+            *grads, loss = _sum_over_sp(mesh, [p.grad for p in params] + [loss.detach()])
+            for p, g in zip(params, grads):
+                p.grad = g
         state.optimizer.step()
         # One draw per step, as the JAX step folds its key.
         torch.empty(1, device=state.model.embed.device).random_(generator=state.rng)

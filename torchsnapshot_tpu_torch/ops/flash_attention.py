@@ -56,11 +56,14 @@ _TMA_ALIGN = 16
 # Kernel launches per entry point. Incremented only where a kernel is
 # launched; plain (CPU) runs do not count.
 launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_chunk": 0, "flash_split": 0}
+# The chunk kernel's launches by mask mode (they sum to its count above).
+chunk_launches_by_mode: Dict[str, int] = {"causal": 0, "unmasked": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, chunk_launches_by_mode):
+        for name in counts:
+            counts[name] = 0
 
 
 # ----------------------------------------------------------------------
@@ -379,6 +382,7 @@ def flash_attention_chunk(
         )
     _raise_on(err, "flash_chunk")
     launch_counts["flash_chunk"] += 1
+    chunk_launches_by_mode["causal" if causal else "unmasked"] += 1
     return o, m, l
 
 
@@ -549,6 +553,7 @@ def compare_with_plain(
 __all__ = [
     "attention_flops",
     "chunk_atol",
+    "chunk_launches_by_mode",
     "compare_with_plain",
     "flash_attention_chunk",
     "flash_attention_chunk_plain",

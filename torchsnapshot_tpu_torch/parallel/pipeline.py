@@ -35,7 +35,9 @@ names the route. Every move (a hop, the output's broadcast, the input
 cotangent's sum) counts in the telemetry registry:
 ``PIPELINE_TRANSFERS_TOTAL``, ``PIPELINE_TRANSFER_BYTES_TOTAL`` and
 ``PIPELINE_TRANSFER_SECONDS_TOTAL`` by ``kind``, and a host round trip's
-bytes in the device-copy counters.
+bytes in the device-copy counters. Ring attention (``ops/ring_attention.py``)
+and the sequence-parallel step reuse :class:`_Ring` (kinds ``ring`` and
+``sp_sum``).
 """
 
 from __future__ import annotations
@@ -141,15 +143,16 @@ class _Ring:
         if host:
             got = got.to(t.device)
             torch.cuda.current_stream(t.device).synchronize()
-            registry.counter_inc(metric_names.HOST_TO_DEVICE_BYTES_TOTAL, nbytes)
+            registry.counter_inc(metric_names.HOST_TO_DEVICE_BYTES_TOTAL, got.numel() * got.element_size())
         registry.counter_inc(metric_names.PIPELINE_TRANSFERS_TOTAL, 1, kind=kind)
         registry.counter_inc(metric_names.PIPELINE_TRANSFER_BYTES_TOTAL, nbytes, kind=kind)
         registry.counter_inc(metric_names.PIPELINE_TRANSFER_SECONDS_TOTAL, time.perf_counter() - t0, kind=kind)
         return got
 
-    def shift(self, t: torch.Tensor, k: int) -> torch.Tensor:
+    def shift(self, t: torch.Tensor, k: int, kind: str = "hop") -> torch.Tensor:
         """Send ``t`` to ring neighbour ``r + k``; return what ``r - k``
-        sent (``t``'s shape and dtype)."""
+        sent (``t``'s shape and dtype). ``kind`` labels the move's
+        counters."""
         if self.n == 1:
             return t.detach().clone()
 
@@ -163,7 +166,20 @@ class _Ring:
                 work.wait()
             return got
 
-        return self._counted("hop", t, move)
+        return self._counted(kind, t, move)
+
+    def gather(self, t: torch.Tensor, kind: str = "gather") -> List[torch.Tensor]:
+        """Every rank's ``t`` (same shape and dtype on all), in ring order,
+        on ``t``'s device."""
+        if self.n == 1:
+            return [t.detach().clone()]
+
+        def move(buf: torch.Tensor) -> torch.Tensor:
+            got = [torch.empty_like(buf) for _ in range(self.n)]
+            dist.all_gather(got, buf, group=self.group)
+            return torch.stack(got)
+
+        return list(self._counted(kind, t, move).unbind(0))
 
     def broadcast_from_last(self, t: torch.Tensor) -> torch.Tensor:
         if self.n == 1:

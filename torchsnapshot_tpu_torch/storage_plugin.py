@@ -2,11 +2,13 @@
 
 Reference parity: torchsnapshot/storage_plugin.py:17-59. ``fs://`` is the
 default scheme for bare paths; ``memory://`` is used by tests and
-scratch runs; ``tiered://<fast_url>|<durable_url>`` composes two of them
-into a fast commit and a background durable mirror (``tiered/``). The
-cloud plugins (``s3://``, ``gs://``) of ``torchsnapshot_tpu`` are not
-ported yet. Third-party plugins register via the
-``torchsnapshot_tpu_torch.storage_plugins`` entry-point group.
+scratch runs; ``s3://bucket/prefix`` and ``gs://bucket/prefix`` are the
+object stores (``storage_plugins/s3.py``, ``gcs.py``; their client
+libraries are imported only when such a plugin is built);
+``tiered://<fast_url>|<durable_url>`` composes two of them into a fast
+commit and a background durable mirror (``tiered/``). Third-party plugins
+register via the ``torchsnapshot_tpu_torch.storage_plugins`` entry-point
+group.
 """
 
 from __future__ import annotations
@@ -17,8 +19,6 @@ from typing import Optional, Tuple
 from .io_types import StoragePlugin
 
 _ENTRY_POINT_GROUP = "torchsnapshot_tpu_torch.storage_plugins"
-# Schemes torchsnapshot_tpu serves that this package does not yet.
-_NOT_PORTED_SCHEMES = ("s3", "gs")
 
 
 def normalize_object_key(prefix: str, path: str) -> str:
@@ -94,6 +94,14 @@ def url_to_storage_plugin(url_path: str) -> StoragePlugin:
         from .storage_plugins.memory import MemoryStoragePlugin
 
         return MemoryStoragePlugin(name=path or "default")
+    if scheme == "s3":
+        from .storage_plugins.s3 import S3StoragePlugin
+
+        return S3StoragePlugin(root=path)
+    if scheme in ("gs", "gcs"):
+        from .storage_plugins.gcs import GCSStoragePlugin
+
+        return GCSStoragePlugin(root=path)
     if scheme == "tiered":
         from .tiered.plugin import TieredStoragePlugin
 
@@ -103,15 +111,9 @@ def url_to_storage_plugin(url_path: str) -> StoragePlugin:
     for ep in eps:
         if ep.name == scheme:
             return ep.load()(path)
-    if scheme in _NOT_PORTED_SCHEMES:
-        raise RuntimeError(
-            f"Unsupported storage scheme {scheme!r} in {url_path!r}: the "
-            f"{scheme}:// plugin of torchsnapshot_tpu is not ported to "
-            f"torchsnapshot_tpu_torch yet (ROADMAP queue 1 step 9d)"
-        )
     raise RuntimeError(
         f"Unsupported storage scheme {scheme!r} in {url_path!r} "
-        f"(built-in: fs, memory, tiered; "
+        f"(built-in: fs, memory, s3, gs, tiered; "
         f"entry-point group: {_ENTRY_POINT_GROUP})"
     )
 

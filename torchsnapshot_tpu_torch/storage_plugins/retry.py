@@ -1,8 +1,8 @@
 """Collective-progress retry strategy.
 
 Counterpart of ``torchsnapshot_tpu/storage_plugins/retry.py``, used here by
-the tiered mirror (``tiered/mirror.py``); the s3 and gcs plugins that also
-retry under it are not ported yet (ROADMAP queue 1 step 9d).
+the s3 and gcs plugins (``storage_plugins/s3.py``, ``gcs.py``) and the
+tiered mirror (``tiered/mirror.py``).
 
 Rather than a fixed retry count per operation, concurrent transfers share
 a deadline that any completed transfer pushes out. While somebody makes
@@ -36,12 +36,15 @@ def decorrelated_backoff(
     prev_backoff_s: float,
     base_s: float = _BACKOFF_BASE_SECONDS,
     max_s: float = _BACKOFF_MAX_SECONDS,
+    rng: "random.Random | None" = None,
 ) -> float:
     """Next sleep under decorrelated jitter: uniform over ``[base, 3 x
     previous sleep]``, capped. Drawing each range from the previous draw
     keeps processes that lost the backend at the same instant from
-    retrying in lockstep."""
-    return min(max_s, random.uniform(base_s, max(base_s, 3.0 * prev_backoff_s)))
+    retrying in lockstep. ``rng`` (default: the module's) pins a
+    schedule."""
+    r = rng if rng is not None else random
+    return min(max_s, r.uniform(base_s, max(base_s, 3.0 * prev_backoff_s)))
 
 
 class CollectiveProgressRetryStrategy:
@@ -51,12 +54,21 @@ class CollectiveProgressRetryStrategy:
         self,
         progress_window_seconds: float = DEFAULT_PROGRESS_WINDOW_SECONDS,
         scope: str = "",
+        rng: "random.Random | None" = None,
     ) -> None:
         self.progress_window_seconds = progress_window_seconds
+        # The backoff's generator: the module's unless a caller pins one
+        # (two strategies' schedules compared in tests).
+        self._rng = rng
         # The window starts at the first failure, not at construction: a
         # quiet period before the first operation must not count.
         self._deadline: "float | None" = None
-        self.scope = scope  # labels the registry counters ("mirror")
+        # Labels the registry counters ("s3", "gcs", "mirror"); the totals
+        # are this instance's own.
+        self.scope = scope
+        self.attempts_total = 0
+        self.backoff_s_total = 0.0
+        self.exhausted_total = 0
 
     def record_progress(self) -> None:
         """Any completed operation pushes the collective deadline out."""
@@ -82,18 +94,21 @@ class CollectiveProgressRetryStrategy:
                 result = await op()
             except retriable_exceptions as e:
                 registry = telemetry.metrics()
+                self.attempts_total += 1
                 registry.counter_inc(metric_names.STORAGE_RETRY_ATTEMPTS_TOTAL, scope=self.scope)
                 if self._deadline is None:
                     self._deadline = time.monotonic() + self.progress_window_seconds
                 if self.deadline_passed:
+                    self.exhausted_total += 1
                     registry.counter_inc(metric_names.STORAGE_RETRIES_EXHAUSTED_TOTAL, scope=self.scope)
                     raise RetriesExhausted(
                         f"No concurrent operation progressed within "
                         f"{self.progress_window_seconds:.0f}s; giving up "
                         f"after {attempt + 1} attempts"
                     ) from e
-                backoff = decorrelated_backoff(prev_backoff)
+                backoff = decorrelated_backoff(prev_backoff, rng=self._rng)
                 prev_backoff = backoff
+                self.backoff_s_total += backoff
                 registry.counter_inc(
                     metric_names.STORAGE_RETRY_BACKOFF_SECONDS_TOTAL, backoff, scope=self.scope
                 )
