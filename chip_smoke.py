@@ -186,7 +186,11 @@ each of which raises on failure (nothing is caught):
    each rank launches the digest kernel once and copies and writes exactly
    its changed pieces' bytes, the restore is bit-identical; (e) batched
    takes with ``ENABLE_BATCHING`` and ``DEVICE_PACK`` (one pack launch per
-   slab) and member by member, in turns, each restored bit for bit; (f) a
+   slab) and member by member, each through the zero-pack vectorized
+   write and with ``TORCHSNAPSHOT_TPU_WRITE_VECTORIZED=0`` (staged into one
+   slab buffer), in turns, each restored bit for bit: every blob and CRC
+   table of the rank the same both ways, ``batcher_pack_bytes_avoided_total``
+   the rank's slab bytes with the vectorized write and 0 without; (f) a
    deep fsck of (a) passes and catches one flipped byte in a copy of a
    shard blob; (g) (a)'s snapshot restored into ``Shard(1)`` with
    single-reader fan-out at its default (on), sync and async, then with
@@ -205,10 +209,13 @@ each of which raises on failure (nothing is caught):
    uint8 and bool in turn, the last three at odd element counts, so that
    at least a quarter of the slab's members sit at an odd distance from
    alignment). The mix is made up, not a published configuration's. Batched takes with ``ENABLE_BATCHING`` and
-   ``DEVICE_PACK`` and member by member, in turns (pack, member, pack,
-   member), each restored bit-identical into fresh leaves and three leaves
+   ``DEVICE_PACK`` and member by member, through the zero-pack vectorized
+   write and staged into one slab buffer, in turns (``LEAVES_TURNS``); the
+   first four restored bit-identical into fresh leaves and three leaves
    read back with ``read_object``; pack launches equal the slabs of card
-   members. Logs each take's seconds, its slabs, and the pack's share of
+   members; every blob and CRC table the same in all six takes, and
+   ``batcher_pack_bytes_avoided_total`` the slab bytes with the vectorized
+   write and 0 without. Logs each take's seconds, its slabs, and the pack's share of
    it: the wrapper's host time, and its kernel's card time (CUDA events
    behind a spin kernel that holds the stream while the host queues the
    launch).
@@ -420,6 +427,34 @@ each of which raises on failure (nothing is caught):
    the digest; its launches add to the record's, and the record's
    ``flash_chunk_unmasked`` entry carries the unmasked ones with that
    timing.
+15. **dcp**: interop with ``torch.distributed.checkpoint`` (DCP;
+   ``tricks/dcp.py``, ``tricks/train_state.py``) on the main
+   configuration, trained ``STEPS`` steps. (a) Migration: ``dcp.save``
+   with DCP's own ``FileSystemWriter``, ``migrate_dcp_to_snapshot`` (raw),
+   ``Snapshot.restore`` into a fresh state: bit-identical; then
+   ``migrate_snapshot_to_dcp`` into a fresh state's tensors and
+   ``dcp.load`` with ``FileSystemReader`` into another: bit-identical.
+   (b) Interception: ``dcp.save`` through ``SnapshotStorageWriter``
+   restored by ``Snapshot.restore`` (bit-identical, a deep fsck passes);
+   ``Snapshot.take`` loaded by ``dcp.load`` through
+   ``SnapshotStorageReader`` (bit-identical, equal evaluation logits);
+   ``dcp.async_save`` through the writer, committed and bit-identical;
+   then, in turns, ``Snapshot.take``, the writer and ``FileSystemWriter``,
+   and ``Snapshot.restore``, the reader and ``FileSystemReader``, each
+   into a state zeroed before it and checked, their seconds logged. (c)
+   Two processes on the card, set up as in the sharded phase, the train
+   state's ``Shard(0)`` ``DTensor``s saved by ``dcp.save`` through the
+   writer at world 2: each rank writes 50% +- 1% of the sharded bytes;
+   loaded through the reader into ``Shard(1)``: every local shard its
+   slice of the saved value; a failed check on one rank ends both (its
+   error posted in the store, as in the ring phase). The parent restores
+   that snapshot at world 1 with ``Snapshot.restore``: every leaf's digest
+   equals its own run's. (d) ``TrainStateStateful(model, AdamW)`` taken
+   and restored into a fresh model and optimizer. The next training step
+   of the live state, of (a)'s and of (d)'s restores: the same loss and
+   parameters, bit for bit. The counts are set to 0 at the phase's start:
+   it must launch ``flash_fwd``, ``flash_chunk`` and ``device_digest``,
+   and its launches add to the record's.
 
 Every phase runs with the record knobs at their defaults (the run ledger,
 heartbeats and history on; the report and trace sinks off) and the stall
@@ -1317,9 +1352,10 @@ def timed_packs(record: dict):
         record["spin_covered"] = record.setdefault("queue_us", 0.0) < 1000.0
 
 
-def take_leaves(path: str, leaves: dict, pack: bool, record=None) -> float:
+def take_leaves(path: str, leaves: dict, pack: bool, record=None, vectorized: bool = True) -> float:
     """One batched take of ``leaves``, with the device pack or member by
-    member; returns its seconds, the pack's times added to ``record``
+    member, through the zero-pack vectorized write or staged into one slab
+    buffer; returns its seconds, the pack's times added to ``record``
     where one is given (:func:`timed_packs`)."""
     import torch
 
@@ -1327,6 +1363,7 @@ def take_leaves(path: str, leaves: dict, pack: bool, record=None) -> float:
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(knobs.enable_batching())
+        stack.enter_context(knobs.enable_write_vectorized() if vectorized else knobs.disable_write_vectorized())
         if pack:
             stack.enter_context(knobs.enable_device_pack())
             if record is not None:
@@ -1337,29 +1374,83 @@ def take_leaves(path: str, leaves: dict, pack: bool, record=None) -> float:
         return time.monotonic() - t0
 
 
+# The leaves phase's turns: (label, device pack, vectorized write,
+# restored). "slab" turns run with TORCHSNAPSHOT_TPU_WRITE_VECTORIZED=0.
+LEAVES_TURNS = (
+    ("pack", True, True, True), ("pack_slab", True, False, True),
+    ("per_member", False, True, True), ("per_member_slab", False, False, True),
+    ("pack", True, True, False), ("pack_slab", True, False, False),
+)
+
+
+def _blob_signature(path: str, rank: int = 0) -> dict:
+    """The blobs ``rank`` wrote, by what they hold: for each manifest
+    entry of the rank (a sharded entry by shard offsets), its blob's sha1
+    and checksum-table entry. Slab names are random; the leaves a slab
+    holds, at their byte ranges, are not."""
+    from torchsnapshot_tpu_torch import Snapshot
+
+    with open(os.path.join(path, "checksums", str(rank))) as f:
+        table = json.load(f)
+    digests: dict = {}
+
+    def blob(loc: str) -> tuple:
+        if loc not in digests:
+            with open(os.path.join(path, loc), "rb") as f:
+                digests[loc] = (hashlib.sha1(f.read()).hexdigest(), table[loc])
+        return digests[loc]
+
+    out = {}
+    for key, entry in Snapshot(path).metadata.manifest.items():
+        arrays = [(tuple(s.offsets), s.array) for s in getattr(entry, "shards", None) or getattr(entry, "chunks", None) or []]
+        if hasattr(entry, "byte_range"):
+            arrays.append(((), entry))
+        for offsets, array in arrays:
+            if array.location in table:
+                out[(key, offsets)] = (blob(array.location), array.byte_range)
+    return out
+
+
+def _require_vectorized_pair(vec: dict, slab: dict, what: str) -> None:
+    """A vectorized take against a slab-staged one: the same blobs, bytes
+    and CRC tables."""
+    _require(vec["signature"] == slab["signature"],
+             f"{what}: blobs or CRC tables differ between the vectorized and the slab-staged takes")
+    _require(vec["avoided_bytes"] == vec["slab_bytes"] > 0 and slab["avoided_bytes"] == 0,
+             f"{what}: pack bytes avoided {vec['avoided_bytes']} (vectorized) and {slab['avoided_bytes']} (slab) "
+             f"for {vec['slab_bytes']} slab bytes")
+
+
 def leaves_phase(args, work_dir: str, card: str) -> dict:
     """Batched takes of the 10,000-leaf stress state, with the device pack and
-    member by member, in turns (pack, member, pack, member): each restored
-    bit-identical into fresh leaves, three leaves read back with
-    ``read_object``, and one pack launch per slab of card members. Returns
-    the pack's launches in the phase (counts set to 0 just before it)."""
+    member by member, through the zero-pack vectorized write and staged
+    into one slab buffer, in turns (``LEAVES_TURNS``): the first four
+    restored bit-identical into fresh leaves, three leaves read back with
+    ``read_object``, one pack launch per slab of card members; every blob
+    and CRC table the same in all six; ``batcher_pack_bytes_avoided_total``
+    the slab bytes with the vectorized write and 0 without. Returns the
+    pack's launches in the phase (counts set to 0 just before it)."""
     import torch
 
     from torchsnapshot_tpu_torch import Snapshot, TensorTreeState
     from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.telemetry import names as metric_names
 
     leaves = leaves_state(args.seed)
     nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
     names = sorted(leaves)
     live = dp.pack_plain([(leaves[k], None) for k in names])
     odd = None
+    signature = None
     dp.reset_launch_counts()
-    runs = {"pack": [], "per_member": []}
-    for turn, (label, pack) in enumerate((("pack", True), ("per_member", False)) * 2):
+    runs = {label: [] for label, _, _, _ in LEAVES_TURNS}
+    for turn, (label, pack, vectorized, restore) in enumerate(LEAVES_TURNS):
         path = os.path.join(work_dir, f"leaves_{turn}")
         before = dp.launch_counts["device_pack"]
+        avoided = _counter(metric_names.BATCHER_PACK_BYTES_AVOIDED_TOTAL)
         packs: dict = {}
-        take_s = take_leaves(path, leaves, pack, packs)
+        take_s = take_leaves(path, leaves, pack, packs, vectorized=vectorized)
+        avoided = _counter(metric_names.BATCHER_PACK_BYTES_AVOIDED_TOTAL) - avoided
         launched = dp.launch_counts["device_pack"] - before
         slabs: dict = {}
         offsets = []
@@ -1376,21 +1467,29 @@ def leaves_phase(args, work_dir: str, card: str) -> dict:
         want = sum(1 for n in slabs.values() if n > 1) if pack else 0
         _require(launched == want and (want > 0 or not pack),
                  f"leaves {label}: {launched} pack launches for {want} slabs of card members")
-        dest = {k: torch.zeros_like(v) for k, v in leaves.items()}
-        t0 = time.monotonic()
-        Snapshot(path).restore({"leaves": TensorTreeState(dest)})
-        torch.cuda.synchronize()
-        restore_s = time.monotonic() - t0
-        _require(all(dest[k].dtype == leaves[k].dtype and dest[k].shape == leaves[k].shape for k in names),
-                 f"leaves {label}: a restored leaf changed dtype or shape")
-        _require(torch.equal(dp.pack_plain([(dest[k], None) for k in names]), live),
-                 f"leaves {label}: the restore is not bit-identical")
-        for k in (names[0], names[LEAVES // 2 + 1], names[-1]):
-            got = Snapshot(path).read_object(f"0/leaves/{k}")
-            _require(same_bits(got, leaves[k]), f"leaves {label}: read_object of {k} differs")
-        runs[label].append({"take_s": take_s, "restore_s": restore_s, "slabs": len(slabs),
-                            "pack_launches": launched, **packs})
-        del dest
+        slab_bytes = sum(os.path.getsize(os.path.join(path, loc)) for loc in slabs)
+        sig = _blob_signature(path)
+        signature = sig if signature is None else signature
+        _require(sig == signature, f"leaves {label}: blobs or CRC tables differ from the first take's")
+        _require(avoided == (slab_bytes if vectorized else 0) and slab_bytes > 0,
+                 f"leaves {label}: pack bytes avoided {avoided} for {slab_bytes} slab bytes")
+        r = {"take_s": take_s, "slabs": len(slabs), "slab_bytes": slab_bytes, "avoided_bytes": avoided,
+             "pack_launches": launched, **packs}
+        if restore:
+            dest = {k: torch.zeros_like(v) for k, v in leaves.items()}
+            t0 = time.monotonic()
+            Snapshot(path).restore({"leaves": TensorTreeState(dest)})
+            torch.cuda.synchronize()
+            r["restore_s"] = time.monotonic() - t0
+            _require(all(dest[k].dtype == leaves[k].dtype and dest[k].shape == leaves[k].shape for k in names),
+                     f"leaves {label}: a restored leaf changed dtype or shape")
+            _require(torch.equal(dp.pack_plain([(dest[k], None) for k in names]), live),
+                     f"leaves {label}: the restore is not bit-identical")
+            for k in (names[0], names[LEAVES // 2 + 1], names[-1]):
+                got = Snapshot(path).read_object(f"0/leaves/{k}")
+                _require(same_bits(got, leaves[k]), f"leaves {label}: read_object of {k} differs")
+            del dest
+        runs[label].append(r)
         shutil.rmtree(path, ignore_errors=True)
     launches = dp.launch_counts["device_pack"]
     for label, rs in runs.items():
@@ -1401,13 +1500,17 @@ def leaves_phase(args, work_dir: str, card: str) -> dict:
                 share = (f"; the pack inside it: wrapper host {r['host_s'] * 1e3:.3f} ms over {r['calls']} "
                          f"calls, kernel on the card {r['card_ms']:.4f} ms (events behind a spin; the host "
                          f"queued the launch in {r['queue_us']:.1f} us{covered})")
-            log(f"leaves: {label} take {i + 1}: {r['take_s']:.3f} s, {r['slabs']} slabs, "
-                f"{r['pack_launches']} pack launches{share}; restore {r['restore_s']:.3f} s, bit-identical")
+            restored = f"restore {r['restore_s']:.3f} s, bit-identical" if "restore_s" in r else "not restored"
+            log(f"leaves: {label} take {i + 1}: {r['take_s']:.3f} s, {r['slabs']} slabs of {r['slab_bytes']} B, "
+                f"{r['avoided_bytes']:.0f} pack bytes avoided, {r['pack_launches']} pack launches{share}; {restored}")
     log(f"leaves (a stress case, not a published mix): {LEAVES} leaves, {nbytes / 1e6:.3f} MB, {odd} of them "
         f"at an odd distance from 16-byte alignment in their slab; pack launches {launches} in the phase; three "
-        f"read_objects bit-identical; on {card}")
+        f"read_objects bit-identical; every blob and CRC table the same in the vectorized and slab-staged takes; "
+        f"on {card}")
     _headline("leaves", take_pack_s=[r["take_s"] for r in runs["pack"]],
-              take_member_s=[r["take_s"] for r in runs["per_member"]], pack_launches=launches)
+              take_pack_slab_s=[r["take_s"] for r in runs["pack_slab"]],
+              take_member_s=[r["take_s"] for r in runs["per_member"]],
+              take_member_slab_s=[r["take_s"] for r in runs["per_member_slab"]], pack_launches=launches)
     print(json.dumps({"leaves": {"bytes": nbytes, "odd_members": odd, "runs": runs}}), flush=True)
     del leaves, live
     torch.cuda.empty_cache()
@@ -1457,7 +1560,9 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge,moe,ring")
+    p.add_argument(
+        "--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge,moe,ring,dcp"
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
     args = p.parse_args()
@@ -1508,10 +1613,10 @@ def main() -> int:
     records = {}
     # Launches are counted only in the main path's run, plus the paths of
     # later slices, each counted from 0 (the digest's: the main, cas,
-    # tiered, peer, cdn, bridge, moe and ring phases'; the pack's: the cas
-    # phase's, both ranks' in the sharded phase, the leaves, tiered, cdn and
-    # moe phases'; the flash kernels': the main, cdn, bridge, moe and ring
-    # phases', the unmasked chunk's the ring phase's); without them they
+    # tiered, peer, cdn, bridge, moe, ring and dcp phases'; the pack's: the
+    # cas phase's, both ranks' in the sharded phase, the leaves, tiered, cdn
+    # and moe phases'; the flash kernels': the main, cdn, bridge, moe, ring
+    # and dcp phases', the unmasked chunk's the ring phase's); without them they
     # were not measured and the record says null.
     launches = dict.fromkeys(
         list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts) + ["flash_chunk_unmasked"]
@@ -1565,6 +1670,11 @@ def main() -> int:
             add(name, got[name])
         records["flash_chunk_unmasked"] = got["record"]
 
+    def dcp_run() -> None:
+        got = dcp_phase(args, work_dir, card)
+        for name in DCP_PATH_KERNELS:
+            add(name, got[name])
+
     sequence = [
         ("kernels", kernels_phase),
         ("main", lambda: launches.update(main_phase(args, work_dir, card))),
@@ -1580,6 +1690,7 @@ def main() -> int:
         ("bridge", bridge),
         ("moe", moe),
         ("ring", ring),
+        ("dcp", dcp_run),
     ]
     done: list = []
     work_dir = tempfile.mkdtemp(prefix="ts_chip_smoke_")
@@ -4608,16 +4719,22 @@ def sharded_worker(pg, seed: int, work_dir: str) -> dict:
         del tree_r, tree_a
 
         # (e) Batched takes of the sharded state, with the device pack and
-        # member by member, in turns (pack, member, pack, member: the first
-        # of each allocates its pinned buffers cold); each turn's
-        # restore is bit-identical.
-        e = {"pack": {"take_s": []}, "per_member": {"take_s": []}}
-        for turn, (label, pack) in enumerate((("pack", True), ("per_member", False)) * 2):
+        # member by member, through the zero-pack vectorized write and
+        # staged into one slab buffer, in turns (the first of each
+        # allocates its pinned buffers cold); each turn's restore is
+        # bit-identical, and each slab-staged take writes the blobs and CRC
+        # table of the vectorized take before it.
+        e = {label: {"take_s": []} for label in ("pack", "pack_slab", "per_member", "per_member_slab")}
+        turns = (("pack", True, True), ("pack_slab", True, False),
+                 ("per_member", False, True), ("per_member_slab", False, False)) * 2
+        for turn, (label, pack, vectorized) in enumerate(turns):
             path_e = os.path.join(work_dir, f"e_{turn}")
             packs_before = dp.launch_counts["device_pack"]
             before = d2h()
+            avoided = _counter(names.BATCHER_PACK_BYTES_AVOIDED_TOTAL)
             with contextlib.ExitStack() as stack:
                 stack.enter_context(knobs.enable_batching())
+                stack.enter_context(knobs.enable_write_vectorized() if vectorized else knobs.disable_write_vectorized())
                 if pack:
                     stack.enter_context(knobs.enable_device_pack())
                 torch.cuda.synchronize()
@@ -4626,6 +4743,8 @@ def sharded_worker(pg, seed: int, work_dir: str) -> dict:
                 e[label]["take_s"].append(time.monotonic() - t0)
                 copied = d2h() - before
                 slabs, slab_bytes = _rank_blobs(path_e, rank, "batched/")
+                e[label]["avoided_bytes"] = _counter(names.BATCHER_PACK_BYTES_AVOIDED_TOTAL) - avoided
+                e[label]["signature"] = _blob_signature(path_e, rank)
                 packs = dp.launch_counts["device_pack"] - packs_before
                 if pack:
                     # One launch per slab that holds two or more members on the card.
@@ -4648,8 +4767,15 @@ def sharded_worker(pg, seed: int, work_dir: str) -> dict:
             _require_shards(tree_r, leaves_d, f"rank {rank} restore of the batched take (e, {label})")
             e[label].update({"slabs": slabs, "slab_bytes": slab_bytes, "d2h_bytes": copied})
             e[label]["pack_launches"] = e[label].get("pack_launches", 0) + packs
+            if not vectorized:
+                vec = e[label.removesuffix("_slab")]
+                _require_vectorized_pair(vec, e[label], f"rank {rank} (e, {label})")
             del tree_r
             shutil.rmtree(path_e, ignore_errors=True)
+        _require(e["pack"]["signature"] == e["per_member"]["signature"],
+                 f"rank {rank} (e): the device pack and member-by-member staging wrote other blobs")
+        for r in e.values():
+            del r["signature"]
         record["e"] = e
 
         # (f) Deep fsck of (a), and of a copy with one flipped byte.
@@ -4829,12 +4955,16 @@ def sharded_phase(args, work_dir: str, card: str) -> dict:
             f"{r['b']['restore_s']:.3f} s; (c1) Shard(1) restore {r['c1']['restore_s']:.3f} s, "
             f"{r['c1']['ranged_reads']} ranged and {r['c1']['whole_reads']} whole shard reads; (c3) read_object "
             f"{r['c3']['read_object_s']:.4f} s; (d) incremental take {d['take_s']:.3f} s, "
-            f"{d['written_bytes'] / 1e6:.3f} MB written = changed pieces; (e) batched takes, in turns, with the "
-            f"pack {', '.join(f'{x:.3f}' for x in e['pack']['take_s'])} s ({e['pack']['slabs']} slabs, "
-            f"{e['pack']['pack_launches']} pack launches in all), member by member "
-            f"{', '.join(f'{x:.3f}' for x in e['per_member']['take_s'])} s; restores "
-            f"{', '.join(f'{x:.3f}' for x in e['pack']['restore_s'] + e['per_member']['restore_s'])} s; "
-            f"launches {r['launches']}"
+            f"{d['written_bytes'] / 1e6:.3f} MB written = changed pieces; (e) batched takes, in turns, "
+            + "; ".join(
+                f"{label} {', '.join(f'{x:.3f}' for x in e[label]['take_s'])} s (restores "
+                f"{', '.join(f'{x:.3f}' for x in e[label]['restore_s'])} s)"
+                for label in ("pack", "pack_slab", "per_member", "per_member_slab")
+            )
+            + f" ({e['pack']['slabs']} slabs of {e['pack']['slab_bytes']} B, "
+            f"{e['pack']['pack_launches'] + e['pack_slab']['pack_launches']} pack launches in all, "
+            f"{e['pack']['avoided_bytes']:.0f} pack bytes avoided by a vectorized take, 0 by a slab-staged one; "
+            f"blobs and CRC tables the same both ways); launches {r['launches']}"
         )
     for r in records:
         log(
@@ -4855,7 +4985,9 @@ def sharded_phase(args, work_dir: str, card: str) -> dict:
         f"{float(loss_a)!r} bit for bit; workers {workers_s:.1f} s, phase {wall_s:.1f} s on {card}"
     )
     _headline("sharded", take_s=[r["a"]["take_s"] for r in records],
-              restore_s=[r["b"]["restore_s"] for r in records], world1_restore_s=c2_s)
+              restore_s=[r["b"]["restore_s"] for r in records], world1_restore_s=c2_s,
+              e_vectorized_s=[x for r in records for x in r["e"]["pack"]["take_s"] + r["e"]["per_member"]["take_s"]],
+              e_slab_s=[x for r in records for x in r["e"]["pack_slab"]["take_s"] + r["e"]["per_member_slab"]["take_s"]])
     print(json.dumps({"sharded": record}), flush=True)
     return record
 
@@ -7711,6 +7843,318 @@ def ring_phase(args, work_dir: str, card: str) -> dict:
     return {**launches, "flash_chunk_unmasked": modes["unmasked"], "record": {
         k: unmasked[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     }}
+
+
+# ----------------------------------------------------------------------
+# The dcp phase: interop with torch.distributed.checkpoint
+# ----------------------------------------------------------------------
+
+
+# The kernels the dcp phase must launch: the training steps and the
+# evaluation forward (flash), the world-1 restore's digests.
+DCP_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
+DCP_RANKS = 2
+DCP_TURNS = 2
+DCP_TIMEOUT_S = 600.0
+
+
+def _zero_state(state) -> None:
+    """Every tensor of a train state set to 0 (the RNG's state aside): a
+    restore into it must write each one."""
+    import torch
+
+    with torch.no_grad():
+        for name, t in _state_tensors(state).items():
+            if name != "rng":
+                t.zero_()
+
+
+def _digests(tensors: dict) -> dict:
+    """The ``mlh64`` digest of every tensor by name: the CUDA ones in one
+    launch of the digest kernel, the host ones on the host."""
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+
+    cuda = [(k, t) for k, t in sorted(tensors.items()) if t.is_cuda]
+    rows = dd.materialize_many(dd.digest_many_async([(t, None) for _, t in cuda]))
+    out = {k: (int(r[0]), int(r[1])) for (k, _), r in zip(cuda, rows)}
+    out.update({k: dd.digest_host(t) for k, t in tensors.items() if not t.is_cuda})
+    return out
+
+
+def dcp_worker(pg, seed: int, work_dir: str) -> dict:
+    """One rank of the dcp phase's leg (c) (spawned by
+    ``run_multiprocess``; the parent built every kernel): a gloo default
+    group and a ``cuda`` mesh of 2, as in the sharded phase; the train
+    state's ``Shard(0)`` ``DTensor``s saved by ``dcp.save`` through
+    ``SnapshotStorageWriter``, then loaded through ``SnapshotStorageReader``
+    into ``Shard(1)``. The ranks meet at gates and fail together."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state, make_train_step, random_tokens
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.ops import kernels
+    from torchsnapshot_tpu_torch.test_utils import init_torch_group
+    from torchsnapshot_tpu_torch.tricks.dcp import SnapshotStorageReader, SnapshotStorageWriter
+
+    t_start = time.monotonic()
+    os.environ["TORCHSNAPSHOT_TPU_PEER_TIER"] = "0"  # the write paths without the tier, as the sharded phase
+    rank = pg.rank
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in kernels.kernel_names() if not os.path.exists(kernels._library_path(n))]
+    _require(not missing, f"rank {rank}: kernels {missing} not built by the parent")
+    init_torch_group(pg)
+    together = _FailTogether(pg, "dcp")
+    try:
+        mesh = init_device_mesh("cuda", (pg.world_size,))
+        cfg = main_config()
+        tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, seed)).cuda()
+        state = init_train_state(cfg, seed=seed)
+        train_step = make_train_step(cfg)
+        fa.reset_launch_counts()
+        for _ in range(STEPS):
+            state, _ = train_step(state, tokens)
+        torch.cuda.synchronize()
+        leaves = _replica_leaves(state, seed)
+        record = {"rank": rank, "device": torch.cuda.current_device(), "flash_chunk": fa.launch_counts["flash_chunk"]}
+        together.gate("trained")
+
+        path = os.path.join(work_dir, "w2")
+        tree = _dtensor_tree(leaves, mesh)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        dcp.save({"train": tree}, storage_writer=SnapshotStorageWriter(path))
+        record["save_s"] = time.monotonic() - t0
+        _, written = _rank_blobs(path, rank, "sharded/")
+        sharded_total = sum(
+            t.numel() * t.element_size() for t in leaves.values() if t.is_cuda and t.dim() > 0
+        )
+        share = written / sharded_total
+        _require(abs(share - 0.5) <= 0.01, f"rank {rank} wrote {share:.4f} of the sharded bytes")
+        record.update({"written_bytes": written, "sharded_bytes": sharded_total, "share": share})
+        together.gate("saved")
+
+        dest = _dtensor_tree(_replica_leaves(init_train_state(cfg, seed=seed + 1), seed + 1), mesh, _tp_dim)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        dcp.load({"train": dest}, storage_reader=SnapshotStorageReader(path))
+        torch.cuda.synchronize()
+        record["load_s"] = time.monotonic() - t0
+        _require_shards(dest, leaves, f"rank {rank}: the reader's load into Shard(1)")
+        together.gate("loaded")
+        dist.barrier()
+        record["worker_s"] = time.monotonic() - t_start
+        return record
+    except BaseException as e:
+        raise together.fail(e)
+    finally:
+        together.close()
+        dist.destroy_process_group()
+
+
+def dcp_phase(args, work_dir: str, card: str) -> dict:
+    """Legs (a)-(d) of the module docstring on the main configuration.
+    Returns the phase's launches by kernel (counts set to 0 at its
+    start)."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    from torchsnapshot_tpu_torch import Snapshot
+    from torchsnapshot_tpu_torch.fsck import verify_snapshot
+    from torchsnapshot_tpu_torch.models.transformer import init_train_state, make_train_step, random_tokens
+    from torchsnapshot_tpu_torch.ops import device_digest as dd
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.test_utils import run_multiprocess
+    from torchsnapshot_tpu_torch.tricks.dcp import (
+        SnapshotStorageReader,
+        SnapshotStorageWriter,
+        migrate_dcp_to_snapshot,
+        migrate_snapshot_to_dcp,
+    )
+    from torchsnapshot_tpu_torch.tricks.train_state import TrainStateStateful
+
+    t_phase = time.monotonic()
+    root = os.path.join(work_dir, "dcp")
+    os.makedirs(root, exist_ok=True)
+    fa.reset_launch_counts()
+    dd.reset_launch_counts()
+    cfg = main_config()
+    tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
+    state = init_train_state(cfg, seed=args.seed)
+    train_step = make_train_step(cfg)
+    for _ in range(STEPS):
+        state, _ = train_step(state, tokens)
+    torch.cuda.synchronize()
+    live = {k: t.clone() for k, t in _state_tensors(state).items()}
+    state_bytes = sum(t.numel() * t.element_size() for t in live.values())
+    record = {"card": card, "train_state_bytes": state_bytes}
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    # (a) Migration both ways through DCP's own FileSystemWriter / Reader.
+    src, snap_a, out_a = (os.path.join(root, n) for n in ("dcp_src", "snap_a", "dcp_out"))
+    a = {"fs_save_s": timed(lambda: dcp.save(state.state_dict(), storage_writer=dcp.FileSystemWriter(src)))}
+    a["to_snapshot_s"] = timed(lambda: migrate_dcp_to_snapshot(src, snap_a, key="train"))
+    fresh = init_train_state(cfg, seed=args.seed + 1)
+    a["restore_s"] = timed(lambda: Snapshot(snap_a).restore({"train": fresh}))
+    _require_same_state(live, fresh, "(a) DCP -> snapshot -> Snapshot.restore")
+    del fresh
+    tmpl = init_train_state(cfg, seed=args.seed + 2)
+    a["to_dcp_s"] = timed(lambda: migrate_snapshot_to_dcp(snap_a, out_a, tmpl.state_dict(), key="train"))
+    del tmpl
+    resumed_a = init_train_state(cfg, seed=args.seed + 3)
+    sd = resumed_a.state_dict()
+    a["fs_load_s"] = timed(lambda: dcp.load(sd, storage_reader=dcp.FileSystemReader(out_a)))
+    resumed_a.load_state_dict(sd)
+    _require_same_state(live, resumed_a, "(a) snapshot -> DCP -> dcp.load")
+    del sd
+    record["a"] = a
+
+    # (b) Interception: the writer and the reader on the train state.
+    b = {}
+    p_w, p_t, p_as = (os.path.join(root, n) for n in ("writer", "take", "async"))
+    b["writer_s"] = timed(lambda: dcp.save({"train": state}, storage_writer=SnapshotStorageWriter(p_w)))
+    dst = init_train_state(cfg, seed=args.seed + 4)
+    b["writer_restore_s"] = timed(lambda: Snapshot(p_w).restore({"train": dst}))
+    _require_same_state(live, dst, "(b) dcp.save through the writer -> Snapshot.restore")
+    fsck = verify_snapshot(p_w, deep=True)
+    _require(fsck.ok and fsck.crcs_verified > 0, f"(b) deep fsck of the writer's snapshot: {fsck.problems[:3]}")
+    b["fsck_crcs"] = fsck.crcs_verified
+    b["take_s"] = timed(lambda: Snapshot.take(p_t, {"train": state}))
+    _zero_state(dst)
+    b["reader_s"] = timed(lambda: dcp.load({"train": dst}, storage_reader=SnapshotStorageReader(p_t)))
+    _require_same_state(live, dst, "(b) Snapshot.take -> dcp.load through the reader")
+    with torch.no_grad():
+        logits_live, logits_dst = state.model(tokens), dst.model(tokens)
+    _require(bool(torch.isfinite(logits_live).all()) and same_bits(logits_live, logits_dst),
+             "(b) evaluation logits differ after the reader's load")
+    del logits_live, logits_dst
+    t0 = time.monotonic()
+    future = dcp.async_save({"train": state}, storage_writer=SnapshotStorageWriter(p_as))
+    b["async_visible_s"] = time.monotonic() - t0
+    future.result()
+    b["async_s"] = time.monotonic() - t0
+    _require(os.path.exists(os.path.join(p_as, ".snapshot_metadata")), "(b) async_save left no commit marker")
+    _zero_state(dst)
+    Snapshot(p_as).restore({"train": dst})
+    _require_same_state(live, dst, "(b) dcp.async_save through the writer -> Snapshot.restore")
+    for p in (p_w, p_t, p_as):
+        shutil.rmtree(p, ignore_errors=True)
+
+    # In turns: the three writers, then the three readers.
+    turns = {k: [] for k in ("take", "writer", "fs_writer", "restore", "reader", "fs_reader")}
+    for turn in range(DCP_TURNS):
+        paths = {k: os.path.join(root, f"{k}_{turn}") for k in ("take", "writer", "fs_writer")}
+        turns["take"].append(timed(lambda: Snapshot.take(paths["take"], {"train": state})))
+        turns["writer"].append(timed(
+            lambda: dcp.save({"train": state}, storage_writer=SnapshotStorageWriter(paths["writer"]))))
+        turns["fs_writer"].append(timed(
+            lambda: dcp.save({"train": state}, storage_writer=dcp.FileSystemWriter(paths["fs_writer"]))))
+        for kind, run in (
+            ("restore", lambda: Snapshot(paths["take"]).restore({"train": dst})),
+            ("reader", lambda: dcp.load({"train": dst}, storage_reader=SnapshotStorageReader(paths["writer"]))),
+            ("fs_reader", lambda: dcp.load({"train": dst}, storage_reader=dcp.FileSystemReader(paths["fs_writer"]))),
+        ):
+            _zero_state(dst)
+            turns[kind].append(timed(run))
+            _require_same_state(live, dst, f"(b) turn {turn}: {kind}")
+        for p in paths.values():
+            shutil.rmtree(p, ignore_errors=True)
+    b["turns"] = turns
+    del dst
+    torch.cuda.empty_cache()
+    record["b"] = b
+
+    # (c) Two ranks: Shard(0) through the writer, into Shard(1) through the
+    # reader; then the world-1 restore here, by digest.
+    c_dir = os.path.join(root, "ranks")
+    os.makedirs(c_dir, exist_ok=True)
+    t0 = time.monotonic()
+    workers = run_multiprocess(dcp_worker, DCP_RANKS, args=(args.seed, c_dir), timeout=DCP_TIMEOUT_S)
+    workers_s = time.monotonic() - t0
+    want = _replica_leaves(state, args.seed)
+    dest = {k: torch.zeros_like(v) for k, v in want.items()}
+    from torchsnapshot_tpu_torch import TensorTreeState
+
+    world1_s = timed(lambda: Snapshot(os.path.join(c_dir, "w2")).restore({"train": TensorTreeState(dest)}))
+    got, expect = _digests(dest), _digests(want)
+    _require(sorted(got) == sorted(expect), "(c) the world-1 restore holds other leaves")
+    for k in expect:
+        _require(got[k] == expect[k], f"(c) world-1 restore of the world-2 DCP save: {k} differs")
+    record["c"] = {"ranks": workers, "workers_s": workers_s, "world1_restore_s": world1_s, "leaves": len(expect)}
+    del dest, want
+    shutil.rmtree(c_dir, ignore_errors=True)
+
+    # (d) TrainStateStateful: taken, restored into a fresh model and AdamW.
+    p_d = os.path.join(root, "train_state")
+    d = {"take_s": timed(lambda: Snapshot.take(
+        p_d, {"train": TrainStateStateful(state.model, state.optimizer, step=state.step)}))}
+    resumed_d = init_train_state(cfg, seed=args.seed + 6)
+    adapter = TrainStateStateful(resumed_d.model, resumed_d.optimizer)
+    d["restore_s"] = timed(lambda: Snapshot(p_d).restore({"train": adapter}))
+    resumed_d.step = adapter.step
+    resumed_d.rng.set_state(state.rng.get_state())  # the adapter holds model and optimizers, not the RNG
+    _require(resumed_d.step == state.step, "(d) the step differs")
+    _require_same_state(live, resumed_d, "(d) TrainStateStateful")
+    record["d"] = d
+
+    # The next step: the live state's, (a)'s and (d)'s, bit for bit.
+    resumed_a.rng.set_state(state.rng.get_state())
+    _, loss_live = train_step(state, tokens)
+    _, loss_a = train_step(resumed_a, tokens)
+    _, loss_d = train_step(resumed_d, tokens)
+    torch.cuda.synchronize()
+    _require(same_bits(loss_live, loss_a) and same_bits(loss_live, loss_d),
+             f"next-step losses differ: live {loss_live}, (a) {loss_a}, (d) {loss_d}")
+    after = _state_tensors(state)
+    for other, what in ((resumed_a, "(a)"), (resumed_d, "(d)")):
+        _require_same_state({k: v for k, v in after.items()}, other, f"{what} after the next step")
+    record["next_loss"] = float(loss_live)
+    del resumed_a, resumed_d, live, after
+    launches = {**fa.launch_counts, **dd.launch_counts}
+    _require(all(launches[k] for k in DCP_PATH_KERNELS), f"dcp: a kernel of the path never launched: {launches}")
+    record["launches"] = {k: launches[k] for k in DCP_PATH_KERNELS}
+    record["wall_s"] = time.monotonic() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+
+    gb = state_bytes / 1e9
+    log(f"dcp (a): train state {gb:.3f} GB; dcp.save FileSystemWriter {a['fs_save_s']:.3f} s, "
+        f"migrate_dcp_to_snapshot {a['to_snapshot_s']:.3f} s, Snapshot.restore {a['restore_s']:.3f} s, "
+        f"migrate_snapshot_to_dcp {a['to_dcp_s']:.3f} s, dcp.load FileSystemReader {a['fs_load_s']:.3f} s; "
+        f"bit-identical both ways")
+    log(f"dcp (b): dcp.save through SnapshotStorageWriter {b['writer_s']:.3f} s, restored by Snapshot.restore "
+        f"{b['writer_restore_s']:.3f} s bit-identical, deep fsck {b['fsck_crcs']} CRCs; Snapshot.take "
+        f"{b['take_s']:.3f} s, dcp.load through SnapshotStorageReader {b['reader_s']:.3f} s bit-identical, logits "
+        f"equal; dcp.async_save through the writer {b['async_visible_s']:.3f} s visible, {b['async_s']:.3f} s to "
+        f"commit, bit-identical; in turns (s): "
+        + "; ".join(f"{k} {', '.join(f'{x:.3f}' for x in v)}" for k, v in turns.items()))
+    for r in workers:
+        log(f"dcp (c): rank {r['rank']} on card {r['device']}: dcp.save through the writer at world 2 "
+            f"{r['save_s']:.3f} s, wrote {r['written_bytes'] / 1e9:.4f} of {r['sharded_bytes'] / 1e9:.4f} GB "
+            f"sharded ({r['share']:.6f}); dcp.load through the reader into Shard(1) {r['load_s']:.3f} s, every "
+            f"local shard equal; worker {r['worker_s']:.1f} s")
+    log(f"dcp (c): world-1 Snapshot.restore of the world-2 DCP save {world1_s:.3f} s, {len(expect)} leaves' "
+        f"digests equal; (d) TrainStateStateful take {d['take_s']:.3f} s, restore into a fresh model and AdamW "
+        f"{d['restore_s']:.3f} s; next-step loss {float(loss_live)!r} bit for bit for the live state, (a) and (d), "
+        f"parameters too; launches {record['launches']}; workers {workers_s:.1f} s, phase "
+        f"{record['wall_s']:.1f} s on {card}")
+    _headline("dcp", fs_save_s=a["fs_save_s"], writer_s=turns["writer"], take_s=turns["take"],
+              fs_writer_s=turns["fs_writer"], reader_s=turns["reader"], restore_s=turns["restore"],
+              fs_reader_s=turns["fs_reader"], w2_save_s=[r["save_s"] for r in workers],
+              w2_load_s=[r["load_s"] for r in workers], next_loss=float(loss_live))
+    print(json.dumps({"dcp": record}, default=str), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return record["launches"]
 
 
 if __name__ == "__main__":

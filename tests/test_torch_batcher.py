@@ -3,11 +3,11 @@ spanning reads, round trips with the knob on, slabs of sharded entries,
 and batched snapshots that cross between the two packages.
 
 Port of the JAX package's ``tests/test_batcher.py`` and of the slab cases
-of ``tests/test_write_path.py`` that hold bytes (its vectorized zero-pack
-write path is not ported: the port stages a slab into one buffer, with the
-same bytes): a slab's bytes and checksum entry are the same staged with
-the device pack or member by member, with or without the native runtime,
-and in the JAX package. The module imports no jax at its top (its workers
+of ``tests/test_write_path.py`` that hold bytes (the vectorized write's
+own cases are in ``tests/test_torch_write_path.py``): a slab's bytes and
+checksum entry are the same staged with the device pack or member by
+member, with or without the native runtime, and in the JAX package. The
+module imports no jax at its top (its workers
 are spawned); the cross-package tests import it inside.
 """
 

@@ -24,9 +24,9 @@ import numpy as np
 import pytest
 import torch
 
-from torchsnapshot_tpu_torch import Snapshot, TensorTreeState
+from torchsnapshot_tpu_torch import Snapshot, TensorTreeState, knobs
 from torchsnapshot_tpu_torch.io_preparer import ArrayBufferStager, DeviceCopier
-from torchsnapshot_tpu_torch.io_types import WriteReq
+from torchsnapshot_tpu_torch.io_types import BufferList, WriteReq
 from torchsnapshot_tpu_torch.knobs import (
     enable_batching,
     enable_device_pack,
@@ -452,11 +452,12 @@ def test_pack_failure_fails_the_take(tmp_path, monkeypatch) -> None:
 
     monkeypatch.setattr(dp, "pack_async", boom)
     tree = {f"leaf_{i}": _tensor(_np_array((8, 8), "float32", seed=i)) for i in range(4)}
-    p = str(tmp_path / "snap")
-    with enable_batching(), enable_device_pack(), override_slab_size_threshold_bytes(1 << 20):
-        with pytest.raises(RuntimeError, match="injected pack failure"):
-            Snapshot.take(p, {"m": TensorTreeState(tree)})
-    assert not os.path.exists(os.path.join(p, SNAPSHOT_METADATA_FNAME))
+    for name, vectorized in (("vec", knobs.enable_write_vectorized), ("packed", knobs.disable_write_vectorized)):
+        p = str(tmp_path / name)
+        with enable_batching(), enable_device_pack(), override_slab_size_threshold_bytes(1 << 20), vectorized():
+            with pytest.raises(RuntimeError, match="injected pack failure"):
+                Snapshot.take(p, {"m": TensorTreeState(tree)})
+        assert not os.path.exists(os.path.join(p, SNAPSHOT_METADATA_FNAME))
 
 
 def test_batched_stager_cost_stable_across_staging() -> None:
@@ -471,13 +472,17 @@ def test_batched_stager_cost_stable_across_staging() -> None:
         (WriteReq(path=f"p{i}", buffer_stager=ArrayBufferStager(t, copier)), i * size, size)
         for i, t in enumerate(tensors)
     ]
-    with enable_device_pack():
-        stager = batcher.BatchedBufferStager(items)
-    cost_before = stager.get_staging_cost_bytes()
-    buf = asyncio.run(stager.stage_buffer())
-    assert len(buf) == 2 * size
-    assert bytes(buf) == b"".join(t.numpy().tobytes() for t in tensors)
-    assert stager.get_staging_cost_bytes() == cost_before
+    for vectorized in (knobs.enable_write_vectorized, knobs.disable_write_vectorized):
+        for req, _, _ in items:
+            req.buffer_stager.tensor = tensors[int(req.path[1:])]
+        with enable_device_pack(), vectorized():
+            stager = batcher.BatchedBufferStager(items)
+        cost_before = stager.get_staging_cost_bytes()
+        buf = asyncio.run(stager.stage_buffer())
+        assert len(buf) == 2 * size
+        data = buf.consolidate() if isinstance(buf, BufferList) else buf
+        assert bytes(data) == b"".join(t.numpy().tobytes() for t in tensors)
+        assert stager.get_staging_cost_bytes() == cost_before
 
 
 def test_device_pack_off_by_default(tmp_path, monkeypatch) -> None:

@@ -1,6 +1,6 @@
 """The port stands alone: torchsnapshot_tpu_torch and chip_smoke.py import
-neither jax nor anything of torchsnapshot_tpu, and the builders run on the
-card unless the caller asks for the CPU."""
+neither jax (nor flax or orbax) nor anything of torchsnapshot_tpu, and the
+builders run on the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -33,12 +33,7 @@ def _port_sources():
 
 
 def _forbidden(module: str) -> bool:
-    return (
-        module == "jax"
-        or module.startswith("jax.")
-        or module == "torchsnapshot_tpu"
-        or module.startswith("torchsnapshot_tpu.")
-    )
+    return module.split(".")[0] in ("jax", "flax", "orbax", "torchsnapshot_tpu")
 
 
 def test_no_jax_or_reference_import_in_sources() -> None:
@@ -71,8 +66,7 @@ def test_import_loads_no_jax() -> None:
         "before = set(sys.modules)\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "new = set(sys.modules) - before\n"
-        "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
-        "or m == 'torchsnapshot_tpu' or m.startswith('torchsnapshot_tpu.'))\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'flax', 'orbax', 'torchsnapshot_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(new))\n"
     )
@@ -200,6 +194,9 @@ SHARDED_SLICE_MODULES = [
     "torchsnapshot_tpu_torch/ops/ring_attention.py",
     "torchsnapshot_tpu_torch/storage_plugins/s3.py",
     "torchsnapshot_tpu_torch/storage_plugins/gcs.py",
+    # Interop with torch.distributed.checkpoint and the train-state adapter.
+    "torchsnapshot_tpu_torch/tricks/dcp.py",
+    "torchsnapshot_tpu_torch/tricks/train_state.py",
 ]
 
 

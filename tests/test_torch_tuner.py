@@ -4,9 +4,8 @@ log, revert-on-regression, the manager's closed loop, the kill switch,
 and one applied vector on every rank.
 
 Ports of the JAX package's ``tests/test_tuner.py``, under the same names,
-on torch state. Added: the port's tunable set leaves out the JAX
-package's ``write_vectorized`` (the port has no vectorized slab write),
-and a decision log that carries that key keeps it untouched. This file
+on torch state. Added: the port's ``write_vectorized`` tunable has the
+JAX package's bounds, and only ``storage-tier-slow`` moves it. This file
 imports no ``jax`` (its spawned worker re-imports it): the JAX tuner and
 the port's deciding alike, and each loading the other's state file, are
 in ``tests/test_torch_diagnosis_crosspkg.py``.
@@ -213,25 +212,43 @@ def test_autotuner_holds_without_a_report(tmp_path):
 
 
 def test_write_vectorized_is_carried_untouched(tmp_path):
-    """The port's set has no ``write_vectorized``; a vector that carries
-    it (a JAX package's decision log) keeps it through clamping, every
-    decision and the rewritten file, and it is never applied."""
-    assert "write_vectorized" not in TUNABLES
-    assert "write_vectorized" not in knobs.tunable_snapshot()
+    """``write_vectorized`` is in the port's set as in the JAX package's:
+    bounded 0..1, on by default, and moved up only by
+    ``storage-tier-slow`` (past a saturated ``io_concurrency``); a
+    decided vector carries it, and applying a 0 turns the zero-pack
+    write off through the override layer."""
+    t = TUNABLES["write_vectorized"]
+    assert (t.lo, t.hi, t.env) == (0, 1, "TORCHSNAPSHOT_TPU_WRITE_VECTORIZED")
+    assert t.move(1, +1) == 1 and t.move(0, +1) == 1 and t.move(1, -1) == 0
+    assert tunables.clamp_vector({"write_vectorized": 7})["write_vectorized"] == 1
+    assert tunables.clamp_vector({"write_vectorized": -3})["write_vectorized"] == 0
+    assert knobs.tunable_snapshot()["write_vectorized"] == 1
+    movers = {
+        verdict for verdict, moves in policy.VERDICT_ACTIONS.items()
+        if any(name == "write_vectorized" for name, _ in moves)
+    }
+    assert movers == {names.RULE_STORAGE_TIER_SLOW}
+    assert ("write_vectorized", +1) in policy.VERDICT_ACTIONS[names.RULE_STORAGE_TIER_SLOW]
+    assert "write_vectorized" not in tunables.explore_order()
+    vec = dict(tunables.current_vector(), write_vectorized=0)
+    vec["io_concurrency"] = TUNABLES["io_concurrency"].hi
+    d, _ = policy.decide([names.RULE_STORAGE_TIER_SLOW], vec, {}, 0, 0)
+    assert (d.tunable, d.direction) == ("write_vectorized", +1)
+    for verdict in (names.RULE_BUDGET_STARVED, names.RULE_WRITE_TAIL_STALL, names.RULE_RETRY_STORM):
+        d, _ = policy.decide([verdict], vec, {}, 0, 0)
+        assert d.tunable != "write_vectorized"
     root = str(tmp_path)
-    vec = dict(tunables.current_vector(), write_vectorized=1)
-    tuner_state.save_state(root, TunerState(vector=dict(vec), known_good=dict(vec)))
-    assert tunables.clamp_vector(vec)["write_vectorized"] == 1
     at = Autotuner(root)
     for step in range(3):
         decided = at._decide(step, _fake_report(take_s=1.0))
         assert decided["write_vectorized"] == 1
     st = tuner_state.load_state(root)
-    assert st.vector["write_vectorized"] == 1 and st.known_good["write_vectorized"] == 1
-    assert all(d["vector"]["write_vectorized"] == 1 for d in st.decisions)
-    applied = tunables.apply_vector(decided)
-    assert "write_vectorized" not in applied
-    assert "TORCHSNAPSHOT_TPU_WRITE_VECTORIZED" not in knobs.get_tuner_overrides()
+    assert st.vector["write_vectorized"] == 1
+    applied = tunables.apply_vector(dict(decided, write_vectorized=0))
+    assert applied["write_vectorized"] == 0
+    assert not knobs.is_write_vectorized_enabled()
+    knobs.clear_tuner_overrides()
+    assert knobs.is_write_vectorized_enabled()
 
 
 def _rank_consistency_worker(pg, root: str):

@@ -16,13 +16,20 @@ The device pack (``TORCHSNAPSHOT_TPU_DEVICE_PACK``): a slab's members on
 one device are packed there by the hand-written kernel
 (``ops/device_pack.py``, ``csrc/device_pack.cu``) in one launch, and leave
 through the take's ``DeviceCopier`` (its copy stream, a pinned host
-buffer) in one copy, instead of one copy per member. When one pack covers
-the whole slab, its pinned buffer is the slab. Deliberate difference from
-the JAX package: a pack that fails raises and fails the take (no commit
-marker) instead of falling back to per-member staging, so a broken kernel
-cannot hide behind a slower path. Not ported: the JAX package's zero-pack
-vectorized slab write (``TORCHSNAPSHOT_TPU_WRITE_VECTORIZED``); the slab
-is staged into one buffer, with the same bytes.
+buffer) in one copy, instead of one copy per member. Deliberate difference
+from the JAX package: a pack that fails raises and fails the take (no
+commit marker) instead of falling back to per-member staging, so a broken
+kernel cannot hide behind a slower path.
+
+The zero-pack vectorized slab write (``TORCHSNAPSHOT_TPU_WRITE_VECTORIZED``,
+on by default, as in the JAX package): the slab is never assembled. Its
+stage returns a ``BufferList`` of the members' own staged host buffers in
+slab order (each pack group's pinned buffer cut into its members' parts),
+which the fs plugin writes with one ``pwritev`` and a fused CRC, and the
+scheduler consolidates for plugins without multi-buffer support. With the
+knob off, the slab is staged into one buffer; when one pack covers the
+whole slab, its pinned buffer is the slab. The bytes and the CRC table are
+the same either way.
 """
 
 from __future__ import annotations
@@ -34,9 +41,10 @@ import uuid
 from concurrent.futures import Executor
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
-from . import _native, knobs
+from . import _native, knobs, telemetry
 from .io_types import (
     BufferConsumer,
+    BufferList,
     BufferStager,
     BufferType,
     ReadReq,
@@ -118,24 +126,31 @@ class _PackGroup(NamedTuple):
 
 
 class BatchedBufferStager(BufferStager):
-    """Stages the members of one slab into one buffer. With the device
-    pack on, the members of each device are packed there and copied to
-    the host together; the others are staged one by one."""
+    """Stages the members of one slab: as one ``BufferList`` of their own
+    host buffers (the vectorized write), or into one buffer. With the
+    device pack on, the members of each device are packed there and
+    copied to the host together; the others are staged one by one."""
 
     def __init__(self, members: List[Member]) -> None:
         self.members = members
         self.total = sum(size for _, _, size in members)
-        # Fixed here: the split depends on the knob and on stager fields
-        # that staging clears, and admission must see one staging cost.
+        # Fixed here: the split and the write path depend on knobs and on
+        # stager fields that staging clears, and admission must see one
+        # staging cost and get the payload that cost was for.
+        self._vectorized = knobs.is_write_vectorized_enabled()
         packed, self._rest = self._split_device_groups()
         self._packed = [_PackGroup.of(items) for items in packed]
-        pack_bytes = sum(size for items in packed for _, _, size in items)
-        peak_member = max(
-            (req.buffer_stager.get_staging_cost_bytes() for req, _, _ in self._rest), default=0
-        )
-        # The packed host buffers sit beside the slab until scattered, and
-        # the rest loop stages one member at a time beside them.
-        self._staging_cost = self.total + pack_bytes + peak_member
+        if self._vectorized:
+            # The members' staged buffers are the payload: no slab beside them.
+            self._staging_cost = self.total
+        else:
+            # The packed host buffers sit beside the slab until scattered,
+            # and the rest loop stages one member at a time beside them.
+            pack_bytes = sum(size for items in packed for _, _, size in items)
+            peak_member = max(
+                (req.buffer_stager.get_staging_cost_bytes() for req, _, _ in self._rest), default=0
+            )
+            self._staging_cost = self.total + pack_bytes + peak_member
 
     def capture(self, cache: dict) -> None:
         """The async take's capture reaches every member's source (the
@@ -193,11 +208,76 @@ class BatchedBufferStager(BufferStager):
             view[offset : offset + size] = packed[src : src + size]
             src += size
 
+    def _parts(self, items: List[Member], host, event) -> List[Tuple[int, memoryview]]:
+        """A pack group's pinned host buffer cut into its members' parts
+        (each slice keeps the buffer alive until written)."""
+        packed = self._wait(host, event)
+        parts, src = [], 0
+        for _, offset, size in items:
+            parts.append((offset, packed[src : src + size]))
+            src += size
+        if src != len(packed):
+            raise RuntimeError(f"device pack produced {len(packed)} bytes, planned {src}")
+        return parts
+
+    @staticmethod
+    def _check_member_size(staged: int, req: WriteReq, size: int) -> None:
+        if staged != size:
+            raise RuntimeError(
+                f"Slab member {req.path!r} staged {staged} bytes but was planned at "
+                f"{size}; byte ranges in the manifest would be wrong"
+            )
+
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
+        if self._vectorized:
+            # A span of its own: the pack pass did not run.
+            with _trace_recorder().span(
+                metric_names.SPAN_BATCHER_STAGE_SLAB_VECTORIZED, members=len(self.members), bytes=self.total
+            ):
+                return await self._stage_vectorized_impl(executor)
         with _trace_recorder().span(
             metric_names.SPAN_BATCHER_STAGE_SLAB, members=len(self.members), bytes=self.total
         ):
             return await self._stage_buffer_impl(executor)
+
+    async def _stage_vectorized_impl(self, executor: Optional[Executor] = None) -> BufferList:
+        """Stage every member and hand the staged buffers on as one
+        ``BufferList`` in planned offset order: no buffer the size of the
+        slab, and no pass that copies the members into one."""
+        loop = asyncio.get_running_loop()
+        cuts = [
+            loop.run_in_executor(executor, self._parts, group.items, *self._launch_pack(group))
+            for group in self._packed
+        ]
+        parts: List[Tuple[int, memoryview]] = []
+        first_exc: Optional[BaseException] = None
+        try:
+            for req, offset, size in self._rest:
+                mv = as_bytes_view(await req.buffer_stager.stage_buffer(executor))
+                self._check_member_size(len(mv), req, size)
+                parts.append((offset, mv))
+        except BaseException as e:  # noqa: BLE001 - settle the cuts first
+            first_exc = e
+        results = await asyncio.gather(*cuts, return_exceptions=True)
+        if first_exc is None:
+            first_exc = next((r for r in results if isinstance(r, BaseException)), None)
+        if first_exc is not None:
+            raise first_exc
+        for r in results:
+            parts.extend(r)
+        parts.sort(key=operator.itemgetter(0))
+        expect = 0
+        for offset, mv in parts:
+            if offset != expect:
+                raise RuntimeError(
+                    f"vectorized slab has a hole at byte {expect} (next member starts at "
+                    f"{offset}); manifest byte ranges would be wrong"
+                )
+            expect = offset + mv.nbytes
+        if expect != self.total:
+            raise RuntimeError(f"vectorized slab staged {expect} bytes, planned {self.total}")
+        telemetry.metrics().counter_inc(metric_names.BATCHER_PACK_BYTES_AVOIDED_TOTAL, self.total)
+        return BufferList([mv for _, mv in parts])
 
     async def _stage_buffer_impl(self, executor: Optional[Executor] = None) -> BufferType:
         loop = asyncio.get_running_loop()
@@ -219,11 +299,7 @@ class BatchedBufferStager(BufferStager):
         try:
             for req, offset, size in self._rest:
                 mv = as_bytes_view(await req.buffer_stager.stage_buffer(executor))
-                if len(mv) != size:
-                    raise RuntimeError(
-                        f"Slab member {req.path!r} staged {len(mv)} bytes but was planned at "
-                        f"{size}; byte ranges in the manifest would be wrong"
-                    )
+                self._check_member_size(len(mv), req, size)
                 view[offset : offset + size] = mv
         except BaseException as e:  # noqa: BLE001 - settle the scatters first
             first_exc = e

@@ -53,6 +53,7 @@ _MAX_SHARD_SIZE_BYTES_ENV = "TORCHSNAPSHOT_TPU_MAX_SHARD_SIZE_BYTES"
 _SLAB_SIZE_THRESHOLD_BYTES_ENV = "TORCHSNAPSHOT_TPU_SLAB_SIZE_THRESHOLD_BYTES"
 _ENABLE_BATCHING_ENV = "TORCHSNAPSHOT_TPU_ENABLE_BATCHING"
 _DEVICE_PACK_ENV = "TORCHSNAPSHOT_TPU_DEVICE_PACK"
+_WRITE_VECTORIZED_ENV = "TORCHSNAPSHOT_TPU_WRITE_VECTORIZED"
 _MIRROR_IO_CONCURRENCY_ENV = "TORCHSNAPSHOT_TPU_MIRROR_IO_CONCURRENCY"
 _MIRROR_PROGRESS_WINDOW_ENV = "TORCHSNAPSHOT_TPU_MIRROR_PROGRESS_WINDOW_SECONDS"
 _WAIT_DURABLE_TIMEOUT_ENV = "TORCHSNAPSHOT_TPU_WAIT_DURABLE_TIMEOUT_SECONDS"
@@ -267,6 +268,16 @@ def is_fs_direct_io_enabled() -> bool:
     unaligned tail is written buffered. Unsupported filesystems (tmpfs:
     EINVAL) decline sticky-per-plugin back to the buffered path."""
     return _get_tunable_int(_FS_DIRECT_IO_ENV, 0) != 0
+
+
+def is_write_vectorized_enabled() -> bool:
+    """Zero-pack vectorized slab writes (default ON): a slab's staged
+    member buffers go to the storage plugin as one ``BufferList``,
+    written with one ``pwritev`` + fused per-page CRC, with no pack pass
+    into a slab buffer. ``"0"`` restores the packed path. Plugins without
+    multi-buffer support are consolidated for by the scheduler; blob
+    bytes and CRC tables are the same on both paths. Tunable."""
+    return _get_tunable_int(_WRITE_VECTORIZED_ENV, 1) != 0
 
 
 def get_trace_buffer_events() -> int:
@@ -686,9 +697,8 @@ def get_bundle_min_interval_seconds() -> float:
 def tunable_snapshot() -> Dict[str, Union[int, float]]:
     """Effective value of every tunable knob the port reads, under the
     JAX package's short names: the ``tunables`` field each SnapshotReport
-    records: env var, else tuner override, else default. The JAX
-    package's ``write_vectorized`` is absent (the port has no vectorized
-    slab write)."""
+    records: env var, else tuner override, else default. The keys are the
+    JAX package's, one for one."""
     return {
         "staging_threads": get_staging_threads(),
         "io_concurrency": get_per_rank_io_concurrency(),
@@ -698,6 +708,7 @@ def tunable_snapshot() -> Dict[str, Union[int, float]]:
         "max_chunk_size_bytes": get_max_chunk_size_bytes(),
         "max_shard_size_bytes": get_max_shard_size_bytes(),
         "slab_size_threshold_bytes": get_slab_size_threshold_bytes(),
+        "write_vectorized": int(is_write_vectorized_enabled()),
         "fs_direct_io": int(is_fs_direct_io_enabled()),
         "barrier_fanout": get_barrier_fanout(),
         "store_shards": get_store_shards(),
@@ -813,6 +824,19 @@ def override_slab_size_threshold_bytes(nbytes: int) -> Generator[None, None, Non
 @contextlib.contextmanager
 def enable_batching() -> Generator[None, None, None]:
     with _override_env(_ENABLE_BATCHING_ENV, "1"):
+        yield
+
+
+@contextlib.contextmanager
+def disable_write_vectorized() -> Generator[None, None, None]:
+    """Force the packed slab path for the block."""
+    with _override_env(_WRITE_VECTORIZED_ENV, "0"):
+        yield
+
+
+@contextlib.contextmanager
+def enable_write_vectorized() -> Generator[None, None, None]:
+    with _override_env(_WRITE_VECTORIZED_ENV, "1"):
         yield
 
 

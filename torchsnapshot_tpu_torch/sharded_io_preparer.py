@@ -249,50 +249,16 @@ class ShardedArrayIOPreparer:
         is_async_snapshot: bool = False,
         incremental: Optional[Any] = None,
     ) -> Tuple[ShardedArrayEntry, List[WriteReq]]:
-        from .io_preparer import ArrayBufferStager, effective_max_shard_size_bytes
-
-        dtype_str = dtype_to_string(dt.dtype)
         local = local_tensor(dt)
         shards: List[Shard] = []
         write_reqs: List[WriteReq] = []
         box, coord, spec = _local_box(dt, local)
-        if writes_box(coord, spec) and box.numel() > 0:
-            max_shard = effective_max_shard_size_bytes(incremental)
-            for piece in subdivide_box(box, max_shard, local.element_size()):
-                if incremental is not None:
-                    ref = incremental.ref_entry(piece.offsets, piece.sizes, False)
-                    if ref is not None:
-                        shards.append(Shard(list(piece.offsets), list(piece.sizes), ref))
-                        continue
-                location = _shard_location(logical_path, piece)
-                slc = None
-                if piece != box:
-                    row0 = piece.offsets[0] - box.offsets[0]
-                    slc = slice(row0, row0 + piece.sizes[0])
-                shards.append(
-                    Shard(
-                        offsets=list(piece.offsets),
-                        sizes=list(piece.sizes),
-                        array=ArrayEntry(
-                            location=location,
-                            serializer=Serializer.BUFFER_PROTOCOL.value,
-                            dtype=dtype_str,
-                            shape=list(piece.sizes),
-                            replicated=False,
-                            digest=(
-                                incremental.digest_for(piece.offsets, piece.sizes)
-                                if incremental is not None
-                                else None
-                            ),
-                        ),
-                    )
-                )
-                stager = ArrayBufferStager(
-                    local, copier, slc=slc, is_async_snapshot=is_async_snapshot
-                )
-                write_reqs.append(WriteReq(path=location, buffer_stager=stager))
+        if writes_box(coord, spec):
+            shards, write_reqs = write_box(
+                local, box, logical_path, copier, is_async_snapshot, incremental
+            )
         entry = ShardedArrayEntry(
-            dtype=dtype_str, shape=[int(d) for d in dt.shape], shards=shards
+            dtype=dtype_to_string(dt.dtype), shape=[int(d) for d in dt.shape], shards=shards
         )
         return entry, write_reqs
 
@@ -345,6 +311,60 @@ class ShardedArrayIOPreparer:
                 f"and device destinations"
             )
         return ShardedArrayIOPreparer.prepare_read_into(entry, obj_out, buffer_size_limit_bytes).reqs
+
+
+def write_box(
+    local: torch.Tensor,
+    box: Box,
+    logical_path: str,
+    copier: Any,
+    is_async_snapshot: bool = False,
+    incremental: Optional[Any] = None,
+) -> Tuple[List[Shard], List[WriteReq]]:
+    """The saved shards and write requests of one box of a global array,
+    held by ``local``: cut along dim 0 into pieces under the shard-size
+    knob, each at ``sharded/{path}_{offsets}``. An empty box writes
+    nothing."""
+    from .io_preparer import ArrayBufferStager, effective_max_shard_size_bytes
+
+    shards: List[Shard] = []
+    write_reqs: List[WriteReq] = []
+    if box.numel() == 0:
+        return shards, write_reqs
+    dtype_str = dtype_to_string(local.dtype)
+    max_shard = effective_max_shard_size_bytes(incremental)
+    for piece in subdivide_box(box, max_shard, local.element_size()):
+        if incremental is not None:
+            ref = incremental.ref_entry(piece.offsets, piece.sizes, False)
+            if ref is not None:
+                shards.append(Shard(list(piece.offsets), list(piece.sizes), ref))
+                continue
+        location = _shard_location(logical_path, piece)
+        slc = None
+        if piece != box:
+            row0 = piece.offsets[0] - box.offsets[0]
+            slc = slice(row0, row0 + piece.sizes[0])
+        shards.append(
+            Shard(
+                offsets=list(piece.offsets),
+                sizes=list(piece.sizes),
+                array=ArrayEntry(
+                    location=location,
+                    serializer=Serializer.BUFFER_PROTOCOL.value,
+                    dtype=dtype_str,
+                    shape=list(piece.sizes),
+                    replicated=False,
+                    digest=(
+                        incremental.digest_for(piece.offsets, piece.sizes)
+                        if incremental is not None
+                        else None
+                    ),
+                ),
+            )
+        )
+        stager = ArrayBufferStager(local, copier, slc=slc, is_async_snapshot=is_async_snapshot)
+        write_reqs.append(WriteReq(path=location, buffer_stager=stager))
+    return shards, write_reqs
 
 
 def _local_box(dt: Any, local: torch.Tensor):

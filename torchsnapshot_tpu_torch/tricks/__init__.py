@@ -12,8 +12,12 @@
   size 1), an escape hatch back to the reference's tooling.
 - :mod:`.convert` — convert a reference-format snapshot to the native one
   (``python -m torchsnapshot_tpu_torch.tricks.convert SRC DST``).
-
-The JAX package's ``flax.py`` and ``orbax.py`` adapt JAX-ecosystem
-formats and have no port; their torch counterpart, interop with
-``torch.distributed.checkpoint``, is still to come.
+- :mod:`.dcp` — interop with ``torch.distributed.checkpoint``, the
+  counterpart of the JAX package's ``orbax.py``: ``SnapshotStorageWriter``
+  and ``SnapshotStorageReader`` make ``dcp.save`` / ``dcp.load`` call sites
+  write and read the native format, and ``migrate_dcp_to_snapshot`` /
+  ``migrate_snapshot_to_dcp`` convert directories both ways.
+- :mod:`.train_state` — ``TrainStateStateful``, the counterpart of the JAX
+  package's ``flax.py``: a model and its optimizers as one Stateful, in
+  ``torch.distributed.checkpoint.state_dict``'s names.
 """

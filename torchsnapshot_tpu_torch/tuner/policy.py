@@ -1,9 +1,6 @@
 """Rule-mapped hill climbing: doctor verdict -> bounded knob move.
 
-Copy of ``torchsnapshot_tpu/tuner/policy.py``. The JAX table's
-``storage-tier-slow`` row also names ``write_vectorized`` (+1), a knob the
-port does not have; the JAX tuner holds it at its upper bound, where that
-move never applies, so the row without it decides alike.
+Copy of ``torchsnapshot_tpu/tuner/policy.py``, row for row.
 
 Not ML — a policy table. Each doctor verdict names a *direction*
 (docs/tuning.md has the same table in prose):
@@ -15,7 +12,8 @@ Not ML — a policy table. Each doctor verdict names a *direction*
   classic single-blob tail), then smaller tail chunks so no single
   write can hold the drain hostage.
 - ``storage-tier-slow``: the post-staging drain dominates — raise I/O
-  concurrency, try O_DIRECT, then deepen the pool so staging can run
+  concurrency, re-enable the zero-pack vectorized write if something
+  turned it off, try O_DIRECT, then deepen the pool so staging can run
   further ahead.
 - ``retry-storm``: the backend is throwing under load — *back off* the
   I/O concurrency.
@@ -51,6 +49,7 @@ VERDICT_ACTIONS: Dict[str, List[Tuple[str, int]]] = {
     ],
     names.RULE_STORAGE_TIER_SLOW: [
         ("io_concurrency", +1),
+        ("write_vectorized", +1),
         ("fs_direct_io", +1),
         ("staging_pool_slabs", +1),
     ],

@@ -1,11 +1,6 @@
 """The declared tunable set: what the autotuner is allowed to touch.
 
-Copy of ``torchsnapshot_tpu/tuner/tunables.py`` without
-``write_vectorized``: the port has no vectorized slab write, so that knob
-is not in its set. The JAX tuner holds it at its default 1, its upper
-bound, where no move applies, so both tuners decide alike. A vector
-loaded from a JAX package's ``.tuner-state.json`` keeps the key as it
-was: it is carried along, never clamped, moved or applied here.
+Copy of ``torchsnapshot_tpu/tuner/tunables.py``.
 
 Each :class:`Tunable` names one knob from ``knobs.py``'s tunable
 surface, its bounds, and its (multiplicative) step factor. The tuner
@@ -117,10 +112,11 @@ TUNABLES: Dict[str, Tunable] = {
             512 * MIB,
             2.0,
         ),
-        # A binary write-path selector (0/1): one "up" move enables, one
+        # Binary write-path selectors (0/1): one "up" move enables, one
         # "down" move disables — the int-move floor of +-1 makes the
         # multiplicative step degenerate into a clean toggle, and
         # revert-on-regression gives a flip that hurt its normal undo.
+        Tunable("write_vectorized", knobs._WRITE_VECTORIZED_ENV, 0, 1, 2.0),
         Tunable("fs_direct_io", knobs._FS_DIRECT_IO_ENV, 0, 1, 2.0),
         # Coordination topology (docs/scaling.md): the tree barrier's
         # branching factor, and the coordination-store shard count
@@ -155,12 +151,11 @@ def clamp_vector(
     given — shrink the staging pool so ``slabs x slab_bytes`` fits
     inside it (slab bytes first, then the slab count, so a tiny budget
     can't be over-committed by the slab-bytes lower bound). The one
-    clamp both the decision path and direct apply callers share. Keys
-    outside the declared set (a JAX vector's ``write_vectorized``) pass
-    through unchanged."""
+    clamp both the decision path and direct apply callers share."""
     vector = {
-        name: TUNABLES[name].clamp(value) if name in TUNABLES else value
-        for name, value in vector.items()
+        name: TUNABLES[name].clamp(vector[name])
+        for name in TUNABLES
+        if name in vector
     }
     if memory_budget_bytes is not None and memory_budget_bytes > 0:
         slabs = int(vector.get("staging_pool_slabs", 0) or 0)
@@ -195,7 +190,7 @@ def apply_vector(
     applied (the effective values, env-pinned entries included)."""
     vector = clamp_vector(vector, memory_budget_bytes)
     for name, value in vector.items():
-        if name not in TUNABLES or env_pinned(name):
+        if env_pinned(name):
             continue
         knobs.set_tuner_override(TUNABLES[name].env, value)
     return current_vector()
