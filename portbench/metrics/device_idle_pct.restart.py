@@ -1,0 +1,7 @@
+"""device_idle_pct (metrics/device_idle_pct.py) in the cells that report tokens_per_s.restart."""
+
+import os
+
+from harness.spec import load_reader
+
+read = load_reader(os.path.join(os.path.dirname(os.path.abspath(__file__)), "device_idle_pct.py"))
