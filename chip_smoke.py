@@ -1773,7 +1773,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     )
     from torchsnapshot_tpu_torch.ops import device_digest as dd
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
-    from torchsnapshot_tpu_torch.scheduler import last_phase_timings, reset_phase_timings
+    from torchsnapshot_tpu_torch.telemetry import last_report
 
     cfg = main_config()
     tokens = torch.from_numpy(random_tokens(cfg, 8, 1024, args.seed)).cuda()
@@ -1813,12 +1813,11 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     rng_at_take = (torch.get_rng_state(), torch.cuda.get_rng_state())
     path = os.path.join(work_dir, "main")
     torch.cuda.synchronize()
-    reset_phase_timings()
     t0 = time.monotonic()
     Snapshot.take(path, {"train": state, "rng": RngState()})
     take_s = time.monotonic() - t0
     # Seconds from the write pipeline's start to the end of each phase.
-    take_phases = last_phase_timings()
+    take_phases = dict(last_report("take", path=path).phases)
     # A training job takes again and again: the second take finds the
     # pinned host buffers of the first in torch's caching host allocator.
     t0 = time.monotonic()
@@ -2194,7 +2193,7 @@ def bulk_phase(args, work_dir: str, card: str) -> None:
     import torch
 
     from torchsnapshot_tpu_torch import Snapshot, TensorTreeState
-    from torchsnapshot_tpu_torch.scheduler import last_phase_timings, reset_phase_timings
+    from torchsnapshot_tpu_torch.telemetry import last_report
 
     state = bulk_state(args.seed, args.bulk_gib)
     n_blocks = len(state) - 1
@@ -2207,11 +2206,10 @@ def bulk_phase(args, work_dir: str, card: str) -> None:
     nbytes = sum(t.numel() * t.element_size() for t in state.values())
     path = os.path.join(work_dir, "bulk")
     torch.cuda.synchronize()
-    reset_phase_timings()
     t0 = time.monotonic()
     Snapshot.take(path, {"bulk": TensorTreeState(state)})
     take_s = time.monotonic() - t0
-    phases = last_phase_timings()
+    phases = dict(last_report("take", path=path).phases)
 
     target = {k: torch.zeros_like(v) for k, v in state.items()}
     torch.cuda.synchronize()
@@ -2219,7 +2217,7 @@ def bulk_phase(args, work_dir: str, card: str) -> None:
     Snapshot(path).restore({"bulk": TensorTreeState(target)})
     torch.cuda.synchronize()
     restore_s = time.monotonic() - t0
-    phases.update(last_phase_timings())
+    phases.update(last_report("restore", path=path).phases)
     for k in state:
         _require(same_bits(state[k], target[k]), f"bulk block {k} differs after restore")
     del target

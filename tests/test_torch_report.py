@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, StateDict, TensorTreeState, knobs, telemetry
-from torchsnapshot_tpu_torch.scheduler import last_phase_timings, reset_phase_timings
 from torchsnapshot_tpu_torch.telemetry import names
 from torchsnapshot_tpu_torch.telemetry.sink import events_path_for, local_fs_root
 
@@ -44,22 +43,33 @@ def _events(path):
 
 def test_phase_timings_and_reports_do_not_leak_across_takes(tmp_path):
     """Ports ``test_phase_timings_shim_and_reports_do_not_leak_across_
-    takes``: a phase recorded between takes shows on the global channel
-    but never in the next take's report."""
+    takes`` through the phase histogram (the port has no last-writer-wins
+    channel): a phase recorded between takes shows in the process-wide
+    histogram but never in the next take's report."""
     state = {"m": TensorTreeState(_state())}
+
+    def phases_observed():
+        hists = telemetry.metrics().collect()["histograms"]
+        return {
+            telemetry.parse_series_key(k)[1]["phase"]: h["count"]
+            for k, h in hists.items()
+            if telemetry.parse_series_key(k)[0] == names.SNAPSHOT_PHASE_SECONDS
+        }
+
     with knobs.enable_telemetry():
         Snapshot.take(str(tmp_path / "take1"), state)
-        assert set(last_phase_timings()) == {"staging", "writing"}
+        assert phases_observed() == {"staging": 1, "writing": 1}
         telemetry.record_phase("mirroring", 1.23)
         Snapshot.take(str(tmp_path / "take2"), state)
-        assert "mirroring" in last_phase_timings()
+        assert phases_observed() == {"staging": 2, "writing": 2, "mirroring": 1}
         events = _events(str(tmp_path / "take2"))
         assert len(events) == 1
         assert set(events[0]["phases"]) == {"staging", "writing"}
-        reset_phase_timings()
-        assert last_phase_timings() == {}
+        telemetry.reset_metrics()
+        assert phases_observed() == {}
         Snapshot.take(str(tmp_path / "take3"), state)
-        assert set(last_phase_timings()) == {"staging", "writing"}
+        assert phases_observed() == {"staging": 1, "writing": 1}
+        assert set(_events(str(tmp_path / "take3"))[0]["phases"]) == {"staging", "writing"}
 
 
 def test_take_report_via_jsonl_sink(tmp_path):

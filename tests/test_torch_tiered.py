@@ -25,8 +25,16 @@ import numpy as np
 import pytest
 import torch
 
-from torchsnapshot_tpu_torch import CheckpointManager, PreemptionSaver, Snapshot, TensorTreeState, knobs, verify_snapshot
-from torchsnapshot_tpu_torch.scheduler import last_phase_timings
+from torchsnapshot_tpu_torch import (
+    CheckpointManager,
+    PreemptionSaver,
+    Snapshot,
+    TensorTreeState,
+    knobs,
+    telemetry,
+    verify_snapshot,
+)
+from torchsnapshot_tpu_torch.telemetry import names
 from torchsnapshot_tpu_torch.storage_plugin import join_path, split_tiered_url, url_to_storage_plugin
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
 from torchsnapshot_tpu_torch.test_utils import faulty_fs_plugin
@@ -161,6 +169,13 @@ def test_take_commits_at_fast_tier_bandwidth_then_wait_durable(tmp_path) -> None
     fsck- and CRC-clean on the durable tier alone."""
     fast, durable, url = _tiers(tmp_path)
     state = _state()
+    mirrored = telemetry.series_key(names.SNAPSHOT_PHASE_SECONDS, {"phase": "mirroring"})
+
+    def mirror_jobs():
+        hist = telemetry.metrics().collect()["histograms"].get(mirrored)
+        return hist["count"] if hist else 0
+
+    jobs_before = mirror_jobs()
     with mock.patch(_MIRROR_PLUGINS, side_effect=_mirror_factory(durable, _slow_fs(0.25))):
         Snapshot.take(url, _app(state))
         assert os.path.exists(os.path.join(fast, ".snapshot_metadata"))
@@ -177,7 +192,7 @@ def test_take_commits_at_fast_tier_bandwidth_then_wait_durable(tmp_path) -> None
     assert metrics["blobs_done"] == len(journal["blobs"])
     assert metrics["bytes_mirrored"] > 0
     assert metrics["snapshots_pending"] == 0
-    assert "mirroring" in last_phase_timings()
+    assert mirror_jobs() == jobs_before + 1
 
 
 def test_async_take_unblocks_before_durable_completes(tmp_path) -> None:
@@ -480,6 +495,30 @@ def test_manager_wait_durable_default_deadline_is_knob_bounded(tmp_path) -> None
     with knobs.override_wait_durable_timeout_seconds(0.4):
         with pytest.raises(TimeoutError, match="does not name it"):
             mgr.wait_durable(1)
+
+
+def test_manager_wait_durable_lets_the_roots_mirror_jobs_settle(tmp_path, monkeypatch) -> None:
+    """A root mirror job settles its telemetry into the fast root after the
+    index reached the durable tier: ``wait_durable`` returns only once it
+    has, so that the fast tier can be deleted at once."""
+    fast, durable, root = _tiers(tmp_path)
+    settle = Mirror._settle_telemetry
+
+    def slow_settle(job, elapsed):
+        if job.fast_url == fast:
+            time.sleep(0.3)
+        settle(job, elapsed)
+
+    monkeypatch.setattr(Mirror, "_settle_telemetry", staticmethod(slow_settle))
+    mgr = CheckpointManager(root, keep_last_n=3)
+    mgr.save(1, _app(_w(1.0)))
+    mgr.wait_durable(1, timeout=60)
+    jobs = get_mirror().jobs_for(fast)
+    assert jobs and all(j.done_evt.is_set() for j in jobs)
+    shutil.rmtree(fast)
+    dst = _zeros(_w(0.0))
+    assert CheckpointManager(root, keep_last_n=3).restore_latest(dst) == 1
+    _assert_equal(dst, _w(1.0))
 
 
 # ---------------------------------------------------------------------------

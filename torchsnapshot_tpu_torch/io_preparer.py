@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import asyncio
 import sys
+import time
+import weakref
 from concurrent.futures import Executor
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -257,6 +259,7 @@ class ArrayBufferStager(BufferStager):
             if snap.is_cuda:
                 ready = torch.cuda.Event()
                 ready.record(torch.cuda.current_stream(snap.device))
+                count_device_capture(snap)
             cache[key] = (snap, ready)
         self.tensor, self._ready = cache[key]
         self._captured = True
@@ -658,6 +661,22 @@ def prepare_write(
     )
     return preparer.prepare_write(
         tensor, logical_path, rank, replicated, copier, is_async_snapshot, incremental
+    )
+
+
+def count_device_capture(snap: torch.Tensor) -> None:
+    """Count an async take's device clone: its bytes now, and once its
+    last reference drops (the drain's copy to the host holds it until
+    the copy is done) the bytes x seconds it held the card."""
+    nbytes = snap.numel() * snap.element_size()
+    telemetry.metrics().counter_inc(metric_names.ASYNC_CAPTURE_DEVICE_BYTES_TOTAL, nbytes)
+    weakref.finalize(snap, _count_device_release, nbytes, time.monotonic())
+
+
+def _count_device_release(nbytes: int, captured_at: float) -> None:
+    telemetry.metrics().counter_inc(
+        metric_names.ASYNC_CAPTURE_DEVICE_BYTE_SECONDS_TOTAL,
+        nbytes * (time.monotonic() - captured_at),
     )
 
 

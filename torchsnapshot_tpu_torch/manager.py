@@ -99,6 +99,7 @@ import math
 import os
 import re
 import threading
+import time
 from typing import Any, Dict, List, Optional, Set
 
 from . import knobs, telemetry
@@ -285,11 +286,7 @@ class _PendingManagedSnapshot:
                     chunk_refs=lambda: _manifest_chunk_refs(snapshot.metadata.manifest),
                 )
                 telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
-                self._manager._record_step_history(self._step)
-                self._manager._post_step_ledger(self._step, snapshot)
-                self._manager._evaluate_slos(self._step)
-                self._manager._publish_cdn_step(self._step, snapshot)
-                self._manager._autotune_step(self._step)
+                self._manager._bookkeeping(self._step, snapshot)
                 self._committed = True
         return snapshot
 
@@ -331,6 +328,13 @@ class _ManagedPendingRestore:
         if name.startswith("_"):
             raise AttributeError(name)
         return getattr(self._pending, name)
+
+
+# The public restores, each timed once from entry to return (restore_latest's
+# index read and broadcast included).
+_restore_span = telemetry.timed_span(
+    metric_names.SPAN_MANAGER_RESTORE, metric_names.MANAGER_CALL_SECONDS, op="restore"
+)
 
 
 class CheckpointManager:
@@ -454,6 +458,9 @@ class CheckpointManager:
             out["incremental_base"] = self.step_path(base_step)
         return out
 
+    @telemetry.timed_span(
+        metric_names.SPAN_MANAGER_SAVE, metric_names.MANAGER_CALL_SECONDS, op="save"
+    )
     def save(
         self,
         step: int,
@@ -474,12 +481,27 @@ class CheckpointManager:
             chunk_refs=lambda: _manifest_chunk_refs(snapshot.metadata.manifest),
         )
         telemetry.metrics().counter_inc(metric_names.MANAGER_SAVES_TOTAL)
-        self._record_step_history(step)
-        self._post_step_ledger(step, snapshot)
-        self._evaluate_slos(step)
-        self._publish_cdn_step(step, snapshot)
-        self._autotune_step(step)
+        self._bookkeeping(step, snapshot)
         return snapshot
+
+    def _bookkeeping(self, step: int, snapshot: Snapshot) -> None:
+        """The post-commit hooks of a save, under one span whose args give
+        each hook's seconds."""
+        hooks = (
+            ("history", lambda: self._record_step_history(step)),
+            ("ledger", lambda: self._post_step_ledger(step, snapshot)),
+            ("slo", lambda: self._evaluate_slos(step)),
+            ("cdn", lambda: self._publish_cdn_step(step, snapshot)),
+            ("autotune", lambda: self._autotune_step(step)),
+        )
+        with telemetry.timed_span(
+            metric_names.SPAN_MANAGER_BOOKKEEPING, metric_names.MANAGER_PHASE_SECONDS,
+            phase="bookkeeping",
+        ) as parts:
+            for name, hook in hooks:
+                t0 = time.perf_counter()
+                hook()
+                parts[f"{name}_s"] = round(time.perf_counter() - t0, 6)
 
     @staticmethod
     def _validate_metric(metric: Optional[float]) -> None:
@@ -491,6 +513,9 @@ class CheckpointManager:
                 f"eval score must not enter best-checkpoint retention)"
             )
 
+    @telemetry.timed_span(
+        metric_names.SPAN_MANAGER_ASYNC_SAVE, metric_names.MANAGER_CALL_SECONDS, op="async_save"
+    )
     def async_save(
         self,
         step: int,
@@ -647,6 +672,7 @@ class CheckpointManager:
             return None
         return min(scored, key=lambda s: self._metric_sort_key(s, index["metrics"]))
 
+    @_restore_span
     def restore_best(self, app_state: AppState) -> Optional[int]:
         """Restore the best-metric committed step; returns it, or None if
         no step carries a metric."""
@@ -654,10 +680,14 @@ class CheckpointManager:
         step = self._pg.broadcast_object(step)
         if step is None:
             return None
-        self.restore(step, app_state)
+        self._restore(step, app_state)
         return step
 
+    @_restore_span
     def restore(self, step: int, app_state: AppState) -> None:
+        self._restore(step, app_state)
+
+    def _restore(self, step: int, app_state: AppState) -> None:
         snapshot = Snapshot(self.step_path(step), pg=self._pg_arg)
         snapshot.restore(app_state)
         # This rank's byte accounting of the restore (its tiers among them).
@@ -665,6 +695,7 @@ class CheckpointManager:
         telemetry.metrics().counter_inc(metric_names.MANAGER_RESTORES_TOTAL)
         self._record_restore_history(step)
 
+    @_restore_span
     def restore_latest(self, app_state: AppState) -> Optional[int]:
         """Restore the newest committed step into ``app_state``; returns
         its step number, or None when no checkpoint exists (fresh run)."""
@@ -672,7 +703,7 @@ class CheckpointManager:
         step = self._pg.broadcast_object(step)
         if step is None:
             return None
-        self.restore(step, app_state)
+        self._restore(step, app_state)
         return step
 
     def async_restore(self, step: int, app_state: AppState) -> _ManagedPendingRestore:
@@ -728,10 +759,18 @@ class CheckpointManager:
                     await storage.close()
 
             try:
-                if step in run_in_fresh_event_loop(_read_durable_index())["steps"]:
-                    return
+                durable = step in run_in_fresh_event_loop(_read_durable_index())["steps"]
             except (FileNotFoundError, RuntimeError):
-                pass  # the index is not mirrored yet
+                durable = False  # the index is not mirrored yet
+            if durable:
+                # The root's mirror jobs settle their telemetry into the
+                # fast root after the index lands: once this returns the
+                # fast tier may go, so none may still be writing there.
+                for job in mirror.jobs_for(fast_root):
+                    job.done_evt.wait(
+                        None if deadline is None else max(0.0, deadline - time.monotonic())
+                    )
+                return
             # The index trails through the root's own mirror jobs: if the
             # newest failed and nothing is in flight, polling would never
             # progress. Resume it once, then surface its error.
@@ -802,15 +841,18 @@ class CheckpointManager:
         (evaluated only on rank 0, which alone holds the manifest)."""
         if self._pg.get_rank() != 0:
             return
-        if callable(refs):
-            refs = refs()
-        if callable(chunk_refs):
-            chunk_refs = chunk_refs()
-        self._with_root_storage(
-            lambda storage: self._commit_step_async(
-                step, storage, refs or set(), metric, chunk_refs or {}
+        with telemetry.timed_span(
+            metric_names.SPAN_MANAGER_COMMIT, metric_names.MANAGER_PHASE_SECONDS, phase="commit"
+        ):
+            if callable(refs):
+                refs = refs()
+            if callable(chunk_refs):
+                chunk_refs = chunk_refs()
+            self._with_root_storage(
+                lambda storage: self._commit_step_async(
+                    step, storage, refs or set(), metric, chunk_refs or {}
+                )
             )
-        )
 
     def _retained(
         self, steps: List[int], just_saved: int, metrics: Dict[str, float]
@@ -939,19 +981,22 @@ class CheckpointManager:
         registry.gauge_set(metric_names.MANAGER_RETAINED_STEPS, len(steps))
         if to_delete:
             registry.counter_inc(metric_names.MANAGER_GC_STEPS_TOTAL, len(to_delete))
-        for old in to_delete:
+        with telemetry.timed_span(metric_names.SPAN_MANAGER_GC) as gc_args:
+            deleted_bytes = 0
+            for old in to_delete:
+                try:
+                    deleted_bytes += await self._delete_step_async(old)
+                except Exception as e:  # noqa: BLE001 - GC must not fail a save
+                    logger.warning("Failed to GC step %d: %r", old, e)
+            # Chunk GC after the step deletes (an interrupted pass errs
+            # toward keeping chunks), on every commit: grace-deferred
+            # orphans and the strays of crashed takes must age out even
+            # when retention drops nothing.
             try:
-                await self._delete_step_async(old)
+                deleted_bytes += await self._cas_collect_async(storage, step, to_delete)
             except Exception as e:  # noqa: BLE001 - GC must not fail a save
-                logger.warning("Failed to GC step %d: %r", old, e)
-        # Chunk GC after the step deletes (an interrupted pass errs toward
-        # keeping chunks), on every commit: grace-deferred orphans and the
-        # strays of crashed takes must age out even when retention drops
-        # nothing.
-        try:
-            await self._cas_collect_async(storage, step, to_delete)
-        except Exception as e:  # noqa: BLE001 - GC must not fail a save
-            logger.warning("CAS chunk GC failed: %r", e)
+                logger.warning("CAS chunk GC failed: %r", e)
+            gc_args.update(steps=len(to_delete), bytes=deleted_bytes)
 
     def _publish_cdn_step(self, step: int, snapshot: Snapshot) -> None:
         """Announce the just-committed step's chunk set on the CDN topic.
@@ -1028,17 +1073,18 @@ class CheckpointManager:
 
     async def _cas_collect_async(
         self, storage: StoragePlugin, trigger_step: int, deleted_steps: List[int]
-    ) -> None:
+    ) -> int:
         """Unpin GC'd steps and reclaim refcount-dead chunks. A dead chunk
         younger than the grace window (a concurrent, not yet pinned take
         may have just deduped against it and touched it) is journaled as
         an orphan and retried by a later pass. Reclaimed bytes are posted
-        to the run ledger against the committing ``trigger_step``."""
+        to the run ledger against the committing ``trigger_step``, and
+        returned."""
         from .cas import CHUNKS_DIRNAME
 
         store = self._get_cas_store()
         if store is None:
-            return
+            return 0
         pins, orphans, leases = store.load_full()
         candidates: Dict[str, int] = dict(orphans)
         unpinned = False
@@ -1062,7 +1108,7 @@ class CheckpointManager:
         if not candidates:
             if unpinned:
                 store.maybe_compact()
-            return
+            return 0
         grace = knobs.get_cas_gc_grace_seconds()
         reclaimed: Dict[str, int] = {}
         cleared: Set[str] = set()
@@ -1104,6 +1150,7 @@ class CheckpointManager:
                 "CAS GC deferred %d dead but fresh chunk(s) inside the %.0f s grace window",
                 len(deferred), grace,
             )
+        return int(sum(reclaimed.values()))
 
     def _reconcile_cas(self) -> None:
         """Construction-time healing (rank 0): bring the refcount journal
@@ -1261,11 +1308,13 @@ class CheckpointManager:
         logger.info("Evicted step %d from the fast tier", step)
         return True
 
-    async def _delete_step_async(self, step: int) -> None:
+    async def _delete_step_async(self, step: int) -> int:
         """Delete a step's blobs, driven by its manifest (plugins cannot
-        list). The commit marker goes first: once it is gone the step is
-        simply uncommitted, so a crash mid-deletion leaves garbage bytes
-        but never a valid-looking damaged snapshot."""
+        list), and return the bytes its manifest gives them. The commit
+        marker goes first: once it is gone the step is simply
+        uncommitted, so a crash mid-deletion leaves garbage bytes but
+        never a valid-looking damaged snapshot."""
+        from .fsck import blob_requirements
         from .tiered.journal import MirrorJournal
         from .tiered.plugin import TieredStoragePlugin
 
@@ -1282,7 +1331,7 @@ class CheckpointManager:
             try:
                 await storage.read(read_io)
             except FileNotFoundError:
-                return  # never committed; nothing authoritative to walk
+                return 0  # never committed; nothing authoritative to walk
             metadata = SnapshotMetadata.from_yaml(bytes(read_io.buf).decode())
             await storage.delete(SNAPSHOT_METADATA_FNAME)
             crashpoint(metric_names.CRASH_GC_MARKER_DELETED)
@@ -1332,23 +1381,32 @@ class CheckpointManager:
             maybe_evict_step(self.step_path(step))
         except Exception as e:  # noqa: BLE001 - GC must not fail a save
             logger.warning("peer tier: evicting step %d peer copies failed: %r", step, e)
-        self._post_gc_ledger(step, metadata.manifest)
+        # Its own bytes: those it referenced belong to other steps. The
+        # step is gone by now; a manifest that cannot be counted only
+        # leaves the count out.
+        try:
+            own = {
+                loc: n
+                for loc, n in blob_requirements(metadata.manifest).items()
+                if not loc.startswith("../")
+            }
+        except Exception as e:  # noqa: BLE001 - GC must not fail a save
+            logger.warning("could not count the bytes of GC'd step %d: %r", step, e)
+            own = {}
+        self._post_gc_ledger(step, own)
         logger.info("Retention dropped step %d", step)
+        return int(sum(own.values()))
 
-    def _post_gc_ledger(self, step: int, manifest: Manifest) -> None:
-        """Record the GC'd step in the run ledger (its own bytes; those it
-        referenced belong to other steps) and prune its ``step-committed``
-        record, so that the goodput storage curve tracks what retention
-        keeps. Rank 0 (GC is rank-0 work); best-effort."""
+    def _post_gc_ledger(self, step: int, own: Dict[str, int]) -> None:
+        """Record the GC'd step's own blobs in the run ledger and prune its
+        ``step-committed`` record, so that the goodput storage curve
+        tracks what retention keeps. Rank 0 (GC is rank-0 work);
+        best-effort."""
         if not knobs.is_ledger_enabled():
             return
         try:
-            from .fsck import blob_requirements
             from .telemetry import ledger as run_ledger
 
-            own = {
-                loc: n for loc, n in blob_requirements(manifest).items() if not loc.startswith("../")
-            }
             run_ledger.post_event(
                 self.root, metric_names.EVENT_GC_RECLAIMED, step=step,
                 bytes_reclaimed=int(sum(own.values())), blobs=len(own),

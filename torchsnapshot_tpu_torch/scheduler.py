@@ -64,15 +64,16 @@ _LOG_LINE_LIMIT = 8
 _INLINE_CHECKSUM_BYTES = 64 * 1024
 
 
-def reset_phase_timings() -> None:
-    telemetry.metrics().reset_phase_timings()
+class _CheckpointExecutor(ThreadPoolExecutor):
+    """A pipeline's worker pool: each unit of work counts its thread's CPU
+    seconds under ``role``, which also prefixes the threads' names."""
 
+    def __init__(self, role: str) -> None:
+        super().__init__(max_workers=knobs.get_staging_threads(), thread_name_prefix=role)
+        self._role = role
 
-def last_phase_timings() -> dict:
-    """Seconds from the start of the most recent write/read pipeline of
-    this process to the end of each of its phases ("staging", "writing",
-    "loading"); last writer wins across concurrent pipelines."""
-    return telemetry.metrics().last_phase_timings()
+    def submit(self, fn, /, *args, **kwargs):
+        return super().submit(telemetry.run_counted, self._role, fn, *args, **kwargs)
 
 
 def available_host_memory_bytes() -> int:
@@ -415,9 +416,7 @@ async def execute_write_reqs(
             sum(r.buffer_stager.get_staging_cost_bytes() for r in write_reqs),
             phase="staging",
         )
-    executor = ThreadPoolExecutor(
-        max_workers=knobs.get_staging_threads(), thread_name_prefix="ts-stage"
-    )
+    executor = _CheckpointExecutor("ts-stage")
     io_slots = asyncio.Semaphore(knobs.get_per_rank_io_concurrency())
     io_tasks: List[asyncio.Task] = []
     record_checksums = not knobs.is_checksums_disabled()
@@ -675,9 +674,7 @@ async def execute_read_reqs(
             sum(r.buffer_consumer.get_consuming_cost_bytes() for r in read_reqs),
             phase="loading",
         )
-    executor = ThreadPoolExecutor(
-        max_workers=knobs.get_staging_threads(), thread_name_prefix="ts-consume"
-    )
+    executor = _CheckpointExecutor("ts-consume")
     io_slots = asyncio.Semaphore(knobs.get_per_rank_io_concurrency())
     verify_skipped = [0]
     fused_read_declined = (

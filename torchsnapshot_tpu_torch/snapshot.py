@@ -577,26 +577,19 @@ class Snapshot:
         )
 
     @classmethod
-    def _take_impl(
+    def _plan_take(
         cls,
         path: str,
         app_state: AppState,
         pg_wrapper: PGWrapper,
         replicated: List[str],
-        storage: StoragePlugin,
-        event_loop: asyncio.AbstractEventLoop,
         is_async_snapshot: bool,
-        incremental_base: Optional[Any] = None,
-        record_digests: bool = False,
-        defer_staging: bool = False,
-        progress_tracker: Optional[_progress.ProgressTracker] = None,
-    ) -> Tuple["PendingIOWork | DeferredIOWork", Optional[SnapshotMetadata]]:
-        """The take's plan and its staging; every collective of the take
-        before the commit runs here, on the calling thread. The returned
-        metadata is None on every rank but 0 (the manifests gather there).
-        With ``defer_staging`` no staging runs here: the write plan's
-        sources are captured and the returned :class:`DeferredIOWork` runs
-        the whole pipeline later."""
+        incremental_base: Optional[Any],
+        record_digests: bool,
+    ) -> Tuple[List[WriteReq], Optional[SnapshotMetadata], int, Optional[IncrementalTakeContext]]:
+        """The take's plan up to the manifest gather: flatten, replication,
+        the write requests with their partition and batching, and the
+        memory budget."""
         _validate_app_state(app_state)
         rank = pg_wrapper.get_rank()
         world_size = pg_wrapper.get_world_size()
@@ -667,6 +660,35 @@ class Snapshot:
             if global_manifest is not None
             else None
         )
+        return write_reqs, metadata, budget, incr_ctx
+
+    @classmethod
+    def _take_impl(
+        cls,
+        path: str,
+        app_state: AppState,
+        pg_wrapper: PGWrapper,
+        replicated: List[str],
+        storage: StoragePlugin,
+        event_loop: asyncio.AbstractEventLoop,
+        is_async_snapshot: bool,
+        incremental_base: Optional[Any] = None,
+        record_digests: bool = False,
+        defer_staging: bool = False,
+        progress_tracker: Optional[_progress.ProgressTracker] = None,
+    ) -> Tuple["PendingIOWork | DeferredIOWork", Optional[SnapshotMetadata]]:
+        """The take's plan and its staging; every collective of the take
+        before the commit runs here, on the calling thread. The returned
+        metadata is None on every rank but 0 (the manifests gather there).
+        With ``defer_staging`` no staging runs here: the write plan's
+        sources are captured and the returned :class:`DeferredIOWork` runs
+        the whole pipeline later."""
+        with telemetry.timed_span(metric_names.SPAN_TAKE_PLAN):
+            write_reqs, metadata, budget, incr_ctx = cls._plan_take(
+                path, app_state, pg_wrapper, replicated, is_async_snapshot,
+                incremental_base, record_digests,
+            )
+        rank = pg_wrapper.get_rank()
         if defer_staging:
             with _trace_recorder().span(
                 telemetry.names.SPAN_DEVICE_CAPTURE, rank=rank, reqs=len(write_reqs)
@@ -764,6 +786,8 @@ class Snapshot:
         recorder = _trace_recorder()
         trace_mark = recorder.mark()
         restore_span = recorder.begin(telemetry.names.SPAN_RESTORE, path=self.path, rank=rank)
+        # The plan: from here to the pipeline's first read.
+        plan_span = recorder.begin(telemetry.names.SPAN_RESTORE_PLAN)
         tracker = _progress.track("restore", self.path, rank)
         op_error: Optional[BaseException] = None
         # The cold start: the envelope's work before the first storage
@@ -829,6 +853,7 @@ class Snapshot:
                     try:
                         if plan is not None:
                             bytes_needed += _needed_bytes(plan.read_reqs)
+                            recorder.end(plan_span)
                             pipelines.append(_execute_load_plan(
                                 plan, fanout_ctx.wrap(storage) if fanout_ctx is not None else storage,
                                 budget, rank, event_loop, checksum_table, tracker,
@@ -844,6 +869,7 @@ class Snapshot:
                 plan = _plan_stateful_load(rng[0], rng[1], available, DeviceCopier(), budget=budget)
                 if plan is not None:
                     bytes_needed += _needed_bytes(plan.read_reqs)
+                    recorder.end(plan_span)
                     pipelines.append(_execute_load_plan(
                         plan, storage, budget, rank, event_loop, checksum_table, tracker
                     ))
@@ -866,7 +892,8 @@ class Snapshot:
             tracker.finish(op_error)
             if peer_ctx is not None:
                 peer_ctx.close()
-            recorder.end(restore_span)  # a no-op once closed
+            recorder.end(plan_span)  # a no-op once closed
+            recorder.end(restore_span)
             event_loop.close()
 
     def async_restore(self, app_state: AppState) -> "PendingRestore":
@@ -1209,10 +1236,16 @@ class _PlacementBatch:
         self._targets.append(target)
 
     def run(self) -> None:
-        for host, target in zip(self._values, self._targets):
-            if target is not None:
-                self._copier.to_device(target, host)
+        copies = [(h, t) for h, t in zip(self._values, self._targets) if t is not None]
         self._values, self._targets = [], []
+        if not copies:
+            return
+        with telemetry.timed_span(
+            metric_names.SPAN_RESTORE_PLACE, metric_names.RESTORE_PHASE_SECONDS, phase="place"
+        ) as args:
+            for host, target in copies:
+                self._copier.to_device(target, host)
+            args.update(bytes=sum(h.numel() * h.element_size() for h, _ in copies), leaves=len(copies))
 
 
 class _LeafGroup:
@@ -1268,9 +1301,15 @@ class _StatefulLoadPlan:
     def apply(self) -> None:
         """Wait for the copies to the card, then hand the restored state
         dict to the stateful (user code: calling thread only)."""
-        self.copier.synchronize()
-        state_dict = inflate(dict(self.container_entries), self.restored, prefix=self.key)
-        self.stateful.load_state_dict(state_dict)
+        with telemetry.timed_span(metric_names.SPAN_RESTORE_APPLY):
+            with telemetry.timed_span(
+                metric_names.SPAN_RESTORE_PLACE, metric_names.RESTORE_PHASE_SECONDS,
+                phase="place",
+            ) as args:
+                self.copier.synchronize()
+                args["synchronize"] = True
+            state_dict = inflate(dict(self.container_entries), self.restored, prefix=self.key)
+            self.stateful.load_state_dict(state_dict)
 
 
 class _StreamingPlacer:
@@ -1540,7 +1579,8 @@ class PendingSnapshot:
             self.staged_s = self.visible_s
             self._staged.set()
         self._thread = threading.Thread(
-            target=self._complete_snapshot, name="snapshot-commit", daemon=True
+            target=telemetry.run_counted, args=("snapshot-commit", self._complete_snapshot),
+            name="snapshot-commit", daemon=True,
         )
         self._thread.start()
 

@@ -7,6 +7,9 @@ writes go through ctypes-bound pwrite/pread on executor threads — ctypes
 releases the GIL for the whole call, so the scheduler's concurrent I/O ops
 become truly parallel kernel I/O streams instead of GIL-serialized Python
 writes. Without the native lib, aiofiles provides the same semantics.
+Each blocking call on a worker thread is also timed alone, without the
+executor queue and the event loop (``telemetry.run_serviced``); the
+aiofiles fallback's calls are not.
 
 fsync is deliberately left to the OS (matching the reference; the commit
 protocol tolerates torn data writes because the metadata file is written
@@ -44,7 +47,7 @@ from ..io_types import (
     as_bytes_view,
     payload_nbytes,
 )
-from ..telemetry import names as metric_names, observe_io
+from ..telemetry import names as metric_names, observe_io, run_serviced
 from ..telemetry.trace import io_span
 from ..utils.tracing import trace_annotation
 
@@ -155,7 +158,9 @@ class FSStoragePlugin(StoragePlugin):
                             is not None
                         )
 
-                if await loop.run_in_executor(None, _writev_native):
+                if await loop.run_in_executor(
+                    None, run_serviced, "fs", "write", _writev_native
+                ):
                     write_io.variant = "vectorized"
                     telemetry.metrics().counter_inc(
                         metric_names.FS_VECTORIZED_WRITE_BYTES_TOTAL,
@@ -167,7 +172,8 @@ class FSStoragePlugin(StoragePlugin):
                 if self._direct_eligible(buf):
                     try:
                         if await loop.run_in_executor(
-                            None, self._write_direct_kernel, full_path, write_io
+                            None, run_serviced, "fs", "write",
+                            self._write_direct_kernel, full_path, write_io,
                         ):
                             return
                     except OSError as e:
@@ -181,7 +187,9 @@ class FSStoragePlugin(StoragePlugin):
                     ):
                         return _native.write_file(full_path, buf)
 
-                if await loop.run_in_executor(None, _write_native):
+                if await loop.run_in_executor(
+                    None, run_serviced, "fs", "write", _write_native
+                ):
                     write_io.variant = "buffered"
                     return
         if isinstance(buf, BufferList):
@@ -200,7 +208,7 @@ class FSStoragePlugin(StoragePlugin):
                         f.write(part)
 
             await asyncio.get_running_loop().run_in_executor(
-                None, _writev_blocking
+                None, run_serviced, "fs", "write", _writev_blocking
             )
             return
         write_io.variant = "buffered"
@@ -214,7 +222,7 @@ class FSStoragePlugin(StoragePlugin):
                 f.write(buf)
 
         await asyncio.get_running_loop().run_in_executor(
-            None, _write_blocking
+            None, run_serviced, "fs", "write", _write_blocking
         )
 
     def _write_direct_kernel(self, full_path: str, write_io: WriteIO) -> bool:
@@ -302,17 +310,23 @@ class FSStoragePlugin(StoragePlugin):
         with io_span("fs", "write", write_io.path, nbytes):
             entry = None
             if isinstance(buf, BufferList):
-                entry = await loop.run_in_executor(None, _writev_crc)
+                entry = await loop.run_in_executor(
+                    None, run_serviced, "fs", "write", _writev_crc
+                )
             else:
                 if self._direct_eligible(buf):
                     try:
-                        entry = await loop.run_in_executor(None, _direct_crc)
+                        entry = await loop.run_in_executor(
+                            None, run_serviced, "fs", "write", _direct_crc
+                        )
                     except OSError as e:
                         if e.errno not in _DIRECT_DECLINE_ERRNOS:
                             raise
                         self._decline_direct(e, write_io.path)
                 if entry is None:
-                    entry = await loop.run_in_executor(None, _write_crc)
+                    entry = await loop.run_in_executor(
+                        None, run_serviced, "fs", "write", _write_crc
+                    )
         if entry is not None:
             # A declined fused write wrote nothing; the scheduler's
             # two-step fallback lands in write(), which accounts itself.
@@ -335,7 +349,8 @@ class FSStoragePlugin(StoragePlugin):
         if self._native:
             loop = asyncio.get_running_loop()
             data = await loop.run_in_executor(
-                None, self._native_read, full_path, read_io
+                None, run_serviced, "fs", "read", self._native_read, full_path,
+                read_io,
             )
             if data is not None:
                 # Identity matters: the scheduler detects a direct-into-
@@ -363,7 +378,7 @@ class FSStoragePlugin(StoragePlugin):
                     return f.read(end - start)
 
             data = await asyncio.get_running_loop().run_in_executor(
-                None, _read_blocking
+                None, run_serviced, "fs", "read", _read_blocking
             )
         if read_io.byte_range is not None:
             start, end = read_io.byte_range
@@ -410,7 +425,9 @@ class FSStoragePlugin(StoragePlugin):
 
         t0 = time.monotonic()
         with io_span("fs", "read", read_io.path):
-            res = await loop.run_in_executor(None, _read_crc)
+            res = await loop.run_in_executor(
+                None, run_serviced, "fs", "read", _read_crc
+            )
         if res is None:
             return None
         out, pages = res

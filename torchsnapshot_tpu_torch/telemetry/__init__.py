@@ -29,6 +29,11 @@ CLI: ``stats <events.jsonl>`` (the default), ``trace <snapshot>``,
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import time
+from typing import Any, Callable, Dict, Iterator, Optional, TypeVar
+
 from . import (
     bundle,
     critpath,
@@ -94,9 +99,12 @@ __all__ = [
     "render_prometheus",
     "reset_metrics",
     "reset_trace",
+    "run_counted",
+    "run_serviced",
     "safe_rate_mb_s",
     "series_key",
     "slo",
+    "timed_span",
     "trace",
     "watchdog",
     "wire",
@@ -135,8 +143,7 @@ def reset_trace() -> None:
 
 def record_phase(phase: str, elapsed_s: float) -> None:
     """Publish one pipeline-phase completion into the registry's phase
-    histogram and its last-writer-wins phase-timing channel."""
-    _REGISTRY.record_phase_timing(phase, elapsed_s)
+    histogram."""
     _REGISTRY.histogram_observe(
         names.SNAPSHOT_PHASE_SECONDS, elapsed_s, phase=phase
     )
@@ -160,3 +167,72 @@ def observe_io(plugin: str, op: str, nbytes: int, seconds: float) -> None:
         _REGISTRY.histogram_observe(
             names.STORAGE_READ_SECONDS, seconds, plugin=plugin
         )
+
+
+@contextlib.contextmanager
+def timed_span(
+    span: str, histogram: Optional[str] = None, **labels: str
+) -> Iterator[Dict[str, Any]]:
+    """A flight-recorder span on the caller's track that closes with one
+    observation of its seconds into ``histogram{labels}`` (none without a
+    histogram). The block may fill the yielded dict: its items become the
+    span's args at its end."""
+    recorder = trace.get_recorder()
+    end_args: Dict[str, Any] = {}
+    token = recorder.begin(span, **labels)
+    t0 = time.perf_counter()
+    try:
+        yield end_args
+    finally:
+        seconds = time.perf_counter() - t0
+        recorder.end(token, **end_args)
+        if histogram is not None:
+            _REGISTRY.histogram_observe(histogram, seconds, **labels)
+
+
+_THREAD_CPU = threading.local()
+
+T = TypeVar("T")
+
+
+def run_counted(role: str, fn: Callable[..., T], *args: Any, **kwargs: Any) -> T:
+    """Run ``fn`` and count this thread's CPU seconds in it
+    (``time.thread_time``) into ``checkpoint_thread_cpu_seconds_total{role}``.
+    A call nested in another on the same thread counts nothing: each
+    thread is counted once, at its outermost unit of work."""
+    if getattr(_THREAD_CPU, "active", False):
+        return fn(*args, **kwargs)
+    _THREAD_CPU.active = True
+    t0 = time.thread_time()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        _THREAD_CPU.active = False
+        _REGISTRY.counter_inc(
+            names.CHECKPOINT_THREAD_CPU_SECONDS_TOTAL,
+            time.thread_time() - t0,
+            role=role,
+        )
+
+
+def run_serviced(plugin: str, op: str, fn: Callable[..., T], *args: Any) -> T:
+    """Run one blocking storage call on its worker thread (op: "write" |
+    "read"): its seconds alone, without the executor queue and the event
+    loop, go to ``storage_<op>_service_seconds{plugin}``, and the thread's
+    CPU to the ``storage`` role of :func:`run_counted`."""
+    name = (
+        names.STORAGE_WRITE_SERVICE_SECONDS
+        if op == "write"
+        else names.STORAGE_READ_SERVICE_SECONDS
+    )
+
+    def timed() -> T:
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            _REGISTRY.histogram_observe(
+                name, time.perf_counter() - t0, plugin=plugin
+            )
+
+    return run_counted("storage", timed)

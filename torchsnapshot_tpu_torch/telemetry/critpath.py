@@ -94,6 +94,9 @@ _SEGMENT_BY_SPAN: Dict[str, str] = {
     names.SPAN_BATCHER_CONSUME_SPANNING: SEG_READ_DRAIN,
     names.SPAN_STORAGE_READ: SEG_READ_DRAIN,
     names.SPAN_FS_NATIVE_READ: SEG_READ_DRAIN,
+    # The port's placement batches: host-to-device copies of landed leaves,
+    # which the JAX package makes inside its consume spans.
+    names.SPAN_RESTORE_PLACE: SEG_READ_DRAIN,
     names.SPAN_BARRIER_ARRIVE: SEG_COORDINATION,
     names.SPAN_BARRIER_DEPART: SEG_COORDINATION,
     names.SPAN_FANOUT_EXCHANGE: SEG_COORDINATION,

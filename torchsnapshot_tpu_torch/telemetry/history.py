@@ -25,7 +25,7 @@ Summary schema (one JSON object per line)::
      blobs, mb_s, budget_wait_s, peak_staged_bytes, error}
 
 ``take_s`` is the pipeline's wall clock (the max phase-completion
-offset — the legacy ``last_phase_timings`` semantics).
+offset).
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ the exposition namespace stable enough for dashboards to key off.
 Label conventions (labels are free-form at call sites, but keep them
 small and low-cardinality):
 
-- ``phase``:  staging | writing | loading | mirroring
+- ``phase``:  staging | writing | loading | mirroring; commit | bookkeeping
+              (the manager); place (restore placement)
+- ``op``:     save | async_save | restore (the manager's public calls)
+- ``role``:   snapshot-commit | ts-stage | ts-consume | storage (threads)
 - ``plugin``: fs | s3 | gcs | memory | tiered
 - ``scope``:  which retry strategy instance (s3 | gcs | mirror)
 - ``kind``:   take | async_take | restore | async_restore | mirror;
@@ -157,6 +160,41 @@ MANAGER_SAVES_TOTAL = "manager_saves_total"
 MANAGER_RESTORES_TOTAL = "manager_restores_total"
 MANAGER_GC_STEPS_TOTAL = "manager_gc_steps_total"
 MANAGER_RETAINED_STEPS = "manager_retained_steps"
+# The public calls from entry to return (label ``op``: save | async_save |
+# restore) and their phases on rank 0 (label ``phase``: commit, the index
+# update with retention and GC; bookkeeping, the post-commit history,
+# ledger, SLO, CDN and autotune hooks).
+MANAGER_CALL_SECONDS = "manager_call_seconds"
+MANAGER_PHASE_SECONDS = "manager_phase_seconds"
+
+# -- restore placement (snapshot.py) -----------------------------------------
+#
+# Label ``phase``: place, one host-to-device placement batch or the final
+# wait for the copy streams.
+
+RESTORE_PHASE_SECONDS = "restore_phase_seconds"
+
+# -- checkpoint threads (scheduler.py, snapshot.py, storage_plugins/fs.py) ----
+#
+# Storage service time: one blocking storage call on its worker thread,
+# without the executor queue and the event loop that storage_*_seconds
+# include. Thread CPU: ``time.thread_time()`` of each checkpoint thread's
+# unit of work, counted once per thread at the outermost unit (label
+# ``role``: snapshot-commit | ts-stage | ts-consume | storage). It is
+# what the checkpoint's threads burned beside training, not a GIL wait.
+
+STORAGE_READ_SERVICE_SECONDS = "storage_read_service_seconds"
+STORAGE_WRITE_SERVICE_SECONDS = "storage_write_service_seconds"
+CHECKPOINT_THREAD_CPU_SECONDS_TOTAL = "checkpoint_thread_cpu_seconds_total"
+
+# -- async capture (io_preparer.py) ------------------------------------------
+#
+# Card bytes that an async take's on-device clones hold, counted at the
+# capture, and bytes x seconds from the capture until the drain drops
+# the clone.
+
+ASYNC_CAPTURE_DEVICE_BYTES_TOTAL = "async_capture_device_bytes_total"
+ASYNC_CAPTURE_DEVICE_BYTE_SECONDS_TOTAL = "async_capture_device_byte_seconds_total"
 
 # -- reports / sinks (telemetry/sink.py) -------------------------------------
 
@@ -243,6 +281,24 @@ SPAN_RESTORE = "snapshot:restore"
 SPAN_ASYNC_TAKE_STAGE = "snapshot:async_take:stage"
 SPAN_ASYNC_TAKE_COMMIT = "snapshot:async_take:commit"
 SPAN_ASYNC_RESTORE_READS = "snapshot:async_restore:reads"
+
+# manager.py: the public calls (each closes with one observation of
+# MANAGER_CALL_SECONDS), the rank-0 commit with its GC nested inside, and
+# the post-commit bookkeeping (both observed in MANAGER_PHASE_SECONDS)
+SPAN_MANAGER_SAVE = "manager:save"
+SPAN_MANAGER_ASYNC_SAVE = "manager:async_save"
+SPAN_MANAGER_RESTORE = "manager:restore"
+SPAN_MANAGER_COMMIT = "manager:commit"
+SPAN_MANAGER_GC = "manager:gc"
+SPAN_MANAGER_BOOKKEEPING = "manager:bookkeeping"
+
+# snapshot.py plans and placement: a take's plan up to the manifest
+# gather, a restore's plan up to its first read, each placement batch
+# (observed in RESTORE_PHASE_SECONDS) and the hand-off to load_state_dict
+SPAN_TAKE_PLAN = "take:plan"
+SPAN_RESTORE_PLAN = "restore:plan"
+SPAN_RESTORE_PLACE = "restore:place"
+SPAN_RESTORE_APPLY = "restore:apply"
 
 # scheduler.py pipeline stages
 SPAN_PIPELINE_BUDGET_ACQUIRE = "pipeline:budget_acquire"

@@ -14,11 +14,6 @@ Design constraints, in order:
 - **Stable exposition.** Series are keyed ``name{label="value",...}``
   with sorted labels — the Prometheus text convention — so counter
   snapshots, deltas, and the exposition writer all agree on identity.
-
-The registry also hosts the machine-readable *phase-timing channel*
-that predates it (``scheduler._LAST_PHASE_S``): ``record_phase_timing``
-keeps last-writer-wins per-phase wall-clock numbers that
-``scheduler.last_phase_timings()`` still serves as a compatibility shim.
 """
 
 from __future__ import annotations
@@ -85,7 +80,6 @@ class MetricsRegistry:
         self._counters: Dict[_SeriesKey, float] = {}
         self._gauges: Dict[_SeriesKey, float] = {}
         self._histograms: Dict[_SeriesKey, _Histogram] = {}
-        self._last_phase_s: Dict[str, float] = {}
 
     # -- recording -------------------------------------------------------
 
@@ -117,20 +111,6 @@ class MetricsRegistry:
                 hist = _Histogram(buckets or DEFAULT_SECONDS_BUCKETS)
                 self._histograms[key] = hist
             hist.observe(value)
-
-    # -- phase-timing channel (compatibility with scheduler._LAST_PHASE_S)
-
-    def record_phase_timing(self, phase: str, elapsed_s: float) -> None:
-        with self._lock:
-            self._last_phase_s[phase] = round(elapsed_s, 3)
-
-    def last_phase_timings(self) -> Dict[str, float]:
-        with self._lock:
-            return dict(self._last_phase_s)
-
-    def reset_phase_timings(self) -> None:
-        with self._lock:
-            self._last_phase_s.clear()
 
     # -- reading ---------------------------------------------------------
 
@@ -193,4 +173,3 @@ class MetricsRegistry:
             self._counters.clear()
             self._gauges.clear()
             self._histograms.clear()
-            self._last_phase_s.clear()

@@ -64,16 +64,19 @@ def _now_us() -> int:
     return time.time_ns() // 1000
 
 
-def _track_key() -> Tuple[int, int]:
-    """(thread ident, asyncio task id): the unit within which spans are
-    guaranteed to nest like sequential code."""
+def _track_key() -> Tuple[int, str, int]:
+    """(thread ident, thread name, asyncio task id): the unit within which
+    spans are guaranteed to nest like sequential code. The name keeps a
+    thread that reuses a finished thread's ident (a new pool's worker)
+    off the finished thread's track and name."""
     import asyncio
 
     try:
         task = asyncio.current_task()
     except RuntimeError:
         task = None
-    return (threading.get_ident(), id(task) if task is not None else 0)
+    thread = threading.current_thread()
+    return (thread.ident, thread.name, id(task) if task is not None else 0)
 
 
 class _OpenSpan:
@@ -119,7 +122,7 @@ class SpanRecorder:
         self._open: Dict[int, _OpenSpan] = {}
         self._seq = 0
         self._next_token = 0
-        self._tids: Dict[Tuple[int, int], int] = {}
+        self._tids: Dict[Tuple[int, str, int], int] = {}
         self._tid_names: Dict[int, str] = {}
         self.dropped = 0
         # Forward-progress clock: any begin/end/instant refreshes it.
@@ -130,13 +133,13 @@ class SpanRecorder:
 
     # -- recording -------------------------------------------------------
 
-    def _tid_locked(self, key: Tuple[int, int]) -> int:
+    def _tid_locked(self, key: Tuple[int, str, int]) -> int:
         tid = self._tids.get(key)
         if tid is None:
             tid = len(self._tids)
             self._tids[key] = tid
-            label = threading.current_thread().name
-            if key[1]:
+            label = key[1]
+            if key[2]:
                 label = f"{label}:task-{len(self._tids)}"
             self._tid_names[tid] = label
         return tid

@@ -148,7 +148,17 @@ def _worker_main(
             fn = getattr(fn, part)
         fn = getattr(fn, "_ts_inner_fn", fn)
 
-        store = TCPStore("127.0.0.1", port, is_server=(rank == 0))
+        if port is None and rank == 0:
+            # The store binds a port of the kernel's choosing, and the
+            # parent hands it to the other ranks.
+            store = TCPStore("127.0.0.1", 0, is_server=True)
+            conn.send(("port", store.port))
+        else:
+            if port is None:
+                port = conn.recv()
+                if port is None:
+                    raise RuntimeError("rank 0 failed before its store was up")
+            store = TCPStore("127.0.0.1", port, is_server=(rank == 0))
         pg = ProcessGroup(store=store, rank=rank, world_size=world_size)
         extra_args, extra_kwargs = pickle.loads(args)
         result = fn(pg, *extra_args, **extra_kwargs)
@@ -177,11 +187,9 @@ def run_multiprocess(
     for the join) whatever they do.
 
     ``fn`` must be a module-level callable: spawned workers re-import it
-    by qualified name. Pass an explicit ``port`` when juggling other
-    listeners (two sequential :func:`get_free_port` calls can return the
-    same just-released port)."""
-    if port is None:
-        port = get_free_port()
+    by qualified name. Without ``port``, rank 0's store binds a free port
+    itself before any other rank dials it, so that no other process can
+    take the port between its choice and its bind."""
     ctx = mp.get_context("spawn")
     payload = pickle.dumps((tuple(args), kwargs or {}))
     import importlib
@@ -203,15 +211,32 @@ def run_multiprocess(
     deadline = time.monotonic() + timeout
     results: List[Any] = [None] * nproc
     errors: List[str] = []
+    first: Optional[Any] = None  # rank 0's report, if it came before its port
+    if port is None:
+        if conns[0].poll(timeout):
+            first = conns[0].recv()
+        else:
+            first = ("error", f"rank 0: timed out after {timeout}s")
+        bound = first[1] if first[0] == "port" else None
+        if bound is not None:
+            first = None
+        for conn in conns[1:]:
+            try:
+                conn.send(bound)
+            except (BrokenPipeError, OSError):
+                pass
     for rank, conn in enumerate(conns):
-        if conn.poll(max(0.0, deadline - time.monotonic())):
+        if rank == 0 and first is not None:
+            status, payload_out = first
+        elif conn.poll(max(0.0, deadline - time.monotonic())):
             status, payload_out = conn.recv()
-            if status == "ok":
-                results[rank] = pickle.loads(payload_out)
-            else:
-                errors.append(payload_out)
         else:
             errors.append(f"rank {rank}: timed out after {timeout}s")
+            continue
+        if status == "ok":
+            results[rank] = pickle.loads(payload_out)
+        else:
+            errors.append(payload_out)
     # Release the workers only after every rank reported (the rank-0
     # worker hosts the store server for the others).
     for conn in conns:
@@ -231,18 +256,21 @@ def run_multiprocess(
 
 def init_torch_group(pg: ProcessGroup, backend: str = "gloo") -> None:
     """Start ``torch.distributed``'s default group over the same ranks as
-    ``pg`` (rank 0 picks a free port and shares it through ``pg``'s store),
-    so that a worker can build a ``DeviceMesh`` and ``DTensor``s. The
-    package itself moves nothing through this group; end it with
+    ``pg`` (rank 0 binds the group's store on a free port and shares the
+    port through ``pg``'s store), so that a worker can build a
+    ``DeviceMesh`` and ``DTensor``s. The package itself moves nothing
+    through this group; end it with
     ``torch.distributed.destroy_process_group()``."""
     import torch.distributed as dist
 
     from .pg_wrapper import PGWrapper
 
-    port = PGWrapper(pg).broadcast_object(get_free_port() if pg.rank == 0 else None)
-    dist.init_process_group(
-        backend, init_method=f"tcp://127.0.0.1:{port}", rank=pg.rank, world_size=pg.world_size
-    )
+    host, n, leader = "127.0.0.1", pg.world_size, pg.rank == 0
+    store = dist.TCPStore(host, 0, n, True, wait_for_workers=False) if leader else None
+    port = PGWrapper(pg).broadcast_object(store.port if leader else None)
+    if store is None:
+        store = dist.TCPStore(host, port, n, False)
+    dist.init_process_group(backend, store=store, rank=pg.rank, world_size=n)
 
 
 def multiprocess_test(nproc: int):
