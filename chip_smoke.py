@@ -11,7 +11,11 @@ each of which raises on failure (nothing is caught):
    shape, in bf16 and f32, and at the tensor-core kernels' edges (a half
    tile, a chunk with s_k = 2 s_q, the fused-qkv layout; bf16 and f32 at
    d = 64 and 128; f32's split pre-pass is held bit for bit against its
-   plain version). Digest: bit for
+   plain version). The attention backward kernel at the Pythia-160M
+   cell's shape (bf16 (8, 2048, 12, 64), the fused-qkv slices): its f32
+   sums within ``GRAD_TOL`` of ``flash_bwd_blockwise`` on the inputs
+   upcast, its bf16 outputs those sums rounded, timed beside the plain
+   version and SDPA's bf16 backward. Digest: bit for
    bit against the plain version and the host digest, over every dtype the
    port serializes, odd lengths, row ranges, an unaligned tail, an empty
    tensor and a non-contiguous view; then on the train state's own chunk
@@ -53,7 +57,8 @@ each of which raises on failure (nothing is caught):
    with a forward pass before ``wait()``: the live leaves are untouched
    until then and bit-identical after. The kernels' launch counters are set
    to 0 just before the phase and read just after: the path must have
-   launched every kernel.
+   launched every kernel, and every training step's attention backward
+   the backward kernel, once a layer.
 3. **bulk**: take and restore a bulk bf16 state of (16384, 8192) blocks
    (8 GiB by default, ``--bulk-gib 20`` for the reference's 20 GB figure)
    with a bitwise check; then a digest-recording take and an incremental
@@ -761,6 +766,7 @@ def kernel_phase(seed: int) -> dict:
         del qh, kh, vh
     del q, k, v
     torch.cuda.empty_cache()
+    records["flash_bwd"] = bwd_record(seed)
 
     # Gradients through the autograd Function against the dense op, f32,
     # small: the backward is plain torch, the forward the chunk kernel.
@@ -774,6 +780,70 @@ def kernel_phase(seed: int) -> dict:
         torch.testing.assert_close(a.grad, bb.grad, rtol=1e-4, atol=1e-4)
     log("kernel flash_chunk: autograd gradients match the dense op (tol 1e-4)")
     return records
+
+
+# The backward kernel's record: the Pythia-160M cell's attention call.
+BWD_SHAPE = (8, 2048, 12, 64)
+
+
+def bwd_record(seed: int) -> dict:
+    """The backward kernel at ``BWD_SHAPE`` (bf16, q, k, v the fused-qkv
+    slices) against its plain version, then timed: back to back, behind a
+    spin (card ms, host us), the plain version, and SDPA's bf16 backward
+    (its graph kept, the backward alone). The bound counts the kernel's
+    products with the split terms: S and dP once, dV, dK and dQ twice
+    (their f32 operand as two bf16 terms), each b h s^2 d FLOPs under the
+    causal mask, against q, k, v, dO, o, m, l read and dq, dk, dv written
+    once."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = BWD_SHAPE
+    q, k, v = _qkv(BWD_SHAPE, torch.bfloat16, seed, True)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(BWD_SHAPE, generator=g, device="cuda").to(torch.bfloat16)
+    errs = fa.compare_bwd_with_plain(q, k, v, do)
+    o_u, m, l = fa.flash_attention_chunk(q, k, v, causal=True)
+    o = o_u / l[..., None]
+    del o_u
+
+    def kernel():
+        return fa.flash_bwd(q, k, v, m, l, o, do)
+
+    qh, kh, vh = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    doh = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+
+    flops = 8.0 * b * h * s * s * d
+    nbytes = 7 * b * s * h * d * 2 + b * h * s * d * 4 + 2 * b * h * s * 4
+    op_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {
+        "ms": cuda_ms(kernel),
+        "plain_ms": cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, m, l, o, do), iters=3),
+        "library_ms": cuda_ms(sdpa_bwd),
+        "bound_ms": max(op_ms, bytes_ms),
+        "bound_by": "operations" if op_ms > bytes_ms else "bytes",
+        "max_abs_err": max(errs.values()),
+    }
+    rec["device_ms"], rec["host_us"] = held_times(kernel)
+    library_device_ms, _ = held_times(sdpa_bwd)
+    log(
+        f"kernel flash_bwd {BWD_SHAPE} bf16 fused-qkv: {rec['ms']:.4f} ms back to back, "
+        f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s with the split terms; device "
+        f"{rec['device_ms']:.4f} ms, host {rec['host_us']:.1f} us per call (plain "
+        f"{rec['plain_ms']:.4f} ms, SDPA backward {rec['library_ms']:.4f} ms, device "
+        f"{library_device_ms:.4f} ms; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}: "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), max |err| of the f32 sums "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (atol {fa.GRAD_TOL} of each gradient's largest); bf16 outputs the f32 sums rounded"
+    )
+    return rec
 
 
 def _digest_case_specs(seed: int) -> list:
@@ -1545,6 +1615,12 @@ KERNEL_SOURCES = {
         "torchsnapshot_tpu_torch/csrc/flash_attention.cu",
         "torchsnapshot_tpu/ops/flash_attention.py:395",
     ),
+    # The attention backward: no Pallas kernel, the pure-lax
+    # _flash_bwd_blockwise at the line named.
+    "flash_bwd": (
+        "torchsnapshot_tpu_torch/csrc/flash_attention.cu",
+        "torchsnapshot_tpu/ops/flash_attention.py:260",
+    ),
     # The chunk kernel's unmasked mode (a ring step's block behind the
     # queries), timed at a ring step's shape; its launches are the ring
     # phase's unmasked ones (flash_chunk counts both modes).
@@ -1555,7 +1631,7 @@ KERNEL_SOURCES = {
 }
 # The kernels the main path must launch (it trains in bf16: no f32 entry,
 # so no split pre-pass).
-MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "device_digest")
+MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "flash_bwd", "device_digest")
 
 
 def main() -> int:
@@ -1795,6 +1871,12 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     _require(
         fa.launch_counts["flash_chunk"] == cfg.n_layers * STEPS,
         f"training launched the chunk kernel {fa.launch_counts['flash_chunk']} times",
+    )
+    _require(
+        fa.launch_counts["flash_bwd"] == cfg.n_layers * STEPS
+        and fa.backward_paths == {"kernel": cfg.n_layers * STEPS, "plain": 0},
+        f"training launched the backward kernel {fa.launch_counts['flash_bwd']} times, "
+        f"backward paths {fa.backward_paths}",
     )
     n_params = sum(p.numel() for p in state.model.parameters())
     state_bytes = sum(

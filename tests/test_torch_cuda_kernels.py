@@ -331,3 +331,88 @@ def test_cuda_pack_with_a_layout_matches_plain_version(case) -> None:
     assert torch.equal(packed, plain)
     assert dp.launch_counts["device_pack"] == before[0] + 1
     assert dp.copy_counts["device_pack_contiguous"] == before[1] + len(copies)
+
+
+# The backward kernel's cases: (b, s, h, q/k/v as slices of one fused
+# projection). The cells' shapes (Pythia-160M and -410M micro-batches), one
+# 64-row tile, sequences of 64 but not 128 (a half tile), and the model's
+# strided slices.
+BWD_CASES = {
+    "pythia-160m": (8, 2048, 12, True),
+    "pythia-410m": (4, 2048, 16, True),
+    "one-tile-64": (2, 64, 4, False),
+    "half-tile-192": (2, 192, 4, False),
+    "half-tile-320": (1, 320, 2, False),
+    "qkv-slices-256": (2, 256, 4, True),
+}
+
+
+def _bwd_inputs(case: str, seed: int = 0):
+    """bf16 q, k, v (the fused layout's slices where the case says so) and
+    an upstream gradient, on the card."""
+    b, s, h, fused_qkv = BWD_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if fused_qkv:
+        q, k, v = torch.randn((b, s, 3, h, 64), generator=g, device="cuda").to(torch.bfloat16).unbind(2)
+    else:
+        q, k, v = (torch.randn((b, s, h, 64), generator=g, device="cuda").to(torch.bfloat16) for _ in "qkv")
+    return q, k, v, torch.randn((b, s, h, 64), generator=g, device="cuda").to(torch.bfloat16)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_bwd_kernel_matches_plain_version(case) -> None:
+    """dQ, dK, dV of the backward kernel against flash_bwd_blockwise on the
+    same bf16 inputs upcast to f32: the kernel's f32 sums within GRAD_TOL of
+    each gradient's largest magnitude, its bf16 outputs those sums rounded
+    (``fa.compare_bwd_with_plain``; the reasoning beside ``fa.GRAD_TOL``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    before = dict(fa.launch_counts)
+    errs = fa.compare_bwd_with_plain(*_bwd_inputs(case))
+    assert sorted(errs) == ["dk", "dq", "dv"]
+    assert fa.launch_counts["flash_bwd"] == before["flash_bwd"] + 2
+    assert fa.launch_counts["flash_chunk"] == before["flash_chunk"] + 1
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", ["pythia-160m", "half-tile-192", "qkv-slices-256"])
+def test_bwd_kernel_is_deterministic(case) -> None:
+    """Two calls on the same inputs give the same bits (no atomics, a fixed
+    summation order), in bf16 and in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, do = _bwd_inputs(case, seed=1)
+    o_u, m, l = fa.flash_attention_chunk(q, k, v, True, 64, 64)
+    o = o_u / l[..., None]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        first = fa.flash_bwd(q, k, v, m, l, o, do, out_dtype)
+        second = fa.flash_bwd(q, k, v, m, l, o, do, out_dtype)
+        for a, b in zip(first, second):
+            assert a.dtype == out_dtype and a.is_contiguous()
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", ["qkv-slices-256", "pythia-160m"])
+def test_bwd_autograd_matches_the_dense_op(case) -> None:
+    """flash_causal_attention(...).backward(g) on bf16 inputs takes the
+    kernel, and its gradients match the dense causal_attention's on f32
+    copies of the same inputs: within one bf16 rounding (2^-8 of the value
+    covers half an ulp with room) plus GRAD_TOL of the largest gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torchsnapshot_tpu_torch.ops import causal_attention
+
+    q, k, v, g = _bwd_inputs(case, seed=2)
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    before = dict(fa.backward_paths)
+    fa.flash_causal_attention(q, k, v).backward(g)
+    causal_attention(*ref).backward(g.float())
+    assert fa.backward_paths == {"kernel": before["kernel"] + 1, "plain": before["plain"]}
+    for got, want in zip((q, k, v), ref):
+        assert got.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            got.grad.float(), want.grad, rtol=2.0**-8, atol=fa.GRAD_TOL * want.grad.abs().max().item()
+        )

@@ -9,6 +9,7 @@ chip_smoke.py does the same at the main path's shapes); what the kernels
 refuse is tested here.
 """
 
+import math
 import re
 
 import jax
@@ -389,3 +390,185 @@ def test_tf32x3_emulation_needs_both_the_split_and_the_permutation() -> None:
     right = fa.permute_keys(p) @ (vts[0] + vts[1]).transpose(-1, -2)
     assert (wrong - right).abs().max() > 100 * fa.F32_TOL
     assert (right - p @ v.transpose(1, 2)).abs().max() < fa.F32_TOL
+
+
+# ----------------------------------------------------------------------
+# The backward: which path each input takes, what the kernel refuses, and
+# the kernel's split arithmetic against the plain backward
+# ----------------------------------------------------------------------
+
+# (device type, dtype, seq, head dim) -> whether the backward kernel takes it
+BWD_ROUTES = {
+    "card-bf16-d64": ("cuda", torch.bfloat16, 2048, 64, True),
+    "card-bf16-half-tile-192": ("cuda", torch.bfloat16, 192, 64, True),
+    "card-f32": ("cuda", torch.float32, 2048, 64, False),
+    "cpu-bf16": ("cpu", torch.bfloat16, 2048, 64, False),
+    "card-bf16-d128": ("cuda", torch.bfloat16, 2048, 128, False),
+    "card-bf16-d32": ("cuda", torch.bfloat16, 256, 32, False),
+    "card-bf16-seq-96": ("cuda", torch.bfloat16, 96, 64, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_ROUTES))
+def test_backward_routes_by_what_it_observes(case) -> None:
+    device_type, dtype, s, d, takes = BWD_ROUTES[case]
+    assert fa._bwd_kernel_takes(device_type, dtype, s, d) is takes
+
+
+# (dtype, head dim, whether the router sees a card) -> the path taken
+BWD_PATHS = {
+    "card-like-bf16": (torch.bfloat16, 64, True, "kernel"),
+    "card-like-f32": (torch.float32, 64, True, "plain"),
+    "card-like-bf16-d32": (torch.bfloat16, 32, True, "plain"),
+    "cpu-bf16": (torch.bfloat16, 64, False, "plain"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_PATHS))
+def test_backward_takes_the_kernel_entry_or_the_blockwise_one(monkeypatch, case) -> None:
+    """Under autograd, the backward of flash_causal_attention goes to the
+    kernel entry (flash_bwd) for bf16 at d = 64 on a card, and to
+    flash_bwd_blockwise for anything else; backward_paths counts each.
+    The router is shown CPU tensors as a card's (device type "cuda") where
+    the case says so; the kernel entry is recorded, not run."""
+    dtype, d, card, path = BWD_PATHS[case]
+    calls = []
+    real_takes, real_blockwise = fa._bwd_kernel_takes, fa.flash_bwd_blockwise
+    if card:
+        monkeypatch.setattr(fa, "_bwd_kernel_takes", lambda _, *a: real_takes("cuda", *a))
+    monkeypatch.setattr(
+        fa, "flash_bwd",
+        lambda q, *a: calls.append("kernel") or tuple(torch.zeros_like(q) for _ in "qkv"),
+    )
+    monkeypatch.setattr(
+        fa, "flash_bwd_blockwise", lambda *a: calls.append("plain") or real_blockwise(*a)
+    )
+    q, k, v = (t.to(dtype).requires_grad_() for t in _t(_qkv(15, (1, 128, 2, d))))
+    fa.reset_launch_counts()
+    fa.flash_causal_attention(q, k, v).float().sum().backward()
+    assert calls == [path]
+    assert fa.backward_paths == {"kernel": int(path == "kernel"), "plain": int(path == "plain")}
+    assert q.grad.shape == q.shape and q.grad.dtype == dtype
+    fa.reset_launch_counts()
+    assert fa.backward_paths == {"kernel": 0, "plain": 0}
+
+
+def _bf16_qkvg(seed: int, shape=(1, 128, 2, 64)):
+    """bf16 q, k, v and an upstream gradient on the CPU, from a seed."""
+    return [t.to(torch.bfloat16) for t in _t(_qkv(seed, shape) + _qkv(seed + 1, shape)[:1])]
+
+
+def test_backward_counts_no_launch_on_the_cpu() -> None:
+    """The kernel entry on CPU tensors runs the plain version and counts no
+    launch; reset_launch_counts zeroes the backward's counters too."""
+    q, k, v, do = _bf16_qkvg(16)
+    o_u, m, l = fa.flash_attention_chunk(q, k, v, causal=True)
+    o = o_u / l[..., None]
+    fa.reset_launch_counts()
+    got = fa.flash_bwd(q, k, v, m, l, o, do)
+    want = fa.flash_bwd_plain(q, k, v, m, l, o, do)
+    assert all(torch.equal(g, w) and g.dtype == torch.bfloat16 for g, w in zip(got, want))
+    assert fa.launch_counts["flash_bwd"] == 0
+    fa.launch_counts["flash_bwd"] = 3
+    fa.backward_paths["kernel"] = 2
+    fa.reset_launch_counts()
+    assert fa.launch_counts["flash_bwd"] == 0 and fa.backward_paths["kernel"] == 0
+
+
+def test_compare_bwd_with_plain_runs_on_the_cpu() -> None:
+    """On CPU tensors both sides are the plain version: they agree exactly."""
+    q, k, v, do = _bf16_qkvg(18)
+    before = dict(fa.launch_counts)
+    assert fa.compare_bwd_with_plain(q, k, v, do) == {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    assert fa.launch_counts == before
+
+
+def _bwd_args(shape=(2, 128, 2, 64), do=None, o=None, m=None, l=None, qkv=None):
+    """(q, k, v, m, l, o, do) that the backward kernel takes, on the CPU,
+    with any of them replaced."""
+    b, s, h, d = shape
+    q, k, v = qkv if qkv is not None else [_bf16(shape)] * 3
+    stats = torch.zeros((b, h, s))
+    return (
+        q, k, v, stats if m is None else m, stats if l is None else l,
+        torch.zeros((b, h, s, d)) if o is None else o, _bf16(shape) if do is None else do,
+    )
+
+
+# What the backward kernel refuses (beside what the forward kernels refuse,
+# which its check runs first); each names a piece of the message.
+BWD_REFUSALS = {
+    "f32": (lambda: _bwd_args(qkv=[torch.zeros((2, 128, 2, 64))] * 3), "takes bfloat16"),
+    "head-dim-128": (lambda: _bwd_args((2, 128, 2, 128)), "head dims (64,)"),
+    "q-strided-head-dim": (lambda: _bwd_args(qkv=[_bf16((2, 128, 2, 128))[..., ::2]] * 3),
+                           "contiguous head dim"),
+    "kv-longer-than-q": (lambda: _bwd_args(qkv=(_bf16((2, 128, 2, 64)),) + (_bf16((2, 256, 2, 64)),) * 2),
+                         "as long as q"),
+    "do-shape": (lambda: _bwd_args(do=_bf16((2, 192, 2, 64))), "do must match q"),
+    "do-f32": (lambda: _bwd_args(do=torch.zeros((2, 128, 2, 64))), "do must match q"),
+    "do-strided-head-dim": (lambda: _bwd_args(do=_bf16((2, 128, 2, 128))[..., ::2]), "contiguous head dim"),
+    "do-base-off-16-bytes": (lambda: _bwd_args(do=_offset_by_one((2, 128, 2, 64))), "16-byte-aligned"),
+    "do-seq-stride-off-16-bytes": (
+        lambda: _bwd_args(do=_bf16(2 * 128 * 132).as_strided((2, 128, 2, 64), (128 * 132, 132, 64, 1))),
+        "16-byte-aligned"),
+    "o-in-the-inputs-layout": (lambda: _bwd_args(o=torch.zeros((2, 128, 2, 64))), "o must be contiguous float32"),
+    "m-bf16": (lambda: _bwd_args(m=_bf16((2, 2, 128))), "m must be contiguous float32"),
+    "l-not-contiguous": (lambda: _bwd_args(l=torch.zeros((2, 128, 2)).transpose(1, 2)),
+                         "l must be contiguous float32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_REFUSALS))
+def test_bwd_input_check_refuses(case) -> None:
+    make, message = BWD_REFUSALS[case]
+    with pytest.raises(ValueError, match=re.escape(message)):
+        fa._check_bwd_inputs(*make())
+
+
+def test_bwd_input_check_accepts_the_models_slices() -> None:
+    """q, k, v as the strided slices of one fused projection, as the model
+    passes them, and a half tile."""
+    fa._check_bwd_inputs(*_bwd_args(qkv=_bf16((2, 128, 3, 2, 64)).unbind(2)))
+    fa._check_bwd_inputs(*_bwd_args((2, 192, 2, 64)))
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernel feeds an f32 operand to the tensor cores: two bf16
+    terms, hi = bf16(x) and lo = bf16(x - hi), summed in f32."""
+    hi = _round_bf16(x)
+    return hi + _round_bf16(x - hi)
+
+
+def _split_bwd(q, k, v, m, l, o, do, operand=_split_bf16):
+    """The backward kernel's arithmetic, emulated in f32 (all (b, h, s, d)):
+    bf16 operands, P from lse2 = m log2(e) + log2(l) through exp2, and P, dS
+    into their products as ``operand`` makes them (two bf16 terms each)."""
+    s, d = q.shape[2], q.shape[3]
+    scale = d**-0.5
+    lse2 = m * math.log2(math.e) + torch.log2(l)
+    logits = scale * (q @ k.transpose(-1, -2))
+    p = torch.exp2(logits * math.log2(math.e) - lse2[..., None])
+    p = torch.where(torch.ones(s, s, dtype=torch.bool).tril(), p, 0.0)
+    ds = p * (do @ v.transpose(-1, -2) - (do * o).sum(-1, keepdim=True))
+    p2, ds2 = operand(p), operand(ds)
+    return scale * ds2 @ k, scale * ds2.transpose(-1, -2) @ q, p2.transpose(-1, -2) @ do
+
+
+def test_split_backward_emulation_is_within_grad_tol() -> None:
+    """GRAD_TOL has room: the kernel's split arithmetic lands within it of
+    flash_bwd_blockwise on the same bf16 inputs upcast to f32, while one
+    bf16 rounding of P and dS (no lo term) misses it in every gradient."""
+    q, k, v, do = _bf16_qkvg(20, (1, 512, 2, 64))
+    o_u, m, l = fa.flash_attention_chunk(q, k, v, causal=True)
+    o = o_u / l[..., None]
+    up = [x.transpose(1, 2).float() for x in (q, k, v, do)]
+    want = fa.flash_bwd_blockwise(*up[:3], m, l, o, up[3], 128)
+    got = _split_bwd(*up[:3], m, l, o, up[3])
+    once = _split_bwd(*up[:3], m, l, o, up[3], operand=_round_bf16)
+    for g, g_once, w in zip(got, once, want):
+        assert (g - w).abs().max() <= fa.GRAD_TOL * w.abs().max()
+        assert (g_once - w).abs().max() > fa.GRAD_TOL * w.abs().max()

@@ -96,6 +96,32 @@
 //   - Everything else (the persistent walk, TMA ring, turns, online softmax,
 //     epilogue) is the bf16 design's code, and the summation order is fixed:
 //     the same inputs give the same bits.
+//
+// Backward (ts_flash_bwd, namespace hopper::bwd; bf16, d = 64). It replaces
+// no Pallas kernel: torchsnapshot_tpu/ops/flash_attention.py's
+// _flash_bwd_blockwise (:260) is pure lax, and flash_bwd_blockwise is its
+// plain torch version. From the forward's saved o, m, l: P = exp(scale q k^T
+// - m) / l under the causal mask, D = rowsum(dO o), dS = P (dO v^T - D),
+// dQ = scale dS k, dK = scale dS^T q, dV = P^T dO.
+//   - Bound: five products of b h s^2 d FLOPs each under the mask; with P
+//     and dS fed as two bf16 terms (below) dV, dK and dQ count twice, 8 in
+//     all: 206 GFLOP at (8, 2048, 12, 64), 0.21 ms at 989 TFLOP/s, against
+//     226 MB of inputs and outputs (0.07 ms). The operations bound it.
+//   - A pre-pass kernel writes each row's (lse2 = m log2(e) + log2(l), D),
+//     8 bytes a row. Then two persistent TMA + wgmma kernels on the
+//     forward's pipeline (2 consumer warpgroups + 1 producer): dK/dV over
+//     128-key items, each warpgroup 64 keys, walking 64-row q steps from the
+//     diagonal down (Q, dO and the rows' stats stream through a ring); dQ
+//     over 128-row q items, walking 64-key tiles up to the diagonal and
+//     recomputing P and dS (a fixed summation order without atomics, at
+//     the price of S and dP twice). Tiles above the diagonal are never
+//     visited; elements above it on the diagonal tiles are zeroed.
+//   - S and dP take bf16 operands from shared memory (exact products, f32
+//     sums). dV += P^T dO, dK += dS^T q and dQ += dS k take P or dS from the
+//     registers as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi), into
+//     one f32 accumulator, as the forward's P V: 2^-16 of each value left.
+//   - No f32 copies of q, k, v, dO and no s^2 temporaries in device memory;
+//     the gradients are rounded once, into (b, s, h, d) tensors.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -265,6 +291,22 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d[32] (+)= A (64x16, shared, K-major) * B (16x64, shared, K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : TS_F32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d[32] += A (64x16, registers) * B (16x64, shared, MN-major).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -373,6 +415,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// An m64nN accumulator as the bf16 A fragments of the next product, each
+// value as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi): k16 step kk
+// is x[8kk .. 8kk+7], in pairs.
+template <int N>
+__device__ __forceinline__ void split_bf16(const float (&x)[N], uint32_t (&hi)[N / 8][4],
+                                           uint32_t (&lo)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x0 = x[8 * kk + 2 * j], x1 = x[8 * kk + 2 * j + 1];
+      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(x0, x1);
+      hi[kk][j] = *reinterpret_cast<const uint32_t*>(&hi2);
+      lo[kk][j] = pack_bf16(x0 - __low2float(hi2), x1 - __high2float(hi2));
+    }
+}
+
 // One unit of a block's work: the (q tile, batch*head) pair and its key
 // tiles. Items are numbered heaviest causal q tile first and dealt out in
 // rounds of gridDim.x, in alternating directions, which evens out the
@@ -439,10 +498,12 @@ struct Bf16 {
     return encode4(&m->q, q, qs, b, h, s_q) && encode4(&m->k, k, kvs, b, h, s_k) &&
            encode4(&m->v, v, kvs, b, h, s_k);
   }
-  static bool encode4(CUtensorMap* map, const void* base, Strides st, int b, int h, int s) {
+  // Boxes of `rows` rows (the backward kernels stream 64-row tiles).
+  static bool encode4(CUtensorMap* map, const void* base, Strides st, int b, int h, int s,
+                      int rows = kTile) {
     const uint64_t sizes[4] = {(uint64_t)D, (uint64_t)h, (uint64_t)s, (uint64_t)b};
     uint64_t strides[3] = {(uint64_t)st.h * 2, (uint64_t)st.s * 2, (uint64_t)st.b * 2};
-    const cuuint32_t box[4] = {kBoxCols, 1, kTile, 1};
+    const cuuint32_t box[4] = {kBoxCols, 1, (cuuint32_t)rows, 1};
     return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, base, sizes, strides, box);
   }
 
@@ -495,15 +556,7 @@ struct Bf16 {
   // product: key step kk is s[8kk .. 8kk+7], in pairs.
   __device__ static void split(const float (&s)[64], uint32_t (&p_hi)[kPSteps][4],
                                uint32_t (&p_lo)[kPSteps][4]) {
-#pragma unroll
-    for (int kk = 0; kk < kPSteps; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x0 = s[8 * kk + 2 * j], x1 = s[8 * kk + 2 * j + 1];
-        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(x0, x1);
-        p_hi[kk][j] = *reinterpret_cast<const uint32_t*>(&hi2);
-        p_lo[kk][j] = pack_bf16(x0 - __low2float(hi2), x1 - __high2float(hi2));
-      }
+    split_bf16(s, p_hi, p_lo);
   }
 
   __device__ static void store2(Out* p, float a, float b) {
@@ -1003,6 +1056,440 @@ cudaError_t launch(const void* q, const void* k, const void* v, Strides qs, Stri
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Causal attention backward, bf16, d = 64: a pre-pass and two TMA + wgmma
+// kernels on the forward's helpers (the ring, mbarriers, wgmma wrappers)
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+constexpr int kD = 64;                      // head dim (one 128-byte swizzle row)
+constexpr int kStep = 64;                   // rows of a streamed tile: q rows or keys
+constexpr int kStages = 4;                  // depth of the streamed tiles' ring
+constexpr int kBox128 = kTile * kRowBytes;  // [128 rows][64 bf16]: 16 KiB
+constexpr int kBox64 = kStep * kRowBytes;   // [64 rows][64 bf16]: 8 KiB
+constexpr int kStatBytes = kStep * 8;       // (lse2, D) of 64 rows
+
+// q, k, v and dO, each a 4-D (d, h, s, b) map over its own strides; the box
+// rows differ by kernel (the item's tile: 128 rows, the streamed tile: 64).
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// One bulk copy of `bytes` contiguous bytes into shared memory.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float4 lds4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Two adjacent output values, bf16 (the training path) or f32 (the f32 sums
+// before that one rounding, for the tests).
+__device__ __forceinline__ void store2(void* out, int64_t i, float a, float b, int out_f32) {
+  if (out_f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) = make_float2(a, b);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + i) =
+        __floats2bfloat162_rn(a, b);
+}
+
+// The pre-pass: row statistics, (b*h*s) float2: x = lse2 = m log2(e) +
+// log2(l), so that P = exp2(logit log2(e) - lse2) = exp(logit - m) / l;
+// y = D = rowsum(dO * O). Eight threads a row, 8 head dims each, summed in a
+// fixed order, so the same inputs give the same bits.
+__global__ void __launch_bounds__(256)
+flash_bwd_stats_kernel(const float* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ m, const float* __restrict__ l, Strides ds,
+                       int h, int s, float2* __restrict__ stats) {
+  const int r = blockIdx.x * 32 + (threadIdx.x >> 3), part = threadIdx.x & 7;
+  const int bh = r / s, row = r - bh * s, bi = bh / h, hi = bh - bi * h;
+  const float4* op = reinterpret_cast<const float4*>(o + (int64_t)r * kD + part * 8);
+  const uint4 raw =
+      *reinterpret_cast<const uint4*>(dout + bi * ds.b + row * ds.s + hi * ds.h + part * 8);
+  const __nv_bfloat162* g = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float4 o0 = op[0], o1 = op[1];
+  const float2 g0 = __bfloat1622float2(g[0]), g1 = __bfloat1622float2(g[1]);
+  const float2 g2 = __bfloat1622float2(g[2]), g3 = __bfloat1622float2(g[3]);
+  float acc = o0.x * g0.x;
+  acc = fmaf(o0.y, g0.y, acc);
+  acc = fmaf(o0.z, g1.x, acc);
+  acc = fmaf(o0.w, g1.y, acc);
+  acc = fmaf(o1.x, g2.x, acc);
+  acc = fmaf(o1.y, g2.y, acc);
+  acc = fmaf(o1.z, g3.x, acc);
+  acc = fmaf(o1.w, g3.y, acc);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  if (part == 0) stats[r] = make_float2(m[r] * kLog2e + log2f(l[r]), acc);
+}
+
+// P and dS of one m64n64 tile, in place: p = exp2(logit log2(e) - lse2),
+// zero where masked; ds = p (dp - D). `stat(i, e)` is the (lse2, D) of
+// accumulator element 4i + e; `masked(i, e)` is asked only when `edge`.
+template <class Stat, class Masked>
+__device__ __forceinline__ void probs_and_ds(float (&s)[32], float (&dp)[32], float scale_log2,
+                                             bool edge, Stat stat, Masked masked) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 st = stat(i, e);
+      float p = exp2_approx(fmaf(s[4 * i + e], scale_log2, -st.x));
+      if (edge && masked(i, e)) p = 0.f;
+      s[4 * i + e] = p;
+      dp[4 * i + e] = p * (dp[4 * i + e] - st.y);
+    }
+}
+
+// d = 64 rows of `a` times the 64-row tile `b`, both K-major over the head
+// dims: 4 k16 steps. Not committed.
+__device__ __forceinline__ void start_ss(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss_n64(d, desc_k(a + kk * 32), desc_k(b + kk * 32), kk > 0);
+}
+
+// d += A B, A from registers as two bf16 terms, B a 64-row tile in shared
+// memory, MN-major (its rows are the product's k dimension), as the
+// forward's P V. Not committed.
+__device__ __forceinline__ void start_rs(float (&d)[32], const uint32_t (&hi)[4][4],
+                                         const uint32_t (&lo)[4][4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kStep / 16; ++kk) {
+    const uint64_t desc = desc_sw128(b + kk * 16 * kRowBytes, kBox64, 1024);
+    wgmma_rs(d, hi[kk], desc);
+    wgmma_rs(d, lo[kk], desc);
+  }
+}
+
+// `n` (full, empty) mbarrier pairs, 16 bytes apart: full waits for the
+// producer's loads, empty for one arrival from each consumer warp.
+__device__ __forceinline__ void init_bars(uint32_t bars, int n) {
+  for (int i = 0; i < n; ++i) {
+    mbar_init(bars + 16u * i, 1);
+    mbar_init(bars + 16u * i + 8u, kConsumerWarps);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// dK and dV. Items are (batch*head, 128-key tile) pairs, lowest key tile
+// (the most query rows) first, dealt out as the forward's. Each consumer
+// warpgroup owns 64 keys; the block walks the 64-row q steps from the causal
+// diagonal to the end of the sequence. A step:
+//   S^T = K Q^T, dP^T = V dO^T      (both operands from shared memory)
+//   P^T = exp2(S^T scale log2(e) - lse2), dS^T = P^T (dP^T - D)
+//   dV += P^T dO, dK += dS^T Q      (A from registers as hi + lo)
+// Shared memory: two K/V buffers (the next item's loads overlap this one's
+// walk), then the ring of q steps (Q, dO and their rows' stats).
+struct DkvLayout {
+  static constexpr int kKV = 2 * kBox128;
+  static constexpr int kStage = 2 * kBox64 + 1024;  // Q, dO, stats; keeps 1024 alignment
+  static constexpr int kRing = 2 * kKV;
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr int kSmem = kBars + 16 * (2 + kStages) + 1024;  // + alignment slack
+  static_assert(kSmem <= 232448, "more shared memory than a block may have");
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ Maps maps, const float2* __restrict__ stats, int b,
+                     int h, int s, float scale, void* __restrict__ dk, void* __restrict__ dv,
+                     int out_f32) {
+  using L = DkvLayout;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::kBars;
+  // Barrier pairs: K/V buffers 0 and 1, then the ring's stages.
+  auto kv_full = [&](int slot) { return bars + 16u * slot; };
+  auto kv_empty = [&](int slot) { return bars + 16u * slot + 8u; };
+  auto st_full = [&](int st) { return bars + 16u * (2 + st); };
+  auto st_empty = [&](int st) { return bars + 16u * (2 + st) + 8u; };
+  auto stage = [&](int st) { return base + L::kRing + st * L::kStage; };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bhs = b * h, n_q = s / kStep, n_items = bhs * ((s + kTile - 1) / kTile);
+  if (threadIdx.x == 0) init_bars(bars, 2 + kStages);
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // Producer warpgroup: one lane loads each item's K and V and streams its
+    // q steps through the ring.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == kConsumerWarps && lane == 0) {
+      int n = 0;  // q steps loaded so far: the ring's position
+      for (int iter = 0, w = item_index(0); w < n_items; w = item_index(++iter)) {
+        const int kt = w / bhs, bh = w - kt * bhs, bi = bh / h, hi = bh - bi * h;
+        const int slot = iter & 1;
+        if (iter >= 2) mbar_wait(kv_empty(slot), ((iter >> 1) - 1) & 1);
+        const uint32_t kv = base + slot * L::kKV;
+        mbar_expect_tx(kv_full(slot), 2 * kBox128);
+        tma_load(kv, &maps.k, kv_full(slot), 0, hi, kt * kTile, bi);
+        tma_load(kv + kBox128, &maps.v, kv_full(slot), 0, hi, kt * kTile, bi);
+        for (int j = 2 * kt; j < n_q; ++j, ++n) {
+          const int st = n % kStages, round = n / kStages;
+          if (round > 0) mbar_wait(st_empty(st), (round - 1) & 1);
+          const uint32_t dst = stage(st);
+          mbar_expect_tx(st_full(st), 2 * kBox64 + kStatBytes);
+          tma_load(dst, &maps.q, st_full(st), 0, hi, j * kStep, bi);
+          tma_load(dst + kBox64, &maps.dout, st_full(st), 0, hi, j * kStep, bi);
+          bulk_load(dst + 2 * kBox64, stats + (int64_t)bh * s + j * kStep, kStatBytes,
+                    st_full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = warp >> 2;
+  const int r_in = ((warp & 3) << 4) + (lane >> 2);  // the thread's first key of its 64
+  const int col = (lane & 3) << 1;
+  const float scale_log2 = scale * kLog2e;
+  int n = 0;
+  for (int iter = 0, w = item_index(0); w < n_items; w = item_index(++iter)) {
+    const int kt = w / bhs, bh = w - kt * bhs, bi = bh / h, hi = bh - bi * h;
+    const int slot = iter & 1;
+    const int k0 = kt * kTile + wg * 64;  // the warpgroup's first key
+    const uint32_t k_rows = base + slot * L::kKV + wg * 64 * kRowBytes;
+    const uint32_t v_rows = k_rows + kBox128;
+    float dk_acc[32], dv_acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full(slot), (iter >> 1) & 1);
+    for (int j = 2 * kt; j < n_q; ++j, ++n) {
+      const int st = n % kStages;
+      const uint32_t q_t = stage(st), do_t = q_t + kBox64, stat_t = q_t + 2 * kBox64;
+      const int q0 = j * kStep;
+      mbar_wait(st_full(st), (n / kStages) & 1);
+      __syncwarp();  // lanes leave the spin apart; wgmma needs the warp converged
+      float sacc[32], dpacc[32];
+      wgmma_fence();
+      start_ss(sacc, k_rows, q_t);
+      start_ss(dpacc, v_rows, do_t);
+      wgmma_commit();
+      // The step's stats, (lse2, D) of q rows 8i + col, 8i + col + 1.
+      float4 st4[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) st4[i] = lds4(stat_t + (8 * i + col) * 8);
+      wgmma_wait_all();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      // Element 4i + e: key k0 + r_in + 8 (e >> 1), q row q0 + 8i + col + (e & 1).
+      // Masked: keys past the row (the diagonal steps) or past the sequence.
+      probs_and_ds(
+          sacc, dpacc, scale_log2, q0 < k0 + 64 || k0 + 64 > s,
+          [&](int i, int e) {
+            return (e & 1) ? make_float2(st4[i].z, st4[i].w) : make_float2(st4[i].x, st4[i].y);
+          },
+          [&](int i, int e) {
+            const int key = k0 + r_in + 8 * (e >> 1);
+            return key > q0 + 8 * i + col + (e & 1) || key >= s;
+          });
+      uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+      split_bf16(sacc, p_hi, p_lo);
+      split_bf16(dpacc, ds_hi, ds_lo);
+      wgmma_fence();
+      start_rs(dv_acc, p_hi, p_lo, do_t);
+      start_rs(dk_acc, ds_hi, ds_lo, q_t);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(st_empty(st));
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kv_empty(slot));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + r_in + 8 * r;
+      if (key >= s) continue;
+      const int64_t at = (((int64_t)bi * s + key) * h + hi) * kD + col;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        store2(dv, at + 8 * i, dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1], out_f32);
+        store2(dk, at + 8 * i, scale * dk_acc[4 * i + 2 * r], scale * dk_acc[4 * i + 2 * r + 1],
+               out_f32);
+      }
+    }
+  }
+}
+
+// dQ. Items are (batch*head, 128-row q tile) pairs, heaviest first, dealt
+// out as the forward's. Each consumer warpgroup owns 64 rows; the block walks
+// the 64-key tiles up to the diagonal, recomputing P and dS:
+//   S = Q K^T, dP = dO V^T, P = exp2(S scale log2(e) - lse2),
+//   dS = P (dP - D), dQ += dS K.
+// Shared memory: two Q/dO buffers, then the ring of K/V tiles.
+struct DqLayout {
+  static constexpr int kQD = 2 * kBox128;
+  static constexpr int kStage = 2 * kBox64;
+  static constexpr int kRing = 2 * kQD;
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr int kSmem = kBars + 16 * (2 + kStages) + 1024;
+  static_assert(kSmem <= 232448, "more shared memory than a block may have");
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ Maps maps, const float2* __restrict__ stats, int b,
+                    int h, int s, float scale, void* __restrict__ dq, int out_f32) {
+  using L = DqLayout;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::kBars;
+  // Barrier pairs: Q/dO buffers 0 and 1, then the ring's stages.
+  auto q_full = [&](int slot) { return bars + 16u * slot; };
+  auto q_empty = [&](int slot) { return bars + 16u * slot + 8u; };
+  auto kv_full = [&](int st) { return bars + 16u * (2 + st); };
+  auto kv_empty = [&](int st) { return bars + 16u * (2 + st) + 8u; };
+  auto stage = [&](int st) { return base + L::kRing + st * L::kStage; };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bhs = b * h, n_qt = (s + kTile - 1) / kTile, n_k = s / kStep;
+  const int n_items = bhs * n_qt;
+  if (threadIdx.x == 0) init_bars(bars, 2 + kStages);
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == kConsumerWarps && lane == 0) {
+      int n = 0;
+      for (int iter = 0, w = item_index(0); w < n_items; w = item_index(++iter)) {
+        const Item it = item_at<true>(w, bhs, h, n_qt, n_k, kStep);
+        const int slot = iter & 1;
+        if (iter >= 2) mbar_wait(q_empty(slot), ((iter >> 1) - 1) & 1);
+        const uint32_t qd = base + slot * L::kQD;
+        mbar_expect_tx(q_full(slot), 2 * kBox128);
+        tma_load(qd, &maps.q, q_full(slot), 0, it.hi, it.qt * kTile, it.bi);
+        tma_load(qd + kBox128, &maps.dout, q_full(slot), 0, it.hi, it.qt * kTile, it.bi);
+        for (int t = 0; t < it.n_tiles; ++t, ++n) {
+          const int st = n % kStages, round = n / kStages;
+          if (round > 0) mbar_wait(kv_empty(st), (round - 1) & 1);
+          mbar_expect_tx(kv_full(st), 2 * kBox64);
+          tma_load(stage(st), &maps.k, kv_full(st), 0, it.hi, t * kStep, it.bi);
+          tma_load(stage(st) + kBox64, &maps.v, kv_full(st), 0, it.hi, t * kStep, it.bi);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = warp >> 2;
+  const int r_in = ((warp & 3) << 4) + (lane >> 2);
+  const int col = (lane & 3) << 1;
+  const float scale_log2 = scale * kLog2e;
+  int n = 0;
+  for (int iter = 0, w = item_index(0); w < n_items; w = item_index(++iter)) {
+    const Item it = item_at<true>(w, bhs, h, n_qt, n_k, kStep);
+    const int slot = iter & 1;
+    const int r0 = it.qt * kTile + wg * 64;  // the warpgroup's first row
+    const int row0 = r0 + r_in;              // the thread's rows: row0, row0 + 8
+    // The rows' stats; rows past the sequence (a half tile) read as zeros.
+    float2 st2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      st2[r] = row0 + 8 * r < s ? stats[(int64_t)it.bh * s + row0 + 8 * r] : make_float2(0.f, 0.f);
+    const uint32_t q_rows = base + slot * L::kQD + wg * 64 * kRowBytes;
+    const uint32_t do_rows = q_rows + kBox128;
+    float dq_acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+    mbar_wait(q_full(slot), (iter >> 1) & 1);
+    for (int t = 0; t < it.n_tiles; ++t, ++n) {
+      const int st = n % kStages;
+      const uint32_t k_t = stage(st), v_t = k_t + kBox64;
+      mbar_wait(kv_full(st), (n / kStages) & 1);
+      __syncwarp();
+      float sacc[32], dpacc[32];
+      wgmma_fence();
+      start_ss(sacc, q_rows, k_t);
+      start_ss(dpacc, do_rows, v_t);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      // Element 4i + e: row row0 + 8 (e >> 1), key 64t + 8i + col + (e & 1).
+      const int k0 = t * kStep;
+      probs_and_ds(
+          sacc, dpacc, scale_log2, k0 + kStep - 1 > r0, [&](int, int e) { return st2[e >> 1]; },
+          [&](int i, int e) { return k0 + 8 * i + col + (e & 1) > row0 + 8 * (e >> 1); });
+      uint32_t ds_hi[4][4], ds_lo[4][4];
+      split_bf16(dpacc, ds_hi, ds_lo);
+      wgmma_fence();
+      start_rs(dq_acc, ds_hi, ds_lo, k_t);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty(st));
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty(slot));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= s) continue;
+      const int64_t at = (((int64_t)it.bi * s + row) * h + it.hi) * kD + col;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        store2(dq, at + 8 * i, scale * dq_acc[4 * i + 2 * r], scale * dq_acc[4 * i + 2 * r + 1],
+               out_f32);
+    }
+  }
+}
+
+// The pre-pass, then the two kernels, on one stream: the same inputs give
+// the same bits.
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, Strides qs,
+                   Strides kvs, Strides dos, const float* o, const float* m, const float* l,
+                   float2* stats, void* dq, void* dk, void* dv, int out_f32, int b, int h, int s,
+                   cudaStream_t stream) {
+  if (s % kStep) return cudaErrorInvalidValue;
+  using C = Bf16<kD>;
+  // dK/dV: 128-key items, 64-row q steps; dQ: 128-row items, 64-key steps.
+  Maps a, c;
+  if (!C::encode4(&a.q, q, qs, b, h, s, kStep) || !C::encode4(&a.k, k, kvs, b, h, s) ||
+      !C::encode4(&a.v, v, kvs, b, h, s) || !C::encode4(&a.dout, dout, dos, b, h, s, kStep) ||
+      !C::encode4(&c.q, q, qs, b, h, s) || !C::encode4(&c.k, k, kvs, b, h, s, kStep) ||
+      !C::encode4(&c.v, v, kvs, b, h, s, kStep) || !C::encode4(&c.dout, dout, dos, b, h, s))
+    return cudaErrorInvalidValue;
+  const int rows = b * h * s;  // a multiple of 64
+  flash_bwd_stats_kernel<<<rows / 32, 256, 0, stream>>>(
+      o, static_cast<const __nv_bfloat16*>(dout), m, l, dos, h, s, stats);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const float scale = 1.f / sqrtf((float)kD);
+  const int n_items = b * h * ((s + kTile - 1) / kTile);
+  static std::atomic<int> dkv_sms[kMaxDevices], dq_sms[kMaxDevices];
+  int sms = 0;
+  if ((err = device_setup(dkv_sms, flash_bwd_dkv_kernel, DkvLayout::kSmem, &sms)) != cudaSuccess)
+    return err;
+  flash_bwd_dkv_kernel<<<n_items < sms ? n_items : sms, kThreads, DkvLayout::kSmem, stream>>>(
+      a, stats, b, h, s, scale, dk, dv, out_f32);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = device_setup(dq_sms, flash_bwd_dq_kernel, DqLayout::kSmem, &sms)) != cudaSuccess)
+    return err;
+  flash_bwd_dq_kernel<<<n_items < sms ? n_items : sms, kThreads, DqLayout::kSmem, stream>>>(
+      c, stats, b, h, s, scale, dq, out_f32);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+
 }  // namespace hopper
 
 // ---------------------------------------------------------------------------
@@ -1129,6 +1616,29 @@ int ts_flash_chunk(const void* q, const void* k, const void* v, float* o_acc,
                                         o_acc, m, l, st)
                 : dispatch<false, false>(dtype, d, q, k, v, qs, kvs, b, h, s_q, s_k, nullptr,
                                          o_acc, m, l, st);
+}
+
+// The causal attention backward (bf16, d = 64): q, k, v and dout (b, s, h, d)
+// bf16 read through their strides; o (b, h, s, d), m and l (b, h, s) f32, as
+// the chunk entry's forward left them (o normalized); stats (b, h, s, 2) f32
+// scratch. Writes dq, dk, dv (b, s, h, d) contiguous, bf16 or (out_f32) f32.
+int ts_flash_bwd(const void* q, const void* k, const void* v, const void* dout, const float* o,
+                 const float* m, const float* l, float* stats, void* dq, void* dk, void* dv,
+                 int out_f32, int b, int h, int s, int d, int64_t q_sb, int64_t q_ss,
+                 int64_t q_sh, int64_t kv_sb, int64_t kv_ss, int64_t kv_sh, int64_t do_sb,
+                 int64_t do_ss, int64_t do_sh, void* stream) {
+  if (d != hopper::bwd::kD) return cudaErrorInvalidValue;
+  // The tensor maps are encoded through the driver, which needs a context
+  // current on the calling thread. Autograd runs the backward on a thread of
+  // its own, where the runtime may not have made one current yet:
+  // cudaSetDevice does.
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Strides qs{q_sb, q_ss, q_sh}, kvs{kv_sb, kv_ss, kv_sh}, dos{do_sb, do_ss, do_sh};
+  return hopper::bwd::launch(q, k, v, dout, qs, kvs, dos, o, m, l, reinterpret_cast<float2*>(stats),
+                             dq, dk, dv, out_f32, b, h, s, static_cast<cudaStream_t>(stream));
 }
 
 // The pre-pass of the f32 kernel (d = 64 or 128): reads q (b, s_q, h, d) and

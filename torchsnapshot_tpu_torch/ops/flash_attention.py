@@ -18,9 +18,12 @@ softmax of the Pallas body, in f32. A wrapper runs the plain version only
 for tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
 
 :func:`flash_causal_attention` is the differentiable entry point: under
-autograd it runs the chunk kernel and the blockwise backward
-(:func:`flash_bwd_blockwise`, a plain function as in the JAX package,
-where it is pure lax outside any kernel); otherwise the fused kernel.
+autograd it runs the chunk kernel forward; otherwise the fused kernel. Its
+backward is the kernel pair behind :func:`flash_bwd` (bf16 at d = 64 on the
+card: a dK/dV kernel over key tiles and a dQ kernel over q tiles, on the
+same TMA + wgmma pipeline), which replaces no Pallas kernel: the JAX
+package's backward is pure lax. Every other input takes its plain version,
+:func:`flash_bwd_blockwise`.
 
 Layouts follow the JAX package: q, k, v are ``(batch, seq, heads, dim)``.
 The kernels read them through their strides (the head dim must be
@@ -34,7 +37,8 @@ kernel reads (:func:`flash_split_plain` is its plain version).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -53,15 +57,23 @@ _BF16, _F32_SPLIT = 1, 2
 # TMA (the bf16 kernel's loads) reads from 16-byte-aligned bases and strides.
 _TMA_ALIGN = 16
 
+# Head dims the backward kernel takes (bf16 only; its sequence lengths are
+# the forward's, multiples of _KERNEL_TILE).
+_BWD_HEAD_DIMS = (64,)
+
 # Kernel launches per entry point. Incremented only where a kernel is
-# launched; plain (CPU) runs do not count.
-launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_chunk": 0, "flash_split": 0}
+# launched; plain (CPU) runs do not count. ``flash_bwd`` counts calls of the
+# backward's C entry (its pre-pass and two kernels).
+launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_chunk": 0, "flash_split": 0, "flash_bwd": 0}
 # The chunk kernel's launches by mask mode (they sum to its count above).
 chunk_launches_by_mode: Dict[str, int] = {"causal": 0, "unmasked": 0}
+# The path each backward of flash_causal_attention took: the kernel or the
+# plain flash_bwd_blockwise.
+backward_paths: Dict[str, int] = {"kernel": 0, "plain": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, chunk_launches_by_mode):
+    for counts in (launch_counts, chunk_launches_by_mode, backward_paths):
         for name in counts:
             counts[name] = 0
 
@@ -234,19 +246,64 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
             f"got ({sq}, {k.shape[1]})"
         )
     if q.dtype == torch.bfloat16:
-        # Checked on every launch, so shapes and strides are read once per
-        # tensor; strides are in 2-byte elements. The stride of a dimension
-        # of size 1 is never used, so it may be anything.
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % _TMA_ALIGN or any(
-                n > 1 and st * 2 % _TMA_ALIGN for n, st in zip(t.shape[:3], t.stride()[:3])
-            ):
-                raise ValueError(
-                    f"the bf16 flash kernel loads {name} with TMA, which needs a "
-                    f"{_TMA_ALIGN}-byte-aligned base and strides; got address "
-                    f"{t.data_ptr():#x}, strides {t.stride()} (elements of "
-                    f"{t.element_size()} bytes)"
-                )
+            _check_tma(name, t)
+
+
+def _check_tma(name: str, t: torch.Tensor) -> None:
+    """A bf16 ``(b, s, h, d)`` tensor that a kernel loads with TMA. Checked
+    on every launch, so shapes and strides are read once per tensor; strides
+    are in 2-byte elements. The stride of a dimension of size 1 is never
+    used, so it may be anything."""
+    if t.data_ptr() % _TMA_ALIGN or any(
+        n > 1 and st * 2 % _TMA_ALIGN for n, st in zip(t.shape[:3], t.stride()[:3])
+    ):
+        raise ValueError(
+            f"the bf16 flash kernel loads {name} with TMA, which needs a "
+            f"{_TMA_ALIGN}-byte-aligned base and strides; got address "
+            f"{t.data_ptr():#x}, strides {t.stride()} (elements of "
+            f"{t.element_size()} bytes)"
+        )
+
+
+def _check_bwd_inputs(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+) -> None:
+    """What the backward kernel takes; anything else raises. q, k, v as the
+    forward kernels take them, bf16 at a head dim of ``_BWD_HEAD_DIMS``, k
+    and v as long as q; ``do`` like q (also loaded with TMA); ``o`` ``(b, h,
+    s, d)`` and ``m``, ``l`` ``(b, h, s)``, contiguous f32."""
+    _check_kernel_inputs(q, k, v)
+    b, s, h, d = q.shape
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the backward kernel takes bfloat16, got {q.dtype}")
+    if d not in _BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel takes head dims {_BWD_HEAD_DIMS}, got {d}")
+    if k.shape[1] != s:
+        raise ValueError("the causal backward needs k/v as long as q")
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"do must match q: got {tuple(do.shape)} {do.dtype} on {do.device}, "
+            f"q {tuple(q.shape)} {q.dtype} on {q.device}"
+        )
+    if do.stride(-1) != 1:
+        raise ValueError(f"do must have a contiguous head dim, got strides {do.stride()}")
+    _check_tma("do", do)
+    for name, t, shape in (("o", o, (b, h, s, d)), ("m", m, (b, h, s)), ("l", l, (b, h, s))):
+        if (
+            tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != q.device
+            or not t.is_contiguous()
+        ):
+            raise ValueError(
+                f"{name} must be contiguous float32 {shape} on {q.device}, got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}, strides {t.stride()}"
+            )
 
 
 def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -263,6 +320,8 @@ def _library() -> ctypes.CDLL:
         lib.ts_flash_chunk.restype = i32
         lib.ts_flash_split_f32.argtypes = [ptr] * 6 + [i32] * 5 + [i64] * 6 + [ptr]
         lib.ts_flash_split_f32.restype = i32
+        lib.ts_flash_bwd.argtypes = [ptr] * 11 + [i32] * 5 + [i64] * 9 + [ptr]
+        lib.ts_flash_bwd.restype = i32
         lib._ts_declared = True
     return lib
 
@@ -431,9 +490,84 @@ def flash_bwd_blockwise(
     return dq, torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
 
 
+def flash_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+    block_k: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel: :func:`flash_bwd_blockwise` on
+    the inputs upcast to f32, ``(dq, dk, dv)`` ``(b, s, h, d)`` in
+    ``out_dtype`` (default: each input's dtype). q, k, v, do ``(b, s, h,
+    d)``; m, l ``(b, h, s)`` and o ``(b, h, s, d)`` f32, as the chunk
+    entry's forward leaves them (o normalized). ``block_k`` must divide s
+    (default: the largest power of two up to 128 that does)."""
+    to_h = lambda x: x.transpose(1, 2).float()  # noqa: E731
+    block_k = math.gcd(q.shape[1], 128) if block_k is None else block_k
+    grads = flash_bwd_blockwise(to_h(q), to_h(k), to_h(v), m, l, o, to_h(do), block_k)
+    return tuple(
+        g.transpose(1, 2).to(like.dtype if out_dtype is None else out_dtype)
+        for g, like in zip(grads, (q, k, v))
+    )
+
+
+def flash_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal flash attention backward: ``(dq, dk, dv)``, contiguous ``(b,
+    s, h, d)``. The kernel on a CUDA tensor (bf16, d = 64; its f32 sums are
+    rounded once, to ``out_dtype``: q's dtype, or f32 to see the sums); the
+    plain version on a CPU one. Arguments as :func:`flash_bwd_plain`'s."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, m, l, o, do, out_dtype)
+    _check_bwd_inputs(q, k, v, m, l, o, do)
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the backward kernel writes bfloat16 or float32, not {out_dtype}")
+    b, s, h, d = q.shape
+    lib = _library()
+    dq, dk, dv = (torch.empty((b, s, h, d), dtype=out_dtype, device=q.device) for _ in "qkv")
+    stats = torch.empty((b, h, s, 2), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.ts_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), int(out_dtype == torch.float32), b, h, s, d,
+            *_strides(q), *_strides(k), *_strides(do),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(err, "flash_bwd")
+    launch_counts["flash_bwd"] += 1
+    return dq, dk, dv
+
+
+def _bwd_kernel_takes(device_type: str, dtype: torch.dtype, s: int, d: int) -> bool:
+    """Whether the backward kernel takes inputs of this device type, dtype,
+    sequence length and head dim, which is all the backward observes.
+    Everything else (f32, CPU tensors, other head dims) runs
+    :func:`flash_bwd_blockwise`."""
+    return (
+        device_type == "cuda" and dtype == torch.bfloat16 and d in _BWD_HEAD_DIMS
+        and s % _KERNEL_TILE == 0
+    )
+
+
 class _FlashCausal(torch.autograd.Function):
     """Forward: the chunk kernel (which also yields the stats the backward
-    needs), normalized here. Backward: :func:`flash_bwd_blockwise`."""
+    needs), normalized here. Backward: the kernel behind :func:`flash_bwd`
+    where it takes the inputs, else :func:`flash_bwd_blockwise`."""
 
     @staticmethod
     def forward(ctx, q, k, v, block_q: int, block_k: int):
@@ -448,12 +582,13 @@ class _FlashCausal(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, m, l, o = ctx.saved_tensors
-        to_h = lambda x: x.transpose(1, 2).float()  # noqa: E731
-        dq, dk, dv = flash_bwd_blockwise(
-            to_h(q), to_h(k), to_h(v), m, l, o, to_h(g), ctx.block_k
-        )
-        back = lambda x, like: x.transpose(1, 2).to(like.dtype)  # noqa: E731
-        return back(dq, q), back(dk, k), back(dv, v), None, None
+        if _bwd_kernel_takes(q.device.type, q.dtype, q.shape[1], q.shape[3]):
+            backward_paths["kernel"] += 1
+            dq, dk, dv = flash_bwd(q, k, v, m, l, o, g.contiguous())
+        else:
+            backward_paths["plain"] += 1
+            dq, dk, dv = flash_bwd_plain(q, k, v, m, l, o, g, block_k=ctx.block_k)
+        return dq, dk, dv, None, None
 
 
 def flash_causal_attention(
@@ -511,6 +646,16 @@ FUSED_TOL = {torch.float32: (F32_TOL, F32_TOL), torch.bfloat16: (8e-3, F32_TOL)}
 # top of F32_TOL, and never by more than 1e-4.
 SPLIT_RESIDUAL = 2.0**-16
 SPLIT_TOL_CAP = 1e-4
+# The backward kernel's f32 sums (out_dtype f32) against flash_bwd_blockwise
+# on the same inputs upcast to f32, relative to each gradient's largest
+# magnitude. The kernel feeds P (to dV) and dS (to dK, dQ) to the tensor
+# cores as two bf16 terms, which leave at most SPLIT_RESIDUAL of each; the
+# roundings vary in sign, so a sum over up to s rows or keys moves by a few
+# SPLIT_RESIDUAL of its terms' scale, far below 1e-4 (6.6 SPLIT_RESIDUAL)
+# of the largest gradient. The rest is f32 sums in another order and
+# ex2.approx (2^-22), each some ulps. The bf16 outputs are those f32 sums
+# rounded once (to nearest even): bit for bit the f32 outputs rounded.
+GRAD_TOL = 1e-4
 
 
 def chunk_atol(v: torch.Tensor) -> float:
@@ -550,14 +695,42 @@ def compare_with_plain(
     return rec
 
 
+def compare_bwd_with_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> Dict[str, float]:
+    """Run the chunk entry's causal forward on ``q, k, v`` and, on its
+    stats, the backward kernel (f32 and bf16 outputs) and its plain version
+    (f32): the f32 gradients within GRAD_TOL of each plain gradient's
+    largest magnitude, the bf16 ones the f32 ones rounded, bit for bit;
+    raises on a disagreement. Returns the largest |errors| (``dq``, ``dk``,
+    ``dv``)."""
+    block = math.gcd(q.shape[1], 128)
+    o_u, m, l = flash_attention_chunk(q, k, v, True, block, block)
+    o = o_u / l[..., None]
+    want = flash_bwd_plain(q, k, v, m, l, o, do, torch.float32)
+    got = flash_bwd(q, k, v, m, l, o, do, torch.float32)
+    got_low = flash_bwd(q, k, v, m, l, o, do)
+    rec = {}
+    for name, g, w, g_low in zip(("dq", "dk", "dv"), got, want, got_low):
+        rec[name] = (g - w).abs().max().item()
+        torch.testing.assert_close(g, w, rtol=0.0, atol=GRAD_TOL * w.abs().max().item())
+        if not torch.equal(g_low, g.to(g_low.dtype)):
+            raise AssertionError(f"{name}: the {g_low.dtype} output is not the f32 output rounded")
+    return rec
+
+
 __all__ = [
     "attention_flops",
+    "backward_paths",
     "chunk_atol",
     "chunk_launches_by_mode",
+    "compare_bwd_with_plain",
     "compare_with_plain",
     "flash_attention_chunk",
     "flash_attention_chunk_plain",
+    "flash_bwd",
     "flash_bwd_blockwise",
+    "flash_bwd_plain",
     "flash_causal_attention",
     "flash_causal_forward",
     "flash_causal_forward_plain",
