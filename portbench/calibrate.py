@@ -37,13 +37,18 @@ def half_batch(step):
 
 def state_unchanged(step):
     """The fault of a step that returns its state as it was (its loss the
-    forward's)."""
+    step's own): every tensor of the state put back after the step."""
     import torch
-    from torchsnapshot_tpu_torch.models.transformer import loss_fn
+    from harness.data import flatten
 
     def wrapped(state, tokens):
+        tensors = [t for t in flatten(state.state_dict()).values() if isinstance(t, torch.Tensor)]
+        before = [t.clone() for t in tensors]
+        state, loss = step(state, tokens)
         with torch.no_grad():
-            return state, loss_fn(state.model, tokens)
+            for t, b in zip(tensors, before):
+                t.copy_(b)
+        return state, loss
 
     return wrapped
 
@@ -61,9 +66,7 @@ def main() -> int:
 
     from harness import check
     from harness.cell import train_warmup
-    from harness.data import make_weights
     from harness.spec import load_cell
-    from reference.model import Shape, train_readings
 
     if not torch.cuda.is_available():
         print("calibrate: no CUDA card", file=sys.stderr)
@@ -71,12 +74,11 @@ def main() -> int:
     device = torch.device("cuda", 0)
     cell = load_cell(ROOT, args.workload)
     d, adamw = cell.dims, cell.config["run"]["adamw"]
-    shape = Shape(d.d_model, d.n_heads, d.n_layers)
 
     def reference(seed, batches, compute):
-        weights = make_weights(d, seed, device)
-        out = train_readings(
-            weights, batches, shape, lr=adamw["lr"], betas=adamw["betas"], eps=adamw["eps"],
+        weights = cell.weights(seed, device)
+        out = cell.reference.train_readings(
+            weights, batches, d, lr=adamw["lr"], betas=adamw["betas"], eps=adamw["eps"],
             weight_decay=adamw["weight_decay"], compute=compute, keep_first_grads=True,
         )
         del weights

@@ -1,13 +1,14 @@
 """One run of one cell: set-up, the measured window, the checks.
 
 The loop is closed: one training loop a rank, each step after the last.
-Set-up builds the train state with the program's ``init_train_state``,
-loads the benchmark's weights into it, runs three steps (the ones the
-reference follows), opens the program's ``CheckpointManager`` and makes
-one warm-up save (and, for ``restart``, one warm-up restore), so that the
-window finds the pinned host buffers allocated, as a long job does. The
-window trains until ``--seconds`` have passed, at a step boundary, and
-saves or restores at the traffic's marks (fractions of ``--seconds``).
+Set-up builds the train state through the architecture's adapter
+(``harness/arch.py``), loads the benchmark's weights into it, runs three
+steps (the ones the reference follows), opens the program's
+``CheckpointManager`` and makes one warm-up save (and, for ``restart``,
+one warm-up restore), so that the window finds the pinned host buffers
+allocated, as a long job does. The window trains until ``--seconds``
+have passed, at a step boundary, and saves or restores at the traffic's
+marks (fractions of ``--seconds``).
 
 With more than one rank the parent process is rank 0 and spawns the
 others, one card each; rank 0 decides every step's action and broadcasts
@@ -30,7 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from . import check, data
-from .arith import PEAK_BF16_FLOPS, flash_chunk_bound_s, state_bytes, step_flops
+from .arith import PEAK_BF16_FLOPS
 from .guard import forbidden_modules
 from .spec import Cell
 from .trace import Profile, Spans
@@ -95,22 +96,12 @@ def sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
-def program_config(cell: Cell) -> Any:
-    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig
-
-    d, run = cell.dims, cell.config["run"]
-    return TransformerConfig(
-        vocab_size=d.vocab, d_model=d.d_model, n_heads=d.n_heads, n_layers=d.n_layers,
-        d_ff=d.d_ff, dtype=getattr(torch, d.dtype), learning_rate=run["adamw"]["lr"],
-        attn_impl=run["attn_impl"],
-    )
-
-
 @dataclass
 class Trained:
     """The train state after the warm-up steps, and what the program read
-    on the way: each step's loss, each leaf's first gradient norm worked
-    out from AdamW's first moment, each leaf's change over the steps."""
+    on the way: each step's loss, each trained leaf's first gradient norm
+    worked out from AdamW's first moment, each trained leaf's change over
+    the steps."""
 
     state: Any
     train_step: Callable
@@ -129,19 +120,21 @@ def train_warmup(
 ) -> Trained:
     """Build the state from ``seed`` and drive it through its first steps
     with the window's own call and feed."""
-    from torchsnapshot_tpu_torch.models.transformer import init_train_state, make_train_step, params_tree
-
-    cfg = program_config(cell)
-    state = init_train_state(cfg, seed=data.stream_seed(seed, data.TRAIN_RNG), device=device)
-    weights = data.make_weights(cell.dims, seed, device)
-    live = data.flatten(params_tree(state.model))
+    d, leaves = cell.dims, cell.leaves
+    state, train_step, params_of = cell.arch.build(
+        d, cell.config["run"], data.stream_seed(seed, data.TRAIN_RNG), device
+    )
+    weights = cell.weights(seed, device)
+    every = params_of(state)
+    if {n: tuple(t.shape) for n, t in every.items()} != {n: tuple(leaf.shape) for n, leaf in leaves.items()}:
+        raise ValueError(f"{cell.config_name}: the program's leaves differ from the adapter's leaf_shapes")
     with torch.no_grad():
-        for name, t in live.items():
+        for name, t in every.items():
             t.copy_(weights[name])
-    train_step = make_train_step(cfg)
+    live = {n: every[n] for n, leaf in leaves.items() if leaf.trained}
     if wrap_step is not None:
         train_step = wrap_step(train_step)
-    feed = data.TokenFeed(cell.dims, seed, device)
+    feed = data.TokenFeed(d, seed, device)
     beta1 = cell.config["run"]["adamw"]["betas"][0]
     batches, losses, grad_norms, first_moments = [], [], {}, {}
     for i in range(WARMUP_STEPS):
@@ -250,7 +243,7 @@ def run_rank(
     res = RankResult(rank=ctl.rank)
     marks = list(traffic["marks"])
     spans = Spans()
-    prof = Profile(trace)
+    prof = Profile(trace, cell.arch.kernels(cell.dims))
     counters0, hist0 = registry_view()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -372,13 +365,11 @@ def check_saved(path: str, expected: List[Dict[str, Tuple]], device: torch.devic
 
 
 def training_check(cell: Cell, seed: int, program: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    from reference.model import Shape, train_readings
-
-    d, adamw = cell.dims, cell.config["run"]["adamw"]
-    weights = data.make_weights(d, seed, device)
-    ref = train_readings(
+    adamw = cell.config["run"]["adamw"]
+    weights = cell.weights(seed, device)
+    ref = cell.reference.train_readings(
         weights, [b.to(device) for b in program["batches"]],
-        Shape(d.d_model, d.n_heads, d.n_layers), lr=adamw["lr"], betas=adamw["betas"],
+        cell.dims, lr=adamw["lr"], betas=adamw["betas"],
         eps=adamw["eps"], weight_decay=adamw["weight_decay"], keep_first_grads=True,
     )
     return check.training_gaps(
@@ -461,9 +452,10 @@ def assemble(cell: Cell, results: List[RankResult]) -> Dict[str, Any]:
         "cell": cell.name, "loop": cell.traffic["loop"], "mode": cell.traffic.get("mode", "sync"),
         "chips": cell.chips, "ranks": len(results), "window_s": r0.window_s,
         "steps": r0.steps, "step_counts": [len(r.steps) for r in results],
-        "tokens_per_step": d.tokens_per_step, "flops_per_step": step_flops(d),
+        "tokens_per_step": d.batch * d.seq, "flops_per_step": cell.arch.step_flops(d),
         "peak_flops": PEAK_BF16_FLOPS,
-        "flash_chunk_bound_s": flash_chunk_bound_s(d.batch, d.seq, d.n_heads, d.head_dim),
+        # Each kernel's bound also under its own key, as flash_chunk_roofline reads it.
+        **{f"{k.name}_bound_s": k.bound_s for k in cell.arch.kernels(d)},
         "saves": saves, "restores": [{"s": r["s"]} for r in r0.restores],
         "counters": [r.counters for r in results], "histograms": [r.histograms for r in results],
         "traces": [r.trace for r in results],
@@ -582,4 +574,4 @@ def run_cell(
 def reckoned_written_bytes(cell: Cell) -> int:
     """The state's bytes once a save: the warm-up save and each window save."""
     saves = 1 + (len(cell.traffic["marks"]) if cell.traffic["loop"] == "save" else 0)
-    return saves * state_bytes(cell.dims)
+    return saves * cell.arch.state_bytes(cell.dims)

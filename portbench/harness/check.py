@@ -4,8 +4,9 @@ Three layers are held to the plain reference:
 
 - the training step: the first three steps' losses, each leaf's first
   gradient (from AdamW's first moment after one step) and each leaf's
-  change over the three steps, against ``reference.model`` from the same
-  weights and batches. A gap is taken by the worst leaf: the distance
+  change over the three steps, against the architecture's plain
+  reference (``reference/<name>.py``) from the same weights and batches;
+  trained leaves only. A gap is taken by the worst leaf: the distance
   between the program's norm and the reference's, over the reference's
   norm of that leaf or of the median leaf, whichever is larger. Leaves
   whose reference gradient is under a thousandth of the median leaf's

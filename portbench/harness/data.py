@@ -15,7 +15,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from .arith import Dims
+from .arch import INITS, Leaf
 
 WEIGHTS, TOKENS, TRAIN_RNG = 0, 1, 2  # streams drawn from one --seed
 
@@ -24,46 +24,37 @@ def stream_seed(seed: int, stream: int) -> int:
     return int(np.random.SeedSequence([int(seed) & (2**128 - 1), stream]).generate_state(1, np.uint64)[0])
 
 
-def leaf_shapes(d: Dims) -> Dict[str, Tuple[int, ...]]:
-    """The parameters by path, in the order the train state lists them."""
-    shapes: Dict[str, Tuple[int, ...]] = {"embed": (d.vocab, d.d_model)}
-    for i in range(d.n_layers):
-        p = f"layers/{i}/"
-        shapes.update({
-            p + "ln1_scale": (d.d_model,), p + "ln2_scale": (d.d_model,),
-            p + "wqkv": (d.d_model, 3 * d.d_model), p + "wo": (d.d_model, d.d_model),
-            p + "w_in": (d.d_model, d.d_ff), p + "w_out": (d.d_ff, d.d_model),
-        })
-    shapes["ln_f_scale"] = (d.d_model,)
-    shapes["unembed"] = (d.d_model, d.vocab)
-    return shapes
-
-
-def make_weights(d: Dims, seed: int, device: torch.device) -> Dict[str, torch.Tensor]:
-    """Norm scales at one; every matrix N(0, 1/fan_in), fan_in its
-    second-to-last dimension. One draw of standard normals in bfloat16 on
-    the device for all matrices, cut and scaled."""
-    dtype = getattr(torch, d.dtype)
-    shapes = leaf_shapes(d)
-    total = sum(math.prod(s) for s in shapes.values() if len(s) > 1)
+def make_weights(leaves: Mapping[str, Leaf], dtype: str, seed: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Every leaf as ``leaf_shapes`` gives it: ``ones``, ``zeros``, or
+    ``normal`` N(0, 1/fan_in), fan_in its second-to-last dimension. One draw
+    of standard normals in ``dtype`` on the device for all ``normal``
+    leaves, in their order, cut and scaled; a leaf of another dtype is
+    cast from its cut."""
+    state_dtype = getattr(torch, dtype)
+    for name, leaf in leaves.items():
+        if leaf.init not in INITS:
+            raise ValueError(f"leaf {name!r}: init {leaf.init!r} is not one of {INITS}")
+    total = sum(math.prod(leaf.shape) for leaf in leaves.values() if leaf.init == "normal")
     g = torch.Generator(device=device).manual_seed(stream_seed(seed, WEIGHTS))
-    flat = torch.empty(total, dtype=dtype, device=device).normal_(generator=g)
+    flat = torch.empty(total, dtype=state_dtype, device=device).normal_(generator=g)
     out: Dict[str, torch.Tensor] = {}
     offset = 0
-    for name, shape in shapes.items():
-        if len(shape) == 1:
-            out[name] = torch.ones(shape, dtype=dtype, device=device)
-            continue
-        n = math.prod(shape)
-        out[name] = flat[offset:offset + n].view(shape).mul(1.0 / math.sqrt(shape[-2]))
-        offset += n
+    for name, leaf in leaves.items():
+        want = getattr(torch, leaf.dtype) if leaf.dtype else state_dtype
+        if leaf.init == "normal":
+            n = math.prod(leaf.shape)
+            out[name] = flat[offset:offset + n].view(leaf.shape).mul(1.0 / math.sqrt(leaf.shape[-2])).to(want)
+            offset += n
+        else:
+            out[name] = (torch.ones if leaf.init == "ones" else torch.zeros)(leaf.shape, dtype=want, device=device)
     return out
 
 
 class TokenFeed:
-    """Each step's (batch, seq) token ids, drawn on the device."""
+    """Each step's (batch, seq) token ids over the vocabulary, drawn on the
+    device (``d``: an adapter's dims)."""
 
-    def __init__(self, d: Dims, seed: int, device: torch.device) -> None:
+    def __init__(self, d: Any, seed: int, device: torch.device) -> None:
         self.d = d
         self.g = torch.Generator(device=device).manual_seed(stream_seed(seed, TOKENS))
         self.device = device

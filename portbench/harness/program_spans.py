@@ -85,13 +85,14 @@ def _latest_covering(intervals: Sequence[Interval], mids: Sequence[int]) -> List
 
 def summarize_labelled(
     dev: List[Tuple[int, int, str]], w0: int, w1: int, spans: List[Tuple[str, int, int]],
-    main: Sequence[Interval] = (), others: Sequence[Interval] = (),
+    main: Sequence[Interval] = (), others: Sequence[Interval] = (), kernels: Sequence[Any] = (),
 ) -> Dict[str, Any]:
     """``trace.summarize`` with the idle gaps also labelled by the program
     spans around them: ``main`` holds the main thread's recorder spans,
     ``others`` every other thread's, their labels already
-    ``<thread>:<span>``, all on the profiler's time base."""
-    base = summarize(dev, w0, w1, spans)
+    ``<thread>:<span>``, all on the profiler's time base; ``kernels`` as
+    ``summarize`` takes it."""
+    base = summarize(dev, w0, w1, spans, kernels)
     if not main and not others:
         return base
     # The benchmark's spans run one after another: the latest begun one
@@ -155,8 +156,8 @@ class LabelledProfile(Profile):
     """``Profile`` that also reads the program's flight recorder over the
     window and labels the idle gaps by its spans."""
 
-    def __init__(self, enabled: bool) -> None:
-        super().__init__(enabled)
+    def __init__(self, enabled: bool, kernels: Sequence[Any] = ()) -> None:
+        super().__init__(enabled, kernels)
         self._mark: Any = None
         self._main_thread = ""
         self._program: Optional[Tuple[List[Dict[str, Any]], Dict[int, str], int]] = None
@@ -202,7 +203,7 @@ class LabelledProfile(Profile):
         program, tid_names, dropped = self._program
         main, others = program_intervals(program, tid_names, self._main_thread, shift)
         out = summarize_labelled(
-            dev, w0, w1, [(n, a + shift, b + shift) for n, a, b in spans], main, others
+            dev, w0, w1, [(n, a + shift, b + shift) for n, a, b in spans], main, others, self.kernels
         )
         out["program_spans"] = len(main) + len(others)
         out["program_spans_dropped"] = dropped

@@ -50,3 +50,14 @@ def mean(values: Iterable[float]) -> Optional[float]:
 
 def ratio(num: float, den: float) -> Optional[float]:
     return num / den if den > 0 and num > 0 else None
+
+
+def roofline_pct(rec: Dict[str, Any], kernel: str) -> Optional[float]:
+    """A kernel table entry's calls x the bound of one call over its device
+    seconds, in percent, mean over the ranks whose trace saw a call."""
+    shares = []
+    for t in traces(rec):
+        k = t.get("kernels", {}).get(kernel)
+        if k and k["calls"] and k["s"] > 0:
+            shares.append(100.0 * k["calls"] * k["bound_s"] / k["s"])
+    return mean(shares)

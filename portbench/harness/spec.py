@@ -1,9 +1,11 @@
 """Discovery: a cell of ``BENCHMARK.json`` and the files it names.
 
 A configuration is ``configs/<name>.json`` (its ``file`` in
-``BENCHMARK.json``), a traffic mix is ``traffic/<name>.json``, a
-per-layer metric is ``metrics/<name>.py``. Adding any of them is adding
-files and entries; nothing here names one.
+``BENCHMARK.json``), its architecture's adapter ``archs/<name>.py`` and
+plain reference ``reference/<name>.py`` (``harness/arch.py``), a traffic
+mix is ``traffic/<name>.json``, a per-layer metric is
+``metrics/<name>.py``. Adding any of them is adding files and entries;
+nothing here names one.
 """
 
 from __future__ import annotations
@@ -11,10 +13,13 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import sys
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from types import ModuleType
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
-from .arith import Dims
+from . import arch as arch_spec
+from .data import make_weights
 
 LOOP_KINDS = ("save", "restart")
 
@@ -41,34 +46,54 @@ class Cell:
     config: Dict[str, Any]
     traffic_name: str
     traffic: Dict[str, Any]
+    arch: ModuleType
+    reference: ModuleType
     end_to_end: List[Metric] = field(default_factory=list)
     per_layer: List[Metric] = field(default_factory=list)
 
     @property
-    def dims(self) -> Dims:
-        c, run = self.config, self.config["run"]
-        return Dims(
-            vocab=int(c["vocab_size"]), d_model=int(c["hidden_size"]),
-            n_heads=int(c["num_attention_heads"]), n_layers=int(c["num_hidden_layers"]),
-            d_ff=int(c["intermediate_size"]), batch=int(run["micro_batch"]),
-            seq=int(run["seq_len"]), dtype=run["dtype"],
-        )
+    def dims(self) -> Any:
+        return self.arch.dims(self.config)
+
+    @property
+    def leaves(self) -> Mapping[str, arch_spec.Leaf]:
+        return self.arch.leaf_shapes(self.dims)
+
+    def weights(self, seed: int, device: Any) -> Dict[str, Any]:
+        """The parameters drawn from ``seed``, for the program and the reference alike."""
+        return make_weights(self.leaves, self.dims.dtype, seed, device)
 
     @property
     def ranks(self) -> int:
         return int(self.traffic.get("ranks", 1))
 
 
+def load_module(path: str, prefix: str) -> ModuleType:
+    """The Python file at ``path`` as a module of its own."""
+    name = prefix + os.path.basename(path)[:-3].replace("-", "_").replace(".", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
+    if spec is None or spec.loader is None:
+        raise ImportError(f"cannot load {path}")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module  # a dataclass looks its module up while it is made
+    spec.loader.exec_module(module)
+    return module
+
+
+def load_arch(home: str, config: Mapping[str, Any]) -> ModuleType:
+    """The adapter of ``config``'s architecture, ``<home>/archs/<name>.py``."""
+    name = config.get("architecture", arch_spec.DEFAULT)
+    module = load_module(os.path.join(home, "archs", f"{name}.py"), "portbench_arch_")
+    missing = [n for n in arch_spec.REQUIRED if not hasattr(module, n)]
+    if missing:
+        raise ValueError(f"architecture {name!r} lacks {missing} (harness/arch.py)")
+    return module
+
+
 def load_reader(path: str) -> Callable[[Dict[str, Any]], Optional[float]]:
     """``read(record)`` of a metric file: a number, or None when the run
     holds nothing for the metric to read."""
-    name = "portbench_metric_" + os.path.basename(path)[:-3].replace("-", "_").replace(".", "_")
-    spec = importlib.util.spec_from_file_location(name, path)
-    if spec is None or spec.loader is None:
-        raise ImportError(f"cannot load metric reader {path}")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return load_module(path, "portbench_metric_").read
 
 
 def _metric(entry: Dict[str, Any]) -> Metric:
@@ -81,7 +106,9 @@ def _metric(entry: Dict[str, Any]) -> Metric:
 def load_cell(root: str, name: str) -> Cell:
     """The cell ``name`` of ``<root>/BENCHMARK.json`` with its configuration,
     its traffic mix and the metrics it reports, each per-layer metric with
-    its reader from ``<root>/<paths[0]>/metrics/<metric>.py``."""
+    its reader from ``<root>/<paths[0]>/metrics/<metric>.py``, its
+    architecture's adapter and reference from ``archs/`` and ``reference/``
+    there."""
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -97,9 +124,11 @@ def load_cell(root: str, name: str) -> Cell:
         traffic = json.load(f)
     if traffic.get("loop") not in LOOP_KINDS:
         raise ValueError(f"traffic {w['traffic']!r}: loop must be one of {LOOP_KINDS}")
+    adapter = load_arch(home, config)
     cell = Cell(
         name=name, chips=int(w["chips"]), config_name=w["config"], config=config,
-        traffic_name=w["traffic"], traffic=traffic,
+        traffic_name=w["traffic"], traffic=traffic, arch=adapter,
+        reference=load_module(os.path.join(home, "reference", f"{adapter.reference}.py"), "portbench_reference_"),
     )
     if cell.ranks not in (1, cell.chips):
         raise ValueError(f"cell {name!r}: traffic asks for {cell.ranks} ranks on {cell.chips} chips")

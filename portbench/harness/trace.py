@@ -5,20 +5,20 @@ drains), ``save``, ``commit``, ``restore``, ``fingerprint``) are host-clock inte
 ``portbench.window`` annotation anchors them. The reduction keeps what the
 per-layer readers and the result's ``breakdown`` need: the device's busy
 time (the union of its kernel, copy and set intervals), time by device
-operation, idle gaps labelled by the innermost host span around them, and
-the device time of the flash chunk kernel and of host<->device copies.
+operation, idle gaps labelled by the innermost host span around them, the
+device time of host<->device copies, and for each entry of the
+architecture's kernel table (``harness/arch.py`` ``Kernel``) its device
+seconds, its calls and the bound of one call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import re
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 ANCHOR = "portbench.window"
-# The chunk kernel is flash_wgmma_kernel<Config, CAUSAL, FUSED> with FUSED
-# false (csrc/flash_attention.cu); the fused forward has FUSED true.
-FLASH_KERNEL = "flash_wgmma_kernel"
 
 
 class Spans:
@@ -36,18 +36,13 @@ class Spans:
             self.spans.append((name, t0, time.time_ns()))
 
 
-def is_flash_chunk(name: str) -> bool:
-    if FLASH_KERNEL not in name:
-        return False
-    args = name.split(FLASH_KERNEL + "<", 1)[-1].split(">(", 1)[0]
-    return args.replace(" ", "").endswith(",false>") or args.replace(" ", "").endswith(",false")
-
-
 class Profile:
-    """``torch.profiler`` over the window when ``enabled``; else inert."""
+    """``torch.profiler`` over the window when ``enabled``; else inert.
+    ``kernels`` is the architecture's roofline table."""
 
-    def __init__(self, enabled: bool) -> None:
+    def __init__(self, enabled: bool, kernels: Sequence[Any] = ()) -> None:
         self.enabled = enabled
+        self.kernels = tuple(kernels)
         self._prof: Any = None
         self._anchor: Any = None
         self.anchor_host_ns = 0
@@ -91,23 +86,35 @@ class Profile:
                 dev.append((a, b, e.name()))
         if not dev:
             return None
-        return summarize(dev, w0, w1, [(n, a + shift, b + shift) for n, a, b in spans])
+        return summarize(dev, w0, w1, [(n, a + shift, b + shift) for n, a, b in spans], self.kernels)
 
 
 def summarize(
-    dev: List[Tuple[int, int, str]], w0: int, w1: int, spans: List[Tuple[str, int, int]]
+    dev: List[Tuple[int, int, str]], w0: int, w1: int, spans: List[Tuple[str, int, int]],
+    kernels: Sequence[Any] = (),
 ) -> Dict[str, Any]:
     """Reduce device intervals ``(start_ns, end_ns, name)`` inside the window
-    ``[w0, w1)`` and host spans in the same time base."""
+    ``[w0, w1)`` and host spans in the same time base; ``kernels`` is the
+    roofline table whose entries' seconds and calls it sums."""
     by_name: Dict[str, float] = {}
-    flash_s, flash_n, d2h_s, h2d_s = 0.0, 0, 0.0, 0.0
+    d2h_s, h2d_s = 0.0, 0.0
+    table = {k.name: {"s": 0.0, "calls": 0, "bound_s": k.bound_s} for k in kernels}
+    match = [(table[k.name], [re.compile(p) for p in k.time], re.compile(k.calls)) for k in kernels]
+    hits: Dict[str, List[Tuple[Dict[str, Any], bool, bool]]] = {}  # by device op name
     for a, b, name in dev:
         s = (b - a) / 1e9
         by_name[name] = by_name.get(name, 0.0) + s
-        if is_flash_chunk(name):
-            flash_s += s
-            flash_n += 1
-        elif "DtoH" in name or "Device -> Pinned" in name or "Device -> Pageable" in name:
+        if name not in hits:
+            hits[name] = [
+                (entry, any(p.search(name) for p in timed), bool(counted.search(name)))
+                for entry, timed, counted in match
+            ]
+        for entry, timed, counted in hits[name]:
+            if timed:
+                entry["s"] += s
+            if counted:
+                entry["calls"] += 1
+        if "DtoH" in name or "Device -> Pinned" in name or "Device -> Pageable" in name:
             d2h_s += s
         elif "HtoD" in name or "Pinned -> Device" in name or "Pageable -> Device" in name:
             h2d_s += s
@@ -127,13 +134,16 @@ def summarize(
 
     longest = sorted(gaps, key=lambda g: g[0] - g[1])[:10]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {
+    out: Dict[str, Any] = {
         "window_s": (w1 - w0) / 1e9,
         "busy_s": busy / 1e9,
-        "flash_chunk_s": flash_s,
-        "flash_chunk_calls": flash_n,
         "d2h_s": d2h_s,
         "h2d_s": h2d_s,
         "device_ops": [[n[:160], s] for n, s in top],
         "idle_gaps": [[label(a, b), (b - a) / 1e9] for a, b in longest],
+        "kernels": table,
     }
+    # Each entry also under its own keys, as flash_chunk_roofline reads it.
+    for name, entry in table.items():
+        out[f"{name}_s"], out[f"{name}_calls"] = entry["s"], entry["calls"]
+    return out

@@ -14,9 +14,7 @@ import torch
 
 from harness import check
 from harness.cell import train_warmup
-from harness.data import make_weights
 from harness.spec import load_cell
-from reference.model import Shape, train_readings
 from tinybench import BENCH
 
 CELLS = {"pythia-160m": "pythia-160m.sync_save", "pythia-410m": "pythia-410m.restart"}
@@ -33,7 +31,6 @@ def _over(gaps, limits):
 
 def _readings(cell, seed, device):
     d, a = cell.dims, cell.config["run"]["adamw"]
-    shape = Shape(d.d_model, d.n_heads, d.n_layers)
     t = train_warmup(cell, seed, device)
     program = (t.losses, t.grad_norms, t.change_norms)
     first, scale = t.first_moments, t.first_scale
@@ -41,8 +38,8 @@ def _readings(cell, seed, device):
     del t
 
     def ref(compute):
-        return train_readings(make_weights(d, seed, device), batches, shape, a["lr"], a["betas"],
-                              a["eps"], a["weight_decay"], compute=compute, keep_first_grads=True)
+        return cell.reference.train_readings(cell.weights(seed, device), batches, d, a["lr"], a["betas"],
+                                             a["eps"], a["weight_decay"], compute=compute, keep_first_grads=True)
 
     f32, fp8 = ref("f32"), ref("fp8")
     return (check.training_gaps(*program, f32, first, scale),

@@ -135,11 +135,13 @@ def test_every_rank_is_held_to_the_import_check(tmp_path, plant, found):
 def test_the_reference_loads_nothing_of_the_port(tmp_path):
     last = _run(f"""
         import sys, torch
-        from reference.model import Shape, train_readings
+        from types import SimpleNamespace
+        from reference.model import train_readings
         from reference.reader import read_snapshot
         w = {{"embed": torch.randn(64, 16, dtype=torch.bfloat16), "unembed": torch.randn(16, 64, dtype=torch.bfloat16),
              "ln_f_scale": torch.ones(16, dtype=torch.bfloat16)}}
-        r = train_readings(w, [torch.randint(0, 64, (2, 8))], Shape(16, 2, 0), 1e-3, (0.9, 0.999), 1e-8, 1e-4)
+        dims = SimpleNamespace(d_model=16, n_heads=2, n_layers=0)
+        r = train_readings(w, [torch.randint(0, 64, (2, 8))], dims, 1e-3, (0.9, 0.999), 1e-8, 1e-4)
         assert len(r.losses) == 1
         tops = {{m.split(".")[0] for m in sys.modules}}
         print(sorted(tops & set({sorted(FORBIDDEN | {PORT, "harness"})!r})))

@@ -1,6 +1,8 @@
 """A copy of the benchmark at a size the CPU tests can hold: every
-configuration cut to two blocks of width 64, a vocabulary of 512 and two
-sequences of 128 tokens; the traffic mixes and metric readers as they are."""
+configuration cut by its own architecture's ``tiny`` (``archs/dense.py``:
+two blocks of width 64, a vocabulary of 512 and two sequences of 128
+tokens); the traffic mixes, metric readers, adapters and references as
+they are."""
 
 from __future__ import annotations
 
@@ -9,11 +11,12 @@ import os
 import shutil
 from typing import Optional
 
+from harness.spec import load_arch
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.dirname(HERE)
 REPO = os.path.dirname(BENCH)
-TINY = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
-        "intermediate_size": 256, "vocab_size": 512}
+COPIED = ("traffic", "metrics", "archs", "reference")
 
 
 def make_tiny_root(dest: str, limits: Optional[dict] = None) -> str:
@@ -23,14 +26,14 @@ def make_tiny_root(dest: str, limits: Optional[dict] = None) -> str:
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
     home = os.path.join(dest, bench["paths"][0])
-    for sub in ("traffic", "metrics"):
-        shutil.copytree(os.path.join(BENCH, sub), os.path.join(home, sub), dirs_exist_ok=True)
+    for sub in COPIED:
+        shutil.copytree(os.path.join(BENCH, sub), os.path.join(home, sub), dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     os.makedirs(os.path.join(home, "configs"), exist_ok=True)
     for c in bench["configs"]:
         with open(os.path.join(REPO, c["file"])) as f:
             cfg = json.load(f)
-        cfg.update(TINY)
-        cfg["run"]["micro_batch"], cfg["run"]["seq_len"] = 2, 128
+        cfg = load_arch(BENCH, cfg).tiny(cfg)
         if limits is not None:
             cfg["limits"] = dict(limits)
         with open(os.path.join(dest, c["file"]), "w") as f:
