@@ -39,6 +39,14 @@ each of which raises on failure (nothing is caught):
    ``ms`` is the call the batcher makes, with the slab's layout.
    The host I/O runtime (``native/ts_io.cpp``) is built here too, so the
    timed takes and restores below hold no compile.
+   **short_conv** (its own phase, after kernels): LFM2's gated short
+   convolution (``csrc/short_conv.cu``) at the LFM2-8B-A1B cell's call,
+   bf16 (4, 4096, 3 x 2048), forward and backward through
+   ``gated_short_conv``'s autograd with the launch counters set to 0 just
+   before: y and dP within bf16's rounding of the plain f32 versions, the
+   f32 tap gradient within 1e-4, one launch of each, a second run bit for
+   bit, a strided input refused; then timed as the others, together and
+   apart, against the plain versions (no library call computes it).
 2. **main**: the port's main path. Train the widest in-repo transformer
    (d_model 1024, 8 layers, flash attention, bf16) for a few AdamW steps,
    ``Snapshot.take`` the train state, ``Snapshot.restore`` it into a fresh
@@ -1588,6 +1596,115 @@ def leaves_phase(args, work_dir: str, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# The short convolution: LFM2's gated conv kernels against their plain versions
+# ----------------------------------------------------------------------
+
+
+# The lfm2-8b-a1b.async_save cell's call: P (b, s, 3d) and the taps (3, d).
+SHORT_CONV_SHAPE = (4, 4096, 2048)
+SHORT_CONV_PATH_KERNELS = ("short_conv",)
+
+
+def short_conv_phase(seed: int) -> dict:
+    """``gated_short_conv`` at ``SHORT_CONV_SHAPE`` on bf16 card tensors,
+    forward and backward through autograd, with the launch counts zeroed
+    just before: y, dP and the f32 tap gradient against the plain f32
+    versions (y and dP within bf16's rounding, dw within 1e-4 of its
+    largest), one forward and one backward launch read back from that run;
+    a second run bit for bit; a strided P refused. Then the kernels timed,
+    forward and backward together and apart: back to back, behind a spin
+    (card ms, host us), and the plain versions. The bound is the bytes over
+    HBM bandwidth: the forward reads P and writes y (4d bf16 values a
+    token), the backward reads P and dy and writes dP (7d). Returns the
+    record, its launches under ``launches``."""
+    import torch
+
+    from torchsnapshot_tpu_torch.ops import short_conv as sc
+
+    b, s, d = SHORT_CONV_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn((b, s, 3 * d), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((3, d), generator=g, device="cuda") / 3**0.5).to(torch.bfloat16)
+    dy = torch.randn((b, s, d), generator=g, device="cuda").to(torch.bfloat16)
+
+    def autograd_run():
+        pl, wl = p.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = sc.gated_short_conv(pl, wl)
+        y.backward(dy)
+        return y.detach(), pl.grad, wl.grad
+
+    for name in sc.launch_counts:
+        sc.launch_counts[name] = 0
+    y, dp, dw_bf16 = autograd_run()
+    torch.cuda.synchronize()
+    launches = dict(sc.launch_counts)
+    _require(launches == {"short_conv_fwd": 1, "short_conv_bwd": 1},
+             f"gated_short_conv launched {launches}, not one forward and one backward")
+    _, dw = sc.short_conv_bwd(p, w, dy)  # the f32 tap gradient autograd rounds to bf16
+    _require(same_bits(dw_bf16, dw.to(torch.bfloat16)), "autograd's tap gradient is not the kernel's rounded")
+    want_y = sc.short_conv_plain(p.float(), w.float())
+    want_dp, want_dw = sc.short_conv_bwd_plain(p.float(), w.float(), dy.float())
+    errs = {}
+    for name, got, want in (("y", y, want_y), ("dP", dp, want_dp)):
+        over = (got.float() - want).abs() - (2**-8 * want.abs() + 1e-6)
+        _require(bool((over <= 0).all()), f"short_conv {name} is not within bf16's rounding of the plain f32 value")
+        errs[name] = float((got.float() - want).abs().max())
+    errs["dw"] = float((dw - want_dw).abs().max())
+    _require(errs["dw"] <= 1e-4 * float(want_dw.abs().max()),
+             f"short_conv dw differs by {errs['dw']:.3e} from the plain f32 sums (limit 1e-4 of its largest)")
+    again = autograd_run()
+    _require(all(same_bits(a, b_) for a, b_ in zip((y, dp, dw_bf16), again)), "short_conv: a second run differs")
+    try:
+        sc.gated_short_conv(torch.cat([p, p], dim=-1)[..., : 3 * d], w)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("short_conv took a strided P")
+    del again, want_y, want_dp, want_dw
+
+    def fwd():
+        return sc.short_conv_fwd(p, w)
+
+    def bwd():
+        return sc.short_conv_bwd(p, w, dy)
+
+    def both():
+        return fwd(), bwd()
+
+    fwd_bytes, bwd_bytes = 4 * b * s * d * 2, 7 * b * s * d * 2
+    parts = {}
+    for name, fn, nbytes in (("fwd", fwd, fwd_bytes), ("bwd", bwd, bwd_bytes)):
+        part = parts[name] = {"ms": cuda_ms(fn), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        part["device_ms"], part["host_us"] = held_times(fn)
+    rec = {
+        "ms": cuda_ms(both),
+        "plain_ms": cuda_ms(lambda: (sc.short_conv_plain(p, w), sc.short_conv_bwd_plain(p, w, dy)), iters=3),
+        "library_ms": None,
+        "bound_ms": (fwd_bytes + bwd_bytes) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "max_abs_err": errs,
+        "parts": parts,
+    }
+    rec["device_ms"], rec["host_us"] = held_times(both)
+    log(
+        f"kernel short_conv {SHORT_CONV_SHAPE} bf16: {rec['ms']:.4f} ms back to back, device "
+        f"{rec['device_ms']:.4f} ms ({rec['bound_ms'] / rec['device_ms']:.1%} of the bound), host "
+        f"{rec['host_us']:.1f} us per call (plain {rec['plain_ms']:.4f} ms; no library call; bound "
+        f"{rec['bound_ms']:.4f} ms by bytes); "
+        + ", ".join(
+            f"{n} {r['ms']:.4f} ms (device {r['device_ms']:.4f}, host {r['host_us']:.1f} us, "
+            f"{r['bound_ms'] / r['device_ms']:.1%} of its {r['bound_ms']:.4f} ms)" for n, r in parts.items()
+        )
+        + f"; max |err| y {errs['y']:.3e}, dP {errs['dP']:.3e} (bf16 rounding), dw {errs['dw']:.3e}; "
+        f"launches {launches}; a second run bit-identical; a strided P refused"
+    )
+    _headline("short_conv", ms=rec["ms"], device_ms=rec["device_ms"], plain_ms=rec["plain_ms"])
+    del p, w, dy, y, dp
+    torch.cuda.empty_cache()
+    return {**rec, "launches": sum(launches.values())}
+
+
+# ----------------------------------------------------------------------
 # Entry
 # ----------------------------------------------------------------------
 
@@ -1628,6 +1745,11 @@ KERNEL_SOURCES = {
         "torchsnapshot_tpu_torch/csrc/flash_attention.cu",
         "torchsnapshot_tpu/ops/flash_attention.py:223",
     ),
+    # LFM2's gated short convolution: the port's own, no TPU kernel before it.
+    "short_conv": (
+        "torchsnapshot_tpu_torch/csrc/short_conv.cu",
+        None,
+    ),
 }
 # The kernels the main path must launch (it trains in bf16: no f32 entry,
 # so no split pre-pass).
@@ -1637,7 +1759,8 @@ MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "flash_bwd", "device_digest")
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument(
-        "--phases", default="kernels,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge,moe,ring,dcp"
+        "--phases",
+        default="kernels,short_conv,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge,moe,ring,dcp",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
@@ -1695,7 +1818,8 @@ def main() -> int:
     # and dcp phases', the unmasked chunk's the ring phase's); without them they
     # were not measured and the record says null.
     launches = dict.fromkeys(
-        list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts) + ["flash_chunk_unmasked"]
+        list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts)
+        + ["flash_chunk_unmasked"] + list(SHORT_CONV_PATH_KERNELS)
     )
 
     def add(name: str, n: int) -> None:
@@ -1708,6 +1832,12 @@ def main() -> int:
         _headline("kernels", **{
             f"{name}_ms": [r["ms"], r["plain_ms"]] for name, r in records.items() if "ms" in r
         })
+
+    def short_conv() -> None:
+        rec = short_conv_phase(args.seed)
+        add("short_conv", rec.pop("launches"))
+        records["short_conv"] = rec
+        _require(all(launches[name] for name in SHORT_CONV_PATH_KERNELS), "the short-conv phase launched no kernel")
 
     def cas() -> None:
         got = cas_phase(args, work_dir, card)
@@ -1753,6 +1883,7 @@ def main() -> int:
 
     sequence = [
         ("kernels", kernels_phase),
+        ("short_conv", short_conv),
         ("main", lambda: launches.update(main_phase(args, work_dir, card))),
         ("bulk", lambda: bulk_phase(args, work_dir, card)),
         ("manager", lambda: manager_phase(args, work_dir, card)),

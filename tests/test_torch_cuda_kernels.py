@@ -416,3 +416,110 @@ def test_bwd_autograd_matches_the_dense_op(case) -> None:
         torch.testing.assert_close(
             got.grad.float(), want.grad, rtol=2.0**-8, atol=fa.GRAD_TOL * want.grad.abs().max().item()
         )
+
+
+# ts_short_conv's cases (b, s, d): the LFM2-8B-A1B cell's call, LFM2's width
+# at a short sequence, a sequence that ends inside both kernels' tiles at a
+# width of 17 loads a row, and a width under one block's 128 loads with a
+# sequence of one.
+SHORT_CONV_CASES = {
+    "lfm2-cell": (4, 4096, 2048), "lfm2-2048": (2, 512, 2048), "ragged-300": (3, 300, 136), "narrow-1": (2, 1, 64),
+}
+
+
+def _short_conv_inputs(case: str):
+    b, s, d = SHORT_CONV_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(s)
+    p = torch.randn((b, s, 3 * d), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((3, d), generator=g, device="cuda") / 3**0.5).to(torch.bfloat16)
+    dy = torch.randn((b, s, d), generator=g, device="cuda").to(torch.bfloat16)
+    return p, w, dy
+
+
+def _within_bf16_rounding(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """A bf16 result against the f32 value it rounds: at most 2^-8 of it (a
+    rounding is 2^-9; f32 sums in another order add ~1e-7), plus 1e-6."""
+    return bool(((got.float() - want).abs() <= 2**-8 * want.abs() + 1e-6).all())
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", sorted(SHORT_CONV_CASES))
+def test_short_conv_kernels_match_plain_versions(case) -> None:
+    """The forward and the backward kernels against the plain versions in
+    f32 on the same bf16 inputs: y and dP element by element within bf16's
+    rounding, the f32 tap gradient (sums over b x s positions in another
+    order) within 1e-4 of its largest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torchsnapshot_tpu_torch.ops import short_conv as sc
+
+    p, w, dy = _short_conv_inputs(case)
+    before = dict(sc.launch_counts)
+    y = sc.short_conv_fwd(p, w)
+    dp, dw = sc.short_conv_bwd(p, w, dy)
+    assert sc.launch_counts["short_conv_fwd"] == before["short_conv_fwd"] + 1
+    assert sc.launch_counts["short_conv_bwd"] == before["short_conv_bwd"] + 1
+    want_y = sc.short_conv_plain(p.float(), w.float())
+    want_dp, want_dw = sc.short_conv_bwd_plain(p.float(), w.float(), dy.float())
+    assert y.dtype == dp.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert _within_bf16_rounding(y, want_y)
+    assert _within_bf16_rounding(dp, want_dp)
+    assert (dw - want_dw).abs().max() <= 1e-4 * want_dw.abs().max()
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", sorted(SHORT_CONV_CASES))
+def test_short_conv_kernels_are_bitwise_repeatable(case) -> None:
+    """Two calls give the same bits: the tap gradient's partials are
+    reduced over tiles in a fixed order, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torchsnapshot_tpu_torch.ops import short_conv as sc
+
+    p, w, dy = _short_conv_inputs(case)
+    first = (sc.short_conv_fwd(p, w), *sc.short_conv_bwd(p, w, dy))
+    second = (sc.short_conv_fwd(p, w), *sc.short_conv_bwd(p, w, dy))
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda_only
+def test_short_conv_autograd_runs_the_kernels() -> None:
+    """``gated_short_conv`` on bf16 card tensors: the forward kernel, then
+    on backward the backward kernel's dP and its tap gradient rounded to
+    the weight's dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torchsnapshot_tpu_torch.ops import short_conv as sc
+
+    p, w, dy = _short_conv_inputs("lfm2-2048")
+    before = dict(sc.launch_counts)
+    pl, wl = p.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = sc.gated_short_conv(pl, wl)
+    got_dp, got_dw = torch.autograd.grad(y, (pl, wl), dy)
+    want_dp, want_dw = sc.short_conv_bwd(p, w, dy)
+    assert torch.equal(y, sc.short_conv_fwd(p, w))
+    assert torch.equal(got_dp, want_dp) and torch.equal(got_dw, want_dw.to(torch.bfloat16))
+    assert sc.launch_counts["short_conv_fwd"] == before["short_conv_fwd"] + 2
+    assert sc.launch_counts["short_conv_bwd"] == before["short_conv_bwd"] + 2
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("layout", ["strided", "width-not-a-multiple-of-8"])
+def test_short_conv_refuses_a_bf16_card_input_it_does_not_take(layout) -> None:
+    """A bf16 card input routes to the kernels, whose entries raise on a
+    layout they do not take: ``gated_short_conv`` never falls back to the
+    plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torchsnapshot_tpu_torch.ops import short_conv as sc
+
+    d = 64 if layout == "strided" else 60
+    g = torch.Generator(device="cuda").manual_seed(d)
+    wide = torch.randn((2, 16, 6 * d), generator=g, device="cuda").to(torch.bfloat16)
+    p = wide[..., : 3 * d] if layout == "strided" else wide[..., : 3 * d].contiguous()
+    w = torch.randn((3, d), generator=g, device="cuda").to(torch.bfloat16)
+    before = dict(sc.launch_counts)
+    with pytest.raises(ValueError, match="ts_short_conv_fwd takes"):
+        sc.gated_short_conv(p, w)
+    assert sc.launch_counts == before

@@ -318,7 +318,7 @@ def test_new_readers_on_the_records():
 
 # The four-rank cell's tiny run is in portbench/tests/test_portbench_program_spans.py,
 # out of this parallel suite: its ranks meet on a port picked before it is bound.
-CELLS = ("pythia-160m.async_save", "pythia-160m.sync_save", "pythia-410m.restart")
+CELLS = ("pythia-160m.async_save", "pythia-160m.sync_save", "pythia-410m.restart", "lfm2-8b-a1b.async_save")
 # Read from device copies the CPU never makes.
 DEVICE_ONLY = {"capture_GB_s"}
 

@@ -17,6 +17,8 @@ if str(_REPO) not in sys.path:
     sys.path.insert(0, str(_REPO))
 
 from tools.snaplint.rules.names_lint import (  # noqa: E402
+    check_metric_call_sites,
+    check_metric_names_file,
     check_span_call_sites,
     check_span_names_file,
 )
@@ -69,3 +71,28 @@ def test_no_timed_span_gets_a_literal_name(tmp_path, source, found):
     pkg.mkdir()
     (pkg / "mod.py").write_text(source)
     assert bool(timed_span_literals(pkg)) is found
+
+
+def test_port_metric_names_are_declared_once_and_call_sites_use_them():
+    """The registry's series (the LFM2 model's routing counters among them)
+    are snake_case, declared once, and every ``counter_inc`` /
+    ``gauge_set`` / ``histogram_observe`` of the port passes a constant."""
+    names_file = PORT / "telemetry" / "names.py"
+    assert check_metric_names_file(names_file) == []
+    assert check_metric_call_sites(PORT, names_file) == []
+
+
+@pytest.mark.parametrize(
+    "source, found",
+    [
+        ("from .telemetry import names\nreg.counter_inc(names.MOE_ASSIGNMENTS_TOTAL, 3, held='1')\n", False),
+        ("reg.counter_inc('moe_assignments_total', 3, held='1')\n", True),
+    ],
+)
+def test_a_literal_counter_name_is_caught(tmp_path, source, found):
+    """A planted literal series name at a call site is caught; the constant passes."""
+    pkg = tmp_path / "pkg"
+    (pkg / "telemetry").mkdir(parents=True)
+    (pkg / "telemetry" / "names.py").write_text('MOE_ASSIGNMENTS_TOTAL = "moe_assignments_total"\n')
+    (pkg / "mod.py").write_text(source)
+    assert bool(check_metric_call_sites(pkg, pkg / "telemetry" / "names.py")) is found

@@ -205,15 +205,20 @@ class Transformer(nn.Module):
         x = _rmsnorm(x, self.ln_f_scale)
         return (x @ self.unembed).float()
 
+    def tree(self) -> Dict[str, Any]:
+        """The parameters as the JAX module's ``Params`` tree (live tensors)."""
+        return {
+            "embed": self.embed,
+            "layers": [blk.tree() for blk in self.layers],
+            "ln_f_scale": self.ln_f_scale,
+            "unembed": self.unembed,
+        }
 
-def params_tree(model: Transformer) -> Dict[str, Any]:
-    """The parameters as the JAX module's ``Params`` tree (live tensors)."""
-    return {
-        "embed": model.embed,
-        "layers": [blk.tree() for blk in model.layers],
-        "ln_f_scale": model.ln_f_scale,
-        "unembed": model.unembed,
-    }
+
+def params_tree(model: Any) -> Dict[str, Any]:
+    """A model's leaves as its state dict names them (live tensors): for a
+    :class:`Transformer`, the JAX module's ``Params`` tree."""
+    return model.tree()
 
 
 def params_from_jax(cfg: TransformerConfig, jax_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -265,9 +270,10 @@ def make_optimizer(cfg: TransformerConfig, model: Transformer) -> torch.optim.Ad
 class TrainState:
     """The checkpointable unit (a ``Stateful``): parameters, optimizer
     state, step counter and the training RNG. Its state dict mirrors the
-    JAX ``TrainState.as_pytree()``: ``params`` is the JAX-named tree."""
+    JAX ``TrainState.as_pytree()``: ``params`` is the model's ``tree()``
+    (for a :class:`Transformer`, the JAX-named tree)."""
 
-    model: Transformer
+    model: Any
     optimizer: torch.optim.AdamW
     step: int
     rng: torch.Generator

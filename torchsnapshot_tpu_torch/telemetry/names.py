@@ -263,6 +263,20 @@ PIPELINE_TRANSFERS_TOTAL = "pipeline_transfers_total"
 PIPELINE_TRANSFER_BYTES_TOTAL = "pipeline_transfer_bytes_total"
 PIPELINE_TRANSFER_SECONDS_TOTAL = "pipeline_transfer_seconds_total"
 
+# -- the LFM2 model's sparse layers (models/lfm2.py) -------------------------
+#
+# Counted on the card in each training step and added one step late (the
+# copy to the host is queried, never waited for): the top-k assignments,
+# labelled ``held`` (1: on an expert this rank holds, 0: on an absent
+# one), and per step and sparse layer the token count of the most-loaded
+# held expert, summed, and that count times the number of experts held
+# (over the held assignments: the most-loaded expert's load over the mean
+# held expert's, 1 where routing is even).
+
+MOE_ASSIGNMENTS_TOTAL = "moe_assignments_total"
+MOE_HELD_MAX_TOKENS_TOTAL = "moe_held_max_tokens_total"
+MOE_HELD_MAX_TOKENS_SCALED_TOTAL = "moe_held_max_tokens_scaled_total"
+
 # ---------------------------------------------------------------------------
 # Flight-recorder span/instant names (telemetry/trace.py).
 #
@@ -327,6 +341,16 @@ SPAN_FS_NATIVE_PWRITEV = "storage:fs_native_pwritev"
 SPAN_FS_NATIVE_DIRECT_WRITE = "storage:fs_native_direct_write"
 INSTANT_STORAGE_RETRY = "storage:retry"
 INSTANT_GCS_RECOVER = "storage:gcs_recover"
+
+# models/lfm2.py: torch.profiler ranges (record_function) around the
+# forward of each sublayer, so that a device trace reads by layer: the
+# short-conv and attention mixers, the dense and the sparse feed-forward,
+# and the head with the loss
+SPAN_LFM2_CONV = "lfm2:conv"
+SPAN_LFM2_ATTN = "lfm2:attn"
+SPAN_LFM2_FFN = "lfm2:ffn"
+SPAN_LFM2_MOE = "lfm2:moe"
+SPAN_LFM2_LOSS = "lfm2:loss"
 
 # batcher.py slab staging / spanning-read dispatch. The vectorized
 # variant is a DISTINCT span: its presence (and stage_slab's absence)
