@@ -47,6 +47,15 @@ each of which raises on failure (nothing is caught):
    f32 tap gradient within 1e-4, one launch of each, a second run bit for
    bit, a strided input refused; then timed as the others, together and
    apart, against the plain versions (no library call computes it).
+   **cross_entropy** (its own phase): the training loss's kernels
+   (``csrc/cross_entropy.cu``) at the Pythia-160M, Pythia-410M and
+   LFM2-8B-A1B cells' calls, bf16 logits (16376 / 8188 / 16380 rows of
+   50304 / 50304 / 65536), forward and backward through ``cross_entropy``'s
+   autograd with the launch counters set to 0 just before: the loss within
+   1e-5 relative and the gradient within bf16's rounding of the plain f32
+   version, one launch of each, a second run bit for bit, a strided row and
+   V % 8 != 0 refused; then timed as the others, together and apart,
+   against the plain version and ``F.cross_entropy`` of the f32 cast.
 2. **main**: the port's main path. Train the widest in-repo transformer
    (d_model 1024, 8 layers, flash attention, bf16) for a few AdamW steps,
    ``Snapshot.take`` the train state, ``Snapshot.restore`` it into a fresh
@@ -1705,6 +1714,167 @@ def short_conv_phase(seed: int) -> dict:
 
 
 # ----------------------------------------------------------------------
+# The training loss: the cross-entropy kernels against their plain version
+# ----------------------------------------------------------------------
+
+
+# The training steps' calls (rows, V, reduction): Pythia-160M's 8 x 2047
+# scored positions, Pythia-410M's 4 x 2047, LFM2-8B-A1B's 4 x 4095 over its
+# vocabulary; this script's main path's 8 x 1023, and the ring phase's rank 0
+# (its sequence block's 8 x 512 positions, summed).
+CROSS_ENTROPY_CALLS = {
+    "pythia-160m": (16376, 50304, "mean"), "pythia-410m": (8188, 50304, "mean"),
+    "lfm2-8b-a1b": (16380, 65536, "mean"), "main": (8184, 32768, "mean"), "ring": (4096, 32768, "sum"),
+}
+CROSS_ENTROPY_PATH_KERNELS = ("cross_entropy",)
+
+
+def reset_loss_launches() -> None:
+    from torchsnapshot_tpu_torch.ops import cross_entropy as ce
+
+    for name in ce.launch_counts:
+        ce.launch_counts[name] = 0
+
+
+def loss_launches() -> dict:
+    """The cross-entropy pair's launches, forward and backward together,
+    under its kernel's name."""
+    from torchsnapshot_tpu_torch.ops import cross_entropy as ce
+
+    return {"cross_entropy": ce.launch_counts["cross_entropy_fwd"] + ce.launch_counts["cross_entropy_bwd"]}
+
+
+def _require_loss_launches(steps: int, what: str) -> None:
+    """Each of ``steps`` training steps since the last reset ran the loss
+    through the kernels: one forward and one backward launch a step."""
+    from torchsnapshot_tpu_torch.ops import cross_entropy as ce
+
+    _require(ce.launch_counts == {"cross_entropy_fwd": steps, "cross_entropy_bwd": steps},
+             f"{what}: {steps} training steps launched the loss kernels {ce.launch_counts}")
+
+
+def _cross_entropy_call(ce, rows: int, vocab: int, reduction: str, seed: int) -> dict:
+    """One call's check and times (see :func:`cross_entropy_phase`)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, vocab), generator=g, device="cuda").to(torch.bfloat16)
+    t = torch.randint(0, vocab, (rows,), generator=g, device="cuda")
+    upstream = torch.tensor(0.75, device="cuda")  # an incoming gradient other than 1
+
+    def autograd_run():
+        xl = x.clone().requires_grad_(True)
+        loss = ce.cross_entropy(xl, t, reduction)
+        loss.backward(upstream)
+        return loss.detach(), xl.grad
+
+    reset_loss_launches()
+    loss, grad = autograd_run()
+    torch.cuda.synchronize()
+    _require_loss_launches(1, "one autograd call")
+    xf = x.float().requires_grad_(True)
+    want = ce.cross_entropy_plain(xf, t, reduction)
+    want.backward(upstream)
+    loss_err = abs(loss.item() - want.item()) / abs(want.item())
+    _require(loss_err <= 1e-5, f"cross_entropy loss {loss.item()!r} against the plain f32 {want.item()!r}")
+    over = (grad.float() - xf.grad).abs() - (2**-8 * xf.grad.abs() + 1e-12)
+    _require(bool((over <= 0).all()), "the cross_entropy gradient is not within bf16's rounding of the plain f32 value")
+    grad_err = float((grad.float() - xf.grad).abs().max())
+    again = autograd_run()
+    _require(same_bits(loss, again[0]) and same_bits(grad, again[1]), "cross_entropy: a second run differs")
+    del xf, want, again
+    _, lse = ce.cross_entropy_fwd(x, t, reduction)
+
+    def fwd():
+        return ce.cross_entropy_fwd(x, t, reduction)
+
+    def bwd():
+        return ce.cross_entropy_bwd(x, t, lse, upstream, reduction)
+
+    def both():
+        return fwd(), bwd()
+
+    def plain():
+        xl = x.detach().requires_grad_(True)
+        ce.cross_entropy_plain(xl, t, reduction).backward(upstream)
+
+    def library():
+        xl = x.detach().requires_grad_(True)
+        F.cross_entropy(xl.float(), t, reduction=reduction).backward(upstream)
+
+    fwd_bytes, bwd_bytes = rows * vocab * 2 + rows * 16, rows * vocab * 4 + rows * 12
+    parts = {}
+    for name, fn, nbytes in (("fwd", fwd, fwd_bytes), ("bwd", bwd, bwd_bytes)):
+        part = parts[name] = {"ms": cuda_ms(fn), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        part["device_ms"], part["host_us"] = held_times(fn)
+    rec = {
+        "shape": [rows, vocab],
+        "reduction": reduction,
+        "ms": cuda_ms(both),
+        "plain_ms": cuda_ms(plain, iters=3),
+        "library_ms": cuda_ms(library, iters=3),
+        "bound_ms": (fwd_bytes + bwd_bytes) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "max_abs_err": {"grad": grad_err},
+        "loss_rel_err": loss_err,
+        "parts": parts,
+    }
+    rec["device_ms"], rec["host_us"] = held_times(both)
+    del x, t, lse, loss, grad
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cross_entropy_phase(seed: int) -> dict:
+    """``cross_entropy`` at each of ``CROSS_ENTROPY_CALLS`` on bf16 card
+    logits, forward and backward through autograd (with an incoming gradient
+    of 0.75), the launch counts zeroed just before: one forward and one
+    backward launch; the loss within 1e-5 relative and the gradient within
+    bf16's rounding of the plain f32 version's; a second run bit for bit.
+    Then the kernels timed, together and apart: back to back, behind a spin
+    (card ms, host us), the plain version through autograd, and
+    ``F.cross_entropy`` of the f32 cast through autograd as ``library_ms``
+    (the loss before the kernels). The bound is the bytes over HBM
+    bandwidth: the forward reads the logits, the backward reads them and
+    writes their gradient. A strided row and V % 8 != 0 are refused.
+    Returns the Pythia-160M call's record with every call's under
+    ``calls``. The main and ring phases count the kernels' launches on
+    their own training steps."""
+    import torch
+
+    from torchsnapshot_tpu_torch.ops import cross_entropy as ce
+
+    calls = {name: _cross_entropy_call(ce, *call, seed) for name, call in CROSS_ENTROPY_CALLS.items()}
+    wide = torch.zeros((4, 2 * 64), dtype=torch.bfloat16, device="cuda")
+    for bad in (wide[:, :64], wide[:, :60].contiguous()):
+        try:
+            ce.cross_entropy(bad, torch.zeros(4, dtype=torch.int64, device="cuda"))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"cross_entropy took logits {tuple(bad.shape)} stride {bad.stride()}")
+    for name, rec in calls.items():
+        rows, vocab = rec["shape"]
+        log(
+            f"kernel cross_entropy {name} ({rows}, {vocab}) bf16 {rec['reduction']}: {rec['ms']:.4f} ms back to back, device "
+            f"{rec['device_ms']:.4f} ms ({rec['bound_ms'] / rec['device_ms']:.1%} of the bound), host "
+            f"{rec['host_us']:.1f} us per call (plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms; "
+            f"bound {rec['bound_ms']:.4f} ms by bytes); "
+            + ", ".join(
+                f"{n} {r['ms']:.4f} ms (device {r['device_ms']:.4f}, host {r['host_us']:.1f} us, "
+                f"{r['bound_ms'] / r['device_ms']:.1%} of its {r['bound_ms']:.4f} ms)" for n, r in rec["parts"].items()
+            )
+            + f"; loss {rec['loss_rel_err']:.3e} relative, max |err| grad {rec['max_abs_err']['grad']:.3e} "
+            f"(bf16 rounding); launches 1 + 1; a second run bit-identical"
+        )
+    main = dict(calls["pythia-160m"])
+    main["calls"] = calls
+    _headline("cross_entropy", **{f"{name}_device_ms": rec["device_ms"] for name, rec in calls.items()})
+    return main
+
+
+# ----------------------------------------------------------------------
 # Entry
 # ----------------------------------------------------------------------
 
@@ -1750,17 +1920,23 @@ KERNEL_SOURCES = {
         "torchsnapshot_tpu_torch/csrc/short_conv.cu",
         None,
     ),
+    # The training loss: the port's own (the JAX package leaves it to optax
+    # under XLA), no TPU kernel before it.
+    "cross_entropy": (
+        "torchsnapshot_tpu_torch/csrc/cross_entropy.cu",
+        None,
+    ),
 }
 # The kernels the main path must launch (it trains in bf16: no f32 entry,
-# so no split pre-pass).
-MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "flash_bwd", "device_digest")
+# so no split pre-pass; the loss takes the cross-entropy pair).
+MAIN_PATH_KERNELS = ("flash_fwd", "flash_chunk", "flash_bwd", "device_digest", "cross_entropy")
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument(
         "--phases",
-        default="kernels,short_conv,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge,moe,ring,dcp",
+        default="kernels,short_conv,cross_entropy,main,bulk,manager,cas,ranks,sharded,leaves,tiered,peer,cdn,bridge,moe,ring,dcp",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bulk-gib", type=float, default=8.0)
@@ -1815,11 +1991,12 @@ def main() -> int:
     # tiered, peer, cdn, bridge, moe, ring and dcp phases'; the pack's: the
     # cas phase's, both ranks' in the sharded phase, the leaves, tiered, cdn
     # and moe phases'; the flash kernels': the main, cdn, bridge, moe, ring
-    # and dcp phases', the unmasked chunk's the ring phase's); without them they
-    # were not measured and the record says null.
+    # and dcp phases', the unmasked chunk's the ring phase's; the loss's
+    # the main and ring phases'); without them they were not measured and
+    # the record says null.
     launches = dict.fromkeys(
         list(fa.launch_counts) + list(dd.launch_counts) + list(dp.launch_counts)
-        + ["flash_chunk_unmasked"] + list(SHORT_CONV_PATH_KERNELS)
+        + ["flash_chunk_unmasked"] + list(SHORT_CONV_PATH_KERNELS) + list(CROSS_ENTROPY_PATH_KERNELS)
     )
 
     def add(name: str, n: int) -> None:
@@ -1838,6 +2015,9 @@ def main() -> int:
         add("short_conv", rec.pop("launches"))
         records["short_conv"] = rec
         _require(all(launches[name] for name in SHORT_CONV_PATH_KERNELS), "the short-conv phase launched no kernel")
+
+    def cross_entropy() -> None:
+        records["cross_entropy"] = cross_entropy_phase(args.seed)
 
     def cas() -> None:
         got = cas_phase(args, work_dir, card)
@@ -1884,6 +2064,7 @@ def main() -> int:
     sequence = [
         ("kernels", kernels_phase),
         ("short_conv", short_conv),
+        ("cross_entropy", cross_entropy),
         ("main", lambda: launches.update(main_phase(args, work_dir, card))),
         ("bulk", lambda: bulk_phase(args, work_dir, card)),
         ("manager", lambda: manager_phase(args, work_dir, card)),
@@ -1990,6 +2171,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
 
     fa.reset_launch_counts()
     dd.reset_launch_counts()
+    reset_loss_launches()
     t0 = time.monotonic()
     losses = []
     for _ in range(STEPS):
@@ -1999,6 +2181,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     step_s = (time.monotonic() - t0) / STEPS
     losses = [float(x) for x in losses]
     _require(all(x == x and abs(x) < 1e4 for x in losses), f"losses not finite: {losses}")
+    _require_loss_launches(STEPS, "main")
     _require(
         fa.launch_counts["flash_chunk"] == cfg.n_layers * STEPS,
         f"training launched the chunk kernel {fa.launch_counts['flash_chunk']} times",
@@ -2092,7 +2275,7 @@ def main_phase(args, work_dir: str, card: str) -> dict:
     shutil.rmtree(path, ignore_errors=True)
 
     async_record = async_and_incremental(args, work_dir, card, cfg, state, tokens, train_step, take_s)
-    launches = {**fa.launch_counts, **dd.launch_counts}
+    launches = {**fa.launch_counts, **dd.launch_counts, **loss_launches()}
     _require(
         all(launches[name] for name in MAIN_PATH_KERNELS),
         f"a kernel of the path never launched: {launches}",
@@ -2754,6 +2937,7 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
 
     fa.reset_launch_counts()
     dd.reset_launch_counts()
+    reset_loss_launches()
     progress.track = tracking
     try:
         with _env(RECORDS_ON), _env(DIAGNOSIS_ON):
@@ -2832,7 +3016,7 @@ def manager_phase(args, work_dir: str, card: str) -> dict:
     _, loss_b = train_step(fresh, tokens)
     torch.cuda.synchronize()
     _require(same_bits(loss_a, loss_b), f"next-step losses differ after restore_latest: {loss_a} vs {loss_b}")
-    launches = {**fa.launch_counts, **dd.launch_counts}
+    launches = {**fa.launch_counts, **dd.launch_counts, **loss_launches()}
     _require(
         all(launches[name] for name in MAIN_PATH_KERNELS),
         f"a kernel of the path never launched in the manager phase: {launches}",
@@ -4196,9 +4380,11 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
     app = {"train": state, "rng": RngState(), "own": own}
     fa.reset_launch_counts()
     dd.reset_launch_counts()
+    reset_loss_launches()
     for _ in range(STEPS):
         state, _ = train_step(state, tokens)
     torch.cuda.synchronize()
+    _require_loss_launches(STEPS, f"rank {rank}")
     n_leaves = _require_replicas_equal(pg, state)
     record = {"rank": rank, "device": torch.cuda.current_device(), "replica_leaves": n_leaves}
 
@@ -4470,7 +4656,7 @@ def ranks_worker(pg, seed: int, work_dir: str) -> dict:
     )
     record["f"] = {"raised_s": fail_s, "error": failed[:200]}
 
-    launches = {**fa.launch_counts, **dd.launch_counts}
+    launches = {**fa.launch_counts, **dd.launch_counts, **loss_launches()}
     _require(
         all(launches[name] for name in MAIN_PATH_KERNELS),
         f"rank {rank}: a kernel of the path never launched in the ranks phase: {launches}",
@@ -7564,8 +7750,9 @@ def moe_phase(args, work_dir: str, card: str) -> dict:
 # The kernels the ring path must launch (both workers' counted windows
 # together): the chunk kernel in each ring step of training (causal on
 # the diagonal; unmasked only on rank 1, whose block 0 is behind it), the
-# digest in the replica checks.
-RING_PATH_KERNELS = ("flash_chunk", "device_digest")
+# digest in the replica checks, and the loss's pair (each rank's block
+# summed) in each step.
+RING_PATH_KERNELS = ("flash_chunk", "device_digest", "cross_entropy")
 RING_RANKS = 2
 # Leg (a)'s attention at the model's width: q, k, v (b, seq, heads, dim).
 RING_QKV = (8, 1024, 16, 64)
@@ -7825,6 +8012,7 @@ def ring_worker(pg, seed: int, work_dir: str) -> dict:
         for counts in (fa.launch_counts, fa.chunk_launches_by_mode, dd.launch_counts, dp.launch_counts):
             for k in counts:
                 counts[k] = 0
+        reset_loss_launches()
         before = telemetry.metrics().counters_snapshot()
         losses, step_ms = [], []
         for i in range(STEPS):
@@ -7845,6 +8033,7 @@ def ring_worker(pg, seed: int, work_dir: str) -> dict:
                 _require_step_gaps(gaps, f"rank {rank}: the sp step against the world-1 step", RING_FIRST_UPDATE_RTOL)
         moves = _pipeline_moves(before)
         _require(all(x == x and abs(x) < 1e4 for x in losses), f"rank {rank}: losses not finite: {losses}")
+        _require_loss_launches(STEPS, f"rank {rank}: the sp steps")
         record["b"] = {"losses": losses, "step_ms": step_ms, "gaps": gaps, "control": control, "moves": moves,
                        "replica_leaves": _require_replicas_equal(pg, state)}
         together.gate("b")
@@ -7883,7 +8072,7 @@ def ring_worker(pg, seed: int, work_dir: str) -> dict:
         record["c"] = {"take_s": take_s, "restore_s": restore_s, "written_bytes": written, "replicated_bytes": total,
                        "share": share, "next_loss": nxt["loss"], "digests": digests}
         del nxt, fresh, saved
-        record["launches"] = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts}
+        record["launches"] = {**fa.launch_counts, **dd.launch_counts, **dp.launch_counts, **loss_launches()}
         record["chunk_modes"] = dict(fa.chunk_launches_by_mode)
         together.gate("c")
         record["worker_s"] = time.monotonic() - t_start

@@ -523,3 +523,146 @@ def test_short_conv_refuses_a_bf16_card_input_it_does_not_take(layout) -> None:
     with pytest.raises(ValueError, match="ts_short_conv_fwd takes"):
         sc.gated_short_conv(p, w)
     assert sc.launch_counts == before
+
+
+# ts_cross_entropy's cases (rows, V): a small call with a row of 8 logits'
+# loads short of the block's 256, and the training steps' calls (Pythia-160M,
+# Pythia-410M, LFM2-8B-A1B).
+CROSS_ENTROPY_CASES = {
+    "small-200": (200, 1000), "pythia-160m": (16376, 50304), "pythia-410m": (8188, 50304),
+    "lfm2-8b-a1b": (16380, 65536),
+}
+
+
+def _cross_entropy_inputs(case: str):
+    rows, vocab = CROSS_ENTROPY_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    x = (2 * torch.randn((rows, vocab), generator=g, device="cuda")).to(torch.bfloat16)
+    t = torch.randint(0, vocab, (rows,), generator=g, device="cuda")
+    return x, t
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("reduction", ["mean", "sum"])
+@pytest.mark.parametrize("case", sorted(CROSS_ENTROPY_CASES))
+def test_cross_entropy_kernels_match_plain_version(case, reduction) -> None:
+    """The forward and backward kernels against the plain version in f32 on
+    the same bf16 logits, with an incoming gradient of 0.75: the loss and
+    each row's log-sum-exp within 1e-5 relative (f32 sums in another
+    order, exp2 by the special-function unit), the gradient element by
+    element within one bf16 rounding of the f32 value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torchsnapshot_tpu_torch.ops import cross_entropy as ce
+
+    x, t = _cross_entropy_inputs(case)
+    upstream = torch.tensor(0.75, device="cuda")
+    before = dict(ce.launch_counts)
+    loss, lse = ce.cross_entropy_fwd(x, t, reduction)
+    grad = ce.cross_entropy_bwd(x, t, lse, upstream, reduction)
+    assert ce.launch_counts["cross_entropy_fwd"] == before["cross_entropy_fwd"] + 1
+    assert ce.launch_counts["cross_entropy_bwd"] == before["cross_entropy_bwd"] + 1
+    xf = x.float().requires_grad_(True)
+    want = ce.cross_entropy_plain(xf, t, reduction)
+    want.backward(upstream)
+    assert loss.dtype == lse.dtype == torch.float32 and grad.dtype == torch.bfloat16
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    want_lse = xf.detach().logsumexp(-1)
+    assert ((lse - want_lse).abs() <= 1e-5 * want_lse.abs()).all()
+    assert ((grad.float() - xf.grad).abs() <= 2**-8 * xf.grad.abs() + 1e-12).all()
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("case", sorted(CROSS_ENTROPY_CASES))
+def test_cross_entropy_kernels_are_bitwise_repeatable(case) -> None:
+    """Two calls give the same bits: the rows' losses are reduced in a fixed
+    order, with no atomics, and the backward is elementwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torchsnapshot_tpu_torch.ops import cross_entropy as ce
+
+    x, t = _cross_entropy_inputs(case)
+    upstream = torch.tensor(1.0, device="cuda")
+    first = ce.cross_entropy_fwd(x, t)
+    second = ce.cross_entropy_fwd(x, t)
+    grads = [ce.cross_entropy_bwd(x, t, lse, upstream) for _, lse in (first, second)]
+    for a, b in zip((*first, grads[0]), (*second, grads[1])):
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda_only
+def test_cross_entropy_autograd_launches_each_kernel_once() -> None:
+    """``cross_entropy`` on bf16 card logits: one forward launch, and on
+    backward one backward launch whose gradient is the kernel's, bit for
+    bit; the rows are counted under ``route="kernel"``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torchsnapshot_tpu_torch import telemetry
+    from torchsnapshot_tpu_torch.ops import cross_entropy as ce
+    from torchsnapshot_tpu_torch.telemetry import names
+
+    x, t = _cross_entropy_inputs("small-200")
+    key = f'{names.LOSS_ROWS_TOTAL}{{route="kernel"}}'
+    counted = telemetry.metrics().collect()["counters"].get(key, 0.0)
+    before = dict(ce.launch_counts)
+    xl = x.clone().requires_grad_(True)
+    loss = ce.cross_entropy(xl, t, "sum")
+    loss.backward()
+    assert ce.launch_counts["cross_entropy_fwd"] == before["cross_entropy_fwd"] + 1
+    assert ce.launch_counts["cross_entropy_bwd"] == before["cross_entropy_bwd"] + 1
+    want_loss, lse = ce.cross_entropy_fwd(x, t, "sum")
+    want_grad = ce.cross_entropy_bwd(x, t, lse, torch.ones((), device="cuda"), "sum")
+    assert torch.equal(loss.detach(), want_loss) and torch.equal(xl.grad, want_grad)
+    assert telemetry.metrics().collect()["counters"][key] - counted == x.shape[0]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("layout", ["strided", "vocab-not-a-multiple-of-8"])
+def test_cross_entropy_refuses_a_layout_it_does_not_take(layout) -> None:
+    """bf16 card logits route to the kernels, whose entry raises on a layout
+    they do not take: ``cross_entropy`` never falls back on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torchsnapshot_tpu_torch.ops import cross_entropy as ce
+
+    vocab = 64 if layout == "strided" else 60
+    wide = torch.randn((4, 2 * vocab), device="cuda").to(torch.bfloat16)
+    x = wide[:, :vocab] if layout == "strided" else wide[:, :vocab].contiguous()
+    before = dict(ce.launch_counts)
+    with pytest.raises(ValueError, match="ts_cross_entropy_fwd takes"):
+        ce.cross_entropy(x, torch.zeros(4, dtype=torch.int64, device="cuda"))
+    assert ce.launch_counts == before
+
+
+_OUT_OF_RANGE = """
+import torch
+from torchsnapshot_tpu_torch.ops import cross_entropy as ce
+x = torch.zeros((4, 64), dtype=torch.bfloat16, device="cuda")
+ce.cross_entropy(x, torch.tensor([0, 1, {target}, 2], device="cuda"))
+torch.cuda.synchronize()
+print("finished")
+"""
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("target", [64, -1])
+def test_cross_entropy_target_out_of_range_trips_the_device_assert(target) -> None:
+    """A target outside [0, V) trips the forward kernel's device-side assert,
+    as ``F.cross_entropy``'s does; the context is lost, so it runs in a
+    process of its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import os
+    import subprocess
+    import sys
+
+    from torchsnapshot_tpu_torch.ops import kernels
+
+    kernels.build(["cross_entropy"])  # the child finds the library built
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", _OUT_OF_RANGE.format(target=target)], cwd=repo, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode != 0 and "finished" not in out.stdout
+    assert "device-side assert" in out.stderr or "Assertion" in out.stderr + out.stdout, out.stderr[-2000:]

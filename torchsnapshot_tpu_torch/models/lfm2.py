@@ -20,7 +20,7 @@ The layer equations (https://huggingface.co/LiquidAI/LFM2-8B-A1B):
   at the chosen experts over their sum; the weighted sum of the chosen
   experts' SwiGLU;
 - a final RMSNorm and an LM head tied to the embedding; the loss is the
-  mean next-token cross-entropy of f32 logits, as the transformer's.
+  mean next-token cross-entropy computed in f32, as the transformer's.
 
 The conventions are the transformer's (:mod:`.transformer`): ``y = x @ W``
 layouts, RMSNorm's rsqrt in f32 cast to the activation dtype, bf16
@@ -66,6 +66,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from .. import telemetry
+from ..ops.cross_entropy import cross_entropy
 from ..ops.flash_attention import flash_causal_attention
 from ..ops.short_conv import gated_short_conv
 from ..telemetry import names
@@ -423,12 +424,13 @@ class Lfm2(nn.Module):
 
 
 def loss_fn(model: Lfm2, tokens: torch.Tensor, counts: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The mean next-token cross-entropy over ``tokens[:, 1:]``, f32 logits
-    from the tied head."""
+    """The mean next-token cross-entropy over ``tokens[:, 1:]``, computed in
+    f32 (:func:`~..ops.cross_entropy.cross_entropy`) from the tied head's
+    logits in the model's dtype."""
     x = model.hidden(tokens, counts)
     with record_function(names.SPAN_LFM2_LOSS):
-        logits = (x[:, :-1] @ model.embed.t()).float()
-        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+        logits = x[:, :-1] @ model.embed.t()
+        return cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
 
 
 # ----------------------------------------------------------------------

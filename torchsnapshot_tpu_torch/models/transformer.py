@@ -6,8 +6,9 @@ the same parameters under the same names and layouts (``wqkv`` is
 transposed weight), so manifest paths and shapes of the two packages
 compare entry by entry. The numerics follow the JAX module: RMSNorm's
 rsqrt in f32 cast to the activation dtype before the products, tanh GELU
-(``jax.nn.gelu``'s default), f32 logits, the mean integer-label
-cross-entropy over ``tokens[:, 1:]``, and AdamW with optax's defaults
+(``jax.nn.gelu``'s default), the mean integer-label cross-entropy over
+``tokens[:, 1:]`` computed in f32 (:mod:`..ops.cross_entropy`: on the card
+from the bf16 logits, with no f32 copy of them), and AdamW with optax's defaults
 (``weight_decay=1e-4``, ``eps=1e-8``, betas ``(0.9, 0.999)``), its moments
 kept in the parameter dtype as ``optax.adamw`` keeps them.
 
@@ -46,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import causal_attention
+from ..ops.cross_entropy import cross_entropy
 from ..ops.flash_attention import flash_causal_attention
 from ..ops.ring_attention import ring_causal_attention, sp_size
 from ..serialization import tensor_from_numpy
@@ -196,14 +198,18 @@ class Transformer(nn.Module):
                 w.normal_(generator=g).mul_(1.0 / math.sqrt(param.shape[-2]))
                 param.copy_(w)
 
-    def forward(self, tokens: torch.Tensor, mesh: Any = None) -> torch.Tensor:
-        """With a ``mesh`` (ring ``attn_impl``), ``tokens`` and the logits
-        are this rank's sequence block (:func:`sequence_block`)."""
+    def hidden(self, tokens: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+        """The final RMSNorm's output ``(batch, seq, d_model)``. With a
+        ``mesh`` (ring ``attn_impl``), ``tokens`` and the output are this
+        rank's sequence block (:func:`sequence_block`)."""
         x = F.embedding(tokens, self.embed)
         for blk in self.layers:
             x = block_forward(self.cfg, blk.tree(), x, mesh)
-        x = _rmsnorm(x, self.ln_f_scale)
-        return (x @ self.unembed).float()
+        return _rmsnorm(x, self.ln_f_scale)
+
+    def forward(self, tokens: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+        """f32 logits of :meth:`hidden`'s output."""
+        return (self.hidden(tokens, mesh) @ self.unembed).float()
 
     def tree(self) -> Dict[str, Any]:
         """The parameters as the JAX module's ``Params`` tree (live tensors)."""
@@ -324,20 +330,19 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, mesh: Any = None) -> torch
     ``(batch, seq)`` tokens. With a mesh of ``sp`` > 1 (ring ``attn_impl``)
     each rank returns its block's share: its positions' summed losses
     (the last global position has no target) over ``batch * (seq - 1)``,
-    so that the ranks' shares sum to the mean."""
+    so that the ranks' shares sum to the mean. The logits are the scored
+    positions' product alone, in the model's dtype, so that they are
+    contiguous and never copied to f32 (:func:`~..ops.cross_entropy.cross_entropy`
+    computes in f32)."""
     if model.cfg.attn_impl not in RING_IMPLS or sp_size(mesh) == 1:
-        logits = model(tokens, mesh)[:, :-1]
-        return F.cross_entropy(
-            logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1)
-        )
+        logits = model.hidden(tokens, mesh)[:, :-1] @ model.unembed
+        return cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
     block = sequence_block(tokens, mesh)
     b, s = block.shape
     start = _sp_rank(mesh) * s
     targets = tokens[:, start + 1:start + s + 1]
-    logits = model(block, mesh)[:, :targets.shape[1]]
-    total = F.cross_entropy(
-        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), reduction="sum"
-    )
+    logits = model.hidden(block, mesh)[:, :targets.shape[1]] @ model.unembed
+    total = cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), reduction="sum")
     return total / (b * (tokens.shape[1] - 1))
 
 

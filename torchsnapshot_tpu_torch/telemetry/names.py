@@ -18,6 +18,7 @@ small and low-cardinality):
 - ``scope``:  which retry strategy instance (s3 | gcs | mirror)
 - ``kind``:   take | async_take | restore | async_restore | mirror;
               hop | broadcast | sum (the pipeline schedule's moves)
+- ``route``:  kernel | plain (the training loss's)
 """
 
 # -- pipeline (scheduler.py) -------------------------------------------------
@@ -276,6 +277,14 @@ PIPELINE_TRANSFER_SECONDS_TOTAL = "pipeline_transfer_seconds_total"
 MOE_ASSIGNMENTS_TOTAL = "moe_assignments_total"
 MOE_HELD_MAX_TOKENS_TOTAL = "moe_held_max_tokens_total"
 MOE_HELD_MAX_TOKENS_SCALED_TOTAL = "moe_held_max_tokens_scaled_total"
+
+# -- the training loss (ops/cross_entropy.py) --------------------------------
+#
+# The rows (tokens) each call of the loss took, labelled ``route``: kernel
+# (bf16 logits on the card, the hand-written kernels) or plain (the f32
+# version: CPU tensors, f32 logits).
+
+LOSS_ROWS_TOTAL = "loss_rows_total"
 
 # ---------------------------------------------------------------------------
 # Flight-recorder span/instant names (telemetry/trace.py).
